@@ -1,0 +1,19 @@
+"""SE-SSD on PyTorch and CUDA: the port of ``sessd_tpu`` to an NVIDIA H100.
+
+``sessd_tpu`` (JAX, Pallas on a TPU) stays the reference; this package runs
+the same detector in PyTorch, with a hand-written Hopper kernel in place of
+each Pallas kernel on its path. The layout mirrors ``sessd_tpu``:
+
+- ``ops/``     sparse-conv helpers and the CUDA kernel wrappers (``ops/cuda``)
+- ``csrc/``    CUDA C++ sources, built with nvcc at first use on the card
+- ``models/``  VFE, all-sparse backbone, SSFA neck, head, detector, predict
+- ``core/``    box decode, rotated BEV IoU, rotated NMS
+- ``utils/``   weight conversion from the JAX variables
+- ``serve.py`` batch-1 / batch-N serving, ``builder.py`` config -> objects
+
+The host layer (voxelizer, C++ rulebooks, synthetic scenes, configs) is
+imported from ``sessd_tpu`` modules that import no JAX. Nothing in this
+package imports ``jax`` or ``flax``, and no kernel is built at import.
+"""
+
+__version__ = "0.1.0"

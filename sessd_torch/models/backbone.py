@@ -1,0 +1,119 @@
+"""Sparse 3D middle backbone, all-sparse serving plan (port of
+``sessd_tpu/models/backbone.py:277-284, 334-383``).
+
+Stage plan (channels / resolution, input sparse shape (41, 1600, 1408)):
+    2 x subm(4->16, 16->16)                       @ (41, 1600, 1408)
+    spconv s2 p1 (16->32), 2 x subm(32)           @ (21,  800,  704)
+    spconv s2 p1 (32->64), 3 x subm(64)           @ (11,  400,  352)
+    spconv s2 p(0,1,1) (64->64), 3 x subm(64)     @ ( 5,  200,  176)
+    spconv k(3,1,1) s(2,1,1) (64->64)             @ ( 2,  200,  176)
+    -> dense [B, 2, 200, 176, 64] -> BEV [B, 64*2, 200, 176]
+
+Every block is one call of the fused sparse conv kernel
+(``ops/cuda/sparse_conv.py``) on row-major ``[cap_stage, C]`` features, with
+the BatchNorm scale folded into the weights before the cast to the compute
+dtype. The rulebook chain is the host-built one
+(``sessd_tpu.utils.native.build_rulebooks``); the TPU's transposed
+``[C, cols]`` layout, windows and patch lists have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import sparse as sp
+from ..ops.cuda.sparse_conv import fused_sparse_conv
+from .layers import BatchNorm, uniform_
+
+# (channels, n_subm, down_kernel, down_stride, down_pad) per stage
+PLAN = [
+    (16, 2, None, None, None),                     # stage 0
+    (32, 2, (3, 3, 3), (2, 2, 2), (1, 1, 1)),      # stage 1
+    (64, 3, (3, 3, 3), (2, 2, 2), (1, 1, 1)),      # stage 2
+    (64, 3, (3, 3, 3), (2, 2, 2), (0, 1, 1)),      # stage 3
+    (64, 0, (3, 1, 1), (2, 1, 1), (0, 0, 0)),      # stage 4
+]
+
+
+class SparseConv3d(nn.Module):
+    """Weight holder of one sparse conv, in spconv's [kd, kh, kw, Cin, Cout]
+    layout; the backbone runs it through the fused kernel."""
+
+    def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int]):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        self.weight = nn.Parameter(torch.zeros(*kernel, cin, cout))
+
+
+class SpMiddleFHD(nn.Module):
+    """Sparse middle extractor: (features, rulebooks) -> BEV [B, C*D, H, W].
+
+    ``middle_conv`` lists (conv, BN, ReLU) per block as the reference's
+    Sequential does (scn.py:105-151), so parameters carry det3d's names
+    ``middle_conv.{3b}.weight`` / ``middle_conv.{3b+1}.*``.
+    """
+
+    def __init__(self, num_input_features: int = 4):
+        super().__init__()
+        layers: List[nn.Module] = []
+        cin = num_input_features
+        for feats, n_subm, dk, _, _ in PLAN:
+            kernels = ([dk] if dk else []) + [(3, 3, 3)] * n_subm
+            for k in kernels:
+                layers += [SparseConv3d(cin, feats, k), BatchNorm(feats),
+                           nn.ReLU()]
+                cin = feats
+        self.middle_conv = nn.ModuleList(layers)
+
+    def blocks(self):
+        """(conv, bn) pairs in call order."""
+        return [(self.middle_conv[i], self.middle_conv[i + 1])
+                for i in range(0, len(self.middle_conv), 3)]
+
+    def reset_parameters(self, generator: torch.Generator):
+        """He-uniform kernels over fan_in = K*Cin (the JAX init's
+        variance_scaling(2, fan_in, uniform)); BN at identity."""
+        for conv, bn in self.blocks():
+            k, cin = math.prod(conv.kernel), conv.weight.shape[-2]
+            uniform_(conv.weight, math.sqrt(6.0 / (k * cin)), generator)
+            bn.reset_parameters()
+
+    def folded(self, dtype: torch.dtype):
+        """Per block (w2 [K, Cin, Cout] in ``dtype``, bias [Cout] f32) with
+        the BN scale folded in, w2 = W * s (backbone.py:99-100)."""
+        out = []
+        for conv, bn in self.blocks():
+            s, b = bn.fold()
+            w = conv.weight.float()
+            w = w.reshape(-1, w.shape[-2], w.shape[-1])
+            out.append(((w * s).to(dtype).contiguous(), b.contiguous()))
+        return out
+
+    def forward(self, voxel_features: torch.Tensor, rulebooks: dict,
+                batch_size: int, sparse_shape, dtype: torch.dtype,
+                conv: Callable = fused_sparse_conv) -> torch.Tensor:
+        """voxel_features [B*cap0, F]; rulebooks {"perm" [B*cap0],
+        "ids" [5 x cap_i], "subm" [4 x (cap_i, 27)], "down" [4 x (cap_i, K)]}
+        as tensors on the features' device (int16 or int32). ``conv`` is the
+        fused kernel; tests and the smoke check pass its plain twin."""
+        ids = rulebooks["ids"]
+        shape = (batch_size,) + tuple(sparse_shape)
+        x = voxel_features[rulebooks["perm"].long()]
+        x = torch.where((ids[0] < sp.SENTINEL)[:, None], x, 0.0).to(dtype)
+        params = iter(self.folded(dtype))
+        for stage, (_, n_subm, dk, ds, dp) in enumerate(PLAN):
+            if stage > 0:
+                x = conv(x, rulebooks["down"][stage - 1], *next(params),
+                         n_in=x.shape[0])
+                shape = sp.downsample_out_shape(shape, dk, ds, dp)
+            for _ in range(n_subm):
+                x = conv(x, rulebooks["subm"][stage], *next(params),
+                         n_in=x.shape[0])
+        dense = sp.to_dense(x, ids[4], shape)  # [B, D, H, W, C]
+        b, d, h, w, c = dense.shape
+        # channel order c*D + d, the reference's [N, C, D, H, W] ->
+        # [N, C*D, H, W] view (scn.py:186-188)
+        return dense.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)

@@ -1,0 +1,173 @@
+"""Fused sparse conv + folded BN + ReLU + occupancy mask: the CUDA kernel's
+wrapper, its plain PyTorch twin, and the kernel's build.
+
+``fused_sparse_conv`` replaces the Pallas ``_fused_kernel`` of
+``sessd_tpu/ops/pallas/wconv.py`` (and, having no window, its over-span
+``_patch_kernel``) on the serving path. On a CPU tensor it runs the twin
+``fused_sparse_conv_ref``; on a CUDA tensor it launches the kernel of
+``sessd_torch/csrc/sparse_conv.cu`` or raises. The kernel is compiled with
+nvcc into ``build/sessd_torch/`` at the first CUDA call (cached by a hash of
+the sources and flags) and loaded with ctypes; importing this module builds
+nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from ..sparse import gather_gemm
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "sessd_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INDEX_BYTES = {torch.int16: 2, torch.int32: 4}
+
+_build_lock = threading.Lock()
+_library = None  # the loaded ctypes library, once built
+build_info: dict = {}  # path, seconds and compiler log of this process's build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under CUDA_HOME")
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/*.cu`` (once per source/flag hash) and load it."""
+    global _library
+    with _build_lock:
+        if _library is not None:
+            return _library
+        srcs = sorted(CSRC.glob("*.cu"))
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in srcs:
+            digest.update(src.name.encode())
+            digest.update(src.read_bytes())
+        lib_path = BUILD_DIR / f"libsessd_torch_{digest.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            os.replace(tmp, lib_path)  # atomic: concurrent builders agree
+        lib = ctypes.CDLL(str(lib_path))
+        fn = lib.sessd_fused_sparse_conv
+        fn.restype = ctypes.c_int
+        # feats, rb, w2, bias, out; n_in, n_out, cin, cout, taps, dtype,
+        # idx_bytes, relu; stream
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        lib.sessd_cuda_error_string.restype = ctypes.c_char_p
+        lib.sessd_cuda_error_string.argtypes = [ctypes.c_int]
+        build_info.update(path=str(lib_path), log=log,
+                          seconds=time.perf_counter() - t0)
+        _library = lib
+        return lib
+
+
+def fused_sparse_conv_ref(feats: torch.Tensor, rb: torch.Tensor,
+                          w2: torch.Tensor, bias: torch.Tensor, n_in: int,
+                          relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel (any device): zero-row pad,
+    index_select, one f32 matmul, bias, ReLU, hit mask; output in the
+    features' dtype."""
+    out = gather_gemm(feats[:n_in], rb, w2) + bias.float()
+    if relu:
+        out = out.clamp_min(0.0)
+    hit = (rb != n_in).any(dim=1, keepdim=True)
+    return torch.where(hit, out, 0.0).to(feats.dtype)
+
+
+def _check(feats, rb, w2, bias, n_in):
+    dev = feats.device
+    for name, t in (("rb", rb), ("w2", w2), ("bias", bias)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, feats on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not feats.is_contiguous():
+        raise ValueError("feats must be contiguous")
+    if feats.dtype not in _DTYPE_CODES:
+        raise ValueError(f"feats dtype {feats.dtype}: want float32/bfloat16")
+    if rb.dtype not in _INDEX_BYTES:
+        raise ValueError(f"rb dtype {rb.dtype}: want int16/int32")
+    if w2.dtype != feats.dtype or bias.dtype != torch.float32:
+        raise ValueError(f"w2 must be {feats.dtype} (is {w2.dtype}), "
+                         f"bias float32 (is {bias.dtype})")
+    if feats.dim() != 2 or rb.dim() != 2 or w2.dim() != 3:
+        raise ValueError("want feats [n, Cin], rb [n_out, K], "
+                         "w2 [K, Cin, Cout]")
+    taps, cin, cout = w2.shape
+    if (feats.shape[1], rb.shape[1]) != (cin, taps) or bias.shape != (cout,):
+        raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, rb "
+                         f"{tuple(rb.shape)}, w2 {tuple(w2.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    if not 0 < n_in <= feats.shape[0] or rb.shape[0] == 0:
+        raise ValueError(f"n_in={n_in} outside (0, {feats.shape[0]}] or "
+                         "empty rulebook")
+    if rb.dtype == torch.int16 and n_in > torch.iinfo(torch.int16).max:
+        raise ValueError(f"n_in={n_in} does not fit an int16 rulebook")
+
+
+def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
+                      bias: torch.Tensor, n_in: int,
+                      relu: bool = True) -> torch.Tensor:
+    """out[n] = relu(sum_k feats[rb[n, k]] @ w2[k] + bias) where any tap of
+    row n hits, else 0.
+
+    feats [n_in, Cin] f32/bf16; rb [n_out, K] int16/int32 with entries in
+    [0, n_in] (n_in = miss); w2 [K, Cin, Cout] in the feats dtype (BN scale
+    folded in); bias [Cout] f32. Returns [n_out, Cout] in the feats dtype.
+    CPU tensors take the twin; CUDA tensors launch the kernel on the current
+    stream, counted in ``fused_sparse_conv.launches``.
+    """
+    if feats.device.type == "cpu":
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+    if feats.device.type != "cuda":
+        raise ValueError(f"no kernel for device {feats.device}")
+    _check(feats, rb, w2, bias, n_in)
+    lib = build()
+    taps, cin, cout = w2.shape
+    out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
+                      device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sessd_fused_sparse_conv(
+            feats.data_ptr(), rb.data_ptr(), w2.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
+            _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype], int(relu),
+            stream)
+    if rc != 0:
+        # the C entry point also answers cudaErrorInvalidValue for a
+        # (Cin, Cout, K) it has no instance of (sparse_conv.cu dispatch)
+        msg = lib.sessd_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_sparse_conv launch failed for Cin={cin}, "
+                           f"Cout={cout}, K={taps}: {rc} ({msg})")
+    fused_sparse_conv.launches += 1
+    return out
+
+
+fused_sparse_conv.launches = 0

@@ -1,0 +1,79 @@
+"""JAX ``VoxelNet`` variables -> the port's state dict (det3d names).
+
+The exact inverse of ``sessd_tpu/utils/convert_torch.convert_state_dict``
+(convert_torch.py:80-130), so ``convert_state_dict(convert_jax(v)) == v``.
+Inputs are the flax variables ``{"params", "batch_stats"}`` as numpy (or
+array-like) leaves; this module imports no JAX.
+
+Layer mappings:
+- sparse kernels [K, cin, cout] -> spconv [kd, kh, kw, cin, cout]
+- flax Conv [kh, kw, in, out] -> torch Conv2d [out, in, kh, kw]
+- flax ConvTranspose [kh, kw, in, out], spatially flipped -> torch
+  ConvTranspose2d [in, out, kh, kw] (the flip of convert_torch.py:32-35,
+  undone)
+- BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
+  running_mean/running_var
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+# the forward converter's tables (numpy only): SSFA submodules in the JAX
+# call order (ConvBnRelu_i) -> the reference's (conv, BN) entries, and which
+# of them are the deconv blocks
+from sessd_tpu.utils.convert_torch import _SSFA_MODULES as SSFA_MODULES
+from sessd_tpu.utils.convert_torch import _SSFA_TRANSPOSE as SSFA_TRANSPOSE
+
+from ..models.backbone import PLAN
+
+# kernel shape of each backbone block, in call order
+BACKBONE_KERNELS = [k for _, n_subm, dk, _, _ in PLAN
+                    for k in ([dk] if dk else []) + [(3, 3, 3)] * n_subm]
+
+
+def _bn(prefix: str, params: dict, stats: dict) -> Dict[str, np.ndarray]:
+    return {prefix + ".weight": params["scale"],
+            prefix + ".bias": params["bias"],
+            prefix + ".running_mean": stats["mean"],
+            prefix + ".running_var": stats["var"]}
+
+
+def convert_jax(variables: dict) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of sessd_tpu's VoxelNet -> state dict for
+    ``sessd_torch.models.detector.VoxelNet`` (float32 CPU tensors)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+
+    for b, kshape in enumerate(BACKBONE_KERNELS):
+        blk = f"SparseConvBlock_{b}"
+        kernel = np.asarray(params["backbone"][blk]["kernel"])
+        sd[f"backbone.middle_conv.{3 * b}.weight"] = kernel.reshape(
+            *kshape, *kernel.shape[1:])
+        sd.update(_bn(f"backbone.middle_conv.{3 * b + 1}",
+                      params["backbone"][blk]["MaskedBatchNorm_0"],
+                      stats["backbone"][blk]["MaskedBatchNorm_0"]))
+
+    for i, (conv_prefix, bn_prefix) in enumerate(SSFA_MODULES):
+        p = params["neck"][f"ConvBnRelu_{i}"]
+        if i in SSFA_TRANSPOSE:  # -> ConvTranspose2d [in, out, kh, kw]
+            kernel = np.transpose(
+                np.asarray(p["ConvTranspose_0"]["kernel"])[::-1, ::-1],
+                (2, 3, 0, 1))
+        else:  # -> Conv2d [out, in, kh, kw]
+            kernel = np.transpose(np.asarray(p["Conv_0"]["kernel"]),
+                                  (3, 2, 0, 1))
+        sd[conv_prefix + ".weight"] = kernel
+        sd.update(_bn(bn_prefix, p["BatchNorm_0"],
+                      stats["neck"][f"ConvBnRelu_{i}"]["BatchNorm_0"]))
+
+    for name, conv in params["head"]["task_0"].items():
+        prefix = f"bbox_head.tasks.0.{name}"
+        sd[prefix + ".weight"] = np.transpose(np.asarray(conv["kernel"]),
+                                              (3, 2, 0, 1))
+        sd[prefix + ".bias"] = conv["bias"]
+
+    return {k: torch.tensor(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
