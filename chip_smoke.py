@@ -4,7 +4,8 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
 1. The card (``nvidia-smi`` name and power limit) and the build of the CUDA
-   kernels from ``sessd_torch/csrc`` (nvcc, into ``build/sessd_torch/``).
+   kernels from ``sessd_torch/csrc`` (one nvcc per source, in parallel,
+   into ``build/sessd_torch/``).
 2. The fused sparse conv kernel against its plain PyTorch twin on the card,
    for every one of the 14 backbone convs on the features the previous conv
    produced, at full KITTI width (sparse shape (41, 1600, 1408), SERVING_CAPS,
@@ -18,24 +19,52 @@ Phases, each printing its own lines; any failure exits non-zero:
    request without it. Checks: finite outputs of the expected shapes,
    exactly 14 kernel launches per request, and the head outputs of the
    kernel path equal to the twin path's (f32, TF32 off) to 1e-3 of the max.
+4. The training kernels against their twins: the forward (K4), input
+   gradient and weight gradient (K5) of every sparse conv of both training
+   plans (student: 10 convs on the augmented chain; teacher: 14 on the raw
+   chain), full width, batch 4, the loader's int32 chains from a synthetic
+   KITTI root (tests/kitti_synth.py). Each conv takes the features the
+   previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
+   weight gradient, a reduction over all rows), bf16 2e-2. Kernel and twin
+   CUDA-event medians per conv (bf16, student chain).
+5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
+   batch 4, SSL on) for 6 steps: every loss term and the gradient norm
+   finite, the student moved, the teacher equal to the EMA formula on the
+   last step, and exactly 24 forward, 9 input-gradient and 10
+   weight-gradient launches per step. Prints the step-time median, the
+   data-time share and the peak device memory.
+6. One f32 step (TF32 off) on one batch through the kernels and, from an
+   identical state, through their twins: loss terms within 1e-4 relative,
+   each gradient tensor within 1e-3 of its max.
 
 The last lines are the kernels JSON line, the card line, and the result
 line ``{"ok": true, "device": {...}}``. Without a CUDA device it raises and
 prints no result.
 """
+import contextlib
+import copy
 import json
+import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from sessd_torch import builder
+from sessd_torch.models.backbone import PLAN
+from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import sparse_conv as sc
+from sessd_torch.ops.cuda import sparse_conv_train as kt
+from sessd_torch.scripts.profile_train import make_synthetic_root
 from sessd_torch.serve import (SERVING_CAPS, ExactBatchServer,
                                HostPreprocessor, make_scene, stage_inputs)
+from sessd_torch.tools.train import load as load_train_config
+from sessd_torch.train.trainer import Trainer
 
 CONV_NAMES = ["subm0a", "subm0b", "down0", "subm1a", "subm1b", "down1",
               "subm2a", "subm2b", "subm2c", "down2", "subm3a", "subm3b",
@@ -174,7 +203,7 @@ def phase_serving(model, cfg, spec, device):
     requests += [("b4 prior", server4, scenes), ("b1 no prior", server1,
                                                  scenes[:1])]
     results, lat = [], []
-    sc.fused_sparse_conv.launches = 0
+    _reset_counts()
     for n, (name, server, batch) in enumerate(requests):
         if name == "b1 no prior":
             set_prior(model, False)
@@ -241,6 +270,233 @@ def phase_head_parity(spec, device, pcfg):
                   f"{pcfg.score_threshold} -> {branch} NMS capacity")
 
 
+# (rulebook kind, chain index, output stage) of each backbone conv in order
+CONV_CHAIN = [c for stage, (_, n_subm, dk, _, _) in enumerate(PLAN)
+              for c in ([("down", stage - 1, stage)] if dk else [])
+              + [("subm", stage, stage)] * n_subm]
+TRAIN_BOUNDS = {torch.float32: (1e-4, 1e-4, 1e-3),
+                torch.bfloat16: (2e-2, 2e-2, 2e-2)}  # fwd, dfeat, dw
+TRAIN_STEPS = 6
+
+
+def first_batch(trainer):
+    batches = iter(trainer.train_loader)
+    try:
+        return trainer._device_batch(next(batches))
+    finally:
+        batches.close()
+
+
+def _rel(got, want):
+    peak = float(want.float().abs().max())
+    if not peak > 0:
+        raise AssertionError("all-zero twin output: a vacuous check")
+    return float((got.float() - want.float()).abs().max()) / peak, \
+        float((got.float() - want.float()).abs().max())
+
+
+@torch.no_grad()
+def phase_train_kernels(trainer, db):
+    """K4 / K5 against their twins on every sparse conv of both plans.
+    Returns (max abs error per kernel, summed kernel ms, summed twin ms)
+    with the times of the bf16 student chain."""
+    model = trainer.state.student
+    blocks = model.backbone.blocks()
+    worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
+    ms = {k: [0.0, 0.0] for k in worst}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
+            rb = db["rulebooks" + sfx]
+            vox = db["voxels" + sfx]
+            b, v = vox.shape[:2]
+            feats = model.reader(vox.reshape(b * v, *vox.shape[2:]),
+                                 db["num_points" + sfx].reshape(b * v))
+            x = feats[rb["perm"].long()]
+            x = torch.where((rb["ids"][0] < sp.SENTINEL)[:, None], x,
+                            0.0).to(dtype)
+            timed = dtype == torch.bfloat16 and plan == "student"
+            tag = f"{plan} {str(dtype).replace('torch.', '')} " \
+                  f"{str(rb['subm'][0].dtype).replace('torch.', '')}"
+            for i in range(n):
+                conv = blocks[i][0]
+                kind, idx, out_stage = CONV_CHAIN[i]
+                rbk = rb[kind][idx]
+                mask = rb["ids"][out_stage] < sp.SENTINEL
+                w = conv.weight.detach().reshape(
+                    -1, *conv.weight.shape[-2:]).to(dtype).contiguous()
+                inv = sp.inverse_rulebook(rbk, x.shape[0])
+                dout = torch.randn(rbk.shape[0], w.shape[2], device="cuda",
+                                   generator=gen)
+                dout = torch.where(mask[:, None], dout, 0.0).to(dtype)
+                runs = {"fwd": (lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
+                                lambda: kt.sparse_conv_fwd_ref(x, rbk, w,
+                                                               mask)),
+                        "dw": (lambda: kt.sparse_conv_dw(x, rbk, dout),
+                               lambda: kt.sparse_conv_dw_ref(x, rbk, dout))}
+                if i > 0:  # the first conv's input needs no gradient
+                    runs["dfeat"] = (
+                        lambda: kt.sparse_conv_dfeat(dout, inv, w),
+                        lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
+                line = (f"train conv {i:2d} {CONV_NAMES[i]:6s} "
+                        f"{w.shape[1]:2d}->{w.shape[2]:2d} K={w.shape[0]:2d} "
+                        f"rows {rbk.shape[0]:5d} {tag}:")
+                y = None
+                for name, (kern, twin) in runs.items():
+                    got, want = kern(), twin()
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(got.float()).all():
+                        raise AssertionError(f"{CONV_NAMES[i]} {name} {tag}:"
+                                             " non-finite")
+                    rel, diff = _rel(got, want)
+                    worst[name] = max(worst[name], diff)
+                    line += f" {name} {rel:.1e}"
+                    bound = TRAIN_BOUNDS[dtype][("fwd", "dfeat",
+                                                 "dw").index(name)]
+                    if not rel <= bound:
+                        raise AssertionError(f"{CONV_NAMES[i]} {name} {tag}"
+                                             f": rel_err {rel:.3e} > {bound}")
+                    if timed:
+                        k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
+                        ms[name][0] += k_ms
+                        ms[name][1] += r_ms
+                        line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms)"
+                    if name == "fwd":
+                        y = got
+                print(line)
+                x = torch.relu(y)
+    print("train kernels vs twin: all convs of both plans within bounds; "
+          "bf16 student chain sums " + ", ".join(
+              f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms"
+              for k, v in ms.items()))
+    return worst, ms
+
+
+def _reset_counts():
+    for fn in (sc.fused_sparse_conv, kt.sparse_conv_fwd,
+               kt.sparse_conv_dfeat, kt.sparse_conv_dw):
+        fn.launches = 0
+
+
+def phase_train(trainer):
+    """The main training path; returns its launch counts."""
+    state = trainer.state
+    start = [p.detach().clone() for p in state.student.parameters()]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(max_steps=TRAIN_STEPS - 1)
+    tea0 = [p.detach().clone() for p in state.teacher.parameters()]
+    s = state.step
+    hist = trainer.run(max_steps=TRAIN_STEPS)
+    counts = {fn.__name__: fn.launches for fn in (
+        sc.fused_sparse_conv, kt.sparse_conv_fwd, kt.sparse_conv_dfeat,
+        kt.sparse_conv_dw)}
+    peak = torch.cuda.max_memory_allocated()
+
+    for h in hist:
+        bad = [k for k, v in h.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {h['step']}: non-finite {bad}")
+        print(f"train step {h['step']}: {h['step_time'] * 1e3:9.3f} ms, "
+              f"data {h['data_time'] * 1e3:9.3f} ms, loss {h['loss']:.5g} "
+              f"(cls {h['cls_loss_reduced']:.4g}, ious {h['ious_loss']:.4g}"
+              f", dir {h['dir_loss_reduced']:.4g}, iou_pred "
+              f"{h['iou_pred_loss']:.4g}, consistency "
+              f"{h['consistency_loss']:.4g}), grad_norm "
+              f"{h['grad_norm']:.4g}, num_pos {h['num_pos']:.1f}")
+    want = {"fused_sparse_conv": 0, "sparse_conv_fwd": 24 * TRAIN_STEPS,
+            "sparse_conv_dfeat": 9 * TRAIN_STEPS,
+            "sparse_conv_dw": 10 * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, want {want}")
+    moved = max(float((p.detach() - p0).abs().max()) for p, p0 in
+                zip(state.student.parameters(), start))
+    if not moved > 0:
+        raise AssertionError("the student did not move")
+    alpha = min(1 - 1 / (s + 1), trainer.cfg.get("ema_decay_cap", 0.999))
+    ema_err = max(float((e - (alpha * e0 + (1 - alpha) * p.detach()))
+                        .abs().max())
+                  for e, e0, p in zip(state.teacher.parameters(), tea0,
+                                      state.student.parameters()))
+    if not ema_err <= 1e-5:
+        raise AssertionError(f"teacher off the EMA formula by {ema_err}")
+    steady = hist[1:]
+    step_ms = float(np.median([h["step_time"] for h in steady])) * 1e3
+    data = sum(h["data_time"] for h in steady)
+    share = data / (data + sum(h["step_time"] for h in steady))
+    print(f"training: {len(hist)} steps at batch 4, step median "
+          f"{step_ms:.3f} ms (steps 2-{len(hist)}), data-time share "
+          f"{share:.3f}, peak device memory {peak / 2 ** 30:.3f} GiB, "
+          f"launches per step fwd {counts['sparse_conv_fwd'] // len(hist)}"
+          f" dfeat {counts['sparse_conv_dfeat'] // len(hist)} dw "
+          f"{counts['sparse_conv_dw'] // len(hist)}; student moved "
+          f"{moved:.3e}, teacher vs EMA formula {ema_err:.1e}")
+    return counts
+
+
+@contextlib.contextmanager
+def twins():
+    """SparseConvFunction through the kernels' plain twins (it looks its
+    kernels up in ``kt`` at each call): the reference side of phase 6."""
+    names = ("sparse_conv_fwd", "sparse_conv_dfeat", "sparse_conv_dw")
+    saved = {n: getattr(kt, n) for n in names}
+    try:
+        for n in names:
+            setattr(kt, n, getattr(kt, n + "_ref"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kt, n, fn)
+
+
+def phase_step_parity(root, work):
+    """One f32 step through the kernels and through the twins from the
+    same state on the same batch."""
+    cfg = load_train_config("se_ssd_kitti_car.py", root)
+    trainer = Trainer(cfg, work_dir=work, seed=SEED, device="cuda")
+    db = first_batch(trainer)
+    states, grads, metrics = [trainer.state], [], []
+    twin_state = copy.deepcopy(trainer.state)
+    twin_state.optimizer.params = list(twin_state.student.parameters())
+    states.append(twin_state)
+    for state, ctx in zip(states, (contextlib.nullcontext(), twins())):
+        step = state.optimizer.step
+        got = {}
+
+        def capture(gs, step=step, got=got):
+            got.update(zip([n for n, _ in
+                            state.student.named_parameters()],
+                           [g.detach().clone() for g in gs]))
+            return step(gs)
+
+        state.optimizer.step = capture
+        with ctx:
+            m = trainer.train_step(state, db, 0.5)
+        torch.cuda.synchronize()
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append(got)
+    worst_m = max(abs(metrics[0][k] - v) / (abs(v) + 1e-6)
+                  for k, v in metrics[1].items())
+    worst_g, worst_name = 0.0, ""
+    for name, g in grads[1].items():
+        peak = float(g.abs().max())
+        if peak == 0:
+            if grads[0][name].abs().max() != 0:
+                raise AssertionError(f"{name}: kernel gradient nonzero")
+            continue
+        err = float((grads[0][name] - g).abs().max()) / peak
+        if err > worst_g:
+            worst_g, worst_name = err, name
+    print(f"step parity f32: loss {metrics[0]['loss']:.6g} vs twin "
+          f"{metrics[1]['loss']:.6g}; worst loss term rel {worst_m:.2e}; "
+          f"worst gradient {worst_g:.2e} of its max ({worst_name})")
+    if not worst_m <= 1e-4:
+        raise AssertionError(f"loss terms differ by {worst_m:.3e}")
+    if not worst_g <= 1e-3:
+        raise AssertionError(f"gradient {worst_name} differs by {worst_g}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only "
@@ -259,13 +515,43 @@ def main():
     max_abs, ms, plain_ms = phase_kernels(model, spec, device)
     launches, pcfg = phase_serving(model, cfg, spec, device)
     phase_head_parity(spec, device, pcfg)
+    del model
 
-    print(json.dumps({"kernels": [{
+    tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
+    try:
+        root = f"{tmp}/kitti"
+        t0 = time.perf_counter()
+        make_synthetic_root(root, num_frames=8, num_cars=10)
+        print(f"synthetic KITTI root: 8 frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        trainer = Trainer(load_train_config("se_ssd_kitti_car_bf16.py",
+                                            root),
+                          work_dir=f"{tmp}/work_bf16", seed=SEED,
+                          device=device)
+        worst, train_ms = phase_train_kernels(trainer, first_batch(trainer))
+        counts = phase_train(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        phase_step_parity(root, f"{tmp}/work_f32")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    kernels = [{
         "name": "fused_sparse_conv", "route": "cuda",
         "source": "sessd_torch/csrc/sparse_conv.cu",
         "replaces": "sessd_tpu/ops/pallas/wconv.py:253",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms}]
+    for name, key, line in (("sparse_conv_fwd", "fwd", 51),
+                            ("sparse_conv_dfeat", "dfeat", 67),
+                            ("sparse_conv_dw", "dw", 67)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "sessd_torch/csrc/sparse_conv_train.cu",
+            "replaces": f"sessd_tpu/ops/pallas/wconv.py:{line}",
+            "launches": counts[name], "max_abs_err": worst[key],
+            "ms": train_ms[key][0], "plain_ms": train_ms[key][1]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

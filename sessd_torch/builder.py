@@ -1,7 +1,11 @@
 """Builders: the shared plain-dict configs (``sessd_tpu/configs/*.py``, read
-with ``Config``) -> the port's objects (port of the serving half of
-``sessd_tpu/builder.py``). ``Config`` is re-exported from the JAX-free
-``sessd_tpu.config``, so callers of the port need no ``sessd_tpu`` import."""
+with ``Config``) -> the port's objects (port of ``sessd_tpu/builder.py``,
+which imports JAX). ``Config`` is re-exported from the JAX-free
+``sessd_tpu.config``, so callers of the port need no ``sessd_tpu`` import.
+
+The training data path is the JAX package's host code, reused as it is:
+``KittiDataset``, its ``Pipeline`` and GT-AUG sampler, and ``DataLoader``
+(``sessd_tpu/data``, numpy and C++ only)."""
 from __future__ import annotations
 
 import math
@@ -13,13 +17,22 @@ import torch
 
 from sessd_tpu.config import Config
 from sessd_tpu.core.anchors import create_anchors_3d_range
+from sessd_tpu.data.augment import GroundTruthSampler
+from sessd_tpu.data.dataset import KittiDataset
+from sessd_tpu.data.loader import DataLoader
+from sessd_tpu.data.pipeline import PipelineConfig
 from sessd_tpu.ops.voxelize import VoxelizerSpec
 
 from .models.detector import VoxelNet
 from .models.predict import PredictConfig
+from .train.losses import ConsistencyConfig, LossConfig
+from .train.optim import AdamW, OneCycleConfig, one_cycle_lr, one_cycle_mom
 
 __all__ = ["Config", "load_config", "build_voxelizer", "build_detector",
-           "build_anchors", "set_cls_prior", "build_predict_config"]
+           "build_anchors", "set_cls_prior", "build_predict_config",
+           "build_pipeline_config", "build_sampler", "build_dataset",
+           "build_dataloader", "build_optimizer_from_cfg",
+           "build_loss_config"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CONFIG_DIR = (pathlib.Path(__file__).resolve().parents[1] / "sessd_tpu"
@@ -41,10 +54,12 @@ def build_voxelizer(cfg) -> VoxelizerSpec:
     )
 
 
-def build_detector(cfg) -> VoxelNet:
+def build_detector(cfg, dense_from_stage: Optional[int] = None) -> VoxelNet:
     """cfg: the full config (model + voxel_generator sections; ``precision``
-    sets the compute dtype). Parameters are left at construction values;
-    load a state dict or call ``reset_parameters(generator)``."""
+    sets the compute dtype, ``dense_from_stage`` the training plan, 3 by
+    default as in sessd_tpu/builder.py:70; the argument overrides it, e.g.
+    with ``teacher_dense_from_stage``). Parameters are left at construction
+    values; load a state dict or call ``reset_parameters(generator)``."""
     m = cfg.model
     if m["type"] != "VoxelNet":
         raise ValueError(f"detector type {m['type']} is not ported yet")
@@ -53,6 +68,8 @@ def build_detector(cfg) -> VoxelNet:
         sparse_shape=build_voxelizer(cfg.voxel_generator).sparse_shape,
         tasks=tuple(dict(t) for t in m["bbox_head"]["tasks"]),
         dtype=_DTYPES[cfg.get("precision", "float32")],
+        dense_from_stage=(cfg.get("dense_from_stage", 3)
+                          if dense_from_stage is None else dense_from_stage),
     )
 
 
@@ -92,3 +109,128 @@ def build_predict_config(cfg) -> PredictConfig:
         use_dir_classifier=cfg.model["bbox_head"].get("loss_aux") is not None,
         direction_offset=cfg.model["bbox_head"].get("direction_offset", 0.0),
     )
+
+
+def _feature_map_size(voxelizer: VoxelizerSpec, out_size_factor: int = 8):
+    nx, ny, _ = voxelizer.grid_size
+    return (1, ny // out_size_factor, nx // out_size_factor)
+
+
+def build_pipeline_config(cfg) -> PipelineConfig:
+    """sessd_tpu/builder.py:87-133."""
+    voxelizer = build_voxelizer(cfg.voxel_generator)
+    gens = cfg.target_assigner["anchor_generators"]
+    ag = gens[0]
+    tp = cfg.get("train_preprocessor", {})
+    assigner = cfg.get("assigner", {})
+    anchor_specs = None
+    if len(gens) > 1:
+        anchor_specs = tuple(
+            dict(class_name=g["class_name"], sizes=tuple(g["sizes"]),
+                 anchor_range=tuple(g["anchor_ranges"]),
+                 matched_threshold=g.get("matched_threshold", 0.6),
+                 unmatched_threshold=g.get("unmatched_threshold", 0.45))
+            for g in gens)
+    return PipelineConfig(
+        anchor_specs=anchor_specs,
+        class_names=tuple(cfg.class_names),
+        enable_similar_type=bool(assigner.get("enable_similar_type", True)),
+        voxelizer=voxelizer,
+        feature_map_size=_feature_map_size(
+            voxelizer, assigner.get("out_size_factor", 8)),
+        anchor_range=tuple(ag["anchor_ranges"]),
+        anchor_sizes=tuple(ag["sizes"]),
+        anchor_rotations=(0.0, math.pi / 2),
+        matched_threshold=ag.get("matched_threshold", 0.6),
+        unmatched_threshold=ag.get("unmatched_threshold", 0.45),
+        gt_loc_noise=tuple(tp.get("gt_loc_noise", (1.0, 1.0, 0.5))),
+        gt_rot_noise=tuple(tp.get("gt_rot_noise", (-0.785, 0.785))),
+        global_rot_noise=tuple(tp.get("global_rot_noise", (-0.785, 0.785))),
+        global_scale_noise=tuple(tp.get("global_scale_noise", (0.95, 1.05))),
+        remove_points_after_sample=tp.get("remove_points_after_sample", True),
+        sa_dropout=tp.get("sa_dropout", 0.25),
+        sa_sparsity=tuple(tp.get("sa_sparsity", (0.05, 50))),
+        sa_swap=tuple(tp.get("sa_swap", (0.1, 50))),
+        shuffle_points=tp.get("shuffle_points", True),
+        # CIA-SSD has no teacher: no raw twin of each sample
+        produce_raw=bool(cfg.get("my_paras", {}).get("enable_ssl", True)),
+    )
+
+
+def build_sampler(cfg, seed: int = 0) -> Optional[GroundTruthSampler]:
+    """The GT-AUG database sampler (sessd_tpu/builder.py:136-160)."""
+    db = cfg.get("db_sampler")
+    if db is None or not db.get("enable", True):
+        return None
+    groups = {}
+    for g in db["sample_groups"]:
+        groups.update(g)
+    min_points, removed_difficulty = {}, (-1,)
+    for step in db.get("db_prep_steps", []):
+        if "filter_by_min_num_points" in step:
+            min_points.update(step["filter_by_min_num_points"])
+        if "filter_by_difficulty" in step:
+            removed_difficulty = tuple(step["filter_by_difficulty"])
+    return GroundTruthSampler(
+        db_info_path=db["db_info_path"], root_path=cfg.data_root,
+        sample_groups=groups, min_points=min_points,
+        removed_difficulty=removed_difficulty, rate=db.get("rate", 1.0),
+        seed=seed)
+
+
+def build_dataset(cfg, split: str, seed: int = 0) -> KittiDataset:
+    dcfg = cfg.data[split]
+    mode = "train" if split == "train" else "val"
+    return KittiDataset(
+        root_path=dcfg["root_path"], info_path=dcfg["info_path"],
+        class_names=dcfg.get("class_names", cfg.class_names), mode=mode,
+        pipeline_cfg=build_pipeline_config(cfg),
+        sampler=build_sampler(cfg, seed) if mode == "train" else None)
+
+
+def build_dataloader(cfg, dataset, shuffle: bool,
+                     seed: int = 0) -> DataLoader:
+    """One process's loader (the port has no multi-host sharding yet)."""
+    return DataLoader(
+        dataset, batch_size=cfg.data["samples_per_gpu"], shuffle=shuffle,
+        seed=seed, num_workers=cfg.data.get("workers_per_gpu", 4),
+        drop_last=shuffle,
+        worker_type=cfg.data.get("worker_type", "thread"))
+
+
+def build_optimizer_from_cfg(cfg, steps_per_epoch: int, params):
+    """(AdamW over ``params``, lr_fn(step) -> lr) of the one-cycle recipe
+    (sessd_tpu/builder.py:183-215). The legacy LrUpdaterHook policies are
+    not ported."""
+    lr = cfg.lr_config
+    policy = lr.get("type", lr.get("policy", "one_cycle"))
+    if policy != "one_cycle":
+        raise ValueError(f"lr policy {policy!r} is not ported yet")
+    ocfg = OneCycleConfig(
+        lr_max=lr["lr_max"], moms=tuple(lr["moms"]),
+        div_factor=lr["div_factor"], pct_start=lr["pct_start"],
+        total_steps=cfg.total_epochs * steps_per_epoch,
+        wd=cfg.optimizer.get("wd", 0.01),
+        grad_clip_norm=cfg.optimizer_config["grad_clip"]["max_norm"])
+    lr_fn = one_cycle_lr(ocfg)
+    return AdamW(params, lr_fn, one_cycle_mom(ocfg), b2=ocfg.beta2,
+                 eps=ocfg.eps, wd=ocfg.wd,
+                 grad_clip_norm=ocfg.grad_clip_norm), lr_fn
+
+
+def build_loss_config(cfg) -> LossConfig:
+    """sessd_tpu/builder.py:218-233."""
+    h = cfg.model["bbox_head"]
+    tc = cfg.test_cfg
+    return LossConfig(
+        cls_loss_weight=h["loss_cls"].get("loss_weight", 1.0),
+        loc_loss_weight=h["loss_bbox"].get("loss_weight", 2.0),
+        dir_loss_weight=h["loss_aux"].get("loss_weight", 0.2),
+        focal_alpha=h["loss_cls"].get("alpha", 0.25),
+        focal_gamma=h["loss_cls"].get("gamma", 2.0),
+        smooth_l1_sigma=h["loss_bbox"].get("sigma", 3.0),
+        direction_offset=h.get("direction_offset", 0.0),
+        reg_loss=h.get("reg_loss", "odiou"),
+        consistency=ConsistencyConfig(
+            score_thresh=tc.get("score_threshold", 0.3),
+            post_center_range=tuple(tc["post_center_limit_range"])))

@@ -1,8 +1,8 @@
-"""Box math in PyTorch (port of the serving half of
-``sessd_tpu/core/box_jax.py``).
+"""Box math in PyTorch (port of ``sessd_tpu/core/box_jax.py``).
 
 Boxes are ``[x, y, z, w, l, h, ry]`` gravity-center lidar boxes; corner and
 rotation conventions match the reference (det3d box_np_ops.py:267-446).
+Everything is differentiable and broadcasts over leading dims.
 """
 from __future__ import annotations
 
@@ -44,3 +44,56 @@ def second_box_decode(encodings: torch.Tensor,
         torch.exp(ht) * ha,
         rt + ra,
     ], dim=-1)
+
+
+def second_box_encode(boxes: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """SECOND anchor-offset encoding (box_torch_ops.py:23-80)."""
+    xa, ya, za, wa, la, ha, ra = torch.split(anchors, 1, dim=-1)
+    xg, yg, zg, wg, lg, hg, rg = torch.split(boxes, 1, dim=-1)
+    diagonal = torch.sqrt(la ** 2 + wa ** 2)
+    return torch.cat([
+        (xg - xa) / diagonal,
+        (yg - ya) / diagonal,
+        (zg - za) / ha,
+        torch.log(wg / wa),
+        torch.log(lg / la),
+        torch.log(hg / ha),
+        rg - ra,
+    ], dim=-1)
+
+
+def add_sin_difference(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Replace the angle channel with the sin-difference encoding:
+    ry1 -> sin(ry1)cos(ry2), ry2 -> cos(ry1)sin(ry2)
+    (mg_head_sessd.py:39-44), so SmoothL1(enc1 - enc2) penalises
+    sin(ry1 - ry2)."""
+    rad1 = torch.sin(boxes1[..., -1:]) * torch.cos(boxes2[..., -1:])
+    rad2 = torch.cos(boxes1[..., -1:]) * torch.sin(boxes2[..., -1:])
+    return (torch.cat([boxes1[..., :-1], rad1], dim=-1),
+            torch.cat([boxes2[..., :-1], rad2], dim=-1))
+
+
+def rotation_points_z(points: torch.Tensor, angle) -> torch.Tensor:
+    """Rotate [..., 3] points about z by ``angle`` (broadcasting against
+    points[..., 0]): out = p @ Rz^T, the reference convention
+    (box_torch_ops.py:331-336)."""
+    angle = torch.as_tensor(angle, dtype=points.dtype, device=points.device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    x = points[..., 0] * c + points[..., 1] * s
+    y = -points[..., 0] * s + points[..., 1] * c
+    return torch.stack([x, y, points[..., 2]], dim=-1)
+
+
+def corner_to_standup_bev(corners: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 2] corners -> [..., 4] (x1, y1, x2, y2)."""
+    return torch.cat([corners.amin(dim=-2), corners.amax(dim=-2)], dim=-1)
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: maximum then minimum, so a value exactly on a bound
+    passes half its gradient, as JAX's balanced max/min do (``clamp``
+    passes all of it)."""
+    x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device))
+    return torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype,
+                                            device=x.device))

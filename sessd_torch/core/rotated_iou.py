@@ -5,14 +5,17 @@ boundary of A∩B is the union of A-edge parts inside B and B-edge parts
 inside A; each part is a parameter interval found by clipping against four
 half-planes, and its 0.5*cross(u, v) line-integral contributions sum to the
 area. Pure elementwise math with no sort, kept as it is in the JAX package.
+Bounds are taken with ``torch.maximum``/``minimum``, which split the gradient
+at ties as JAX's do.
 
 Everything broadcasts: ``overlap_bev(a[..., 5], b[..., 5]) -> [...]``.
+The 3D functions take full ``[..., 7]`` boxes.
 """
 from __future__ import annotations
 
 import torch
 
-from .box_torch import BEV5_COLUMNS, bev_corners
+from .box_torch import BEV5_COLUMNS, bev_corners, clip
 
 _EPS = 1e-8
 
@@ -44,8 +47,8 @@ def _clip_edge_contributions(pa: torch.Tensor, qa: torch.Tensor,
     hi = torch.where(sd < -_EPS, t_at0, 1.0)
     tol = -1e-6 if own_boundary else 1e-6
     infeasible = (sd.abs() <= _EPS) & (s0 < tol)
-    t0 = lo.amax(dim=-1).clamp(0.0, 1.0)                       # [..., 4]
-    t1 = hi.amin(dim=-1).clamp(0.0, 1.0)
+    t0 = clip(lo.amax(dim=-1), 0.0, 1.0)                       # [..., 4]
+    t1 = clip(hi.amin(dim=-1), 0.0, 1.0)
     ok = (t1 > t0) & ~infeasible.any(dim=-1)
     u = a + t0[..., None] * d
     v = a + t1[..., None] * d
@@ -61,7 +64,7 @@ def overlap_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     c2 = torch.flip(bev_corners(_as_bev5(boxes2)), dims=[-2])
     area = (_clip_edge_contributions(c1, c2, own_boundary=True)
             + _clip_edge_contributions(c2, c1, own_boundary=False))
-    return area.clamp_min(0.0)
+    return torch.maximum(area, area.new_zeros(()))
 
 
 def iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
@@ -70,9 +73,34 @@ def iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = overlap_bev(b1, b2)
     a1 = b1[..., 2] * b1[..., 3]
     a2 = b2[..., 2] * b2[..., 3]
-    return inter / (a1 + a2 - inter).clamp_min(1e-7)
+    union = a1 + a2 - inter
+    return inter / torch.maximum(union, union.new_tensor(1e-7))
 
 
 def iou_bev_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """[N, .] x [M, .] -> [N, M] rotated BEV IoU."""
     return iou_bev(boxes1[:, None, :], boxes2[None, :, :])
+
+
+def overlap_height(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """z-extent overlap of gravity-center boxes [..., 7]; broadcasts."""
+    zmax1 = boxes1[..., 2] + boxes1[..., 5] * 0.5
+    zmin1 = boxes1[..., 2] - boxes1[..., 5] * 0.5
+    zmax2 = boxes2[..., 2] + boxes2[..., 5] * 0.5
+    zmin2 = boxes2[..., 2] - boxes2[..., 5] * 0.5
+    h = torch.minimum(zmax1, zmax2) - torch.maximum(zmin1, zmin2)
+    return torch.maximum(h, h.new_zeros(()))
+
+
+def iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Rotated 3D IoU of [..., 7] boxes; broadcasts."""
+    inter = overlap_bev(boxes1, boxes2) * overlap_height(boxes1, boxes2)
+    v1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    v2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    union = v1 + v2 - inter
+    return inter / torch.maximum(union, union.new_tensor(1e-7))
+
+
+def iou_3d_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """[N, 7] x [M, 7] -> [N, M] rotated 3D IoU."""
+    return iou_3d(boxes1[:, None, :], boxes2[None, :, :])

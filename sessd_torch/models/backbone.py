@@ -1,5 +1,6 @@
-"""Sparse 3D middle backbone, all-sparse serving plan (port of
-``sessd_tpu/models/backbone.py:277-284, 334-383``).
+"""Sparse 3D middle backbone (port of ``sessd_tpu/models/backbone.py``):
+the all-sparse serving plan (``:277-284, 334-383``) and the training plans
+(``:385-425``).
 
 Stage plan (channels / resolution, input sparse shape (41, 1600, 1408)):
     2 x subm(4->16, 16->16)                       @ (41, 1600, 1408)
@@ -9,11 +10,16 @@ Stage plan (channels / resolution, input sparse shape (41, 1600, 1408)):
     spconv k(3,1,1) s(2,1,1) (64->64)             @ ( 2,  200,  176)
     -> dense [B, 2, 200, 176, 64] -> BEV [B, 64*2, 200, 176]
 
-Every block is one call of the fused sparse conv kernel
+Serving: every block is one call of the fused sparse conv kernel
 (``ops/cuda/sparse_conv.py``) on row-major ``[cap_stage, C]`` features, with
 the BatchNorm scale folded into the weights before the cast to the compute
-dtype. The rulebook chain is the host-built one
-(``sessd_tpu.utils.native.build_rulebooks``); the TPU's transposed
+dtype. Training (``forward_train``): each sparse block is
+``SparseConvFunction`` (the K4 forward and K5 backward kernels) + masked
+batch-statistics BatchNorm + ReLU; from ``dense_from_stage`` on the grid is
+densified and the blocks run as masked dense ``conv3d`` (submanifold conv ==
+dense conv x occupancy; strided sparse conv == dense strided conv x covered
+mask), re-masked after the BatchNorm. The rulebook chain is the host-built
+one (``sessd_tpu.utils.native.build_rulebooks``); the TPU's transposed
 ``[C, cols]`` layout, windows and patch lists have no counterpart here.
 """
 from __future__ import annotations
@@ -23,10 +29,11 @@ from typing import Callable, List, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops import sparse as sp
 from ..ops.cuda.sparse_conv import fused_sparse_conv
-from .layers import BatchNorm, uniform_
+from .layers import BatchNorm, derived, uniform_
 
 # (channels, n_subm, down_kernel, down_stride, down_pad) per stage
 PLAN = [
@@ -83,14 +90,21 @@ class SpMiddleFHD(nn.Module):
 
     def folded(self, dtype: torch.dtype):
         """Per block (w2 [K, Cin, Cout] in ``dtype``, bias [Cout] f32) with
-        the BN scale folded in, w2 = W * s (backbone.py:99-100)."""
-        out = []
-        for conv, bn in self.blocks():
-            s, b = bn.fold()
-            w = conv.weight.float()
-            w = w.reshape(-1, w.shape[-2], w.shape[-1])
-            out.append(((w * s).to(dtype).contiguous(), b.contiguous()))
-        return out
+        the BN scale folded in, w2 = W * s (backbone.py:99-100); made once
+        and kept outside autograd (``layers.derived``)."""
+        def fold():
+            out = []
+            for conv, bn in self.blocks():
+                s, b = bn.fold()
+                w = conv.weight.float()
+                w = w.reshape(-1, w.shape[-2], w.shape[-1])
+                out.append(((w * s).to(dtype).contiguous(), b.contiguous()))
+            return out
+
+        sources = [t for conv, bn in self.blocks()
+                   for t in (conv.weight, bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var)]
+        return derived(self, ("folded", dtype), sources, fold)
 
     def forward(self, voxel_features: torch.Tensor, rulebooks: dict,
                 batch_size: int, sparse_shape, dtype: torch.dtype,
@@ -117,3 +131,71 @@ class SpMiddleFHD(nn.Module):
         # channel order c*D + d, the reference's [N, C, D, H, W] ->
         # [N, C*D, H, W] view (scn.py:186-188)
         return dense.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)
+
+    def forward_train(self, voxel_features: torch.Tensor, rulebooks: dict,
+                      batch_size: int, sparse_shape, dtype: torch.dtype,
+                      dense_from_stage: int = 3) -> torch.Tensor:
+        """The training forward (BatchNorm in batch-statistics mode when the
+        module is in training mode). Same inputs and output as ``forward``.
+        Stages below ``dense_from_stage`` (and the strided conv into it) run
+        sparse; the rest dense. With autograd on, each rulebook's inverse is
+        built once and shared by the convs that use it."""
+        ids = rulebooks["ids"]
+        valid = [i < sp.SENTINEL for i in ids]
+        shape = (batch_size,) + tuple(sparse_shape)
+        dfs = min(max(dense_from_stage, 1), 5)
+        x = voxel_features[rulebooks["perm"].long()]
+        x = torch.where(valid[0][:, None], x, 0.0).to(dtype)
+        blocks = iter(self.blocks())
+        grad = torch.is_grad_enabled()
+
+        def sparse_block(x, rb, mask, inv):
+            conv, bn = next(blocks)
+            w = conv.weight.reshape(-1, *conv.weight.shape[-2:]).to(dtype)
+            y = sp.SparseConvFunction.apply(x, w, rb, mask, inv)
+            return torch.relu(bn(y, mask[:, None]))
+
+        def dense_block(x, occ, stride, padding):
+            conv, bn = next(blocks)
+            # [kd, kh, kw, Cin, Cout] -> [Cout, Cin, kd, kh, kw]
+            w = conv.weight.permute(4, 3, 0, 1, 2).to(dtype)
+            y = F.conv3d(x, w, stride=stride, padding=padding) * occ
+            # re-mask: the BN shift makes empty sites nonzero, and the next
+            # conv would read them as neighbours (backbone.py:188-192)
+            return torch.relu(bn(y, occ > 0) * occ)
+
+        dense = occ = None
+        for stage, (_, n_subm, dk, ds, dp) in enumerate(PLAN):
+            if stage > 0 and stage <= dfs:
+                rb = rulebooks["down"][stage - 1]
+                inv = sp.inverse_rulebook(rb, x.shape[0]) if grad else None
+                x = sparse_block(x, rb, valid[stage], inv)
+                shape = sp.downsample_out_shape(shape, dk, ds, dp)
+            elif stage > 0:
+                occ = _cover_mask(occ, dk, ds, dp)
+                dense = dense_block(dense, occ, ds, dp)
+            if stage >= dfs and dense is None:
+                dense = sp.to_dense(x, ids[stage], shape).permute(
+                    0, 4, 1, 2, 3).contiguous()
+                occ = (sp.to_dense(torch.ones_like(x[:, :1]), ids[stage],
+                                   shape) > 0).to(dtype).permute(0, 4, 1, 2, 3)
+            if n_subm and stage < dfs:
+                rb = rulebooks["subm"][stage]
+                inv = sp.inverse_rulebook(rb, x.shape[0]) if grad else None
+                for _ in range(n_subm):
+                    x = sparse_block(x, rb, valid[stage], inv)
+            else:
+                for _ in range(n_subm):
+                    dense = dense_block(dense, occ, 1, 1)
+        if dense is None:
+            dense = sp.to_dense(x, ids[4], shape).permute(0, 4, 1, 2, 3)
+        b, c, d, h, w = dense.shape
+        return dense.reshape(b, c * d, h, w)
+
+
+def _cover_mask(occ: torch.Tensor, kernel, stride, padding) -> torch.Tensor:
+    """Occupancy [B, 1, D, H, W] -> the covered-output mask of a strided
+    conv: a site exists iff its window sees a voxel (backbone.py:212-219)."""
+    ones = occ.new_ones((1, 1) + tuple(kernel), dtype=torch.float32)
+    c = F.conv3d(occ.float(), ones, stride=stride, padding=padding)
+    return (c > 0).to(occ.dtype)

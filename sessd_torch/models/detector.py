@@ -1,11 +1,12 @@
 """VoxelNet detector assembly (port of ``sessd_tpu/models/detector.py``;
-reference detectors/voxelnet_sessd.py:5-43), serving form.
+reference detectors/voxelnet_sessd.py:5-43).
 
-reader (mean VFE) -> all-sparse SpMiddleFHD -> SSFA neck -> multi-group head.
+reader (mean VFE) -> SpMiddleFHD -> SSFA neck -> multi-group head.
 Submodules carry det3d's names (``reader``, ``backbone``, ``neck``,
 ``bbox_head``). Parameters are kept in float32; ``dtype`` is the compute
-dtype: the backbone folds and casts its weights per call, and the neck and
-head hold theirs in ``dtype``.
+dtype, to which every layer casts its weights per call. The parameter tree
+does not depend on the execution plan (``dense_from_stage``), so a student
+and its teacher share one state-dict layout.
 """
 from __future__ import annotations
 
@@ -28,16 +29,17 @@ class VoxelNet(nn.Module):
                  sparse_shape: Tuple[int, int, int] = (41, 1600, 1408),
                  tasks: Sequence[dict] = (dict(num_class=1,
                                                class_names=("Car",)),),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dense_from_stage: int = 3):
         super().__init__()
         self.sparse_shape = tuple(sparse_shape)
         self.dtype = dtype
+        # training plan: stages from here on run as masked dense conv3d
+        self.dense_from_stage = dense_from_stage
         self.reader = VoxelFeatureExtractorV3(num_input_features)
         self.backbone = SpMiddleFHD(num_input_features)
         self.neck = SSFA(128)
         self.bbox_head = MultiGroupHead(tasks, in_channels=128)
-        self.neck.to(dtype)
-        self.bbox_head.to(dtype)
 
     def reset_parameters(self, generator: torch.Generator):
         """Seeded random init with the JAX package's distributions: He-uniform
@@ -60,11 +62,19 @@ class VoxelNet(nn.Module):
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
                 rulebooks: dict, batch_size: int,
-                conv: Callable = fused_sparse_conv) -> list:
-        """voxels [B*cap0, P, F], num_points [B*cap0], host rulebook chain
-        as device tensors -> list of per-task dicts of [B, A, c] tensors in
-        the compute dtype."""
+                conv: Callable = fused_sparse_conv,
+                train: bool = False) -> list:
+        """voxels [B*V, P, F], num_points [B*V], host rulebook chain as
+        device tensors -> list of per-task dicts of [B, A, c] tensors in the
+        compute dtype. ``train`` takes the training plan
+        (``SpMiddleFHD.forward_train`` at ``dense_from_stage``); BatchNorm
+        uses batch statistics when the module is in training mode."""
         feats = self.reader(voxels, num_points)
-        bev = self.backbone(feats, rulebooks, batch_size, self.sparse_shape,
-                            self.dtype, conv=conv)
+        if train:
+            bev = self.backbone.forward_train(
+                feats, rulebooks, batch_size, self.sparse_shape, self.dtype,
+                self.dense_from_stage)
+        else:
+            bev = self.backbone(feats, rulebooks, batch_size,
+                                self.sparse_shape, self.dtype, conv=conv)
         return self.bbox_head(self.neck(bev))

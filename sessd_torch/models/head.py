@@ -12,6 +12,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .layers import Conv2d
+
 
 class TaskHead(nn.Module):
     def __init__(self, in_channels: int = 128, num_anchor_per_loc: int = 2,
@@ -20,15 +22,15 @@ class TaskHead(nn.Module):
         super().__init__()
         na = num_anchor_per_loc
         self.na = na
-        self.conv_box = nn.Conv2d(in_channels, na * box_code_size, 1)
-        self.conv_cls = nn.Conv2d(in_channels, na * num_class, 1)
-        self.conv_iou = nn.Conv2d(in_channels, na, 1)
+        self.conv_box = Conv2d(in_channels, na * box_code_size, 1)
+        self.conv_cls = Conv2d(in_channels, na * num_class, 1)
+        self.conv_iou = Conv2d(in_channels, na, 1)
         # (output name, conv attribute, channels per anchor)
         self.heads = [("box_preds", "conv_box", box_code_size),
                       ("cls_preds", "conv_cls", num_class),
                       ("iou_preds", "conv_iou", 1)]
         if use_dir:
-            self.conv_dir = nn.Conv2d(in_channels, na * 2, 1)
+            self.conv_dir = Conv2d(in_channels, na * 2, 1)
             self.heads.append(("dir_cls_preds", "conv_dir", 2))
 
     def forward(self, x: torch.Tensor) -> dict:

@@ -1,26 +1,66 @@
-"""Shared building blocks (port of ``sessd_tpu/models/layers.py``, serving
-half): the inference BatchNorm with its affine fold, and the reference's
-conv + BN + ReLU triples for the dense BEV stages.
+"""Shared building blocks (port of ``sessd_tpu/models/layers.py``): the
+BatchNorm of the sparse, dense-3D and BEV stages in both modes, its affine
+fold for serving, and the reference's conv + BN + ReLU triples.
 
-Norm semantics follow the reference: BatchNorm eps 1e-3 (scn.py:103,
-rpn_v1.py:131). Training-mode statistics come with the training port.
+Norm semantics follow the reference: BatchNorm eps 1e-3 and momentum 0.01
+(scn.py:103, rpn_v1.py:131), i.e. flax momentum 0.99. Parameters stay
+float32; convs cast their weights to the dtype of their input, which is the
+compute dtype (flax's ``nn.Conv(dtype=...)``). Outside autograd (serving,
+the teacher) those casts and the BatchNorm fold are made once and kept
+(``derived``), so a request launches no per-call weight casts.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+
+def derived(module: nn.Module, key, sources: Sequence[torch.Tensor],
+            make: Callable):
+    """``make()``, a value computed from the tensors ``sources`` alone.
+
+    With autograd on it is made at every call, so gradients flow through
+    it. Without (``no_grad``, ``inference_mode``) it is kept on ``module``
+    under ``key`` and made again only when a source changed: another tensor
+    or storage (``module.to``, ``load_state_dict(assign=True)``) or an
+    in-place update (optimizer step, EMA, ``copy_``), which bumps the
+    tensor's version counter.
+    """
+    if torch.is_grad_enabled():
+        return make()
+    stamp = tuple((id(t), t.data_ptr(), t._version) for t in sources)
+    store = module.__dict__.setdefault("_derived", {})
+    hit = store.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = store[key] = (stamp, make())
+    return hit[1]
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over channel dim 1, with the reference's parameter
-    and buffer names (``weight``, ``bias``, ``running_mean``,
-    ``running_var``) so det3d state dicts load as they are."""
+    """BatchNorm over channel dim 1, with the reference's parameter and
+    buffer names (``weight``, ``bias``, ``running_mean``, ``running_var``)
+    so det3d state dicts load as they are.
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    In training mode it normalizes with batch statistics taken in f32 and
+    moves the running statistics by ``momentum`` towards them, the variance
+    biased in both places (flax, unlike ``F.batch_norm``, never applies
+    Bessel's correction):
+
+    - with ``mask`` (the sparse backbone's padded rows, the dense stages'
+      occupancy): ``MaskedBatchNorm`` (sessd_tpu/models/layers.py:48-62),
+      moments over the rows where the mask holds, var = E[(x - mean)^2];
+    - without: flax ``nn.BatchNorm`` (``batch_norm_2d``), var = E[x^2] -
+      E[x]^2 clipped at 0.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -40,10 +80,66 @@ class BatchNorm(nn.Module):
              * self.weight.float())
         return s, self.bias.float() - self.running_mean.float() * s
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s, b = self.fold()
+    def _batch_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        dims = [d for d in range(xf.dim()) if d != 1]
+        if mask is None:
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            return mean, var
+        m = mask.to(xf.dtype)
+        cnt = torch.clamp_min(m.expand_as(xf[:, :1]).sum(), 1.0)
+        shape = (1, -1) + (1,) * (xf.dim() - 2)
+        mean = (xf * m).sum(dims) / cnt
+        var = (((xf - mean.view(shape)) ** 2) * m).sum(dims) / cnt
+        return mean, var
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [N, C, ...]; ``mask`` (training only) broadcasts against x with
+        size 1 on the channel dim. Returns x's dtype."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * s.view(shape).to(x.dtype) + b.view(shape).to(x.dtype)
+        if not self.training:
+            s, b = derived(self, ("fold", x.dtype, x.dim()),
+                           (self.weight, self.bias, self.running_mean,
+                            self.running_var),
+                           lambda: tuple(t.view(shape).to(x.dtype)
+                                         for t in self.fold()))
+            return x * s + b
+        xf = x.float()
+        mean, var = self._batch_stats(xf, mask)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(
+                self.momentum * var)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        out = (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        return out.to(x.dtype)
+
+
+def _cast(module: nn.Module, dtype: torch.dtype):
+    """(weight, bias or None) of a conv in ``dtype``."""
+    params = [p for p in (module.weight, module.bias) if p is not None]
+    cast = derived(module, dtype, params,
+                   lambda: [p.to(dtype) for p in params])
+    return cast[0], (cast[1] if module.bias is not None else None)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype (f32 parameters)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, *_cast(self, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = _cast(self, x.dtype)
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 @torch.no_grad()
@@ -65,13 +161,13 @@ def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
     sessd_tpu/models/layers.py:102-116 (odd kernels, as SSFA uses).
     """
     if transpose:
-        conv = nn.ConvTranspose2d(cin, cout, kernel, stride=stride,
-                                  padding=kernel // 2,
-                                  output_padding=stride - 1, bias=False)
+        conv = ConvTranspose2d(cin, cout, kernel, stride=stride,
+                               padding=kernel // 2,
+                               output_padding=stride - 1, bias=False)
     else:
-        conv = nn.Conv2d(cin, cout, kernel, stride=stride,
-                         padding=kernel // 2 if padding is None else padding,
-                         bias=False)
+        conv = Conv2d(cin, cout, kernel, stride=stride,
+                      padding=kernel // 2 if padding is None else padding,
+                      bias=False)
     layers = [conv, BatchNorm(cout)]
     if relu:
         layers.append(nn.ReLU())

@@ -29,7 +29,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sessd_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX_BYTES = {torch.int16: 2, torch.int32: 4}
 
@@ -50,6 +51,32 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
+def _compile(srcs, lib_path: pathlib.Path) -> str:
+    """One nvcc per source, all started together, then one link; the
+    library appears on ``lib_path`` through a single rename."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    log += res.stdout + res.stderr
+    for obj in objs:
+        obj.unlink()
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+    os.replace(tmp, lib_path)  # atomic: concurrent builders agree
+    return log
+
+
 def build() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` (once per source/flag hash) and load it."""
     global _library
@@ -57,35 +84,45 @@ def build() -> ctypes.CDLL:
         if _library is not None:
             return _library
         srcs = sorted(CSRC.glob("*.cu"))
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in srcs:
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+        for src in sorted(CSRC.glob("*.cu*")):
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
         lib_path = BUILD_DIR / f"libsessd_torch_{digest.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
-        log = ""
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-            os.replace(tmp, lib_path)  # atomic: concurrent builders agree
+        log = "" if lib_path.exists() else _compile(srcs, lib_path)
         lib = ctypes.CDLL(str(lib_path))
-        fn = lib.sessd_fused_sparse_conv
-        fn.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # feats, rb, w2, bias, out; n_in, n_out, cin, cout, taps, dtype,
         # idx_bytes, relu; stream
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+        lib.sessd_fused_sparse_conv.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
+        # dtype, idx_bytes; stream
+        lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        # dout, inv, wt, dfeat; n_out, n_in, cin, cout, taps, dtype,
+        # idx_bytes; stream
+        lib.sessd_sparse_conv_dfeat.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        # feats, rb, dout, partial, dw; n_in, n_out, cin, cout, taps,
+        # chunk_rows, dtype, idx_bytes; stream
+        lib.sessd_sparse_conv_dw.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        for fn in (lib.sessd_fused_sparse_conv, lib.sessd_sparse_conv_fwd,
+                   lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw):
+            fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
-        lib.sessd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sessd_cuda_error_string.argtypes = [i32]
         build_info.update(path=str(lib_path), log=log,
                           seconds=time.perf_counter() - t0)
         _library = lib
         return lib
+
+
+def raise_on_error(lib, rc: int, what: str):
+    """Raise for a nonzero return of a C entry point; the entry points also
+    answer cudaErrorInvalidValue for a shape or type they have no instance
+    of."""
+    if rc != 0:
+        msg = lib.sessd_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {rc} ({msg})")
 
 
 def fused_sparse_conv_ref(feats: torch.Tensor, rb: torch.Tensor,
@@ -160,12 +197,8 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
             out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
             _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype], int(relu),
             stream)
-    if rc != 0:
-        # the C entry point also answers cudaErrorInvalidValue for a
-        # (Cin, Cout, K) it has no instance of (sparse_conv.cu dispatch)
-        msg = lib.sessd_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_sparse_conv launch failed for Cin={cin}, "
-                           f"Cout={cout}, K={taps}: {rc} ({msg})")
+    raise_on_error(lib, rc, f"fused_sparse_conv (Cin={cin}, Cout={cout}, "
+                            f"K={taps})")
     fused_sparse_conv.launches += 1
     return out
 

@@ -1,5 +1,7 @@
-"""Sparse-tensor helpers of the serving path (port of the parts of
-``sessd_tpu/ops/sparse.py`` that serving reaches).
+"""Sparse-tensor helpers (port of the parts of ``sessd_tpu/ops/sparse.py``
+that serving and training reach) and the trainable sparse conv,
+``SparseConvFunction`` (port of ``windowed_conv`` and its custom VJP,
+``sessd_tpu/ops/pallas/wconv.py:100-187, 526-579``).
 
 A sparse tensor is features ``[N, C]`` (row-major) plus int32 voxel ids
 ``[N]``, linearized z-minor as ``((b*H + y)*W + x)*D + z``, sorted ascending,
@@ -43,15 +45,17 @@ def downsample_out_shape(shape, kernel: Sequence[int], stride: Sequence[int],
 def gather_gemm(features: torch.Tensor, rulebook: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """The implicit GEMM: gather K rows per output (row N_in = a zero row),
-    then one f32 matmul with weights [K, Cin, Cout]. Returns f32 [N_out, Cout].
+    then one matmul with weights [K, Cin, Cout] in f32 (f64 for f64 inputs).
+    Returns [N_out, Cout] in that type.
     """
     n_in, cin = features.shape
     n_out, k = rulebook.shape
     cout = weights.shape[-1]
+    acc = torch.promote_types(features.dtype, torch.float32)
     padded = torch.cat([features, features.new_zeros(1, cin)])
     g = padded.index_select(0, rulebook.reshape(-1).long())
-    return torch.matmul(g.reshape(n_out, k * cin).float(),
-                        weights.reshape(k * cin, cout).float())
+    return torch.matmul(g.reshape(n_out, k * cin).to(acc),
+                        weights.reshape(k * cin, cout).to(acc))
 
 
 def sparse_conv_apply(features: torch.Tensor, rulebook: torch.Tensor,
@@ -62,6 +66,66 @@ def sparse_conv_apply(features: torch.Tensor, rulebook: torch.Tensor,
     features' dtype, zero where ``out_mask`` is False."""
     out = gather_gemm(features, rulebook, weights)
     return torch.where(out_mask[:, None], out, 0.0).to(features.dtype)
+
+
+def inverse_rulebook(rulebook: torch.Tensor, n_in: int) -> torch.Tensor:
+    """inv [n_in, K] with inv[rulebook[n, k], k] = n, and N_out where no
+    output reads input row i through tap k; in the rulebook's dtype.
+
+    Each tap's map is injective (distinct outputs of a subm or strided conv
+    read distinct inputs through one offset), so the scatter has no
+    collisions and the input gradient becomes a gather over ``inv``. Index
+    bookkeeping only, built once per rulebook and step and shared by the
+    convs that use the rulebook."""
+    n_out, k = rulebook.shape
+    rb = rulebook.long()
+    hit = rb < n_in
+    flat = torch.where(hit, rb * k + torch.arange(k, device=rb.device),
+                       n_in * k)
+    rows = torch.arange(n_out, device=rb.device)[:, None].expand(n_out, k)
+    inv = torch.full((n_in * k + 1,), n_out, dtype=torch.long,
+                     device=rb.device)
+    inv.scatter_(0, flat.reshape(-1), rows.reshape(-1))
+    return inv[:n_in * k].reshape(n_in, k).to(rulebook.dtype)
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """out = sparse_conv_apply(feats, rulebook, w2, out_mask) with a
+    backward of its own: forward through the K4 kernel
+    (``ops.cuda.sparse_conv_train.sparse_conv_fwd``), input gradient as a
+    gather-GEMM over the inverse rulebook (``sparse_conv_dfeat``) and weight
+    gradient as a split-K reduction (``sparse_conv_dw``). Saves the
+    features, rulebooks and weights, not the gathered rows. On CPU tensors
+    every step runs the kernels' plain twins.
+
+    apply(feats [N_in, Cin], w2 [K, Cin, Cout] in feats' dtype, rulebook
+    [N_out, K], out_mask [N_out] bool, inv [N_in, K] or None) -> [N_out,
+    Cout] in feats' dtype."""
+
+    @staticmethod
+    def forward(ctx, feats, w2, rulebook, out_mask, inv):
+        from .cuda.sparse_conv_train import sparse_conv_fwd
+
+        ctx.save_for_backward(feats, w2, rulebook, out_mask, inv)
+        return sparse_conv_fwd(feats, rulebook, w2, out_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from .cuda.sparse_conv_train import (sparse_conv_dfeat,
+                                             sparse_conv_dw)
+
+        feats, w2, rulebook, out_mask, inv = ctx.saved_tensors
+        # rows outside out_mask were zeroed after the GEMM: no gradient
+        dout = torch.where(out_mask[:, None], dout, 0.0).to(
+            feats.dtype).contiguous()
+        dfeat = dw = None
+        if ctx.needs_input_grad[0]:
+            if inv is None:
+                inv = inverse_rulebook(rulebook, feats.shape[0])
+            dfeat = sparse_conv_dfeat(dout, inv, w2)
+        if ctx.needs_input_grad[1]:
+            dw = sparse_conv_dw(feats, rulebook, dout)
+        return dfeat, dw, None, None, None
 
 
 def to_dense(features: torch.Tensor, ids: torch.Tensor, shape) -> torch.Tensor:

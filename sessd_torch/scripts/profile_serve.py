@@ -16,7 +16,8 @@ Per request it reports medians (and p90) over ``REQUESTS`` requests of:
   CUDA events recorded by forward hooks;
 - ``busy``: device time per request under ``torch.profiler``, the union of
   the kernel, memcpy and memset intervals, over ``PROFILED`` more requests;
-  ``conv``, the part of it in the fused sparse conv kernel; ``device_ops``,
+  ``conv``, the part of it in the fused sparse conv kernel
+  (``fused_sparse_conv_kernel``); ``device_ops``,
   the device activities per request; and the ``TOP`` activities by time.
 
 From these: the device's idle share of the infer window, 1 - busy / infer,
@@ -134,7 +135,9 @@ def run_regime(marks, infer, prep, scenes) -> dict:
                                       for r in rows]))
     out["busy"] = busy / PROFILED / 1e3
     out["conv"] = sum(us for name, us in by_name.items()
-                      if "fused_sparse_conv" in name) / PROFILED / 1e3
+                      if "fused_sparse_conv_kernel" in name) / PROFILED / 1e3
+    if out["conv"] == 0:
+        raise RuntimeError("no fused_sparse_conv_kernel in the profile")
     out["device_ops"] = n_ops / PROFILED
     out["idle_infer"] = 1.0 - out["busy"] / out["infer"]
     out["idle_request"] = 1.0 - out["busy"] / out["request"]

@@ -24,14 +24,29 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from sessd_tpu.serve import (SERVING_CAPS, TRAIN_CAPS, HostPreprocessor,
-                             saturated_stages)
+from sessd_tpu.serve import SERVING_CAPS, TRAIN_CAPS
+from sessd_tpu.serve import HostPreprocessor as _HostPreprocessor
+from sessd_tpu.serve import saturated_stages
 from sessd_tpu.utils.synth_scene import make_scene
 
 from .models.predict import PredictConfig, predict_batch
+from .utils.native import ensure_native
 
 __all__ = ["SERVING_CAPS", "TRAIN_CAPS", "HostPreprocessor", "make_scene",
            "stage_inputs", "make_infer_fn", "ExactBatchServer"]
+
+
+class HostPreprocessor(_HostPreprocessor):
+    """``sessd_tpu.serve.HostPreprocessor`` on the library that
+    ``ensure_native`` builds and loads under a lock shared by all processes,
+    so a fresh checkout never meets a half-written library (the reference
+    constructor takes ``get_native()``, which may have cached ``None``;
+    ``ensure_native`` hands it the library that is now whole)."""
+
+    def __init__(self, spec, stage_capacity=TRAIN_CAPS,
+                 num_input_features: int = 4, ring: int = 4):
+        ensure_native()
+        super().__init__(spec, stage_capacity, num_input_features, ring)
 
 
 def _to_device(a, device) -> torch.Tensor:

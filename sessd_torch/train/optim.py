@@ -1,0 +1,107 @@
+"""One-cycle AdamW with global-norm clipping (port of
+``sessd_tpu/train/optim.py``), written out by hand so that each step is the
+one optax takes:
+
+- one-cycle schedule (learning_schedules_fastai.py:77-96): two cosine
+  phases split at ``pct_start``; lr lr_max/div -> lr_max -> lr_max/div/1e4,
+  Adam's beta1 moms[0] -> moms[1] -> moms[0]; evaluated in float32 at the
+  update count, as ``optax.inject_hyperparams`` does;
+- ``optax.clip_by_global_norm``: g * max_norm / ||g|| once ||g|| reaches
+  max_norm (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``);
+- ``optax.adamw``: bias correction with the *scheduled* beta1 of this step,
+  eps outside the square root, then decoupled weight decay on every
+  parameter (biases and BatchNorm affines included), then -lr.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+f32 = np.float32
+
+
+@dataclass(frozen=True)
+class OneCycleConfig:
+    lr_max: float = 3e-3
+    moms: tuple = (0.95, 0.85)
+    div_factor: float = 10.0
+    pct_start: float = 0.4
+    total_steps: int = 1
+    wd: float = 0.01
+    beta2: float = 0.99
+    eps: float = 1e-8
+    grad_clip_norm: float = 35.0
+
+
+def annealing_cos(start: float, end: float, pct) -> np.float32:
+    cos_out = np.cos(f32(math.pi) * f32(pct)) + f32(1.0)
+    return f32(end) + f32((start - end) / 2.0) * cos_out
+
+
+def _one_cycle(cfg: OneCycleConfig, start, mid, end) -> Callable:
+    a1 = int(cfg.total_steps * cfg.pct_start)
+
+    def sched(step: int) -> float:
+        step = min(int(step), cfg.total_steps)
+        if step < a1:
+            return float(annealing_cos(start, mid, f32(step) / f32(max(a1, 1))))
+        return float(annealing_cos(
+            mid, end, f32(step - a1) / f32(max(cfg.total_steps - a1, 1))))
+
+    return sched
+
+
+def one_cycle_lr(cfg: OneCycleConfig) -> Callable:
+    low = cfg.lr_max / cfg.div_factor
+    return _one_cycle(cfg, low, cfg.lr_max, low / 1e4)
+
+
+def one_cycle_mom(cfg: OneCycleConfig) -> Callable:
+    return _one_cycle(cfg, cfg.moms[0], cfg.moms[1], cfg.moms[0])
+
+
+class AdamW:
+    """optax.chain(clip_by_global_norm, inject_hyperparams(adamw)) over a
+    list of f32 parameters. ``step(grads)`` updates the parameters in place
+    and returns the gradients' global norm before clipping."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable,
+                 b1_fn: Callable, b2: float = 0.99, eps: float = 1e-8,
+                 wd: float = 0.01, grad_clip_norm: float = 35.0):
+        self.params: List[torch.Tensor] = list(params)
+        self.lr_fn, self.b1_fn = lr_fn, b1_fn
+        self.b2, self.eps, self.wd = b2, eps, wd
+        self.clip = grad_clip_norm
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        grads = [g.float() for g in grads]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        # a select, not a scale by min(1, c/n): below the bound the
+        # gradient passes bit for bit
+        clipped = norm >= self.clip
+        # the hyperparameters as float32 values, as optax holds them
+        lr, b1, b2 = f32(self.lr_fn(self.count)), f32(self.b1_fn(self.count)), f32(self.b2)
+        t = self.count + 1
+        c1, c2 = float(f32(1) - b1 ** t), float(f32(1) - b2 ** t)
+        d1, d2 = float(f32(1) - b1), float(f32(1) - b2)
+        lr, b1, b2 = float(lr), float(b1), float(b2)
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            g = torch.where(clipped, g / norm * self.clip, g)
+            mu.mul_(b1).add_(g * d1)
+            nu.mul_(b2).add_(g * g * d2)
+            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.wd * p
+            p.add_(u * -lr)
+        self.count += 1
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}

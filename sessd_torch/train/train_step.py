@@ -1,0 +1,112 @@
+"""The SE-SSD training step (port of ``sessd_tpu/train/train_step.py``):
+teacher forward, student forward and backward, every loss term, clipped
+one-cycle AdamW and the EMA update (trainer_sessd.py:248-360).
+
+The teacher is a second ``VoxelNet`` holding the EMA parameters; it runs
+in training mode under ``no_grad``, so its BatchNorm layers normalize with
+batch statistics and move their own running statistics, which are the
+EMA batch stats (not an average of the student's). ``alpha = min(1 -
+1/(step+1), cap)`` is taken before the step counter moves. The modules are
+updated in place; the step returns its metrics as 0-dim tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .losses import LossConfig, consistency_loss, detection_loss
+from .optim import AdamW
+
+
+@dataclass
+class TrainState:
+    step: int
+    student: torch.nn.Module      # params + batch_stats
+    teacher: torch.nn.Module      # ema_params + ema_batch_stats
+    optimizer: AdamW              # opt_state, over student.parameters()
+
+
+def sigmoid_rampup(epoch, rampup_epochs: float = 15.0) -> float:
+    """Consistency-weight ramp (trainer_sessd.py:305-312)."""
+    current = np.clip(np.float32(epoch), 0.0, rampup_epochs)
+    phase = np.float32(1.0) - current / np.float32(rampup_epochs)
+    return float(np.exp(np.float32(-5.0) * phase * phase))
+
+
+def _flat(batch: dict, suffix: str = ""):
+    """Loader layout [B, V, ...] -> the model's (voxels [B*V, P, F],
+    num_points [B*V], rulebook chain)."""
+    vox = batch["voxels" + suffix]
+    b, v = vox.shape[:2]
+    return (vox.reshape(b * v, *vox.shape[2:]),
+            batch["num_points" + suffix].reshape(b * v),
+            batch["rulebooks" + suffix], b)
+
+
+def make_train_step(loss_cfg: LossConfig = LossConfig(),
+                    ema_decay_cap: float = 0.999,
+                    compute_teacher_metrics: bool = True,
+                    enable_ssl: bool = True):
+    """Returns ``train_step(state, batch, consistency_weight) -> metrics``.
+
+    batch (leading dim B, on the modules' device): voxels [B, V, P, F],
+    num_points [B, V], rulebooks (the host chain of the batch, as tensors),
+    the same three with the ``_raw`` suffix (teacher inputs, un-augmented),
+    anchors [B, A, 7], labels / reg_targets (+ ``_raw``) [B, A(, 7)],
+    transformation: flipped / noise_rotation / noise_scale [B].
+
+    ``enable_ssl=False`` is the CIA-SSD supervised step: no teacher forward
+    and no consistency loss; the EMA parameters are still kept and the
+    teacher's BatchNorm statistics mirror the student's.
+    """
+
+    def train_step(state: TrainState, batch: dict, consistency_weight):
+        stu, tea = state.student, state.teacher
+        voxels, num_points, rb, b = _flat(batch)
+        if enable_ssl:
+            tea.train()
+            with torch.no_grad():
+                preds_tea = tea(*_flat(batch, "_raw")[:3], b, train=True)[0]
+
+        stu.train()
+        preds_stu = stu(voxels, num_points, rb, b, train=True)[0]
+        total, metrics = detection_loss(preds_stu, batch, loss_cfg)
+        if enable_ssl:
+            cons, cons_dir = consistency_loss(
+                preds_stu, preds_tea, batch["anchors"],
+                batch["transformation"], loss_cfg.consistency)
+            total = total + consistency_weight * cons
+            metrics.update(consistency_loss=cons,
+                           consistency_dir_loss=cons_dir)
+        metrics["loss"] = total
+        params = state.optimizer.params
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        metrics["grad_norm"] = state.optimizer.step(grads)
+
+        # EMA teacher update (trainer_sessd.py:315-318)
+        a32 = min(np.float32(1.0) - np.float32(1.0)
+                  / (np.float32(state.step) + np.float32(1.0)),
+                  np.float32(ema_decay_cap))
+        alpha, beta = float(a32), float(np.float32(1.0) - a32)
+        with torch.no_grad():
+            for e, p in zip(tea.parameters(), stu.parameters()):
+                e.copy_(alpha * e + beta * p)
+            if not enable_ssl:
+                for e, s in zip(tea.buffers(), stu.buffers()):
+                    e.copy_(s)
+
+        if enable_ssl and compute_teacher_metrics:
+            with torch.no_grad():
+                tea_loss, tea_metrics = detection_loss(
+                    preds_tea, batch, loss_cfg, labels_key="labels_raw",
+                    reg_targets_key="reg_targets_raw", include_odiou=False)
+            metrics.update({k + "_ema": v for k, v in tea_metrics.items()})
+            metrics["loss_ema"] = tea_loss
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

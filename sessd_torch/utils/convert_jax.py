@@ -77,3 +77,18 @@ def convert_jax(variables: dict) -> Dict[str, torch.Tensor]:
 
     return {k: torch.tensor(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def convert_train_state(state) -> dict:
+    """A JAX ``TrainState`` (sessd_tpu/train/train_step.py; numpy or
+    array-like leaves) -> {"step": int, "student": state dict of ``params``
+    + ``batch_stats``, "teacher": state dict of ``ema_params`` +
+    ``ema_batch_stats``}, for the port's two ``VoxelNet`` modules. The
+    optimizer state is not carried."""
+    return {
+        "step": int(np.asarray(state.step)),
+        "student": convert_jax({"params": state.params,
+                                "batch_stats": state.batch_stats}),
+        "teacher": convert_jax({"params": state.ema_params,
+                                "batch_stats": state.ema_batch_stats}),
+    }

@@ -14,7 +14,12 @@ import numpy as np
 import torch
 
 from sessd_tpu.data.rulebooks import DOWNS
-from sessd_tpu.utils.native import get_native
+from sessd_torch.utils.native import ensure_native
+
+# Built under a lock shared by every test process before any test runs:
+# each worker imports this module while it collects, so the host library is
+# whole before a test of either package loads it.
+NATIVE = ensure_native()
 
 SPARSE_SHAPE = (41, 32, 32)
 CAPS = (512, 512, 400, 256, 128)
@@ -39,7 +44,7 @@ def host_inputs(seed, b=1, v=300, sparse_shape=SPARSE_SHAPE, caps=CAPS,
                                        1)
         feats[o:o + v] = rng.randn(v, 4)
         valid[o:o + v] = True
-    rb = get_native().build_rulebooks(
+    rb = NATIVE.build_rulebooks(
         coords, valid, (b,) + tuple(sparse_shape), [c * b for c in caps],
         DOWNS, out_dtype=out_dtype)
     return feats, coords, valid, rb

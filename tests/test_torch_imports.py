@@ -1,6 +1,8 @@
 """The port runs where JAX is absent: importing every sessd_torch module
-pulls in neither jax nor flax, and neither importing nor running the CPU
-path tries to build the CUDA kernels (there is no nvcc on a CPU machine).
+(serving, training, tools) pulls in neither jax nor flax, and neither
+importing nor running the CPU path, the trainable sparse conv's backward
+included, tries to build the CUDA kernels (there is no nvcc on a CPU
+machine).
 ``chip_smoke.py`` reaches the port alone: it names no module of the JAX
 package, and without a CUDA device it exits non-zero with no result."""
 import ast
@@ -28,6 +30,17 @@ PROBE = textwrap.dedent("""
     out = sc.fused_sparse_conv(feats, rb, w2, torch.zeros(16), 6)
     assert out.shape == (2, 16) and not out[1].any()
     assert sc._library is None and sc.fused_sparse_conv.launches == 0
+    from sessd_torch.ops import sparse as sp
+    from sessd_torch.ops.cuda import sparse_conv_train as kt
+    x = feats.requires_grad_(True)
+    w = torch.randn(3, 4, 16, requires_grad=True)
+    rb32 = rb.int()
+    sp.SparseConvFunction.apply(x, w, rb32, torch.ones(2, dtype=torch.bool),
+                                None).sum().backward()
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+    assert sc._library is None
+    assert (kt.sparse_conv_fwd.launches, kt.sparse_conv_dfeat.launches,
+            kt.sparse_conv_dw.launches) == (0, 0, 0)
 
     bad = [m for m in ("jax", "flax", "jaxlib") if m in sys.modules]
     assert not bad, bad

@@ -1,19 +1,24 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
-card. Imports no JAX, so it runs on a GPU machine without it:
+card: the serving conv (K1) and the training conv's forward (K4), input
+gradient and weight gradient (K5). Imports no JAX, so it runs on a GPU
+machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Without a CUDA device the ``cuda`` tests skip. Tolerances, relative to the
 twin's largest output: 1e-4 in f32 (TF32 off in the twin's matmul; sums in
-another order) and 2e-2 in bf16 (both accumulate in f32; outputs round to
-bf16). Random rulebooks with no locality, ragged row counts and all-miss
-rows exercise what the serving chain may not.
+another order), 1e-3 for the weight gradient (a reduction over all rows),
+and 2e-2 in bf16 (both accumulate in f32; outputs round to bf16). Random
+rulebooks with no locality, ragged row counts and all-miss rows exercise
+what the host chains may not.
 """
 import numpy as np
 import pytest
 import torch
 
+from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import sparse_conv as sc
+from sessd_torch.ops.cuda import sparse_conv_train as kt
 
 # (Cin, Cout, K) of the backbone plan
 PLAN = [(4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
@@ -97,3 +102,153 @@ def test_wrapper_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="no kernel for device"):
         sc.fused_sparse_conv(feats, rb, w2, bias, N_IN)
     assert sc.fused_sparse_conv.launches == before
+
+
+TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def _train_inputs(cin, cout, k, seed=0):
+    """Injective taps (each tap maps distinct outputs to distinct inputs,
+    as a conv's rulebook does), misses, and a random output mask."""
+    rng = np.random.RandomState(seed)
+    rb = np.full((N_OUT, k), N_IN)
+    for t in range(k):
+        rows = rng.choice(N_OUT, int(N_OUT * 0.6), replace=False)
+        rb[rows, t] = rng.choice(N_IN, len(rows), replace=False)
+    feats = rng.randn(N_IN, cin).astype(np.float32)
+    w2 = (rng.randn(k, cin, cout) / np.sqrt(k * cin)).astype(np.float32)
+    dout = rng.randn(N_OUT, cout).astype(np.float32)
+    mask = rng.rand(N_OUT) > 0.1
+    return feats, rb, w2, dout, mask
+
+
+def _err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _on(cuda, dtype, idx_dtype, feats, rb, w2, dout, mask):
+    dev = lambda a, t: torch.from_numpy(a).to(cuda, t)  # noqa: E731
+    return (dev(feats, dtype), dev(rb, idx_dtype), dev(w2, dtype),
+            dev(dout, dtype), torch.from_numpy(mask).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in PLAN])
+def test_train_fwd_kernel_matches_twin(cuda, cin, cout, k, idx_dtype, dtype,
+                                       tol):
+    f, rb, w, _, m = _on(cuda, dtype, idx_dtype,
+                         *_train_inputs(cin, cout, k))
+    before = kt.sparse_conv_fwd.launches
+    got = kt.sparse_conv_fwd(f, rb, w, m)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N_OUT, cout)
+    assert _err(got, kt.sparse_conv_fwd_ref(f, rb, w, m)) <= tol
+    assert not got[~m].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", PLAN[1:],
+                         ids=[f"{a}x{b}x{c}" for a, b, c in PLAN[1:]])
+def test_train_dfeat_kernel_matches_twin(cuda, cin, cout, k, idx_dtype,
+                                         dtype, tol):
+    f, rb, w, d, _ = _on(cuda, dtype, idx_dtype,
+                         *_train_inputs(cin, cout, k))
+    inv = sp.inverse_rulebook(rb, N_IN)
+    before = kt.sparse_conv_dfeat.launches
+    got = kt.sparse_conv_dfeat(d, inv, w)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dfeat.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N_IN, cin)
+    assert _err(got, kt.sparse_conv_dfeat_ref(d, inv, w)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in PLAN])
+def test_train_dw_kernel_matches_twin(cuda, cin, cout, k, idx_dtype, dtype,
+                                      tol):
+    f, rb, w, d, _ = _on(cuda, dtype, idx_dtype,
+                         *_train_inputs(cin, cout, k))
+    before = kt.sparse_conv_dw.launches
+    got = kt.sparse_conv_dw(f, rb, d)
+    again = kt.sparse_conv_dw(f, rb, d)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dw.launches == before + 2
+    assert got.dtype == dtype and got.shape == (k, cin, cout)
+    assert _err(got, kt.sparse_conv_dw_ref(f, rb, d)) <= tol
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+def test_sparse_conv_function_on_card_matches_cpu(cuda):
+    """Forward and both gradients of SparseConvFunction through the kernels
+    against the same function on CPU tensors (the twins), f32."""
+    feats, rb, w2, dout, mask = _train_inputs(32, 64, 27, seed=1)
+    outs = []
+    for dev in ("cpu", cuda):
+        x = torch.from_numpy(feats).to(dev).requires_grad_(True)
+        w = torch.from_numpy(w2).to(dev).requires_grad_(True)
+        r = torch.from_numpy(rb).to(dev, torch.int32)
+        m = torch.from_numpy(mask).to(dev)
+        y = sp.SparseConvFunction.apply(x, w, r, m,
+                                        sp.inverse_rulebook(r, N_IN))
+        (y * torch.from_numpy(dout).to(dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, x.grad, w.grad)])
+    for got, want, tol in zip(outs[1], outs[0], (1e-4, 1e-4, 1e-3)):
+        assert _err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_kernels_profile_under_their_own_names(cuda):
+    """Each wrapper's launch shows in a device profile under a kernel name
+    of its own, the names the step and request profilers
+    (``sessd_torch/scripts/profile_*.py``) sum by."""
+    feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
+                           for a in _inputs(16, 32, 27))
+    f, r, w, d, m = _on(cuda, torch.float32, torch.int32,
+                        *_train_inputs(16, 32, 27))
+    inv = sp.inverse_rulebook(r, N_IN)
+    calls = {"fused_sparse_conv_kernel": lambda: sc.fused_sparse_conv(
+                 feats, rb.int(), w2, bias, N_IN),
+             "sparse_conv_fwd_kernel": lambda: kt.sparse_conv_fwd(f, r, w, m),
+             "sparse_conv_dfeat_kernel": lambda: kt.sparse_conv_dfeat(
+                 d, inv, w),
+             "sparse_conv_dw_partial_kernel": lambda: kt.sparse_conv_dw(
+                 f, r, d)}
+    for name, call in calls.items():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = {e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "sparse_conv" in e.name}
+        assert any(name in k for k in kernels), (name, kernels)
+        assert all(name in k or "sparse_conv_dw_reduce_kernel" in k
+                   for k in kernels), (name, kernels)
+
+
+def test_train_wrappers_raise_off_cpu_and_cuda():
+    feats, rb, w2, dout, mask = (torch.from_numpy(a).to("meta") for a in
+                                 _train_inputs(16, 32, 27))
+    for fn, args in ((kt.sparse_conv_fwd, (feats, rb, w2)),
+                     (kt.sparse_conv_dfeat, (dout, rb, w2)),
+                     (kt.sparse_conv_dw, (feats, rb, dout))):
+        before = fn.launches
+        with pytest.raises(ValueError, match="no kernel for device"):
+            fn(*args)
+        assert fn.launches == before

@@ -98,8 +98,13 @@ def test_builder_det3d_names_and_dtype():
     bf16 = builder.build_detector(
         Config.fromfile(CAR.replace("car.py", "car_bf16.py")))
     assert bf16.dtype == torch.bfloat16
-    assert bf16.neck.conv_0[0].weight.dtype == torch.bfloat16
+    # parameters stay f32 (the optimizer's master copy); convs cast their
+    # weights to the compute dtype of their input
+    assert bf16.neck.conv_0[0].weight.dtype == torch.float32
     assert bf16.backbone.middle_conv[0].weight.dtype == torch.float32
+    with torch.inference_mode():
+        y = bf16.eval().neck(torch.zeros(1, 128, 8, 8, dtype=torch.bfloat16))
+    assert y.dtype == torch.bfloat16
 
 
 def test_builder_predict_config_as_jax():

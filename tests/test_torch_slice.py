@@ -22,13 +22,13 @@ from sessd_tpu.data.rulebooks import DOWNS
 from sessd_tpu.models import predict as jpredict
 from sessd_tpu.serve import TRAIN_CAPS
 from sessd_tpu.utils.convert_torch import convert_state_dict
-from sessd_tpu.utils.native import get_native
 from sessd_torch.models.detector import VoxelNet
 from sessd_torch.models.predict import PredictConfig
 from sessd_torch.serve import make_infer_fn, stage_inputs
 from sessd_torch.utils.convert_jax import convert_jax
 from tests.golden_utils import reference_state_dict
-from tests.test_torch_common import (CAPS, SEED, as_int16, host_inputs,
+from tests.test_torch_common import (CAPS, NATIVE, SEED, as_int16,
+                                     host_inputs,
                                      jax_fused_reference,
                                      jax_voxelnet_variables, port_voxelnet,
                                      rel_err, to_torch)
@@ -91,8 +91,8 @@ def test_port_matches_reference_goldens():
     coords = np.zeros((cap0, 4), np.int32)
     coords[:n, 1:] = golden["coords_zyx"]
     valid = np.arange(cap0) < n
-    rb = get_native().build_rulebooks(coords, valid, (1, 41, 320, 352),
-                                      TRAIN_CAPS, DOWNS, out_dtype=np.int16)
+    rb = NATIVE.build_rulebooks(coords, valid, (1, 41, 320, 352),
+                                TRAIN_CAPS, DOWNS, out_dtype=np.int16)
     _, chain = stage_inputs(voxels[:, 0], rb, "cpu")
     with torch.inference_mode():
         preds = model(to_torch(voxels), to_torch(num_points), chain, 1)[0]
