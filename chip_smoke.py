@@ -12,19 +12,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    a ray-cast scene): f32 (TF32 off, bound 1e-4 of max|twin|) and bf16
    (bound 2e-2), batch 1 on int16 rulebooks and batch 4 on int32 ones.
    Per-conv times are CUDA-event medians of 20 launches.
+   The streaming kernel (K3) against its twin and against K1 on every conv
+   that streams in one bf16 batch-8 request at SERVING_CAPS (the 7 convs of
+   stages 1-2), with K3, K1 and twin times per conv.
 3. End-to-end serving through ``sessd_torch.serve.ExactBatchServer``: the
-   SE-SSD Car VoxelNet (sessd_tpu/configs/se_ssd_kitti_car_bf16.py, seeded
+   SE-SSD Car VoxelNet (sessd_torch/configs/se_ssd_kitti_car_bf16.py, seeded
    random weights, 70,400 anchors) serves 12 batch-1 requests and one
    batch-4 request with the cls bias at the focal prior, then one batch-1
-   request without it. Checks: finite outputs of the expected shapes,
-   exactly 14 kernel launches per request, and the head outputs of the
-   kernel path equal to the twin path's (f32, TF32 off) to 1e-3 of the max.
+   request without it, all through K1; then batch-8 serving, 6 requests of
+   eight scans, through 7 K1 and 7 K3 launches each (p50 and scenes/s).
+   Checks: finite outputs of the expected shapes, the launch counts per
+   request, and the head outputs of the kernel path equal to the twin
+   path's (f32, TF32 off) to 1e-3 of the max at batch 1 and batch 8.
 4. The training kernels against their twins: the forward (K4), input
    gradient and weight gradient (K5) of every sparse conv of both training
    plans (student: 10 convs on the augmented chain; teacher: 14 on the raw
    chain), full width, batch 4, the loader's int32 chains from a synthetic
-   KITTI root (tests/kitti_synth.py). Each conv takes the features the
-   previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
+   KITTI root (``sessd_torch.utils.kitti_synth``). Each conv takes the
+   features the previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
    weight gradient, a reduction over all rows), bf16 2e-2. Kernel and twin
    CUDA-event medians per conv (bf16, student chain).
 5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
@@ -36,15 +41,26 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. One f32 step (TF32 off) on one batch through the kernels and, from an
    identical state, through their twins: loss terms within 1e-4 relative,
    each gradient tensor within 1e-3 of its max.
+7. Evaluation on that f32 trainer: K3 against its twin and K1 on the 11
+   convs that stream in one batch-4 eval batch at TRAIN_CAPS (stages 1-3);
+   ``Trainer.validate()`` over the val split (the same 8 frames), with 11
+   K3 and 3 K1 launches per batch; ``save_checkpoint``; then
+   ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint,
+   which must give the same AP tables and write ``--out``.
 
-The last lines are the kernels JSON line, the card line, and the result
-line ``{"ok": true, "device": {...}}``. Without a CUDA device it raises and
-prints no result.
+The last lines are the kernels JSON line (each kernel's time, its plain
+twin's, its launches on the main path, and its bound: the larger of the
+bytes it must move over 3.35 TB/s and its 2*hits*Cin*Cout flops over the
+peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16), the card
+line, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA
+device it raises and prints no result.
 """
 import contextlib
 import copy
 import json
 import math
+import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -56,12 +72,12 @@ import numpy as np
 import torch
 
 from sessd_torch import builder
-from sessd_torch.models.backbone import PLAN
+from sessd_torch.models.backbone import PLAN, pick_conv
 from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
 from sessd_torch.scripts.profile_train import make_synthetic_root
-from sessd_torch.serve import (SERVING_CAPS, ExactBatchServer,
+from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
                                HostPreprocessor, make_scene, stage_inputs)
 from sessd_torch.tools.train import load as load_train_config
 from sessd_torch.train.trainer import Trainer
@@ -71,6 +87,36 @@ CONV_NAMES = ["subm0a", "subm0b", "down0", "subm1a", "subm1b", "down1",
               "subm3c", "down3"]
 BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
+# the card's published rates (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+B8_REQUESTS = 6
+
+
+class Bound:
+    """The least time the card could take for a kernel's work summed over
+    calls: each input read once and each output written once over the
+    memory rate, against 2*hits*Cin*Cout flops over the input type's peak;
+    the larger of the two."""
+
+    def __init__(self):
+        self.seconds = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, tensors, hits: int, cin: int, cout: int, dtype):
+        moved = sum(t.numel() * t.element_size() for t in tensors)
+        self.seconds["bytes"] += moved / HBM_BYTES_PER_S
+        self.seconds["operations"] += 2 * hits * cin * cout / \
+            PEAK_FLOPS[dtype]
+
+    def ms(self) -> float:
+        return max(self.seconds.values()) * 1e3
+
+    def by(self) -> str:
+        return max(self.seconds, key=self.seconds.get)
+
+
+def hits(rb, miss: int) -> int:
+    return int((rb != miss).sum())
 
 
 def card_line() -> str:
@@ -122,12 +168,13 @@ def phase_build():
 
 def phase_kernels(model, spec, device):
     """Every backbone conv through kernel and twin on identical inputs.
-    Returns (max abs error, summed b1 bf16 kernel ms, summed twin ms)."""
+    Returns (max abs error, summed b1 bf16 kernel ms, summed twin ms, the
+    bound of those convs)."""
     prep = HostPreprocessor(spec, SERVING_CAPS)
     scenes = [make_scene(seed=s)[0] for s in range(4)]
     staged = {1: stage_inputs(**prep(scenes[0]), device=device),
               4: stage_inputs(**prep.batch(scenes), device=device)}
-    worst_abs, sums = 0.0, [0.0, 0.0]
+    worst_abs, sums, bound = 0.0, [0.0, 0.0], Bound()
     for batch, dtype in ((1, torch.float32), (1, torch.bfloat16),
                          (4, torch.float32), (4, torch.bfloat16)):
         feats, rb = staged[batch]
@@ -162,6 +209,8 @@ def phase_kernels(model, spec, device):
                 if dtype == torch.bfloat16:
                     sums[0] += k_ms
                     sums[1] += r_ms
+                    bound.add((x, rbk, w2, bias, y), hits(rbk, n_in),
+                              x.shape[1], w2.shape[2], dtype)
             print(line)
             if not rel <= BOUNDS[dtype]:
                 raise AssertionError(f"{CONV_NAMES[i]} {tag}: rel_err "
@@ -177,8 +226,83 @@ def phase_kernels(model, spec, device):
             raise AssertionError("backbone ran fewer than 14 convs")
     print(f"kernel vs twin: all 14 convs within bounds at b1/int16 and "
           f"b4/int32, f32 and bf16; b1 bf16 sum kernel {sums[0]:.4f} ms, "
-          f"twin {sums[1]:.4f} ms")
-    return worst_abs, sums[0], sums[1]
+          f"twin {sums[1]:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
+    return worst_abs, sums[0], sums[1], bound
+
+
+def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
+                       want_streamed):
+    """The backbone's all-sparse plan on (feats, rb) with every conv that
+    streams run through K3, its twin and K1 on identical inputs: K3 within
+    the bound of the twin, its difference from K1 printed; each of these
+    convs timed (CUDA-event medians of 10). The other convs run K1.
+    Returns {"worst": max abs error vs twin, "vs_k1": max abs difference
+    from K1, "ms", "k1_ms", "plain_ms": sums, "bound": Bound}."""
+    out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
+           "plain_ms": 0.0, "bound": Bound()}
+    step = iter(range(len(CONV_NAMES)))
+    streamed = []
+
+    def checked(x, rbk, w2, bias, n_in):
+        i = next(step)
+        if pick_conv(x.shape[1], n_in, dtype) is sc.fused_sparse_conv:
+            return sc.fused_sparse_conv(x, rbk, w2, bias, n_in)
+        streamed.append(CONV_NAMES[i])
+        args = (x, rbk, w2, bias, n_in)
+        y = sc.fused_sparse_conv_stream(*args)
+        want = sc.fused_sparse_conv_ref(*args)
+        k1 = sc.fused_sparse_conv(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(y.float()).all():
+            raise AssertionError(f"{CONV_NAMES[i]} {tag}: non-finite")
+        rel, diff = _rel(y, want)
+        vs_k1 = float((y.float() - k1.float()).abs().max())
+        out["worst"] = max(out["worst"], diff)
+        out["vs_k1"] = max(out["vs_k1"], vs_k1)
+        times = [median_ms(lambda f=f: f(*args), 10) for f in (
+            sc.fused_sparse_conv_stream, sc.fused_sparse_conv,
+            sc.fused_sparse_conv_ref)]
+        for key, t in zip(("ms", "k1_ms", "plain_ms"), times):
+            out[key] += t
+        out["bound"].add((x, rbk, w2, bias, y), hits(rbk, n_in), x.shape[1],
+                         w2.shape[2], dtype)
+        print(f"stream conv {i:2d} {CONV_NAMES[i]:6s} {x.shape[1]:2d}->"
+              f"{w2.shape[2]:2d} K={w2.shape[0]:2d} rows {rbk.shape[0]:6d} "
+              f"{tag}: rel_err vs twin {rel:.2e}, max|K3-K1| {vs_k1:.3e}; "
+              f"K3 {times[0]:.4f} ms K1 {times[1]:.4f} ms twin "
+              f"{times[2]:.4f} ms")
+        if not rel <= BOUNDS[dtype]:
+            raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 rel_err "
+                                 f"{rel:.3e} > {BOUNDS[dtype]}")
+        return y
+
+    with torch.inference_mode():
+        backbone(feats, rb, batch, sparse_shape, dtype, conv=checked)
+    if next(step, None) is not None:
+        raise AssertionError("backbone ran fewer than 14 convs")
+    if streamed != want_streamed:
+        raise AssertionError(f"{tag}: streamed {streamed}, want "
+                             f"{want_streamed}")
+    print(f"stream kernel {tag}: {len(streamed)} convs within bounds; max "
+          f"abs error vs twin {out['worst']:.3e}, max|K3-K1| "
+          f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
+          f"{out['k1_ms']:.4f} ms, twin {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound'].ms():.4f} ms ({out['bound'].by()})")
+    return out
+
+
+B8_STREAMED = CONV_NAMES[3:10]     # stages 1-2: bf16, b8, SERVING_CAPS
+EVAL_STREAMED = CONV_NAMES[3:]     # stages 1-3: f32, b4, TRAIN_CAPS
+
+
+def phase_stream_serving(model, spec, device):
+    """K3 on the streamed convs of one bf16 batch-8 request."""
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    feats, rb = stage_inputs(**prep.batch(
+        [make_scene(seed=s)[0] for s in range(8)]), device=device)
+    return check_stream_convs(model.backbone, feats, rb, 8,
+                              model.sparse_shape, torch.bfloat16,
+                              "b8 bf16 int32", B8_STREAMED)
 
 
 def phase_serving(model, cfg, spec, device):
@@ -213,6 +337,9 @@ def phase_serving(model, cfg, spec, device):
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         launched = sc.fused_sparse_conv.launches - before
+        if sc.fused_sparse_conv_stream.launches:
+            raise AssertionError(f"{name}: the stream kernel ran at batch "
+                                 f"{len(batch)}")
         results.append((name, out, launched))
         if name == "b1 prior" and n > 0:  # request 0 is the warm-up
             lat.append(dt)
@@ -243,19 +370,87 @@ def phase_serving(model, cfg, spec, device):
     return launches, pcfg
 
 
+def _want_launches(caps, batch, dtype):
+    """(K1, K3) launches of one request at these caps."""
+    cin = [4, 16, 16, 32, 32, 32, 64, 64, 64, 64, 64, 64, 64, 64]
+    stage = [0, 0, 0, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3]
+    k3 = sum(pick_conv(c, caps[s] * batch, dtype)
+             is sc.fused_sparse_conv_stream for c, s in zip(cin, stage))
+    return 14 - k3, k3
+
+
+def phase_serving_b8(model, cfg, spec, device):
+    """Batch-8 serving, the main path at throughput: one warm-up request,
+    then B8_REQUESTS requests of eight ray-cast scans. Returns the launches
+    {K1, K3} of the timed requests."""
+    anchors = builder.build_anchors(cfg)
+    pcfg = builder.build_predict_config(cfg)
+    server = ExactBatchServer(model, anchors, pcfg, spec, batch_size=8,
+                              device=device)
+    scenes = [make_scene(seed=s)[0] for s in range(8)]
+    server(scenes)  # warm-up: first-call allocations
+    torch.cuda.synchronize()
+    preps = []
+    for _ in range(3):  # host prep alone, its buffer ring already filled
+        t0 = time.perf_counter()
+        server.fast_prep.batch(scenes)
+        preps.append((time.perf_counter() - t0) * 1e3)
+    _reset_counts()
+    lat = []
+    for n in range(B8_REQUESTS):
+        k1, k3 = (sc.fused_sparse_conv.launches,
+                  sc.fused_sparse_conv_stream.launches)
+        fast = server.stats["fast"]
+        t0 = time.perf_counter()
+        boxes, scores, valid = server(scenes)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        got = (sc.fused_sparse_conv.launches - k1,
+               sc.fused_sparse_conv_stream.launches - k3)
+        caps = SERVING_CAPS if server.stats["fast"] > fast else TRAIN_CAPS
+        want = _want_launches(caps, 8, torch.bfloat16)
+        print(f"request b8 {n}: {lat[-1]:8.3f} ms, K1 {got[0]} K3 {got[1]} "
+              f"launches, valid detections {valid.sum(dim=1).tolist()}")
+        if got != want:
+            raise AssertionError(f"b8 request {n}: launches {got}, want "
+                                 f"{want}")
+        post = pcfg.nms_post_max_size
+        if boxes.shape != (8, post, 7) or scores.shape != (8, post):
+            raise AssertionError(f"b8: shapes {boxes.shape} {scores.shape}")
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+            raise AssertionError("b8: non-finite outputs")
+    counts = {"fused_sparse_conv": sc.fused_sparse_conv.launches,
+              "fused_sparse_conv_stream":
+                  sc.fused_sparse_conv_stream.launches}
+    p50 = float(np.percentile(lat, 50))
+    print(f"serving b8: {B8_REQUESTS} requests, stats {server.stats}, p50 "
+          f"{p50:.3f} ms, p90 {np.percentile(lat, 90):.3f} ms, "
+          f"{8e3 / p50:.1f} scenes/s, host prep of the 8 scans "
+          f"{np.median(preps):.3f} ms; launches per request K1 "
+          f"{counts['fused_sparse_conv'] // B8_REQUESTS} K3 "
+          f"{counts['fused_sparse_conv_stream'] // B8_REQUESTS}")
+    return counts
+
+
 def phase_head_parity(spec, device, pcfg):
     """f32 model, TF32 off: head outputs of the kernel path vs the twin
-    path on one request; also reports which NMS capacity each score
-    regime takes."""
+    path on one batch-1 request (K1 only) and one batch-8 request (K1 and
+    K3); also reports which NMS capacity each score regime takes."""
     model, _ = build_model("se_ssd_kitti_car.py", device, prior=True)
     prep = HostPreprocessor(spec, SERVING_CAPS)
-    feats, rb = stage_inputs(**prep(make_scene(seed=0)[0]), device=device)
-    ones = torch.ones(feats.shape[0], dtype=torch.int32, device=device)
-    with torch.inference_mode():
-        for prior in (True, False):
+    scenes = [make_scene(seed=s)[0] for s in range(8)]
+    for batch, prior in ((1, True), (1, False), (8, True)):
+        p = prep(scenes[0]) if batch == 1 else prep.batch(scenes)
+        feats, rb = stage_inputs(**p, device=device)
+        ones = torch.ones(feats.shape[0], dtype=torch.int32, device=device)
+        with torch.inference_mode():
             set_prior(model, prior)
-            k = model(feats[:, None, :], ones, rb, 1)[0]
-            r = model(feats[:, None, :], ones, rb, 1,
+            k3 = sc.fused_sparse_conv_stream.launches
+            k = model(feats[:, None, :], ones, rb, batch)[0]
+            k3 = sc.fused_sparse_conv_stream.launches - k3
+            if k3 != _want_launches(SERVING_CAPS, batch, torch.float32)[1]:
+                raise AssertionError(f"b{batch} f32: {k3} K3 launches")
+            r = model(feats[:, None, :], ones, rb, batch,
                       conv=sc.fused_sparse_conv_ref)[0]
             for name in k:
                 err = float((k[name] - r[name]).abs().max()
@@ -265,8 +460,9 @@ def phase_head_parity(spec, device, pcfg):
             n_above = int((torch.sigmoid(k["cls_preds"]).amax(-1)
                            >= pcfg.score_threshold).sum())
             branch = "small" if n_above <= pcfg.nms_pre_small else "full"
-            print(f"head parity f32 (prior {'on' if prior else 'off'}): "
-                  f"kernel vs twin within 1e-3; {n_above} anchors above "
+            print(f"head parity f32 b{batch} (prior "
+                  f"{'on' if prior else 'off'}, {k3} K3 launches): kernel "
+                  f"vs twin within 1e-3; {n_above} anchors above "
                   f"{pcfg.score_threshold} -> {branch} NMS capacity")
 
 
@@ -298,12 +494,14 @@ def _rel(got, want):
 @torch.no_grad()
 def phase_train_kernels(trainer, db):
     """K4 / K5 against their twins on every sparse conv of both plans.
-    Returns (max abs error per kernel, summed kernel ms, summed twin ms)
-    with the times of the bf16 student chain."""
+    Returns (max abs error per kernel, [summed kernel ms, summed twin ms]
+    per kernel, Bound per kernel) with the times and bounds of the bf16
+    student chain."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
+    bounds = {k: Bound() for k in worst}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
@@ -360,6 +558,12 @@ def phase_train_kernels(trainer, db):
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         ms[name][0] += k_ms
                         ms[name][1] += r_ms
+                        moved = {"fwd": (x, rbk, w, mask),
+                                 "dw": (x, rbk, dout),
+                                 "dfeat": (dout, inv, w)}[name]
+                        bounds[name].add(moved + (got,),
+                                         hits(rbk, x.shape[0]), w.shape[1],
+                                         w.shape[2], dtype)
                         line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms)"
                     if name == "fwd":
                         y = got
@@ -367,15 +571,23 @@ def phase_train_kernels(trainer, db):
                 x = torch.relu(y)
     print("train kernels vs twin: all convs of both plans within bounds; "
           "bf16 student chain sums " + ", ".join(
-              f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms"
+              f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms bound "
+              f"{bounds[k].ms():.4f} ms ({bounds[k].by()})"
               for k, v in ms.items()))
-    return worst, ms
+    return worst, ms, bounds
+
+
+KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
+              kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw)
 
 
 def _reset_counts():
-    for fn in (sc.fused_sparse_conv, kt.sparse_conv_fwd,
-               kt.sparse_conv_dfeat, kt.sparse_conv_dw):
+    for fn in KERNEL_FNS:
         fn.launches = 0
+
+
+def _counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_FNS}
 
 
 def phase_train(trainer):
@@ -388,9 +600,7 @@ def phase_train(trainer):
     tea0 = [p.detach().clone() for p in state.teacher.parameters()]
     s = state.step
     hist = trainer.run(max_steps=TRAIN_STEPS)
-    counts = {fn.__name__: fn.launches for fn in (
-        sc.fused_sparse_conv, kt.sparse_conv_fwd, kt.sparse_conv_dfeat,
-        kt.sparse_conv_dw)}
+    counts = _counts()
     peak = torch.cuda.max_memory_allocated()
 
     for h in hist:
@@ -405,7 +615,8 @@ def phase_train(trainer):
               f"{h['iou_pred_loss']:.4g}, consistency "
               f"{h['consistency_loss']:.4g}), grad_norm "
               f"{h['grad_norm']:.4g}, num_pos {h['num_pos']:.1f}")
-    want = {"fused_sparse_conv": 0, "sparse_conv_fwd": 24 * TRAIN_STEPS,
+    want = {"fused_sparse_conv": 0, "fused_sparse_conv_stream": 0,
+            "sparse_conv_fwd": 24 * TRAIN_STEPS,
             "sparse_conv_dfeat": 9 * TRAIN_STEPS,
             "sparse_conv_dw": 10 * TRAIN_STEPS}
     if counts != want:
@@ -450,11 +661,9 @@ def twins():
             setattr(kt, n, fn)
 
 
-def phase_step_parity(root, work):
+def phase_step_parity(trainer):
     """One f32 step through the kernels and through the twins from the
     same state on the same batch."""
-    cfg = load_train_config("se_ssd_kitti_car.py", root)
-    trainer = Trainer(cfg, work_dir=work, seed=SEED, device="cuda")
     db = first_batch(trainer)
     states, grads, metrics = [trainer.state], [], []
     twin_state = copy.deepcopy(trainer.state)
@@ -497,6 +706,127 @@ def phase_step_parity(root, work):
         raise AssertionError(f"gradient {worst_name} differs by {worst_g}")
 
 
+def _put(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def phase_eval_kernels(trainer):
+    """K3 on the 11 streamed convs of the first batch-4 eval batch."""
+    batches = iter(trainer.val_loader)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    dev = trainer.device
+    rb = {k: ([_put(a, dev) for a in v] if isinstance(v, list)
+              else _put(v, dev))
+          for k, v in trainer._batch_rulebooks(batch).items()}
+    model = trainer.state.student
+    vox = batch["voxels"]
+    b, v = vox.shape[:2]
+    with torch.inference_mode():
+        feats = model.reader(_put(vox, dev).reshape(b * v, *vox.shape[2:]),
+                             _put(batch["num_points"], dev).reshape(b * v))
+    return check_stream_convs(model.backbone, feats, rb, b,
+                              model.sparse_shape, torch.float32,
+                              "eval b4 f32 int32", EVAL_STREAMED)
+
+
+def _table_diff(a, b) -> list:
+    """The entries in which two AP tables differ, NaN equal to NaN."""
+    def flat(r):
+        return {(c, m, d, k): float(v) for c, t in r.items()
+                for m, ds in t.items() for d, ks in ds.items()
+                for k, v in ks.items()}
+
+    fa, fb = flat(a), flat(b)
+    if fa.keys() != fb.keys():
+        return sorted(set(fa) ^ set(fb))
+    return [(k, fa[k], fb[k]) for k in fa
+            if not (fa[k] == fb[k] or (math.isnan(fa[k])
+                                       and math.isnan(fb[k])))]
+
+
+def _ap_line(results) -> str:
+    car = results["Car"]
+    return ", ".join(f"{m} AP40 moderate {car[m][1]['AP40']:.4f}"
+                     for m in ("bbox", "bev", "3d"))
+
+
+def phase_eval(trainer, root, tmp):
+    """The evaluation path: validate() over the val split, then the saved
+    checkpoint through ``python -m sessd_torch.tools.test``. Both run with
+    PyTorch's default TF32 settings (the tool's), so the neck's cuDNN convs
+    compute the same bits in both processes. Returns the launches {K1, K3}
+    of validate()."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = trainer.validate()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    n = -(-len(trainer.val_dataset) // trainer.cfg.data["samples_per_gpu"])
+    want = {"fused_sparse_conv": 3 * n, "fused_sparse_conv_stream": 11 * n,
+            "sparse_conv_fwd": 0, "sparse_conv_dfeat": 0,
+            "sparse_conv_dw": 0}
+    if counts != want:
+        raise AssertionError(f"validate launches {counts}, want {want}")
+    if results is None or set(results) != {"Car"}:
+        raise AssertionError(f"validate gave {results}")
+    aps = [x for m in results["Car"].values() for d in m.values()
+           for x in d.values()]
+    if not all(math.isfinite(x) for x in aps):
+        raise AssertionError("non-finite AP")
+    print(f"eval: validate() over {len(trainer.val_dataset)} frames in "
+          f"{n} batches of 4, {secs:.3f} s ({secs / n * 1e3:.1f} ms/batch "
+          f"with the loader), launches per batch K1 "
+          f"{counts['fused_sparse_conv'] // n} K3 "
+          f"{counts['fused_sparse_conv_stream'] // n}; {_ap_line(results)}")
+
+    trainer.save_checkpoint()
+    out = os.path.join(tmp, "eval_results.pkl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sessd_torch.tools.test", "se_ssd_kitti_car.py",
+         "--work_dir", trainer.work_dir, "--data-root", root, "--out", out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"tools.test exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(out, "rb") as f:
+        theirs = pickle.load(f)
+    diff = _table_diff(theirs, results)
+    if diff:
+        raise AssertionError(f"tools.test AP differs from validate(): {diff}")
+    print(f"eval: tools.test on the epoch-{trainer.epoch} checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s gave the same AP tables and "
+          f"wrote {os.path.basename(out)}")
+    return counts
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
+
+
+def _entry(name, source, line, launches, max_abs, ms, plain_ms, bound):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"sessd_tpu/ops/pallas/wconv.py:{line}",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound.ms(),
+            "bound_by": bound.by(),
+            # no one PyTorch call computes a rulebook gather-GEMM
+            "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only "
@@ -509,13 +839,21 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    phase_build()
+    with phase("build"):
+        phase_build()
     model, cfg = build_model("se_ssd_kitti_car_bf16.py", device, prior=True)
     spec = builder.build_voxelizer(cfg.voxel_generator)
-    max_abs, ms, plain_ms = phase_kernels(model, spec, device)
-    launches, pcfg = phase_serving(model, cfg, spec, device)
-    phase_head_parity(spec, device, pcfg)
+    with phase("kernels"):
+        max_abs, ms, plain_ms, k1_bound = phase_kernels(model, spec, device)
+        b8 = phase_stream_serving(model, spec, device)
+    with phase("serving b1/b4"):
+        launches, pcfg = phase_serving(model, cfg, spec, device)
+    with phase("serving b8"):
+        b8_counts = phase_serving_b8(model, cfg, spec, device)
+    with phase("head parity"):
+        phase_head_parity(spec, device, pcfg)
     del model
+    torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
     try:
@@ -524,33 +862,55 @@ def main():
         make_synthetic_root(root, num_frames=8, num_cars=10)
         print(f"synthetic KITTI root: 8 frames in "
               f"{time.perf_counter() - t0:.1f} s")
-        trainer = Trainer(load_train_config("se_ssd_kitti_car_bf16.py",
-                                            root),
-                          work_dir=f"{tmp}/work_bf16", seed=SEED,
-                          device=device)
-        worst, train_ms = phase_train_kernels(trainer, first_batch(trainer))
-        counts = phase_train(trainer)
-        del trainer
-        torch.cuda.empty_cache()
-        phase_step_parity(root, f"{tmp}/work_f32")
+        with phase("training"):
+            trainer = Trainer(load_train_config("se_ssd_kitti_car_bf16.py",
+                                                root),
+                              work_dir=f"{tmp}/work_bf16", seed=SEED,
+                              device=device)
+            worst, train_ms, train_bounds = phase_train_kernels(
+                trainer, first_batch(trainer))
+            counts = phase_train(trainer)
+            del trainer
+            torch.cuda.empty_cache()
+        with phase("step parity"):
+            trainer = Trainer(load_train_config("se_ssd_kitti_car.py", root),
+                              work_dir=f"{tmp}/work_f32", seed=SEED,
+                              device=device)
+            phase_step_parity(trainer)
+        with phase("eval"):
+            ev = phase_eval_kernels(trainer)
+            eval_counts = phase_eval(trainer, root, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    kernels = [{
-        "name": "fused_sparse_conv", "route": "cuda",
-        "source": "sessd_torch/csrc/sparse_conv.cu",
-        "replaces": "sessd_tpu/ops/pallas/wconv.py:253",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]
+    k1_launches = (launches + b8_counts["fused_sparse_conv"]
+                   + eval_counts["fused_sparse_conv"])
+    k3_launches = (b8_counts["fused_sparse_conv_stream"]
+                   + eval_counts["fused_sparse_conv_stream"])
+    print(f"main-path launches: K1 {launches} (b1/b4) + "
+          f"{b8_counts['fused_sparse_conv']} (b8) + "
+          f"{eval_counts['fused_sparse_conv']} (eval); K3 "
+          f"{b8_counts['fused_sparse_conv_stream']} (b8) + "
+          f"{eval_counts['fused_sparse_conv_stream']} (eval); eval K3 sums "
+          f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms twin "
+          f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")
+    # times: K1 the 14 b1 bf16 convs, K3 the 7 streamed convs of a b8 bf16
+    # request, K4/K5 the bf16 student chain at b4
+    kernels = [
+        _entry("fused_sparse_conv", "sessd_torch/csrc/sparse_conv.cu", 253,
+               k1_launches, max_abs, ms, plain_ms, k1_bound),
+        _entry("fused_sparse_conv_stream",
+               "sessd_torch/csrc/sparse_conv_stream.cu", 277, k3_launches,
+               max(b8["worst"], ev["worst"]), b8["ms"], b8["plain_ms"],
+               b8["bound"])]
+    kernels[-1]["covers"] = "sessd_tpu/ops/pallas/wconv.py:350"
     for name, key, line in (("sparse_conv_fwd", "fwd", 51),
                             ("sparse_conv_dfeat", "dfeat", 67),
                             ("sparse_conv_dw", "dw", 67)):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "sessd_torch/csrc/sparse_conv_train.cu",
-            "replaces": f"sessd_tpu/ops/pallas/wconv.py:{line}",
-            "launches": counts[name], "max_abs_err": worst[key],
-            "ms": train_ms[key][0], "plain_ms": train_ms[key][1]})
+        kernels.append(_entry(
+            name, "sessd_torch/csrc/sparse_conv_train.cu", line,
+            counts[name], worst[key], train_ms[key][0], train_ms[key][1],
+            train_bounds[key]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,9 @@
-"""Builders: the shared plain-dict configs (``sessd_tpu/configs/*.py``, read
-with ``Config``) -> the port's objects (port of ``sessd_tpu/builder.py``,
-which imports JAX). ``Config`` is re-exported from the JAX-free
-``sessd_tpu.config``, so callers of the port need no ``sessd_tpu`` import.
+"""Builders: the plain-dict configs (``sessd_torch/configs/*.py``, read with
+``Config``) -> the port's objects (port of ``sessd_tpu/builder.py``).
 
-The training data path is the JAX package's host code, reused as it is:
+The data path is the port's copy of the JAX package's host code:
 ``KittiDataset``, its ``Pipeline`` and GT-AUG sampler, and ``DataLoader``
-(``sessd_tpu/data``, numpy and C++ only)."""
+(``sessd_torch/data``, numpy and C++ only)."""
 from __future__ import annotations
 
 import math
@@ -15,16 +13,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sessd_tpu.config import Config
-from sessd_tpu.core.anchors import create_anchors_3d_range
-from sessd_tpu.data.augment import GroundTruthSampler
-from sessd_tpu.data.dataset import KittiDataset
-from sessd_tpu.data.loader import DataLoader
-from sessd_tpu.data.pipeline import PipelineConfig
-from sessd_tpu.ops.voxelize import VoxelizerSpec
-
+from .config import Config
+from .core.anchors import create_anchors_3d_range
+from .data.augment import GroundTruthSampler
+from .data.dataset import KittiDataset
+from .data.loader import DataLoader
+from .data.pipeline import PipelineConfig
 from .models.detector import VoxelNet
 from .models.predict import PredictConfig
+from .ops.voxelize import VoxelizerSpec
 from .train.losses import ConsistencyConfig, LossConfig
 from .train.optim import AdamW, OneCycleConfig, one_cycle_lr, one_cycle_mom
 
@@ -35,8 +32,7 @@ __all__ = ["Config", "load_config", "build_voxelizer", "build_detector",
            "build_loss_config"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-CONFIG_DIR = (pathlib.Path(__file__).resolve().parents[1] / "sessd_tpu"
-              / "configs")
+CONFIG_DIR = pathlib.Path(__file__).resolve().parent / "configs"
 
 
 def load_config(name: str) -> Config:

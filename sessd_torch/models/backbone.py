@@ -10,29 +10,34 @@ Stage plan (channels / resolution, input sparse shape (41, 1600, 1408)):
     spconv k(3,1,1) s(2,1,1) (64->64)             @ ( 2,  200,  176)
     -> dense [B, 2, 200, 176, 64] -> BEV [B, 64*2, 200, 176]
 
-Serving: every block is one call of the fused sparse conv kernel
+Serving: every block is one call of a fused sparse conv kernel
 (``ops/cuda/sparse_conv.py``) on row-major ``[cap_stage, C]`` features, with
 the BatchNorm scale folded into the weights before the cast to the compute
-dtype. Training (``forward_train``): each sparse block is
-``SparseConvFunction`` (the K4 forward and K5 backward kernels) + masked
-batch-statistics BatchNorm + ReLU; from ``dense_from_stage`` on the grid is
-densified and the blocks run as masked dense ``conv3d`` (submanifold conv ==
-dense conv x occupancy; strided sparse conv == dense strided conv x covered
-mask), re-masked after the BatchNorm. The rulebook chain is the host-built
-one (``sessd_tpu.utils.native.build_rulebooks``); the TPU's transposed
-``[C, cols]`` layout, windows and patch lists have no counterpart here.
+dtype. A conv takes the streaming kernel exactly where the JAX package
+streams it (``sparse_conv.streams``, the same byte rule: at TRAIN_CAPS in
+f32 at batch 4 the 11 convs of stages 1-3, at SERVING_CAPS in bf16 at batch
+8 the 7 of stages 1-2), else the resident one. Training
+(``forward_train``): each sparse block is ``SparseConvFunction`` (the K4
+forward and K5 backward kernels) + masked batch-statistics BatchNorm +
+ReLU; from ``dense_from_stage`` on the grid is densified and the blocks run
+as masked dense ``conv3d`` (submanifold conv == dense conv x occupancy;
+strided sparse conv == dense strided conv x covered mask), re-masked after
+the BatchNorm. The rulebook chain is the host-built one
+(``utils.native.build_rulebooks``); the TPU's transposed ``[C, cols]``
+layout, windows and patch lists have no counterpart here.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ..ops import sparse as sp
-from ..ops.cuda.sparse_conv import fused_sparse_conv
+from ..ops.cuda.sparse_conv import (fused_sparse_conv,
+                                    fused_sparse_conv_stream, streams)
 from .layers import BatchNorm, derived, uniform_
 
 # (channels, n_subm, down_kernel, down_stride, down_pad) per stage
@@ -108,24 +113,28 @@ class SpMiddleFHD(nn.Module):
 
     def forward(self, voxel_features: torch.Tensor, rulebooks: dict,
                 batch_size: int, sparse_shape, dtype: torch.dtype,
-                conv: Callable = fused_sparse_conv) -> torch.Tensor:
+                conv: Optional[Callable] = None) -> torch.Tensor:
         """voxel_features [B*cap0, F]; rulebooks {"perm" [B*cap0],
         "ids" [5 x cap_i], "subm" [4 x (cap_i, 27)], "down" [4 x (cap_i, K)]}
-        as tensors on the features' device (int16 or int32). ``conv`` is the
-        fused kernel; tests and the smoke check pass its plain twin."""
+        as tensors on the features' device (int16 or int32). ``conv`` runs
+        every block when given (tests and the smoke check pass the kernels'
+        plain twin); by default each block takes ``pick_conv``'s kernel."""
         ids = rulebooks["ids"]
         shape = (batch_size,) + tuple(sparse_shape)
         x = voxel_features[rulebooks["perm"].long()]
         x = torch.where((ids[0] < sp.SENTINEL)[:, None], x, 0.0).to(dtype)
         params = iter(self.folded(dtype))
+
+        def block(x, rb):
+            fn = conv or pick_conv(x.shape[1], x.shape[0], dtype)
+            return fn(x, rb, *next(params), n_in=x.shape[0])
+
         for stage, (_, n_subm, dk, ds, dp) in enumerate(PLAN):
             if stage > 0:
-                x = conv(x, rulebooks["down"][stage - 1], *next(params),
-                         n_in=x.shape[0])
+                x = block(x, rulebooks["down"][stage - 1])
                 shape = sp.downsample_out_shape(shape, dk, ds, dp)
             for _ in range(n_subm):
-                x = conv(x, rulebooks["subm"][stage], *next(params),
-                         n_in=x.shape[0])
+                x = block(x, rulebooks["subm"][stage])
         dense = sp.to_dense(x, ids[4], shape)  # [B, D, H, W, C]
         b, d, h, w, c = dense.shape
         # channel order c*D + d, the reference's [N, C, D, H, W] ->
@@ -191,6 +200,14 @@ class SpMiddleFHD(nn.Module):
             dense = sp.to_dense(x, ids[4], shape).permute(0, 4, 1, 2, 3)
         b, c, d, h, w = dense.shape
         return dense.reshape(b, c * d, h, w)
+
+
+def pick_conv(cin: int, n_in: int, dtype: torch.dtype) -> Callable:
+    """The serving kernel of a conv over ``n_in`` rows of ``cin`` channels:
+    the streaming one where the JAX package streams
+    (sessd_tpu/ops/pallas/wconv.py:433-435), else the resident one."""
+    return (fused_sparse_conv_stream if streams(cin, n_in, dtype)
+            else fused_sparse_conv)
 
 
 def _cover_mask(occ: torch.Tensor, kernel, stride, padding) -> torch.Tensor:

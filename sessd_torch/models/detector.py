@@ -11,12 +11,11 @@ and its teacher share one state-dict layout.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.cuda.sparse_conv import fused_sparse_conv
 from .backbone import SpMiddleFHD
 from .head import MultiGroupHead
 from .layers import BatchNorm, uniform_
@@ -62,7 +61,7 @@ class VoxelNet(nn.Module):
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
                 rulebooks: dict, batch_size: int,
-                conv: Callable = fused_sparse_conv,
+                conv: Optional[Callable] = None,
                 train: bool = False) -> list:
         """voxels [B*V, P, F], num_points [B*V], host rulebook chain as
         device tensors -> list of per-task dicts of [B, A, c] tensors in the

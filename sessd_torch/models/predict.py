@@ -5,6 +5,7 @@ mg_head_sessd.py:893-1057):
     sigmoid score threshold (0.3)
     -> IoU-aware confidence rectification: score *= ((iou_pred+1)/2)^4
     -> rotated NMS (pre 1000 / post 100 / IoU 0.01)
+    -> camera-frustum cull (evaluation; serving passes no frustum)
     -> direction-classifier heading flip by pi
     -> post_center_range mask
 
@@ -13,7 +14,7 @@ Every stage ANDs into a validity mask over a fixed [max_det] buffer.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,10 +37,25 @@ class PredictConfig(NamedTuple):
     direction_offset: float = 0.0
 
 
-def predict_single(preds: dict, anchors: torch.Tensor,
-                   cfg: PredictConfig) -> dict:
-    """One sample: preds dict of [A, .] f32 tensors, anchors [A, 7] ->
-    dict(box3d_lidar [D, 7], scores [D], label_preds [D], valid [D])."""
+def points_in_frustum(points: torch.Tensor,
+                      surfaces: torch.Tensor) -> torch.Tensor:
+    """[N, 3] points vs [S, 4, 3] convex-polyhedron surfaces -> [N] bool
+    (sessd_tpu/models/predict.py:47-59; geometry.py:215-278 of the
+    reference): inside iff strictly below every surface plane, the normal
+    taken from the first three vertices."""
+    sv0 = surfaces[:, 0, :] - surfaces[:, 1, :]
+    sv1 = surfaces[:, 1, :] - surfaces[:, 2, :]
+    normal = torch.linalg.cross(sv0, sv1)  # [S, 3]
+    d = (normal * surfaces[:, 0, :]).sum(dim=-1)  # [S]
+    sign = points @ normal.T - d[None, :]  # [N, S]
+    return ~(sign >= 0).any(dim=-1)
+
+
+def predict_single(preds: dict, anchors: torch.Tensor, cfg: PredictConfig,
+                   frustum_surfaces: Optional[torch.Tensor] = None) -> dict:
+    """One sample: preds dict of [A, .] f32 tensors, anchors [A, 7],
+    frustum_surfaces [6, 4, 3] or None -> dict(box3d_lidar [D, 7],
+    scores [D], label_preds [D], valid [D])."""
     boxes = box_torch.second_box_decode(preds["box_preds"], anchors)
     # per-anchor best class; class-agnostic NMS follows
     scores_all = torch.sigmoid(preds["cls_preds"])
@@ -55,6 +71,8 @@ def predict_single(preds: dict, anchors: torch.Tensor,
                             post_max_size=cfg.nms_post_max_size,
                             iou_threshold=cfg.nms_iou_threshold)
     out_boxes = boxes[sel]
+    if frustum_surfaces is not None:
+        valid = valid & points_in_frustum(out_boxes[:, :3], frustum_surfaces)
 
     if cfg.use_dir_classifier:
         # kept exactly as the JAX package has it (predict.py:118-122)
@@ -77,9 +95,11 @@ def predict_single(preds: dict, anchors: torch.Tensor,
 
 
 def predict_batch(preds: dict, anchors: torch.Tensor,
-                  cfg: PredictConfig = PredictConfig()) -> dict:
+                  cfg: PredictConfig = PredictConfig(),
+                  frustum_surfaces: Optional[torch.Tensor] = None) -> dict:
     """preds: task-0 dict of [B, A, .] f32 tensors; anchors [A, 7] or
-    [B, A, 7]. Returns the predict_single dict stacked over the batch.
+    [B, A, 7]; frustum_surfaces [B, 6, 4, 3] (evaluation) or None
+    (serving). Returns the predict_single dict stacked over the batch.
 
     Two-level NMS: when no sample has more than ``nms_pre_small`` boxes
     above the score threshold, top-k at that capacity already holds every
@@ -95,5 +115,6 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
         if int(counts.max()) <= small:
             cfg = cfg._replace(nms_pre_max_size=small)
     outs = [predict_single({k: v[i] for k, v in preds.items()}, anchors[i],
-                           cfg) for i in range(b)]
+                           cfg, None if frustum_surfaces is None
+                           else frustum_surfaces[i]) for i in range(b)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

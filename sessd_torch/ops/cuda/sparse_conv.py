@@ -1,13 +1,16 @@
-"""Fused sparse conv + folded BN + ReLU + occupancy mask: the CUDA kernel's
-wrapper, its plain PyTorch twin, and the kernel's build.
+"""Fused sparse conv + folded BN + ReLU + occupancy mask: the CUDA kernels'
+wrappers, their plain PyTorch twin, and the kernels' build.
 
 ``fused_sparse_conv`` replaces the Pallas ``_fused_kernel`` of
 ``sessd_tpu/ops/pallas/wconv.py`` (and, having no window, its over-span
-``_patch_kernel``) on the serving path. On a CPU tensor it runs the twin
-``fused_sparse_conv_ref``; on a CUDA tensor it launches the kernel of
-``sessd_torch/csrc/sparse_conv.cu`` or raises. The kernel is compiled with
-nvcc into ``build/sessd_torch/`` at the first CUDA call (cached by a hash of
-the sources and flags) and loaded with ctypes; importing this module builds
+``_patch_kernel``); ``fused_sparse_conv_stream`` replaces its streaming
+twins ``_fused_stream_kernel`` and ``_patch_stream_kernel``, which the JAX
+package takes where a conv's feature buffer is large (``streams``). On a
+CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
+it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
+``sparse_conv_stream.cu``) or raises. The kernels are compiled with nvcc
+into ``build/sessd_torch/`` at the first CUDA call (cached by a hash of the
+sources and flags) and loaded with ctypes; importing this module builds
 nothing.
 """
 from __future__ import annotations
@@ -33,6 +36,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX_BYTES = {torch.int16: 2, torch.int32: 4}
+
+# sessd_tpu/ops/pallas/wconv.py:190-193, 394-399, 433-435: a conv streams its
+# features when the TPU's resident [Cin, cols_for(n_in)] buffer would pass
+# this many bytes; the port takes the stream kernel on the same convs
+STREAM_FEATS_BYTES = 8 * 2 ** 20
+
+
+def cols_for(n_rows: int, block: int = 256) -> int:
+    """Lane-padded column count of the TPU's transposed feature buffer:
+    >= n_rows + 1, a multiple of ``block``."""
+    return (n_rows + 1 + block - 1) // block * block
+
+
+def streams(cin: int, n_in: int, dtype: torch.dtype) -> bool:
+    """True where the JAX package runs a conv over ``n_in`` input rows of
+    ``cin`` channels through its stream kernels."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return cin * cols_for(n_in) * itemsize > STREAM_FEATS_BYTES
+
 
 _build_lock = threading.Lock()
 _library = None  # the loaded ctypes library, once built
@@ -96,6 +118,8 @@ def build() -> ctypes.CDLL:
         # feats, rb, w2, bias, out; n_in, n_out, cin, cout, taps, dtype,
         # idx_bytes, relu; stream
         lib.sessd_fused_sparse_conv.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        lib.sessd_fused_sparse_conv_stream.argtypes = \
+            lib.sessd_fused_sparse_conv.argtypes
         # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
         # dtype, idx_bytes; stream
         lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
@@ -105,7 +129,9 @@ def build() -> ctypes.CDLL:
         # feats, rb, dout, partial, dw; n_in, n_out, cin, cout, taps,
         # chunk_rows, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dw.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-        for fn in (lib.sessd_fused_sparse_conv, lib.sessd_sparse_conv_fwd,
+        for fn in (lib.sessd_fused_sparse_conv,
+                   lib.sessd_fused_sparse_conv_stream,
+                   lib.sessd_sparse_conv_fwd,
                    lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
@@ -169,6 +195,22 @@ def _check(feats, rb, w2, bias, n_in):
         raise ValueError(f"n_in={n_in} does not fit an int16 rulebook")
 
 
+def _launch(entry: str, feats, rb, w2, bias, n_in, relu) -> torch.Tensor:
+    lib = build()
+    taps, cin, cout = w2.shape
+    out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
+                      device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, "sessd_" + entry)(
+            feats.data_ptr(), rb.data_ptr(), w2.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
+            _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype], int(relu),
+            stream)
+    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
+    return out
+
+
 def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
                       bias: torch.Tensor, n_in: int,
                       relu: bool = True) -> torch.Tensor:
@@ -186,21 +228,37 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
     if feats.device.type != "cuda":
         raise ValueError(f"no kernel for device {feats.device}")
     _check(feats, rb, w2, bias, n_in)
-    lib = build()
-    taps, cin, cout = w2.shape
-    out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
-                      device=feats.device)
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sessd_fused_sparse_conv(
-            feats.data_ptr(), rb.data_ptr(), w2.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
-            _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype], int(relu),
-            stream)
-    raise_on_error(lib, rc, f"fused_sparse_conv (Cin={cin}, Cout={cout}, "
-                            f"K={taps})")
+    out = _launch("fused_sparse_conv", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv.launches += 1
     return out
 
 
 fused_sparse_conv.launches = 0
+
+
+def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
+                             w2: torch.Tensor, bias: torch.Tensor, n_in: int,
+                             relu: bool = True) -> torch.Tensor:
+    """``fused_sparse_conv``'s function and contract, through the streaming
+    kernel (``csrc/sparse_conv_stream.cu``: each tap's gather overlaps the
+    previous tap's FMAs). It sums in the same order, so the two agree bit
+    for bit. Takes Cin in {16, 32, 64}: the 4-channel first conv never
+    streams. CPU tensors take the twin; CUDA tensors launch the kernel,
+    counted in ``fused_sparse_conv_stream.launches``.
+    """
+    if feats.device.type == "cpu":
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+    if feats.device.type != "cuda":
+        raise ValueError(f"no kernel for device {feats.device}")
+    _check(feats, rb, w2, bias, n_in)
+    if w2.shape[1] not in (16, 32, 64):
+        raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
+                         "or 64 input channels")
+    if feats.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("feats and w2 must be 16-byte aligned")
+    out = _launch("fused_sparse_conv_stream", feats, rb, w2, bias, n_in, relu)
+    fused_sparse_conv_stream.launches += 1
+    return out
+
+
+fused_sparse_conv_stream.launches = 0

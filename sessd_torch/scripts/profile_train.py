@@ -27,10 +27,8 @@ from __future__ import annotations
 
 import argparse
 import collections
-import importlib.util
 import itertools
 import json
-import pathlib
 import subprocess
 import tempfile
 import time
@@ -42,6 +40,7 @@ from torch.autograd import DeviceType
 from ..tools.create_data import create_kitti_data
 from ..tools.train import load
 from ..train.trainer import Trainer
+from ..utils.kitti_synth import make_kitti_root
 
 BATCHES = 2  # one epoch of the default root
 WARMUP = 3
@@ -54,22 +53,17 @@ KERNELS = {"sparse_conv_fwd_kernel": "fwd",
            "sparse_conv_dfeat_kernel": "dfeat",
            "sparse_conv_dw_partial_kernel": "dw",
            "sparse_conv_dw_reduce_kernel": "dw"}
-KITTI_SYNTH = pathlib.Path(__file__).resolve().parents[2] / "tests" / \
-    "kitti_synth.py"
 
 
 def make_synthetic_root(root: str, num_frames: int = 8, num_cars: int = 10):
-    """A synthetic KITTI training root from the repo's ray-cast generator
-    (``tests/kitti_synth.py``, loaded by its path: ``tests`` is no package,
-    and a site package of that name may shadow it), with infos, reduced
-    clouds and the GT database, as ``scripts/acceptance_ap.py`` prepares
-    one. Returns {split: info path}."""
-    spec = importlib.util.spec_from_file_location("kitti_synth", KITTI_SYNTH)
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
-    synth.make_kitti_root(root, num_frames=num_frames, num_cars=num_cars,
-                          pts_per_car=400, ground_points=16000)
-    return create_kitti_data(root, {"train": range(num_frames)})
+    """A synthetic KITTI root from the ray-cast generator
+    (``utils.kitti_synth``), with infos, reduced clouds and the GT
+    database, as ``scripts/acceptance_ap.py`` prepares one. The same frames
+    form the train and the val split. Returns {split: info path}."""
+    make_kitti_root(root, num_frames=num_frames, num_cars=num_cars,
+                    pts_per_car=400, ground_points=16000)
+    return create_kitti_data(root, {"train": range(num_frames),
+                                    "val": range(num_frames)})
 
 
 def kernel_split(prof) -> dict:

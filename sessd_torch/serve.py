@@ -1,21 +1,20 @@
-"""Serving pipeline (port of ``sessd_tpu/serve.py:265-364``): host C++
+"""Serving pipeline (port of ``sessd_tpu/serve.py``): host C++
 preprocessing, then one device pass.
 
   host (C++):  FCFS voxelize -> per-voxel mean VFE -> the full rulebook
-               chain, int16 when the capacities fit (``HostPreprocessor``,
-               shared with sessd_tpu)
+               chain, int16 when the capacities fit (``HostPreprocessor``)
   device:      VFE passthrough + the all-sparse backbone (14 launches of the
-               fused sparse conv kernel) + SSFA + head + decode + rotated NMS
+               fused sparse conv kernels) + SSFA + head + decode + rotated
+               NMS
 
-The host arrays are copied to the device synchronously inside each call,
-well before the preprocessor's ring of reusable buffers wraps (its aliasing
-contract, sessd_tpu/serve.py:44-49). Rulebooks arrive as int16 at batch 1
-and as int32 at batch 4, where caps x 4 exceed 2^15; the kernel takes both.
-
-The host entry points (``HostPreprocessor``, the caps, and ``make_scene``,
-the seeded ray-cast KITTI-like scan used as a synthetic request) are
-re-exported from JAX-free ``sessd_tpu`` modules, so a caller of the port
-imports ``sessd_torch`` alone.
+The host half (``HostPreprocessor``, the caps, ``saturated_stages``) is the
+port's copy of ``sessd_tpu/serve.py:31-113, 177-262`` on the port's own
+build of the C++ library. The host arrays are copied to the device
+synchronously inside each call, well before the preprocessor's ring of
+reusable buffers wraps (its aliasing contract below). Rulebooks arrive as
+int16 at batch 1 and as int32 at batch 4 and 8, where caps x batch exceed
+2^15; the kernels take both. ``make_scene`` is the seeded ray-cast
+KITTI-like scan used as a synthetic request.
 """
 from __future__ import annotations
 
@@ -24,29 +23,127 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from sessd_tpu.serve import SERVING_CAPS, TRAIN_CAPS
-from sessd_tpu.serve import HostPreprocessor as _HostPreprocessor
-from sessd_tpu.serve import saturated_stages
-from sessd_tpu.utils.synth_scene import make_scene
-
+from .data.rulebooks import DOWNS
 from .models.predict import PredictConfig, predict_batch
-from .utils.native import ensure_native
+from .ops.voxelize import VoxelizerSpec
+from .utils.native import get_native
+from .utils.synth_scene import make_scene
 
-__all__ = ["SERVING_CAPS", "TRAIN_CAPS", "HostPreprocessor", "make_scene",
-           "stage_inputs", "make_infer_fn", "ExactBatchServer"]
+__all__ = ["SERVING_CAPS", "TRAIN_CAPS", "DOWNS", "HostPreprocessor",
+           "make_scene", "saturated_stages", "stage_inputs", "make_infer_fn",
+           "ExactBatchServer"]
 
 
-class HostPreprocessor(_HostPreprocessor):
-    """``sessd_tpu.serve.HostPreprocessor`` on the library that
-    ``ensure_native`` builds and loads under a lock shared by all processes,
-    so a fresh checkout never meets a half-written library (the reference
-    constructor takes ``get_native()``, which may have cached ``None``;
-    ``ensure_native`` hands it the library that is now whole)."""
+class HostPreprocessor:
+    """points [P, 4] -> device-ready feats + int16 rulebook chain (numpy)."""
 
-    def __init__(self, spec, stage_capacity=TRAIN_CAPS,
+    def __init__(self, spec: VoxelizerSpec,
+                 stage_capacity=(20000, 22000, 18000, 12000, 8000),
                  num_input_features: int = 4, ring: int = 4):
-        ensure_native()
-        super().__init__(spec, stage_capacity, num_input_features, ring)
+        self.spec = spec
+        self.caps = [int(c) for c in stage_capacity]
+        self.nif = num_input_features
+        self.native = get_native()
+        if self.native is None:
+            raise RuntimeError("native toolchain unavailable; host serving "
+                               "path requires native/rulebook.cpp")
+        # ring of reusable rulebook output buffers: steady-state prep does
+        # no large allocations (fresh ~50-80 MB mmaps stall for seconds
+        # under THP once the heap is churned — see native.rulebook_scratch).
+        # ALIASING CONTRACT: a returned rulebook dict is valid until `ring`
+        # further prep calls with the same (caps, dtype); consume (e.g.
+        # device_put) within that window.
+        self.ring = int(ring)
+        self._scratch: dict = {}
+
+    def _next_scratch(self, caps, out_dtype):
+        key = (tuple(int(c) for c in caps), np.dtype(out_dtype))
+        ring = self._scratch.setdefault(key, {"sets": [], "i": 0})
+        if len(ring["sets"]) < self.ring:
+            ring["sets"].append(
+                self.native.rulebook_scratch(caps, DOWNS, out_dtype))
+        ring["i"] = (ring["i"] + 1) % len(ring["sets"])
+        return ring["sets"][ring["i"]]
+
+    def __call__(self, points: np.ndarray) -> dict:
+        spec = self.spec
+        voxels, coords_zyx, num_pts = self.native.voxelize(
+            points, spec.point_cloud_range, spec.voxel_size, spec.max_points,
+            min(spec.max_voxels, self.caps[0]))
+        n = coords_zyx.shape[0]
+        cap0 = self.caps[0]
+        feats = np.zeros((cap0, self.nif), np.float32)
+        feats[:n] = (voxels[..., :self.nif].sum(1)
+                     / np.maximum(num_pts, 1)[:, None])
+        coords = np.zeros((cap0, 4), np.int32)
+        coords[:n, 1:] = coords_zyx
+        valid = np.zeros((cap0,), bool)
+        valid[:n] = True
+        d, h, w = spec.sparse_shape
+        # capacities < 2^15: the C++ writes rulebooks/perm as int16 directly
+        # (no cast pass); ids stay int32
+        out_dtype = np.int16 if max(self.caps) < 2 ** 15 else np.int32
+        rb = self.native.build_rulebooks(
+            coords, valid, (1, d, h, w), self.caps, DOWNS,
+            out_dtype=out_dtype,
+            scratch=self._next_scratch(self.caps, out_dtype))
+        return {"feats": feats, "rulebooks": rb}
+
+    def batch(self, scenes) -> dict:
+        """Batched variant: one rulebook chain over the (B, D, H, W) grid
+        (throughput serving — the 17k-voxel batch-1 graph underutilizes the
+        chip; batching amortizes the fixed per-kernel cost)."""
+        spec = self.spec
+        b = len(scenes)
+        cap0 = self.caps[0]
+        feats = np.zeros((b * cap0, self.nif), np.float32)
+        coords = np.zeros((b * cap0, 4), np.int32)
+        valid = np.zeros((b * cap0,), bool)
+        for s, points in enumerate(scenes):
+            voxels, coords_zyx, num_pts = self.native.voxelize(
+                points, spec.point_cloud_range, spec.voxel_size,
+                spec.max_points, min(spec.max_voxels, cap0))
+            n = coords_zyx.shape[0]
+            o = s * cap0
+            feats[o:o + n] = (voxels[..., :self.nif].sum(1)
+                              / np.maximum(num_pts, 1)[:, None])
+            coords[o:o + n, 0] = s
+            coords[o:o + n, 1:] = coords_zyx
+            valid[o:o + n] = True
+        d, h, w = spec.sparse_shape
+        caps_b = [c * b for c in self.caps]
+        out_dtype = np.int16 if max(caps_b) < 2 ** 15 else np.int32
+        rb = self.native.build_rulebooks(
+            coords, valid, (b, d, h, w), caps_b, DOWNS, out_dtype=out_dtype,
+            scratch=self._next_scratch(caps_b, out_dtype))
+        return {"feats": feats, "rulebooks": rb}
+
+
+# Serving stage capacities (scripts/ab_caps.py, v5e): the fused kernels run
+# a grid over CAPACITY-padded column blocks, so the training-safety caps
+# (20000, 22000, 18000, 12000, 8000) spend ~half their stage-2..4 blocks on
+# zero padding (realistic occupancies 17.4k/18.8k/9.5k/3.7k/2.8k). Tightening
+# stages 2-4 to ~30-60% margin cuts the 64-channel stages' block counts:
+# b1 6.82 -> 6.01 ms, b4 18.96 -> 15.98 ms (250 scenes/s). Occupancy past a
+# cap TRUNCATES voxels (accuracy loss) — fallback_telemetry reports
+# cap_saturated_stages so a denser deployment sees the signal.
+SERVING_CAPS = (20000, 22000, 12000, 6000, 4000)
+
+
+# training-safety capacities: ~2x realistic stage occupancies (the loader /
+# Trainer default; scripts/ab_caps.py) — the exact-fallback target when a
+# denser-than-expected scene saturates the tighter SERVING_CAPS
+TRAIN_CAPS = (20000, 22000, 18000, 12000, 8000)
+
+
+def saturated_stages(rulebooks, caps) -> list:
+    """Stages whose id table is FULL — the chain truncated (or exactly
+    filled) that stage's voxels. Conservative: an exactly-full untruncated
+    stage also reports, which only costs a needless exact re-run."""
+    sentinel = np.iinfo(np.int32).max
+    return [i for i in range(len(caps))
+            if int((np.asarray(rulebooks["ids"][i]) < sentinel).sum())
+            >= caps[i]]
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -90,7 +187,7 @@ def make_infer_fn(model, anchors, predict_cfg: PredictConfig,
                              f"(caps[0]={caps[0]} x batch {batch_size})")
         preds = model(feats[:, None, :], num_points, rulebooks, batch_size)
         dets = predict_batch({k: v.float() for k, v in preds[0].items()},
-                             anchors, predict_cfg)
+                             anchors, predict_cfg, frustum_surfaces=None)
         return dets["box3d_lidar"], dets["scores"], dets["valid"]
 
     return infer

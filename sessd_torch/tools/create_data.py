@@ -1,6 +1,6 @@
 """Info files, reduced clouds and the GT-AUG database of a KITTI root
-(the steps of ``tools/create_data.py``), through the JAX package's JAX-free
-host code (``sessd_tpu.data.kitti_common``).
+(the steps of ``tools/create_data.py``), through the port's host code
+(``sessd_torch.data.kitti_common``).
 
     python -m sessd_torch.tools.create_data ROOT --train 0-99 --val 100-119
 """
@@ -11,7 +11,7 @@ import os
 import pickle
 from typing import Dict, Sequence
 
-from sessd_tpu.data import kitti_common as kc
+from ..data import kitti_common as kc
 
 
 def create_kitti_data(root: str, splits: Dict[str, Sequence[int]],

@@ -1,10 +1,10 @@
-"""Train SE-SSD with the port (counterpart of ``tools/train.py`` for the
-training slice: no checkpoints, resume or evaluation yet).
+"""Train SE-SSD with the port (counterpart of ``tools/train.py``; saves
+checkpoints under ``<work-dir>/checkpoints``, no resume yet).
 
     python -m sessd_torch.tools.train se_ssd_kitti_car_bf16.py \\
         --work-dir work_dirs/x --max-steps 100 --data-root data/kitti
 
-``config`` is a path or the name of a config in ``sessd_tpu/configs``.
+``config`` is a path or the name of a config in ``sessd_torch/configs``.
 ``--data-root`` replaces the config's ``data_root`` in every data path
 (infos, GT database), as prepared by ``sessd_torch.tools.create_data``.
 """

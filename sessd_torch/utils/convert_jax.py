@@ -21,13 +21,29 @@ from typing import Dict
 import numpy as np
 import torch
 
-# the forward converter's tables (numpy only): SSFA submodules in the JAX
-# call order (ConvBnRelu_i) -> the reference's (conv, BN) entries, and which
-# of them are the deconv blocks
-from sessd_tpu.utils.convert_torch import _SSFA_MODULES as SSFA_MODULES
-from sessd_tpu.utils.convert_torch import _SSFA_TRANSPOSE as SSFA_TRANSPOSE
-
 from ..models.backbone import PLAN
+
+# the forward converter's tables (sessd_tpu/utils/convert_torch.py:60-77):
+# SSFA submodules in the JAX call order (ConvBnRelu_i) -> the reference's
+# (conv, BN) entries, and which of them are the deconv blocks
+SSFA_MODULES = [
+    # the block's leading zero-pad layer shifts its indices by one
+    ("neck.bottom_up_block_0.1", "neck.bottom_up_block_0.2"),
+    ("neck.bottom_up_block_0.4", "neck.bottom_up_block_0.5"),
+    ("neck.bottom_up_block_0.7", "neck.bottom_up_block_0.8"),
+    ("neck.bottom_up_block_1.0", "neck.bottom_up_block_1.1"),
+    ("neck.bottom_up_block_1.3", "neck.bottom_up_block_1.4"),
+    ("neck.bottom_up_block_1.6", "neck.bottom_up_block_1.7"),
+    ("neck.trans_0.0", "neck.trans_0.1"),
+    ("neck.trans_1.0", "neck.trans_1.1"),
+    ("neck.deconv_block_0.0", "neck.deconv_block_0.1"),
+    ("neck.deconv_block_1.0", "neck.deconv_block_1.1"),
+    ("neck.conv_0.0", "neck.conv_0.1"),
+    ("neck.conv_1.0", "neck.conv_1.1"),
+    ("neck.w_0.0", "neck.w_0.1"),
+    ("neck.w_1.0", "neck.w_1.1"),
+]
+SSFA_TRANSPOSE = {8, 9}  # deconv blocks
 
 # kernel shape of each backbone block, in call order
 BACKBONE_KERNELS = [k for _, n_subm, dk, _, _ in PLAN

@@ -1,35 +1,32 @@
-"""Race-free build and load of the host C++ library (``native/*.cpp``).
+"""The host C++ library (``native/*.cpp``): its race-free build and its
+ctypes binding (the port's copy of ``sessd_tpu/utils/native.py``).
 
-``sessd_tpu.utils.native.get_native`` compiles ``native/libsessd_native.so``
-with g++ straight onto its final path, guarded only by a lock inside one
-process. Several processes that start together (test workers, loader
-processes, a fresh checkout on a new machine) can then load a half-written
-file; ``get_native`` caches ``None`` for the rest of that process and every
-host-native caller fails.
-
-``ensure_native`` builds the same library from the same sources with the
-same g++ command, but under an ``fcntl.flock`` shared by all processes,
-into a temporary file beside the sources that ``os.replace`` puts on the
-final path in one step, so no process can observe a partial library. It
-returns the reference package's own ``_Native`` wrapper over it, never
-``None``: a failed compile raises with the compiler's log.
+The sources sit at the repo root and are built as they are, with the
+reference's g++ command, into the port's own file under
+``build/sessd_torch/``, named by a hash of the sources and flags, so the two
+packages never write the same library. The build runs under an
+``fcntl.flock`` shared by all processes, into a temporary file beside the
+library that one ``os.replace`` puts on the final path: test workers, loader
+threads and a fresh checkout that start together compile it once, and no
+process can load a half-written file. A failed compile raises with the
+compiler's log; there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import pathlib
 import subprocess
 import tempfile
 import threading
 
-from sessd_tpu.utils import native as _ref
+import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 SRC_DIR = REPO / "native"
-LIB_NAME = "libsessd_native.so"
-LOCK_DIR = REPO / "build" / "sessd_torch"
+BUILD_DIR = REPO / "build" / "sessd_torch"
 # sessd_tpu/utils/native.py:33-34, the output path aside
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -38,10 +35,279 @@ _handles: dict = {}
 build_log: dict = {}  # lib path -> compiler output of this process's builds
 
 
-def _stale(lib: pathlib.Path, srcs) -> bool:
-    if not lib.exists():
-        return True
-    return lib.stat().st_mtime < max(s.stat().st_mtime for s in srcs)
+class _Native:
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        v = lib.voxelize
+        v.restype = ctypes.c_int64
+        v.argtypes = [
+            ctypes.POINTER(ctypes.c_float),   # points
+            ctypes.c_int64, ctypes.c_int64,   # num_points, num_features
+            ctypes.POINTER(ctypes.c_float),   # pc_range
+            ctypes.POINTER(ctypes.c_float),   # voxel_size
+            ctypes.c_int64, ctypes.c_int64,   # max_points, max_voxels
+            ctypes.POINTER(ctypes.c_float),   # out_voxels
+            ctypes.POINTER(ctypes.c_int32),   # out_coords
+            ctypes.POINTER(ctypes.c_int32),   # out_num_points
+        ]
+        rb = lib.build_rulebooks
+        rb.restype = ctypes.c_int64
+        rb.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),   # coords_bzyx
+            ctypes.c_int64,                   # n valid
+            ctypes.POINTER(ctypes.c_int64),   # shape_bdhw
+            ctypes.POINTER(ctypes.c_int64),   # caps [5]
+            ctypes.POINTER(ctypes.c_int32),   # down kernels [4*3]
+            ctypes.POINTER(ctypes.c_int32),   # down strides [4*3]
+            ctypes.POINTER(ctypes.c_int32),   # down pads [4*3]
+            ctypes.POINTER(ctypes.c_int32),   # out_perm
+            ctypes.POINTER(ctypes.c_int32),   # out_ids
+            ctypes.POINTER(ctypes.c_int32),   # out_subm
+            ctypes.POINTER(ctypes.c_int32),   # out_down
+        ]
+        rb16 = lib.build_rulebooks_i16
+        rb16.restype = ctypes.c_int64
+        rb16.argtypes = rb.argtypes[:7] + [
+            ctypes.POINTER(ctypes.c_int16),   # out_perm
+            ctypes.POINTER(ctypes.c_int32),   # out_ids
+            ctypes.POINTER(ctypes.c_int16),   # out_subm
+            ctypes.POINTER(ctypes.c_int16),   # out_down
+        ]
+        ff = lib.compute_statistics_fused
+        ff.restype = None
+        ff.argtypes = [
+            ctypes.POINTER(ctypes.c_double),  # overlaps
+            ctypes.POINTER(ctypes.c_double),  # gt_datas
+            ctypes.POINTER(ctypes.c_double),  # dt_datas
+            ctypes.POINTER(ctypes.c_int64),   # ignored_gt
+            ctypes.POINTER(ctypes.c_int64),   # ignored_det
+            ctypes.POINTER(ctypes.c_double),  # dc_bboxes
+            ctypes.c_int64,                   # num_dc
+            ctypes.c_int64,                   # metric
+            ctypes.c_double,                  # min_overlap
+            ctypes.POINTER(ctypes.c_double),  # thresholds
+            ctypes.c_int64,                   # n_thresh
+            ctypes.c_int64,                   # compute_aos
+            ctypes.c_int64,                   # gt_size
+            ctypes.c_int64,                   # det_size
+            ctypes.POINTER(ctypes.c_double),  # out_pr [n_thresh, 4] (+=)
+        ]
+        f = lib.compute_statistics
+        f.restype = None
+        f.argtypes = [
+            ctypes.POINTER(ctypes.c_double),  # overlaps
+            ctypes.POINTER(ctypes.c_double),  # gt_datas
+            ctypes.POINTER(ctypes.c_double),  # dt_datas
+            ctypes.POINTER(ctypes.c_int64),   # ignored_gt
+            ctypes.POINTER(ctypes.c_int64),   # ignored_det
+            ctypes.POINTER(ctypes.c_double),  # dc_bboxes
+            ctypes.c_int64,                   # num_dc
+            ctypes.c_int64,                   # metric
+            ctypes.c_double,                  # min_overlap
+            ctypes.c_double,                  # thresh
+            ctypes.c_int64,                   # compute_fp
+            ctypes.c_int64,                   # compute_aos
+            ctypes.c_int64,                   # gt_size
+            ctypes.c_int64,                   # det_size
+            ctypes.POINTER(ctypes.c_int64),   # out tp/fp/fn
+            ctypes.POINTER(ctypes.c_double),  # out similarity
+            ctypes.POINTER(ctypes.c_double),  # out thresholds
+            ctypes.POINTER(ctypes.c_int64),   # out n_thresh
+        ]
+
+    def voxelize(self, points, pc_range, voxel_size, max_points, max_voxels):
+        """FCFS voxelization; returns (voxels, coords zyx, num_points),
+        trimmed to the actual voxel count like voxelize_np."""
+        points = np.ascontiguousarray(points, dtype=np.float32)
+        p, f = points.shape
+        pc_range = np.asarray(pc_range, dtype=np.float32)
+        voxel_size = np.asarray(voxel_size, dtype=np.float32)
+        out_voxels = np.zeros((max_voxels, max_points, f), dtype=np.float32)
+        out_coords = np.zeros((max_voxels, 3), dtype=np.int32)
+        out_np = np.zeros((max_voxels,), dtype=np.int32)
+
+        def ptr(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        nv = self._lib.voxelize(
+            ptr(points, ctypes.c_float), p, f,
+            ptr(pc_range, ctypes.c_float), ptr(voxel_size, ctypes.c_float),
+            max_points, max_voxels,
+            ptr(out_voxels, ctypes.c_float), ptr(out_coords, ctypes.c_int32),
+            ptr(out_np, ctypes.c_int32),
+        )
+        return out_voxels[:nv], out_coords[:nv], out_np[:nv]
+
+    def rulebook_scratch(self, caps, downs, out_dtype=np.int32):
+        """Allocate one reusable output-buffer set for build_rulebooks.
+
+        Serving/loaders should hold a small ring of these (one per batch
+        in flight) and pass them via ``scratch=``: steady-state host prep
+        then performs no large allocations at all.
+        """
+        caps = np.asarray(caps, np.int64)
+        kvols = [int(np.prod(k)) for k, _, _ in downs]
+        out_dtype = np.dtype(out_dtype)
+        return {
+            "perm": np.empty(int(caps[0]), out_dtype),
+            "ids": np.empty(int(caps.sum()), np.int32),
+            "subm": np.empty(int(sum(caps[i] * 27 for i in range(4))),
+                             out_dtype),
+            "down": np.empty(int(sum(caps[i + 1] * kvols[i]
+                                     for i in range(4))), out_dtype),
+        }
+
+    def build_rulebooks(self, coords_bzyx, valid, shape_bdhw, caps, downs,
+                        out_dtype=np.int32, scratch=None):
+        """Host twin of the device SpMiddleFHD rulebook chain (ops/sparse.py).
+
+        coords_bzyx [cap0, 4] int32 (+ valid [cap0] bool, any layout);
+        shape_bdhw: stage-0 (B, D, H, W); caps: 5 per-stage row capacities;
+        downs: 4 (kernel, stride, pad) int-triple tuples.
+        Returns dict(perm [cap0], ids (5 arrays), subm (4 arrays [cap, 27]),
+        down (4 arrays [cap, K])) matching the device arrays exactly.
+
+        out_dtype=np.int16 writes perm/subm/down as int16 directly (all
+        capacities must fit; ids stay int32) — half the PCIe bytes for
+        serving with no cast pass.
+        """
+        coords_bzyx = np.ascontiguousarray(coords_bzyx, np.int32)
+        valid = np.asarray(valid, bool)
+        caps = np.asarray(caps, np.int64)
+        assert coords_bzyx.shape[0] <= caps[0]
+        if coords_bzyx.shape[0] < caps[0]:  # pad like the device capacity
+            pad = int(caps[0]) - coords_bzyx.shape[0]
+            coords_bzyx = np.concatenate(
+                [coords_bzyx, np.zeros((pad, 4), np.int32)])
+            valid = np.concatenate([valid, np.zeros((pad,), bool)])
+        vrows = np.flatnonzero(valid)
+        ivrows = np.flatnonzero(~valid)
+        comp = np.ascontiguousarray(coords_bzyx[vrows])
+        n = comp.shape[0]
+        shape = np.asarray(shape_bdhw, np.int64)
+        dk = np.ascontiguousarray([k for k, _, _ in downs], np.int32)
+        ds = np.ascontiguousarray([s for _, s, _ in downs], np.int32)
+        dp = np.ascontiguousarray([p for _, _, p in downs], np.int32)
+        kvols = [int(np.prod(k)) for k, _, _ in downs]
+        out_dtype = np.dtype(out_dtype)
+        ct = dict([(np.dtype(np.int32), ctypes.c_int32),
+                   (np.dtype(np.int16), ctypes.c_int16)])[out_dtype]
+        fn = (self._lib.build_rulebooks if out_dtype == np.int32
+              else self._lib.build_rulebooks_i16)
+        # np.empty: the C++ fills every output element (misses included).
+        # `scratch` (see rulebook_scratch) reuses preallocated buffers —
+        # fresh ~50-80 MB mmaps per call stall for SECONDS under THP/
+        # khugepaged once the process heap is churned (measured 1.4-1.9 s
+        # per batch-4 call when results stay alive; 80 ms with reuse)
+        if scratch is None:
+            scratch = self.rulebook_scratch(caps, downs, out_dtype)
+        perm = scratch["perm"]
+        ids = scratch["ids"]
+        subm = scratch["subm"]
+        down = scratch["down"]
+
+        def ptr(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        rc = fn(
+            ptr(comp, ctypes.c_int32), n, ptr(shape, ctypes.c_int64),
+            ptr(caps, ctypes.c_int64), ptr(dk, ctypes.c_int32),
+            ptr(ds, ctypes.c_int32), ptr(dp, ctypes.c_int32),
+            ptr(perm, ct), ptr(ids, ctypes.c_int32),
+            ptr(subm, ct), ptr(down, ct))
+        if rc != 0:
+            raise ValueError(f"build_rulebooks failed: rc={rc}")
+        # un-compact the permutation: C++ permutes valid rows; the device
+        # perm sorts the full padded array (stable, SENTINEL ids last)
+        full_perm = np.concatenate(
+            [vrows[perm[:n]], ivrows]).astype(out_dtype)
+        out = {"perm": full_perm, "ids": [], "subm": [], "down": []}
+        o = 0
+        for c in caps:
+            out["ids"].append(ids[o:o + int(c)])
+            o += int(c)
+        o = 0
+        for i in range(4):
+            out["subm"].append(subm[o:o + int(caps[i]) * 27]
+                               .reshape(int(caps[i]), 27))
+            o += int(caps[i]) * 27
+        o = 0
+        for i in range(4):
+            out["down"].append(down[o:o + int(caps[i + 1]) * kvols[i]]
+                               .reshape(int(caps[i + 1]), kvols[i]))
+            o += int(caps[i + 1]) * kvols[i]
+        return out
+
+    def compute_statistics_fused(self, overlaps, gt_datas, dt_datas,
+                                 ignored_gt, ignored_det, dc_bboxes, metric,
+                                 min_overlap, thresholds, pr,
+                                 compute_aos=False):
+        """Accumulate one frame's tp/fp/fn/similarity into pr [n_thresh, 4]
+        for ALL thresholds in one call (fused_compute_statistics twin)."""
+        overlaps = np.ascontiguousarray(overlaps, dtype=np.float64)
+        gt_datas = np.ascontiguousarray(gt_datas, dtype=np.float64)
+        dt_datas = np.ascontiguousarray(dt_datas, dtype=np.float64)
+        ignored_gt = np.ascontiguousarray(ignored_gt, dtype=np.int64)
+        ignored_det = np.ascontiguousarray(ignored_det, dtype=np.int64)
+        dc_bboxes = np.ascontiguousarray(dc_bboxes, dtype=np.float64)
+        thresholds = np.ascontiguousarray(thresholds, dtype=np.float64)
+        assert pr.dtype == np.float64 and pr.flags.c_contiguous
+        assert pr.shape == (thresholds.shape[0], 4)
+
+        def ptr(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        self._lib.compute_statistics_fused(
+            ptr(overlaps, ctypes.c_double), ptr(gt_datas, ctypes.c_double),
+            ptr(dt_datas, ctypes.c_double), ptr(ignored_gt, ctypes.c_int64),
+            ptr(ignored_det, ctypes.c_int64), ptr(dc_bboxes, ctypes.c_double),
+            dc_bboxes.shape[0], metric, min_overlap,
+            ptr(thresholds, ctypes.c_double), thresholds.shape[0],
+            int(compute_aos), gt_datas.shape[0], dt_datas.shape[0],
+            ptr(pr, ctypes.c_double),
+        )
+
+    def compute_statistics(self, overlaps, gt_datas, dt_datas, ignored_gt,
+                           ignored_det, dc_bboxes, metric, min_overlap,
+                           thresh=0.0, compute_fp=False, compute_aos=False):
+        overlaps = np.ascontiguousarray(overlaps, dtype=np.float64)
+        gt_datas = np.ascontiguousarray(gt_datas, dtype=np.float64)
+        dt_datas = np.ascontiguousarray(dt_datas, dtype=np.float64)
+        ignored_gt = np.ascontiguousarray(ignored_gt, dtype=np.int64)
+        ignored_det = np.ascontiguousarray(ignored_det, dtype=np.int64)
+        dc_bboxes = np.ascontiguousarray(dc_bboxes, dtype=np.float64)
+        gt_size, det_size = gt_datas.shape[0], dt_datas.shape[0]
+        out_tpfpfn = np.zeros(3, dtype=np.int64)
+        out_sim = np.zeros(1, dtype=np.float64)
+        out_thresh = np.zeros(max(gt_size, 1), dtype=np.float64)
+        out_n = np.zeros(1, dtype=np.int64)
+
+        def ptr(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        self._lib.compute_statistics(
+            ptr(overlaps, ctypes.c_double), ptr(gt_datas, ctypes.c_double),
+            ptr(dt_datas, ctypes.c_double), ptr(ignored_gt, ctypes.c_int64),
+            ptr(ignored_det, ctypes.c_int64), ptr(dc_bboxes, ctypes.c_double),
+            dc_bboxes.shape[0], metric, min_overlap, thresh,
+            int(compute_fp), int(compute_aos), gt_size, det_size,
+            ptr(out_tpfpfn, ctypes.c_int64), ptr(out_sim, ctypes.c_double),
+            ptr(out_thresh, ctypes.c_double), ptr(out_n, ctypes.c_int64),
+        )
+        return (int(out_tpfpfn[0]), int(out_tpfpfn[1]), int(out_tpfpfn[2]),
+                float(out_sim[0]), out_thresh[: int(out_n[0])].copy())
+
+
+def library_path(src_dir=SRC_DIR, lib_dir=BUILD_DIR) -> pathlib.Path:
+    """``lib_dir/libsessd_native_<hash>.so``, the hash over the g++ flags
+    and every ``src_dir/*.cpp`` (name and bytes): a changed source gets a
+    new file, and an unchanged one is never rebuilt."""
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for src in sorted(pathlib.Path(src_dir).glob("*.cpp")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    name = f"libsessd_native_{digest.hexdigest()[:16]}.so"
+    return pathlib.Path(lib_dir) / name
 
 
 def _compile(srcs, lib: pathlib.Path) -> str:
@@ -63,48 +329,48 @@ def _compile(srcs, lib: pathlib.Path) -> str:
             os.unlink(tmp)
 
 
-def ensure_native(src_dir=SRC_DIR, lib_path=None, lock_dir=LOCK_DIR):
-    """Build ``lib_path`` (default ``src_dir/libsessd_native.so``) if it is
-    missing or older than ``src_dir/*.cpp``, and load it.
-
-    Returns ``sessd_tpu.utils.native._Native`` over the library. Safe to
-    call from any number of processes and threads at once: exactly one
-    compiles, the others wait on the lock and load the finished file. A
-    library on the final path that does not load (written in place by
-    another builder that held no lock) is rebuilt.
-    """
-    src_dir = pathlib.Path(src_dir)
-    lib = pathlib.Path(lib_path) if lib_path else src_dir / LIB_NAME
-    key = str(lib.resolve())
-    with _lock:
-        native = _handles.get(key) or _load(src_dir, lib,
-                                            pathlib.Path(lock_dir))
-        _handles[key] = native
-    if key == str(_ref._LIB_PATH.resolve()):
-        # the reference loader may have cached None after meeting a
-        # half-written file; hand its callers in this process the library
-        # that is now whole
-        with _ref._lock:
-            if _ref._native is None:
-                _ref._native, _ref._tried = native, True
-    return native
-
-
-def _load(src_dir: pathlib.Path, lib: pathlib.Path, lock_dir: pathlib.Path):
-    srcs = sorted(src_dir.glob("*.cpp"))
+def build_library(src_dir, lib: pathlib.Path,
+                  lock_dir=BUILD_DIR) -> pathlib.Path:
+    """Compile ``src_dir/*.cpp`` onto ``lib`` unless a library that loads
+    and is newer than the sources is already there, under the lock file of
+    ``lock_dir``; returns ``lib``. Safe to call from any number of processes
+    at once: exactly one compiles, the others wait on the lock and find the
+    finished file. A file on ``lib`` that does not load (a partial write by
+    a process that held no lock) is rebuilt."""
+    srcs = sorted(pathlib.Path(src_dir).glob("*.cpp"))
     if not srcs:
         raise FileNotFoundError(f"no C++ sources in {src_dir}")
-    lock_dir.mkdir(parents=True, exist_ok=True)
-    with open(lock_dir / "native.lock", "a") as lf:
+    lib = pathlib.Path(lib)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(lock_dir).mkdir(parents=True, exist_ok=True)
+    with open(pathlib.Path(lock_dir) / "native.lock", "a") as lf:
         fcntl.flock(lf, fcntl.LOCK_EX)
         try:
-            if _stale(lib, srcs):
+            if not lib.exists() or lib.stat().st_mtime < max(
+                    s.stat().st_mtime for s in srcs):
                 build_log[str(lib)] = _compile(srcs, lib)
             try:
-                handle = ctypes.CDLL(str(lib))
+                ctypes.CDLL(str(lib))
             except OSError:
                 build_log[str(lib)] = _compile(srcs, lib)
-                handle = ctypes.CDLL(str(lib))
         finally:
             fcntl.flock(lf, fcntl.LOCK_UN)
-    return _ref._Native(handle)
+    return lib
+
+
+def ensure_native(src_dir=SRC_DIR, lib_dir=BUILD_DIR) -> _Native:
+    """The binding over ``library_path(src_dir, lib_dir)``, built first if
+    it is missing; one per library and process."""
+    lib = library_path(src_dir, lib_dir)
+    key = str(lib.resolve())
+    with _lock:
+        if key not in _handles:
+            _handles[key] = _Native(ctypes.CDLL(str(build_library(src_dir,
+                                                                  lib))))
+        return _handles[key]
+
+
+def get_native() -> _Native:
+    """The repo's host library, built on first use (``ensure_native``);
+    raises where it cannot be built."""
+    return ensure_native()

@@ -6,6 +6,7 @@ host rulebook chains from ``native.build_rulebooks`` on a cropped grid, and
 JAX ``VoxelNet`` variables with nontrivial BatchNorm statistics, carried to
 the port through ``sessd_torch.utils.convert_jax``.
 """
+import ctypes
 import functools
 
 import jax
@@ -14,12 +15,29 @@ import numpy as np
 import torch
 
 from sessd_tpu.data.rulebooks import DOWNS
-from sessd_torch.utils.native import ensure_native
+from sessd_tpu.utils import native as ref_native
+from sessd_torch.utils import native as port_native
 
-# Built under a lock shared by every test process before any test runs:
-# each worker imports this module while it collects, so the host library is
-# whole before a test of either package loads it.
-NATIVE = ensure_native()
+
+def guard_reference_native():
+    """Build the JAX package's ``native/libsessd_native.so`` under the
+    port's lock (temporary file + one rename) and hand it to the reference
+    loader if that cached ``None``. The reference loader compiles straight
+    onto the final path with a lock inside one process only, so test
+    workers that collect together could load a half-written file."""
+    lib = port_native.build_library(port_native.SRC_DIR, ref_native._LIB_PATH)
+    with ref_native._lock:
+        if ref_native._native is None:
+            ref_native._native = ref_native._Native(ctypes.CDLL(str(lib)))
+            ref_native._tried = True
+    return ref_native._native
+
+
+# Built under locks shared by every test process before any test runs:
+# each worker imports this module while it collects, so both packages' host
+# libraries are whole before a test of either package loads one.
+guard_reference_native()
+NATIVE = port_native.ensure_native()
 
 SPARSE_SHAPE = (41, 32, 32)
 CAPS = (512, 512, 400, 256, 128)

@@ -1,5 +1,8 @@
-"""The port runs where JAX is absent: importing every sessd_torch module
-(serving, training, tools) pulls in neither jax nor flax, and neither
+"""The port runs where JAX is absent and stands apart from the JAX package:
+importing every sessd_torch module (serving, training, evaluation, tools)
+loads no module of jax, flax or ``sessd_tpu`` (not even one that imports no
+JAX: the port keeps its own copy of the host layer), no file of the port
+names ``sessd_tpu`` in an import, its configs are its own, and neither
 importing nor running the CPU path, the trainable sparse conv's backward
 included, tries to build the CUDA kernels (there is no nvcc on a CPU
 machine).
@@ -7,6 +10,7 @@ machine).
 package, and without a CUDA device it exits non-zero with no result."""
 import ast
 import os
+import pathlib
 import subprocess
 import sys
 import textwrap
@@ -30,6 +34,10 @@ PROBE = textwrap.dedent("""
     out = sc.fused_sparse_conv(feats, rb, w2, torch.zeros(16), 6)
     assert out.shape == (2, 16) and not out[1].any()
     assert sc._library is None and sc.fused_sparse_conv.launches == 0
+    x16 = torch.randn(6, 16)
+    out = sc.fused_sparse_conv_stream(x16, rb, torch.randn(3, 16, 16),
+                                      torch.zeros(16), 6)
+    assert out.shape == (2, 16) and sc.fused_sparse_conv_stream.launches == 0
     from sessd_torch.ops import sparse as sp
     from sessd_torch.ops.cuda import sparse_conv_train as kt
     x = feats.requires_grad_(True)
@@ -42,16 +50,18 @@ PROBE = textwrap.dedent("""
     assert (kt.sparse_conv_fwd.launches, kt.sparse_conv_dfeat.launches,
             kt.sparse_conv_dw.launches) == (0, 0, 0)
 
-    bad = [m for m in ("jax", "flax", "jaxlib") if m in sys.modules]
-    assert not bad, bad
+    def foreign():
+        return sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("jax", "flax", "jaxlib", "sessd_tpu"))
+
+    assert not foreign(), foreign()
     print("ok")
 """)
 
 
 SMOKE_PROBE = textwrap.dedent("""
     import chip_smoke
-    bad = [m for m in ("jax", "flax", "jaxlib") if m in sys.modules]
-    assert not bad, bad
+    assert not foreign(), foreign()
     print("imported chip_smoke")
     chip_smoke.main()
 """)
@@ -84,3 +94,27 @@ def test_chip_smoke_imports_only_the_port(probe):
     assert probe.stdout.splitlines() == ["ok", "imported chip_smoke"], \
         probe.stderr
     assert probe.returncode != 0 and "no CUDA device" in probe.stderr
+
+
+def _import_roots(path):
+    tree = ast.parse(pathlib.Path(path).read_text())
+    roots = {a.name.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names}
+    return roots | {n.module.split(".")[0] for n in ast.walk(tree)
+                    if isinstance(n, ast.ImportFrom) and n.level == 0}
+
+
+def test_no_file_of_the_port_imports_sessd_tpu():
+    files = sorted(pathlib.Path(REPO, "sessd_torch").rglob("*.py"))
+    assert len(files) > 40
+    bad = {str(f): r for f in files + [pathlib.Path(REPO, "chip_smoke.py")]
+           if (r := _import_roots(f) & {"sessd_tpu", "jax", "flax"})}
+    assert not bad, bad
+
+
+def test_config_dir_is_the_ports():
+    from sessd_torch import builder
+
+    pkg = pathlib.Path(REPO, "sessd_torch").resolve()
+    assert builder.CONFIG_DIR.resolve().is_relative_to(pkg)
+    assert (builder.CONFIG_DIR / "se_ssd_kitti_car.py").exists()

@@ -1,6 +1,7 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
-card: the serving conv (K1) and the training conv's forward (K4), input
-gradient and weight gradient (K5). Imports no JAX, so it runs on a GPU
+card: the serving convs (K1, and K3, the streaming one, also against K1)
+and the training conv's forward (K4), input gradient and weight gradient
+(K5). Imports no JAX, so it runs on a GPU
 machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -94,14 +95,62 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     assert sc.fused_sparse_conv.launches == before
 
 
+STREAM_PLAN = [p for p in PLAN if p[0] != 4]  # Cin = 4 never streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", STREAM_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in STREAM_PLAN])
+def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
+                                           dtype, tol):
+    """K3 within the bound of the twin, and equal to K1 bit for bit: the
+    two sum every output in the same order."""
+    feats, rb, w2, bias = _inputs(cin, cout, k)
+    args = (torch.from_numpy(feats).to(cuda, dtype),
+            torch.from_numpy(rb).to(cuda, idx_dtype),
+            torch.from_numpy(w2).to(cuda, dtype),
+            torch.from_numpy(bias).to(cuda), N_IN)
+    before = sc.fused_sparse_conv_stream.launches
+    got = sc.fused_sparse_conv_stream(*args)
+    torch.cuda.synchronize()
+    assert sc.fused_sparse_conv_stream.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N_OUT, cout)
+    want = sc.fused_sparse_conv_ref(*args)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= tol
+    assert torch.equal(got, sc.fused_sparse_conv(*args))
+    miss = torch.from_numpy((rb == N_IN).all(1)).to(cuda)
+    assert not got[miss].any()
+
+
+@pytest.mark.cuda
+def test_stream_kernel_rejects_what_it_does_not_take(cuda):
+    feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
+                           for a in _inputs(4, 16, 27))
+    before = sc.fused_sparse_conv_stream.launches
+    with pytest.raises(ValueError, match="16, 32 or 64"):
+        sc.fused_sparse_conv_stream(feats, rb.int(), w2, bias, N_IN)
+    f, r, w, b = (torch.from_numpy(a).to(cuda) for a in _inputs(16, 32, 27))
+    with pytest.raises(ValueError, match="aligned"):
+        sc.fused_sparse_conv_stream(f.view(-1)[1:1 + (N_IN - 1) * 16].view(
+            N_IN - 1, 16), r.int(), w, b, N_IN - 1)
+    assert sc.fused_sparse_conv_stream.launches == before
+
+
 def test_wrapper_raises_off_cpu_and_cuda():
     """Only CPU tensors take the twin; any other device raises."""
     feats, rb, w2, bias = (torch.from_numpy(a).to("meta")
                            for a in _inputs(16, 32, 27))
-    before = sc.fused_sparse_conv.launches
-    with pytest.raises(ValueError, match="no kernel for device"):
-        sc.fused_sparse_conv(feats, rb, w2, bias, N_IN)
-    assert sc.fused_sparse_conv.launches == before
+    for fn in (sc.fused_sparse_conv, sc.fused_sparse_conv_stream):
+        before = fn.launches
+        with pytest.raises(ValueError, match="no kernel for device"):
+            fn(feats, rb, w2, bias, N_IN)
+        assert fn.launches == before
 
 
 TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -224,6 +273,9 @@ def test_kernels_profile_under_their_own_names(cuda):
     inv = sp.inverse_rulebook(r, N_IN)
     calls = {"fused_sparse_conv_kernel": lambda: sc.fused_sparse_conv(
                  feats, rb.int(), w2, bias, N_IN),
+             "fused_sparse_conv_stream_kernel":
+                 lambda: sc.fused_sparse_conv_stream(feats, rb.int(), w2,
+                                                     bias, N_IN),
              "sparse_conv_fwd_kernel": lambda: kt.sparse_conv_fwd(f, r, w, m),
              "sparse_conv_dfeat_kernel": lambda: kt.sparse_conv_dfeat(
                  d, inv, w),

@@ -1,6 +1,7 @@
 """The port's serving front end and builder on the CPU, at a cropped grid:
-ExactBatchServer's capacity-saturation re-run, batch-4 serving on an int32
-chain against batch-1 serving, and the config builders (det3d parameter
+ExactBatchServer's capacity-saturation re-run, batch-4 and batch-8 serving
+on int32 chains (batch 8 partly through the stream kernel's path) against
+batch-1 serving, and the config builders (det3d parameter
 names, compute dtype, the predict config the JAX builder gives)."""
 import os
 
@@ -13,8 +14,10 @@ from sessd_tpu.config import Config
 from sessd_tpu.core.anchors import create_anchors_3d_range
 from sessd_tpu.ops.voxelize import KITTI_VOXELIZER, VoxelizerSpec
 from sessd_torch import builder
+from sessd_torch.models import backbone as bb
 from sessd_torch.models.detector import VoxelNet
 from sessd_torch.models.predict import PredictConfig
+from sessd_torch.ops.voxelize import KITTI_VOXELIZER as PORT_KITTI_VOXELIZER
 from sessd_torch.serve import ExactBatchServer, make_infer_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +91,38 @@ def test_batch4_int32_chain_matches_batch1(model):
         _close([o[i] for o in out4], [o[0] for o in b1([pts])])
 
 
+def test_batch8_streams_stage2_and_matches_batch1(model, monkeypatch):
+    """At batch 8 the f32 stage-2 feature buffer passes the stream limit
+    (64 x cols_for(8 x 4096) x 4 bytes > 8 MiB), so the 4 convs that read
+    stage-2 rows take the stream kernel's path; every scene's detections
+    equal its batch-1 detections, where nothing streams."""
+    taken = []
+
+    def recorder(name, fn):
+        def conv(*args, **kw):
+            taken.append(name)
+            return fn(*args, **kw)
+        return conv
+
+    monkeypatch.setattr(bb, "fused_sparse_conv",
+                        recorder("resident", bb.fused_sparse_conv))
+    monkeypatch.setattr(bb, "fused_sparse_conv_stream",
+                        recorder("stream", bb.fused_sparse_conv_stream))
+    scenes = [_scene(s) for s in range(8)]
+    b8 = ExactBatchServer(model, ANCHORS, CFG, SPEC, "cpu",
+                          serving_caps=SAFE_CAPS, safe_caps=SAFE_CAPS,
+                          batch_size=8)
+    out8 = b8(scenes)
+    assert b8.stats["fast"] == 1
+    assert taken == ["resident"] * 6 + ["stream"] * 4 + ["resident"] * 4
+    b1 = ExactBatchServer(model, ANCHORS, CFG, SPEC, "cpu",
+                          serving_caps=SAFE_CAPS, safe_caps=SAFE_CAPS)
+    del taken[:]
+    for i, pts in enumerate(scenes):
+        _close([o[i] for o in out8], [o[0] for o in b1([pts])])
+    assert taken == ["resident"] * 14 * 8
+
+
 def test_builder_det3d_names_and_dtype():
     golden = np.load(os.path.join(REPO, "tests", "goldens",
                              "ref_full_model.npz"))
@@ -120,7 +155,9 @@ def test_builder_serving_helpers():
     (config rotations 1.57 against its pi/2), and the cls prior."""
     cfg = builder.load_config("se_ssd_kitti_car.py")
     assert cfg.model == Config.fromfile(CAR).model
-    assert builder.build_voxelizer(cfg.voxel_generator) == KITTI_VOXELIZER
+    spec = builder.build_voxelizer(cfg.voxel_generator)
+    assert spec == PORT_KITTI_VOXELIZER
+    assert vars(spec) == vars(KITTI_VOXELIZER)
     anchors = builder.build_anchors(cfg)
     assert anchors.shape == (70400, 7)
     np.testing.assert_allclose(anchors, create_anchors_3d_range(

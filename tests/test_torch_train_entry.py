@@ -32,7 +32,7 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train_entry")
     root = tmp / "kitti"
     make_kitti_root(root, num_frames=4, num_cars=3)
-    create_kitti_data(str(root), {"train": range(4)})
+    create_kitti_data(str(root), {"train": range(4), "val": range(4)})
     cfg_path = tmp / "tiny.py"
     cfg_path.write_text(TINY.replace(
         "{BASE}", str(train_cli.builder.CONFIG_DIR / "se_ssd_kitti_car.py")))
