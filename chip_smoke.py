@@ -47,6 +47,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    K3 and 3 K1 launches per batch; ``save_checkpoint``; then
    ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint,
    which must give the same AP tables and write ``--out``.
+8. Ablation: the micro-benchmark kernels through their scripts, the main
+   path of these kernels: S1 (``sessd_torch.scripts.bench_sparse_conv_ablate``,
+   the conv tile with one cost removed at a time, per-variant ms) and S2
+   (``sessd_torch.scripts.bench_launch_overhead``, the empty launch: host
+   and device us per launch, through Python and from one C call, and the
+   ``sparse_conv_fwd`` wrapper against its bare launches). Then S1's
+   ``full`` mode must equal ``sparse_conv_fwd`` bit for bit, every mode
+   must match its plain version within 2e-2 of max|plain|, and S2's output
+   must be all zeros.
+9. Warm start and resume on the 8-frame root: a CIA-SSD bf16 trainer runs
+   one epoch (2 steps) and checkpoints; an SE-SSD bf16 trainer's
+   ``load_from`` must give teacher = student = the CIA student, the CIA
+   moments, a restarted schedule (``sched_count`` 0, ``count`` 2) and step
+   0, then trains one epoch (2 finite steps); a third trainer's
+   ``resume()`` from that work dir must restore epoch, step, both counts
+   and every tensor exactly.
+10. Acceptance path: ``python -m sessd_torch.scripts.acceptance_ap 8 4 1 1
+   1 --out ...`` in a subprocess must write a record with the floor, each
+   stage's AP trajectory and a finite AP (the path, not the AP, is
+   checked).
 
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
@@ -74,13 +94,17 @@ import torch
 from sessd_torch import builder
 from sessd_torch.models.backbone import PLAN, pick_conv
 from sessd_torch.ops import sparse as sp
+from sessd_torch.ops.cuda import ablate
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
+from sessd_torch.scripts import bench_launch_overhead as bench_launch
+from sessd_torch.scripts import bench_sparse_conv_ablate as bench_ablate
 from sessd_torch.scripts.profile_train import make_synthetic_root
 from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
                                HostPreprocessor, make_scene, stage_inputs)
 from sessd_torch.tools.train import load as load_train_config
 from sessd_torch.train.trainer import Trainer
+from sessd_torch.utils.profiling import card_line, queued_device_ms
 
 CONV_NAMES = ["subm0a", "subm0b", "down0", "subm1a", "subm1b", "down1",
               "subm2a", "subm2b", "subm2c", "down2", "subm3a", "subm3b",
@@ -117,13 +141,6 @@ class Bound:
 
 def hits(rb, miss: int) -> int:
     return int((rb != miss).sum())
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def median_ms(fn, reps=20) -> float:
@@ -578,7 +595,8 @@ def phase_train_kernels(trainer, db):
 
 
 KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
-              kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw)
+              kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw,
+              ablate.sparse_conv_ablate, ablate.empty_launch)
 
 
 def _reset_counts():
@@ -599,7 +617,8 @@ def phase_train(trainer):
     trainer.run(max_steps=TRAIN_STEPS - 1)
     tea0 = [p.detach().clone() for p in state.teacher.parameters()]
     s = state.step
-    hist = trainer.run(max_steps=TRAIN_STEPS)
+    trainer.run(max_steps=TRAIN_STEPS)
+    hist = trainer.history
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
 
@@ -618,7 +637,8 @@ def phase_train(trainer):
     want = {"fused_sparse_conv": 0, "fused_sparse_conv_stream": 0,
             "sparse_conv_fwd": 24 * TRAIN_STEPS,
             "sparse_conv_dfeat": 9 * TRAIN_STEPS,
-            "sparse_conv_dw": 10 * TRAIN_STEPS}
+            "sparse_conv_dw": 10 * TRAIN_STEPS,
+            "sparse_conv_ablate": 0, "empty_launch": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, want {want}")
     moved = max(float((p.detach() - p0).abs().max()) for p, p0 in
@@ -636,8 +656,11 @@ def phase_train(trainer):
     step_ms = float(np.median([h["step_time"] for h in steady])) * 1e3
     data = sum(h["data_time"] for h in steady)
     share = data / (data + sum(h["step_time"] for h in steady))
+    # the loop reads the device back only at log points and epoch ends, so
+    # a step's step_time is the mean of the steps read back with it
     print(f"training: {len(hist)} steps at batch 4, step median "
-          f"{step_ms:.3f} ms (steps 2-{len(hist)}), data-time share "
+          f"{step_ms:.3f} ms (steps 2-{len(hist)}, means over each "
+          f"read-back), data-time share "
           f"{share:.3f}, peak device memory {peak / 2 ** 30:.3f} GiB, "
           f"launches per step fwd {counts['sparse_conv_fwd'] // len(hist)}"
           f" dfeat {counts['sparse_conv_dfeat'] // len(hist)} dw "
@@ -773,7 +796,7 @@ def phase_eval(trainer, root, tmp):
     n = -(-len(trainer.val_dataset) // trainer.cfg.data["samples_per_gpu"])
     want = {"fused_sparse_conv": 3 * n, "fused_sparse_conv_stream": 11 * n,
             "sparse_conv_fwd": 0, "sparse_conv_dfeat": 0,
-            "sparse_conv_dw": 0}
+            "sparse_conv_dw": 0, "sparse_conv_ablate": 0, "empty_launch": 0}
     if counts != want:
         raise AssertionError(f"validate launches {counts}, want {want}")
     if results is None or set(results) != {"Car"}:
@@ -810,6 +833,198 @@ def phase_eval(trainer, root, tmp):
     return counts
 
 
+ABLATE_BOUND = 2e-2  # bf16 inputs and outputs, f32 sums
+
+
+def phase_ablation(device):
+    """S1 and S2 through their scripts, then each against its plain
+    version. Returns the launches of the scripts' run (the main path of
+    these kernels), the times, errors and bounds."""
+    inputs = bench_ablate.make_inputs(device)
+    _reset_counts()
+    s1_ms = bench_ablate.run(inputs)
+    s2 = bench_launch.run()
+    counts = _counts()
+    for name in ("sparse_conv_ablate", "empty_launch"):
+        if not counts[name]:
+            raise AssertionError(f"the scripts launched no {name}")
+
+    feats, rb, w2, _ = bench_ablate.variant_args(inputs, "full")
+    full = ablate.sparse_conv_ablate(feats, rb, w2, "full")
+    fwd = kt.sparse_conv_fwd(feats, rb, w2)
+    torch.cuda.synchronize()
+    if not torch.equal(full.view(torch.int16), fwd.view(torch.int16)):
+        raise AssertionError("S1 full differs from sparse_conv_fwd")
+    worst, plain_ms = 0.0, None
+    for name in bench_ablate.VARIANTS:
+        args = bench_ablate.variant_args(inputs, name)
+        got = ablate.sparse_conv_ablate(*args)
+        want = ablate.sparse_conv_ablate_ref(*args)
+        torch.cuda.synchronize()
+        rel, diff = _rel(got, want)
+        worst = max(worst, diff)
+        print(f"S1 {name:10s}: {s1_ms[name]:.4f} ms, rel_err vs plain "
+              f"{rel:.2e}")
+        if not (rel <= ABLATE_BOUND and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"S1 {name}: rel_err {rel:.3e}")
+        if name == "full":
+            plain_ms = queued_device_ms(
+                lambda a=args: ablate.sparse_conv_ablate_ref(*a), 10)
+    bound = Bound()
+    bound.add((feats, rb, w2, full), hits(rb, feats.shape[0]), 16, 16,
+              torch.bfloat16)
+    for label, d in bench_ablate.differences(s1_ms).items():
+        print(f"S1 {label}: {d:.4f} ms")
+
+    out = torch.ones((bench_launch.NPAD, bench_launch.COUT),
+                     dtype=torch.bfloat16, device=device)
+    ablate.empty_launch(out, 256)
+    torch.cuda.synchronize()
+    s2_worst = float(out.float().abs().max())
+    if s2_worst != 0:
+        raise AssertionError(f"S2 left {s2_worst} in its output")
+    s2_bound = Bound()
+    s2_bound.add((out,), 0, 16, 16, torch.bfloat16)
+    for block, r in s2["empty"].items():
+        print(f"S2 {block:4d} rows/block: (a) host {r['a_host']['issue_us']:.2f}"
+              f" us/call issued, {r['a_host']['synced_us']:.2f} synced; (b) "
+              f"device {r['b_device_us']:.2f} us/launch; (c) one C call: host"
+              f" {r['c_host']['issue_us']:.2f} us/launch, device "
+              f"{r['c_device_us']:.2f} us/launch")
+    g = s2["glue"]
+    print(f"S2 (d) sparse_conv_fwd N={bench_launch.GLUE_N}: wrapper host "
+          f"{g['wrapper_host']['issue_us']:.2f} us/call issued, device "
+          f"{g['wrapper_device_us']:.2f} us; bare C launches host "
+          f"{g['bare_host']['issue_us']:.2f} us/launch, device "
+          f"{g['bare_device_us']:.2f} us")
+    res = {"counts": counts, "s1_ms": s1_ms, "s1_worst": worst,
+           "s1_plain_ms": plain_ms, "s1_bound": bound,
+           "s2_ms": s2["empty"][256]["b_device_us"] / 1e3,
+           "s2_worst": s2_worst,
+           "s2_plain_ms": queued_device_ms(
+               lambda: ablate.empty_launch_ref(out), 10),
+           "s2_library_ms": queued_device_ms(lambda: out.zero_(), 10),
+           "s2_bound": s2_bound}
+    print(f"ablation: S1 full equals sparse_conv_fwd bit for bit, every "
+          f"mode within {ABLATE_BOUND} of its plain version (full plain "
+          f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})); "
+          f"S2 wrote zeros, {res['s2_ms'] * 1e3:.2f} us/launch on the "
+          f"device (plain {res['s2_plain_ms'] * 1e3:.2f} us, out.zero_() "
+          f"{res['s2_library_ms'] * 1e3:.2f} us, bound "
+          f"{s2_bound.ms() * 1e3:.3f} us); launches S1 "
+          f"{counts['sparse_conv_ablate']} S2 {counts['empty_launch']}")
+    return res
+
+
+def _state_tensors(state) -> dict:
+    opt = state.optimizer
+    out = {f"student.{k}": v for k, v in state.student.state_dict().items()}
+    out.update({f"teacher.{k}": v
+                for k, v in state.teacher.state_dict().items()})
+    out.update({f"mu.{i}": t for i, t in enumerate(opt.mu)})
+    out.update({f"nu.{i}": t for i, t in enumerate(opt.nu)})
+    return out
+
+
+def _bf16_trainer(config, root, work, epochs, device):
+    cfg = load_train_config(config, root)
+    cfg.precision = "bfloat16"
+    cfg.total_epochs = epochs
+    return Trainer(cfg, work_dir=work, seed=SEED, device=device)
+
+
+def phase_warm_start(root, tmp, device="cuda"):
+    """CIA-SSD -> SE-SSD ``load_from``, then ``resume`` of the SE-SSD run.
+    Returns the launches of the two training runs."""
+    _reset_counts()
+    cia = _bf16_trainer("cia_ssd_kitti_car.py", root, f"{tmp}/work_cia", 1,
+                        device)
+    cia.run()
+    cia_state = {k: v.detach().clone()
+                 for k, v in _state_tensors(cia.state).items()}
+    cia_counts = (cia.state.optimizer.count, cia.state.optimizer.sched_count)
+    del cia
+
+    se = _bf16_trainer("se_ssd_kitti_car_bf16.py", root, f"{tmp}/work_se", 1,
+                       device)
+    se.load_from(f"{tmp}/work_cia")
+    opt = se.state.optimizer
+    got = _state_tensors(se.state)
+    for k, v in got.items():
+        src = "student." + k.split(".", 1)[1] if k.startswith("teacher.") \
+            else k
+        if not torch.equal(v.cpu(), cia_state[src].cpu()):
+            raise AssertionError(f"load_from: {k} differs from the CIA {src}")
+    if (opt.sched_count, opt.count, se.state.step) != (0, 2, 0) \
+            or cia_counts != (2, 2):
+        raise AssertionError(f"load_from: sched_count {opt.sched_count}, "
+                             f"count {opt.count}, step {se.state.step} "
+                             f"(CIA counts {cia_counts})")
+    se.run()
+    hist = se.history
+    bad = [(h["step"], k) for h in hist for k, v in h.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if len(hist) != 2 or bad:
+        raise AssertionError(f"SE-SSD after load_from: {len(hist)} steps, "
+                             f"non-finite {bad}")
+    counts = _counts()
+    lr0 = hist[0]["lr"]
+    if lr0 != se.lr_fn(0):
+        raise AssertionError(f"first SE-SSD step applied lr {lr0}, want the "
+                             f"restarted schedule's {se.lr_fn(0)}")
+
+    again = _bf16_trainer("se_ssd_kitti_car_bf16.py", root,
+                          f"{tmp}/work_se", 1, device)
+    again.resume()
+    o1, o2 = se.state.optimizer, again.state.optimizer
+    want = (se.epoch, se.state.step, o1.count, o1.sched_count)
+    have = (again.epoch, again.state.step, o2.count, o2.sched_count)
+    if have != want:
+        raise AssertionError(f"resume: (epoch, step, count, sched_count) "
+                             f"{have}, want {want}")
+    mine, theirs = _state_tensors(se.state), _state_tensors(again.state)
+    diff = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    if diff:
+        raise AssertionError(f"resume: {len(diff)} tensors differ, e.g. "
+                             f"{diff[:3]}")
+    print(f"warm start: CIA-SSD 1 epoch (2 steps) -> load_from: teacher = "
+          f"student = CIA student, moments equal, sched_count 0, count 2, "
+          f"step 0; SE-SSD 2 steps (lr {lr0:.3g} = schedule(0), loss "
+          f"{hist[-1]['loss']:.5g}); resume: epoch {have[0]}, step "
+          f"{have[1]}, counts {have[2]}/{have[3]}, {len(mine)} tensors "
+          f"equal; launches {counts}")
+    return counts
+
+
+ACCEPT_ARGS = ("8", "4", "1", "1", "1")
+
+
+def phase_acceptance(tmp):
+    """The acceptance script's path at a tiny recipe, in a subprocess."""
+    out = os.path.join(tmp, "acceptance.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sessd_torch.scripts.acceptance_ap",
+         *ACCEPT_ARGS, "--out", out], capture_output=True, text=True,
+        timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"acceptance_ap exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    with open(out) as f:
+        rec = json.load(f)
+    floor = rec["floor"]
+    traj = {s: rec[s]["ap_trajectory"] for s in ("stage_cia", "stage_sessd")}
+    # stage A: its final val; stage B: final val + the teacher's
+    if [len(t) for t in traj.values()] != [1, 2] or not math.isfinite(
+            floor["value"]) or floor["required"] != 70.0:
+        raise AssertionError(f"acceptance record: floor {floor}, "
+                             f"trajectories {traj}")
+    print(f"acceptance path ({' '.join(ACCEPT_ARGS)}): {rec['total_steps']} "
+          f"steps, floor {floor['metric']} {floor['value']} (required "
+          f"{floor['required']}), trajectory rows "
+          f"{[len(t) for t in traj.values()]}, timing "
+          f"{rec['stage_sessd']['timing']}, wall {rec['wall_s']} s")
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -817,14 +1032,19 @@ def phase(name: str):
     print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
 
 
-def _entry(name, source, line, launches, max_abs, ms, plain_ms, bound):
+WCONV = "sessd_tpu/ops/pallas/wconv.py"
+
+
+def _entry(name, source, replaces, launches, max_abs, ms, plain_ms, bound,
+           library_ms=None):
+    """One row of the kernels line; ``replaces`` is the TPU kernel's
+    file:line. ``library_ms`` stays None where no one PyTorch call computes
+    the kernel's function (a rulebook gather-GEMM)."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": f"sessd_tpu/ops/pallas/wconv.py:{line}",
-            "launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound.ms(),
-            "bound_by": bound.by(),
-            # no one PyTorch call computes a rulebook gather-GEMM
-            "library_ms": None}
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound.ms(), "bound_by": bound.by(),
+            "library_ms": library_ms}
 
 
 def main():
@@ -880,6 +1100,14 @@ def main():
         with phase("eval"):
             ev = phase_eval_kernels(trainer)
             eval_counts = phase_eval(trainer, root, tmp)
+            del trainer
+            torch.cuda.empty_cache()
+        with phase("ablation"):
+            abl = phase_ablation(device)
+        with phase("warm start / resume"):
+            phase_warm_start(root, tmp)
+        with phase("acceptance"):
+            phase_acceptance(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -897,20 +1125,31 @@ def main():
     # times: K1 the 14 b1 bf16 convs, K3 the 7 streamed convs of a b8 bf16
     # request, K4/K5 the bf16 student chain at b4
     kernels = [
-        _entry("fused_sparse_conv", "sessd_torch/csrc/sparse_conv.cu", 253,
-               k1_launches, max_abs, ms, plain_ms, k1_bound),
+        _entry("fused_sparse_conv", "sessd_torch/csrc/sparse_conv.cu",
+               f"{WCONV}:253", k1_launches, max_abs, ms, plain_ms, k1_bound),
         _entry("fused_sparse_conv_stream",
-               "sessd_torch/csrc/sparse_conv_stream.cu", 277, k3_launches,
-               max(b8["worst"], ev["worst"]), b8["ms"], b8["plain_ms"],
-               b8["bound"])]
-    kernels[-1]["covers"] = "sessd_tpu/ops/pallas/wconv.py:350"
+               "sessd_torch/csrc/sparse_conv_stream.cu", f"{WCONV}:277",
+               k3_launches, max(b8["worst"], ev["worst"]), b8["ms"],
+               b8["plain_ms"], b8["bound"])]
+    kernels[-1]["covers"] = f"{WCONV}:350"
     for name, key, line in (("sparse_conv_fwd", "fwd", 51),
                             ("sparse_conv_dfeat", "dfeat", 67),
                             ("sparse_conv_dw", "dw", 67)):
         kernels.append(_entry(
-            name, "sessd_torch/csrc/sparse_conv_train.cu", line,
+            name, "sessd_torch/csrc/sparse_conv_train.cu", f"{WCONV}:{line}",
             counts[name], worst[key], train_ms[key][0], train_ms[key][1],
             train_bounds[key]))
+    # S1: the full mode's time; S2: device time per launch at 256 rows
+    kernels += [
+        _entry("sparse_conv_ablate", "sessd_torch/csrc/sparse_conv_ablate.cu",
+               "scripts/bench_wconv_ablate.py:51",
+               abl["counts"]["sparse_conv_ablate"], abl["s1_worst"],
+               abl["s1_ms"]["full"], abl["s1_plain_ms"], abl["s1_bound"]),
+        _entry("empty_launch", "sessd_torch/csrc/sparse_conv_ablate.cu",
+               "scripts/bench_wconv_ablate2.py:72",
+               abl["counts"]["empty_launch"], abl["s2_worst"],
+               abl["s2_ms"], abl["s2_plain_ms"], abl["s2_bound"],
+               library_ms=abl["s2_library_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -168,9 +168,8 @@ log_config = dict(interval=10)
 total_epochs = 60
 ema_decay_cap = 0.999
 # the teacher forward is inference-shaped (no grads), so it runs the
-# all-sparse serving plan while the student keeps dense_from_stage=3:
-# teacher fwd alone 43.8 -> 29.0 ms, full B=4 bf16 step 197.7 -> 185.0 ms
-# on v5e (scripts/breakdown_train2.py; plan equivalence guarded by
+# all-sparse serving plan, which keeps no dense activations for a backward,
+# while the student keeps dense_from_stage=3 (plan equivalence guarded by
 # tests/test_teacher_plan.py — the param tree is plan-invariant)
 teacher_dense_from_stage = 5
 consistency_rampup_epochs = 15.0

@@ -1,10 +1,7 @@
 """SE-SSD KITTI-Car with bfloat16 compute (the reference's fp16 training
-equivalent, det3d/core/fp16/hooks.py — bf16 needs no loss scaling and, with
-half the activation HBM, the full-scale batch-4 step fits on a 16G chip
-without backbone rematerialization: 1724 -> 963 ms/step with loader-built
-host rulebooks, measured on v5e (scripts/train_ab.py); 963 -> 585 ms with
-the dense_from_stage=3 execution plan (scripts/breakdown_train.py) = 6.8
-scenes/s/chip).
+equivalent, det3d/core/fp16/hooks.py): bf16 needs no loss scaling, halves
+the activation memory and the bytes every sparse conv gathers, so the
+full-scale batch-4 step needs no backbone rematerialization.
 
 Parameters, optimizer state and losses stay float32; only compute is bf16.
 """

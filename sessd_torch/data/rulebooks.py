@@ -3,9 +3,9 @@
 The sparse backbone's rulebook chain (permutation, per-stage voxel ids,
 subm/down gather maps) is a pure function of the batch's voxel coords —
 the reference leaves this work to spconv's on-GPU hash tables per forward
-(det3d/models/backbones/scn.py:92-189 via spconv), but on TPU the
-construction is scalar-core bound (~49 ms of a 67 ms forward, measured).
-Building it in the data path with native/rulebook.cpp removes every
+(det3d/models/backbones/scn.py:92-189 via spconv), where sorts and
+hash-table lookups run serially inside every forward. Building it in the
+data path with native/rulebook.cpp removes every
 device-side sort/LUT lookup from the jitted train step; the arrays ride
 into the batch dict and shard over the data mesh axis like any other leaf.
 

@@ -129,10 +129,24 @@ def build() -> ctypes.CDLL:
         # feats, rb, dout, partial, dw; n_in, n_out, cin, cout, taps,
         # chunk_rows, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dw.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        # the micro-benchmark kernels (ops/cuda/ablate.py)
+        # feats, rb, w2, out; n_in, n_out, taps, mode; stream
+        lib.sessd_sparse_conv_ablate.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        # out; n_bytes, block_bytes(, reps); stream
+        i64 = ctypes.c_longlong
+        lib.sessd_empty_launch.argtypes = [ptr, i64, i32, ptr]
+        lib.sessd_empty_launch_repeat.argtypes = [ptr, i64, i32, i32, ptr]
+        # feats, rb, w2, out; n_in, n_out, cin, cout, taps, dtype,
+        # idx_bytes, reps; stream
+        lib.sessd_sparse_conv_fwd_repeat.argtypes = \
+            [ptr] * 4 + [i32] * 8 + [ptr]
         for fn in (lib.sessd_fused_sparse_conv,
                    lib.sessd_fused_sparse_conv_stream,
                    lib.sessd_sparse_conv_fwd,
-                   lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw):
+                   lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw,
+                   lib.sessd_sparse_conv_ablate, lib.sessd_empty_launch,
+                   lib.sessd_empty_launch_repeat,
+                   lib.sessd_sparse_conv_fwd_repeat):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
         lib.sessd_cuda_error_string.argtypes = [i32]

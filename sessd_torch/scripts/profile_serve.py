@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import collections
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -38,6 +37,7 @@ from torch.autograd import DeviceType
 from sessd_torch import builder
 from sessd_torch.serve import (SERVING_CAPS, HostPreprocessor, make_infer_fn,
                                make_scene, stage_inputs)
+from sessd_torch.utils.profiling import card_line
 
 SPLIT = ("reader", "backbone", "neck", "head", "predict")
 REQUESTS = 50  # a p90 with five samples beyond it
@@ -148,9 +148,7 @@ def run_regime(marks, infer, prep, scenes) -> dict:
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
     print(card)
 
     cfg = builder.load_config("se_ssd_kitti_car_bf16.py")

@@ -29,7 +29,6 @@ import argparse
 import collections
 import itertools
 import json
-import subprocess
 import tempfile
 import time
 
@@ -41,6 +40,7 @@ from ..tools.create_data import create_kitti_data
 from ..tools.train import load
 from ..train.trainer import Trainer
 from ..utils.kitti_synth import make_kitti_root
+from ..utils.profiling import card_line
 
 BATCHES = 2  # one epoch of the default root
 WARMUP = 3
@@ -96,9 +96,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
     print(card)
 
     with tempfile.TemporaryDirectory(prefix="sessd_profile_") as tmp:

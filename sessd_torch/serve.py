@@ -119,14 +119,14 @@ class HostPreprocessor:
         return {"feats": feats, "rulebooks": rb}
 
 
-# Serving stage capacities (scripts/ab_caps.py, v5e): the fused kernels run
-# a grid over CAPACITY-padded column blocks, so the training-safety caps
-# (20000, 22000, 18000, 12000, 8000) spend ~half their stage-2..4 blocks on
-# zero padding (realistic occupancies 17.4k/18.8k/9.5k/3.7k/2.8k). Tightening
-# stages 2-4 to ~30-60% margin cuts the 64-channel stages' block counts:
-# b1 6.82 -> 6.01 ms, b4 18.96 -> 15.98 ms (250 scenes/s). Occupancy past a
-# cap TRUNCATES voxels (accuracy loss) — fallback_telemetry reports
-# cap_saturated_stages so a denser deployment sees the signal.
+# Serving stage capacities: the fused conv kernels run one block per 64
+# rows of the CAPACITY-padded stage, padding included, so the
+# training-safety caps (20000, 22000, 18000, 12000, 8000) would spend about
+# half of their stage-2..4 blocks on all-miss rows at realistic occupancies
+# (scripts/ab_caps.py). Tightening stages 2-4 to a ~30-60% margin cuts the
+# 64-channel stages' block counts. Occupancy past a cap TRUNCATES voxels
+# (accuracy loss): saturated_stages reports it, and ExactBatchServer then
+# re-runs the request at TRAIN_CAPS.
 SERVING_CAPS = (20000, 22000, 12000, 6000, 4000)
 
 

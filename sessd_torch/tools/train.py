@@ -1,16 +1,25 @@
-"""Train SE-SSD with the port (counterpart of ``tools/train.py``; saves
-checkpoints under ``<work-dir>/checkpoints``, no resume yet).
+"""Train SE-SSD with the port (counterpart of ``tools/train.py``).
 
     python -m sessd_torch.tools.train se_ssd_kitti_car_bf16.py \\
-        --work-dir work_dirs/x --max-steps 100 --data-root data/kitti
+        --work_dir work_dirs/x --data-root data/kitti \\
+        [--load_from work_dirs/cia] [--resume_from work_dirs/x] \\
+        [--max-steps 100]
 
 ``config`` is a path or the name of a config in ``sessd_torch/configs``.
 ``--data-root`` replaces the config's ``data_root`` in every data path
 (infos, GT database), as prepared by ``sessd_torch.tools.create_data``.
+``--load_from D`` (or the config's ``load_from``) warm-starts both nets
+from the latest checkpoint under ``D`` with the schedule restarted;
+``--resume_from`` (or the config's ``resume_from``) continues the run of
+the work dir from its latest checkpoint, as the JAX tool does.
+Checkpoints go to ``<work_dir>/checkpoints``. A run that is not cut by
+``--max-steps`` ends with a validation, whose AP tables are written to
+``<work_dir>/eval_results.json``.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 from .. import builder
@@ -39,21 +48,48 @@ def load(config: str, data_root=None):
     return cfg
 
 
+def _plain(o):
+    """AP tables -> JSON-ready lists and numbers (tools/train.py:75-82)."""
+    if isinstance(o, dict):
+        return {k: _plain(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [_plain(v) for v in o]
+    if hasattr(o, "tolist"):
+        return o.tolist()
+    return o
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Train a detector (PyTorch)")
     ap.add_argument("config")
-    ap.add_argument("--work-dir", default=None)
+    ap.add_argument("--work_dir", "--work-dir", dest="work_dir",
+                    default=None)
+    ap.add_argument("--resume_from", default=None)
+    ap.add_argument("--load_from", default=None)
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = load(args.config, args.data_root)
-    trainer = Trainer(cfg, work_dir=args.work_dir, seed=args.seed,
+    work_dir = args.work_dir or cfg.work_dir
+    trainer = Trainer(cfg, work_dir=work_dir, seed=args.seed,
                       device=args.device)
-    history = trainer.run(max_steps=args.max_steps)
-    last = history[-1] if history else {}
-    print(f"trained {len(history)} steps; last loss "
+    load_from = args.load_from or cfg.get("load_from")
+    if load_from:
+        trainer.load_from(load_from)
+    if args.resume_from or cfg.get("resume_from"):
+        trainer.resume()
+    steps = len(trainer.history)
+    results = trainer.run(max_steps=args.max_steps)
+    if results is not None:
+        path = os.path.join(work_dir, "eval_results.json")
+        with open(path, "w") as f:
+            json.dump(_plain(results), f, indent=1)
+        trainer.logger.info(f"wrote {path}")
+    last = trainer.history[-1] if len(trainer.history) > steps else {}
+    print(f"trained {len(trainer.history) - steps} steps to step "
+          f"{trainer.state.step}; last loss "
           f"{last.get('loss', float('nan')):.6g}")
     return trainer
 

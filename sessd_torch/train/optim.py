@@ -11,6 +11,12 @@ one optax takes:
 - ``optax.adamw``: bias correction with the *scheduled* beta1 of this step,
   eps outside the square root, then decoupled weight decay on every
   parameter (biases and BatchNorm affines included), then -lr.
+
+Two counts, as optax keeps them: ``count`` is Adam's bias-correction count
+(``ScaleByAdamState.count``), ``sched_count`` the one the lr and beta1
+schedules read (``InjectHyperparamsState.count``). A warm start restarts
+the schedule and keeps the moments and ``count``
+(``restart_schedule``, sessd_tpu/utils/checkpoint.py:67-93).
 """
 from __future__ import annotations
 
@@ -67,7 +73,9 @@ def one_cycle_mom(cfg: OneCycleConfig) -> Callable:
 class AdamW:
     """optax.chain(clip_by_global_norm, inject_hyperparams(adamw)) over a
     list of f32 parameters. ``step(grads)`` updates the parameters in place
-    and returns the gradients' global norm before clipping."""
+    and returns the gradients' global norm before clipping;
+    ``hyperparams`` then holds the lr and beta1 it applied (float32 values,
+    as optax's ``InjectHyperparamsState.hyperparams``)."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable,
                  b1_fn: Callable, b2: float = 0.99, eps: float = 1e-8,
@@ -79,6 +87,8 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.sched_count = 0
+        self.hyperparams: dict = {}
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -89,7 +99,8 @@ class AdamW:
         # gradient passes bit for bit
         clipped = norm >= self.clip
         # the hyperparameters as float32 values, as optax holds them
-        lr, b1, b2 = f32(self.lr_fn(self.count)), f32(self.b1_fn(self.count)), f32(self.b2)
+        lr, b1, b2 = (f32(self.lr_fn(self.sched_count)),
+                      f32(self.b1_fn(self.sched_count)), f32(self.b2))
         t = self.count + 1
         c1, c2 = float(f32(1) - b1 ** t), float(f32(1) - b2 ** t)
         d1, d2 = float(f32(1) - b1), float(f32(1) - b2)
@@ -101,7 +112,26 @@ class AdamW:
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.wd * p
             p.add_(u * -lr)
         self.count += 1
+        self.sched_count += 1
+        self.hyperparams = {"learning_rate": lr, "b1": b1}
         return norm
 
+    def restart_schedule(self):
+        """Restart the lr and beta1 schedules at step 0; the moments and
+        Adam's ``count`` stay."""
+        self.sched_count = 0
+
     def state_dict(self) -> dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, "sched_count": self.sched_count,
+                "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict):
+        """Restore ``state_dict()`` in place. A state without
+        ``sched_count`` (written before the two counts were split) had one
+        count for both."""
+        self.count = int(sd["count"])
+        self.sched_count = int(sd.get("sched_count", sd["count"]))
+        for mine, theirs in ((self.mu, sd["mu"]), (self.nu, sd["nu"])):
+            for m, t in zip(mine, theirs, strict=True):
+                m.copy_(t)

@@ -8,21 +8,27 @@ C++ rulebook chains -> one copy to the device -> the port's train step.
       -> H2D -> make_train_step (teacher fwd, student fwd + bwd, losses,
          AdamW, EMA)
 
-Each loss term is logged every ``log_config.interval`` steps to the console
-and to ``<work_dir>/train.log`` and ``log.json``. A checkpoint is written
-every ``checkpoint_config.interval`` epochs and at the end of ``run``.
+The loop reads nothing back from the device between log points: every
+``log_config.interval`` steps (and where ``max_steps`` or an epoch ends) one
+bulk copy brings the pending steps' metrics to the host, and
+``utils.logging.TextLogger`` writes the averaged line to the console,
+``<work_dir>/train.log`` and ``log.json``; data_time and step_time are
+averages over the interval. A checkpoint is written every
+``checkpoint_config.interval`` epochs and at the end of ``run``; the val
+split is evaluated every ``val_interval`` epochs before the last and once
+at the end. ``resume`` continues a run from its own work dir; ``load_from``
+is the warm start of SE-SSD from a CIA-SSD checkpoint (both nets from its
+student, Adam moments kept, the schedule restarted).
 
 ``validate`` runs the val split through the all-sparse serving plan on host
 chains (the fused sparse conv kernels, streaming where the JAX package
 streams), the predict path with the camera-frustum cull, and the official
-KITTI AP. Resume with the schedule restart, ``load_from`` and multi-host
-evaluation are not ported yet.
+KITTI AP. Multi-host evaluation is not ported yet.
 """
 from __future__ import annotations
 
-import json
-import logging
 import os
+import subprocess
 import time
 from typing import List, Optional
 
@@ -37,6 +43,8 @@ from ..data.rulebooks import (build_batch_rulebooks,
 from ..models.predict import predict_batch
 from ..serve import TRAIN_CAPS, saturated_stages
 from ..utils import checkpoint as ckpt
+from ..utils.logging import (LogBuffer, TensorBoardLogger, TextLogger,
+                             device_memory_stats, get_root_logger)
 from ..utils.native import ensure_native
 from .train_step import TrainState, make_train_step, sigmoid_rampup
 
@@ -46,23 +54,25 @@ _STEP_KEYS = ("voxels", "num_points", "labels", "reg_targets")
 _EVAL_KEYS = ("voxels", "coords", "num_points", "voxel_mask", "frustum")
 
 
-def _logger(work_dir: str) -> logging.Logger:
-    log = logging.getLogger(f"sessd_torch.train.{work_dir}")
-    if not log.handlers:
-        log.setLevel(logging.INFO)
-        fmt = logging.Formatter("%(asctime)s %(message)s")
-        for h in (logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(work_dir, "train.log"))):
-            h.setFormatter(fmt)
-            log.addHandler(h)
-    return log
+class _LogState:
+    """What the training loop carries between log points: the text and
+    TensorBoard loggers, the metrics buffer, and the steps whose metrics
+    are still on the device."""
+
+    def __init__(self, text: TextLogger, tb, max_steps: Optional[int]):
+        self.text, self.tb, self.max_steps = text, tb, max_steps
+        self.buf = LogBuffer()
+        self.pending: list = []   # (host record, stacked metrics tensor)
+        self.keys: list = []      # the metric names, in stacking order
+        self.t_int = time.perf_counter()
 
 
 class Trainer:
     """``Trainer(cfg, work_dir).run(max_steps=N)``; ``history`` holds one
-    dict per step: step, epoch, lr, data_time and step_time (seconds, the
-    step timed to the device's end) and every metric as a float.
-    ``validate()`` returns the AP tables and appends a row to
+    dict per step: step, epoch, lr (the one the step applied), data_time
+    (the loader wait before the step), step_time (seconds: the average over
+    the steps read back together, less their data time) and every metric
+    as a float. ``validate()`` returns the AP tables and appends a row to
     ``val_history``."""
 
     def __init__(self, cfg, work_dir: Optional[str] = None, seed: int = 0,
@@ -70,7 +80,7 @@ class Trainer:
         self.cfg = cfg
         self.work_dir = work_dir or cfg.work_dir
         os.makedirs(self.work_dir, exist_ok=True)
-        self.logger = _logger(self.work_dir)
+        self.logger = get_root_logger(self.work_dir)
         self.device = torch.device(device)
         # the host library is whole before any loader thread loads it
         ensure_native()
@@ -116,15 +126,22 @@ class Trainer:
         self.val_history: List[dict] = []
         self._eval_fn = None
         self._eval_sat_warned = False
+        self._sat_warned = False
+        self._sat_batches = 0
         self._saved_step = 0
+        self._snapshot_run_context()
 
     def _device_batch(self, batch: dict) -> dict:
         """The step's inputs as device tensors; each rulebook leaf drops the
-        loader's leading shard axis (one shard)."""
+        loader's leading shard axis (one shard). On a CUDA device each
+        array goes through pinned memory with a non-blocking copy, so the
+        host does not wait for the previous step's device work."""
         dev = self.device
+        pin = dev.type == "cuda"
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return (t.pin_memory() if pin else t).to(dev, non_blocking=pin)
 
         out = {}
         for sfx in self.suffixes:
@@ -141,9 +158,33 @@ class Trainer:
         out["anchors"] = self.anchors.expand(b, *self.anchors.shape)
         return out
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _snapshot_run_context(self):
+        """Record the run's recipe in the work dir (trainer.py:181-213): the
+        config text, the git revision, and the torch version and device.
+        Observability only: a failure never stops training."""
+        try:
+            text = getattr(self.cfg, "text", "")
+            if text:
+                with open(os.path.join(self.work_dir, "config_snapshot.py"),
+                          "w") as f:
+                    f.write(text)
+            try:
+                sha = subprocess.run(
+                    ["git", "rev-parse", "HEAD"], capture_output=True,
+                    text=True, timeout=10,
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                ).stdout.strip()
+            except Exception:
+                sha = ""
+            device = (torch.cuda.get_device_name(self.device)
+                      if self.device.type == "cuda" else str(self.device))
+            with open(os.path.join(self.work_dir, "run_env.txt"), "w") as f:
+                f.write(f"git_sha: {sha}\n")
+                f.write(f"torch: {torch.__version__}\n")
+                f.write(f"cuda: {torch.version.cuda}\n")
+                f.write(f"device: {device}\n")
+        except Exception as e:
+            self.logger.debug(f"run-context snapshot failed: {e}")
 
     def save_checkpoint(self):
         """The state at the current epoch count (``utils/checkpoint``)."""
@@ -151,60 +192,175 @@ class Trainer:
         self._saved_step = self.state.step
         self.logger.info(f"saved checkpoint at epoch {self.epoch}: {path}")
 
-    def run(self, max_steps: Optional[int] = None) -> List[dict]:
-        """Train for ``total_epochs`` or until ``max_steps`` steps; saves a
-        checkpoint every ``checkpoint_config.interval`` epochs and at the
-        end."""
+    def resume(self):
+        """Continue the run of ``work_dir`` from its latest checkpoint
+        (trainer.py:216-222): both nets, the optimizer, the step and the
+        epoch."""
+        state, epoch = ckpt.load_checkpoint(self.work_dir, self.state)
+        if state is not None:
+            self.epoch = epoch
+            self._saved_step = self.state.step
+            self.logger.info(f"resumed from epoch {epoch}")
+
+    def load_from(self, pretrained_dir):
+        """Warm start from the latest checkpoint under ``pretrained_dir``
+        (trainer.py:224-229, ``checkpoint.load_params_only``)."""
+        if ckpt.load_params_only(pretrained_dir, self.state) is not None:
+            self.logger.info(f"warm start (student+teacher) from "
+                             f"{pretrained_dir}")
+        else:
+            self.logger.warning(f"load_from: no checkpoint under "
+                                f"{pretrained_dir}")
+
+    def run(self, max_steps: Optional[int] = None):
+        """Train until ``total_epochs``, or until ``history`` holds
+        ``max_steps`` steps. Saves a checkpoint every
+        ``checkpoint_config.interval`` epochs and at the end, validates
+        every ``val_interval`` epochs before the last and once at the end
+        (trainer.py:254-360). Returns the final validation's AP tables;
+        None when ``max_steps`` cut the run, which then skips that
+        validation."""
         cfg = self.cfg
-        interval = cfg.log_config.get("interval", 10)
+        total = cfg.total_epochs
+        iters = len(self.train_loader)
+        log = _LogState(
+            TextLogger(self.logger, cfg.log_config.get("interval", 10),
+                       total_iters=total * iters,
+                       json_path=os.path.join(self.work_dir, "log.json")),
+            TensorBoardLogger(os.path.join(self.work_dir, "tb"))
+            if cfg.log_config.get("tensorboard", False) else None,
+            max_steps)
         ckpt_interval = cfg.get("checkpoint_config", {}).get("interval", 1)
+        val_interval = cfg.get("val_interval", 0)
         rampup = cfg.get("consistency_rampup_epochs", 15.0)
-        json_log = open(os.path.join(self.work_dir, "log.json"), "a")
+        cut = False
         try:
-            while self.epoch < cfg.total_epochs:
+            while self.epoch < total:
                 self.train_loader.set_epoch(self.epoch)
                 cw = (sigmoid_rampup(self.epoch, rampup) if self.enable_ssl
                       else 0.0)
                 batches = iter(self.train_loader)
                 try:
-                    if self._epoch(batches, cw, interval, json_log,
-                                   max_steps):
-                        break
+                    cut = self._epoch(batches, cw, log)
                 finally:
                     batches.close()  # joins the loader's prefetch threads
+                if cut:
+                    break
                 self.epoch += 1
+                if self._sat_batches:
+                    self.logger.warning(
+                        "epoch %d: %d batch(es) hit train cap saturation "
+                        "(truncated voxels — see the first warning above)",
+                        self.epoch, self._sat_batches)
+                    self._sat_batches = 0
                 if self.epoch % ckpt_interval == 0:
                     self.save_checkpoint()
+                if (val_interval and self.epoch % val_interval == 0
+                        and self.epoch < total):
+                    self.validate()
         finally:
-            json_log.close()
+            if log.tb is not None:
+                log.tb.close()
         if self.state.step != self._saved_step:
             self.save_checkpoint()
-        return self.history
+        return None if cut else self.validate()
 
-    def _epoch(self, batches, cw, interval, json_log, max_steps) -> bool:
-        """One pass over ``batches``; True once ``max_steps`` is reached."""
-        t_data = time.perf_counter()
-        for batch in batches:
-            t0 = time.perf_counter()
-            step = self.state.step
+    def _epoch(self, batches, cw, log: "_LogState") -> bool:
+        """One pass over ``batches``; True once ``max_steps`` is reached.
+        Between log points nothing is read from the device: each step's
+        metrics stay there, stacked into one vector."""
+        iters = len(self.train_loader)
+        log.t_int = t_data = time.perf_counter()
+        for it, batch in enumerate(batches):
+            data_time = time.perf_counter() - t_data
+            self._check_train_saturation(batch)
+            opt = self.state.optimizer
             metrics = self.train_step(self.state, self._device_batch(batch),
                                       cw)
-            self._sync()
-            t1 = time.perf_counter()
-            rec = {"step": step + 1, "epoch": self.epoch + 1,
-                   "lr": self.lr_fn(step), "data_time": t0 - t_data,
-                   "step_time": t1 - t0}
-            rec.update({k: float(v) for k, v in metrics.items()})
-            self.history.append(rec)
-            if (step + 1) % interval == 0:
-                self.logger.info(" ".join(
-                    f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in rec.items()))
-                json_log.write(json.dumps(rec) + "\n")
-            if max_steps is not None and len(self.history) >= max_steps:
+            log.keys = list(metrics)
+            log.pending.append((
+                {"step": self.state.step, "epoch": self.epoch + 1,
+                 "lr": opt.hyperparams["learning_rate"],
+                 "data_time": data_time},
+                torch.stack([v.float() for v in metrics.values()])))
+            done = (log.max_steps is not None and
+                    len(self.history) + len(log.pending) >= log.max_steps)
+            if log.text.will_log():
+                self._log_interval(log, it, iters)
+            else:
+                log.text.step(self.epoch + 1, it, iters, {})
+            if done:
+                self._flush(log)
                 return True
             t_data = time.perf_counter()
+        self._flush(log)  # the epoch's boundary work stays out of the timing
         return False
+
+    def _flush(self, log: "_LogState"):
+        """Read the pending steps' metrics back in one copy and append their
+        rows to ``history``. Returns (rows, mean data_time, step_time):
+        step_time is the wall time since the interval began, less the data
+        time, per step."""
+        if not log.pending:
+            return [], 0.0, 0.0
+        values = torch.stack([v for _, v in log.pending]).cpu().tolist()
+        now = time.perf_counter()
+        n = len(log.pending)
+        data = sum(rec["data_time"] for rec, _ in log.pending)
+        step_time = max((now - log.t_int - data) / n, 0.0)
+        rows = []
+        for (rec, _), vals in zip(log.pending, values):
+            rec["step_time"] = step_time
+            rec.update(zip(log.keys, vals))
+            rows.append(rec)
+        self.history += rows
+        log.pending = []
+        log.t_int = now
+        return rows, data / n, step_time
+
+    def _log_interval(self, log: "_LogState", it: int, iters: int):
+        """The log point (trainer.py:315-337): one read-back, then the
+        averaged line, ``log.json`` row and TensorBoard scalars."""
+        rows, data_time, step_time = self._flush(log)
+        log.buf.update({k: rows[-1][k] for k in log.keys})
+        avg = log.buf.average(10)
+        mem = device_memory_stats()
+        if mem.get("peak_bytes_in_use"):
+            avg["peak_hbm_gb"] = mem["peak_bytes_in_use"] / 2 ** 30
+        log.text.step(self.epoch + 1, it, iters, avg,
+                      lr=self.lr_fn(self.state.optimizer.sched_count),
+                      data_time=data_time, step_time=step_time)
+        if log.tb is not None:
+            log.tb.log(avg, self.state.step)
+
+    def _check_train_saturation(self, batch):
+        """Per-batch capacity guard on the loader-built train chains
+        (trainer.py:498-540). A stage whose id table is FULL has truncated
+        voxels: the rest of that sample's scene contributes zero features.
+        That is an accuracy fault, so every batch is checked (a few numpy
+        sums) and the first one is warned about loudly; the count per epoch
+        follows at the epoch's end."""
+        b = batch["voxels"].shape[0]
+        caps = [c * b for c in self.stage_capacity]
+        sentinel = np.iinfo(np.int32).max
+        hit = [(name, i, int((np.asarray(batch[name]["ids"][i])
+                              < sentinel).sum()), caps[i])
+               for name in ("rulebooks", "rulebooks_raw") if name in batch
+               for i in saturated_stages(batch[name], caps)]
+        if not hit:
+            return
+        self._sat_batches += 1
+        if not self._sat_warned:
+            self.logger.warning(
+                "TRAIN CAP SATURATION: %s — stage id table full; voxels past "
+                "a full stage are silently dropped (those samples train on "
+                "truncated or EMPTY features; an exactly-full table with "
+                "zero drops also trips this — the builder reports no "
+                "overflow count). Raise stage_capacity for this data "
+                "density. Counting saturated batches; per-epoch totals "
+                "follow.", ", ".join(f"{n} stage {i}: {o}/{c} rows"
+                                     for n, i, o, c in hit))
+            self._sat_warned = True
 
     # ------------------------------------------------------------------
     # evaluation (trainer.py:363-467, 592-636, 753-829)

@@ -95,16 +95,70 @@ def convert_jax(variables: dict) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
+def _find(tree, *attrs):
+    """The first node of an optax state (nested tuples of NamedTuples) that
+    has every attribute in ``attrs``, depth first; None if there is none."""
+    if all(hasattr(tree, a) for a in attrs):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for sub in tree:
+            found = _find(sub, *attrs)
+            if found is not None:
+                return found
+    return None
+
+
 def convert_train_state(state) -> dict:
     """A JAX ``TrainState`` (sessd_tpu/train/train_step.py; numpy or
     array-like leaves) -> {"step": int, "student": state dict of ``params``
     + ``batch_stats``, "teacher": state dict of ``ema_params`` +
-    ``ema_batch_stats``}, for the port's two ``VoxelNet`` modules. The
-    optimizer state is not carried."""
-    return {
+    ``ema_batch_stats``, "optimizer": {"count", "sched_count", "mu",
+    "nu"}}, for the port's two ``VoxelNet`` modules and its ``AdamW``
+    (``load_train_state`` puts it in place).
+
+    The optimizer comes from the state's ``inject_hyperparams`` stage
+    (``opt_state[1]`` of ``sessd_tpu.train.optim.build_optimizer``; found
+    by its fields, so a chain with more stages works too): ``count`` is the
+    inner Adam count (``inner_state[0].count``), ``sched_count`` the
+    schedule count, and the moments ``inner_state[0].mu`` / ``nu`` are
+    mapped with the parameters' reshapes and transposes, keyed by the
+    student's parameter names. A state with no such stage gives
+    "optimizer": None."""
+    out = {
         "step": int(np.asarray(state.step)),
         "student": convert_jax({"params": state.params,
                                 "batch_stats": state.batch_stats}),
         "teacher": convert_jax({"params": state.ema_params,
                                 "batch_stats": state.ema_batch_stats}),
+        "optimizer": None,
     }
+    inject = _find(state.opt_state, "hyperparams", "inner_state", "count")
+    adam = (None if inject is None
+            else _find(inject.inner_state, "mu", "nu", "count"))
+    if adam is not None:
+        def moments(tree):
+            sd = convert_jax({"params": tree,
+                              "batch_stats": state.batch_stats})
+            return {k: v for k, v in sd.items() if "running_" not in k}
+
+        out["optimizer"] = {"count": int(np.asarray(adam.count)),
+                            "sched_count": int(np.asarray(inject.count)),
+                            "mu": moments(adam.mu), "nu": moments(adam.nu)}
+    return out
+
+
+def load_train_state(state, converted: dict):
+    """Put ``convert_train_state``'s output into the port's ``TrainState``
+    in place: both modules, the step, and (when carried) the optimizer's
+    counts and moments in ``student.parameters()`` order."""
+    state.student.load_state_dict(converted["student"])
+    state.teacher.load_state_dict(converted["teacher"])
+    state.step = converted["step"]
+    opt = converted["optimizer"]
+    if opt is not None:
+        names = [n for n, _ in state.student.named_parameters()]
+        state.optimizer.load_state_dict(
+            {"count": opt["count"], "sched_count": opt["sched_count"],
+             "mu": [opt["mu"][n] for n in names],
+             "nu": [opt["nu"][n] for n in names]})
+    return state

@@ -1,7 +1,9 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
-card: the serving convs (K1, and K3, the streaming one, also against K1)
-and the training conv's forward (K4), input gradient and weight gradient
-(K5). Imports no JAX, so it runs on a GPU
+card: the serving convs (K1, and K3, the streaming one, also against K1),
+the training conv's forward (K4), input gradient and weight gradient
+(K5), and the micro-benchmark kernels (S1: the ablated conv tile, whose
+``full`` mode equals the training forward bit for bit; S2: the empty
+launch). Imports no JAX, so it runs on a GPU
 machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -304,3 +306,86 @@ def test_train_wrappers_raise_off_cpu_and_cuda():
         with pytest.raises(ValueError, match="no kernel for device"):
             fn(*args)
         assert fn.launches == before
+
+
+def _ablate_inputs(cuda):
+    """The ablation's shape and seed (``bench_sparse_conv_ablate``)."""
+    from sessd_torch.scripts import bench_sparse_conv_ablate as bench
+    return bench, bench.make_inputs(cuda)
+
+
+@pytest.mark.cuda
+def test_ablate_full_equals_training_forward(cuda):
+    """S1's ``full`` mode is a copy of the training forward's tile: the same
+    bits as ``sparse_conv_fwd`` on the same inputs."""
+    from sessd_torch.ops.cuda import ablate
+    _, x = _ablate_inputs(cuda)
+    before = ablate.sparse_conv_ablate.launches
+    got = ablate.sparse_conv_ablate(x["feats"], x["rb"], x["w2"], "full")
+    want = kt.sparse_conv_fwd(x["feats"], x["rb"], x["w2"])
+    torch.cuda.synchronize()
+    assert ablate.sparse_conv_ablate.launches == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "k9", "linear", "no_gather",
+                                     "fma_only"])
+def test_ablate_mode_matches_plain(cuda, variant):
+    """Each S1 mode against its plain version, within 2e-2 of max|plain|
+    (bf16 inputs and output, f32 sums)."""
+    from sessd_torch.ops.cuda import ablate
+    bench, x = _ablate_inputs(cuda)
+    feats, rb, w2, mode = bench.variant_args(x, variant)
+    got = ablate.sparse_conv_ablate(feats, rb, w2, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (bench.NPAD, 16) and got.dtype == torch.bfloat16
+    assert _err(got, ablate.sparse_conv_ablate_ref(feats, rb, w2,
+                                                   mode)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", [256, 512, 1024])
+def test_empty_launch_writes_zeros(cuda, block_rows):
+    from sessd_torch.ops.cuda import ablate
+    out = torch.ones((20224, 16), dtype=torch.bfloat16, device=cuda)
+    before = ablate.empty_launch.launches
+    assert ablate.empty_launch(out, block_rows) is out
+    torch.cuda.synchronize()
+    assert not out.any()
+    out.fill_(1)
+    ablate.empty_launch_repeat(out, block_rows, 3)
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert ablate.empty_launch.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_ablate_rejects_what_it_does_not_take(cuda):
+    from sessd_torch.ops.cuda import ablate
+    _, x = _ablate_inputs(cuda)
+    before = ablate.sparse_conv_ablate.launches
+    with pytest.raises(ValueError):      # f32 features
+        ablate.sparse_conv_ablate(x["feats"].float(), x["rb"], x["w2"])
+    with pytest.raises(ValueError):      # no such mode
+        ablate.sparse_conv_ablate(x["feats"], x["rb"], x["w2"], "k9")
+    with pytest.raises(ValueError):      # not 16-byte aligned
+        ablate.empty_launch(torch.zeros(13 * 16, dtype=torch.bfloat16,
+                                        device=cuda)[1:1 + 12 * 16].view(
+                                            12, 16), 4)
+    assert ablate.sparse_conv_ablate.launches == before
+
+
+def test_ablate_wrappers_raise_off_cpu_and_cuda():
+    from sessd_torch.ops.cuda import ablate
+    feats = torch.zeros((8, 16), dtype=torch.bfloat16, device="meta")
+    rb = torch.zeros((8, 27), dtype=torch.int32, device="meta")
+    w2 = torch.zeros((27, 16, 16), dtype=torch.bfloat16, device="meta")
+    before = (ablate.sparse_conv_ablate.launches,
+              ablate.empty_launch.launches)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ablate.sparse_conv_ablate(feats, rb, w2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ablate.empty_launch(feats)
+    assert (ablate.sparse_conv_ablate.launches,
+            ablate.empty_launch.launches) == before

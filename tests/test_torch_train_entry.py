@@ -56,8 +56,9 @@ def test_entry_point_trains(run):
                   "grad_norm"):
             assert math.isfinite(h[k]), (h["step"], k)
     assert hist[0]["num_pos"] > 0
+    # log interval 1: one TextLogger line per step
     log = (tmp / "work" / "train.log").read_text()
-    assert log.count(" cls_loss_reduced ") == 3
+    assert log.count(", cls_loss_reduced: ") == 3
 
 
 def test_teacher_is_ema_of_student(run):
