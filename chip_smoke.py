@@ -11,10 +11,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    produced, at full KITTI width (sparse shape (41, 1600, 1408), SERVING_CAPS,
    a ray-cast scene): f32 (TF32 off, bound 1e-4 of max|twin|) and bf16
    (bound 2e-2), batch 1 on int16 rulebooks and batch 4 on int32 ones.
-   Per-conv times are CUDA-event medians of 20 launches.
-   The streaming kernel (K3) against its twin and against K1 on every conv
+   Per-conv times are device times (``median_ms``: CUDA-event medians of
+   20 launches, each queued behind a device spin).
+   The streaming kernel (K3; in bf16 the tensor-core tile of
+   ``csrc/gather_mma.cuh``) against its twin and against K1 on every conv
    that streams in one bf16 batch-8 request at SERVING_CAPS (the 7 convs of
-   stages 1-2), with K3, K1 and twin times per conv.
+   stages 1-2), with K3, K1 (the scalar tile K3 had before) and twin times
+   and the share of (tile, tap) pairs no row hits, which the tile skips,
+   per conv.
 3. End-to-end serving through ``sessd_torch.serve.ExactBatchServer``: the
    SE-SSD Car VoxelNet (sessd_torch/configs/se_ssd_kitti_car_bf16.py, seeded
    random weights, 70,400 anchors) serves 12 batch-1 requests and one
@@ -31,7 +35,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    KITTI root (``sessd_torch.utils.kitti_synth``). Each conv takes the
    features the previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
    weight gradient, a reduction over all rows), bf16 2e-2. Kernel and twin
-   CUDA-event medians per conv (bf16, student chain).
+   device-time medians per conv (bf16, student chain); for the forward also
+   the scalar tile's time on the same inputs (K1 with zero bias and no
+   ReLU, the tile bf16 K4 ran before the tensor-core tile) and the share of
+   (tile, tap) pairs skipped.
 5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
    batch 4, SSL on) for 6 steps: every loss term and the gradient norm
    finite, the student moved, the teacher equal to the EMA formula on the
@@ -53,9 +60,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``sessd_torch.scripts.bench_launch_overhead``, the empty launch: host
    and device us per launch, through Python and from one C call, and the
    ``sparse_conv_fwd`` wrapper against its bare launches). Then S1's
-   ``full`` mode must equal ``sparse_conv_fwd`` bit for bit, every mode
-   must match its plain version within 2e-2 of max|plain|, and S2's output
-   must be all zeros.
+   ``full`` mode, a copy of the scalar tile, must equal K1 with zero bias
+   and no ReLU bit for bit, every mode must match its plain version within
+   2e-2 of max|plain|, and S2's output must be all zeros.
 9. Warm start and resume on the 8-frame root: a CIA-SSD bf16 trainer runs
    one epoch (2 steps) and checkpoints; an SE-SSD bf16 trainer's
    ``load_from`` must give teacher = student = the CIA student, the CIA
@@ -72,8 +79,10 @@ The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its 2*hits*Cin*Cout flops over the
 peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16), the card
-line, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA
-device it raises and prints no result.
+line, and the result line ``{"ok": true, "device": {...}}``. The rows of K4
+and K3 also carry ``old_tile_ms`` (the scalar tile on the same convs) and
+``skipped_tap_share``. Without a CUDA device it raises and prints no
+result.
 """
 import contextlib
 import copy
@@ -143,18 +152,29 @@ def hits(rb, miss: int) -> int:
     return int((rb != miss).sum())
 
 
+class TileSkips:
+    """(tile, tap) pairs that no row of a 64-row tile hits, summed over
+    convs: the taps the tensor-core tile neither gathers nor multiplies."""
+
+    def __init__(self):
+        self.pairs = 0
+        self.skipped = 0.0
+
+    def add(self, rb, miss: int) -> float:
+        flags, share = sp.tile_tap_hits(rb, miss)
+        self.pairs += flags.numel()
+        self.skipped += share * flags.numel()
+        return share
+
+    def share(self) -> float:
+        return self.skipped / self.pairs if self.pairs else 0.0
+
+
 def median_ms(fn, reps=20) -> float:
-    fn()  # warm
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    """Device ms of one ``fn()``: the median of ``reps`` CUDA-event pairs,
+    each call queued behind a spin on the device, so the wrapper's host
+    time (tens of us a call, S2) is not counted."""
+    return queued_device_ms(fn, reps)
 
 
 def build_model(config: str, device, prior: bool):
@@ -252,11 +272,12 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
     """The backbone's all-sparse plan on (feats, rb) with every conv that
     streams run through K3, its twin and K1 on identical inputs: K3 within
     the bound of the twin, its difference from K1 printed; each of these
-    convs timed (CUDA-event medians of 10). The other convs run K1.
+    convs timed (device-time medians of 10). The other convs run K1.
     Returns {"worst": max abs error vs twin, "vs_k1": max abs difference
-    from K1, "ms", "k1_ms", "plain_ms": sums, "bound": Bound}."""
+    from K1, "ms", "k1_ms", "plain_ms": sums, "bound": Bound, "tiles":
+    TileSkips}."""
     out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
-           "plain_ms": 0.0, "bound": Bound()}
+           "plain_ms": 0.0, "bound": Bound(), "tiles": TileSkips()}
     step = iter(range(len(CONV_NAMES)))
     streamed = []
 
@@ -283,11 +304,12 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
             out[key] += t
         out["bound"].add((x, rbk, w2, bias, y), hits(rbk, n_in), x.shape[1],
                          w2.shape[2], dtype)
+        skipped = out["tiles"].add(rbk, n_in)
         print(f"stream conv {i:2d} {CONV_NAMES[i]:6s} {x.shape[1]:2d}->"
               f"{w2.shape[2]:2d} K={w2.shape[0]:2d} rows {rbk.shape[0]:6d} "
               f"{tag}: rel_err vs twin {rel:.2e}, max|K3-K1| {vs_k1:.3e}; "
-              f"K3 {times[0]:.4f} ms K1 {times[1]:.4f} ms twin "
-              f"{times[2]:.4f} ms")
+              f"K3 {times[0]:.4f} ms, old tile (K1) {times[1]:.4f} ms, twin "
+              f"{times[2]:.4f} ms; taps skipped {skipped:.3f}")
         if not rel <= BOUNDS[dtype]:
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 rel_err "
                                  f"{rel:.3e} > {BOUNDS[dtype]}")
@@ -302,9 +324,11 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                              f"{want_streamed}")
     print(f"stream kernel {tag}: {len(streamed)} convs within bounds; max "
           f"abs error vs twin {out['worst']:.3e}, max|K3-K1| "
-          f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
+          f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, old tile (K1) "
           f"{out['k1_ms']:.4f} ms, twin {out['plain_ms']:.4f} ms, bound "
-          f"{out['bound'].ms():.4f} ms ({out['bound'].by()})")
+          f"{out['bound'].ms():.4f} ms ({out['bound'].by()}); taps skipped "
+          f"{out['tiles'].share():.3f} of {out['tiles'].pairs} (tile, tap) "
+          "pairs")
     return out
 
 
@@ -512,13 +536,15 @@ def _rel(got, want):
 def phase_train_kernels(trainer, db):
     """K4 / K5 against their twins on every sparse conv of both plans.
     Returns (max abs error per kernel, [summed kernel ms, summed twin ms]
-    per kernel, Bound per kernel) with the times and bounds of the bf16
-    student chain."""
+    per kernel, Bound per kernel, {"old_ms": the scalar tile's summed ms,
+    "tiles": TileSkips} of the forward) with the times and bounds of the
+    bf16 student chain."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
     bounds = {k: Bound() for k in worst}
+    fwd_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
@@ -544,6 +570,7 @@ def phase_train_kernels(trainer, db):
                 dout = torch.randn(rbk.shape[0], w.shape[2], device="cuda",
                                    generator=gen)
                 dout = torch.where(mask[:, None], dout, 0.0).to(dtype)
+                zero_bias = torch.zeros(w.shape[2], device="cuda")
                 runs = {"fwd": (lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
                                 lambda: kt.sparse_conv_fwd_ref(x, rbk, w,
                                                                mask)),
@@ -581,7 +608,16 @@ def phase_train_kernels(trainer, db):
                         bounds[name].add(moved + (got,),
                                          hits(rbk, x.shape[0]), w.shape[1],
                                          w.shape[2], dtype)
-                        line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms)"
+                        line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms"
+                        if name == "fwd":
+                            old_ms = median_ms(lambda: sc.fused_sparse_conv(
+                                x, rbk, w, zero_bias, x.shape[0],
+                                relu=False), 10)
+                            fwd_tile["old_ms"] += old_ms
+                            skipped = fwd_tile["tiles"].add(rbk, x.shape[0])
+                            line += (f", old tile {old_ms:.4f} ms, taps "
+                                     f"skipped {skipped:.3f}")
+                        line += ")"
                     if name == "fwd":
                         y = got
                 print(line)
@@ -590,8 +626,11 @@ def phase_train_kernels(trainer, db):
           "bf16 student chain sums " + ", ".join(
               f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms bound "
               f"{bounds[k].ms():.4f} ms ({bounds[k].by()})"
-              for k, v in ms.items()))
-    return worst, ms, bounds
+              for k, v in ms.items())
+          + f"; fwd old tile {fwd_tile['old_ms']:.4f} ms, taps skipped "
+          f"{fwd_tile['tiles'].share():.3f} of {fwd_tile['tiles'].pairs} "
+          "(tile, tap) pairs")
+    return worst, ms, bounds, fwd_tile
 
 
 KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
@@ -851,10 +890,12 @@ def phase_ablation(device):
 
     feats, rb, w2, _ = bench_ablate.variant_args(inputs, "full")
     full = ablate.sparse_conv_ablate(feats, rb, w2, "full")
-    fwd = kt.sparse_conv_fwd(feats, rb, w2)
+    zero = torch.zeros(w2.shape[2], device=device)
+    k1 = sc.fused_sparse_conv(feats, rb, w2, zero, feats.shape[0], relu=False)
     torch.cuda.synchronize()
-    if not torch.equal(full.view(torch.int16), fwd.view(torch.int16)):
-        raise AssertionError("S1 full differs from sparse_conv_fwd")
+    if not torch.equal(full.view(torch.int16), k1.view(torch.int16)):
+        raise AssertionError("S1 full differs from K1 with zero bias and no "
+                             "ReLU")
     worst, plain_ms = 0.0, None
     for name in bench_ablate.VARIANTS:
         args = bench_ablate.variant_args(inputs, name)
@@ -905,7 +946,8 @@ def phase_ablation(device):
                lambda: ablate.empty_launch_ref(out), 10),
            "s2_library_ms": queued_device_ms(lambda: out.zero_(), 10),
            "s2_bound": s2_bound}
-    print(f"ablation: S1 full equals sparse_conv_fwd bit for bit, every "
+    print(f"ablation: S1 full equals K1 (zero bias, no ReLU) bit for bit, "
+          f"every "
           f"mode within {ABLATE_BOUND} of its plain version (full plain "
           f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})); "
           f"S2 wrote zeros, {res['s2_ms'] * 1e3:.2f} us/launch on the "
@@ -1087,7 +1129,7 @@ def main():
                                                 root),
                               work_dir=f"{tmp}/work_bf16", seed=SEED,
                               device=device)
-            worst, train_ms, train_bounds = phase_train_kernels(
+            worst, train_ms, train_bounds, fwd_tile = phase_train_kernels(
                 trainer, first_batch(trainer))
             counts = phase_train(trainer)
             del trainer
@@ -1131,7 +1173,8 @@ def main():
                "sessd_torch/csrc/sparse_conv_stream.cu", f"{WCONV}:277",
                k3_launches, max(b8["worst"], ev["worst"]), b8["ms"],
                b8["plain_ms"], b8["bound"])]
-    kernels[-1]["covers"] = f"{WCONV}:350"
+    kernels[-1].update(covers=f"{WCONV}:350", old_tile_ms=b8["k1_ms"],
+                       skipped_tap_share=b8["tiles"].share())
     for name, key, line in (("sparse_conv_fwd", "fwd", 51),
                             ("sparse_conv_dfeat", "dfeat", 67),
                             ("sparse_conv_dw", "dw", 67)):
@@ -1139,6 +1182,8 @@ def main():
             name, "sessd_torch/csrc/sparse_conv_train.cu", f"{WCONV}:{line}",
             counts[name], worst[key], train_ms[key][0], train_ms[key][1],
             train_bounds[key]))
+    kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
+                      skipped_tap_share=fwd_tile["tiles"].share())
     # S1: the full mode's time; S2: device time per launch at 256 rows
     kernels += [
         _entry("sparse_conv_ablate", "sessd_torch/csrc/sparse_conv_ablate.cu",

@@ -1,7 +1,9 @@
-// Row-gather GEMM over a rulebook, the body shared by the serving conv
-// (sparse_conv.cu: fused_sparse_conv_kernel, with its fused epilogue) and
-// the training convs (sparse_conv_train.cu: sparse_conv_fwd_kernel and
-// sparse_conv_dfeat_kernel, plain).
+// Row-gather GEMM over a rulebook, the scalar body shared by the serving
+// conv (sparse_conv.cu: fused_sparse_conv_kernel, with its fused epilogue),
+// the training forward's f32 and Cin = 4 instances (sparse_conv_train.cu:
+// sparse_conv_fwd_kernel; its bf16 instances with Cin in {16, 32, 64} take
+// gather_mma.cuh's tensor-core tile) and the input gradient
+// (sparse_conv_dfeat_kernel, plain).
 //
 // Computes, for every output row n (row-major [N, C] features):
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
@@ -26,8 +28,8 @@
 // and used Cout times from shared memory. The rulebook tile is read once per
 // block and the epilogue is fused into the store, so the output is written
 // once and never re-read. Neighbouring rows in a tile are neighbouring voxels
-// (z-minor ids), so their gathers share cache lines in L2. wgmma, TMA and
-// pipelining of the gathers are later work.
+// (z-minor ids), so their gathers share cache lines in L2. The tensor-core
+// tile (gather_mma.cuh) is what this body becomes for K1 and dFeat next.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -4,13 +4,15 @@
 //
 // sparse_conv_ablate_kernel<MODE> replaces the ablated copies of the Pallas
 // _fwd_kernel in scripts/bench_wconv_ablate.py (full_kernel, run through
-// run_kernel). It is a copy of gather_gemm.cuh's tile body, instantiated
+// run_kernel). It is a copy of gather_gemm.cuh's scalar tile, instantiated
 // only for the ablation's shape: bf16 features and weights, an int32
 // rulebook, 16 -> 16 channels. Each mode removes one cost:
 //   kFull      the real gather over the rulebook (K = 27, or 9 for the
 //              "K=9" variant: the same mode on a 9-tap rulebook); the same
-//              arithmetic in the same order as sparse_conv_fwd_kernel, so
-//              the two agree bit for bit;
+//              arithmetic in the same order as the scalar tile of K1
+//              (fused_sparse_conv_kernel) with zero bias and no ReLU, so
+//              the two agree bit for bit (the bf16 training forward now
+//              runs the tensor-core tile, gather_mma.cuh);
 //   kLinear    row n of every tap reads feature row n: no rulebook loads,
 //              no indirection, the same staging and FMAs (the TPU's
 //              "static lo" / "fully static window");

@@ -1,35 +1,41 @@
 // Streaming fused sparse convolution + folded BatchNorm + ReLU + occupancy
 // mask: the serving conv of the stages whose feature buffer is large.
 //
-// Replaces sessd_tpu/ops/pallas/wconv.py:_fused_stream_kernel, and with it
-// _patch_stream_kernel. The TPU kernel keeps the features in HBM and, per
-// tap, DMAs a [Cin, window] slice into one of two VMEM slots while the
-// one-hot GEMM of the previous tap runs out of the other
+// Replaces sessd_tpu/ops/pallas/wconv.py:_fused_stream_kernel (wconv.py:277),
+// and with it _patch_stream_kernel. The TPU kernel keeps the features in HBM
+// and, per tap, DMAs a [Cin, window] slice into one of two VMEM slots while
+// the one-hot GEMM of the previous tap runs out of the other
 // (pltpu.make_async_copy + two DMA semaphores). Here every rulebook entry is
 // a direct row address, so there is no window and no over-span block for a
-// patch kernel to recompute; what carries over is the overlap: the gather of
-// tap k+1 is in flight while tap k's FMAs run.
+// patch kernel to recompute; what carries over is the overlap: the gathers
+// of the taps ahead are in flight while the current tap computes.
 //
 // Computes the same function as fused_sparse_conv_kernel (sparse_conv.cu):
 //   out[n, :] = relu(sum_k feats[rb[n, k], :] @ w2[k] + bias)
 //               if any(rb[n, :] != n_in) else 0
-// with the same tile, thread mapping and summation order (tap by tap, input
-// channel by channel, one fmaf per product), so the two agree bit for bit.
 //
-// What bounds it on Hopper: gather bytes, as for K1 (gather_gemm.cuh): at
-// most 2*Cout flops per loaded value, below the card's ridge. K1 loads each
-// tap's rows into shared memory and then computes, so the load latency of
-// every tap is exposed. Here a two-stage shared-memory ring hides it: while
-// the block runs tap k out of slot k%2, every thread has already issued
-// tap k+1's gathered rows and weights into the other slot with cp.async
-// (16-byte chunks, L2 only); a miss row is a zero-fill copy (src-size 0),
-// so the gather has no branch. One cp.async.wait_group and one barrier per
-// tap. The raw T rows are staged and converted to f32 at use, which halves
-// the staged bytes in bf16. Two slots of 64 rows plus a [Cin, Cout] weight
-// tile each, and the rulebook tile, take up to 73 KB (64x64, f32), so the
-// kernel uses dynamic shared memory. wgmma and TMA are later work.
+// What bounds it on Hopper: gather bytes, as for K1: at most 2*Cout flops
+// per loaded value, below the card's ridge. The kernel takes one of two
+// bodies by type, fixed at compile time (no fallback at run time):
+// - bf16: gather_mma.cuh's tensor-core tile with its bias + ReLU + any-hit
+//   store. The scalar two-slot ring it replaces converted each staged bf16
+//   value to f32 at every use and ran a scalar FMA loop over every tap of
+//   every tile (7% slower than K1 in bf16, PERF.md). The new tile stays in
+//   bf16 from gather to wgmma, keeps three taps' gathers in flight in a
+//   4-stage cp.async ring, and skips the taps no row of the tile hits. It
+//   sums in the tensor cores' order, so in bf16 it no longer equals K1 bit
+//   for bit.
+// - f32 (the eval path, held to 1e-4): the two-stage ring below, K1's tile,
+//   thread mapping and summation order (tap by tap, input channel by input
+//   channel, one fmaf per product), so f32 K3 equals K1 bit for bit. While
+//   the block runs tap k out of slot k%2, every thread has already issued
+//   tap k+1's gathered rows and weights into the other slot with cp.async
+//   (16-byte chunks, L2 only); a miss row is a zero-fill copy (src-size 0).
+//   Two slots of 64 rows plus a [Cin, Cout] weight tile each and the
+//   rulebook tile take up to 73 KB (64x64), so it uses dynamic shared
+//   memory.
 
-#include "gather_gemm.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
@@ -53,37 +59,12 @@ struct StreamLayout {
       2 * kSlotBytes + (kRows * kMaxTaps + kRows) * sizeof(int);
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void load4(const float* p, float (&b)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   b[0] = v.x;
   b[1] = v.y;
   b[2] = v.z;
   b[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&b)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  b[0] = lo.x;
-  b[1] = lo.y;
-  b[2] = hi.x;
-  b[3] = hi.y;
 }
 
 // Issue tap k's 64 gathered rows and its [Cin, Cout] weights into `slot`,
@@ -103,23 +84,27 @@ __device__ __forceinline__ void issue_tap(unsigned char* slot,
     const int src = s_rb[r * taps + k];
     const bool hit = static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
     // a miss reads nothing and fills the chunk with zeros
-    cp_async16(g + r * L::kGStride + c,
-               feats + (size_t)(hit ? src : 0) * CIN + c, hit ? 16 : 0);
+    sessd::cp_async16(sessd::smem_u32(g + r * L::kGStride + c),
+                      feats + (size_t)(hit ? src : 0) * CIN + c,
+                      hit ? 16 : 0);
   }
   const T* wk = w2 + (size_t)k * CIN * COUT;
   for (int i = threadIdx.x; i < L::kWChunks; i += kThreads)
-    cp_async16(w + i * L::kChunk, wk + i * L::kChunk, 16);
-  cp_async_commit();
+    sessd::cp_async16(sessd::smem_u32(w + i * L::kChunk), wk + i * L::kChunk,
+                      16);
+  sessd::cp_async_commit();
 }
 
+// The scalar two-slot body (f32): K1's tile with each tap's gather issued
+// one tap ahead.
 template <typename T, typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
-fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
-                                const IdxT* __restrict__ rb,
-                                const T* __restrict__ w2,
-                                const float* __restrict__ bias,
-                                T* __restrict__ out, int n_in, int n_out,
-                                int taps, int relu) {
+__device__ __forceinline__ void stream_fma_tile(const T* __restrict__ feats,
+                                                const IdxT* __restrict__ rb,
+                                                const T* __restrict__ w2,
+                                                const float* __restrict__ bias,
+                                                T* __restrict__ out, int n_in,
+                                                int n_out, int taps,
+                                                int relu) {
   using L = StreamLayout<T, CIN, COUT>;
   constexpr int kCols = 4;                   // output channels per thread
   constexpr int kTx = COUT / kCols;          // threads across channels
@@ -158,7 +143,7 @@ fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
   for (int k = 0; k < taps; ++k) {
     // tap k has landed for every thread, and every thread is done with
     // tap k-1, whose slot tap k+1 now refills while tap k computes
-    cp_async_wait_all();
+    sessd::cp_async_wait<0>();
     __syncthreads();
     if (k + 1 < taps)
       issue_tap<T, CIN, COUT>(smem + ((k + 1) & 1) * L::kSlotBytes, feats,
@@ -202,24 +187,58 @@ fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
 }
 
 template <typename T, typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
+                                const IdxT* __restrict__ rb,
+                                const T* __restrict__ w2,
+                                const float* __restrict__ bias,
+                                T* __restrict__ out, int n_in, int n_out,
+                                int taps, int relu) {
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, true>(
+        feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
+  else
+    stream_fma_tile<T, IdxT, CIN, COUT>(feats, rb, w2, bias, out, n_in,
+                                        n_out, taps, relu);
+}
+
+// dynamic shared memory of one block of the instance
+template <typename T, int CIN, int COUT>
+constexpr int smem_bytes() {
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+    return sessd::MmaLayout<CIN, COUT>::kSmemBytes;
+  else
+    return StreamLayout<T, CIN, COUT>::kSmemBytes;
+}
+
+template <typename T, typename IdxT, int CIN, int COUT>
 cudaError_t launch(const void* feats, const void* rb, const void* w2,
                    const float* bias, void* out, int n_in, int n_out,
                    int taps, int relu, cudaStream_t stream) {
-  using L = StreamLayout<T, CIN, COUT>;
+  constexpr bool kMma = sessd::kMmaTile<T, CIN, COUT>;
+  constexpr int smem = smem_bytes<T, CIN, COUT>();
   auto* kern = fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT>;
   // above 48 KB a block's shared memory must be asked for, once per kernel
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kern<<<sessd::gather_gemm_grid(n_out), kThreads, L::kSmemBytes, stream>>>(
-      static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
-      static_cast<const T*>(w2), bias, static_cast<T*>(out), n_in, n_out,
-      taps, relu);
+  kern<<<sessd::gather_gemm_grid(n_out), kMma ? sessd::kMmaThreads : kThreads,
+         smem, stream>>>(static_cast<const T*>(feats),
+                         static_cast<const IdxT*>(rb),
+                         static_cast<const T*>(w2), bias,
+                         static_cast<T*>(out), n_in, n_out, taps, relu);
   return cudaGetLastError();
 }
 
 // the (Cin, Cout) pairs of the SpMiddleFHD plan that can stream: Cin = 4
 // (the first conv) never does, its buffer is small
+#define SESSD_STREAM_PAIRS(CASE) \
+  CASE(16, 16)                   \
+  CASE(16, 32)                   \
+  CASE(32, 32)                   \
+  CASE(32, 64)                   \
+  CASE(64, 64)
+
 template <typename T, typename IdxT>
 cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* rb, const void* w2,
@@ -230,13 +249,20 @@ cudaError_t dispatch_channels(int cin, int cout, const void* feats,
   if (cin == CI && cout == CO)                                               \
     return launch<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in, n_out,    \
                                    taps, relu, stream);
-  SESSD_CASE(16, 16)
-  SESSD_CASE(16, 32)
-  SESSD_CASE(32, 32)
-  SESSD_CASE(32, 64)
-  SESSD_CASE(64, 64)
+  SESSD_STREAM_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
+}
+
+// 2 where the instance for (T, cin, cout) is the tensor-core tile, 1 where
+// it is the scalar two-slot ring, 0 where there is none
+template <typename T>
+int stream_instance(int cin, int cout) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  SESSD_STREAM_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
 }
 
 }  // namespace
@@ -266,4 +292,13 @@ extern "C" int sessd_fused_sparse_conv_stream(const void* feats,
     return dispatch_channels<__nv_bfloat16, int32_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   return cudaErrorInvalidValue;
+}
+
+// Which body sessd_fused_sparse_conv_stream launches for (cin, cout,
+// dtype): 2 the tensor-core tile, 1 the scalar ring, 0 none.
+extern "C" int sessd_fused_sparse_conv_stream_instance(int cin, int cout,
+                                                       int dtype) {
+  if (dtype == 0) return stream_instance<float>(cin, cout);
+  if (dtype == 1) return stream_instance<__nv_bfloat16>(cin, cout);
+  return 0;
 }

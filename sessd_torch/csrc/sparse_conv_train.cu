@@ -2,12 +2,13 @@
 // weight gradient, for every (Cin, Cout, K) of the SpMiddleFHD plan.
 //
 // Replaces the custom VJP of sessd_tpu/ops/pallas/wconv.py:_core, i.e. the
-// Pallas _fwd_kernel (out_t = w2t @ g over one-hot windows) and _bwd_kernel
-// (dG = W^T dout, dFeat += dG_k onehot^T read-modify-written along the
-// sequential grid, dW += dout g^T with g recomputed). On the TPU the grid runs
-// in order on one core, so dFeat can be a running sum in VMEM. Here blocks run
-// in parallel and in no order, so both reductions are recast to need no
-// atomics and give the same bits on every run:
+// Pallas _fwd_kernel (wconv.py:51: out_t = w2t @ g over one-hot windows)
+// and _bwd_kernel (wconv.py:67: dG = W^T dout, dFeat += dG_k onehot^T
+// read-modify-written along the sequential grid, dW += dout g^T with g
+// recomputed). On the TPU the grid runs in order on one core, so dFeat can
+// be a running sum in VMEM. Here blocks run in parallel and in no order, so
+// both reductions are recast to need no atomics and give the same bits on
+// every run:
 //
 //   forward  out[n]   = sum_k feats[rb[n, k]] @ W[k]            (mask rows)
 //   dFeat    dfeat[i] = sum_k dout[inv[i, k]] @ W[k]^T
@@ -20,16 +21,25 @@
 // rows per tap: split-K over row chunks into f32 partials
 // [chunks, K, Cin, Cout], then a second pass sums the chunks in order.
 //
-// Forward and dFeat are gather_gemm.cuh's body with its epilogue off, as
-// two kernels of their own names (bounds and design are described there).
-// dW is bound by the same gathers: each (chunk, tap) block stages 64
-// gathered feature rows and the 64 matching dout rows in shared memory per
-// step and accumulates its Cin x Cout tile in registers (up to 4 x 4 per
-// thread, so each value read from shared memory feeds 4 FMAs); dout is read
-// by the K blocks of a chunk and comes from L2 after the first. wgmma, TMA
-// and pipelining are later work.
+// The forward, sparse_conv_fwd_kernel, takes one of two bodies by type and
+// shape, fixed at compile time (no fallback at run time):
+// - bf16 with Cin in {16, 32, 64}: gather_mma.cuh's tensor-core tile
+//   (wgmma out of a 4-stage cp.async ring, taps that no row of the tile
+//   hits skipped), 128 threads and dynamic shared memory per block. What
+//   bounds it on this card and what that design does about it are in the
+//   header. The training step's bf16 student chain runs 9 of its 10 convs
+//   here.
+// - f32 (the step-parity and eval paths, held to 1e-4) and the Cin = 4
+//   first conv: gather_gemm.cuh's scalar tile, 256 threads.
+// dFeat is gather_gemm.cuh's scalar tile under a name of its own. dW is
+// bound by the same gathers: each (chunk, tap) block stages 64 gathered
+// feature rows and the 64 matching dout rows in shared memory per step and
+// accumulates its Cin x Cout tile in registers (up to 4 x 4 per thread, so
+// each value read from shared memory feeds 4 FMAs); dout is read by the K
+// blocks of a chunk and comes from L2 after the first. Tensor cores for
+// dFeat and dW are later work.
 
-#include "gather_gemm.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
@@ -40,20 +50,35 @@ using sessd::to_f32;
 
 // out [n_out, COUT] = gather-GEMM of x [n_in, CIN] over rb [n_out, taps]
 // with w2 [taps, CIN, COUT], rows outside row_mask zero (no mask: all kept).
-// The forward and the input gradient are this body under names of their
-// own, so a profile tells them apart.
-#define SESSD_GATHER_KERNEL(NAME)                                            \
-  template <typename T, typename IdxT, int CIN, int COUT>                    \
-  __global__ void __launch_bounds__(kThreads)                                \
-      NAME(const T* __restrict__ x, const IdxT* __restrict__ rb,             \
-           const T* __restrict__ w2, const uint8_t* __restrict__ row_mask,   \
-           T* __restrict__ out, int n_in, int n_out, int taps) {             \
-    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(                      \
-        x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);            \
-  }
-SESSD_GATHER_KERNEL(sparse_conv_fwd_kernel)
-SESSD_GATHER_KERNEL(sparse_conv_dfeat_kernel)
-#undef SESSD_GATHER_KERNEL
+template <typename T, typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+    sparse_conv_fwd_kernel(const T* __restrict__ x, const IdxT* __restrict__ rb,
+                           const T* __restrict__ w2,
+                           const uint8_t* __restrict__ row_mask,
+                           T* __restrict__ out, int n_in, int n_out,
+                           int taps) {
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, false>(
+        x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
+  else
+    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(
+        x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
+}
+
+// dfeat [n_in, CIN] = the same gather-GEMM over the inverse rulebook with
+// the transposed weights, under a name of its own so a profile tells it
+// from the forward
+template <typename T, typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+    sparse_conv_dfeat_kernel(const T* __restrict__ x,
+                             const IdxT* __restrict__ rb,
+                             const T* __restrict__ w2,
+                             const uint8_t* __restrict__ row_mask,
+                             T* __restrict__ out, int n_in, int n_out,
+                             int taps) {
+  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(
+      x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
+}
 
 template <typename T, typename IdxT>
 using GatherKernel = void (*)(const T*, const IdxT*, const T*,
@@ -71,24 +96,59 @@ cudaError_t launch_gather(GatherKernel<T, IdxT> kernel,
   return cudaGetLastError();
 }
 
+template <typename T, typename IdxT, int CIN, int COUT>
+cudaError_t launch_fwd(const void* x, const void* rb, const void* w2,
+                       const uint8_t* row_mask, void* out, int n_in,
+                       int n_out, int taps, cudaStream_t stream) {
+  auto* kern = sparse_conv_fwd_kernel<T, IdxT, CIN, COUT>;
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
+    constexpr int smem = sessd::MmaLayout<CIN, COUT>::kSmemBytes;
+    // above 48 KB a block's shared memory must be asked for, once per kernel
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+    kern<<<sessd::gather_gemm_grid(n_out), sessd::kMmaThreads, smem,
+           stream>>>(static_cast<const T*>(x), static_cast<const IdxT*>(rb),
+                     static_cast<const T*>(w2), row_mask,
+                     static_cast<T*>(out), n_in, n_out, taps);
+    return cudaGetLastError();
+  } else {
+    return launch_gather<T, IdxT>(kern, x, rb, w2, row_mask, out, n_in,
+                                  n_out, taps, stream);
+  }
+}
+
 // the forward's (Cin, Cout) pairs of both training plans
+#define SESSD_FWD_PAIRS(CASE) \
+  CASE(4, 16)                 \
+  CASE(16, 16)                \
+  CASE(16, 32)                \
+  CASE(32, 32)                \
+  CASE(32, 64)                \
+  CASE(64, 64)
+
 template <typename T, typename IdxT>
 cudaError_t dispatch_fwd(int cin, int cout, const void* x, const void* rb,
                          const void* w2, const uint8_t* row_mask, void* out,
                          int n_in, int n_out, int taps, cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch_gather<T, IdxT>(                                           \
-        sparse_conv_fwd_kernel<T, IdxT, CI, CO>, x, rb, w2, row_mask, out,   \
-        n_in, n_out, taps, stream);
-  SESSD_CASE(4, 16)
-  SESSD_CASE(16, 16)
-  SESSD_CASE(16, 32)
-  SESSD_CASE(32, 32)
-  SESSD_CASE(32, 64)
-  SESSD_CASE(64, 64)
+    return launch_fwd<T, IdxT, CI, CO>(x, rb, w2, row_mask, out, n_in,       \
+                                       n_out, taps, stream);
+  SESSD_FWD_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
+}
+
+// 2 where the forward's instance for (T, cin, cout) is the tensor-core
+// tile, 1 where it is the scalar tile, 0 where there is none
+template <typename T>
+int fwd_instance(int cin, int cout) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  SESSD_FWD_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
 }
 
 // the swapped pairs the input gradient takes (Cout -> Cin of each conv but
@@ -273,6 +333,15 @@ extern "C" int sessd_sparse_conv_fwd(const void* feats, const void* rb,
                      taps, s)
   SESSD_TYPES(SESSD_CALL)
 #undef SESSD_CALL
+}
+
+// Which body sessd_sparse_conv_fwd launches for (cin, cout, dtype): 2 the
+// tensor-core tile, 1 the scalar tile, 0 none (it answers
+// cudaErrorInvalidValue).
+extern "C" int sessd_sparse_conv_fwd_instance(int cin, int cout, int dtype) {
+  if (dtype == 0) return fwd_instance<float>(cin, cout);
+  if (dtype == 1) return fwd_instance<__nv_bfloat16>(cin, cout);
+  return 0;
 }
 
 // dfeat [n_in, cin] = sum_k dout[inv[i, k]] @ wt[k] for dout [n_out, cout]

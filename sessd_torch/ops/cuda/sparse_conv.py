@@ -8,7 +8,8 @@ twins ``_fused_stream_kernel`` and ``_patch_stream_kernel``, which the JAX
 package takes where a conv's feature buffer is large (``streams``). On a
 CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
 it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
-``sparse_conv_stream.cu``) or raises. The kernels are compiled with nvcc
+``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes)
+or raises. The kernels are compiled with nvcc
 into ``build/sessd_torch/`` at the first CUDA call (cached by a hash of the
 sources and flags) and loaded with ctypes; importing this module builds
 nothing.
@@ -54,6 +55,32 @@ def streams(cin: int, n_in: int, dtype: torch.dtype) -> bool:
     ``cin`` channels through its stream kernels."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return cin * cols_for(n_in) * itemsize > STREAM_FEATS_BYTES
+
+
+# the (Cin, Cout) pairs each C entry has instances of
+# (csrc/sparse_conv_train.cu: SESSD_FWD_PAIRS, csrc/sparse_conv_stream.cu:
+# SESSD_STREAM_PAIRS)
+FWD_PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64))
+STREAM_PAIRS = FWD_PAIRS[1:]
+MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile
+_PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
+          "fused_sparse_conv_stream": STREAM_PAIRS}
+
+
+def conv_instance(entry: str, dtype: torch.dtype, cin: int,
+                  cout: int) -> str:
+    """The body the C entry ``entry`` ("sparse_conv_fwd" or
+    "fused_sparse_conv_stream") launches for these types and channels,
+    fixed at compile time: "mma" (the tensor-core tile of
+    ``csrc/gather_mma.cuh``: bf16 with Cin and Cout in {16, 32, 64}) or
+    "scalar" (``gather_gemm.cuh``'s tile, or the stream kernel's f32 ring).
+    Raises ValueError where the entry has no instance."""
+    if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
+        raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
+                         f"Cout={cout}")
+    mma = (dtype == torch.bfloat16 and cin in MMA_CHANNELS
+           and cout in MMA_CHANNELS)
+    return "mma" if mma else "scalar"
 
 
 _build_lock = threading.Lock()
@@ -140,13 +167,18 @@ def build() -> ctypes.CDLL:
         # idx_bytes, reps; stream
         lib.sessd_sparse_conv_fwd_repeat.argtypes = \
             [ptr] * 4 + [i32] * 8 + [ptr]
+        # cin, cout, dtype -> 2 tensor-core tile, 1 scalar tile, 0 none
+        lib.sessd_sparse_conv_fwd_instance.argtypes = [i32] * 3
+        lib.sessd_fused_sparse_conv_stream_instance.argtypes = [i32] * 3
         for fn in (lib.sessd_fused_sparse_conv,
                    lib.sessd_fused_sparse_conv_stream,
                    lib.sessd_sparse_conv_fwd,
                    lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw,
                    lib.sessd_sparse_conv_ablate, lib.sessd_empty_launch,
                    lib.sessd_empty_launch_repeat,
-                   lib.sessd_sparse_conv_fwd_repeat):
+                   lib.sessd_sparse_conv_fwd_repeat,
+                   lib.sessd_sparse_conv_fwd_instance,
+                   lib.sessd_fused_sparse_conv_stream_instance):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
         lib.sessd_cuda_error_string.argtypes = [i32]
@@ -254,11 +286,13 @@ def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
                              w2: torch.Tensor, bias: torch.Tensor, n_in: int,
                              relu: bool = True) -> torch.Tensor:
     """``fused_sparse_conv``'s function and contract, through the streaming
-    kernel (``csrc/sparse_conv_stream.cu``: each tap's gather overlaps the
-    previous tap's FMAs). It sums in the same order, so the two agree bit
-    for bit. Takes Cin in {16, 32, 64}: the 4-channel first conv never
-    streams. CPU tensors take the twin; CUDA tensors launch the kernel,
-    counted in ``fused_sparse_conv_stream.launches``.
+    kernel (``csrc/sparse_conv_stream.cu``): in bf16 the tensor-core tile
+    of ``gather_mma.cuh`` (a 4-stage cp.async ring, taps no row of a tile
+    hits skipped), which sums in another order than K1; in f32 a two-slot
+    ring with K1's summation order, bit-equal to K1 (``conv_instance``).
+    Takes Cin in {16, 32, 64}: the 4-channel first conv never streams. CPU
+    tensors take the twin; CUDA tensors launch the kernel, counted in
+    ``fused_sparse_conv_stream.launches``.
     """
     if feats.device.type == "cpu":
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)

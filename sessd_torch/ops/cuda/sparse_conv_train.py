@@ -4,8 +4,9 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 ``sparse_conv_fwd`` replaces the Pallas ``_fwd_kernel`` and
 ``sparse_conv_dfeat`` / ``sparse_conv_dw`` the Pallas ``_bwd_kernel`` of
 ``sessd_tpu/ops/pallas/wconv.py`` (the custom VJP of ``windowed_conv``).
-The sources are ``sessd_torch/csrc/sparse_conv_train.cu`` and
-``gather_gemm.cuh``, built with the serving kernel by
+The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
+``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
+tensor-core tile of the bf16 forward), built with the serving kernel by
 ``ops.cuda.sparse_conv.build`` at the first CUDA call. On a CPU tensor each
 wrapper runs its twin; on a CUDA tensor it launches its kernel, counted in
 ``<wrapper>.launches``, or raises.
@@ -19,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..sparse import gather_gemm
-from .sparse_conv import _DTYPE_CODES, _INDEX_BYTES, build, raise_on_error
+from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, FWD_PAIRS, build,
+                          conv_instance, raise_on_error)
 
 # rows of one dW split-K chunk: ~43 chunks x 27 taps of blocks at the
 # largest training stage (88,000 rows at batch 4)
@@ -88,7 +90,10 @@ def _check_gather(x, rb, w2, what):
 def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     """out[n] = sum_k feats[rb[n, k]] @ w2[k] where ``out_mask[n]`` (bool
     [N_out], or None for every row), else 0. feats [N_in, Cin]; rb
-    [N_out, K] with N_in = miss. Returns [N_out, Cout] in feats' dtype."""
+    [N_out, K] with N_in = miss. Returns [N_out, Cout] in feats' dtype.
+    bf16 with Cin in {16, 32, 64} runs the tensor-core tile, which copies
+    16-byte chunks and wants feats and w2 16-byte aligned; the rest runs
+    the scalar tile (``conv_instance``)."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
     if out_mask is not None and (out_mask.dtype != torch.bool
@@ -97,6 +102,11 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     _check(feats, rb, w2, *(() if out_mask is None else (out_mask,)))
     _check_gather(feats, rb, w2, "sparse_conv_fwd")
     taps, cin, cout = w2.shape
+    if (cin, cout) in FWD_PAIRS \
+            and conv_instance("sparse_conv_fwd", feats.dtype, cin,
+                              cout) == "mma" \
+            and (feats.data_ptr() % 16 or w2.data_ptr() % 16):
+        raise ValueError("feats and w2 must be 16-byte aligned")
     lib = build()
     out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
                       device=feats.device)

@@ -68,6 +68,21 @@ def sparse_conv_apply(features: torch.Tensor, rulebook: torch.Tensor,
     return torch.where(out_mask[:, None], out, 0.0).to(features.dtype)
 
 
+def tile_tap_hits(rulebook: torch.Tensor, miss: int, rows: int = 64):
+    """Which taps each tile of ``rows`` output rows gathers, as the
+    tensor-core tile (``csrc/gather_mma.cuh``) decides it: tap k of a tile
+    is skipped when no row of the tile reads an input row in [0, miss).
+    The last tile may be ragged; its missing rows count as misses.
+
+    Returns (hits [tiles, K] bool, the share of (tile, tap) pairs skipped)."""
+    n_out, k = rulebook.shape
+    tiles = -(-n_out // rows)
+    hit = (rulebook >= 0) & (rulebook < miss)
+    pad = hit.new_zeros((tiles * rows - n_out, k))
+    hits = torch.cat([hit, pad]).reshape(tiles, rows, k).any(dim=1)
+    return hits, 1.0 - float(hits.double().mean()) if tiles else 0.0
+
+
 def inverse_rulebook(rulebook: torch.Tensor, n_in: int) -> torch.Tensor:
     """inv [n_in, K] with inv[rulebook[n, k], k] = n, and N_out where no
     output reads input row i through tap k; in the rulebook's dtype.

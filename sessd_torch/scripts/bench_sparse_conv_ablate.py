@@ -10,8 +10,8 @@ tap's column drawn uniformly and sorted, as the TPU script draws it),
 transposed to the port's [n_out, taps] layout. Each variant runs
 ``ops.cuda.ablate.sparse_conv_ablate`` (``csrc/sparse_conv_ablate.cu``):
 
-- ``full``: the real conv, K = 27 (the same arithmetic as
-  ``sparse_conv_fwd``);
+- ``full``: the real conv, K = 27, on the scalar tile (the same
+  arithmetic as ``fused_sparse_conv`` with zero bias and no ReLU);
 - ``k9``: ``full`` on the first 9 taps' rulebook (``rb[:, :9]``);
 - ``linear``: row n of every tap reads row n: no rulebook loads, no
   indirection;

@@ -1,10 +1,11 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
-card: the serving convs (K1, and K3, the streaming one, also against K1),
-the training conv's forward (K4), input gradient and weight gradient
-(K5), and the micro-benchmark kernels (S1: the ablated conv tile, whose
-``full`` mode equals the training forward bit for bit; S2: the empty
-launch). Imports no JAX, so it runs on a GPU
-machine without it:
+card: the serving convs (K1, and K3, the streaming one, also against K1:
+bit for bit in f32, within 2e-2 in bf16, where it runs the tensor-core
+tile), the training conv's forward (K4), input gradient and weight
+gradient (K5), the tensor-core tile of bf16 K4 and K3 on tiles that skip
+taps, and the micro-benchmark kernels (S1: the ablated conv tile, whose
+``full`` mode equals K1 with zero bias and no ReLU bit for bit; S2: the
+empty launch). Imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -110,8 +111,10 @@ STREAM_PLAN = [p for p in PLAN if p[0] != 4]  # Cin = 4 never streams
                          ids=[f"{a}x{b}x{c}" for a, b, c in STREAM_PLAN])
 def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
                                            dtype, tol):
-    """K3 within the bound of the twin, and equal to K1 bit for bit: the
-    two sum every output in the same order."""
+    """K3 within the bound of the twin. In f32 it equals K1 bit for bit (the
+    two sum every output in the same order); in bf16 it runs the
+    tensor-core tile, which sums in another order, and stays within the
+    bf16 bound of K1."""
     feats, rb, w2, bias = _inputs(cin, cout, k)
     args = (torch.from_numpy(feats).to(cuda, dtype),
             torch.from_numpy(rb).to(cuda, idx_dtype),
@@ -125,9 +128,99 @@ def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
     want = sc.fused_sparse_conv_ref(*args)
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert float(err) <= tol
-    assert torch.equal(got, sc.fused_sparse_conv(*args))
+    k1 = sc.fused_sparse_conv(*args)
+    if dtype == torch.float32:
+        assert torch.equal(got, k1)
+    else:
+        assert _err(got, k1) <= tol
     miss = torch.from_numpy((rb == N_IN).all(1)).to(cuda)
     assert not got[miss].any()
+
+
+def _tile_inputs(cin, cout, k, seed=0):
+    """Rows in tiles of 64 with a ragged last tile (N_OUT = 39 * 64 + 4),
+    tile 1 all miss, tile 2 hit by one tap in one row, tile 3 by every tap
+    in one row, the rest at a 40% hit rate; injective taps are not needed
+    by the forward."""
+    rng = np.random.RandomState(seed)
+    rb = rng.randint(0, N_IN, (N_OUT, k))
+    rb[rng.rand(N_OUT, k) < 0.6] = N_IN
+    rb[64:256] = N_IN
+    rb[128 + 17, k // 2] = 11
+    rb[192 + 63, :] = rng.randint(0, N_IN, k)
+    feats = rng.randn(N_IN, cin).astype(np.float32)
+    w2 = (rng.randn(k, cin, cout) / np.sqrt(k * cin)).astype(np.float32)
+    bias = (rng.randn(cout) * 0.3).astype(np.float32)
+    mask = rng.rand(N_OUT) > 0.1
+    return feats, rb, w2, bias, mask
+
+
+MMA_PLAN = [p for p in PLAN if p[0] != 4]  # bf16 Cin in {16, 32, 64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype):
+    """bf16 K4 and K3 (the tensor-core tile) within 2e-2 of their twins on
+    tiles that skip every tap, all but one, or none; K4 zeroes masked rows,
+    K3 rows with no hit, and the rows of the all-miss tile come out 0."""
+    feats, rb, w2, bias, mask = _tile_inputs(cin, cout, k)
+    assert sc.conv_instance("sparse_conv_fwd", torch.bfloat16, cin,
+                            cout) == "mma"
+    f = torch.from_numpy(feats).to(cuda, torch.bfloat16)
+    r = torch.from_numpy(rb).to(cuda, idx_dtype)
+    w = torch.from_numpy(w2).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(bias).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    y4 = kt.sparse_conv_fwd(f, r, w, m)
+    y3 = sc.fused_sparse_conv_stream(f, r, w, b, N_IN)
+    torch.cuda.synchronize()
+    want4 = kt.sparse_conv_fwd_ref(f, r, w, m)
+    want3 = sc.fused_sparse_conv_ref(f, r, w, b, N_IN)
+    assert _err(y4, want4) <= 2e-2 and _err(y3, want3) <= 2e-2
+    assert not y4[~m].any() and not y4[64:128].any()
+    assert not y3[torch.from_numpy((rb == N_IN).all(1)).to(cuda)].any()
+    # the lone hits: one tap of one row, every tap of one row
+    for row in (128 + 17, 192 + 63):
+        assert _err(y3[row:row + 1], want3[row:row + 1]) <= 2e-2
+        if mask[row]:
+            assert _err(y4[row:row + 1], want4[row:row + 1]) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_conv_instance_equals_the_c_entries(cuda):
+    """The Python rule names the body each C entry launches."""
+    lib = sc.build()
+    entries = {"sparse_conv_fwd": lib.sessd_sparse_conv_fwd_instance,
+               "fused_sparse_conv_stream":
+                   lib.sessd_fused_sparse_conv_stream_instance}
+    pairs = {"sparse_conv_fwd": sc.FWD_PAIRS,
+             "fused_sparse_conv_stream": sc.STREAM_PAIRS}
+    for entry, fn in entries.items():
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for cin in (4, 8, 16, 32, 64):
+                for cout in (16, 32, 64):
+                    got = fn(cin, cout, code)
+                    if (cin, cout) in pairs[entry]:
+                        want = sc.conv_instance(entry, dtype, cin, cout)
+                        assert got == {"mma": 2, "scalar": 1}[want]
+                    else:
+                        assert got == 0
+
+
+@pytest.mark.cuda
+def test_mma_forward_rejects_misaligned_inputs(cuda):
+    f = torch.zeros(N_IN * 16 + 4, dtype=torch.bfloat16,
+                    device=cuda)[4:].view(N_IN, 16)  # 8 bytes off
+    r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
+    w = torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda)
+    before = kt.sparse_conv_fwd.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kt.sparse_conv_fwd(f, r, w)
+    assert kt.sparse_conv_fwd.launches == before
 
 
 @pytest.mark.cuda
@@ -315,14 +408,17 @@ def _ablate_inputs(cuda):
 
 
 @pytest.mark.cuda
-def test_ablate_full_equals_training_forward(cuda):
-    """S1's ``full`` mode is a copy of the training forward's tile: the same
-    bits as ``sparse_conv_fwd`` on the same inputs."""
+def test_ablate_full_equals_k1_without_bias_or_relu(cuda):
+    """S1's ``full`` mode is a copy of the scalar tile: the same bits as K1
+    with zero bias and no ReLU on the same inputs (both store acc + 0, and
+    a row with no hit sums to 0)."""
     from sessd_torch.ops.cuda import ablate
     _, x = _ablate_inputs(cuda)
     before = ablate.sparse_conv_ablate.launches
     got = ablate.sparse_conv_ablate(x["feats"], x["rb"], x["w2"], "full")
-    want = kt.sparse_conv_fwd(x["feats"], x["rb"], x["w2"])
+    zero = torch.zeros(16, dtype=torch.float32, device=cuda)
+    want = sc.fused_sparse_conv(x["feats"], x["rb"], x["w2"], zero,
+                                x["feats"].shape[0], relu=False)
     torch.cuda.synchronize()
     assert ablate.sparse_conv_ablate.launches == before + 1
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
