@@ -6,25 +6,29 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. The card (``nvidia-smi`` name and power limit) and the build of the CUDA
    kernels from ``sessd_torch/csrc`` (one nvcc per source, in parallel,
    into ``build/sessd_torch/``).
-2. The fused sparse conv kernel against its plain PyTorch twin on the card,
-   for every one of the 14 backbone convs on the features the previous conv
-   produced, at full KITTI width (sparse shape (41, 1600, 1408), SERVING_CAPS,
-   a ray-cast scene): f32 (TF32 off, bound 1e-4 of max|twin|) and bf16
-   (bound 2e-2), batch 1 on int16 rulebooks and batch 4 on int32 ones.
-   Per-conv times are device times (``median_ms``: CUDA-event medians of
-   20 launches, each queued behind a device spin).
-   The streaming kernel (K3; in bf16 the tensor-core tile of
-   ``csrc/gather_mma.cuh``) against its twin and against K1 on every conv
-   that streams in one bf16 batch-8 request at SERVING_CAPS (the 7 convs of
-   stages 1-2), with K3, K1 (the scalar tile K3 had before) and twin times
-   and the share of (tile, tap) pairs no row hits, which the tile skips,
-   per conv.
+2. The fused sparse conv kernel (K1) against its plain PyTorch twin on the
+   card, for every one of the 14 backbone convs on the features the
+   previous conv produced, at full KITTI width (sparse shape (41, 1600,
+   1408), SERVING_CAPS, a ray-cast scene): f32 (TF32 off, bound 1e-4 of
+   max|twin|) and bf16 (bound 2e-2), batch 1 on int16 rulebooks and batch 4
+   on int32 ones. Per-conv times are device times (``median_ms``:
+   CUDA-event medians of 20 launches, each queued behind a device spin).
+   Each batch-1 bf16 conv also prints its body ("mma": the tensor-core tile
+   of ``csrc/gather_mma.cuh``), the cluster size S its launch took, the
+   scalar tile's time (``fused_sparse_conv_scalar``, the body bf16 K1 ran
+   before), the count of 64-row tiles with a hit and, where S > 1, its
+   time at one CTA per tile and its distance from that result.
+   The streaming kernel (K3) against its twin and against K1 on every conv
+   that streams in one bf16 batch-8 request at SERVING_CAPS (stages 1-2),
+   equal to K1 bit for bit where K1 runs one CTA per tile, with K3, K1,
+   scalar-tile and twin times and the share of (tile, tap) pairs no row
+   hits, which the tile skips, per conv.
 3. End-to-end serving through ``sessd_torch.serve.ExactBatchServer``: the
    SE-SSD Car VoxelNet (sessd_torch/configs/se_ssd_kitti_car_bf16.py, seeded
    random weights, 70,400 anchors) serves 12 batch-1 requests and one
    batch-4 request with the cls bias at the focal prior, then one batch-1
    request without it, all through K1; then batch-8 serving, 6 requests of
-   eight scans, through 7 K1 and 7 K3 launches each (p50 and scenes/s).
+   eight scans, through K1 and K3 by the stream rule (p50 and scenes/s).
    Checks: finite outputs of the expected shapes, the launch counts per
    request, and the head outputs of the kernel path equal to the twin
    path's (f32, TF32 off) to 1e-3 of the max at batch 1 and batch 8.
@@ -32,58 +36,72 @@ Phases, each printing its own lines; any failure exits non-zero:
    gradient and weight gradient (K5) of every sparse conv of both training
    plans (student: 10 convs on the augmented chain; teacher: 14 on the raw
    chain), full width, batch 4, the loader's int32 chains from a synthetic
-   KITTI root (``sessd_torch.utils.kitti_synth``). Each conv takes the
-   features the previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
-   weight gradient, a reduction over all rows), bf16 2e-2. Kernel and twin
-   device-time medians per conv (bf16, student chain); for the forward also
-   the scalar tile's time on the same inputs (K1 with zero bias and no
-   ReLU, the tile bf16 K4 ran before the tensor-core tile) and the share of
-   (tile, tap) pairs skipped.
+   KITTI root (``sessd_torch.utils.kitti_synth``) at the acceptance
+   recipe's stage caps (ACCEPT_CAPS). Each conv takes the features the
+   previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
+   weight gradient, a reduction over all rows), bf16 2e-2; dW gives the
+   same bits on two runs. Kernel and twin device-time medians per conv
+   (bf16, student chain); for the forward also the scalar tile's time on
+   the same inputs (K1's scalar entry with zero bias and no ReLU) and the
+   share of (tile, tap) pairs skipped; for dW the scalar partial kernel's
+   time (``sparse_conv_dw_scalar``), the shares of (chunk, tap) and (step,
+   tap) pairs skipped, the f32 partials' bytes, and its time at each chunk
+   size of DW_CHUNK_SWEEP.
 5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
-   batch 4, SSL on) for 6 steps: every loss term and the gradient norm
-   finite, the student moved, the teacher equal to the EMA formula on the
-   last step, and exactly 24 forward, 9 input-gradient and 10
-   weight-gradient launches per step. Prints the step-time median, the
-   data-time share and the peak device memory.
+   batch 4, SSL on, ACCEPT_CAPS) for 6 steps: every loss term and the
+   gradient norm finite, the student moved, the teacher equal to the EMA
+   formula on the last step, exactly 24 forward, 9 input-gradient and 10
+   weight-gradient launches per step, and no batch that saturated a stage.
+   Prints the step-time median, the data-time share and the peak device
+   memory.
 6. One f32 step (TF32 off) on one batch through the kernels and, from an
    identical state, through their twins: loss terms within 1e-4 relative,
    each gradient tensor within 1e-3 of its max.
-7. Evaluation on that f32 trainer: K3 against its twin and K1 on the 11
-   convs that stream in one batch-4 eval batch at TRAIN_CAPS (stages 1-3);
-   ``Trainer.validate()`` over the val split (the same 8 frames), with 11
-   K3 and 3 K1 launches per batch; ``save_checkpoint``; then
-   ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint,
-   which must give the same AP tables and write ``--out``.
+7. Evaluation on that f32 trainer: K3 against its twin and K1 on the convs
+   that stream in one batch-4 eval batch at ACCEPT_CAPS (derived from the
+   stream rule at those caps), with no stage saturated;
+   ``Trainer.validate()`` over the val split (the same 8 frames), with the
+   K1 and K3 launches per batch the rule gives; ``save_checkpoint``; then
+   ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint
+   and the config at the same caps, which must give the same AP tables and
+   write ``--out``.
 8. Ablation: the micro-benchmark kernels through their scripts, the main
    path of these kernels: S1 (``sessd_torch.scripts.bench_sparse_conv_ablate``,
    the conv tile with one cost removed at a time, per-variant ms) and S2
    (``sessd_torch.scripts.bench_launch_overhead``, the empty launch: host
    and device us per launch, through Python and from one C call, and the
    ``sparse_conv_fwd`` wrapper against its bare launches). Then S1's
-   ``full`` mode, a copy of the scalar tile, must equal K1 with zero bias
-   and no ReLU bit for bit, every mode must match its plain version within
-   2e-2 of max|plain|, and S2's output must be all zeros.
+   ``full`` mode, a copy of the scalar tile, must equal K1's scalar entry
+   with zero bias and no ReLU bit for bit, every mode must match its plain
+   version within 2e-2 of max|plain|, and S2's output must be all zeros.
 9. Warm start and resume on the 8-frame root: a CIA-SSD bf16 trainer runs
    one epoch (2 steps) and checkpoints; an SE-SSD bf16 trainer's
    ``load_from`` must give teacher = student = the CIA student, the CIA
    moments, a restarted schedule (``sched_count`` 0, ``count`` 2) and step
    0, then trains one epoch (2 finite steps); a third trainer's
    ``resume()`` from that work dir must restore epoch, step, both counts
-   and every tensor exactly.
+   and every tensor exactly. Neither training run may saturate a stage.
 10. Acceptance path: ``python -m sessd_torch.scripts.acceptance_ap 8 4 1 1
    1 --out ...`` in a subprocess must write a record with the floor, each
    stage's AP trajectory and a finite AP (the path, not the AP, is
    checked).
 
+The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
+``fused_sparse_conv_at_split``, ``sparse_conv_dw_scalar``) count their own
+launches; a main-path phase that launched one fails.
+
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its 2*hits*Cin*Cout flops over the
 peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16), the card
-line, and the result line ``{"ok": true, "device": {...}}``. The rows of K4
-and K3 also carry ``old_tile_ms`` (the scalar tile on the same convs) and
-``skipped_tap_share``. Without a CUDA device it raises and prints no
-result.
+line, and the result line ``{"ok": true, "device": {...}}``. The rows of
+K1, K3, K4 and dW also carry ``old_tile_ms`` (the scalar tile on the same
+convs in the same run), K1 and dW the name of their new ``tile``, K3 and
+K4 ``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap)
+shares, its partials' bytes and its time by chunk rows. Without a CUDA
+device it raises and prints no result.
 """
+import ast
 import contextlib
 import copy
 import json
@@ -106,11 +124,13 @@ from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import ablate
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
+from sessd_torch.scripts import acceptance_ap
 from sessd_torch.scripts import bench_launch_overhead as bench_launch
 from sessd_torch.scripts import bench_sparse_conv_ablate as bench_ablate
 from sessd_torch.scripts.profile_train import make_synthetic_root
 from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
-                               HostPreprocessor, make_scene, stage_inputs)
+                               HostPreprocessor, make_scene,
+                               saturated_stages, stage_inputs)
 from sessd_torch.tools.train import load as load_train_config
 from sessd_torch.train.trainer import Trainer
 from sessd_torch.utils.profiling import card_line, queued_device_ms
@@ -124,6 +144,11 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 B8_REQUESTS = 6
+# every Trainer here runs at the acceptance recipe's stage caps: the
+# ray-cast frames with GT-AUG overflow TRAIN_CAPS at stage 1, and a
+# saturated chain trains on truncated voxels
+ACCEPT_CAPS = ast.literal_eval(re.search(
+    r"^stage_capacity = (\(.*\))$", acceptance_ap.CONFIG, re.M).group(1))
 
 
 class Bound:
@@ -153,15 +178,16 @@ def hits(rb, miss: int) -> int:
 
 
 class TileSkips:
-    """(tile, tap) pairs that no row of a 64-row tile hits, summed over
-    convs: the taps the tensor-core tile neither gathers nor multiplies."""
+    """(tile, tap) pairs that no row of a tile of ``rows`` rows hits,
+    summed over convs: at 64 rows the taps the tensor-core tile neither
+    gathers nor multiplies."""
 
     def __init__(self):
         self.pairs = 0
         self.skipped = 0.0
 
-    def add(self, rb, miss: int) -> float:
-        flags, share = sp.tile_tap_hits(rb, miss)
+    def add(self, rb, miss: int, rows: int = 64) -> float:
+        flags, share = sp.tile_tap_hits(rb, miss, rows)
         self.pairs += flags.numel()
         self.skipped += share * flags.numel()
         return share
@@ -204,14 +230,17 @@ def phase_build():
 
 
 def phase_kernels(model, spec, device):
-    """Every backbone conv through kernel and twin on identical inputs.
-    Returns (max abs error, summed b1 bf16 kernel ms, summed twin ms, the
-    bound of those convs)."""
+    """Every backbone conv through kernel and twin on identical inputs; the
+    batch-1 convs timed, in bf16 also through the scalar tile's entry and,
+    where K1 splits its tiles over a cluster, at one CTA per tile. Returns
+    (max abs error, {"ms", "old_ms", "plain_ms": sums over the 14 b1 bf16
+    convs}, the bound of those convs)."""
     prep = HostPreprocessor(spec, SERVING_CAPS)
     scenes = [make_scene(seed=s)[0] for s in range(4)]
     staged = {1: stage_inputs(**prep(scenes[0]), device=device),
               4: stage_inputs(**prep.batch(scenes), device=device)}
-    worst_abs, sums, bound = 0.0, [0.0, 0.0], Bound()
+    worst_abs, bound = 0.0, Bound()
+    sums = {"ms": 0.0, "old_ms": 0.0, "plain_ms": 0.0}
     for batch, dtype in ((1, torch.float32), (1, torch.bfloat16),
                          (4, torch.float32), (4, torch.bfloat16)):
         feats, rb = staged[batch]
@@ -223,6 +252,7 @@ def phase_kernels(model, spec, device):
         def checked(x, rbk, w2, bias, n_in):
             nonlocal worst_abs
             i = next(step)
+            cin, cout = x.shape[1], w2.shape[2]
             y = sc.fused_sparse_conv(x, rbk, w2, bias, n_in)
             want = sc.fused_sparse_conv_ref(x, rbk, w2, bias, n_in)
             torch.cuda.synchronize()
@@ -233,21 +263,44 @@ def phase_kernels(model, spec, device):
                                      "output")
             rel = diff / peak
             worst_abs = max(worst_abs, diff)
-            line = (f"conv {i:2d} {CONV_NAMES[i]:6s} {x.shape[1]:2d}->"
-                    f"{w2.shape[2]:2d} K={w2.shape[0]:2d} rows "
-                    f"{rbk.shape[0]:5d} {tag}: max|twin| {peak:.3e} "
-                    f"rel_err {rel:.2e}")
+            inst = sc.conv_instance("fused_sparse_conv", dtype, cin, cout)
+            split = sc.launch_split(rbk.shape[0], cin, cout, dtype)
+            wave = f" (wave {sc.launch_wave(cin, cout)})" \
+                if inst == "mma" else ""
+            line = (f"conv {i:2d} {CONV_NAMES[i]:6s} {cin:2d}->{cout:2d} "
+                    f"K={w2.shape[0]:2d} rows {rbk.shape[0]:5d} {tag}: "
+                    f"{inst} S={split}{wave} max|twin| {peak:.3e} rel_err "
+                    f"{rel:.2e}")
             if timed:
-                k_ms = median_ms(lambda: sc.fused_sparse_conv(
-                    x, rbk, w2, bias, n_in))
-                r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(
-                    x, rbk, w2, bias, n_in))
+                args = (x, rbk, w2, bias, n_in)
+                k_ms = median_ms(lambda: sc.fused_sparse_conv(*args))
+                r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(*args))
                 line += f" kernel {k_ms:.4f} ms twin {r_ms:.4f} ms"
                 if dtype == torch.bfloat16:
-                    sums[0] += k_ms
-                    sums[1] += r_ms
-                    bound.add((x, rbk, w2, bias, y), hits(rbk, n_in),
-                              x.shape[1], w2.shape[2], dtype)
+                    o_ms = median_ms(lambda: sc.fused_sparse_conv_scalar(
+                        *args))
+                    flags, _ = sp.tile_tap_hits(rbk, n_in)
+                    line += (f" scalar tile {o_ms:.4f} ms; tiles "
+                             f"{flags.shape[0]}, {int(flags.any(1).sum())} "
+                             "with a hit")
+                    if split > 1:
+                        one = sc.fused_sparse_conv_at_split(*args, split=1)
+                        torch.cuda.synchronize()
+                        s1_rel, _ = _rel(y, one)
+                        s1_ms = median_ms(
+                            lambda: sc.fused_sparse_conv_at_split(
+                                *args, split=1))
+                        line += (f"; at S=1 {s1_ms:.4f} ms (rel diff "
+                                 f"{s1_rel:.1e})")
+                        if not s1_rel <= BOUNDS[dtype]:
+                            raise AssertionError(
+                                f"{CONV_NAMES[i]} {tag}: S={split} differs "
+                                f"from S=1 by {s1_rel:.3e}")
+                    sums["ms"] += k_ms
+                    sums["old_ms"] += o_ms
+                    sums["plain_ms"] += r_ms
+                    bound.add((x, rbk, w2, bias, y), hits(rbk, n_in), cin,
+                              cout, dtype)
             print(line)
             if not rel <= BOUNDS[dtype]:
                 raise AssertionError(f"{CONV_NAMES[i]} {tag}: rel_err "
@@ -262,22 +315,34 @@ def phase_kernels(model, spec, device):
         if next(step, None) is not None:
             raise AssertionError("backbone ran fewer than 14 convs")
     print(f"kernel vs twin: all 14 convs within bounds at b1/int16 and "
-          f"b4/int32, f32 and bf16; b1 bf16 sum kernel {sums[0]:.4f} ms, "
-          f"twin {sums[1]:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})")
-    return worst_abs, sums[0], sums[1], bound
+          f"b4/int32, f32 and bf16; b1 bf16 sums kernel {sums['ms']:.4f} ms, "
+          f"scalar tile {sums['old_ms']:.4f} ms, twin "
+          f"{sums['plain_ms']:.4f} ms, bound {bound.ms():.4f} ms "
+          f"({bound.by()})")
+    return worst_abs, sums, bound
+
+
+def old_tile(dtype):
+    """The scalar tile a conv ran before the tensor-core tile: bf16 K1's
+    scalar entry (kept for these comparisons), in f32 K1 itself."""
+    return (sc.fused_sparse_conv_scalar if dtype == torch.bfloat16
+            else sc.fused_sparse_conv)
 
 
 def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                        want_streamed):
     """The backbone's all-sparse plan on (feats, rb) with every conv that
-    streams run through K3, its twin and K1 on identical inputs: K3 within
-    the bound of the twin, its difference from K1 printed; each of these
+    streams run through K3, its twin, K1 and the scalar tile on identical
+    inputs: K3 within the bound of the twin, and equal to K1 bit for bit
+    where K1 runs one CTA per tile (always in f32, where both keep K1's
+    summation order; in bf16 both run the tensor-core tile); each of these
     convs timed (device-time medians of 10). The other convs run K1.
     Returns {"worst": max abs error vs twin, "vs_k1": max abs difference
-    from K1, "ms", "k1_ms", "plain_ms": sums, "bound": Bound, "tiles":
-    TileSkips}."""
+    from K1, "ms", "k1_ms", "old_ms" (the scalar tile), "plain_ms": sums,
+    "bound": Bound, "tiles": TileSkips}."""
     out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
-           "plain_ms": 0.0, "bound": Bound(), "tiles": TileSkips()}
+           "old_ms": 0.0, "plain_ms": 0.0, "bound": Bound(),
+           "tiles": TileSkips()}
     step = iter(range(len(CONV_NAMES)))
     streamed = []
 
@@ -295,24 +360,29 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: non-finite")
         rel, diff = _rel(y, want)
         vs_k1 = float((y.float() - k1.float()).abs().max())
+        split = sc.launch_split(rbk.shape[0], x.shape[1], w2.shape[2], dtype)
         out["worst"] = max(out["worst"], diff)
         out["vs_k1"] = max(out["vs_k1"], vs_k1)
         times = [median_ms(lambda f=f: f(*args), 10) for f in (
             sc.fused_sparse_conv_stream, sc.fused_sparse_conv,
-            sc.fused_sparse_conv_ref)]
-        for key, t in zip(("ms", "k1_ms", "plain_ms"), times):
+            old_tile(dtype), sc.fused_sparse_conv_ref)]
+        for key, t in zip(("ms", "k1_ms", "old_ms", "plain_ms"), times):
             out[key] += t
         out["bound"].add((x, rbk, w2, bias, y), hits(rbk, n_in), x.shape[1],
                          w2.shape[2], dtype)
         skipped = out["tiles"].add(rbk, n_in)
         print(f"stream conv {i:2d} {CONV_NAMES[i]:6s} {x.shape[1]:2d}->"
               f"{w2.shape[2]:2d} K={w2.shape[0]:2d} rows {rbk.shape[0]:6d} "
-              f"{tag}: rel_err vs twin {rel:.2e}, max|K3-K1| {vs_k1:.3e}; "
-              f"K3 {times[0]:.4f} ms, old tile (K1) {times[1]:.4f} ms, twin "
-              f"{times[2]:.4f} ms; taps skipped {skipped:.3f}")
+              f"{tag}: rel_err vs twin {rel:.2e}, max|K3-K1| {vs_k1:.3e} (K1 "
+              f"S={split}); K3 {times[0]:.4f} ms, K1 {times[1]:.4f} ms, old "
+              f"tile {times[2]:.4f} ms, twin {times[3]:.4f} ms; taps skipped "
+              f"{skipped:.3f}")
         if not rel <= BOUNDS[dtype]:
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 rel_err "
                                  f"{rel:.3e} > {BOUNDS[dtype]}")
+        if split == 1 and not torch.equal(y, k1):
+            raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 differs from K1 "
+                                 "at one CTA per tile")
         return y
 
     with torch.inference_mode():
@@ -324,16 +394,24 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                              f"{want_streamed}")
     print(f"stream kernel {tag}: {len(streamed)} convs within bounds; max "
           f"abs error vs twin {out['worst']:.3e}, max|K3-K1| "
-          f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, old tile (K1) "
-          f"{out['k1_ms']:.4f} ms, twin {out['plain_ms']:.4f} ms, bound "
-          f"{out['bound'].ms():.4f} ms ({out['bound'].by()}); taps skipped "
-          f"{out['tiles'].share():.3f} of {out['tiles'].pairs} (tile, tap) "
-          "pairs")
+          f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
+          f"{out['k1_ms']:.4f} ms, old tile {out['old_ms']:.4f} ms, twin "
+          f"{out['plain_ms']:.4f} ms, bound {out['bound'].ms():.4f} ms "
+          f"({out['bound'].by()}); taps skipped {out['tiles'].share():.3f} of "
+          f"{out['tiles'].pairs} (tile, tap) pairs")
     return out
 
 
-B8_STREAMED = CONV_NAMES[3:10]     # stages 1-2: bf16, b8, SERVING_CAPS
-EVAL_STREAMED = CONV_NAMES[3:]     # stages 1-3: f32, b4, TRAIN_CAPS
+CONV_CIN = [4, 16, 16, 32, 32, 32, 64, 64, 64, 64, 64, 64, 64, 64]
+CONV_STAGE = [0, 0, 0, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3]  # stage it reads
+
+
+def streamed_convs(caps, batch, dtype) -> list:
+    """The convs the backbone runs through K3 at these caps, by the JAX
+    stream rule (``pick_conv``) on each conv's input rows."""
+    return [name for name, c, st in zip(CONV_NAMES, CONV_CIN, CONV_STAGE)
+            if pick_conv(c, caps[st] * batch, dtype)
+            is sc.fused_sparse_conv_stream]
 
 
 def phase_stream_serving(model, spec, device):
@@ -343,7 +421,8 @@ def phase_stream_serving(model, spec, device):
         [make_scene(seed=s)[0] for s in range(8)]), device=device)
     return check_stream_convs(model.backbone, feats, rb, 8,
                               model.sparse_shape, torch.bfloat16,
-                              "b8 bf16 int32", B8_STREAMED)
+                              "b8 bf16 int32",
+                              streamed_convs(SERVING_CAPS, 8, torch.bfloat16))
 
 
 def phase_serving(model, cfg, spec, device):
@@ -388,6 +467,7 @@ def phase_serving(model, cfg, spec, device):
               f"launches, valid detections "
               f"{out[2].sum(dim=1).tolist()}")
     launches = sc.fused_sparse_conv.launches
+    _counts()  # raises if a comparison entry ran on the main path
     set_prior(model, True)
 
     for name, (boxes, scores, valid), launched in results:
@@ -413,10 +493,7 @@ def phase_serving(model, cfg, spec, device):
 
 def _want_launches(caps, batch, dtype):
     """(K1, K3) launches of one request at these caps."""
-    cin = [4, 16, 16, 32, 32, 32, 64, 64, 64, 64, 64, 64, 64, 64]
-    stage = [0, 0, 0, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3]
-    k3 = sum(pick_conv(c, caps[s] * batch, dtype)
-             is sc.fused_sparse_conv_stream for c, s in zip(cin, stage))
+    k3 = len(streamed_convs(caps, batch, dtype))
     return 14 - k3, k3
 
 
@@ -460,9 +537,8 @@ def phase_serving_b8(model, cfg, spec, device):
             raise AssertionError(f"b8: shapes {boxes.shape} {scores.shape}")
         if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
             raise AssertionError("b8: non-finite outputs")
-    counts = {"fused_sparse_conv": sc.fused_sparse_conv.launches,
-              "fused_sparse_conv_stream":
-                  sc.fused_sparse_conv_stream.launches}
+    counts = {k: v for k, v in _counts().items()
+              if k in ("fused_sparse_conv", "fused_sparse_conv_stream")}
     p50 = float(np.percentile(lat, 50))
     print(f"serving b8: {B8_REQUESTS} requests, stats {server.stats}, p50 "
           f"{p50:.3f} ms, p90 {np.percentile(lat, 90):.3f} ms, "
@@ -517,9 +593,13 @@ TRAIN_STEPS = 6
 
 
 def first_batch(trainer):
+    """The loader's first batch on the device, through the trainer's
+    saturation guard."""
     batches = iter(trainer.train_loader)
     try:
-        return trainer._device_batch(next(batches))
+        batch = next(batches)
+        trainer._check_train_saturation(batch)
+        return trainer._device_batch(batch)
     finally:
         batches.close()
 
@@ -532,19 +612,45 @@ def _rel(got, want):
         float((got.float() - want.float()).abs().max())
 
 
+DW_CHUNK_SWEEP = (1024, 2048, 4096, 8192)  # chunk rows of dW's split-K
+
+
+class DwSkips:
+    """(chunk, tap) pairs no row of a chunk hits and (step, tap) pairs no
+    row of a 64-row step hits, summed over convs: what the tensor-core dW
+    neither reads nor multiplies; and the f32 partials' bytes (written
+    once, read once by the ordered reduce)."""
+
+    def __init__(self):
+        self.chunks = TileSkips()
+        self.steps = TileSkips()
+        self.partial_bytes = 0
+
+    def add(self, rb, miss: int, cin: int, cout: int, chunk_rows: int):
+        chunk = self.chunks.add(rb, miss, chunk_rows)
+        step = self.steps.add(rb, miss)
+        chunks = -(-rb.shape[0] // chunk_rows)
+        moved = 2 * chunks * rb.shape[1] * cin * cout * 4
+        self.partial_bytes += moved
+        return chunk, step, moved
+
+
 @torch.no_grad()
 def phase_train_kernels(trainer, db):
     """K4 / K5 against their twins on every sparse conv of both plans.
     Returns (max abs error per kernel, [summed kernel ms, summed twin ms]
     per kernel, Bound per kernel, {"old_ms": the scalar tile's summed ms,
-    "tiles": TileSkips} of the forward) with the times and bounds of the
-    bf16 student chain."""
+    "tiles": TileSkips} of the forward, {"old_ms", "skips": DwSkips,
+    "sweep": {chunk rows: summed ms}} of dW) with the times and bounds of
+    the bf16 student chain."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
     bounds = {k: Bound() for k in worst}
     fwd_tile = {"old_ms": 0.0, "tiles": TileSkips()}
+    dw_tile = {"old_ms": 0.0, "skips": DwSkips(),
+               "sweep": dict.fromkeys(DW_CHUNK_SWEEP, 0.0)}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
@@ -582,7 +688,7 @@ def phase_train_kernels(trainer, db):
                         lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
                 line = (f"train conv {i:2d} {CONV_NAMES[i]:6s} "
                         f"{w.shape[1]:2d}->{w.shape[2]:2d} K={w.shape[0]:2d} "
-                        f"rows {rbk.shape[0]:5d} {tag}:")
+                        f"rows {rbk.shape[0]:6d} {tag}:")
                 y = None
                 for name, (kern, twin) in runs.items():
                     got, want = kern(), twin()
@@ -598,6 +704,12 @@ def phase_train_kernels(trainer, db):
                     if not rel <= bound:
                         raise AssertionError(f"{CONV_NAMES[i]} {name} {tag}"
                                              f": rel_err {rel:.3e} > {bound}")
+                    if name == "dw":
+                        again = kern()
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{CONV_NAMES[i]} dw {tag}: "
+                                                 "two runs differ")
                     if timed:
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         ms[name][0] += k_ms
@@ -610,41 +722,84 @@ def phase_train_kernels(trainer, db):
                                          w.shape[2], dtype)
                         line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms"
                         if name == "fwd":
-                            old_ms = median_ms(lambda: sc.fused_sparse_conv(
-                                x, rbk, w, zero_bias, x.shape[0],
-                                relu=False), 10)
+                            old_ms = median_ms(
+                                lambda: sc.fused_sparse_conv_scalar(
+                                    x, rbk, w, zero_bias, x.shape[0],
+                                    relu=False), 10)
                             fwd_tile["old_ms"] += old_ms
                             skipped = fwd_tile["tiles"].add(rbk, x.shape[0])
                             line += (f", old tile {old_ms:.4f} ms, taps "
                                      f"skipped {skipped:.3f}")
+                        if name == "dw":
+                            line += _dw_detail(x, rbk, dout, w, dw_tile)
                         line += ")"
                     if name == "fwd":
                         y = got
                 print(line)
                 x = torch.relu(y)
-    print("train kernels vs twin: all convs of both plans within bounds; "
-          "bf16 student chain sums " + ", ".join(
+    skips = dw_tile["skips"]
+    print("train kernels vs twin: all convs of both plans within bounds, dW "
+          "the same bits on two runs; bf16 student chain sums " + ", ".join(
               f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms bound "
               f"{bounds[k].ms():.4f} ms ({bounds[k].by()})"
               for k, v in ms.items())
           + f"; fwd old tile {fwd_tile['old_ms']:.4f} ms, taps skipped "
           f"{fwd_tile['tiles'].share():.3f} of {fwd_tile['tiles'].pairs} "
-          "(tile, tap) pairs")
-    return worst, ms, bounds, fwd_tile
+          f"(tile, tap) pairs; dw old tile {dw_tile['old_ms']:.4f} ms, "
+          f"(chunk, tap) pairs skipped {skips.chunks.share():.3f} of "
+          f"{skips.chunks.pairs}, (step, tap) pairs skipped "
+          f"{skips.steps.share():.3f} of {skips.steps.pairs}, partials "
+          f"{skips.partial_bytes / 1e6:.2f} MB moved; dw by chunk rows "
+          + ", ".join(f"{c}: {t:.4f} ms" for c, t in dw_tile["sweep"].items()))
+    return worst, ms, bounds, fwd_tile, dw_tile
+
+
+def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
+    """The scalar dW's time, the skipped shares, the partials' bytes and the
+    time at each chunk size of one bf16 conv's dW; added to ``dw_tile``."""
+    old_ms = median_ms(lambda: kt.sparse_conv_dw_scalar(x, rbk, dout), 10)
+    dw_tile["old_ms"] += old_ms
+    chunk, step, moved = dw_tile["skips"].add(
+        rbk, x.shape[0], w.shape[1], w.shape[2], kt.DW_CHUNK_ROWS)
+    sweep = []
+    for rows in DW_CHUNK_SWEEP:
+        t = median_ms(lambda r=rows: kt.sparse_conv_dw(x, rbk, dout, r), 10)
+        dw_tile["sweep"][rows] += t
+        sweep.append(f"{rows}: {t:.4f}")
+    return (f", old tile {old_ms:.4f} ms, (chunk, tap) skipped {chunk:.3f}, "
+            f"(step, tap) skipped {step:.3f}, partials {moved / 1e6:.2f} MB; "
+            f"by chunk rows {', '.join(sweep)} ms")
 
 
 KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw,
               ablate.sparse_conv_ablate, ablate.empty_launch)
+# the entries kept for same-call comparisons: never on a main path
+COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
+                  kt.sparse_conv_dw_scalar)
 
 
 def _reset_counts():
-    for fn in KERNEL_FNS:
+    for fn in KERNEL_FNS + COMPARISON_FNS:
         fn.launches = 0
 
 
 def _counts() -> dict:
+    """The main-path kernels' launches since ``_reset_counts``; raises if a
+    comparison entry was launched in that time."""
+    stray = {fn.__name__: fn.launches for fn in COMPARISON_FNS
+             if fn.launches}
+    if stray:
+        raise AssertionError(f"comparison entries on the main path: {stray}")
     return {fn.__name__: fn.launches for fn in KERNEL_FNS}
+
+
+def _no_saturation(trainer, what: str):
+    """A training phase fails where its trainer saw a saturated chain."""
+    if trainer.saturated_batches:
+        raise AssertionError(f"{what}: {trainer.saturated_batches} batch(es) "
+                             f"saturated a stage at caps "
+                             f"{trainer.stage_capacity}")
 
 
 def phase_train(trainer):
@@ -660,6 +815,7 @@ def phase_train(trainer):
     hist = trainer.history
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
+    _no_saturation(trainer, "training")
 
     for h in hist:
         bad = [k for k, v in h.items()
@@ -697,7 +853,8 @@ def phase_train(trainer):
     share = data / (data + sum(h["step_time"] for h in steady))
     # the loop reads the device back only at log points and epoch ends, so
     # a step's step_time is the mean of the steps read back with it
-    print(f"training: {len(hist)} steps at batch 4, step median "
+    print(f"training: {len(hist)} steps at batch 4, stage caps "
+          f"{trainer.stage_capacity} (no batch saturated), step median "
           f"{step_ms:.3f} ms (steps 2-{len(hist)}, means over each "
           f"read-back), data-time share "
           f"{share:.3f}, peak device memory {peak / 2 ** 30:.3f} GiB, "
@@ -780,18 +937,24 @@ def phase_eval_kernels(trainer):
     finally:
         batches.close()
     dev = trainer.device
-    rb = {k: ([_put(a, dev) for a in v] if isinstance(v, list)
-              else _put(v, dev))
-          for k, v in trainer._batch_rulebooks(batch).items()}
-    model = trainer.state.student
+    host_rb = trainer._batch_rulebooks(batch)
     vox = batch["voxels"]
     b, v = vox.shape[:2]
+    full = saturated_stages(host_rb, [c * b for c in trainer.stage_capacity])
+    if full:
+        raise AssertionError(f"eval batch saturates stages {full} at caps "
+                             f"{trainer.stage_capacity}")
+    rb = {k: ([_put(a, dev) for a in x] if isinstance(x, list)
+              else _put(x, dev))
+          for k, x in host_rb.items()}
+    model = trainer.state.student
     with torch.inference_mode():
         feats = model.reader(_put(vox, dev).reshape(b * v, *vox.shape[2:]),
                              _put(batch["num_points"], dev).reshape(b * v))
-    return check_stream_convs(model.backbone, feats, rb, b,
-                              model.sparse_shape, torch.float32,
-                              "eval b4 f32 int32", EVAL_STREAMED)
+    return check_stream_convs(
+        model.backbone, feats, rb, b, model.sparse_shape, torch.float32,
+        "eval b4 f32 int32",
+        streamed_convs(trainer.stage_capacity, b, torch.float32))
 
 
 def _table_diff(a, b) -> list:
@@ -832,8 +995,10 @@ def phase_eval(trainer, root, tmp):
         counts = _counts()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    n = -(-len(trainer.val_dataset) // trainer.cfg.data["samples_per_gpu"])
-    want = {"fused_sparse_conv": 3 * n, "fused_sparse_conv_stream": 11 * n,
+    per_gpu = trainer.cfg.data["samples_per_gpu"]
+    n = -(-len(trainer.val_dataset) // per_gpu)
+    k1, k3 = _want_launches(trainer.stage_capacity, per_gpu, torch.float32)
+    want = {"fused_sparse_conv": k1 * n, "fused_sparse_conv_stream": k3 * n,
             "sparse_conv_fwd": 0, "sparse_conv_dfeat": 0,
             "sparse_conv_dw": 0, "sparse_conv_ablate": 0, "empty_launch": 0}
     if counts != want:
@@ -854,7 +1019,8 @@ def phase_eval(trainer, root, tmp):
     out = os.path.join(tmp, "eval_results.pkl")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "sessd_torch.tools.test", "se_ssd_kitti_car.py",
+        # the trainer's own config file: the same caps
+        [sys.executable, "-m", "sessd_torch.tools.test", trainer.cfg.filename,
          "--work_dir", trainer.work_dir, "--data-root", root, "--out", out],
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -891,11 +1057,12 @@ def phase_ablation(device):
     feats, rb, w2, _ = bench_ablate.variant_args(inputs, "full")
     full = ablate.sparse_conv_ablate(feats, rb, w2, "full")
     zero = torch.zeros(w2.shape[2], device=device)
-    k1 = sc.fused_sparse_conv(feats, rb, w2, zero, feats.shape[0], relu=False)
+    scalar = sc.fused_sparse_conv_scalar(feats, rb, w2, zero, feats.shape[0],
+                                         relu=False)
     torch.cuda.synchronize()
-    if not torch.equal(full.view(torch.int16), k1.view(torch.int16)):
-        raise AssertionError("S1 full differs from K1 with zero bias and no "
-                             "ReLU")
+    if not torch.equal(full.view(torch.int16), scalar.view(torch.int16)):
+        raise AssertionError("S1 full differs from K1's scalar entry with "
+                             "zero bias and no ReLU")
     worst, plain_ms = 0.0, None
     for name in bench_ablate.VARIANTS:
         args = bench_ablate.variant_args(inputs, name)
@@ -946,7 +1113,8 @@ def phase_ablation(device):
                lambda: ablate.empty_launch_ref(out), 10),
            "s2_library_ms": queued_device_ms(lambda: out.zero_(), 10),
            "s2_bound": s2_bound}
-    print(f"ablation: S1 full equals K1 (zero bias, no ReLU) bit for bit, "
+    print(f"ablation: S1 full equals K1's scalar entry (zero bias, no ReLU) "
+          f"bit for bit, "
           f"every "
           f"mode within {ABLATE_BOUND} of its plain version (full plain "
           f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})); "
@@ -968,11 +1136,26 @@ def _state_tensors(state) -> dict:
     return out
 
 
-def _bf16_trainer(config, root, work, epochs, device):
-    cfg = load_train_config(config, root)
-    cfg.precision = "bfloat16"
-    cfg.total_epochs = epochs
+def make_trainer(config, root, work, device, **values):
+    """A Trainer of the shipped ``config`` on the synthetic root at
+    ACCEPT_CAPS, with ``values`` set. The config is written out beside the
+    work dir (``<work>.py``: it runs the shipped file, under that file's
+    name so its own includes resolve, then sets the values as a config file
+    does), so ``cfg.get`` reads them and the file can go to ``tools.test``
+    as it is."""
+    values = {"stage_capacity": ACCEPT_CAPS, **values}
+    path = f"{work}.py"
+    with open(path, "w") as f:
+        f.write(f"__file__ = {str(builder.CONFIG_DIR / config)!r}\n"
+                "exec(compile(open(__file__).read(), __file__, 'exec'))\n"
+                + "".join(f"{k} = {v!r}\n" for k, v in values.items()))
+    cfg = load_train_config(path, root)
     return Trainer(cfg, work_dir=work, seed=SEED, device=device)
+
+
+def _bf16_trainer(config, root, work, epochs, device):
+    return make_trainer(config, root, work, device, precision="bfloat16",
+                        total_epochs=epochs)
 
 
 def phase_warm_start(root, tmp, device="cuda"):
@@ -982,6 +1165,7 @@ def phase_warm_start(root, tmp, device="cuda"):
     cia = _bf16_trainer("cia_ssd_kitti_car.py", root, f"{tmp}/work_cia", 1,
                         device)
     cia.run()
+    _no_saturation(cia, "warm start: CIA-SSD")
     cia_state = {k: v.detach().clone()
                  for k, v in _state_tensors(cia.state).items()}
     cia_counts = (cia.state.optimizer.count, cia.state.optimizer.sched_count)
@@ -1003,6 +1187,7 @@ def phase_warm_start(root, tmp, device="cuda"):
                              f"count {opt.count}, step {se.state.step} "
                              f"(CIA counts {cia_counts})")
     se.run()
+    _no_saturation(se, "warm start: SE-SSD")
     hist = se.history
     bad = [(h["step"], k) for h in hist for k, v in h.items()
            if isinstance(v, float) and not math.isfinite(v)]
@@ -1106,7 +1291,7 @@ def main():
     model, cfg = build_model("se_ssd_kitti_car_bf16.py", device, prior=True)
     spec = builder.build_voxelizer(cfg.voxel_generator)
     with phase("kernels"):
-        max_abs, ms, plain_ms, k1_bound = phase_kernels(model, spec, device)
+        max_abs, k1_ms, k1_bound = phase_kernels(model, spec, device)
         b8 = phase_stream_serving(model, spec, device)
     with phase("serving b1/b4"):
         launches, pcfg = phase_serving(model, cfg, spec, device)
@@ -1125,20 +1310,19 @@ def main():
         print(f"synthetic KITTI root: 8 frames in "
               f"{time.perf_counter() - t0:.1f} s")
         with phase("training"):
-            trainer = Trainer(load_train_config("se_ssd_kitti_car_bf16.py",
-                                                root),
-                              work_dir=f"{tmp}/work_bf16", seed=SEED,
-                              device=device)
-            worst, train_ms, train_bounds, fwd_tile = phase_train_kernels(
-                trainer, first_batch(trainer))
+            trainer = make_trainer("se_ssd_kitti_car_bf16.py", root,
+                                   f"{tmp}/work_bf16", device)
+            worst, train_ms, train_bounds, fwd_tile, dw_tile = \
+                phase_train_kernels(trainer, first_batch(trainer))
+            _no_saturation(trainer, "training kernels")
             counts = phase_train(trainer)
             del trainer
             torch.cuda.empty_cache()
         with phase("step parity"):
-            trainer = Trainer(load_train_config("se_ssd_kitti_car.py", root),
-                              work_dir=f"{tmp}/work_f32", seed=SEED,
-                              device=device)
+            trainer = make_trainer("se_ssd_kitti_car.py", root,
+                                   f"{tmp}/work_f32", device)
             phase_step_parity(trainer)
+            _no_saturation(trainer, "step parity")
         with phase("eval"):
             ev = phase_eval_kernels(trainer)
             eval_counts = phase_eval(trainer, root, tmp)
@@ -1162,19 +1346,24 @@ def main():
           f"{eval_counts['fused_sparse_conv']} (eval); K3 "
           f"{b8_counts['fused_sparse_conv_stream']} (b8) + "
           f"{eval_counts['fused_sparse_conv_stream']} (eval); eval K3 sums "
-          f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms twin "
+          f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms, twin "
           f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")
     # times: K1 the 14 b1 bf16 convs, K3 the 7 streamed convs of a b8 bf16
-    # request, K4/K5 the bf16 student chain at b4
+    # request, K4/K5 the bf16 student chain at b4; old_tile_ms: the scalar
+    # tile each ran before on the same convs in the same run
     kernels = [
         _entry("fused_sparse_conv", "sessd_torch/csrc/sparse_conv.cu",
-               f"{WCONV}:253", k1_launches, max_abs, ms, plain_ms, k1_bound),
+               f"{WCONV}:253", k1_launches, max_abs, k1_ms["ms"],
+               k1_ms["plain_ms"], k1_bound),
         _entry("fused_sparse_conv_stream",
                "sessd_torch/csrc/sparse_conv_stream.cu", f"{WCONV}:277",
                k3_launches, max(b8["worst"], ev["worst"]), b8["ms"],
                b8["plain_ms"], b8["bound"])]
-    kernels[-1].update(covers=f"{WCONV}:350", old_tile_ms=b8["k1_ms"],
-                       skipped_tap_share=b8["tiles"].share())
+    kernels[0].update(
+        tile="gather_mma.cuh: gather_mma_tile (wgmma) + cluster tap split",
+        old_tile_ms=k1_ms["old_ms"])
+    kernels[1].update(covers=f"{WCONV}:350", old_tile_ms=b8["old_ms"],
+                      skipped_tap_share=b8["tiles"].share())
     for name, key, line in (("sparse_conv_fwd", "fwd", 51),
                             ("sparse_conv_dfeat", "dfeat", 67),
                             ("sparse_conv_dw", "dw", 67)):
@@ -1184,6 +1373,14 @@ def main():
             train_bounds[key]))
     kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
+    skips = dw_tile["skips"]
+    kernels[4].update(
+        tile="sparse_conv_train.cu: dw_mma_partial (mma.sync m16n8k16)",
+        old_tile_ms=dw_tile["old_ms"],
+        skipped_chunk_tap_share=skips.chunks.share(),
+        skipped_step_tap_share=skips.steps.share(),
+        partial_bytes=skips.partial_bytes,
+        ms_by_chunk_rows=dw_tile["sweep"])
     # S1: the full mode's time; S2: device time per launch at 256 rows
     kernels += [
         _entry("sparse_conv_ablate", "sessd_torch/csrc/sparse_conv_ablate.cu",

@@ -1,12 +1,14 @@
 // Tensor-core gather tile over a rulebook, shared by the bf16 training
-// forward (sparse_conv_train.cu: sparse_conv_fwd_kernel, masked store) and
-// the bf16 streaming serving conv (sparse_conv_stream.cu:
-// fused_sparse_conv_stream_kernel, bias + ReLU + any-hit store). Each keeps
-// its own __global__; this is the body both call for bf16 and Cin, Cout in
-// {16, 32, 64} (kMmaTile). Every other instance (f32, the Cin = 4 first
-// conv) stays on gather_gemm.cuh's scalar tile.
+// forward (sparse_conv_train.cu: sparse_conv_fwd_kernel, masked store), the
+// bf16 streaming serving conv (sparse_conv_stream.cu:
+// fused_sparse_conv_stream_kernel) and the bf16 resident serving conv
+// (sparse_conv.cu: fused_sparse_conv_kernel), both with the bias + ReLU +
+// any-hit store. Each keeps its own __global__; this is the body all three
+// call for bf16 and Cin, Cout in {16, 32, 64} (kMmaTile). Every other
+// instance (f32, the Cin = 4 first conv) stays on gather_gemm.cuh's scalar
+// tile.
 //
-// Computes, for the 64 output rows [blockIdx.x * 64, + 64):
+// Computes, for the 64 output rows of one tile:
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
 // with rb[n, k] outside [0, n_in) a miss (a zero row), and stores
 //   EPI:  out[n] = relu?(acc[n] + bias) if any rb[n, k] != n_in, else 0
@@ -51,6 +53,23 @@
 //   async proxy), barrier (every thread's chunks, and every thread done
 //   with the previous tap's wgmma), issue the refill of the slot the
 //   previous tap used, then wgmma.fence / mma / commit_group / wait_group 0.
+// - Tap split across a cluster (SPLIT, the resident serving conv only):
+//   where a launch's tiles fill less than one wave of the card (batch-1
+//   serving: 63-344 tiles against ~400-1700 resident blocks), each tile
+//   runs as a cluster of S CTAs (cluster_split). Every CTA reads the tile's
+//   rulebook and builds its hit-tap list as above; rank r runs list
+//   positions r, r + S, r + 2S, ... through its own ring. Dealing the list
+//   round-robin, not in contiguous runs, keeps the ranks' tap counts within
+//   one of each other for any hit pattern, and the S ranks gather
+//   neighbouring taps (neighbouring voxel rows) at the same time, so they
+//   share L2 lines. Ranks 1..S-1 then write their f32 accumulators into
+//   their own (now idle) ring; after a cluster barrier rank 0 reads them
+//   through distributed shared memory and adds them in rank order, so a
+//   run gives the same bits every time, then stores as above. A second
+//   cluster barrier keeps each rank's shared memory alive until it is read.
+//   One tile's time was its hit taps' serial chain of round trips; the
+//   split cuts that chain S-fold on the SMs that were idle. S = 1 is the
+//   plain tile: bit-equal to the stream kernel's.
 // Why one warpgroup of 64 rows with every thread copying, not a producer
 // warp: a tile's tap is 128-512 gathered chunks plus 32-512 weight chunks,
 // one to eight per thread; one warp alone would issue them four times
@@ -71,6 +90,18 @@ namespace sessd {
 
 constexpr int kMmaThreads = 128;  // one warpgroup per 64-row tile
 constexpr int kStages = 4;        // taps in the ring
+constexpr int kMaxSplit = 4;      // CTAs of a cluster that share one tile
+
+// The cluster size S of a resident serving conv's launch of `tiles` 64-row
+// tiles, where `wave` blocks of the instance fit on the card at once (blocks
+// per SM at its shared memory and registers x SMs): a launch that fills a
+// wave runs one CTA per tile; one that fills less splits each tile's taps
+// over 4 CTAs where 4 x tiles still fit one wave, else over 2. Mirrored by
+// ops/cuda/sparse_conv.py:cluster_split.
+inline int cluster_split(int tiles, int wave) {
+  if (tiles >= wave) return 1;
+  return tiles * 4 <= wave ? 4 : 2;
+}
 
 // the instances that take this tile (the C entries' dispatch; mirrored by
 // ops/cuda/sparse_conv.py:conv_instance)
@@ -91,6 +122,8 @@ struct MmaLayout {
   // its length
   static constexpr int kSmemBytes =
       kRingBytes + (kRows * kMaxTaps + kRows + kMaxTaps + 1) * 4;
+  // a split rank's f32 accumulators, [COUT / 2][kMmaThreads], in its ring
+  static_assert(kRows * COUT * 4 <= kRingBytes, "split partials fit");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -187,6 +220,44 @@ struct Wgmma<64> {
         : "l"(a), "l"(b), "r"(1));
   }
 };
+
+// the cluster of this CTA: its size and this CTA's rank in it (1 and 0 for a
+// launch without clusters), a barrier over all its threads (release /
+// acquire: shared-memory writes before it are visible to every CTA of the
+// cluster after it), and a 4-byte load from rank `rank`'s shared memory at
+// the offset of `local` in this CTA's
+__device__ __forceinline__ int cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster_f32(const float* local,
+                                                int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
 template <int N>
 __device__ __forceinline__ void fence_accumulators(float (&d)[N]) {
 #pragma unroll
@@ -194,9 +265,11 @@ __device__ __forceinline__ void fence_accumulators(float (&d)[N]) {
 }
 
 // The body of one block of kMmaThreads threads over output rows
-// [blockIdx.x * kRows, + kRows), with MmaLayout<CIN, COUT>::kSmemBytes of
-// dynamic shared memory. feats and w2 must be 16-byte aligned.
-template <typename IdxT, int CIN, int COUT, bool EPI>
+// [tile * kRows, + kRows), with MmaLayout<CIN, COUT>::kSmemBytes of dynamic
+// shared memory; tile is blockIdx.x, or with SPLIT blockIdx.x / S for a
+// launch in clusters of S blocks along x. feats and w2 must be 16-byte
+// aligned.
+template <typename IdxT, int CIN, int COUT, bool EPI, bool SPLIT = false>
 __device__ __forceinline__ void gather_mma_tile(
     const __nv_bfloat16* __restrict__ feats, const IdxT* __restrict__ rb,
     const __nv_bfloat16* __restrict__ w2, const float* __restrict__ bias,
@@ -211,7 +284,13 @@ __device__ __forceinline__ void gather_mma_tile(
   int* s_n_taps = s_taps + kMaxTaps;
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
+  int tile = blockIdx.x, rank = 0, split = 1;
+  if constexpr (SPLIT) {
+    split = cluster_size();
+    rank = cluster_rank();
+    tile = blockIdx.x / split;
+  }
+  const int row0 = tile * kRows;
 
   // the tile's rulebook, read once; rows past n_out read as all-miss
   for (int i = tid; i < kRows * taps; i += kMmaThreads) {
@@ -240,7 +319,11 @@ __device__ __forceinline__ void gather_mma_tile(
     if (k == 0) *s_n_taps = __popc(hits);
   }
   __syncthreads();
-  const int n_taps = *s_n_taps;
+  // this rank's taps: positions rank, rank + split, ... of the hit-tap list
+  const int n_taps = *s_n_taps > rank
+                         ? (*s_n_taps - rank + split - 1) / split
+                         : 0;
+  const int* my_taps = s_taps + rank;
 
   // tap k's gathered rows and weights into ring stage `stage`
   auto issue = [&](int k, int stage) {
@@ -270,7 +353,7 @@ __device__ __forceinline__ void gather_mma_tile(
   // taps
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_taps) issue(s_taps[s], s);
+    if (s < n_taps) issue(my_taps[s * split], s);
     cp_async_commit();
   }
   for (int t = 0; t < n_taps; ++t) {
@@ -279,7 +362,7 @@ __device__ __forceinline__ void gather_mma_tile(
     __syncthreads();
     // the slot of tap t - 1, whose wgmma every thread has waited for
     const int ahead = t + kStages - 1;
-    if (ahead < n_taps) issue(s_taps[ahead], ahead % kStages);
+    if (ahead < n_taps) issue(my_taps[ahead * split], ahead % kStages);
     cp_async_commit();
 
     const uint32_t a_s = smem_u32(ring + (t % kStages) * L::kStageBytes);
@@ -293,6 +376,27 @@ __device__ __forceinline__ void gather_mma_tile(
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_accumulators(acc);
+  }
+
+  if constexpr (SPLIT) {
+    if (split > 1) {
+      float* part = reinterpret_cast<float*>(ring);
+      __syncthreads();  // every warp's last wgmma has read its ring slot
+      if (rank != 0) {
+#pragma unroll
+        for (int i = 0; i < COUT / 2; ++i) part[i * kMmaThreads + tid] = acc[i];
+      }
+      cluster_sync();  // the partials are written and visible to rank 0
+      if (rank == 0) {
+        for (int r = 1; r < split; ++r) {  // rank order: the same bits
+#pragma unroll
+          for (int i = 0; i < COUT / 2; ++i)
+            acc[i] += ld_cluster_f32(part + i * kMmaThreads + tid, r);
+        }
+      }
+      cluster_sync();  // rank 0 is done reading the others' shared memory
+      if (rank != 0) return;
+    }
   }
 
   // accumulator fragment: register 4j + 2h + e of lane l in warp w holds

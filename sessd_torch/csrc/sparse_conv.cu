@@ -15,10 +15,26 @@
 // the BatchNorm scale already (w2 = W * s); bias [Cout] is f32. feats, w2 and
 // out are f32 or bf16; the sum is taken in f32. rb is int16 or int32.
 //
-// The kernel is gather_gemm.cuh's body with its epilogue on; that header
-// says what bounds it on Hopper and what the design does about it.
+// What bounds it on Hopper: the gather (at most 2*Cout flops per loaded
+// value, below the card's ridge) and, at batch 1, the grid: a request's
+// convs have 63-344 tiles of 64 rows, fewer than the card holds at once.
+// fused_sparse_conv_kernel takes one of two bodies by type and shape, fixed
+// at compile time (no fallback at run time):
+// - bf16 with Cin, Cout in {16, 32, 64}: gather_mma.cuh's tensor-core tile
+//   (wgmma out of a 4-stage cp.async ring, taps no row of a tile hits
+//   skipped), 128 threads and dynamic shared memory per block, the body the
+//   stream kernel runs in bf16. A launch whose tiles fill less than one wave
+//   runs each tile as a cluster of S = 2 or 4 CTAs that split its hit taps
+//   and add their partials in rank order (sessd::cluster_split; the header
+//   says how). At S = 1 it equals the bf16 stream kernel bit for bit.
+// - f32 (the eval path, held to 1e-4) and the Cin = 4 first conv:
+//   gather_gemm.cuh's scalar tile, 256 threads, one block per tile.
+// The scalar tile's bf16 instances stay reachable under a name of their own,
+// fused_sparse_conv_scalar_kernel (sessd_fused_sparse_conv_scalar), for the
+// same-call comparisons of the smoke check, the ablation and the card tests
+// only; nothing on the serving path launches it.
 
-#include "gather_gemm.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
@@ -29,40 +45,205 @@ fused_sparse_conv_kernel(const T* __restrict__ feats,
                          const T* __restrict__ w2,
                          const float* __restrict__ bias, T* __restrict__ out,
                          int n_in, int n_out, int taps, int relu) {
-  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, true>(
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, true, true>(
+        feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
+  else
+    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, true>(
+        feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
+}
+
+// the scalar tile in bf16, for comparisons only
+template <typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(sessd::kThreads)
+fused_sparse_conv_scalar_kernel(const __nv_bfloat16* __restrict__ feats,
+                                const IdxT* __restrict__ rb,
+                                const __nv_bfloat16* __restrict__ w2,
+                                const float* __restrict__ bias,
+                                __nv_bfloat16* __restrict__ out, int n_in,
+                                int n_out, int taps, int relu) {
+  sessd::gather_gemm_tile<__nv_bfloat16, IdxT, CIN, COUT, true>(
       feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
 }
 
+// above 48 KB a block's shared memory must be asked for, once per kernel
+template <typename T, typename IdxT, int CIN, int COUT>
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_sparse_conv_kernel<T, IdxT, CIN, COUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sessd::MmaLayout<CIN, COUT>::kSmemBytes);
+  return attr;
+}
+
+// blocks of the bf16 tensor-core instance of (CIN, COUT) that fit on the
+// card at once: blocks per SM at its shared memory, registers and threads
+// (the int32-rulebook instance's, so both index types take the same S) x
+// SMs; once per instance, 0 where it cannot be read
+template <int CIN, int COUT>
+int mma_wave() {
+  static const int wave = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        allow_smem<__nv_bfloat16, int32_t, CIN, COUT>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm,
+            fused_sparse_conv_kernel<__nv_bfloat16, int32_t, CIN, COUT>,
+            sessd::kMmaThreads,
+            sessd::MmaLayout<CIN, COUT>::kSmemBytes) != cudaSuccess)
+      return 0;
+    return per_sm * sms;
+  }();
+  return wave;
+}
+
+template <int CIN, int COUT>
+int wave_of() {
+  if constexpr (sessd::kMmaTile<__nv_bfloat16, CIN, COUT>)
+    return mma_wave<CIN, COUT>();
+  else
+    return 0;
+}
+
+// split: 0 = the rule's S (sessd::cluster_split), else that S (the
+// comparison entry, which takes tensor-core instances only)
 template <typename T, typename IdxT, int CIN, int COUT>
 cudaError_t launch(const void* feats, const void* rb, const void* w2,
                    const float* bias, void* out, int n_in, int n_out,
-                   int taps, int relu, cudaStream_t stream) {
-  fused_sparse_conv_kernel<T, IdxT, CIN, COUT>
+                   int taps, int relu, int split, cudaStream_t stream) {
+  auto* kern = fused_sparse_conv_kernel<T, IdxT, CIN, COUT>;
+  const int tiles = sessd::gather_gemm_grid(n_out).x;
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
+    const int wave = mma_wave<CIN, COUT>();
+    if (wave <= 0) return cudaErrorInvalidConfiguration;
+    const cudaError_t smem_ok = allow_smem<T, IdxT, CIN, COUT>();
+    if (smem_ok != cudaSuccess) return smem_ok;
+    if (split == 0) split = sessd::cluster_split(tiles, wave);
+    if (split != 1 && split != 2 && split != sessd::kMaxSplit)
+      return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles * split);
+    cfg.blockDim = dim3(sessd::kMmaThreads);
+    cfg.dynamicSmemBytes = sessd::MmaLayout<CIN, COUT>::kSmemBytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, kern, static_cast<const T*>(feats),
+        static_cast<const IdxT*>(rb), static_cast<const T*>(w2), bias,
+        static_cast<T*>(out), n_in, n_out, taps, relu);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  } else {
+    kern<<<tiles, sessd::kThreads, 0, stream>>>(
+        static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
+        static_cast<const T*>(w2), bias, static_cast<T*>(out), n_in, n_out,
+        taps, relu);
+    return cudaGetLastError();
+  }
+}
+
+template <typename IdxT, int CIN, int COUT>
+cudaError_t launch_scalar(const void* feats, const void* rb, const void* w2,
+                          const float* bias, void* out, int n_in, int n_out,
+                          int taps, int relu, cudaStream_t stream) {
+  fused_sparse_conv_scalar_kernel<IdxT, CIN, COUT>
       <<<sessd::gather_gemm_grid(n_out), sessd::kThreads, 0, stream>>>(
-          static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
-          static_cast<const T*>(w2), bias, static_cast<T*>(out), n_in, n_out,
-          taps, relu);
+          static_cast<const __nv_bfloat16*>(feats),
+          static_cast<const IdxT*>(rb),
+          static_cast<const __nv_bfloat16*>(w2), bias,
+          static_cast<__nv_bfloat16*>(out), n_in, n_out, taps, relu);
   return cudaGetLastError();
 }
 
 // the (Cin, Cout) pairs of the SpMiddleFHD plan
+#define SESSD_FUSED_PAIRS(CASE) \
+  CASE(4, 16)                   \
+  CASE(16, 16)                  \
+  CASE(16, 32)                  \
+  CASE(32, 32)                  \
+  CASE(32, 64)                  \
+  CASE(64, 64)
+
 template <typename T, typename IdxT>
 cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* rb, const void* w2,
                               const float* bias, void* out, int n_in,
-                              int n_out, int taps, int relu,
+                              int n_out, int taps, int relu, int split,
                               cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
     return launch<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in, n_out,    \
-                                   taps, relu, stream);
-  SESSD_CASE(4, 16)
-  SESSD_CASE(16, 16)
-  SESSD_CASE(16, 32)
-  SESSD_CASE(32, 32)
-  SESSD_CASE(32, 64)
-  SESSD_CASE(64, 64)
+                                   taps, relu, split, stream);
+  SESSD_FUSED_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <typename IdxT>
+cudaError_t dispatch_scalar(int cin, int cout, const void* feats,
+                            const void* rb, const void* w2, const float* bias,
+                            void* out, int n_in, int n_out, int taps,
+                            int relu, cudaStream_t stream) {
+#define SESSD_CASE(CI, CO)                                                   \
+  if (cin == CI && cout == CO)                                               \
+    return launch_scalar<IdxT, CI, CO>(feats, rb, w2, bias, out, n_in,       \
+                                       n_out, taps, relu, stream);
+  SESSD_FUSED_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// 2 where the instance for (T, cin, cout) is the tensor-core tile, 1 where
+// it is the scalar tile, 0 where there is none
+template <typename T>
+int fused_instance(int cin, int cout) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  SESSD_FUSED_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
+}
+
+// the wave of the tensor-core instance for (cin, cout), 0 where the
+// instance is scalar or missing
+int fused_wave(int cin, int cout) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return wave_of<CI, CO>();
+  SESSD_FUSED_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
+}
+
+int fused(const void* feats, const void* rb, const void* w2,
+          const float* bias, void* out, int n_in, int n_out, int cin,
+          int cout, int taps, int dtype, int idx_bytes, int relu, int split,
+          void* stream) {
+  if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && idx_bytes == 2)
+    return dispatch_channels<float, int16_t>(cin, cout, feats, rb, w2, bias,
+                                             out, n_in, n_out, taps, relu,
+                                             split, s);
+  if (dtype == 0 && idx_bytes == 4)
+    return dispatch_channels<float, int32_t>(cin, cout, feats, rb, w2, bias,
+                                             out, n_in, n_out, taps, relu,
+                                             split, s);
+  if (dtype == 1 && idx_bytes == 2)
+    return dispatch_channels<__nv_bfloat16, int16_t>(
+        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, split,
+        s);
+  if (dtype == 1 && idx_bytes == 4)
+    return dispatch_channels<__nv_bfloat16, int32_t>(
+        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, split,
+        s);
   return cudaErrorInvalidValue;
 }
 
@@ -70,28 +251,74 @@ cudaError_t dispatch_channels(int cin, int cout, const void* feats,
 
 // Launches on `stream` and returns cudaGetLastError() of the launch (0 on
 // success). dtype: 0 = f32, 1 = bf16; idx_bytes: 2 (int16) or 4 (int32).
+// The tensor-core instances want feats and w2 16-byte aligned.
 extern "C" int sessd_fused_sparse_conv(const void* feats, const void* rb,
                                        const void* w2, const float* bias,
                                        void* out, int n_in, int n_out,
                                        int cin, int cout, int taps,
                                        int dtype, int idx_bytes, int relu,
                                        void* stream) {
-  if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps)
+  return fused(feats, rb, w2, bias, out, n_in, n_out, cin, cout, taps, dtype,
+               idx_bytes, relu, 0, stream);
+}
+
+// sessd_fused_sparse_conv with the cluster size S fixed to `split` (1, 2 or
+// 4) instead of the rule's; tensor-core instances only. For comparisons.
+extern "C" int sessd_fused_sparse_conv_at_split(
+    const void* feats, const void* rb, const void* w2, const float* bias,
+    void* out, int n_in, int n_out, int cin, int cout, int taps, int dtype,
+    int idx_bytes, int relu, int split, void* stream) {
+  if (split < 1 || fused_instance<__nv_bfloat16>(cin, cout) != 2 ||
+      dtype != 1)
+    return cudaErrorInvalidValue;
+  return fused(feats, rb, w2, bias, out, n_in, n_out, cin, cout, taps, dtype,
+               idx_bytes, relu, split, stream);
+}
+
+// The scalar tile's bf16 body under its own kernel name, for comparisons:
+// sessd_fused_sparse_conv's arguments, dtype 1 only.
+extern "C" int sessd_fused_sparse_conv_scalar(
+    const void* feats, const void* rb, const void* w2, const float* bias,
+    void* out, int n_in, int n_out, int cin, int cout, int taps, int dtype,
+    int idx_bytes, int relu, void* stream) {
+  if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps || dtype != 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && idx_bytes == 2)
-    return dispatch_channels<float, int16_t>(cin, cout, feats, rb, w2, bias,
-                                             out, n_in, n_out, taps, relu, s);
-  if (dtype == 0 && idx_bytes == 4)
-    return dispatch_channels<float, int32_t>(cin, cout, feats, rb, w2, bias,
-                                             out, n_in, n_out, taps, relu, s);
-  if (dtype == 1 && idx_bytes == 2)
-    return dispatch_channels<__nv_bfloat16, int16_t>(
-        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
-  if (dtype == 1 && idx_bytes == 4)
-    return dispatch_channels<__nv_bfloat16, int32_t>(
-        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
+  if (idx_bytes == 2)
+    return dispatch_scalar<int16_t>(cin, cout, feats, rb, w2, bias, out, n_in,
+                                    n_out, taps, relu, s);
+  if (idx_bytes == 4)
+    return dispatch_scalar<int32_t>(cin, cout, feats, rb, w2, bias, out, n_in,
+                                    n_out, taps, relu, s);
   return cudaErrorInvalidValue;
+}
+
+// Which body sessd_fused_sparse_conv launches for (cin, cout, dtype): 2 the
+// tensor-core tile, 1 the scalar tile, 0 none.
+extern "C" int sessd_fused_sparse_conv_instance(int cin, int cout,
+                                                int dtype) {
+  if (dtype == 0) return fused_instance<float>(cin, cout);
+  if (dtype == 1) return fused_instance<__nv_bfloat16>(cin, cout);
+  return 0;
+}
+
+// The wave sessd::cluster_split compares a launch's tiles with, for the
+// bf16 tensor-core instance of (cin, cout): 0 where there is none.
+extern "C" int sessd_fused_sparse_conv_wave(int cin, int cout) {
+  return fused_wave(cin, cout);
+}
+
+// The cluster size S sessd_fused_sparse_conv launches with for n_out rows:
+// 1 on the scalar tile, 0 where there is no instance.
+extern "C" int sessd_fused_sparse_conv_split(int n_out, int cin, int cout,
+                                             int dtype) {
+  const int inst = sessd_fused_sparse_conv_instance(cin, cout, dtype);
+  if (inst != 2 || n_out <= 0) return inst;
+  const int wave = fused_wave(cin, cout);
+  return wave > 0 ? sessd::cluster_split(
+                        static_cast<int>(sessd::gather_gemm_grid(n_out).x),
+                        wave)
+                  : 0;
 }
 
 extern "C" const char* sessd_cuda_error_string(int err) {

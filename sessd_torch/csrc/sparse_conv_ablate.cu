@@ -9,10 +9,10 @@
 // rulebook, 16 -> 16 channels. Each mode removes one cost:
 //   kFull      the real gather over the rulebook (K = 27, or 9 for the
 //              "K=9" variant: the same mode on a 9-tap rulebook); the same
-//              arithmetic in the same order as the scalar tile of K1
-//              (fused_sparse_conv_kernel) with zero bias and no ReLU, so
-//              the two agree bit for bit (the bf16 training forward now
-//              runs the tensor-core tile, gather_mma.cuh);
+//              arithmetic in the same order as the scalar tile's bf16 entry
+//              (fused_sparse_conv_scalar_kernel) with zero bias and no
+//              ReLU, so the two agree bit for bit (bf16 K1 and the training
+//              forward now run the tensor-core tile, gather_mma.cuh);
 //   kLinear    row n of every tap reads feature row n: no rulebook loads,
 //              no indirection, the same staging and FMAs (the TPU's
 //              "static lo" / "fully static window");

@@ -23,8 +23,8 @@
 //   every tile (7% slower than K1 in bf16, PERF.md). The new tile stays in
 //   bf16 from gather to wgmma, keeps three taps' gathers in flight in a
 //   4-stage cp.async ring, and skips the taps no row of the tile hits. It
-//   sums in the tensor cores' order, so in bf16 it no longer equals K1 bit
-//   for bit.
+//   sums in the tensor cores' order; bf16 K1 runs the same tile, so the two
+//   agree bit for bit wherever K1 runs one CTA per tile.
 // - f32 (the eval path, held to 1e-4): the two-stage ring below, K1's tile,
 //   thread mapping and summation order (tap by tap, input channel by input
 //   channel, one fmaf per product), so f32 K3 equals K1 bit for bit. While

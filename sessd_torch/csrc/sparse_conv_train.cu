@@ -17,7 +17,7 @@
 // dFeat is the forward's gather-GEMM over the inverse rulebook
 // inv[rb[n, k], k] = n (each tap's map is injective: distinct outputs read
 // distinct inputs), with W^T [K, Cout, Cin] as the weights: each input row
-// owns its sum, so there is no scatter. dW is a reduction over up to ~88k
+// owns its sum, so there is no scatter. dW is a reduction over up to ~120k
 // rows per tap: split-K over row chunks into f32 partials
 // [chunks, K, Cin, Cout], then a second pass sums the chunks in order.
 //
@@ -31,13 +31,58 @@
 //   here.
 // - f32 (the step-parity and eval paths, held to 1e-4) and the Cin = 4
 //   first conv: gather_gemm.cuh's scalar tile, 256 threads.
-// dFeat is gather_gemm.cuh's scalar tile under a name of its own. dW is
-// bound by the same gathers: each (chunk, tap) block stages 64 gathered
-// feature rows and the 64 matching dout rows in shared memory per step and
-// accumulates its Cin x Cout tile in registers (up to 4 x 4 per thread, so
-// each value read from shared memory feeds 4 FMAs); dout is read by the K
-// blocks of a chunk and comes from L2 after the first. Tensor cores for
-// dFeat and dW are later work.
+// dFeat is gather_gemm.cuh's scalar tile under a name of its own.
+//
+// The weight gradient's partial kernel, sparse_conv_dw_partial_kernel, also
+// takes one of two bodies, fixed at compile time:
+// - bf16 with Cin, Cout in {16, 32, 64}: dw_mma_partial below, on tensor
+//   cores. What bounds dW on this card: the gather of feats[rb[n, k]] and
+//   the dout rows, 2*Cin*Cout flops per (row, tap) hit against 2*(Cin +
+//   Cout) bytes, below the ridge at 16-32 channels and near it at 64. The
+//   scalar body it replaces converted every gathered and dout value to f32
+//   in shared memory, synchronised, ran a scalar FMA loop and synchronised
+//   again per 64-row step, with nothing overlapping the next step's loads
+//   and every (chunk, tap) pair read and multiplied even where no row hits
+//   the tap. The design:
+//   * Tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulators),
+//     not wgmma. A step's product is G^T D with G the gathered rows
+//     [64, Cin] and D the dout rows [64, Cout], both staged with channels
+//     contiguous, so both operands are MN-major; ldmatrix.x4.trans turns
+//     each 8 x 8 box of either into its mma fragment as it loads. m16n8k16
+//     fits every (Cin, Cout) of the plan, where wgmma's M of 64 would pad
+//     the 16- and 32-channel sides (computing dW^T with M = Cout pads the
+//     same way), and the multiply is not what bounds dW.
+//   * 4 warps of 128 threads: warps split Cin in up to 2 and Cout in up to
+//     2 and the step's four 16-row k-slices among the rest (16 -> 16: one
+//     slice each), so every instance keeps 8-32 accumulator registers per
+//     thread; the warps' partial tiles are summed in shared memory in a
+//     fixed order at the end.
+//   * A 4-stage cp.async ring over the chunk's 64-row steps: each stage is
+//     a step's gathered rows and its dout rows, 16-byte chunks, rows padded
+//     by 16 bytes so the eight rows one ldmatrix reads fall in distinct
+//     banks. A row that misses tap k is zero-filled on both sides (src-size
+//     0): it reads neither feats nor dout. The dout rows of a step are one
+//     contiguous box, but a TMA copy would land it unpadded (or need a
+//     tensor map per call for a swizzled layout), so they take cp.async
+//     like the gathered rows.
+//   * Skipping: the block reads its chunk's rulebook column once into
+//     shared memory, flags the steps some row of which hits tap k and
+//     compacts them into a list (one warp's ballot); only those steps are
+//     gathered and multiplied, and a (chunk, tap) pair with no hit writes a
+//     zero partial without reading dout.
+//   * Blocks run tap-fastest (grid [taps, chunks]), so the K blocks of one
+//     chunk run together and share its rulebook rows and dout in L2.
+//   Sums run step by step in order, then over the warps' k-slices in order:
+//   the same bits on every run.
+// - f32 (step parity, held to 1e-3 of each gradient's max) and the Cin = 4
+//   first conv: dw_scalar_partial, 256 threads per (chunk, tap) block, which
+//   stages 64 gathered feature rows and the 64 matching dout rows in shared
+//   memory per step and accumulates its Cin x Cout tile in registers (up to
+//   4 x 4 per thread). Its bf16 instances stay reachable under their own
+//   name, sparse_conv_dw_scalar_kernel (sessd_sparse_conv_dw_scalar), for
+//   same-call comparisons only.
+// Both write f32 partials [chunks, K, Cin, Cout]; sparse_conv_dw_reduce_kernel
+// sums the chunks in order.
 
 #include "gather_mma.cuh"
 
@@ -184,13 +229,12 @@ struct DwTile {
 
 // partial[chunk, k] = sum over the chunk's rows n of
 //   feats[rb[n, k]]^T dout[n]              ([CIN, COUT], f32)
+// the scalar body: one block of kThreads threads per (chunk, tap)
 template <typename T, typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
-sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
-                              const IdxT* __restrict__ rb,
-                              const T* __restrict__ dout,
-                              float* __restrict__ partial, int n_in,
-                              int n_out, int taps, int chunk_rows) {
+__device__ __forceinline__ void dw_scalar_partial(
+    const T* __restrict__ feats, const IdxT* __restrict__ rb,
+    const T* __restrict__ dout, float* __restrict__ partial, int n_in,
+    int n_out, int taps, int chunk_rows, int chunk, int k) {
   using Tile = DwTile<CIN, COUT>;
   constexpr int kTi = Tile::kTi;
   constexpr int kTj = Tile::kTj;
@@ -198,8 +242,6 @@ sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
   __shared__ __align__(16) float s_d[kRows * COUT];
 
   const int tid = threadIdx.x;
-  const int k = blockIdx.y;
-  const int chunk = blockIdx.x;
   const int begin = chunk * chunk_rows;
   const int end = min(n_out, begin + chunk_rows);
   const bool active = tid < Tile::kActive;
@@ -253,6 +295,246 @@ sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
       dst[(ti * kTi + i) * COUT + tj * kTj + j] = acc[i][j];
 }
 
+constexpr int kDwStages = 4;          // 64-row steps in the ring
+constexpr int kDwMaxChunkRows = 8192;  // the rulebook column in shared memory
+
+// shared-memory layout and warp split of the tensor-core dW tile
+template <int CIN, int COUT>
+struct DwMma {
+  static constexpr int kGStride = CIN * 2 + 16;   // bytes per staged row:
+  static constexpr int kDStride = COUT * 2 + 16;  // one chunk of padding
+  static constexpr int kGBytes = kRows * kGStride;
+  static constexpr int kDBytes = kRows * kDStride;
+  static constexpr int kStageBytes = kGBytes + kDBytes;
+  static constexpr int kRingBytes = kDwStages * kStageBytes;
+  static constexpr int kWm = CIN / 16 < 2 ? CIN / 16 : 2;    // warps over Cin
+  static constexpr int kWn = COUT / 16 < 2 ? COUT / 16 : 2;  // over Cout
+  static constexpr int kWk = 4 / (kWm * kWn);  // over a step's 4 k-slices
+  static constexpr int kMt = CIN / 16 / kWm;   // m16 tiles per warp
+  static constexpr int kNt = COUT / 16 / kWn;  // n16 tiles per warp
+  static_assert(kWm * kWn * kWk * 32 == sessd::kMmaThreads, "4 warps");
+  // the warps' partial tiles [kWk, CIN, COUT] f32, in the ring at the end
+  static_assert(kWk * CIN * COUT * 4 <= kRingBytes, "reduction fits");
+  // ring, the rulebook column, the step flags and the hit-step list + count
+  static constexpr int smem_bytes(int chunk_rows) {
+    return kRingBytes + (chunk_rows + 2 * (chunk_rows / kRows) + 1) * 4;
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[16 x 8] += a[16 x 16] (row) @ b[16 x 8] (col), bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// partial[chunk, k] as dw_scalar_partial, on tensor cores: one block of
+// kMmaThreads threads per (tap, chunk), DwMma<CIN, COUT>::smem_bytes
+// (chunk_rows) of dynamic shared memory; chunk_rows a multiple of kRows, at
+// most kDwMaxChunkRows; feats and dout 16-byte aligned.
+template <typename IdxT, int CIN, int COUT>
+__device__ __forceinline__ void dw_mma_partial(
+    const __nv_bfloat16* __restrict__ feats, const IdxT* __restrict__ rb,
+    const __nv_bfloat16* __restrict__ dout, float* __restrict__ partial,
+    int n_in, int n_out, int taps, int chunk_rows, int chunk, int k) {
+  using L = DwMma<CIN, COUT>;
+  extern __shared__ __align__(128) unsigned char sessd_dw_smem[];
+  unsigned char* ring = sessd_dw_smem;
+  int* s_col = reinterpret_cast<int*>(ring + L::kRingBytes);
+  const int steps = chunk_rows / kRows;
+  int* s_flag = s_col + chunk_rows;
+  int* s_steps = s_flag + steps;  // the steps some row of which hits tap k
+  int* s_n_steps = s_steps + steps;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int begin = chunk * chunk_rows;
+  const int rows = min(n_out - begin, chunk_rows);
+
+  // the chunk's rulebook column, read once: the source row of each of its
+  // rows through tap k, -1 for a miss (and past n_out), and which steps hit
+  for (int s = tid; s < steps; s += sessd::kMmaThreads) s_flag[s] = 0;
+  __syncthreads();
+  for (int i = tid; i < chunk_rows; i += sessd::kMmaThreads) {
+    const int src =
+        i < rows ? static_cast<int>(rb[(size_t)(begin + i) * taps + k]) : -1;
+    const bool hit = static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
+    s_col[i] = hit ? src : -1;
+    if (hit) s_flag[i / kRows] = 1;  // every writer writes 1
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < steps; base += 32) {
+      const int s = base + lane;
+      const bool hit = s < steps && s_flag[s] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (hit) s_steps[count + __popc(m & ((1u << lane) - 1u))] = s;
+      count += __popc(m);
+    }
+    if (lane == 0) *s_n_steps = count;
+  }
+  __syncthreads();
+  const int n_steps = *s_n_steps;
+
+  // step s's gathered rows and dout rows into ring stage `stage`; a row
+  // that misses tap k is zero on both sides and reads nothing
+  auto issue = [&](int s, int stage) {
+    const uint32_t g_s = sessd::smem_u32(ring + stage * L::kStageBytes);
+    const uint32_t d_s = g_s + L::kGBytes;
+    for (int j = tid; j < kRows * (CIN / 8); j += sessd::kMmaThreads) {
+      const int r = j / (CIN / 8);
+      const int c = j % (CIN / 8);
+      const int src = s_col[s * kRows + r];
+      sessd::cp_async16(g_s + r * L::kGStride + c * 16,
+                        feats + (size_t)(src >= 0 ? src : 0) * CIN + c * 8,
+                        src >= 0 ? 16 : 0);
+    }
+    for (int j = tid; j < kRows * (COUT / 8); j += sessd::kMmaThreads) {
+      const int r = j / (COUT / 8);
+      const int c = j % (COUT / 8);
+      const bool hit = s_col[s * kRows + r] >= 0;
+      sessd::cp_async16(
+          d_s + r * L::kDStride + c * 16,
+          dout + (size_t)(hit ? begin + s * kRows + r : 0) * COUT + c * 8,
+          hit ? 16 : 0);
+    }
+  };
+
+  const int wm = warp % L::kWm;
+  const int wn = (warp / L::kWm) % L::kWn;
+  const int wk = warp / (L::kWm * L::kWn);
+  float acc[L::kMt][2 * L::kNt][4];
+#pragma unroll
+  for (int m = 0; m < L::kMt; ++m)
+#pragma unroll
+    for (int n = 0; n < 2 * L::kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  // one cp.async group per slot, empty ones too, so that wait_group counts
+  // steps
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < n_steps) issue(s_steps[s], s);
+    sessd::cp_async_commit();
+  }
+  // lane l addresses row l % 8 of 8 x 8 box l / 8 of an ldmatrix.x4
+  const int box = lane / 8;
+  const int box_row = lane % 8;
+  for (int u = 0; u < n_steps; ++u) {
+    sessd::cp_async_wait<kDwStages - 2>();
+    __syncthreads();  // every thread's chunks of step u; step u - 1 read
+    const int ahead = u + kDwStages - 1;
+    if (ahead < n_steps) issue(s_steps[ahead], ahead % kDwStages);
+    sessd::cp_async_commit();
+
+    const uint32_t g_s = sessd::smem_u32(ring + (u % kDwStages) *
+                                                    L::kStageBytes);
+    const uint32_t d_s = g_s + L::kGBytes;
+#pragma unroll
+    for (int kk = wk; kk < 4; kk += L::kWk) {  // 16-row slices of the step
+      // A = G^T [Cin x 16 rows]: boxes (m 0-7, k 0-7), (m 8-15, k 0-7),
+      // (m 0-7, k 8-15), (m 8-15, k 8-15)
+      uint32_t a[L::kMt][4];
+#pragma unroll
+      for (int m = 0; m < L::kMt; ++m) {
+        const int row = kk * 16 + (box >> 1) * 8 + box_row;
+        const int col = (wm * L::kMt + m) * 16 + (box & 1) * 8;
+        ldmatrix_x4_trans(a[m], g_s + row * L::kGStride + col * 2);
+      }
+      // B = D [16 rows x Cout]: boxes (k 0-7, n 0-7), (k 8-15, n 0-7),
+      // (k 0-7, n 8-15), (k 8-15, n 8-15): two n8 tiles' fragments
+#pragma unroll
+      for (int n = 0; n < L::kNt; ++n) {
+        uint32_t b[4];
+        const int row = kk * 16 + (box & 1) * 8 + box_row;
+        const int col = (wn * L::kNt + n) * 16 + (box >> 1) * 8;
+        ldmatrix_x4_trans(b, d_s + row * L::kDStride + col * 2);
+#pragma unroll
+        for (int m = 0; m < L::kMt; ++m) {
+          mma_bf16_16816(acc[m][2 * n], a[m], b[0], b[1]);
+          mma_bf16_16816(acc[m][2 * n + 1], a[m], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // the warps' tiles into shared memory ([kWk, CIN, COUT]), then summed
+  // over the k-slice groups in order; fragment: register 2h + e of lane l
+  // holds row (input channel) l/4 + 8h, column (output channel) 2(l%4) + e
+  sessd::cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int m = 0; m < L::kMt; ++m)
+#pragma unroll
+    for (int n = 0; n < 2 * L::kNt; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = (wm * L::kMt + m) * 16 + lane / 4 + 8 * h;
+        const int j = (wn * 2 * L::kNt + n) * 8 + (lane % 4) * 2;
+        float* dst = red + ((size_t)wk * CIN + i) * COUT + j;
+        dst[0] = acc[m][n][2 * h];
+        dst[1] = acc[m][n][2 * h + 1];
+      }
+  __syncthreads();
+  float* dst = partial + ((size_t)chunk * taps + k) * CIN * COUT;
+  for (int e = tid; e < CIN * COUT; e += sessd::kMmaThreads) {
+    float v = red[e];
+#pragma unroll
+    for (int w = 1; w < L::kWk; ++w) v += red[w * CIN * COUT + e];
+    dst[e] = v;
+  }
+}
+
+// The partial kernel of the weight gradient: the tensor-core body for
+// bf16 with Cin, Cout in {16, 32, 64} (grid [taps, chunks], kMmaThreads),
+// the scalar body otherwise (grid [chunks, taps], kThreads).
+template <typename T, typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
+                              const IdxT* __restrict__ rb,
+                              const T* __restrict__ dout,
+                              float* __restrict__ partial, int n_in,
+                              int n_out, int taps, int chunk_rows) {
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+    dw_mma_partial<IdxT, CIN, COUT>(feats, rb, dout, partial, n_in, n_out,
+                                    taps, chunk_rows, blockIdx.y, blockIdx.x);
+  else
+    dw_scalar_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
+                                          n_out, taps, chunk_rows,
+                                          blockIdx.x, blockIdx.y);
+}
+
+// the scalar body in bf16 under a name of its own, for comparisons only
+template <typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+sparse_conv_dw_scalar_kernel(const __nv_bfloat16* __restrict__ feats,
+                             const IdxT* __restrict__ rb,
+                             const __nv_bfloat16* __restrict__ dout,
+                             float* __restrict__ partial, int n_in,
+                             int n_out, int taps, int chunk_rows) {
+  dw_scalar_partial<__nv_bfloat16, IdxT, CIN, COUT>(
+      feats, rb, dout, partial, n_in, n_out, taps, chunk_rows, blockIdx.x,
+      blockIdx.y);
+}
+
 // dw[e] = sum over chunks, in order, of partial[chunk, e]; e over K*Cin*Cout
 template <typename T>
 __global__ void sparse_conv_dw_reduce_kernel(
@@ -265,23 +547,70 @@ __global__ void sparse_conv_dw_reduce_kernel(
   dw[e] = from_f32<T>(s);
 }
 
+template <typename T>
+cudaError_t launch_dw_reduce(const float* partial, void* dw, int chunks,
+                             int size, cudaStream_t stream) {
+  sparse_conv_dw_reduce_kernel<T><<<(size + 255) / 256, 256, 0, stream>>>(
+      partial, static_cast<T*>(dw), chunks, size);
+  return cudaGetLastError();
+}
+
 template <typename T, typename IdxT, int CIN, int COUT>
 cudaError_t launch_dw(const void* feats, const void* rb, const void* dout,
                       float* partial, void* dw, int n_in, int n_out, int taps,
                       int chunk_rows, cudaStream_t stream) {
   const int chunks = (n_out + chunk_rows - 1) / chunk_rows;
-  sparse_conv_dw_partial_kernel<T, IdxT, CIN, COUT>
-      <<<dim3(chunks, taps), kThreads, 0, stream>>>(
-          static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
-          static_cast<const T*>(dout), partial, n_in, n_out, taps,
-          chunk_rows);
-  cudaError_t err = cudaGetLastError();
+  auto* kern = sparse_conv_dw_partial_kernel<T, IdxT, CIN, COUT>;
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
+    using L = DwMma<CIN, COUT>;
+    if (chunk_rows % kRows != 0 || chunk_rows > kDwMaxChunkRows)
+      return cudaErrorInvalidValue;
+    // above 48 KB a block's shared memory must be asked for, once per kernel
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::smem_bytes(kDwMaxChunkRows));
+    if (attr != cudaSuccess) return attr;
+    kern<<<dim3(taps, chunks), sessd::kMmaThreads, L::smem_bytes(chunk_rows),
+           stream>>>(static_cast<const T*>(feats),
+                     static_cast<const IdxT*>(rb),
+                     static_cast<const T*>(dout), partial, n_in, n_out, taps,
+                     chunk_rows);
+  } else {
+    kern<<<dim3(chunks, taps), kThreads, 0, stream>>>(
+        static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
+        static_cast<const T*>(dout), partial, n_in, n_out, taps, chunk_rows);
+  }
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int size = taps * CIN * COUT;
-  sparse_conv_dw_reduce_kernel<T><<<(size + 255) / 256, 256, 0, stream>>>(
-      partial, static_cast<T*>(dw), chunks, size);
-  return cudaGetLastError();
+  return launch_dw_reduce<T>(partial, dw, chunks, taps * CIN * COUT, stream);
 }
+
+template <typename IdxT, int CIN, int COUT>
+cudaError_t launch_dw_scalar(const void* feats, const void* rb,
+                             const void* dout, float* partial, void* dw,
+                             int n_in, int n_out, int taps, int chunk_rows,
+                             cudaStream_t stream) {
+  const int chunks = (n_out + chunk_rows - 1) / chunk_rows;
+  sparse_conv_dw_scalar_kernel<IdxT, CIN, COUT>
+      <<<dim3(chunks, taps), kThreads, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(feats),
+          static_cast<const IdxT*>(rb),
+          static_cast<const __nv_bfloat16*>(dout), partial, n_in, n_out, taps,
+          chunk_rows);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dw_reduce<__nv_bfloat16>(partial, dw, chunks,
+                                         taps * CIN * COUT, stream);
+}
+
+// the weight gradient's (Cin, Cout) pairs: the forward's
+#define SESSD_DW_PAIRS(CASE) \
+  CASE(4, 16)                \
+  CASE(16, 16)               \
+  CASE(16, 32)               \
+  CASE(32, 32)               \
+  CASE(32, 64)               \
+  CASE(64, 64)
 
 template <typename T, typename IdxT>
 cudaError_t dispatch_dw(int cin, int cout, const void* feats, const void* rb,
@@ -292,14 +621,36 @@ cudaError_t dispatch_dw(int cin, int cout, const void* feats, const void* rb,
   if (cin == CI && cout == CO)                                               \
     return launch_dw<T, IdxT, CI, CO>(feats, rb, dout, partial, dw, n_in,    \
                                       n_out, taps, chunk_rows, stream);
-  SESSD_CASE(4, 16)
-  SESSD_CASE(16, 16)
-  SESSD_CASE(16, 32)
-  SESSD_CASE(32, 32)
-  SESSD_CASE(32, 64)
-  SESSD_CASE(64, 64)
+  SESSD_DW_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
+}
+
+template <typename IdxT>
+cudaError_t dispatch_dw_scalar(int cin, int cout, const void* feats,
+                               const void* rb, const void* dout,
+                               float* partial, void* dw, int n_in, int n_out,
+                               int taps, int chunk_rows,
+                               cudaStream_t stream) {
+#define SESSD_CASE(CI, CO)                                                   \
+  if (cin == CI && cout == CO)                                               \
+    return launch_dw_scalar<IdxT, CI, CO>(feats, rb, dout, partial, dw,      \
+                                          n_in, n_out, taps, chunk_rows,     \
+                                          stream);
+  SESSD_DW_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// 2 where the weight gradient's partial kernel for (T, cin, cout) takes the
+// tensor-core body, 1 the scalar body, 0 where there is none
+template <typename T>
+int dw_instance(int cin, int cout) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  SESSD_DW_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
 }
 
 bool bad_args(int n_in, int n_out, int taps) {
@@ -362,7 +713,9 @@ extern "C" int sessd_sparse_conv_dfeat(const void* dout, const void* inv,
 }
 
 // dw [taps, cin, cout] = sum_n feats[rb[n, k]]^T dout[n]; partial is f32
-// scratch of [ceil(n_out / chunk_rows), taps, cin, cout].
+// scratch of [ceil(n_out / chunk_rows), taps, cin, cout]. The tensor-core
+// instances want chunk_rows a multiple of 64 up to 8192, and feats and dout
+// 16-byte aligned.
 extern "C" int sessd_sparse_conv_dw(const void* feats, const void* rb,
                                     const void* dout, float* partial,
                                     void* dw, int n_in, int n_out, int cin,
@@ -376,4 +729,32 @@ extern "C" int sessd_sparse_conv_dw(const void* feats, const void* rb,
                     taps, chunk_rows, s)
   SESSD_TYPES(SESSD_CALL)
 #undef SESSD_CALL
+}
+
+// The scalar partial body in bf16 under its own kernel name, for
+// comparisons: sessd_sparse_conv_dw's arguments, dtype 1 only.
+extern "C" int sessd_sparse_conv_dw_scalar(const void* feats, const void* rb,
+                                           const void* dout, float* partial,
+                                           void* dw, int n_in, int n_out,
+                                           int cin, int cout, int taps,
+                                           int chunk_rows, int dtype,
+                                           int idx_bytes, void* stream) {
+  if (bad_args(n_in, n_out, taps) || chunk_rows <= 0 || dtype != 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx_bytes == 2)
+    return dispatch_dw_scalar<int16_t>(cin, cout, feats, rb, dout, partial,
+                                       dw, n_in, n_out, taps, chunk_rows, s);
+  if (idx_bytes == 4)
+    return dispatch_dw_scalar<int32_t>(cin, cout, feats, rb, dout, partial,
+                                       dw, n_in, n_out, taps, chunk_rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// Which body sessd_sparse_conv_dw's partial kernel takes for (cin, cout,
+// dtype): 2 the tensor-core body, 1 the scalar body, 0 none.
+extern "C" int sessd_sparse_conv_dw_instance(int cin, int cout, int dtype) {
+  if (dtype == 0) return dw_instance<float>(cin, cout);
+  if (dtype == 1) return dw_instance<__nv_bfloat16>(cin, cout);
+  return 0;
 }

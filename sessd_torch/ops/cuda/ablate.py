@@ -89,8 +89,9 @@ def sparse_conv_ablate(feats: torch.Tensor, rb: torch.Tensor,
     """The scalar gather-GEMM tile (``csrc/gather_gemm.cuh``) with one cost
     removed (``mode``, see ``sparse_conv_ablate_ref``). feats [n_in, 16]
     bf16; rb [n_out, K] int32 (n_in = miss); w2 [K, 16, 16] bf16. Returns
-    [n_out, 16] bf16. "full" equals ``fused_sparse_conv`` with zero bias
-    and ``relu=False`` bit for bit."""
+    [n_out, 16] bf16. "full" equals ``fused_sparse_conv_scalar`` (the
+    scalar tile's bf16 entry) with zero bias and ``relu=False`` bit for
+    bit."""
     if feats.device.type == "cpu":
         return sparse_conv_ablate_ref(feats, rb, w2, mode)
     if feats.device.type != "cuda":

@@ -8,11 +8,14 @@ twins ``_fused_stream_kernel`` and ``_patch_stream_kernel``, which the JAX
 package takes where a conv's feature buffer is large (``streams``). On a
 CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
 it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
-``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes)
-or raises. The kernels are compiled with nvcc
-into ``build/sessd_torch/`` at the first CUDA call (cached by a hash of the
-sources and flags) and loaded with ctypes; importing this module builds
-nothing.
+``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes,
+``cluster_split`` the cluster size of a bf16 ``fused_sparse_conv``) or
+raises. ``fused_sparse_conv_scalar`` (the scalar tile's bf16 body) and
+``fused_sparse_conv_at_split`` (K1 at a given cluster size) exist for
+same-call comparisons only; nothing on the serving path calls them. The
+kernels are compiled with nvcc into ``build/sessd_torch/`` at the first
+CUDA call (cached by a hash of the sources and flags) and loaded with
+ctypes; importing this module builds nothing.
 """
 from __future__ import annotations
 
@@ -58,22 +61,30 @@ def streams(cin: int, n_in: int, dtype: torch.dtype) -> bool:
 
 
 # the (Cin, Cout) pairs each C entry has instances of
-# (csrc/sparse_conv_train.cu: SESSD_FWD_PAIRS, csrc/sparse_conv_stream.cu:
-# SESSD_STREAM_PAIRS)
+# (csrc/sparse_conv_train.cu: SESSD_FWD_PAIRS, SESSD_DW_PAIRS;
+# csrc/sparse_conv_stream.cu: SESSD_STREAM_PAIRS; csrc/sparse_conv.cu:
+# SESSD_FUSED_PAIRS)
 FWD_PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64))
 STREAM_PAIRS = FWD_PAIRS[1:]
+FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
-          "fused_sparse_conv_stream": STREAM_PAIRS}
+          "fused_sparse_conv_stream": STREAM_PAIRS,
+          "fused_sparse_conv": FUSED_PAIRS,
+          "sparse_conv_dw": DW_PAIRS}
+MAX_SPLIT = 4  # csrc/gather_mma.cuh: kMaxSplit
+TILE_ROWS = 64  # csrc/gather_gemm.cuh: kRows
 
 
 def conv_instance(entry: str, dtype: torch.dtype, cin: int,
                   cout: int) -> str:
-    """The body the C entry ``entry`` ("sparse_conv_fwd" or
-    "fused_sparse_conv_stream") launches for these types and channels,
-    fixed at compile time: "mma" (the tensor-core tile of
-    ``csrc/gather_mma.cuh``: bf16 with Cin and Cout in {16, 32, 64}) or
-    "scalar" (``gather_gemm.cuh``'s tile, or the stream kernel's f32 ring).
+    """The body the C entry ``entry`` ("sparse_conv_fwd",
+    "fused_sparse_conv_stream", "fused_sparse_conv" or "sparse_conv_dw")
+    launches for these types and channels, fixed at compile time: "mma"
+    (bf16 with Cin and Cout in {16, 32, 64}: the tensor-core tile of
+    ``csrc/gather_mma.cuh`` for the convs, the mma.sync partial kernel of
+    ``sparse_conv_train.cu`` for dW) or "scalar" (``gather_gemm.cuh``'s
+    tile, the stream kernel's f32 ring, or dW's scalar partial kernel).
     Raises ValueError where the entry has no instance."""
     if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
@@ -81,6 +92,17 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
     mma = (dtype == torch.bfloat16 and cin in MMA_CHANNELS
            and cout in MMA_CHANNELS)
     return "mma" if mma else "scalar"
+
+
+def cluster_split(tiles: int, wave: int) -> int:
+    """The cluster size S of a tensor-core ``fused_sparse_conv`` launch of
+    ``tiles`` 64-row tiles, where ``wave`` blocks of the instance fit on the
+    card at once (blocks per SM x SMs): 1 where the tiles fill a wave, else
+    4 where four CTAs per tile still fit one wave, else 2
+    (``csrc/gather_mma.cuh:cluster_split``)."""
+    if tiles >= wave:
+        return 1
+    return MAX_SPLIT if tiles * MAX_SPLIT <= wave else 2
 
 
 _build_lock = threading.Lock()
@@ -147,6 +169,11 @@ def build() -> ctypes.CDLL:
         lib.sessd_fused_sparse_conv.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.sessd_fused_sparse_conv_stream.argtypes = \
             lib.sessd_fused_sparse_conv.argtypes
+        lib.sessd_fused_sparse_conv_scalar.argtypes = \
+            lib.sessd_fused_sparse_conv.argtypes
+        # ... relu, split; stream
+        lib.sessd_fused_sparse_conv_at_split.argtypes = \
+            [ptr] * 5 + [i32] * 9 + [ptr]
         # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
         # dtype, idx_bytes; stream
         lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
@@ -156,6 +183,8 @@ def build() -> ctypes.CDLL:
         # feats, rb, dout, partial, dw; n_in, n_out, cin, cout, taps,
         # chunk_rows, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dw.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        lib.sessd_sparse_conv_dw_scalar.argtypes = \
+            lib.sessd_sparse_conv_dw.argtypes
         # the micro-benchmark kernels (ops/cuda/ablate.py)
         # feats, rb, w2, out; n_in, n_out, taps, mode; stream
         lib.sessd_sparse_conv_ablate.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
@@ -168,17 +197,28 @@ def build() -> ctypes.CDLL:
         lib.sessd_sparse_conv_fwd_repeat.argtypes = \
             [ptr] * 4 + [i32] * 8 + [ptr]
         # cin, cout, dtype -> 2 tensor-core tile, 1 scalar tile, 0 none
-        lib.sessd_sparse_conv_fwd_instance.argtypes = [i32] * 3
-        lib.sessd_fused_sparse_conv_stream_instance.argtypes = [i32] * 3
+        instances = (lib.sessd_sparse_conv_fwd_instance,
+                     lib.sessd_fused_sparse_conv_stream_instance,
+                     lib.sessd_fused_sparse_conv_instance,
+                     lib.sessd_sparse_conv_dw_instance)
+        for fn in instances:
+            fn.argtypes = [i32] * 3
+        # cin, cout -> the tensor-core K1 instance's wave (0: none);
+        # n_out, cin, cout, dtype -> the cluster size K1 launches with
+        lib.sessd_fused_sparse_conv_wave.argtypes = [i32] * 2
+        lib.sessd_fused_sparse_conv_split.argtypes = [i32] * 4
         for fn in (lib.sessd_fused_sparse_conv,
                    lib.sessd_fused_sparse_conv_stream,
+                   lib.sessd_fused_sparse_conv_scalar,
+                   lib.sessd_fused_sparse_conv_at_split,
                    lib.sessd_sparse_conv_fwd,
                    lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw,
+                   lib.sessd_sparse_conv_dw_scalar,
                    lib.sessd_sparse_conv_ablate, lib.sessd_empty_launch,
                    lib.sessd_empty_launch_repeat,
                    lib.sessd_sparse_conv_fwd_repeat,
-                   lib.sessd_sparse_conv_fwd_instance,
-                   lib.sessd_fused_sparse_conv_stream_instance):
+                   lib.sessd_fused_sparse_conv_wave,
+                   lib.sessd_fused_sparse_conv_split, *instances):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
         lib.sessd_cuda_error_string.argtypes = [i32]
@@ -241,7 +281,8 @@ def _check(feats, rb, w2, bias, n_in):
         raise ValueError(f"n_in={n_in} does not fit an int16 rulebook")
 
 
-def _launch(entry: str, feats, rb, w2, bias, n_in, relu) -> torch.Tensor:
+def _launch(entry: str, feats, rb, w2, bias, n_in, relu,
+            *extra) -> torch.Tensor:
     lib = build()
     taps, cin, cout = w2.shape
     out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
@@ -252,9 +293,32 @@ def _launch(entry: str, feats, rb, w2, bias, n_in, relu) -> torch.Tensor:
             feats.data_ptr(), rb.data_ptr(), w2.data_ptr(), bias.data_ptr(),
             out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
             _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype], int(relu),
-            stream)
+            *extra, stream)
     raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
     return out
+
+
+def _check_aligned(feats, w2):
+    """The tensor-core tile copies 16-byte chunks."""
+    if feats.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("feats and w2 must be 16-byte aligned")
+
+
+def _on_device(feats, rb, w2, bias, n_in) -> bool:
+    """False for CPU tensors (the twin's), True for CUDA tensors that pass
+    the kernels' checks; raises for any other device."""
+    if feats.device.type == "cpu":
+        return False
+    if feats.device.type != "cuda":
+        raise ValueError(f"no kernel for device {feats.device}")
+    _check(feats, rb, w2, bias, n_in)
+    return True
+
+
+def _mma(feats, w2) -> bool:
+    taps, cin, cout = w2.shape
+    return (cin, cout) in FUSED_PAIRS and conv_instance(
+        "fused_sparse_conv", feats.dtype, cin, cout) == "mma"
 
 
 def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
@@ -266,14 +330,16 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
     feats [n_in, Cin] f32/bf16; rb [n_out, K] int16/int32 with entries in
     [0, n_in] (n_in = miss); w2 [K, Cin, Cout] in the feats dtype (BN scale
     folded in); bias [Cout] f32. Returns [n_out, Cout] in the feats dtype.
-    CPU tensors take the twin; CUDA tensors launch the kernel on the current
-    stream, counted in ``fused_sparse_conv.launches``.
+    bf16 with Cin, Cout in {16, 32, 64} runs the tensor-core tile (feats and
+    w2 16-byte aligned), in clusters of ``cluster_split`` CTAs per tile
+    where the launch fills less than a wave; the rest runs the scalar tile
+    (``conv_instance``). CPU tensors take the twin; CUDA tensors launch the
+    kernel on the current stream, counted in ``fused_sparse_conv.launches``.
     """
-    if feats.device.type == "cpu":
+    if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if feats.device.type != "cuda":
-        raise ValueError(f"no kernel for device {feats.device}")
-    _check(feats, rb, w2, bias, n_in)
+    if _mma(feats, w2):
+        _check_aligned(feats, w2)
     out = _launch("fused_sparse_conv", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv.launches += 1
     return out
@@ -282,28 +348,86 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
 fused_sparse_conv.launches = 0
 
 
+def fused_sparse_conv_scalar(feats, rb, w2, bias, n_in, relu=True):
+    """``fused_sparse_conv`` through the scalar tile's bf16 body
+    (``fused_sparse_conv_scalar_kernel``), the tile bf16 K1 ran before the
+    tensor-core tile: for same-call comparisons only. bf16 only; CPU tensors
+    take the twin. Counted in ``fused_sparse_conv_scalar.launches``."""
+    if not _on_device(feats, rb, w2, bias, n_in):
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+    if feats.dtype != torch.bfloat16:
+        raise ValueError("the scalar entry takes bf16 only")
+    out = _launch("fused_sparse_conv_scalar", feats, rb, w2, bias, n_in, relu)
+    fused_sparse_conv_scalar.launches += 1
+    return out
+
+
+fused_sparse_conv_scalar.launches = 0
+
+
+def fused_sparse_conv_at_split(feats, rb, w2, bias, n_in, split: int,
+                               relu=True):
+    """``fused_sparse_conv``'s kernel launched in clusters of ``split`` (1,
+    2 or 4) CTAs per tile instead of the rule's: for same-call comparisons
+    only. Tensor-core instances only; CPU tensors take the twin. Counted in
+    ``fused_sparse_conv_at_split.launches``."""
+    if not _on_device(feats, rb, w2, bias, n_in):
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+    if not _mma(feats, w2) or split not in (1, 2, MAX_SPLIT):
+        raise ValueError(f"split {split} of a {feats.dtype} "
+                         f"{tuple(w2.shape[1:])} conv: the tensor-core "
+                         "instances take 1, 2 or 4")
+    _check_aligned(feats, w2)
+    out = _launch("fused_sparse_conv_at_split", feats, rb, w2, bias, n_in,
+                  relu, split)
+    fused_sparse_conv_at_split.launches += 1
+    return out
+
+
+fused_sparse_conv_at_split.launches = 0
+
+
+def launch_split(n_out: int, cin: int, cout: int, dtype) -> int:
+    """The cluster size the C entry of ``fused_sparse_conv`` launches with
+    for ``n_out`` output rows on this card (1 on the scalar tile); reads
+    the card, so CUDA only."""
+    lib = build()
+    split = lib.sessd_fused_sparse_conv_split(n_out, cin, cout,
+                                              _DTYPE_CODES[dtype])
+    if split <= 0:
+        raise ValueError(f"fused_sparse_conv has no instance for {dtype}, "
+                         f"Cin={cin}, Cout={cout}")
+    return split
+
+
+def launch_wave(cin: int, cout: int) -> int:
+    """The wave ``cluster_split`` compares the tiles of a bf16
+    ``fused_sparse_conv`` launch with, on this card; CUDA only."""
+    wave = build().sessd_fused_sparse_conv_wave(cin, cout)
+    if wave <= 0:
+        raise ValueError(f"no tensor-core instance for Cin={cin}, "
+                         f"Cout={cout}")
+    return wave
+
+
 def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
                              w2: torch.Tensor, bias: torch.Tensor, n_in: int,
                              relu: bool = True) -> torch.Tensor:
     """``fused_sparse_conv``'s function and contract, through the streaming
     kernel (``csrc/sparse_conv_stream.cu``): in bf16 the tensor-core tile
     of ``gather_mma.cuh`` (a 4-stage cp.async ring, taps no row of a tile
-    hits skipped), which sums in another order than K1; in f32 a two-slot
-    ring with K1's summation order, bit-equal to K1 (``conv_instance``).
-    Takes Cin in {16, 32, 64}: the 4-channel first conv never streams. CPU
-    tensors take the twin; CUDA tensors launch the kernel, counted in
-    ``fused_sparse_conv_stream.launches``.
+    hits skipped), bit-equal to K1 where K1 runs one CTA per tile; in f32 a
+    two-slot ring with K1's summation order, bit-equal to K1
+    (``conv_instance``). Takes Cin in {16, 32, 64}: the 4-channel first
+    conv never streams. CPU tensors take the twin; CUDA tensors launch the
+    kernel, counted in ``fused_sparse_conv_stream.launches``.
     """
-    if feats.device.type == "cpu":
+    if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if feats.device.type != "cuda":
-        raise ValueError(f"no kernel for device {feats.device}")
-    _check(feats, rb, w2, bias, n_in)
     if w2.shape[1] not in (16, 32, 64):
         raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
                          "or 64 input channels")
-    if feats.data_ptr() % 16 or w2.data_ptr() % 16:
-        raise ValueError("feats and w2 must be 16-byte aligned")
+    _check_aligned(feats, w2)
     out = _launch("fused_sparse_conv_stream", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv_stream.launches += 1
     return out

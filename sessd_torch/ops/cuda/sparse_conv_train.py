@@ -9,7 +9,9 @@ The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
 tensor-core tile of the bf16 forward), built with the serving kernel by
 ``ops.cuda.sparse_conv.build`` at the first CUDA call. On a CPU tensor each
 wrapper runs its twin; on a CUDA tensor it launches its kernel, counted in
-``<wrapper>.launches``, or raises.
+``<wrapper>.launches``, or raises. ``sparse_conv_dw_scalar`` (dW's scalar
+partial kernel in bf16, which the tensor-core one replaced) exists for
+same-call comparisons only; the training step never calls it.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -20,12 +22,14 @@ from __future__ import annotations
 import torch
 
 from ..sparse import gather_gemm
-from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, FWD_PAIRS, build,
-                          conv_instance, raise_on_error)
+from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, DW_PAIRS, FWD_PAIRS,
+                          TILE_ROWS, build, conv_instance, raise_on_error)
 
-# rows of one dW split-K chunk: ~43 chunks x 27 taps of blocks at the
-# largest training stage (88,000 rows at batch 4)
+# rows of one dW split-K chunk (a multiple of 64, at most DW_MAX_CHUNK_ROWS
+# for the tensor-core partial kernel): 59 chunks x 27 taps of blocks at the
+# largest training stage (120,000 rows at batch 4 and the acceptance caps)
 DW_CHUNK_ROWS = 2048
+DW_MAX_CHUNK_ROWS = 8192  # csrc/sparse_conv_train.cu: kDwMaxChunkRows
 
 
 def sparse_conv_fwd_ref(feats, rb, w2, out_mask=None):
@@ -150,37 +154,74 @@ def sparse_conv_dfeat(dout, inv, w2):
     return dfeat
 
 
-def sparse_conv_dw(feats, rb, dout):
-    """dw[k] = sum_n feats[rb[n, k]]^T dout[n] ([K, Cin, Cout] in feats'
-    dtype, summed in f32 in a fixed order: split-K partials, then one
-    ordered reduce). dout [N_out, Cout] must be zero on masked rows."""
-    if not _device(feats):
-        return sparse_conv_dw_ref(feats, rb, dout)
+def _check_dw(feats, rb, dout, chunk_rows):
     _check(feats, rb, dout)
-    n_out, taps = rb.shape
-    cin, cout = feats.shape[1], dout.shape[1]
+    n_out = rb.shape[0]
     if dout.dtype != feats.dtype or dout.shape[0] != n_out:
         raise ValueError(f"sparse_conv_dw: dout {tuple(dout.shape)} "
                          f"{dout.dtype} for rulebook {tuple(rb.shape)}, "
                          f"features {feats.dtype}")
+    cin, cout = feats.shape[1], dout.shape[1]
+    if (cin, cout) in DW_PAIRS and conv_instance(
+            "sparse_conv_dw", feats.dtype, cin, cout) == "mma":
+        if chunk_rows % TILE_ROWS or not 0 < chunk_rows <= DW_MAX_CHUNK_ROWS:
+            raise ValueError(f"chunk_rows {chunk_rows}: the tensor-core dW "
+                             f"takes multiples of {TILE_ROWS} up to "
+                             f"{DW_MAX_CHUNK_ROWS}")
+        if feats.data_ptr() % 16 or dout.data_ptr() % 16:
+            raise ValueError("feats and dout must be 16-byte aligned")
+
+
+def _launch_dw(entry, feats, rb, dout, chunk_rows):
+    n_out, taps = rb.shape
+    cin, cout = feats.shape[1], dout.shape[1]
     lib = build()
-    chunks = -(-n_out // DW_CHUNK_ROWS)
+    chunks = -(-n_out // chunk_rows)
     partial = torch.empty((chunks, taps, cin, cout), dtype=torch.float32,
                           device=feats.device)
     dw = torch.empty((taps, cin, cout), dtype=feats.dtype,
                      device=feats.device)
     with torch.cuda.device(feats.device):
-        rc = lib.sessd_sparse_conv_dw(
+        rc = getattr(lib, "sessd_" + entry)(
             feats.data_ptr(), rb.data_ptr(), dout.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), feats.shape[0], n_out, cin,
-            cout, taps, DW_CHUNK_ROWS, _DTYPE_CODES[feats.dtype],
+            cout, taps, chunk_rows, _DTYPE_CODES[feats.dtype],
             _INDEX_BYTES[rb.dtype], torch.cuda.current_stream().cuda_stream)
-    raise_on_error(lib, rc, f"sparse_conv_dw (Cin={cin}, Cout={cout}, "
-                            f"K={taps})")
+    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
+    return dw
+
+
+def sparse_conv_dw(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
+    """dw[k] = sum_n feats[rb[n, k]]^T dout[n] ([K, Cin, Cout] in feats'
+    dtype, summed in f32 in a fixed order: split-K partials over chunks of
+    ``chunk_rows`` rows, then one ordered reduce). dout [N_out, Cout] must
+    be zero on masked rows. bf16 with Cin, Cout in {16, 32, 64} runs the
+    tensor-core partial kernel (feats and dout 16-byte aligned), the rest
+    the scalar one (``conv_instance``)."""
+    if not _device(feats):
+        return sparse_conv_dw_ref(feats, rb, dout)
+    _check_dw(feats, rb, dout, chunk_rows)
+    dw = _launch_dw("sparse_conv_dw", feats, rb, dout, chunk_rows)
     sparse_conv_dw.launches += 1
+    return dw
+
+
+def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
+    """``sparse_conv_dw`` through the scalar partial kernel's bf16 body
+    (``sparse_conv_dw_scalar_kernel``), the one bf16 dW ran before the
+    tensor-core kernel: for same-call comparisons only. bf16 only; CPU
+    tensors take the twin. Counted in ``sparse_conv_dw_scalar.launches``."""
+    if not _device(feats):
+        return sparse_conv_dw_ref(feats, rb, dout)
+    if feats.dtype != torch.bfloat16:
+        raise ValueError("the scalar entry takes bf16 only")
+    _check_dw(feats, rb, dout, chunk_rows)
+    dw = _launch_dw("sparse_conv_dw_scalar", feats, rb, dout, chunk_rows)
+    sparse_conv_dw_scalar.launches += 1
     return dw
 
 
 sparse_conv_fwd.launches = 0
 sparse_conv_dfeat.launches = 0
 sparse_conv_dw.launches = 0
+sparse_conv_dw_scalar.launches = 0

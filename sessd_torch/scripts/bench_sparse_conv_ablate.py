@@ -11,7 +11,7 @@ transposed to the port's [n_out, taps] layout. Each variant runs
 ``ops.cuda.ablate.sparse_conv_ablate`` (``csrc/sparse_conv_ablate.cu``):
 
 - ``full``: the real conv, K = 27, on the scalar tile (the same
-  arithmetic as ``fused_sparse_conv`` with zero bias and no ReLU);
+  arithmetic as ``fused_sparse_conv_scalar`` with zero bias and no ReLU);
 - ``k9``: ``full`` on the first 9 taps' rulebook (``rb[:, :9]``);
 - ``linear``: row n of every tap reads row n: no rulebook loads, no
   indirection;

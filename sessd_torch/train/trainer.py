@@ -128,8 +128,16 @@ class Trainer:
         self._eval_sat_warned = False
         self._sat_warned = False
         self._sat_batches = 0
+        self._sat_total = 0
         self._saved_step = 0
         self._snapshot_run_context()
+
+    @property
+    def saturated_batches(self) -> int:
+        """Training batches of this trainer's life whose chain saturated a
+        stage (truncated voxels); the per-epoch count resets, this one
+        does not."""
+        return self._sat_total
 
     def _device_batch(self, batch: dict) -> dict:
         """The step's inputs as device tensors; each rulebook leaf drops the
@@ -350,6 +358,7 @@ class Trainer:
         if not hit:
             return
         self._sat_batches += 1
+        self._sat_total += 1
         if not self._sat_warned:
             self.logger.warning(
                 "TRAIN CAP SATURATION: %s — stage id table full; voxels past "

@@ -1,11 +1,14 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
 card: the serving convs (K1, and K3, the streaming one, also against K1:
-bit for bit in f32, within 2e-2 in bf16, where it runs the tensor-core
-tile), the training conv's forward (K4), input gradient and weight
-gradient (K5), the tensor-core tile of bf16 K4 and K3 on tiles that skip
-taps, and the micro-benchmark kernels (S1: the ablated conv tile, whose
-``full`` mode equals K1 with zero bias and no ReLU bit for bit; S2: the
-empty launch). Imports no JAX, so it runs on a GPU machine without it:
+bit for bit in f32, and in bf16 where K1 runs one CTA per tile), the
+training conv's forward (K4), input gradient and weight gradient (K5), the
+tensor-core tile of bf16 K1, K3 and K4 on tiles that skip taps, K1's tap
+split over a cluster against one CTA per tile and against itself, dW's
+tensor-core partial kernel on chunks and steps that skip, the scalar
+entries kept for comparisons, and the micro-benchmark kernels (S1: the
+ablated conv tile, whose ``full`` mode equals the scalar entry of K1 with
+zero bias and no ReLU bit for bit; S2: the empty launch). Imports no JAX,
+so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -112,9 +115,10 @@ STREAM_PLAN = [p for p in PLAN if p[0] != 4]  # Cin = 4 never streams
 def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
                                            dtype, tol):
     """K3 within the bound of the twin. In f32 it equals K1 bit for bit (the
-    two sum every output in the same order); in bf16 it runs the
-    tensor-core tile, which sums in another order, and stays within the
-    bf16 bound of K1."""
+    two sum every output in the same order); in bf16 both run the
+    tensor-core tile, and K1 splits these 40 tiles' taps over clusters, so
+    the two stay within the bf16 bound (at one CTA per tile they agree bit
+    for bit: test_bf16_k1_at_one_cta_per_tile_equals_k3)."""
     feats, rb, w2, bias = _inputs(cin, cout, k)
     args = (torch.from_numpy(feats).to(cuda, dtype),
             torch.from_numpy(rb).to(cuda, idx_dtype),
@@ -196,9 +200,13 @@ def test_conv_instance_equals_the_c_entries(cuda):
     lib = sc.build()
     entries = {"sparse_conv_fwd": lib.sessd_sparse_conv_fwd_instance,
                "fused_sparse_conv_stream":
-                   lib.sessd_fused_sparse_conv_stream_instance}
+                   lib.sessd_fused_sparse_conv_stream_instance,
+               "fused_sparse_conv": lib.sessd_fused_sparse_conv_instance,
+               "sparse_conv_dw": lib.sessd_sparse_conv_dw_instance}
     pairs = {"sparse_conv_fwd": sc.FWD_PAIRS,
-             "fused_sparse_conv_stream": sc.STREAM_PAIRS}
+             "fused_sparse_conv_stream": sc.STREAM_PAIRS,
+             "fused_sparse_conv": sc.FUSED_PAIRS,
+             "sparse_conv_dw": sc.DW_PAIRS}
     for entry, fn in entries.items():
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             for cin in (4, 8, 16, 32, 64):
@@ -221,6 +229,134 @@ def test_mma_forward_rejects_misaligned_inputs(cuda):
     with pytest.raises(ValueError, match="aligned"):
         kt.sparse_conv_fwd(f, r, w)
     assert kt.sparse_conv_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_mma_tile_k1_matches_twin_at_every_split(cuda, cin, cout, k,
+                                                 idx_dtype):
+    """bf16 K1 on the tensor-core tile, as the rule launches it and at
+    S = 1, 2 and 4 CTAs per tile, within 2e-2 of its twin on tiles that
+    skip every tap, all but one, or none; each S > 1 within 2e-2 of S = 1
+    (relative to S = 1's max) and equal to itself on a second run; rows
+    with no hit come out 0."""
+    feats, rb, w2, bias, _ = _tile_inputs(cin, cout, k)
+    assert sc.conv_instance("fused_sparse_conv", torch.bfloat16, cin,
+                            cout) == "mma"
+    args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
+            torch.from_numpy(rb).to(cuda, idx_dtype),
+            torch.from_numpy(w2).to(cuda, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda), N_IN)
+    want = sc.fused_sparse_conv_ref(*args)
+    miss = torch.from_numpy((rb == N_IN).all(1)).to(cuda)
+    before = sc.fused_sparse_conv.launches
+    got = sc.fused_sparse_conv(*args)
+    torch.cuda.synchronize()
+    assert sc.fused_sparse_conv.launches == before + 1
+    assert _err(got, want) <= 2e-2 and not got[miss].any()
+    one = sc.fused_sparse_conv_at_split(*args, split=1)
+    for split in (2, 4):
+        y = sc.fused_sparse_conv_at_split(*args, split=split)
+        again = sc.fused_sparse_conv_at_split(*args, split=split)
+        torch.cuda.synchronize()
+        assert _err(y, want) <= 2e-2 and _err(y, one) <= 2e-2
+        assert torch.equal(y, again)  # partials added in rank order
+        assert not y[miss].any()
+        for row in (128 + 17, 192 + 63):  # one tap of a row; every tap
+            assert _err(y[row:row + 1], want[row:row + 1]) <= 2e-2
+    rule = sc.launch_split(N_OUT, cin, cout, torch.bfloat16)
+    assert torch.equal(got, sc.fused_sparse_conv_at_split(*args,
+                                                          split=rule))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_bf16_k1_at_one_cta_per_tile_equals_k3(cuda, cin, cout, k,
+                                               idx_dtype):
+    """K1 and K3 run the same tensor-core body; at S = 1 the bits agree."""
+    feats, rb, w2, bias = _inputs(cin, cout, k)
+    args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
+            torch.from_numpy(rb).to(cuda, idx_dtype),
+            torch.from_numpy(w2).to(cuda, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda), N_IN)
+    for relu in (True, False):
+        k1 = sc.fused_sparse_conv_at_split(*args, split=1, relu=relu)
+        k3 = sc.fused_sparse_conv_stream(*args, relu=relu)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, k3)
+
+
+@pytest.mark.cuda
+def test_cluster_split_equals_the_c_entry(cuda):
+    """The Python mirror of the rule picks the S the C entry launches with,
+    on this card's wave, across a wave's worth of row counts."""
+    for cin, cout in sc.FUSED_PAIRS:
+        if sc.conv_instance("fused_sparse_conv", torch.bfloat16, cin,
+                            cout) != "mma":
+            assert sc.launch_split(1000, cin, cout, torch.bfloat16) == 1
+            continue
+        wave = sc.launch_wave(cin, cout)
+        assert wave >= 132  # at least one block per SM
+        for tiles in sorted({1, wave // 4, wave // 4 + 1, wave // 2,
+                             wave - 1, wave, wave + 1, 3 * wave}):
+            n_out = max(1, tiles * 64 - 5)
+            got = sc.launch_split(n_out, cin, cout, torch.bfloat16)
+            assert got == sc.cluster_split(tiles, wave), (cin, cout, tiles)
+        assert sc.launch_split(1000, cin, cout, torch.float32) == 1
+
+
+@pytest.mark.cuda
+def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
+    """The scalar entries kept for comparisons: within 2e-2 of the twins,
+    launched under their own counters, refusing f32."""
+    feats, rb, w2, bias = _inputs(32, 64, 27)
+    args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
+            torch.from_numpy(rb).to(cuda, torch.int32),
+            torch.from_numpy(w2).to(cuda, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda), N_IN)
+    counts = (sc.fused_sparse_conv.launches,
+              sc.fused_sparse_conv_scalar.launches)
+    got = sc.fused_sparse_conv_scalar(*args)
+    torch.cuda.synchronize()
+    assert (sc.fused_sparse_conv.launches,
+            sc.fused_sparse_conv_scalar.launches) == (counts[0],
+                                                      counts[1] + 1)
+    assert _err(got, sc.fused_sparse_conv_ref(*args)) <= 2e-2
+    f, r, w, d, _ = _on(cuda, torch.bfloat16, torch.int32,
+                        *_train_inputs(32, 64, 27))
+    dw = kt.sparse_conv_dw_scalar(f, r, d)
+    torch.cuda.synchronize()
+    assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= 2e-2
+    with pytest.raises(ValueError, match="bf16"):
+        sc.fused_sparse_conv_scalar(args[0].float(), args[1],
+                                    args[2].float(), args[3], N_IN)
+    with pytest.raises(ValueError, match="bf16"):
+        kt.sparse_conv_dw_scalar(f.float(), r, d.float())
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        sc.fused_sparse_conv_at_split(*args, split=3)
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        sc.fused_sparse_conv_at_split(args[0].float(), args[1],
+                                      args[2].float(), args[3], N_IN,
+                                      split=1)
+
+
+@pytest.mark.cuda
+def test_mma_k1_rejects_misaligned_inputs(cuda):
+    f = torch.zeros(N_IN * 16 + 4, dtype=torch.bfloat16,
+                    device=cuda)[4:].view(N_IN, 16)  # 8 bytes off
+    r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
+    w = torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(16, device=cuda)
+    before = sc.fused_sparse_conv.launches
+    with pytest.raises(ValueError, match="aligned"):
+        sc.fused_sparse_conv(f, r, w, b, N_IN)
+    assert sc.fused_sparse_conv.launches == before
 
 
 @pytest.mark.cuda
@@ -337,6 +473,75 @@ def test_train_dw_kernel_matches_twin(cuda, cin, cout, k, idx_dtype, dtype,
     assert torch.equal(got, again)  # no atomics: the same bits every run
 
 
+LONE_ROW = 5993  # the one row that hits the last tap in _dw_skip_inputs
+
+
+def _dw_skip_inputs(cin, cout, k, n_out=6000, seed=0):
+    """Injective taps over ``n_out`` rows in which rows 0-2047 hit only
+    tap 0 (a chunk whose other taps skip), rows 2048-2111 and 4096-4159 hit
+    nothing (steps that skip), the last tap is hit by LONE_ROW alone (input
+    row 5), and the rest hit at 50%."""
+    rng = np.random.RandomState(seed)
+    n_in = n_out + 100
+    rb = np.full((n_out, k), n_in)
+    for t in range(k):
+        rows = np.flatnonzero(rng.rand(n_out) < 0.5)
+        rb[rows, t] = rng.choice(n_in, len(rows), replace=False)
+    rb[:2048, 1:] = n_in
+    rb[2048:2112] = n_in
+    rb[4096:4160] = n_in
+    rb[:, k - 1] = n_in
+    rb[LONE_ROW, k - 1] = 5
+    feats = rng.randn(n_in, cin).astype(np.float32)
+    dout = rng.randn(n_out, cout).astype(np.float32)
+    return feats, rb, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_dw_mma_kernel_skips_and_matches_twin(cuda, cin, cout, k, idx_dtype):
+    """bf16 dW on tensor cores, at several chunk sizes, over chunks and
+    steps that no row hits: within 2e-2 of its twin and of the scalar
+    entry, the same bits on a second run, and a tap that one row hits
+    carries exactly that row's product."""
+    assert sc.conv_instance("sparse_conv_dw", torch.bfloat16, cin,
+                            cout) == "mma"
+    feats, rb, dout = _dw_skip_inputs(cin, cout, k)
+    f = torch.from_numpy(feats).to(cuda, torch.bfloat16)
+    r = torch.from_numpy(rb).to(cuda, idx_dtype)
+    d = torch.from_numpy(dout).to(cuda, torch.bfloat16)
+    want = kt.sparse_conv_dw_ref(f, r, d)
+    scalar = kt.sparse_conv_dw_scalar(f, r, d)
+    lone = torch.outer(f[5].float(), d[LONE_ROW].float())
+    for chunk in (64, 2048, kt.DW_MAX_CHUNK_ROWS):
+        before = kt.sparse_conv_dw.launches
+        got = kt.sparse_conv_dw(f, r, d, chunk_rows=chunk)
+        again = kt.sparse_conv_dw(f, r, d, chunk_rows=chunk)
+        torch.cuda.synchronize()
+        assert kt.sparse_conv_dw.launches == before + 2
+        assert got.dtype == torch.bfloat16 and got.shape == (k, cin, cout)
+        assert _err(got, want) <= 2e-2 and _err(got, scalar) <= 2e-2
+        assert _err(got[k - 1], lone) <= 2e-2
+        assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="chunk_rows"):
+        kt.sparse_conv_dw(f, r, d, chunk_rows=100)
+
+
+@pytest.mark.cuda
+def test_dw_mma_rejects_misaligned_inputs(cuda):
+    f = torch.zeros(N_IN * 16 + 4, dtype=torch.bfloat16,
+                    device=cuda)[4:].view(N_IN, 16)  # 8 bytes off
+    r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
+    d = torch.zeros(N_OUT, 16, dtype=torch.bfloat16, device=cuda)
+    before = kt.sparse_conv_dw.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kt.sparse_conv_dw(f, r, d)
+    assert kt.sparse_conv_dw.launches == before
+
+
 @pytest.mark.cuda
 def test_sparse_conv_function_on_card_matches_cpu(cuda):
     """Forward and both gradients of SparseConvFunction through the kernels
@@ -356,27 +561,46 @@ def test_sparse_conv_function_on_card_matches_cpu(cuda):
         assert _err(got, want) <= tol
 
 
-@pytest.mark.cuda
-def test_kernels_profile_under_their_own_names(cuda):
-    """Each wrapper's launch shows in a device profile under a kernel name
-    of its own, the names the step and request profilers
-    (``sessd_torch/scripts/profile_*.py``) sum by."""
+def _named_calls(cuda, dtype):
+    """(kernel name, call) of every wrapper at ``dtype``; in bf16 also K1
+    at S = 4 and the scalar entries."""
     feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
                            for a in _inputs(16, 32, 27))
-    f, r, w, d, m = _on(cuda, torch.float32, torch.int32,
-                        *_train_inputs(16, 32, 27))
+    feats, w2, rb = feats.to(dtype), w2.to(dtype), rb.int()
+    f, r, w, d, m = _on(cuda, dtype, torch.int32, *_train_inputs(16, 32, 27))
     inv = sp.inverse_rulebook(r, N_IN)
-    calls = {"fused_sparse_conv_kernel": lambda: sc.fused_sparse_conv(
-                 feats, rb.int(), w2, bias, N_IN),
-             "fused_sparse_conv_stream_kernel":
-                 lambda: sc.fused_sparse_conv_stream(feats, rb.int(), w2,
-                                                     bias, N_IN),
-             "sparse_conv_fwd_kernel": lambda: kt.sparse_conv_fwd(f, r, w, m),
-             "sparse_conv_dfeat_kernel": lambda: kt.sparse_conv_dfeat(
-                 d, inv, w),
-             "sparse_conv_dw_partial_kernel": lambda: kt.sparse_conv_dw(
-                 f, r, d)}
-    for name, call in calls.items():
+    calls = [("fused_sparse_conv_kernel", lambda: sc.fused_sparse_conv(
+                 feats, rb, w2, bias, N_IN)),
+             ("fused_sparse_conv_stream_kernel",
+              lambda: sc.fused_sparse_conv_stream(feats, rb, w2, bias, N_IN)),
+             ("sparse_conv_fwd_kernel", lambda: kt.sparse_conv_fwd(f, r, w,
+                                                                   m)),
+             ("sparse_conv_dfeat_kernel", lambda: kt.sparse_conv_dfeat(
+                 d, inv, w)),
+             ("sparse_conv_dw_partial_kernel", lambda: kt.sparse_conv_dw(
+                 f, r, d))]
+    if dtype == torch.bfloat16:
+        calls += [
+            ("fused_sparse_conv_kernel",
+             lambda: sc.fused_sparse_conv_at_split(feats, rb, w2, bias, N_IN,
+                                                   split=4)),
+            ("fused_sparse_conv_scalar_kernel",
+             lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, N_IN)),
+            ("sparse_conv_dw_scalar_kernel",
+             lambda: kt.sparse_conv_dw_scalar(f, r, d))]
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernels_profile_under_their_own_names(cuda, dtype):
+    """Each wrapper's launch shows in a device profile under a kernel name
+    of its own, the names the step and request profilers
+    (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the scalar
+    bodies, in bf16 the tensor-core ones (K1 also at S = 4) and the scalar
+    entries kept for comparisons."""
+    for name, call in _named_calls(cuda, dtype):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             call()
@@ -408,17 +632,18 @@ def _ablate_inputs(cuda):
 
 
 @pytest.mark.cuda
-def test_ablate_full_equals_k1_without_bias_or_relu(cuda):
-    """S1's ``full`` mode is a copy of the scalar tile: the same bits as K1
-    with zero bias and no ReLU on the same inputs (both store acc + 0, and
-    a row with no hit sums to 0)."""
+def test_ablate_full_equals_scalar_entry_without_bias_or_relu(cuda):
+    """S1's ``full`` mode is a copy of the scalar tile: the same bits as the
+    scalar entry of K1 (``fused_sparse_conv_scalar``) with zero bias and no
+    ReLU on the same inputs (both store acc + 0, and a row with no hit sums
+    to 0)."""
     from sessd_torch.ops.cuda import ablate
     _, x = _ablate_inputs(cuda)
     before = ablate.sparse_conv_ablate.launches
     got = ablate.sparse_conv_ablate(x["feats"], x["rb"], x["w2"], "full")
     zero = torch.zeros(16, dtype=torch.float32, device=cuda)
-    want = sc.fused_sparse_conv(x["feats"], x["rb"], x["w2"], zero,
-                                x["feats"].shape[0], relu=False)
+    want = sc.fused_sparse_conv_scalar(x["feats"], x["rb"], x["w2"], zero,
+                                       x["feats"].shape[0], relu=False)
     torch.cuda.synchronize()
     assert ablate.sparse_conv_ablate.launches == before + 1
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -12,8 +12,8 @@ CPU:
   tile hits adds zero, so the sum is the same (atol 3e-4, rtol 1e-3: f32
   sums in another order);
 - ``ops.cuda.sparse_conv.conv_instance``, which names the body a call takes
-  (tensor-core or scalar), against the C entries' dispatch tables and the
-  header's rule;
+  (tensor-core or scalar) for K4, K3, K1 and dW, against the C entries'
+  dispatch tables and the header's rule;
 - the wrappers' contracts: CPU tensors take the plain twin, any device but
   CPU and CUDA raises.
 
@@ -173,7 +173,9 @@ def _source_pairs(path, macro):
 
 ENTRIES = {"sparse_conv_fwd": ("sparse_conv_train.cu", "SESSD_FWD_PAIRS"),
            "fused_sparse_conv_stream": ("sparse_conv_stream.cu",
-                                        "SESSD_STREAM_PAIRS")}
+                                        "SESSD_STREAM_PAIRS"),
+           "fused_sparse_conv": ("sparse_conv.cu", "SESSD_FUSED_PAIRS"),
+           "sparse_conv_dw": ("sparse_conv_train.cu", "SESSD_DW_PAIRS")}
 INSTANCE_CASES = [(entry, dtype, pair)
                   for entry, (path, macro) in ENTRIES.items()
                   for pair in _source_pairs(path, macro)
@@ -184,6 +186,16 @@ def test_python_pairs_equal_the_c_dispatch_tables():
     assert sc.FWD_PAIRS == _source_pairs(*ENTRIES["sparse_conv_fwd"])
     assert sc.STREAM_PAIRS == _source_pairs(
         *ENTRIES["fused_sparse_conv_stream"])
+    assert sc.FUSED_PAIRS == _source_pairs(*ENTRIES["fused_sparse_conv"])
+    assert sc.DW_PAIRS == _source_pairs(*ENTRIES["sparse_conv_dw"])
+    # each __global__ with two bodies picks the tensor-core one by the rule
+    for path, kernel in (("sparse_conv.cu", "fused_sparse_conv_kernel("),
+                         ("sparse_conv_train.cu",
+                          "sparse_conv_dw_partial_kernel(")):
+        text = (CSRC / path).read_text()
+        body = text[text.index(kernel):]
+        body = body[:body.index("\n}\n")]
+        assert "if constexpr (sessd::kMmaTile<T, CIN, COUT>)" in body
     rule = (CSRC / "gather_mma.cuh").read_text()
     rule = rule[rule.index("constexpr bool kMmaTile"):]
     rule = rule[:rule.index(";")]
@@ -199,6 +211,10 @@ def test_python_pairs_equal_the_c_dispatch_tables():
     "entry,dtype,pair", INSTANCE_CASES,
     ids=[f"{e}-{str(d)[6:]}-{p[0]}x{p[1]}" for e, d, p in INSTANCE_CASES])
 def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
+    """bf16 with Cin, Cout in {16, 32, 64} takes the tensor-core body in
+    every entry: K4 and K3 since the wgmma tile, K1 (with its cluster tap
+    split) and dW (mma.sync) since their redesign; the rest the scalar
+    one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
     mma = dtype == torch.bfloat16 and cin != 4
