@@ -43,10 +43,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    same bits on two runs. Kernel and twin device-time medians per conv
    (bf16, student chain); for the forward also the scalar tile's time on
    the same inputs (K1's scalar entry with zero bias and no ReLU) and the
-   share of (tile, tap) pairs skipped; for dW the scalar partial kernel's
-   time (``sparse_conv_dw_scalar``), the shares of (chunk, tap) and (step,
-   tap) pairs skipped, the f32 partials' bytes, and its time at each chunk
-   size of DW_CHUNK_SWEEP.
+   share of (tile, tap) pairs skipped; for the input gradient, whose bf16
+   instances all take the tensor-core tile, the scalar entry's time
+   (``sparse_conv_dfeat_scalar``), the share of (tile, tap) pairs of the
+   inverse rulebook skipped and the share of gathered rows zero-filled,
+   and one call that makes one launch and one allocation, its output (no
+   transposed copy of the weights); for dW the scalar partial kernel's time
+   (``sparse_conv_dw_scalar``), the shares of (chunk, tap) and (step, tap)
+   pairs skipped, the f32 partials' bytes, and its time at each chunk size
+   of DW_CHUNK_SWEEP.
 5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
    batch 4, SSL on, ACCEPT_CAPS) for 6 steps: every loss term and the
    gradient norm finite, the student moved, the teacher equal to the EMA
@@ -67,13 +72,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    write ``--out``.
 8. Ablation: the micro-benchmark kernels through their scripts, the main
    path of these kernels: S1 (``sessd_torch.scripts.bench_sparse_conv_ablate``,
-   the conv tile with one cost removed at a time, per-variant ms) and S2
+   the conv tiles with one cost removed at a time, per-variant ms: the
+   scalar tile's copy and the tensor-core tile on the 16 -> 16 input, and
+   the tensor-core tile's modes on three batch-1 convs, subm0b, subm3a and
+   down3, beside K1 at one, two and four CTAs per tile) and S2
    (``sessd_torch.scripts.bench_launch_overhead``, the empty launch: host
    and device us per launch, through Python and from one C call, and the
-   ``sparse_conv_fwd`` wrapper against its bare launches). Then S1's
-   ``full`` mode, a copy of the scalar tile, must equal K1's scalar entry
-   with zero bias and no ReLU bit for bit, every mode must match its plain
-   version within 2e-2 of max|plain|, and S2's output must be all zeros.
+   ``sparse_conv_fwd`` wrapper against its bare launches). Then S1's scalar
+   ``full`` mode must equal K1's scalar entry with zero bias and no ReLU
+   bit for bit, its tensor-core ``full`` mode bf16 K4 without a mask bit
+   for bit (on both shapes), every mode must match its plain version within
+   2e-2 of max|plain| (exactly zero where it stores zeros), and S2's output
+   must be all zeros.
 9. Warm start and resume on the 8-frame root: a CIA-SSD bf16 trainer runs
    one epoch (2 steps) and checkpoints; an SE-SSD bf16 trainer's
    ``load_from`` must give teacher = student = the CIA student, the CIA
@@ -87,19 +97,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    checked).
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
-``fused_sparse_conv_at_split``, ``sparse_conv_dw_scalar``) count their own
-launches; a main-path phase that launched one fails.
+``fused_sparse_conv_at_split``, ``sparse_conv_dfeat_scalar``,
+``sparse_conv_dw_scalar``) count their own launches; a main-path phase that
+launched one fails.
 
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its 2*hits*Cin*Cout flops over the
 peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16), the card
 line, and the result line ``{"ok": true, "device": {...}}``. The rows of
-K1, K3, K4 and dW also carry ``old_tile_ms`` (the scalar tile on the same
-convs in the same run), K1 and dW the name of their new ``tile``, K3 and
-K4 ``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap)
-shares, its partials' bytes and its time by chunk rows. Without a CUDA
-device it raises and prints no result.
+K1, K3, K4, dFeat, dW and S1 also carry ``old_tile_ms`` (the scalar tile on
+the same convs in the same run; for S1 the scalar copy's ``full``), K1,
+dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
+``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap) shares,
+its partials' bytes and its time by chunk rows, S1 its tensor-core mode
+tables. Without a CUDA device it raises and prints no result.
 """
 import ast
 import contextlib
@@ -180,20 +192,28 @@ def hits(rb, miss: int) -> int:
 class TileSkips:
     """(tile, tap) pairs that no row of a tile of ``rows`` rows hits,
     summed over convs: at 64 rows the taps the tensor-core tile neither
-    gathers nor multiplies."""
+    gathers nor multiplies. Also the row slots of the pairs it does gather
+    and the share of them that miss, which the tile zero-fills."""
 
     def __init__(self):
         self.pairs = 0
         self.skipped = 0.0
+        self.slots = 0
+        self.hit_rows = 0
 
     def add(self, rb, miss: int, rows: int = 64) -> float:
         flags, share = sp.tile_tap_hits(rb, miss, rows)
         self.pairs += flags.numel()
         self.skipped += share * flags.numel()
+        self.slots += int(flags.sum()) * rows
+        self.hit_rows += hits(rb, miss)
         return share
 
     def share(self) -> float:
         return self.skipped / self.pairs if self.pairs else 0.0
+
+    def fill_share(self) -> float:
+        return 1.0 - self.hit_rows / self.slots if self.slots else 0.0
 
 
 def median_ms(fn, reps=20) -> float:
@@ -640,15 +660,16 @@ def phase_train_kernels(trainer, db):
     """K4 / K5 against their twins on every sparse conv of both plans.
     Returns (max abs error per kernel, [summed kernel ms, summed twin ms]
     per kernel, Bound per kernel, {"old_ms": the scalar tile's summed ms,
-    "tiles": TileSkips} of the forward, {"old_ms", "skips": DwSkips,
-    "sweep": {chunk rows: summed ms}} of dW) with the times and bounds of
-    the bf16 student chain."""
+    "tiles": TileSkips} of the forward and of dFeat, {"old_ms", "skips":
+    DwSkips, "sweep": {chunk rows: summed ms}} of dW) with the times and
+    bounds of the bf16 student chain."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
     bounds = {k: Bound() for k in worst}
     fwd_tile = {"old_ms": 0.0, "tiles": TileSkips()}
+    dfeat_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     dw_tile = {"old_ms": 0.0, "skips": DwSkips(),
                "sweep": dict.fromkeys(DW_CHUNK_SWEEP, 0.0)}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -686,6 +707,14 @@ def phase_train_kernels(trainer, db):
                     runs["dfeat"] = (
                         lambda: kt.sparse_conv_dfeat(dout, inv, w),
                         lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
+                    inst = sc.conv_instance("sparse_conv_dfeat", dtype,
+                                            w.shape[2], w.shape[1])
+                    if inst != ("mma" if dtype == torch.bfloat16
+                                else "scalar"):
+                        raise AssertionError(f"{CONV_NAMES[i]} {tag}: dfeat "
+                                             f"takes the {inst} body")
+                    if timed and i == 1:
+                        _one_dfeat_launch(dout, inv, w)
                 line = (f"train conv {i:2d} {CONV_NAMES[i]:6s} "
                         f"{w.shape[1]:2d}->{w.shape[2]:2d} K={w.shape[0]:2d} "
                         f"rows {rbk.shape[0]:6d} {tag}:")
@@ -730,6 +759,17 @@ def phase_train_kernels(trainer, db):
                             skipped = fwd_tile["tiles"].add(rbk, x.shape[0])
                             line += (f", old tile {old_ms:.4f} ms, taps "
                                      f"skipped {skipped:.3f}")
+                        if name == "dfeat":
+                            old_ms = median_ms(
+                                lambda: kt.sparse_conv_dfeat_scalar(
+                                    dout, inv, w), 10)
+                            dfeat_tile["old_ms"] += old_ms
+                            dfeat_tile["tiles"].add(inv, rbk.shape[0])
+                            one = TileSkips()
+                            one.add(inv, rbk.shape[0])
+                            line += (f", old tile {old_ms:.4f} ms, taps "
+                                     f"skipped {one.share():.3f}, rows "
+                                     f"zero-filled {one.fill_share():.3f}")
                         if name == "dw":
                             line += _dw_detail(x, rbk, dout, w, dw_tile)
                         line += ")"
@@ -745,13 +785,41 @@ def phase_train_kernels(trainer, db):
               for k, v in ms.items())
           + f"; fwd old tile {fwd_tile['old_ms']:.4f} ms, taps skipped "
           f"{fwd_tile['tiles'].share():.3f} of {fwd_tile['tiles'].pairs} "
-          f"(tile, tap) pairs; dw old tile {dw_tile['old_ms']:.4f} ms, "
+          f"(tile, tap) pairs, gathered rows zero-filled "
+          f"{fwd_tile['tiles'].fill_share():.3f}; dfeat old tile "
+          f"{dfeat_tile['old_ms']:.4f} ms, taps skipped "
+          f"{dfeat_tile['tiles'].share():.3f} of "
+          f"{dfeat_tile['tiles'].pairs} (tile, tap) pairs of the inverse "
+          f"rulebooks, gathered rows zero-filled "
+          f"{dfeat_tile['tiles'].fill_share():.3f}; dw old tile "
+          f"{dw_tile['old_ms']:.4f} ms, "
           f"(chunk, tap) pairs skipped {skips.chunks.share():.3f} of "
           f"{skips.chunks.pairs}, (step, tap) pairs skipped "
           f"{skips.steps.share():.3f} of {skips.steps.pairs}, partials "
           f"{skips.partial_bytes / 1e6:.2f} MB moved; dw by chunk rows "
           + ", ".join(f"{c}: {t:.4f} ms" for c, t in dw_tile["sweep"].items()))
-    return worst, ms, bounds, fwd_tile, dw_tile
+    return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile
+
+
+def _one_dfeat_launch(dout, inv, w):
+    """One ``sparse_conv_dfeat`` call makes one launch and one device
+    allocation, its output: the weights are read as they lie, with no
+    transposed copy (the scalar entry, which takes W^T, makes two)."""
+    def allocs():
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+    torch.cuda.synchronize()
+    counts = [allocs(), kt.sparse_conv_dfeat.launches]
+    kt.sparse_conv_dfeat(dout, inv, w)
+    got = [allocs() - counts[0], kt.sparse_conv_dfeat.launches - counts[1]]
+    before = allocs()
+    kt.sparse_conv_dfeat_scalar(dout, inv, w)
+    scalar = allocs() - before
+    if got != [1, 1] or scalar != 2:
+        raise AssertionError(f"one dfeat call: (allocations, launches) {got}"
+                             f", the scalar entry's allocations {scalar}")
+    print("dfeat: one call, one launch, one allocation (its output; the "
+          "scalar entry's W^T copy makes two)")
 
 
 def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
@@ -773,10 +841,11 @@ def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
 
 KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw,
-              ablate.sparse_conv_ablate, ablate.empty_launch)
+              ablate.sparse_conv_ablate, ablate.sparse_conv_ablate_mma,
+              ablate.empty_launch)
 # the entries kept for same-call comparisons: never on a main path
 COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-                  kt.sparse_conv_dw_scalar)
+                  kt.sparse_conv_dfeat_scalar, kt.sparse_conv_dw_scalar)
 
 
 def _reset_counts():
@@ -833,7 +902,8 @@ def phase_train(trainer):
             "sparse_conv_fwd": 24 * TRAIN_STEPS,
             "sparse_conv_dfeat": 9 * TRAIN_STEPS,
             "sparse_conv_dw": 10 * TRAIN_STEPS,
-            "sparse_conv_ablate": 0, "empty_launch": 0}
+            "sparse_conv_ablate": 0, "sparse_conv_ablate_mma": 0,
+            "empty_launch": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, want {want}")
     moved = max(float((p.detach() - p0).abs().max()) for p, p0 in
@@ -1000,7 +1070,8 @@ def phase_eval(trainer, root, tmp):
     k1, k3 = _want_launches(trainer.stage_capacity, per_gpu, torch.float32)
     want = {"fused_sparse_conv": k1 * n, "fused_sparse_conv_stream": k3 * n,
             "sparse_conv_fwd": 0, "sparse_conv_dfeat": 0,
-            "sparse_conv_dw": 0, "sparse_conv_ablate": 0, "empty_launch": 0}
+            "sparse_conv_dw": 0, "sparse_conv_ablate": 0,
+            "sparse_conv_ablate_mma": 0, "empty_launch": 0}
     if counts != want:
         raise AssertionError(f"validate launches {counts}, want {want}")
     if results is None or set(results) != {"Car"}:
@@ -1043,16 +1114,22 @@ ABLATE_BOUND = 2e-2  # bf16 inputs and outputs, f32 sums
 
 def phase_ablation(device):
     """S1 and S2 through their scripts, then each against its plain
-    version. Returns the launches of the scripts' run (the main path of
+    version, then K1 at one, two and four CTAs per tile on S1's batch-1
+    convs. Returns the launches of the scripts' run (the main path of
     these kernels), the times, errors and bounds."""
     inputs = bench_ablate.make_inputs(device)
+    chain = bench_ablate.chain_inputs(device)
     _reset_counts()
     s1_ms = bench_ablate.run(inputs)
+    mma_ms = bench_ablate.run_mma(inputs)
+    chain_ms = bench_ablate.run_chain(chain)
     s2 = bench_launch.run()
     counts = _counts()
-    for name in ("sparse_conv_ablate", "empty_launch"):
+    for name in ("sparse_conv_ablate", "sparse_conv_ablate_mma",
+                 "empty_launch"):
         if not counts[name]:
             raise AssertionError(f"the scripts launched no {name}")
+    splits = bench_ablate.k1_at_splits(chain)
 
     feats, rb, w2, _ = bench_ablate.variant_args(inputs, "full")
     full = ablate.sparse_conv_ablate(feats, rb, w2, "full")
@@ -1084,6 +1161,56 @@ def phase_ablation(device):
     for label, d in bench_ablate.differences(s1_ms).items():
         print(f"S1 {label}: {d:.4f} ms")
 
+    # the tensor-core tile: full is bf16 K4 bit for bit on every shape,
+    # every mode matches its plain version
+    mma_worst = 0.0
+    shapes = {"16->16": {v: bench_ablate.mma_variant_args(inputs, v)
+                         for v in bench_ablate.MMA_VARIANTS}}
+    shapes.update({conv: {m: (*args, m) for m in ablate.MMA_MODES}
+                   for conv, args in chain.items()})
+    for shape, variants in shapes.items():
+        f, r, w, _ = variants["full"]
+        k4 = kt.sparse_conv_fwd(f, r, w)
+        for name, args in variants.items():
+            got = ablate.sparse_conv_ablate_mma(*args)
+            want = ablate.sparse_conv_ablate_mma_ref(*args)
+            torch.cuda.synchronize()
+            if name == "full" and not torch.equal(got.view(torch.int16),
+                                                  k4.view(torch.int16)):
+                raise AssertionError(f"S1 mma full {shape} differs from "
+                                     "bf16 K4")
+            if args[3] in ("copy_only", "fixed"):
+                if got.any():
+                    raise AssertionError(f"S1 mma {name} {shape}: nonzero")
+                continue
+            rel, diff = _rel(got, want)
+            mma_worst = max(mma_worst, diff)
+            if not (rel <= ABLATE_BOUND and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"S1 mma {name} {shape}: rel_err "
+                                     f"{rel:.3e}")
+    mma_plain_ms = queued_device_ms(
+        lambda: ablate.sparse_conv_ablate_mma_ref(feats, rb, w2, "full"), 10)
+    print("S1 tensor-core tile, 16->16: " + ", ".join(
+        f"{n} {t:.4f}" for n, t in mma_ms.items()) + " ms")
+    for label, d in bench_ablate.differences(
+            mma_ms, bench_ablate.MMA_DIFFERENCES).items():
+        print(f"S1 mma {label}: {d:.4f} ms")
+    for conv, row in chain_ms.items():
+        f, r, w = chain[conv]
+        flags, skipped = sp.tile_tap_hits(r, f.shape[0])
+        print(f"S1 tensor-core tile, batch-1 {conv} {w.shape[1]}->"
+              f"{w.shape[2]} K={w.shape[0]} tiles {flags.shape[0]} "
+              f"({int(flags.any(1).sum())} with a hit, taps skipped "
+              f"{skipped:.3f}): " + ", ".join(
+                  f"{m} {t:.4f}" for m, t in row.items())
+              + " ms; K1 " + ", ".join(
+                  f"S={k} {splits[conv][k]:.4f}"
+                  for k in bench_ablate.SPLITS)
+              + f" ms (rule S={splits[conv]['rule']})")
+        for label, d in bench_ablate.differences(
+                row, bench_ablate.MMA_DIFFERENCES_CHAIN).items():
+            print(f"S1 mma {conv} {label}: {d:.4f} ms")
+
     out = torch.ones((bench_launch.NPAD, bench_launch.COUT),
                      dtype=torch.bfloat16, device=device)
     ablate.empty_launch(out, 256)
@@ -1106,7 +1233,9 @@ def phase_ablation(device):
           f"{g['bare_host']['issue_us']:.2f} us/launch, device "
           f"{g['bare_device_us']:.2f} us")
     res = {"counts": counts, "s1_ms": s1_ms, "s1_worst": worst,
-           "s1_plain_ms": plain_ms, "s1_bound": bound,
+           "s1_plain_ms": plain_ms, "s1_bound": bound, "mma_ms": mma_ms,
+           "mma_worst": mma_worst, "mma_plain_ms": mma_plain_ms,
+           "chain_ms": chain_ms, "k1_at_split_ms": splits,
            "s2_ms": s2["empty"][256]["b_device_us"] / 1e3,
            "s2_worst": s2_worst,
            "s2_plain_ms": queued_device_ms(
@@ -1114,15 +1243,18 @@ def phase_ablation(device):
            "s2_library_ms": queued_device_ms(lambda: out.zero_(), 10),
            "s2_bound": s2_bound}
     print(f"ablation: S1 full equals K1's scalar entry (zero bias, no ReLU) "
-          f"bit for bit, "
-          f"every "
-          f"mode within {ABLATE_BOUND} of its plain version (full plain "
-          f"{plain_ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()})); "
+          f"bit for bit, the tensor-core full bf16 K4 bit for bit on all "
+          f"four shapes, every mode within {ABLATE_BOUND} of its plain "
+          f"version (full plain {plain_ms:.4f} ms, tensor-core full plain "
+          f"{mma_plain_ms:.4f} ms, bound {bound.ms():.4f} ms "
+          f"({bound.by()})); "
           f"S2 wrote zeros, {res['s2_ms'] * 1e3:.2f} us/launch on the "
           f"device (plain {res['s2_plain_ms'] * 1e3:.2f} us, out.zero_() "
           f"{res['s2_library_ms'] * 1e3:.2f} us, bound "
           f"{s2_bound.ms() * 1e3:.3f} us); launches S1 "
-          f"{counts['sparse_conv_ablate']} S2 {counts['empty_launch']}")
+          f"{counts['sparse_conv_ablate']} (scalar) + "
+          f"{counts['sparse_conv_ablate_mma']} (tensor-core) S2 "
+          f"{counts['empty_launch']}")
     return res
 
 
@@ -1312,7 +1444,7 @@ def main():
         with phase("training"):
             trainer = make_trainer("se_ssd_kitti_car_bf16.py", root,
                                    f"{tmp}/work_bf16", device)
-            worst, train_ms, train_bounds, fwd_tile, dw_tile = \
+            worst, train_ms, train_bounds, fwd_tile, dfeat_tile, dw_tile = \
                 phase_train_kernels(trainer, first_batch(trainer))
             _no_saturation(trainer, "training kernels")
             counts = phase_train(trainer)
@@ -1373,6 +1505,11 @@ def main():
             train_bounds[key]))
     kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
+    kernels[3].update(
+        tile="gather_mma.cuh: gather_mma_tile (wgmma, K-major B)",
+        old_tile_ms=dfeat_tile["old_ms"],
+        skipped_tap_share=dfeat_tile["tiles"].share(),
+        zero_filled_row_share=dfeat_tile["tiles"].fill_share())
     skips = dw_tile["skips"]
     kernels[4].update(
         tile="sparse_conv_train.cu: dw_mma_partial (mma.sync m16n8k16)",
@@ -1381,17 +1518,26 @@ def main():
         skipped_step_tap_share=skips.steps.share(),
         partial_bytes=skips.partial_bytes,
         ms_by_chunk_rows=dw_tile["sweep"])
-    # S1: the full mode's time; S2: device time per launch at 256 rows
+    # S1: the tensor-core full mode's time, the scalar copy's as the old
+    # tile; S2: device time per launch at 256 rows
     kernels += [
-        _entry("sparse_conv_ablate", "sessd_torch/csrc/sparse_conv_ablate.cu",
+        _entry("sparse_conv_ablate_mma",
+               "sessd_torch/csrc/sparse_conv_ablate.cu",
                "scripts/bench_wconv_ablate.py:51",
-               abl["counts"]["sparse_conv_ablate"], abl["s1_worst"],
-               abl["s1_ms"]["full"], abl["s1_plain_ms"], abl["s1_bound"]),
+               abl["counts"]["sparse_conv_ablate_mma"], abl["mma_worst"],
+               abl["mma_ms"]["full"], abl["mma_plain_ms"], abl["s1_bound"]),
         _entry("empty_launch", "sessd_torch/csrc/sparse_conv_ablate.cu",
                "scripts/bench_wconv_ablate2.py:72",
                abl["counts"]["empty_launch"], abl["s2_worst"],
                abl["s2_ms"], abl["s2_plain_ms"], abl["s2_bound"],
                library_ms=abl["s2_library_ms"])]
+    kernels[-2].update(
+        tile="gather_mma.cuh: gather_mma_tile (wgmma) in each TileMode",
+        old_tile="sparse_conv_ablate (scalar-tile copy)",
+        old_tile_ms=abl["s1_ms"]["full"],
+        old_tile_launches=abl["counts"]["sparse_conv_ablate"],
+        old_tile_max_abs_err=abl["s1_worst"], mma_ms=abl["mma_ms"],
+        chain_ms=abl["chain_ms"], k1_at_split_ms=abl["k1_at_split_ms"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 // Row-gather GEMM over a rulebook, the scalar body shared by the serving
 // conv (sparse_conv.cu: fused_sparse_conv_kernel, with its fused epilogue),
-// the training forward's f32 and Cin = 4 instances (sparse_conv_train.cu:
-// sparse_conv_fwd_kernel; its bf16 instances with Cin in {16, 32, 64} take
-// gather_mma.cuh's tensor-core tile) and the input gradient
-// (sparse_conv_dfeat_kernel, plain).
+// the training forward's and the input gradient's f32 and Cin = 4 instances
+// (sparse_conv_train.cu: sparse_conv_fwd_kernel, sparse_conv_dfeat_kernel;
+// their bf16 instances with Cin, Cout in {16, 32, 64} take gather_mma.cuh's
+// tensor-core tile).
 //
 // Computes, for every output row n (row-major [N, C] features):
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
 // rb[n, k] == n_in (or any index outside [0, n_in)) is a miss and reads a
-// zero row. w2 is [K, Cin, Cout]; feats, w2 and out are f32 or bf16; rb is
-// int16 or int32. With EPI (the serving epilogue) the store is
+// zero row. w2 is [K, Cin, Cout], or with W_T [K, Cout, Cin] (the input
+// gradient's weights as the conv holds them), staged transposed; feats, w2
+// and out are f32 or bf16; rb is int16 or int32. With EPI (the serving
+// epilogue) the store is
 //   out[n] = relu?(acc[n] + bias) if any tap of row n hits, else 0;
 // without it
 //   out[n] = acc[n] if row_mask is null or row_mask[n], else 0.
@@ -29,7 +31,8 @@
 // block and the epilogue is fused into the store, so the output is written
 // once and never re-read. Neighbouring rows in a tile are neighbouring voxels
 // (z-minor ids), so their gathers share cache lines in L2. The tensor-core
-// tile (gather_mma.cuh) is what this body becomes for K1 and dFeat next.
+// tile (gather_mma.cuh) is what this body became for bf16 K1, K3, K4 and
+// dFeat.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,7 +63,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // [blockIdx.x * kRows, + kRows). Each entry point wraps it in a __global__
 // of its own name, so a profile tells the serving conv, the training
 // forward and the input gradient apart.
-template <typename T, typename IdxT, int CIN, int COUT, bool EPI>
+template <typename T, typename IdxT, int CIN, int COUT, bool EPI,
+          bool W_T = false>
 __device__ __forceinline__ void gather_gemm_tile(
     const T* __restrict__ feats, const IdxT* __restrict__ rb,
     const T* __restrict__ w2, const float* __restrict__ bias,
@@ -120,7 +124,8 @@ __device__ __forceinline__ void gather_gemm_tile(
               : 0.f;
     }
     const T* wk = w2 + (size_t)k * CIN * COUT;
-    for (int i = tid; i < CIN * COUT; i += kThreads) s_w[i] = to_f32(wk[i]);
+    for (int i = tid; i < CIN * COUT; i += kThreads)
+      s_w[i] = to_f32(W_T ? wk[(i % COUT) * CIN + i / COUT] : wk[i]);
     __syncthreads();
 
 #pragma unroll 4

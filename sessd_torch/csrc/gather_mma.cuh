@@ -1,12 +1,15 @@
 // Tensor-core gather tile over a rulebook, shared by the bf16 training
 // forward (sparse_conv_train.cu: sparse_conv_fwd_kernel, masked store), the
-// bf16 streaming serving conv (sparse_conv_stream.cu:
-// fused_sparse_conv_stream_kernel) and the bf16 resident serving conv
-// (sparse_conv.cu: fused_sparse_conv_kernel), both with the bias + ReLU +
-// any-hit store. Each keeps its own __global__; this is the body all three
-// call for bf16 and Cin, Cout in {16, 32, 64} (kMmaTile). Every other
-// instance (f32, the Cin = 4 first conv) stays on gather_gemm.cuh's scalar
-// tile.
+// bf16 input gradient (sparse_conv_train.cu: sparse_conv_dfeat_kernel, over
+// the inverse rulebook with a K-major B), the bf16 streaming serving conv
+// (sparse_conv_stream.cu: fused_sparse_conv_stream_kernel) and the bf16
+// resident serving conv (sparse_conv.cu: fused_sparse_conv_kernel), both
+// with the bias + ReLU + any-hit store. Each keeps its own __global__; this
+// is the body all four call for bf16 and Cin, Cout in {16, 32, 64}
+// (kMmaTile). Every other instance (f32, the Cin = 4 first conv) stays on
+// gather_gemm.cuh's scalar tile. The micro-benchmark
+// sparse_conv_ablate_mma_kernel (sparse_conv_ablate.cu) runs it with one
+// cost removed at a time (TileMode).
 //
 // Computes, for the 64 output rows of one tile:
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
@@ -46,8 +49,14 @@
 //       (i / 8) * (Cout / 8) * 128 + c * 128 + (i % 8) * 16;
 //       LBO (next 8 input channels) Cout / 8 * 128 B, SBO (next 8 outputs)
 //       128 B.
-//   So the kernel stages the [K, Cin, Cout] weights itself and the wrapper
-//   needs no packing launch.
+//     B (K-major, KMAJOR_B: the input gradient's weights, [Cout, Cin] per
+//       tap with the reduction dimension Cin contiguous, i.e. the conv's
+//       [Cin, Cout] as it lies with the roles swapped): laid out as A with
+//       the Cout outputs in place of the 64 rows, chunk (output n, channels
+//       8c..8c+7) at (n / 8) * (Cin / 8) * 128 + c * 128 + (n % 8) * 16;
+//       LBO 128 B, SBO Cin / 8 * 128 B, and the instruction's tnsp-b 0.
+//   So the kernel stages the weights itself in either layout and the
+//   wrapper needs no packing or transposing launch.
 // - Order of a tap: cp.async.wait_group (this thread's chunks of the tap
 //   have landed), fence.proxy.async (make them visible to the tensor cores'
 //   async proxy), barrier (every thread's chunks, and every thread done
@@ -92,6 +101,30 @@ constexpr int kMmaThreads = 128;  // one warpgroup per 64-row tile
 constexpr int kStages = 4;        // taps in the ring
 constexpr int kMaxSplit = 4;      // CTAs of a cluster that share one tile
 
+// What a tile runs. Every conv runs kTileFull; the others exist for the
+// ablation (sparse_conv_ablate.cu), each removing one cost:
+//   kTileLinear    row n of every tap reads feature row n: no rulebook
+//                  loads, no indirection, no tap skipped;
+//   kTileNoGather  the rulebook is read and balloted, but every hit row
+//                  is copied from feature row 0: no scattered rows, but
+//                  every block reads one line (measured slower than
+//                  kTileFull on the H100: the reads meet in one L2 slice);
+//   kTileMmaOnly   tap 0's rows and weights are staged once; the loop over
+//                  the hit taps runs only the wgmma chain, its fences and
+//                  waits;
+//   kTileCopyOnly  the ring's gathers and weight copies over the hit taps,
+//                  with no wgmma (stores zeros);
+//   kTileFixed     the rulebook read, keep flags, ballot and a store of
+//                  zeros, with no taps: the tile's fixed cost.
+enum TileMode : int {
+  kTileFull = 0,
+  kTileLinear = 1,
+  kTileNoGather = 2,
+  kTileMmaOnly = 3,
+  kTileCopyOnly = 4,
+  kTileFixed = 5
+};
+
 // The cluster size S of a resident serving conv's launch of `tiles` 64-row
 // tiles, where `wave` blocks of the instance fit on the card at once (blocks
 // per SM at its shared memory and registers x SMs): a launch that fills a
@@ -110,12 +143,17 @@ constexpr bool kMmaTile = std::is_same<T, __nv_bfloat16>::value &&
                           (CIN == 16 || CIN == 32 || CIN == 64) &&
                           (COUT == 16 || COUT == 32 || COUT == 64);
 
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool KMAJOR_B = false>
 struct MmaLayout {
   static constexpr int kKc = CIN / 8;   // 16-byte chunks of a gathered row
-  static constexpr int kNc = COUT / 8;  // 16-byte chunks of a weight row
+  static constexpr int kNc = COUT / 8;  // 16-byte chunks of an MN-major B row
   static constexpr int kABytes = kRows * CIN * 2;
   static constexpr int kBBytes = CIN * COUT * 2;
+  // B's descriptor (leading and stride byte offsets) and the bytes between
+  // the B operands of consecutive k16 steps
+  static constexpr int kBLbo = KMAJOR_B ? 128 : kNc * 128;
+  static constexpr int kBSbo = KMAJOR_B ? kKc * 128 : 128;
+  static constexpr int kBStep = KMAJOR_B ? 256 : 2 * kNc * 128;
   static constexpr int kStageBytes = kABytes + kBBytes;  // multiple of 128
   static constexpr int kRingBytes = kStages * kStageBytes;
   // ring, then the rulebook tile, the row keep flags, the hit-tap list and
@@ -157,28 +195,29 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
 }
 
-// D[64, N] += A[64, 16] (K-major) @ B[16, N] (MN-major), bf16 in, f32 out
-template <int N>
+// D[64, N] += A[64, 16] (K-major) @ B[16, N] (MN-major, or K-major with
+// KMAJOR_B: the instruction's tnsp-b), bf16 in, f32 out
+template <int N, bool KMAJOR_B = false>
 struct Wgmma;
 
-template <>
-struct Wgmma<16> {
+template <bool KMAJOR_B>
+struct Wgmma<16, KMAJOR_B> {
   __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
                                              uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+        "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(KMAJOR_B ? 0 : 1));
   }
 };
 
-template <>
-struct Wgmma<32> {
+template <bool KMAJOR_B>
+struct Wgmma<32, KMAJOR_B> {
   __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -186,18 +225,18 @@ struct Wgmma<32> {
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(KMAJOR_B ? 0 : 1));
   }
 };
 
-template <>
-struct Wgmma<64> {
+template <bool KMAJOR_B>
+struct Wgmma<64, KMAJOR_B> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -207,7 +246,7 @@ struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -217,7 +256,7 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(KMAJOR_B ? 0 : 1));
   }
 };
 
@@ -267,15 +306,18 @@ __device__ __forceinline__ void fence_accumulators(float (&d)[N]) {
 // The body of one block of kMmaThreads threads over output rows
 // [tile * kRows, + kRows), with MmaLayout<CIN, COUT>::kSmemBytes of dynamic
 // shared memory; tile is blockIdx.x, or with SPLIT blockIdx.x / S for a
-// launch in clusters of S blocks along x. feats and w2 must be 16-byte
-// aligned.
-template <typename IdxT, int CIN, int COUT, bool EPI, bool SPLIT = false>
+// launch in clusters of S blocks along x. w2 is [taps, CIN, COUT], or with
+// KMAJOR_B [taps, COUT, CIN]. feats and w2 must be 16-byte aligned. Every
+// conv runs MODE kTileFull; the other modes are the ablation's (TileMode).
+template <typename IdxT, int CIN, int COUT, bool EPI, bool SPLIT = false,
+          bool KMAJOR_B = false, int MODE = kTileFull>
 __device__ __forceinline__ void gather_mma_tile(
     const __nv_bfloat16* __restrict__ feats, const IdxT* __restrict__ rb,
     const __nv_bfloat16* __restrict__ w2, const float* __restrict__ bias,
     const uint8_t* __restrict__ row_mask, __nv_bfloat16* __restrict__ out,
     int n_in, int n_out, int taps, int relu) {
-  using L = MmaLayout<CIN, COUT>;
+  using L = MmaLayout<CIN, COUT, KMAJOR_B>;
+  constexpr bool kLinear = MODE == kTileLinear;
   extern __shared__ __align__(128) unsigned char sessd_mma_smem[];
   unsigned char* ring = sessd_mma_smem;
   int* s_rb = reinterpret_cast<int*>(ring + L::kRingBytes);
@@ -293,9 +335,12 @@ __device__ __forceinline__ void gather_mma_tile(
   const int row0 = tile * kRows;
 
   // the tile's rulebook, read once; rows past n_out read as all-miss
-  for (int i = tid; i < kRows * taps; i += kMmaThreads) {
-    const int n = row0 + i / taps;
-    s_rb[i] = n < n_out ? static_cast<int>(rb[(size_t)row0 * taps + i]) : n_in;
+  if constexpr (!kLinear) {
+    for (int i = tid; i < kRows * taps; i += kMmaThreads) {
+      const int n = row0 + i / taps;
+      s_rb[i] =
+          n < n_out ? static_cast<int>(rb[(size_t)row0 * taps + i]) : n_in;
+    }
   }
   __syncthreads();
   if (tid < kRows) {  // warps 0-1: the store's keep flag of each row
@@ -309,8 +354,8 @@ __device__ __forceinline__ void gather_mma_tile(
     s_keep[tid] = keep;
   } else if (tid < kRows + 32) {  // warp 2: lane k asks whether tap k hits
     const int k = tid - kRows;
-    bool hit = false;
-    if (k < taps)
+    bool hit = kLinear && k < taps;
+    if (!kLinear && k < taps)
       for (int r = 0; r < kRows && !hit; ++r)
         hit = static_cast<unsigned>(s_rb[r * taps + k]) <
               static_cast<unsigned>(n_in);
@@ -320,7 +365,7 @@ __device__ __forceinline__ void gather_mma_tile(
   }
   __syncthreads();
   // this rank's taps: positions rank, rank + split, ... of the hit-tap list
-  const int n_taps = *s_n_taps > rank
+  const int n_taps = MODE != kTileFixed && *s_n_taps > rank
                          ? (*s_n_taps - rank + split - 1) / split
                          : 0;
   const int* my_taps = s_taps + rank;
@@ -332,16 +377,25 @@ __device__ __forceinline__ void gather_mma_tile(
     for (int j = tid; j < kRows * L::kKc; j += kMmaThreads) {
       const int r = (j / (8 * L::kKc)) * 8 + j % 8;
       const int c = (j / 8) % L::kKc;
-      const int src = s_rb[r * taps + k];
+      const int src = kLinear ? row0 + r : s_rb[r * taps + k];
       const bool hit = static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
-      cp_async16(a_s + j * 16, feats + (size_t)(hit ? src : 0) * CIN + c * 8,
+      const int row = MODE == kTileNoGather ? 0 : src;
+      cp_async16(a_s + j * 16, feats + (size_t)(hit ? row : 0) * CIN + c * 8,
                      hit ? 16 : 0);
     }
     const __nv_bfloat16* wk = w2 + (size_t)k * CIN * COUT;
-    for (int j = tid; j < CIN * L::kNc; j += kMmaThreads) {
-      const int i = (j / (8 * L::kNc)) * 8 + j % 8;
-      const int c = (j / 8) % L::kNc;
-      cp_async16(b_s + j * 16, wk + i * COUT + c * 8, 16);
+    if constexpr (KMAJOR_B) {  // wk [COUT, CIN]: laid out as A
+      for (int j = tid; j < COUT * L::kKc; j += kMmaThreads) {
+        const int n = (j / (8 * L::kKc)) * 8 + j % 8;
+        const int c = (j / 8) % L::kKc;
+        cp_async16(b_s + j * 16, wk + n * CIN + c * 8, 16);
+      }
+    } else {
+      for (int j = tid; j < CIN * L::kNc; j += kMmaThreads) {
+        const int i = (j / (8 * L::kNc)) * 8 + j % 8;
+        const int c = (j / 8) % L::kNc;
+        cp_async16(b_s + j * 16, wk + i * COUT + c * 8, 16);
+      }
     }
   };
 
@@ -349,33 +403,57 @@ __device__ __forceinline__ void gather_mma_tile(
 #pragma unroll
   for (int i = 0; i < COUT / 2; ++i) acc[i] = 0.f;
 
-  // one cp.async group per slot, empty ones too, so that wait_group counts
-  // taps
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_taps) issue(my_taps[s * split], s);
+  if constexpr (MODE == kTileMmaOnly) {
+    // tap 0's rows and weights, staged once; the chain runs over them
+    if (n_taps > 0) issue(0, 0);
     cp_async_commit();
-  }
-  for (int t = 0; t < n_taps; ++t) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<0>();
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    // the slot of tap t - 1, whose wgmma every thread has waited for
-    const int ahead = t + kStages - 1;
-    if (ahead < n_taps) issue(my_taps[ahead * split], ahead % kStages);
-    cp_async_commit();
-
-    const uint32_t a_s = smem_u32(ring + (t % kStages) * L::kStageBytes);
+    const uint32_t a_s = smem_u32(ring);
     const uint32_t b_s = a_s + L::kABytes;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int t = 0; t < n_taps; ++t) {
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int s = 0; s < CIN / 16; ++s)
-      Wgmma<COUT>::mma(acc, wgmma_desc(a_s + s * 256, 128, L::kKc * 128),
-                       wgmma_desc(b_s + s * 2 * L::kNc * 128, L::kNc * 128,
-                                  128));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_accumulators(acc);
+      for (int s = 0; s < CIN / 16; ++s)
+        Wgmma<COUT, KMAJOR_B>::mma(
+            acc, wgmma_desc(a_s + s * 256, 128, L::kKc * 128),
+            wgmma_desc(b_s + s * L::kBStep, L::kBLbo, L::kBSbo));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_accumulators(acc);
+    }
+  } else {
+    // one cp.async group per slot, empty ones too, so that wait_group
+    // counts taps
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_taps) issue(my_taps[s * split], s);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_taps; ++t) {
+      cp_async_wait<kStages - 2>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      // the slot of tap t - 1, whose wgmma every thread has waited for
+      const int ahead = t + kStages - 1;
+      if (ahead < n_taps) issue(my_taps[ahead * split], ahead % kStages);
+      cp_async_commit();
+
+      if constexpr (MODE != kTileCopyOnly) {
+        const uint32_t a_s = smem_u32(ring + (t % kStages) * L::kStageBytes);
+        const uint32_t b_s = a_s + L::kABytes;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int s = 0; s < CIN / 16; ++s)
+          Wgmma<COUT, KMAJOR_B>::mma(
+              acc, wgmma_desc(a_s + s * 256, 128, L::kKc * 128),
+              wgmma_desc(b_s + s * L::kBStep, L::kBLbo, L::kBSbo));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_accumulators(acc);
+      }
+    }
   }
 
   if constexpr (SPLIT) {

@@ -1,10 +1,31 @@
-// Micro-benchmark kernels: an ablation of the gather-GEMM tile and an empty
-// launch. Neither runs in serving or training; they split the cost of the
+// Micro-benchmark kernels: ablations of the gather-GEMM tiles and an empty
+// launch. None runs in serving or training; they split the cost of the
 // sparse conv into its parts and measure the fixed cost of one launch.
+//
+// sparse_conv_ablate_mma_kernel<MODE, C> is the ablation of the tile every
+// bf16 conv at 16-64 channels runs: gather_mma.cuh's tensor-core tile
+// itself, called with one of its TileModes (bf16, an int32 rulebook, C -> C
+// channels with C 16 or 64, no mask, no bias):
+//   full       the tile as the bf16 training forward (sparse_conv_fwd_kernel)
+//              runs it without a mask: the same bits;
+//   linear     row n of every tap reads feature row n: no rulebook loads,
+//              no indirection, no tap skipped;
+//   no_gather  the rulebook read and ballot of full, every hit row copied
+//              from feature row 0: no scattered rows (but one hot line);
+//   mma_only   tap 0's rows and weights staged once, then only the wgmma
+//              chain over the hit taps;
+//   copy_only  the ring's gathers and weight copies over the hit taps, no
+//              wgmma (zeros out);
+//   fixed      the rulebook read, keep flags, ballot and a store of zeros:
+//              the fixed cost of a launch of these tiles.
+// What bounds it: as for the real conv, bytes against 2*hits*C*C flops,
+// below the card's ridge; the modes' differences split a launch into its
+// fixed part, its copies and its tensor-core chain.
 //
 // sparse_conv_ablate_kernel<MODE> replaces the ablated copies of the Pallas
 // _fwd_kernel in scripts/bench_wconv_ablate.py (full_kernel, run through
-// run_kernel). It is a copy of gather_gemm.cuh's scalar tile, instantiated
+// run_kernel), on the tile the convs ran before the tensor-core one. It is
+// a copy of gather_gemm.cuh's scalar tile, instantiated
 // only for the ablation's shape: bf16 features and weights, an int32
 // rulebook, 16 -> 16 channels. Each mode removes one cost:
 //   kFull      the real gather over the rulebook (K = 27, or 9 for the
@@ -34,7 +55,7 @@
 // Bound: the output's bytes over the memory rate (0.65 MB at [20224, 16]
 // bf16). Its time is the fixed cost of one launch.
 
-#include "gather_gemm.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
@@ -149,6 +170,49 @@ __global__ void __launch_bounds__(kThreads) sparse_conv_ablate_kernel(
   }
 }
 
+// the tensor-core tile in mode MODE over C -> C channels; the launch bound
+// of the training forward, whose code the full mode runs
+template <int MODE, int C>
+__global__ void __launch_bounds__(kThreads) sparse_conv_ablate_mma_kernel(
+    const __nv_bfloat16* __restrict__ feats, const int32_t* __restrict__ rb,
+    const __nv_bfloat16* __restrict__ w2, __nv_bfloat16* __restrict__ out,
+    int n_in, int n_out, int taps) {
+  sessd::gather_mma_tile<int32_t, C, C, false, false, false, MODE>(
+      feats, rb, w2, nullptr, nullptr, out, n_in, n_out, taps, 0);
+}
+
+template <int MODE, int C>
+cudaError_t launch_ablate_mma(const void* feats, const void* rb,
+                              const void* w2, void* out, int n_in, int n_out,
+                              int taps, cudaStream_t stream) {
+  auto* kern = sparse_conv_ablate_mma_kernel<MODE, C>;
+  constexpr int smem = sessd::MmaLayout<C, C>::kSmemBytes;
+  // above 48 KB a block's shared memory must be asked for, once per kernel
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kern<<<sessd::gather_gemm_grid(n_out), sessd::kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(feats),
+      static_cast<const int32_t*>(rb),
+      static_cast<const __nv_bfloat16*>(w2),
+      static_cast<__nv_bfloat16*>(out), n_in, n_out, taps);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t dispatch_ablate_mma(int channels, const void* feats,
+                                const void* rb, const void* w2, void* out,
+                                int n_in, int n_out, int taps,
+                                cudaStream_t stream) {
+  if (channels == 16)
+    return launch_ablate_mma<MODE, 16>(feats, rb, w2, out, n_in, n_out, taps,
+                                       stream);
+  if (channels == 64)
+    return launch_ablate_mma<MODE, 64>(feats, rb, w2, out, n_in, n_out, taps,
+                                       stream);
+  return cudaErrorInvalidValue;
+}
+
 __global__ void __launch_bounds__(256)
     empty_launch_kernel(uint4* __restrict__ out, long long n_vec,
                         int vec_per_block) {
@@ -209,6 +273,36 @@ extern "C" int sessd_sparse_conv_ablate(const void* feats, const void* rb,
     SESSD_MODE(kLinear)
     SESSD_MODE(kNoGather)
     SESSD_MODE(kFmaOnly)
+  }
+#undef SESSD_MODE
+  return cudaErrorInvalidValue;
+}
+
+// out [n_out, channels] bf16 = gather_mma.cuh's tile in ablation mode
+// `mode` (sessd::TileMode: 0 full, 1 linear, 2 no gather, 3 wgmma only,
+// 4 copies only, 5 fixed) over feats [n_in, channels] bf16, rb [n_out,
+// taps] int32 and w2 [taps, channels, channels] bf16, for channels 16 or 64;
+// feats and w2 16-byte aligned. Returns cudaGetLastError() of the launch;
+// cudaErrorInvalidValue for arguments it has no instance of.
+extern "C" int sessd_sparse_conv_ablate_mma(const void* feats, const void* rb,
+                                            const void* w2, void* out,
+                                            int n_in, int n_out, int channels,
+                                            int taps, int mode,
+                                            void* stream) {
+  if (n_in <= 0 || n_out <= 0 || taps <= 0 || taps > kMaxTaps)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SESSD_MODE(M)                                                        \
+  case M:                                                                    \
+    return dispatch_ablate_mma<M>(channels, feats, rb, w2, out, n_in, n_out, \
+                                  taps, s);
+  switch (mode) {
+    SESSD_MODE(sessd::kTileFull)
+    SESSD_MODE(sessd::kTileLinear)
+    SESSD_MODE(sessd::kTileNoGather)
+    SESSD_MODE(sessd::kTileMmaOnly)
+    SESSD_MODE(sessd::kTileCopyOnly)
+    SESSD_MODE(sessd::kTileFixed)
   }
 #undef SESSD_MODE
   return cudaErrorInvalidValue;

@@ -17,7 +17,9 @@
 // dFeat is the forward's gather-GEMM over the inverse rulebook
 // inv[rb[n, k], k] = n (each tap's map is injective: distinct outputs read
 // distinct inputs), with W^T [K, Cout, Cin] as the weights: each input row
-// owns its sum, so there is no scatter. dW is a reduction over up to ~120k
+// owns its sum, so there is no scatter. The kernel reads W [K, Cin, Cout] as
+// it lies and takes its transpose on the way into shared memory, so the
+// wrapper launches nothing to transpose it. dW is a reduction over up to ~120k
 // rows per tap: split-K over row chunks into f32 partials
 // [chunks, K, Cin, Cout], then a second pass sums the chunks in order.
 //
@@ -31,7 +33,26 @@
 //   here.
 // - f32 (the step-parity and eval paths, held to 1e-4) and the Cin = 4
 //   first conv: gather_gemm.cuh's scalar tile, 256 threads.
-// dFeat is gather_gemm.cuh's scalar tile under a name of its own.
+//
+// The input gradient, sparse_conv_dfeat_kernel, takes the same two bodies
+// by the same rule, fixed at compile time:
+// - bf16 (all five of its pairs, Cout -> Cin of each conv but the first):
+//   gather_mma.cuh's tensor-core tile over the inverse rulebook, with no
+//   store mask (a padding row past a stage's voxels misses every tap and
+//   comes out zero). Its B operand is W[k] read K-major: the reduction
+//   dimension, the conv's Cout, is contiguous in W[k] [Cin, Cout], so the
+//   tile stages each tap's weights in A's core-matrix layout with Cin in
+//   place of the 64 rows and issues wgmma with tnsp-b 0, where the forward
+//   reads the same array MN-major. What bounds it is the forward's gather:
+//   2*K*Cin*Cout flops per row against K rows of Cout bf16 values. On top
+//   of that the inverse rulebook of a strided conv hits at most 8 of 27
+//   taps per input row (the row's coordinate parities pick them), so a
+//   64-row tile of inputs gathers many zero-filled rows and skips few taps.
+//   The scalar body it replaces is kept in bf16 as
+//   sparse_conv_dfeat_scalar_kernel (sessd_sparse_conv_dfeat_scalar, with
+//   W^T as its weights) for same-call comparisons only.
+// - f32 (held to 1e-4, step parity): the scalar tile, staging W[k]
+//   transposed into shared memory (gather_gemm_tile's W_T).
 //
 // The weight gradient's partial kernel, sparse_conv_dw_partial_kernel, also
 // takes one of two bodies, fixed at compile time:
@@ -110,19 +131,40 @@ __global__ void __launch_bounds__(kThreads)
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
-// dfeat [n_in, CIN] = the same gather-GEMM over the inverse rulebook with
-// the transposed weights, under a name of its own so a profile tells it
-// from the forward
+// dfeat [n_out, COUT] = the same gather-GEMM of dout x [n_in, CIN] over the
+// inverse rulebook rb [n_out, taps] with the transposed weights, read from
+// w [taps, COUT, CIN] (the conv's [taps, Cin, Cout]), under a name of its
+// own so a profile tells it from the forward. Here CIN is the conv's Cout
+// and COUT its Cin; there is no row mask.
 template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
     sparse_conv_dfeat_kernel(const T* __restrict__ x,
                              const IdxT* __restrict__ rb,
-                             const T* __restrict__ w2,
+                             const T* __restrict__ w,
                              const uint8_t* __restrict__ row_mask,
                              T* __restrict__ out, int n_in, int n_out,
                              int taps) {
-  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(
-      x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
+  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, false, false, true>(
+        x, rb, w, nullptr, nullptr, out, n_in, n_out, taps, 0);
+  else
+    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false, true>(
+        x, rb, w, nullptr, nullptr, out, n_in, n_out, taps, 0);
+}
+
+// the input gradient's scalar body in bf16 with W^T [taps, CIN, COUT] as its
+// weights, the kernel bf16 dFeat ran before the tensor-core tile: for
+// comparisons only
+template <typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+    sparse_conv_dfeat_scalar_kernel(const __nv_bfloat16* __restrict__ x,
+                                    const IdxT* __restrict__ rb,
+                                    const __nv_bfloat16* __restrict__ wt,
+                                    const uint8_t* __restrict__ row_mask,
+                                    __nv_bfloat16* __restrict__ out,
+                                    int n_in, int n_out, int taps) {
+  sessd::gather_gemm_tile<__nv_bfloat16, IdxT, CIN, COUT, false>(
+      x, rb, wt, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
 template <typename T, typename IdxT>
@@ -141,11 +183,19 @@ cudaError_t launch_gather(GatherKernel<T, IdxT> kernel,
   return cudaGetLastError();
 }
 
-template <typename T, typename IdxT, int CIN, int COUT>
-cudaError_t launch_fwd(const void* x, const void* rb, const void* w2,
-                       const uint8_t* row_mask, void* out, int n_in,
-                       int n_out, int taps, cudaStream_t stream) {
-  auto* kern = sparse_conv_fwd_kernel<T, IdxT, CIN, COUT>;
+// one launch of the forward's (DFEAT false) or the input gradient's
+// __global__: the tensor-core tile's block and shared memory where (T, CIN,
+// COUT) takes it, else the scalar tile's. Each instance sets its kernel's
+// shared-memory attribute once.
+template <typename T, typename IdxT, int CIN, int COUT, bool DFEAT>
+cudaError_t launch_tile(const void* x, const void* rb, const void* w2,
+                        const uint8_t* row_mask, void* out, int n_in,
+                        int n_out, int taps, cudaStream_t stream) {
+  GatherKernel<T, IdxT> kern;
+  if constexpr (DFEAT)
+    kern = sparse_conv_dfeat_kernel<T, IdxT, CIN, COUT>;
+  else
+    kern = sparse_conv_fwd_kernel<T, IdxT, CIN, COUT>;
   if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
     constexpr int smem = sessd::MmaLayout<CIN, COUT>::kSmemBytes;
     // above 48 KB a block's shared memory must be asked for, once per kernel
@@ -161,6 +211,14 @@ cudaError_t launch_fwd(const void* x, const void* rb, const void* w2,
     return launch_gather<T, IdxT>(kern, x, rb, w2, row_mask, out, n_in,
                                   n_out, taps, stream);
   }
+}
+
+template <typename T, typename IdxT, int CIN, int COUT>
+cudaError_t launch_fwd(const void* x, const void* rb, const void* w2,
+                       const uint8_t* row_mask, void* out, int n_in,
+                       int n_out, int taps, cudaStream_t stream) {
+  return launch_tile<T, IdxT, CIN, COUT, false>(x, rb, w2, row_mask, out,
+                                                n_in, n_out, taps, stream);
 }
 
 // the forward's (Cin, Cout) pairs of both training plans
@@ -196,24 +254,53 @@ int fwd_instance(int cin, int cout) {
   return 0;
 }
 
-// the swapped pairs the input gradient takes (Cout -> Cin of each conv but
-// the first, 4 -> 16, whose input needs no gradient)
+// the input gradient's (Cin, Cout) pairs as its gather sees them: the
+// swapped (Cout, Cin) of each conv but the first, 4 -> 16, whose input
+// needs no gradient
+#define SESSD_DFEAT_PAIRS(CASE) \
+  CASE(16, 16)                  \
+  CASE(32, 16)                  \
+  CASE(32, 32)                  \
+  CASE(64, 32)                  \
+  CASE(64, 64)
+
 template <typename T, typename IdxT>
 cudaError_t dispatch_dfeat(int cin, int cout, const void* x, const void* rb,
-                           const void* w2, void* out, int n_in, int n_out,
+                           const void* w, void* out, int n_in, int n_out,
                            int taps, cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch_gather<T, IdxT>(                                           \
-        sparse_conv_dfeat_kernel<T, IdxT, CI, CO>, x, rb, w2, nullptr, out,  \
-        n_in, n_out, taps, stream);
-  SESSD_CASE(16, 16)
-  SESSD_CASE(32, 16)
-  SESSD_CASE(32, 32)
-  SESSD_CASE(64, 32)
-  SESSD_CASE(64, 64)
+    return launch_tile<T, IdxT, CI, CO, true>(x, rb, w, nullptr, out, n_in, \
+                                              n_out, taps, stream);
+  SESSD_DFEAT_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
+}
+
+template <typename IdxT>
+cudaError_t dispatch_dfeat_scalar(int cin, int cout, const void* x,
+                                  const void* rb, const void* wt, void* out,
+                                  int n_in, int n_out, int taps,
+                                  cudaStream_t stream) {
+#define SESSD_CASE(CI, CO)                                                   \
+  if (cin == CI && cout == CO)                                               \
+    return launch_gather<__nv_bfloat16, IdxT>(                               \
+        sparse_conv_dfeat_scalar_kernel<IdxT, CI, CO>, x, rb, wt, nullptr,   \
+        out, n_in, n_out, taps, stream);
+  SESSD_DFEAT_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// 2 where the input gradient's instance for (T, cin, cout) (its gather's
+// pair) is the tensor-core tile, 1 the scalar tile, 0 where there is none
+template <typename T>
+int dfeat_instance(int cin, int cout) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  SESSD_DFEAT_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
 }
 
 template <int CIN, int COUT>
@@ -695,21 +782,52 @@ extern "C" int sessd_sparse_conv_fwd_instance(int cin, int cout, int dtype) {
   return 0;
 }
 
-// dfeat [n_in, cin] = sum_k dout[inv[i, k]] @ wt[k] for dout [n_out, cout]
-// (n_out = its miss), the inverse rulebook inv [n_in, taps] and the
-// transposed weights wt [taps, cout, cin]: the forward's gather-GEMM with
-// the roles of the two sides swapped.
+// dfeat [n_in, cin] = sum_k dout[inv[i, k]] @ w2[k]^T for dout [n_out, cout]
+// (n_out = its miss), the inverse rulebook inv [n_in, taps] and the conv's
+// weights w2 [taps, cin, cout] as it holds them: the forward's gather-GEMM
+// with the roles of the two sides swapped. The tensor-core instances (bf16)
+// want dout and w2 16-byte aligned.
 extern "C" int sessd_sparse_conv_dfeat(const void* dout, const void* inv,
-                                       const void* wt, void* dfeat, int n_out,
-                                       int n_in, int cin, int cout, int taps,
-                                       int dtype, int idx_bytes,
+                                       const void* w2, void* dfeat,
+                                       int n_out, int n_in, int cin, int cout,
+                                       int taps, int dtype, int idx_bytes,
                                        void* stream) {
   if (bad_args(n_out, n_in, taps)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SESSD_CALL(T, I)                                                     \
-  dispatch_dfeat<T, I>(cout, cin, dout, inv, wt, dfeat, n_out, n_in, taps, s)
+  dispatch_dfeat<T, I>(cout, cin, dout, inv, w2, dfeat, n_out, n_in, taps, s)
   SESSD_TYPES(SESSD_CALL)
 #undef SESSD_CALL
+}
+
+// The input gradient's scalar body in bf16 under its own kernel name, for
+// comparisons: sessd_sparse_conv_dfeat's arguments, but with the transposed
+// weights wt [taps, cout, cin]; dtype 1 only.
+extern "C" int sessd_sparse_conv_dfeat_scalar(const void* dout,
+                                              const void* inv, const void* wt,
+                                              void* dfeat, int n_out,
+                                              int n_in, int cin, int cout,
+                                              int taps, int dtype,
+                                              int idx_bytes, void* stream) {
+  if (bad_args(n_out, n_in, taps) || dtype != 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx_bytes == 2)
+    return dispatch_dfeat_scalar<int16_t>(cout, cin, dout, inv, wt, dfeat,
+                                          n_out, n_in, taps, s);
+  if (idx_bytes == 4)
+    return dispatch_dfeat_scalar<int32_t>(cout, cin, dout, inv, wt, dfeat,
+                                          n_out, n_in, taps, s);
+  return cudaErrorInvalidValue;
+}
+
+// Which body sessd_sparse_conv_dfeat launches for the gather pair (cin,
+// cout) = (the conv's Cout, its Cin) and dtype: 2 the tensor-core tile, 1
+// the scalar tile, 0 none.
+extern "C" int sessd_sparse_conv_dfeat_instance(int cin, int cout,
+                                                int dtype) {
+  if (dtype == 0) return dfeat_instance<float>(cin, cout);
+  if (dtype == 1) return dfeat_instance<__nv_bfloat16>(cin, cout);
+  return 0;
 }
 
 // dw [taps, cin, cout] = sum_n feats[rb[n, k]]^T dout[n]; partial is f32

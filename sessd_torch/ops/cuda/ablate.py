@@ -1,22 +1,24 @@
-"""Micro-benchmark kernels: the gather-GEMM tile with one cost removed at a
+"""Micro-benchmark kernels: the gather-GEMM tiles with one cost removed at a
 time, and an empty launch, with their plain PyTorch versions.
 
-``sparse_conv_ablate`` replaces the ablated Pallas ``_fwd_kernel`` copies of
-``scripts/bench_wconv_ablate.py`` (``full_kernel``) and ``empty_launch``
-the empty Pallas kernel of ``scripts/bench_wconv_ablate2.py``
-(``bench_empty``). The source is ``sessd_torch/csrc/sparse_conv_ablate.cu``,
-built with the other kernels by ``ops.cuda.sparse_conv.build`` at the first
-CUDA call. On a CPU tensor each wrapper runs its plain version; on a CUDA
-tensor it launches its kernel, counted in ``<wrapper>.launches``, or raises.
-Neither kernel runs in serving or training:
-``sessd_torch.scripts.bench_sparse_conv_ablate`` and
+``sparse_conv_ablate_mma`` (the tensor-core tile of ``csrc/gather_mma.cuh``,
+the one every bf16 conv at 16-64 channels runs) and ``sparse_conv_ablate``
+(a copy of the scalar tile the convs ran before) replace the ablated Pallas
+``_fwd_kernel`` copies of ``scripts/bench_wconv_ablate.py``
+(``full_kernel``); ``empty_launch`` the empty Pallas kernel of
+``scripts/bench_wconv_ablate2.py`` (``bench_empty``). The source is
+``sessd_torch/csrc/sparse_conv_ablate.cu``, built with the other kernels by
+``ops.cuda.sparse_conv.build`` at the first CUDA call. On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel,
+counted in ``<wrapper>.launches``, or raises. None of these kernels runs in
+serving or training: ``sessd_torch.scripts.bench_sparse_conv_ablate`` and
 ``sessd_torch.scripts.bench_launch_overhead`` drive them.
 """
 from __future__ import annotations
 
 import torch
 
-from ..sparse import gather_gemm
+from ..sparse import gather_gemm, tile_tap_hits
 from . import sparse_conv_train as kt
 from .sparse_conv import _DTYPE_CODES, _INDEX_BYTES, build, raise_on_error
 
@@ -61,9 +63,9 @@ def sparse_conv_ablate_ref(feats: torch.Tensor, rb: torch.Tensor,
     return out.to(feats.dtype)
 
 
-def _check(feats, rb, w2, mode):
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r}: want one of {sorted(MODES)}")
+def _check(feats, rb, w2, mode, modes=MODES, channels=(CHANNELS,)):
+    if mode not in modes:
+        raise ValueError(f"mode {mode!r}: want one of {sorted(modes)}")
     for t in (rb, w2):
         if t.device != feats.device:
             raise ValueError(f"tensor on {t.device}, features on "
@@ -71,17 +73,17 @@ def _check(feats, rb, w2, mode):
     for t in (feats, rb, w2):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+    c = feats.shape[1] if feats.dim() == 2 else -1
     taps = rb.shape[1] if rb.dim() == 2 else -1
     if (feats.dtype, rb.dtype, w2.dtype) != (torch.bfloat16, torch.int32,
                                              torch.bfloat16) \
-            or feats.dim() != 2 or feats.shape[1] != CHANNELS \
-            or tuple(w2.shape) != (taps, CHANNELS, CHANNELS) \
+            or c not in channels or tuple(w2.shape) != (taps, c, c) \
             or feats.shape[0] == 0 or rb.shape[0] == 0:
         raise ValueError(
-            f"the ablation kernel takes bf16 features [n, 16], an int32 "
-            f"rulebook [n_out, K] and bf16 weights [K, 16, 16]; got "
-            f"{tuple(feats.shape)} {feats.dtype}, {tuple(rb.shape)} "
-            f"{rb.dtype}, {tuple(w2.shape)} {w2.dtype}")
+            f"the ablation kernel takes bf16 features [n, C] with C in "
+            f"{channels}, an int32 rulebook [n_out, K] and bf16 weights "
+            f"[K, C, C]; got {tuple(feats.shape)} {feats.dtype}, "
+            f"{tuple(rb.shape)} {rb.dtype}, {tuple(w2.shape)} {w2.dtype}")
 
 
 def sparse_conv_ablate(feats: torch.Tensor, rb: torch.Tensor,
@@ -111,6 +113,76 @@ def sparse_conv_ablate(feats: torch.Tensor, rb: torch.Tensor,
 
 
 sparse_conv_ablate.launches = 0
+
+# mode -> the tensor-core tile's TileMode (csrc/gather_mma.cuh)
+MMA_MODES = {"full": 0, "linear": 1, "no_gather": 2, "mma_only": 3,
+             "copy_only": 4, "fixed": 5}
+MMA_CHANNELS = (16, 64)  # the instances of sparse_conv_ablate_mma_kernel
+
+
+def sparse_conv_ablate_mma_ref(feats: torch.Tensor, rb: torch.Tensor,
+                               w2: torch.Tensor, mode: str) -> torch.Tensor:
+    """Plain version of each mode of the tensor-core tile, summed in f32, in
+    the features' dtype (miss = any index outside [0, n_in)):
+    - full: sum_k feats[rb[n, k]] @ w2[k];
+    - linear: the same over ``linear_rulebook``;
+    - no_gather: sum over the taps row n hits of feats[0] @ w2[k];
+    - mma_only: (the taps some row of n's 64-row tile hits) x
+      (feats[rb[n, 0]] @ w2[0]);
+    - copy_only, fixed: zeros."""
+    n_in = feats.shape[0]
+    n_out, taps = rb.shape
+    if mode == "full":
+        out = gather_gemm(feats, rb, w2)
+    elif mode == "linear":
+        out = gather_gemm(feats, linear_rulebook(n_in, n_out, taps,
+                                                 feats.device), w2)
+    elif mode == "no_gather":
+        hit = ((rb >= 0) & (rb < n_in)).float()
+        out = hit @ torch.einsum("c,kcd->kd", feats[0].float(), w2.float())
+    elif mode == "mma_only":
+        hits, _ = tile_tap_hits(rb, n_in)
+        per_row = hits.sum(1).repeat_interleave(64)[:n_out].float()
+        out = gather_gemm(feats, rb[:, :1].contiguous(), w2[:1]) \
+            * per_row[:, None]
+    elif mode in ("copy_only", "fixed"):
+        out = feats.new_zeros((n_out, w2.shape[2]), dtype=torch.float32)
+    else:
+        raise ValueError(f"mode {mode!r}: want one of {sorted(MMA_MODES)}")
+    return out.to(feats.dtype)
+
+
+def sparse_conv_ablate_mma(feats: torch.Tensor, rb: torch.Tensor,
+                           w2: torch.Tensor,
+                           mode: str = "full") -> torch.Tensor:
+    """The tensor-core gather tile (``csrc/gather_mma.cuh``) with one cost
+    removed (``mode``, see ``sparse_conv_ablate_mma_ref``). feats [n_in, C]
+    bf16 with C 16 or 64; rb [n_out, K] int32 (n_in = miss); w2 [K, C, C]
+    bf16; feats and w2 16-byte aligned. Returns [n_out, C] bf16. "full"
+    equals ``sparse_conv_fwd`` (bf16, no mask) bit for bit."""
+    if feats.device.type == "cpu":
+        return sparse_conv_ablate_mma_ref(feats, rb, w2, mode)
+    if feats.device.type != "cuda":
+        raise ValueError(f"no kernel for device {feats.device}")
+    _check(feats, rb, w2, mode, MMA_MODES, MMA_CHANNELS)
+    if feats.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("feats and w2 must be 16-byte aligned")
+    lib = build()
+    c = feats.shape[1]
+    out = torch.empty((rb.shape[0], c), dtype=feats.dtype,
+                      device=feats.device)
+    with torch.cuda.device(feats.device):
+        rc = lib.sessd_sparse_conv_ablate_mma(
+            feats.data_ptr(), rb.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            feats.shape[0], rb.shape[0], c, rb.shape[1], MMA_MODES[mode],
+            torch.cuda.current_stream().cuda_stream)
+    raise_on_error(lib, rc, f"sparse_conv_ablate_mma ({mode}, C={c}, "
+                            f"K={rb.shape[1]})")
+    sparse_conv_ablate_mma.launches += 1
+    return out
+
+
+sparse_conv_ablate_mma.launches = 0
 
 
 def empty_launch_ref(out: torch.Tensor) -> torch.Tensor:

@@ -61,16 +61,19 @@ def streams(cin: int, n_in: int, dtype: torch.dtype) -> bool:
 
 
 # the (Cin, Cout) pairs each C entry has instances of
-# (csrc/sparse_conv_train.cu: SESSD_FWD_PAIRS, SESSD_DW_PAIRS;
-# csrc/sparse_conv_stream.cu: SESSD_STREAM_PAIRS; csrc/sparse_conv.cu:
-# SESSD_FUSED_PAIRS)
+# (csrc/sparse_conv_train.cu: SESSD_FWD_PAIRS, SESSD_DFEAT_PAIRS,
+# SESSD_DW_PAIRS; csrc/sparse_conv_stream.cu: SESSD_STREAM_PAIRS;
+# csrc/sparse_conv.cu: SESSD_FUSED_PAIRS). The input gradient's pairs are
+# its gather's: (the conv's Cout, its Cin) of every conv but the first.
 FWD_PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64))
 STREAM_PAIRS = FWD_PAIRS[1:]
 FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
+DFEAT_PAIRS = ((16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
           "fused_sparse_conv_stream": STREAM_PAIRS,
           "fused_sparse_conv": FUSED_PAIRS,
+          "sparse_conv_dfeat": DFEAT_PAIRS,
           "sparse_conv_dw": DW_PAIRS}
 MAX_SPLIT = 4  # csrc/gather_mma.cuh: kMaxSplit
 TILE_ROWS = 64  # csrc/gather_gemm.cuh: kRows
@@ -79,13 +82,15 @@ TILE_ROWS = 64  # csrc/gather_gemm.cuh: kRows
 def conv_instance(entry: str, dtype: torch.dtype, cin: int,
                   cout: int) -> str:
     """The body the C entry ``entry`` ("sparse_conv_fwd",
-    "fused_sparse_conv_stream", "fused_sparse_conv" or "sparse_conv_dw")
-    launches for these types and channels, fixed at compile time: "mma"
-    (bf16 with Cin and Cout in {16, 32, 64}: the tensor-core tile of
-    ``csrc/gather_mma.cuh`` for the convs, the mma.sync partial kernel of
-    ``sparse_conv_train.cu`` for dW) or "scalar" (``gather_gemm.cuh``'s
-    tile, the stream kernel's f32 ring, or dW's scalar partial kernel).
-    Raises ValueError where the entry has no instance."""
+    "fused_sparse_conv_stream", "fused_sparse_conv", "sparse_conv_dfeat"
+    or "sparse_conv_dw") launches for these types and channels, fixed at
+    compile time: "mma" (bf16 with Cin and Cout in {16, 32, 64}: the
+    tensor-core tile of ``csrc/gather_mma.cuh`` for the convs and the input
+    gradient, the mma.sync partial kernel of ``sparse_conv_train.cu`` for
+    dW) or "scalar" (``gather_gemm.cuh``'s tile, the stream kernel's f32
+    ring, or dW's scalar partial kernel). For "sparse_conv_dfeat", (cin,
+    cout) is its gather's pair: the conv's (Cout, Cin). Raises ValueError
+    where the entry has no instance."""
     if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
                          f"Cout={cout}")
@@ -177,9 +182,11 @@ def build() -> ctypes.CDLL:
         # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
         # dtype, idx_bytes; stream
         lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
-        # dout, inv, wt, dfeat; n_out, n_in, cin, cout, taps, dtype,
-        # idx_bytes; stream
+        # dout, inv, w2 (wt for the scalar entry), dfeat; n_out, n_in, cin,
+        # cout, taps, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dfeat.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.sessd_sparse_conv_dfeat_scalar.argtypes = \
+            lib.sessd_sparse_conv_dfeat.argtypes
         # feats, rb, dout, partial, dw; n_in, n_out, cin, cout, taps,
         # chunk_rows, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dw.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
@@ -188,6 +195,9 @@ def build() -> ctypes.CDLL:
         # the micro-benchmark kernels (ops/cuda/ablate.py)
         # feats, rb, w2, out; n_in, n_out, taps, mode; stream
         lib.sessd_sparse_conv_ablate.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        # feats, rb, w2, out; n_in, n_out, channels, taps, mode; stream
+        lib.sessd_sparse_conv_ablate_mma.argtypes = \
+            [ptr] * 4 + [i32] * 5 + [ptr]
         # out; n_bytes, block_bytes(, reps); stream
         i64 = ctypes.c_longlong
         lib.sessd_empty_launch.argtypes = [ptr, i64, i32, ptr]
@@ -200,6 +210,7 @@ def build() -> ctypes.CDLL:
         instances = (lib.sessd_sparse_conv_fwd_instance,
                      lib.sessd_fused_sparse_conv_stream_instance,
                      lib.sessd_fused_sparse_conv_instance,
+                     lib.sessd_sparse_conv_dfeat_instance,
                      lib.sessd_sparse_conv_dw_instance)
         for fn in instances:
             fn.argtypes = [i32] * 3
@@ -212,9 +223,11 @@ def build() -> ctypes.CDLL:
                    lib.sessd_fused_sparse_conv_scalar,
                    lib.sessd_fused_sparse_conv_at_split,
                    lib.sessd_sparse_conv_fwd,
-                   lib.sessd_sparse_conv_dfeat, lib.sessd_sparse_conv_dw,
-                   lib.sessd_sparse_conv_dw_scalar,
-                   lib.sessd_sparse_conv_ablate, lib.sessd_empty_launch,
+                   lib.sessd_sparse_conv_dfeat,
+                   lib.sessd_sparse_conv_dfeat_scalar,
+                   lib.sessd_sparse_conv_dw, lib.sessd_sparse_conv_dw_scalar,
+                   lib.sessd_sparse_conv_ablate,
+                   lib.sessd_sparse_conv_ablate_mma, lib.sessd_empty_launch,
                    lib.sessd_empty_launch_repeat,
                    lib.sessd_sparse_conv_fwd_repeat,
                    lib.sessd_fused_sparse_conv_wave,

@@ -6,12 +6,13 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 ``sessd_tpu/ops/pallas/wconv.py`` (the custom VJP of ``windowed_conv``).
 The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
 ``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
-tensor-core tile of the bf16 forward), built with the serving kernel by
-``ops.cuda.sparse_conv.build`` at the first CUDA call. On a CPU tensor each
-wrapper runs its twin; on a CUDA tensor it launches its kernel, counted in
-``<wrapper>.launches``, or raises. ``sparse_conv_dw_scalar`` (dW's scalar
-partial kernel in bf16, which the tensor-core one replaced) exists for
-same-call comparisons only; the training step never calls it.
+tensor-core tile of the bf16 forward and input gradient), built with the
+serving kernel by ``ops.cuda.sparse_conv.build`` at the first CUDA call.
+On a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches
+its kernel, counted in ``<wrapper>.launches``, or raises.
+``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar`` (the scalar
+bodies in bf16, which the tensor-core ones replaced) exist for same-call
+comparisons only; the training step never calls them.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -22,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from ..sparse import gather_gemm
-from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, DW_PAIRS, FWD_PAIRS,
-                          TILE_ROWS, build, conv_instance, raise_on_error)
+from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, DFEAT_PAIRS, DW_PAIRS,
+                          FWD_PAIRS, TILE_ROWS, build, conv_instance,
+                          raise_on_error)
 
 # rows of one dW split-K chunk (a multiple of 64, at most DW_MAX_CHUNK_ROWS
 # for the tensor-core partial kernel): 59 chunks x 27 taps of blocks at the
@@ -128,29 +130,69 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     return out
 
 
-def sparse_conv_dfeat(dout, inv, w2):
-    """dfeat[i] = sum_k dout[inv[i, k]] @ w2[k]^T. dout [N_out, Cout]
-    (zero on masked rows); inv [N_in, K] the inverse rulebook
-    (``ops.sparse.inverse_rulebook``, miss N_out); w2 [K, Cin, Cout].
-    Returns [N_in, Cin] in dout's dtype."""
-    if not _device(dout):
-        return sparse_conv_dfeat_ref(dout, inv, w2)
-    wt = w2.transpose(1, 2).contiguous()
-    _check(dout, inv, wt)
-    _check_gather(dout, inv, wt, "sparse_conv_dfeat")
+def _check_dfeat(dout, inv, w2):
+    _check(dout, inv, w2)
     taps, cin, cout = w2.shape
+    if w2.dtype != dout.dtype or (dout.shape[1], inv.shape[1]) != (cout,
+                                                                   taps):
+        raise ValueError(f"sparse_conv_dfeat: dout {tuple(dout.shape)} "
+                         f"{dout.dtype}, inverse rulebook "
+                         f"{tuple(inv.shape)}, weights {tuple(w2.shape)} "
+                         f"{w2.dtype}")
+    return taps, cin, cout
+
+
+def _launch_dfeat(entry, dout, inv, w, cin, cout, taps):
     lib = build()
     dfeat = torch.empty((inv.shape[0], cin), dtype=dout.dtype,
                         device=dout.device)
     with torch.cuda.device(dout.device):
-        rc = lib.sessd_sparse_conv_dfeat(
-            dout.data_ptr(), inv.data_ptr(), wt.data_ptr(), dfeat.data_ptr(),
+        rc = getattr(lib, "sessd_" + entry)(
+            dout.data_ptr(), inv.data_ptr(), w.data_ptr(), dfeat.data_ptr(),
             dout.shape[0], inv.shape[0], cin, cout, taps,
             _DTYPE_CODES[dout.dtype], _INDEX_BYTES[inv.dtype],
             torch.cuda.current_stream().cuda_stream)
-    raise_on_error(lib, rc, f"sparse_conv_dfeat (Cin={cin}, Cout={cout}, "
-                            f"K={taps})")
+    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
+    return dfeat
+
+
+def sparse_conv_dfeat(dout, inv, w2):
+    """dfeat[i] = sum_k dout[inv[i, k]] @ w2[k]^T. dout [N_out, Cout]
+    (zero on masked rows); inv [N_in, K] the inverse rulebook
+    (``ops.sparse.inverse_rulebook``, miss N_out); w2 [K, Cin, Cout], read
+    as it lies (no transposed copy). Returns [N_in, Cin] in dout's dtype.
+    bf16 runs the tensor-core tile with a K-major B, which copies 16-byte
+    chunks and wants dout and w2 16-byte aligned; f32 runs the scalar tile
+    (``conv_instance("sparse_conv_dfeat", dtype, Cout, Cin)``)."""
+    if not _device(dout):
+        return sparse_conv_dfeat_ref(dout, inv, w2)
+    taps, cin, cout = _check_dfeat(dout, inv, w2)
+    if (cout, cin) in DFEAT_PAIRS \
+            and conv_instance("sparse_conv_dfeat", dout.dtype, cout,
+                              cin) == "mma" \
+            and (dout.data_ptr() % 16 or w2.data_ptr() % 16):
+        raise ValueError("dout and w2 must be 16-byte aligned")
+    dfeat = _launch_dfeat("sparse_conv_dfeat", dout, inv, w2, cin, cout,
+                          taps)
     sparse_conv_dfeat.launches += 1
+    return dfeat
+
+
+def sparse_conv_dfeat_scalar(dout, inv, w2):
+    """``sparse_conv_dfeat`` through the scalar tile's bf16 body
+    (``sparse_conv_dfeat_scalar_kernel``), the one bf16 dFeat ran before
+    the tensor-core tile, with the transposed weights it takes: for
+    same-call comparisons only. bf16 only; CPU tensors take the twin.
+    Counted in ``sparse_conv_dfeat_scalar.launches``."""
+    if not _device(dout):
+        return sparse_conv_dfeat_ref(dout, inv, w2)
+    if dout.dtype != torch.bfloat16:
+        raise ValueError("the scalar entry takes bf16 only")
+    taps, cin, cout = _check_dfeat(dout, inv, w2)
+    wt = w2.transpose(1, 2).contiguous()
+    dfeat = _launch_dfeat("sparse_conv_dfeat_scalar", dout, inv, wt, cin,
+                          cout, taps)
+    sparse_conv_dfeat_scalar.launches += 1
     return dfeat
 
 
@@ -223,5 +265,6 @@ def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
 
 sparse_conv_fwd.launches = 0
 sparse_conv_dfeat.launches = 0
+sparse_conv_dfeat_scalar.launches = 0
 sparse_conv_dw.launches = 0
 sparse_conv_dw_scalar.launches = 0

@@ -2,13 +2,15 @@
 card: the serving convs (K1, and K3, the streaming one, also against K1:
 bit for bit in f32, and in bf16 where K1 runs one CTA per tile), the
 training conv's forward (K4), input gradient and weight gradient (K5), the
-tensor-core tile of bf16 K1, K3 and K4 on tiles that skip taps, K1's tap
-split over a cluster against one CTA per tile and against itself, dW's
-tensor-core partial kernel on chunks and steps that skip, the scalar
-entries kept for comparisons, and the micro-benchmark kernels (S1: the
-ablated conv tile, whose ``full`` mode equals the scalar entry of K1 with
-zero bias and no ReLU bit for bit; S2: the empty launch). Imports no JAX,
-so it runs on a GPU machine without it:
+tensor-core tile of bf16 K1, K3, K4 and dFeat (K-major B, one launch per
+call) on tiles that skip taps, K1's tap split over a cluster against one
+CTA per tile and against itself, dW's tensor-core partial kernel on chunks
+and steps that skip, the scalar entries kept for comparisons, and the
+micro-benchmark kernels (S1: the ablated scalar tile, whose ``full`` mode
+equals the scalar entry of K1 with zero bias and no ReLU bit for bit, and
+the ablated tensor-core tile, whose ``full`` mode equals bf16 K4 bit for
+bit; S2: the empty launch). Imports no JAX, so it runs on a GPU machine
+without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -202,10 +204,12 @@ def test_conv_instance_equals_the_c_entries(cuda):
                "fused_sparse_conv_stream":
                    lib.sessd_fused_sparse_conv_stream_instance,
                "fused_sparse_conv": lib.sessd_fused_sparse_conv_instance,
+               "sparse_conv_dfeat": lib.sessd_sparse_conv_dfeat_instance,
                "sparse_conv_dw": lib.sessd_sparse_conv_dw_instance}
     pairs = {"sparse_conv_fwd": sc.FWD_PAIRS,
              "fused_sparse_conv_stream": sc.STREAM_PAIRS,
              "fused_sparse_conv": sc.FUSED_PAIRS,
+             "sparse_conv_dfeat": sc.DFEAT_PAIRS,
              "sparse_conv_dw": sc.DW_PAIRS}
     for entry, fn in entries.items():
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
@@ -542,6 +546,115 @@ def test_dw_mma_rejects_misaligned_inputs(cuda):
     assert kt.sparse_conv_dw.launches == before
 
 
+# (conv Cin, conv Cout) of the input gradient's five gather pairs
+DFEAT_CONVS = [(b, a) for a, b in sc.DFEAT_PAIRS]
+DFEAT_CASES = [(cin, cout, k) for cin, cout in DFEAT_CONVS for k in (3, 27)]
+DEAD = slice(64, 192)  # input rows no output reads: two all-miss tiles
+LONE_IN = 200          # an input row read through one tap by one output
+
+
+def _dfeat_inputs(cin, cout, k, seed=0):
+    """A conv's injective rulebook over N_IN inputs in which input rows
+    64-191 are read by no output (their inverse tiles miss every tap),
+    input row LONE_IN by one output through tap k // 2 alone, and the rest
+    at a 60% rate; its weights and a cotangent."""
+    rng = np.random.RandomState(seed)
+    rows_in = np.setdiff1d(np.arange(N_IN), np.r_[64:192, LONE_IN])
+    rb = np.full((N_OUT, k), N_IN)
+    for t in range(k):
+        outs = rng.choice(N_OUT, int(N_OUT * 0.6), replace=False)
+        rb[outs, t] = rng.choice(rows_in, len(outs), replace=False)
+    free = np.flatnonzero(rb[:, k // 2] == N_IN)[0]
+    rb[free, k // 2] = LONE_IN
+    w2 = (rng.randn(k, cin, cout) / np.sqrt(k * cin)).astype(np.float32)
+    dout = rng.randn(N_OUT, cout).astype(np.float32)
+    return rb, w2, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", DFEAT_CASES,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in DFEAT_CASES])
+def test_dfeat_mma_matches_twin(cuda, cin, cout, k, idx_dtype):
+    """bf16 dFeat on the tensor-core tile (W read K-major as it lies)
+    within 2e-2 of its twin and of the scalar entry, over the inverse
+    rulebook of a conv whose inverse tiles skip every tap (all-miss rows
+    come out 0) or all but one."""
+    assert sc.conv_instance("sparse_conv_dfeat", torch.bfloat16, cout,
+                            cin) == "mma"
+    rb, w2, dout = _dfeat_inputs(cin, cout, k, seed=cin + cout + k)
+    r = torch.from_numpy(rb).to(cuda, idx_dtype)
+    w = torch.from_numpy(w2).to(cuda, torch.bfloat16)
+    d = torch.from_numpy(dout).to(cuda, torch.bfloat16)
+    inv = sp.inverse_rulebook(r, N_IN)
+    before = kt.sparse_conv_dfeat.launches
+    got = kt.sparse_conv_dfeat(d, inv, w)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dfeat.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (N_IN, cin)
+    want = kt.sparse_conv_dfeat_ref(d, inv, w)
+    assert _err(got, want) <= 2e-2
+    assert _err(got, kt.sparse_conv_dfeat_scalar(d, inv, w)) <= 2e-2
+    assert not got[DEAD].any()
+    assert _err(got[LONE_IN:LONE_IN + 1], want[LONE_IN:LONE_IN + 1]) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_dfeat_scalar_entry_matches_twin_and_takes_bf16_only(cuda):
+    rb, w2, dout = _dfeat_inputs(32, 64, 27)
+    r = torch.from_numpy(rb).to(cuda, torch.int32)
+    w = torch.from_numpy(w2).to(cuda, torch.bfloat16)
+    d = torch.from_numpy(dout).to(cuda, torch.bfloat16)
+    inv = sp.inverse_rulebook(r, N_IN)
+    counts = (kt.sparse_conv_dfeat.launches,
+              kt.sparse_conv_dfeat_scalar.launches)
+    got = kt.sparse_conv_dfeat_scalar(d, inv, w)
+    torch.cuda.synchronize()
+    assert (kt.sparse_conv_dfeat.launches,
+            kt.sparse_conv_dfeat_scalar.launches) == (counts[0],
+                                                      counts[1] + 1)
+    assert _err(got, kt.sparse_conv_dfeat_ref(d, inv, w)) <= 2e-2
+    with pytest.raises(ValueError, match="bf16"):
+        kt.sparse_conv_dfeat_scalar(d.float(), inv, w.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dfeat_allocates_only_its_output(cuda, dtype):
+    """A ``sparse_conv_dfeat`` call makes one device allocation, its output:
+    the weights are read as they lie, with no transposed copy (the kernel
+    count per call is held in ``test_kernels_profile_under_their_own_names``)."""
+    rb, w2, dout = _dfeat_inputs(64, 64, 27)
+    r = torch.from_numpy(rb).to(cuda, torch.int32)
+    w = torch.from_numpy(w2).to(cuda, dtype)
+    d = torch.from_numpy(dout).to(cuda, dtype)
+    inv = sp.inverse_rulebook(r, N_IN)
+    torch.cuda.synchronize()
+    allocs = lambda: torch.cuda.memory_stats()[  # noqa: E731
+        "allocation.all.allocated"]
+    before = allocs()
+    kt.sparse_conv_dfeat(d, inv, w)
+    assert allocs() == before + 1
+    if dtype == torch.bfloat16:  # the scalar entry copies W^T: two
+        before = allocs()
+        kt.sparse_conv_dfeat_scalar(d, inv, w)
+        assert allocs() == before + 2
+
+
+@pytest.mark.cuda
+def test_dfeat_mma_rejects_misaligned_inputs(cuda):
+    d = torch.zeros(N_OUT * 16 + 4, dtype=torch.bfloat16,
+                    device=cuda)[4:].view(N_OUT, 16)  # 8 bytes off
+    inv = torch.full((N_IN, 27), N_OUT, dtype=torch.int32, device=cuda)
+    w = torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda)
+    before = kt.sparse_conv_dfeat.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kt.sparse_conv_dfeat(d, inv, w)
+    assert kt.sparse_conv_dfeat.launches == before
+
+
 @pytest.mark.cuda
 def test_sparse_conv_function_on_card_matches_cpu(cuda):
     """Forward and both gradients of SparseConvFunction through the kernels
@@ -586,6 +699,8 @@ def _named_calls(cuda, dtype):
                                                    split=4)),
             ("fused_sparse_conv_scalar_kernel",
              lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, N_IN)),
+            ("sparse_conv_dfeat_scalar_kernel",
+             lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)),
             ("sparse_conv_dw_scalar_kernel",
              lambda: kt.sparse_conv_dw_scalar(f, r, d))]
     return calls
@@ -599,18 +714,29 @@ def test_kernels_profile_under_their_own_names(cuda, dtype):
     of its own, the names the step and request profilers
     (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the scalar
     bodies, in bf16 the tensor-core ones (K1 also at S = 4) and the scalar
-    entries kept for comparisons."""
+    entries kept for comparisons. A dFeat call is one kernel and nothing
+    else: no transposed copy of the weights. The profiler on the card
+    now and then delivers no device event of a whole profile; such an
+    empty capture says nothing of the kernels, so it is taken again (at
+    most 3 times)."""
     for name, call in _named_calls(cuda, dtype):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            call()
+        call()  # warm: the profile holds only the call itself
+        for _ in range(3):
             torch.cuda.synchronize()
-        kernels = {e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "sparse_conv" in e.name}
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            launched = [e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+            if launched:
+                break
+        kernels = {k for k in launched if "sparse_conv" in k}
         assert any(name in k for k in kernels), (name, kernels)
         assert all(name in k or "sparse_conv_dw_reduce_kernel" in k
                    for k in kernels), (name, kernels)
+        if name == "sparse_conv_dfeat_kernel":
+            assert len(launched) == 1, launched
 
 
 def test_train_wrappers_raise_off_cpu_and_cuda():
@@ -618,6 +744,7 @@ def test_train_wrappers_raise_off_cpu_and_cuda():
                                  _train_inputs(16, 32, 27))
     for fn, args in ((kt.sparse_conv_fwd, (feats, rb, w2)),
                      (kt.sparse_conv_dfeat, (dout, rb, w2)),
+                     (kt.sparse_conv_dfeat_scalar, (dout, rb, w2)),
                      (kt.sparse_conv_dw, (feats, rb, dout))):
         before = fn.launches
         with pytest.raises(ValueError, match="no kernel for device"):
@@ -703,10 +830,84 @@ def test_ablate_wrappers_raise_off_cpu_and_cuda():
     rb = torch.zeros((8, 27), dtype=torch.int32, device="meta")
     w2 = torch.zeros((27, 16, 16), dtype=torch.bfloat16, device="meta")
     before = (ablate.sparse_conv_ablate.launches,
+              ablate.sparse_conv_ablate_mma.launches,
               ablate.empty_launch.launches)
     with pytest.raises(ValueError, match="no kernel for device"):
         ablate.sparse_conv_ablate(feats, rb, w2)
     with pytest.raises(ValueError, match="no kernel for device"):
+        ablate.sparse_conv_ablate_mma(feats, rb, w2)
+    with pytest.raises(ValueError, match="no kernel for device"):
         ablate.empty_launch(feats)
     assert (ablate.sparse_conv_ablate.launches,
+            ablate.sparse_conv_ablate_mma.launches,
             ablate.empty_launch.launches) == before
+
+
+def _ablate_mma_inputs(cuda, channels):
+    """The ablation's own input at 16 channels; at 64 a random rulebook
+    with all-miss tiles (``_tile_inputs``), int32."""
+    if channels == 16:
+        bench, x = _ablate_inputs(cuda)
+        return x["feats"], x["rb"], x["w2"]
+    feats, rb, w2, _, _ = _tile_inputs(64, 64, 27)
+    return (torch.from_numpy(feats).to(cuda, torch.bfloat16),
+            torch.from_numpy(rb).to(cuda, torch.int32),
+            torch.from_numpy(w2).to(cuda, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [16, 64])
+def test_ablate_mma_full_equals_k4(cuda, channels):
+    """The tensor-core ablation's ``full`` mode is the tile bf16 K4 runs:
+    the same bits as ``sparse_conv_fwd`` without a mask."""
+    from sessd_torch.ops.cuda import ablate
+    feats, rb, w2 = _ablate_mma_inputs(cuda, channels)
+    before = ablate.sparse_conv_ablate_mma.launches
+    got = ablate.sparse_conv_ablate_mma(feats, rb, w2, "full")
+    want = kt.sparse_conv_fwd(feats, rb, w2)
+    torch.cuda.synchronize()
+    assert ablate.sparse_conv_ablate_mma.launches == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [16, 64])
+@pytest.mark.parametrize("mode", ["full", "linear", "no_gather", "mma_only",
+                                  "copy_only", "fixed"])
+def test_ablate_mma_mode_matches_plain(cuda, mode, channels):
+    """Each tensor-core mode against its plain version: within 2e-2 of
+    max|plain| (bf16 inputs and output, f32 sums), and exactly zero where
+    the mode stores zeros."""
+    from sessd_torch.ops.cuda import ablate
+    feats, rb, w2 = _ablate_mma_inputs(cuda, channels)
+    got = ablate.sparse_conv_ablate_mma(feats, rb, w2, mode)
+    torch.cuda.synchronize()
+    want = ablate.sparse_conv_ablate_mma_ref(feats, rb, w2, mode)
+    assert got.shape == want.shape == (rb.shape[0], channels)
+    assert got.dtype == torch.bfloat16
+    if mode in ("copy_only", "fixed"):
+        assert not got.any()
+    else:
+        assert _err(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_ablate_mma_rejects_what_it_does_not_take(cuda):
+    from sessd_torch.ops.cuda import ablate
+    feats, rb, w2 = _ablate_mma_inputs(cuda, 16)
+    before = ablate.sparse_conv_ablate_mma.launches
+    with pytest.raises(ValueError):      # f32 features
+        ablate.sparse_conv_ablate_mma(feats.float(), rb, w2.float())
+    with pytest.raises(ValueError):      # no such mode
+        ablate.sparse_conv_ablate_mma(feats, rb, w2, "fma_only")
+    with pytest.raises(ValueError):      # no 32-channel instance
+        ablate.sparse_conv_ablate_mma(
+            torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda),
+            rb[:64].clamp(max=64), torch.zeros(27, 32, 32,
+                                              dtype=torch.bfloat16,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        ablate.sparse_conv_ablate_mma(
+            feats.view(-1)[4:4 + 100 * 16].view(100, 16),  # 8 bytes off
+            rb.clamp(max=100), w2)
+    assert ablate.sparse_conv_ablate_mma.launches == before

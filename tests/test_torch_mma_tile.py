@@ -1,19 +1,23 @@
-"""The tensor-core gather tile of the bf16 training forward (K4) and the bf16
-streaming serving conv (K3), ``sessd_torch/csrc/gather_mma.cuh``, from the
-CPU:
+"""The tensor-core gather tile of the bf16 convs (K1, K3, K4) and of the bf16
+input gradient (dFeat, over the inverse rulebook with a K-major B),
+``sessd_torch/csrc/gather_mma.cuh``, from the CPU:
 
 - ``ops.sparse.tile_tap_hits``, the per-(tile, tap) any-hit flags that
   decide which taps the tile gathers and multiplies, against a numpy loop
-  on random rulebooks (ragged last tile, all-miss tiles, K = 3 and 27) and
-  on the host chains of ``native.build_rulebooks``;
+  on random rulebooks (ragged last tile, all-miss tiles, K = 3 and 27), on
+  the host chains of ``native.build_rulebooks`` and on their inverse
+  rulebooks (where a strided conv's input row hits at most 8 of 27 taps);
 - the tile's arithmetic with the skipped taps left out, written out in
   torch, against the JAX package's ``windowed_conv`` (the Pallas
-  ``_fwd_kernel`` in interpret mode) on those chains: a tap that no row of a
-  tile hits adds zero, so the sum is the same (atol 3e-4, rtol 1e-3: f32
-  sums in another order);
+  ``_fwd_kernel`` in interpret mode) on those chains, and the same over the
+  inverse rulebook with W^T against the JAX input gradient (``jax.vjp``
+  through ``windowed_conv``: ``_core``'s custom VJP, the Pallas
+  ``_bwd_kernel`` in interpret mode): a tap that no row of a tile hits adds
+  zero, so the sum is the same (atol 3e-4, rtol 1e-3: f32 sums in another
+  order);
 - ``ops.cuda.sparse_conv.conv_instance``, which names the body a call takes
-  (tensor-core or scalar) for K4, K3, K1 and dW, against the C entries'
-  dispatch tables and the header's rule;
+  (tensor-core or scalar) for K4, K3, K1, dFeat and dW, against the C
+  entries' dispatch tables and the header's rule;
 - the wrappers' contracts: CPU tensors take the plain twin, any device but
   CPU and CUDA raises.
 
@@ -23,6 +27,7 @@ import functools
 import pathlib
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,6 +117,29 @@ def test_tile_tap_hits_on_host_chains(kind, i):
     assert 0.0 < skipped < 1.0
 
 
+@pytest.mark.parametrize("kind,i", CHAIN_RBS,
+                         ids=[f"{a}{b}" for a, b in CHAIN_RBS])
+def test_tile_tap_hits_on_inverse_chains(kind, i):
+    """The tiles dFeat runs: 64 input rows over the inverse rulebook, whose
+    miss is the conv's output row count. A row of a strided conv's input
+    hits at most 8 of the 27 taps (one of two offsets per axis by its
+    coordinate's parity; the (3, 1, 1) conv: at most 2 of 3)."""
+    rb = chain()[kind][i]
+    n_in, n_out = _miss(kind, i), rb.shape[0]
+    for rbk in (rb, rb.astype(np.int16)):
+        inv = tsp.inverse_rulebook(torch.from_numpy(rbk), n_in)
+        hits, skipped = tsp.tile_tap_hits(inv, n_out)
+        want = _loop_hits(inv.numpy(), n_out)
+        np.testing.assert_array_equal(hits.numpy(), want)
+        assert skipped == pytest.approx(1.0 - want.mean())
+    per_row = (inv < n_out).sum(1)
+    if kind == "down":
+        assert int(per_row.max()) <= (8 if rb.shape[1] == 27 else 2)
+    else:  # a subm conv's inverse is its rulebook mirrored
+        assert hits[0, 13]
+    assert 0.0 < skipped < 1.0
+
+
 def _tile_sum(feats, rb, w2, miss):
     """The tensor-core tile's sum: per tile, only the taps it gathers, in
     tap order, in f64."""
@@ -162,6 +190,46 @@ def test_tile_sum_with_skipped_taps_matches_jax(case):
     np.testing.assert_allclose(twin.numpy(), want, atol=3e-4, rtol=1e-3)
 
 
+# (Cin, Cout, kind, chain index) of one conv per input-gradient pair
+# (its gather's (Cout, Cin)): 16->16, 32->16, 32->32, 64->32, 64->64 (K 27
+# and 3)
+DFEAT_CONVS = MMA_CONVS + [(32, 32, "subm", 1)]
+DFEAT_IDS = [f"{a}x{b}_{c}{d}" for a, b, c, d in DFEAT_CONVS]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dfeat(case):
+    """dfeat = the JAX input gradient of windowed_conv (Pallas core in
+    interpret mode) for a cotangent dout on every output row."""
+    feats, rb, w2, _ = _jax_forward(case)
+    rng = np.random.RandomState(7 + case[0] + case[1])
+    dout = rng.randn(rb.shape[0], case[1]).astype(np.float32)
+    mask = jnp.ones(rb.shape[0], bool)
+    _, vjp = jax.vjp(lambda x: windowed_conv(
+        x, jnp.asarray(rb), jnp.asarray(w2), mask, window=256, block=32,
+        interpret=True), jnp.asarray(feats))
+    return dout, np.array(vjp(jnp.asarray(dout))[0])
+
+
+@pytest.mark.parametrize("case", DFEAT_CONVS, ids=DFEAT_IDS)
+def test_dfeat_tile_sum_with_skipped_taps_matches_jax(case):
+    """dFeat's tile arithmetic: per 64-row tile of inputs, only the taps of
+    the inverse rulebook some row hits, each dout row times W[k]^T, in tap
+    order. Compared in f32: the JAX kernel rounds dG = W^T dout to the
+    features' dtype before its scatter (wconv.py:78-80) while the port
+    rounds once at the end, so bf16 is held only against the twin, on the
+    card (tests/test_torch_kernels_cuda.py)."""
+    feats, rb, w2, _ = _jax_forward(case)
+    dout, want = _jax_dfeat(case)
+    t = torch.from_numpy
+    inv = tsp.inverse_rulebook(t(rb), feats.shape[0])
+    got = _tile_sum(t(dout), inv, t(w2).transpose(1, 2), rb.shape[0])
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-4, rtol=1e-3)
+    twin = kt.sparse_conv_dfeat(t(dout), inv, t(w2))
+    np.testing.assert_allclose(twin.numpy(), want, atol=3e-4, rtol=1e-3)
+    assert np.abs(want).max() > 0
+
+
 def _source_pairs(path, macro):
     """The (Cin, Cout) cases of a dispatch macro in a C source."""
     text = (CSRC / path).read_text()
@@ -175,6 +243,8 @@ ENTRIES = {"sparse_conv_fwd": ("sparse_conv_train.cu", "SESSD_FWD_PAIRS"),
            "fused_sparse_conv_stream": ("sparse_conv_stream.cu",
                                         "SESSD_STREAM_PAIRS"),
            "fused_sparse_conv": ("sparse_conv.cu", "SESSD_FUSED_PAIRS"),
+           "sparse_conv_dfeat": ("sparse_conv_train.cu",
+                                 "SESSD_DFEAT_PAIRS"),
            "sparse_conv_dw": ("sparse_conv_train.cu", "SESSD_DW_PAIRS")}
 INSTANCE_CASES = [(entry, dtype, pair)
                   for entry, (path, macro) in ENTRIES.items()
@@ -188,8 +258,14 @@ def test_python_pairs_equal_the_c_dispatch_tables():
         *ENTRIES["fused_sparse_conv_stream"])
     assert sc.FUSED_PAIRS == _source_pairs(*ENTRIES["fused_sparse_conv"])
     assert sc.DW_PAIRS == _source_pairs(*ENTRIES["sparse_conv_dw"])
+    assert sc.DFEAT_PAIRS == _source_pairs(*ENTRIES["sparse_conv_dfeat"])
+    # the input gradient's pairs are the convs' swapped, but the first's
+    assert sc.DFEAT_PAIRS == tuple(sorted((b, a) for a, b in sc.FWD_PAIRS
+                                          if a != 4))
     # each __global__ with two bodies picks the tensor-core one by the rule
     for path, kernel in (("sparse_conv.cu", "fused_sparse_conv_kernel("),
+                         ("sparse_conv_train.cu",
+                          "sparse_conv_dfeat_kernel("),
                          ("sparse_conv_train.cu",
                           "sparse_conv_dw_partial_kernel(")):
         text = (CSRC / path).read_text()
@@ -213,8 +289,8 @@ def test_python_pairs_equal_the_c_dispatch_tables():
 def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     """bf16 with Cin, Cout in {16, 32, 64} takes the tensor-core body in
     every entry: K4 and K3 since the wgmma tile, K1 (with its cluster tap
-    split) and dW (mma.sync) since their redesign; the rest the scalar
-    one."""
+    split) and dW (mma.sync) since their redesign, dFeat (all five of its
+    pairs, K-major B) since its own; the rest the scalar one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
     mma = dtype == torch.bfloat16 and cin != 4
