@@ -95,6 +95,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    1 --out ...`` in a subprocess must write a record with the floor, each
    stage's AP trajectory and a finite AP (the path, not the AP, is
    checked).
+11. Pillars serving (after phase 3's head parity): PointPillars
+   (``point_pillars_kitti_car.py``, full width: 12,000 pillars x 100
+   points, the 496 x 432 grid, RPN 3/5/5 blocks at 64/128/256, 107,136
+   anchors; seeded random weights) in bf16 at batch 1 through
+   ``serve.PillarPreprocessor`` and ``make_pillar_infer_fn`` on
+   ``make_scene(0-3)``: host prep ms, p50 and p90, and one request split
+   by stage on the host clock (H2D, PFN, scatter, RPN, head, predict);
+   then with the cls bias at 0 (valid detections > 0), and the f32 model's
+   head outputs on the card against its run on the CPU within 1e-3 of the
+   max, with as many valid detections (> 0) as the CPU's run and the CPU's
+   decode of the card's head outputs. No sparse kernel launches.
+12. DI-NMS: one batch-1 SE-SSD Car request (f32) decoded on the card with
+   ``nms_type="rotate_weighted_nms"``, the cls bias at 0, the IoU head's at
+   1 and the box head scaled by BOX_SCALE; ``rotate_weighted_nms`` on the
+   decoded boxes against the host oracle ``core/nms_np.py`` on the same
+   boxes: the same leaders kept (> 0, up to nms_post_max_size), boxes
+   within 1e-4 and scores within 1e-5. The request launches K1 and K3 as
+   the stream rule gives; they join the kernels line's counts.
+13. Pillars training (after phase 10): a PointPillars Trainer (bf16, batch
+   2, no rulebooks, no sparse kernel launched) takes one epoch of 4 steps
+   on the 8-frame root and validates; ``tools.test`` on its checkpoint must
+   give the same AP tables. Step median, data-time share, peak memory.
+14. 3-class: a bf16 Trainer of ``se_ssd_kitti_3class.py`` (supervised, 6
+   anchors per location, 211,200 anchors) at ACCEPT_CAPS takes 4 steps at
+   batch 4 with exactly 10 K4, 9 dFeat and 10 dW launches per step and no
+   saturated batch; an f32 Trainer resumes its checkpoint and runs
+   ``validate()`` with the K1 and K3 launches per batch the stream rule
+   gives and ``cls_preds`` [4, 211200, 3]. Its launches join the K1, K3,
+   K4 and K5 counts of the kernels line.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``sparse_conv_dfeat_scalar``,
@@ -131,7 +160,10 @@ import numpy as np
 import torch
 
 from sessd_torch import builder
+from sessd_torch.core import box_torch, nms_np
+from sessd_torch.core.nms import rotate_weighted_nms
 from sessd_torch.models.backbone import PLAN, pick_conv
+from sessd_torch.models.pillars import PointPillars, pillar_scatter
 from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import ablate
 from sessd_torch.ops.cuda import sparse_conv as sc
@@ -140,7 +172,9 @@ from sessd_torch.scripts import acceptance_ap
 from sessd_torch.scripts import bench_launch_overhead as bench_launch
 from sessd_torch.scripts import bench_sparse_conv_ablate as bench_ablate
 from sessd_torch.scripts.profile_train import make_synthetic_root
+from sessd_torch.models.predict import predict_batch
 from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
+                               PillarPreprocessor, make_pillar_infer_fn,
                                HostPreprocessor, make_scene,
                                saturated_stages, stage_inputs)
 from sessd_torch.tools.train import load as load_train_config
@@ -675,7 +709,7 @@ def phase_train_kernels(trainer, db):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
-            rb = db["rulebooks" + sfx]
+            rb = db["inputs" + sfx]
             vox = db["voxels" + sfx]
             b, v = vox.shape[:2]
             feats = model.reader(vox.reshape(b * v, *vox.shape[2:]),
@@ -1007,7 +1041,7 @@ def phase_eval_kernels(trainer):
     finally:
         batches.close()
     dev = trainer.device
-    host_rb = trainer._batch_rulebooks(batch)
+    host_rb = trainer._eval_inputs(batch)
     vox = batch["voxels"]
     b, v = vox.shape[:2]
     full = saturated_stages(host_rb, [c * b for c in trainer.stage_capacity])
@@ -1268,19 +1302,24 @@ def _state_tensors(state) -> dict:
     return out
 
 
-def make_trainer(config, root, work, device, **values):
-    """A Trainer of the shipped ``config`` on the synthetic root at
-    ACCEPT_CAPS, with ``values`` set. The config is written out beside the
-    work dir (``<work>.py``: it runs the shipped file, under that file's
-    name so its own includes resolve, then sets the values as a config file
-    does), so ``cfg.get`` reads them and the file can go to ``tools.test``
-    as it is."""
-    values = {"stage_capacity": ACCEPT_CAPS, **values}
-    path = f"{work}.py"
+def write_config(config, path, **values) -> str:
+    """Write ``path``: a config file that runs the shipped ``config``, under
+    that file's name so its own includes resolve, then sets ``values`` as a
+    config file does (``Config`` has no ``__setattr__``), so ``cfg.get``
+    reads them and the file can go to ``tools.test`` as it is."""
     with open(path, "w") as f:
         f.write(f"__file__ = {str(builder.CONFIG_DIR / config)!r}\n"
                 "exec(compile(open(__file__).read(), __file__, 'exec'))\n"
                 + "".join(f"{k} = {v!r}\n" for k, v in values.items()))
+    return path
+
+
+def make_trainer(config, root, work, device, **values):
+    """A Trainer of the shipped ``config`` on the synthetic root at
+    ACCEPT_CAPS, with ``values`` set, through a config file written beside
+    the work dir (``<work>.py``, ``write_config``)."""
+    path = write_config(config, f"{work}.py",
+                        **{"stage_capacity": ACCEPT_CAPS, **values})
     cfg = load_train_config(path, root)
     return Trainer(cfg, work_dir=work, seed=SEED, device=device)
 
@@ -1353,6 +1392,385 @@ def phase_warm_start(root, tmp, device="cuda"):
           f"{have[1]}, counts {have[2]}/{have[3]}, {len(mine)} tensors "
           f"equal; launches {counts}")
     return counts
+
+
+PILLAR_REQUESTS = 12
+SPLIT_REPS = 10
+
+
+def _pillar_split(model, p, anchors, pcfg, device) -> dict:
+    """Where a batch-1 pillar request's time goes after host prep: the
+    host-to-device copy, the PFN, the scatter, the RPN, the head and
+    predict, each run alone and synchronized, medians of SPLIT_REPS."""
+    anchors = torch.from_numpy(anchors).to(device)
+    times = {k: [] for k in ("h2d", "pfn", "scatter", "rpn", "head",
+                             "predict")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ny, nx = model.grid_size
+    with torch.inference_mode():
+        for _ in range(SPLIT_REPS + 1):
+            vox, npts, coords, valid = timed("h2d", lambda: [
+                torch.from_numpy(a).to(device) for a in (
+                    p["voxels"], p["num_points"], p["pillars"]["coords"],
+                    p["pillars"]["valid"])])
+            feats = timed("pfn", lambda: model.reader(vox, npts, coords,
+                                                      valid))
+            bev = timed("scatter", lambda: pillar_scatter(
+                feats, coords, valid, 1, ny, nx))
+            x = timed("rpn", lambda: model.neck(bev))
+            preds = timed("head", lambda: model.bbox_head(x)[0])
+            timed("predict", lambda: predict_batch(
+                {k: v.float() for k, v in preds.items()}, anchors, pcfg))
+    return {k: float(np.median(v[1:])) for k, v in times.items()}
+
+
+def phase_pillar_serving(tmp, device):
+    """PointPillars (``point_pillars_kitti_car.py``, full width: 12,000
+    pillars x 100 points on the 496 x 432 grid, 107,136 anchors), seeded
+    random weights, batch 1 through ``PillarPreprocessor`` and
+    ``make_pillar_infer_fn``: bf16 latency on ``make_scene(0-3)`` with the
+    cls bias at the focal prior, then with the bias at 0; then the f32
+    model (TF32 off) on the card against the same module's f32 run on the
+    CPU: head outputs within 1e-3 of the max, and as many valid detections
+    (> 0) as the CPU's and as the CPU's decode of the card's head
+    outputs."""
+    cfg = load_train_config(write_config(
+        "point_pillars_kitti_car.py", f"{tmp}/pillars_bf16.py",
+        precision="bfloat16"))
+    model = builder.build_detector(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    set_prior(model, True)
+    model.to(device)
+    spec = builder.build_voxelizer(cfg.voxel_generator)
+    anchors = builder.build_anchors(cfg)
+    pcfg = builder.build_predict_config(cfg)
+    prep = PillarPreprocessor(spec)
+    infer = make_pillar_infer_fn(model, anchors, pcfg, 1, device)
+    scenes = [make_scene(seed=s)[0] for s in range(4)]
+    _reset_counts()
+
+    for pts in scenes:  # warm the host allocations
+        prep(pts)
+    t0 = time.perf_counter()
+    for pts in scenes:
+        prep(pts)
+    prep_ms = (time.perf_counter() - t0) / len(scenes) * 1e3
+    lat, pillars = [], []
+    for n in range(PILLAR_REQUESTS + 1):
+        if n == PILLAR_REQUESTS:
+            set_prior(model, False)
+        pts = scenes[n % 4]
+        t0 = time.perf_counter()
+        p = prep(pts)
+        boxes, scores, valid = infer(p)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if n and n < PILLAR_REQUESTS:  # request 0 is the warm-up
+            lat.append(dt)
+        pillars.append(int(p["pillars"]["valid"].sum()))
+        post = pcfg.nms_post_max_size
+        if boxes.shape != (1, post, 7) or scores.shape != (1, post):
+            raise AssertionError(f"pillars: shapes {boxes.shape} "
+                                 f"{scores.shape}")
+        if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+            raise AssertionError("pillars: non-finite outputs")
+    bf16_valid = int(valid.sum())
+    if not bf16_valid > 0:
+        raise AssertionError("pillars bf16, prior off: no detections")
+    set_prior(model, True)
+    split = _pillar_split(model, prep(scenes[0]), anchors, pcfg, device)
+    print(f"pillars serving bf16 b1: {len(anchors)} anchors, "
+          f"{min(pillars)}-{max(pillars)} pillars per scene, p50 "
+          f"{np.percentile(lat, 50):.3f} ms p90 {np.percentile(lat, 90):.3f}"
+          f" ms over {len(lat)} requests (host prep included), host prep "
+          f"{prep_ms:.3f} ms/scene; prior off: {bf16_valid} valid "
+          f"detections")
+    print("pillars b1 bf16 split (prior on; host-clock medians of "
+          f"{SPLIT_REPS}, each stage synchronized): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+    f32 = builder.build_detector(builder.load_config(
+        "point_pillars_kitti_car.py"))
+    f32.load_state_dict(model.state_dict())
+    set_prior(f32, False)
+    p = prep(scenes[0])
+    out = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        f32.to(dev).eval()
+        with torch.inference_mode():
+            preds = f32(torch.from_numpy(p["voxels"]).to(dev),
+                        torch.from_numpy(p["num_points"]).to(dev),
+                        {k: torch.from_numpy(v).to(dev)
+                         for k, v in p["pillars"].items()}, 1)[0]
+        out[name] = {k: v.float().cpu() for k, v in preds.items()}
+    worst = max(float((out["card"][k] - out["cpu"][k]).abs().max()
+                      / out["cpu"][k].abs().max()) for k in out["cpu"])
+    if not worst <= 1e-3:
+        raise AssertionError(f"pillars f32 head, card vs CPU: {worst:.3e}")
+    card = predict_batch({k: v.to(device) for k, v in out["card"].items()},
+                         torch.from_numpy(anchors).to(device), pcfg)
+    host = predict_batch(out["card"], torch.from_numpy(anchors), pcfg)
+    full_host = int(predict_batch(out["cpu"], torch.from_numpy(anchors),
+                                  pcfg)["valid"].sum())
+    n_card, n_host = int(card["valid"].sum()), int(host["valid"].sum())
+    if not n_card == n_host == full_host > 0:
+        raise AssertionError(f"pillars f32 detections: card {n_card}, CPU "
+                             f"{full_host}, CPU on the card's head outputs "
+                             f"{n_host}")
+    print(f"pillars f32 b1 (prior off): head card vs CPU within 1e-3 "
+          f"(worst {worst:.2e}); {n_card} valid detections on the card, "
+          f"{n_host} from the CPU's decode of the card's head outputs, "
+          f"{full_host} from the CPU's own forward")
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"pillars serving launched sparse kernels: "
+                             f"{counts}")
+    del model, f32
+    torch.cuda.empty_cache()
+
+
+BOX_SCALE = 0.05
+
+
+def phase_dinms(spec, device):
+    """DI-NMS on the card: one batch-1 SE-SSD Car request (f32, TF32 off)
+    decoded with the weights set as a trained head's outputs fall: the cls
+    bias at 0, so every anchor passes 0.3; the IoU head's bias at 1, raw IoU
+    predictions near 1; the box head's weights scaled by BOX_SCALE, so
+    boxes land near their anchors and overlap in clusters, where leaders
+    pass cnt > 2.6. The request is decoded with
+    ``nms_type="rotate_weighted_nms"``; ``rotate_weighted_nms`` on the
+    decoded boxes against the port's host oracle (``core/nms_np.py``) on
+    the same boxes: the same leaders kept (> 0; the card keeps the first
+    nms_post_max_size in pick order), boxes within 1e-4 and scores within
+    1e-5 (plus 1e-4 relative, the oracle sums in float64). The forward
+    launches K1 and K3 as often as the stream rule gives; returns those
+    launches."""
+    model, cfg = build_model("se_ssd_kitti_car.py", device, prior=False)
+    with torch.no_grad():
+        task = model.bbox_head.tasks[0]
+        task.conv_iou.bias.fill_(1.0)
+        task.conv_box.weight.mul_(BOX_SCALE)
+    anchors = torch.from_numpy(builder.build_anchors(cfg)).to(device)
+    pcfg = builder.build_predict_config(cfg)._replace(
+        nms_type="rotate_weighted_nms")
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    feats, rb = stage_inputs(**prep(make_scene(seed=0)[0]), device=device)
+    ones = torch.ones(feats.shape[0], dtype=torch.int32, device=device)
+    _reset_counts()
+    with torch.inference_mode():
+        preds = {k: v.float() for k, v in
+                 model(feats[:, None, :], ones, rb, 1)[0].items()}
+        counts = _counts()
+        k1, k3 = _want_launches(SERVING_CAPS, 1, model.dtype)
+        want = dict({n: 0 for n in counts}, fused_sparse_conv=k1,
+                    fused_sparse_conv_stream=k3)
+        if counts != want:
+            raise AssertionError(f"DI-NMS request launches {counts}, want "
+                                 f"{want}")
+        t0 = time.perf_counter()
+        dets = predict_batch(preds, anchors, pcfg)
+        torch.cuda.synchronize()
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        one = {k: v[0] for k, v in preds.items()}
+        boxes = box_torch.second_box_decode(one["box_preds"], anchors)
+        scores, labels = torch.sigmoid(one["cls_preds"]).max(dim=-1)
+        iou_r = ((one["iou_preds"][:, 0] + 1.0) * 0.5).clamp(0.0, 1.0)
+        nms_scores = torch.where(scores >= pcfg.score_threshold,
+                                 scores * iou_r.pow(pcfg.iou_rectify_pow),
+                                 -torch.inf)
+        dirs = one["dir_cls_preds"].argmax(dim=-1)
+        boxes5 = boxes[:, box_torch.BEV5_COLUMNS]
+        t0 = time.perf_counter()
+        got = rotate_weighted_nms(boxes, boxes5, dirs, labels, nms_scores,
+                                  one["iou_preds"][:, 0], anchors,
+                                  pre_max_size=pcfg.nms_pre_max_size,
+                                  post_max_size=pcfg.nms_post_max_size)
+        torch.cuda.synchronize()
+        nms_ms = (time.perf_counter() - t0) * 1e3
+    got = [t.cpu().numpy() for t in got]
+    host = {k: v.cpu().numpy() for k, v in dict(
+        boxes=boxes, boxes5=boxes5, dirs=dirs, labels=labels,
+        scores=nms_scores, iop=one["iou_preds"][:, 0], anchors=anchors)
+        .items()}
+    order = np.argsort(-host["scores"], kind="stable")[:pcfg.nms_pre_max_size]
+    order = order[np.isfinite(host["scores"][order])]
+    h = {k: v[order] for k, v in host.items()}
+    t0 = time.perf_counter()
+    damped = nms_np.centerness_damp(h["boxes"], h["anchors"], h["scores"])
+    ref_b, ref_d, ref_l, ref_s, _ = nms_np.rotate_weighted_nms_np(
+        h["boxes"], h["boxes5"], h["dirs"], h["labels"], damped, h["iop"])
+    host_s = time.perf_counter() - t0
+    # the card keeps the first nms_post_max_size leaders in pick order
+    m = int(got[4].sum())
+    if not m == min(len(ref_b), pcfg.nms_post_max_size) > 0:
+        raise AssertionError(f"DI-NMS kept {m} on the card, {len(ref_b)} on "
+                             "the host")
+    np.testing.assert_allclose(got[0][:m], ref_b[:m], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3][:m], ref_s[:m], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got[1][:m], ref_d[:m])
+    np.testing.assert_array_equal(got[2][:m], ref_l[:m])
+    n_valid = int(dets["valid"].sum())
+    if not n_valid > 0:
+        raise AssertionError("predict with DI-NMS: no detections")
+    print(f"DI-NMS b1 f32: {len(order)} candidates, {len(ref_b)} leaders "
+          f"kept on the host, the first {m} (nms_post_max_size) equal on the"
+          f" card: boxes within 1e-4 (worst "
+          f"{np.abs(got[0][:m] - ref_b[:m]).max():.2e}), scores within 1e-5 "
+          f"(worst {np.abs(got[3][:m] - ref_s[:m]).max():.2e}); card DI-NMS "
+          f"{nms_ms:.1f} ms, host oracle {host_s:.1f} s; predict_batch "
+          f"with DI-NMS {predict_ms:.1f} ms, {n_valid} valid detections; "
+          f"the forward launched K1 {k1} and K3 {k3} times")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _step_summary(trainer, peak) -> str:
+    hist = trainer.history
+    steady = hist[1:]
+    step_ms = float(np.median([h["step_time"] for h in steady])) * 1e3
+    data = sum(h["data_time"] for h in steady)
+    share = data / (data + sum(h["step_time"] for h in steady))
+    return (f"{len(hist)} steps, step median {step_ms:.3f} ms (steps "
+            f"2-{len(hist)}), data-time share {share:.3f}, peak device "
+            f"memory {peak / 2 ** 30:.3f} GiB, last loss "
+            f"{hist[-1]['loss']:.5g}")
+
+
+def _finite_history(trainer, what):
+    bad = [(h["step"], k) for h in trainer.history for k, v in h.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{what}: non-finite {bad}")
+
+
+PILLAR_STEPS = 4
+
+
+def phase_pillar_train(root, tmp, device):
+    """A PointPillars Trainer (bf16, batch 2, no rulebooks) on the 8-frame
+    root: one epoch of 4 steps, which ends in ``validate()``, then
+    ``python -m sessd_torch.tools.test`` on its checkpoint, which must give
+    the same AP tables. No sparse conv kernel launches."""
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = make_trainer("point_pillars_kitti_car.py", root,
+                           f"{tmp}/work_pillars", device,
+                           precision="bfloat16", total_epochs=1)
+    if (not isinstance(trainer.state.student, PointPillars)
+            or len(trainer.train_loader) != PILLAR_STEPS):
+        raise AssertionError(f"pillars trainer: {len(trainer.train_loader)}"
+                             " steps per epoch")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # tools.test's setting
+    try:
+        results = trainer.run()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"pillars launched sparse kernels: {counts}")
+    _finite_history(trainer, "pillars training")
+    if len(trainer.history) != PILLAR_STEPS or set(results) != {"Car"}:
+        raise AssertionError(f"pillars: {len(trainer.history)} steps, "
+                             f"validate gave {results}")
+    print(f"pillars training bf16 b2: {_step_summary(trainer, peak)}; "
+          f"{_ap_line(results)}")
+    out = os.path.join(tmp, "pillars_eval.pkl")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sessd_torch.tools.test", trainer.cfg.filename,
+         "--work_dir", trainer.work_dir, "--data-root", root, "--out", out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"pillars tools.test exited {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    with open(out, "rb") as f:
+        diff = _table_diff(pickle.load(f), results)
+    if diff:
+        raise AssertionError(f"pillars tools.test AP differs: {diff}")
+    print("pillars eval: tools.test on the epoch-1 checkpoint gave the same "
+          "AP tables")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+C3_STEPS = 4
+
+
+def phase_3class(root, tmp, device):
+    """The 3-class SE-SSD config (supervised, 6 anchors per location,
+    211,200 anchors) at ACCEPT_CAPS: a bf16 Trainer takes 4 steps at batch
+    4 (2 epochs of the 8-frame root) with exactly 10 forward, 9
+    input-gradient and 10 weight-gradient launches per step and no
+    saturated batch; then an f32 Trainer of the same config resumes its
+    checkpoint and runs ``validate()`` with the K1 and K3 launches per batch
+    the stream rule gives. Returns the launches of both."""
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = make_trainer("se_ssd_kitti_3class.py", root, f"{tmp}/work_c3",
+                           device, precision="bfloat16", total_epochs=2)
+    trainer.run(max_steps=C3_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    train_counts = _counts()
+    _no_saturation(trainer, "3-class training")
+    _finite_history(trainer, "3-class training")
+    want = {"sparse_conv_fwd": 10 * C3_STEPS,
+            "sparse_conv_dfeat": 9 * C3_STEPS,
+            "sparse_conv_dw": 10 * C3_STEPS}
+    got = {k: train_counts[k] for k in want}
+    if got != want or train_counts["fused_sparse_conv"] \
+            or train_counts["fused_sparse_conv_stream"]:
+        raise AssertionError(f"3-class training launches {train_counts}")
+    summary = _step_summary(trainer, peak)
+    del trainer
+    torch.cuda.empty_cache()
+
+    trainer = make_trainer("se_ssd_kitti_3class.py", root, f"{tmp}/work_c3",
+                           device, total_epochs=2)
+    trainer.resume()
+    if trainer.state.step != C3_STEPS:
+        raise AssertionError(f"3-class resume: step {trainer.state.step}")
+    shapes = []
+    hook = trainer.state.student.bbox_head.register_forward_hook(
+        lambda m, i, o: shapes.append(tuple(o[0]["cls_preds"].shape)))
+    _reset_counts()
+    try:
+        results = trainer.validate()
+    finally:
+        hook.remove()
+    eval_counts = _counts()
+    per_gpu = trainer.cfg.data["samples_per_gpu"]
+    n = -(-len(trainer.val_dataset) // per_gpu)
+    k1, k3 = _want_launches(trainer.stage_capacity, per_gpu, torch.float32)
+    got = (eval_counts["fused_sparse_conv"], eval_counts["fused_sparse_conv_stream"])
+    if got != (k1 * n, k3 * n) or eval_counts["sparse_conv_fwd"]:
+        raise AssertionError(f"3-class validate launches {eval_counts}")
+    if set(shapes) != {(per_gpu, len(trainer.anchors), 3)}:
+        raise AssertionError(f"3-class cls_preds shapes {set(shapes)}")
+    if results is None or set(results) != {"Car", "Pedestrian", "Cyclist"}:
+        raise AssertionError(f"3-class validate gave {results}")
+    _no_saturation(trainer, "3-class eval")
+    print(f"3-class training bf16 b4: {summary}; launches per step fwd "
+          f"{want['sparse_conv_fwd'] // C3_STEPS} dfeat "
+          f"{want['sparse_conv_dfeat'] // C3_STEPS} dw "
+          f"{want['sparse_conv_dw'] // C3_STEPS}, no batch saturated")
+    print(f"3-class eval f32: cls_preds {list(shapes[0])}, {n} batches, "
+          f"launches per batch K1 {k1} K3 {k3}; {_ap_line(results)}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: train_counts[k] + eval_counts[k] for k in train_counts}
+
 
 
 ACCEPT_ARGS = ("8", "4", "1", "1", "1")
@@ -1436,6 +1854,10 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
     try:
+        with phase("pillars serving"):
+            phase_pillar_serving(tmp, device)
+        with phase("DI-NMS"):
+            dinms_counts = phase_dinms(spec, device)
         root = f"{tmp}/kitti"
         t0 = time.perf_counter()
         make_synthetic_root(root, num_frames=8, num_cars=10)
@@ -1466,18 +1888,34 @@ def main():
             phase_warm_start(root, tmp)
         with phase("acceptance"):
             phase_acceptance(tmp)
+        with phase("pillars training"):
+            phase_pillar_train(root, tmp, device)
+        with phase("3-class"):
+            c3_counts = phase_3class(root, tmp, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     k1_launches = (launches + b8_counts["fused_sparse_conv"]
-                   + eval_counts["fused_sparse_conv"])
+                   + dinms_counts["fused_sparse_conv"]
+                   + eval_counts["fused_sparse_conv"]
+                   + c3_counts["fused_sparse_conv"])
     k3_launches = (b8_counts["fused_sparse_conv_stream"]
-                   + eval_counts["fused_sparse_conv_stream"])
+                   + dinms_counts["fused_sparse_conv_stream"]
+                   + eval_counts["fused_sparse_conv_stream"]
+                   + c3_counts["fused_sparse_conv_stream"])
     print(f"main-path launches: K1 {launches} (b1/b4) + "
           f"{b8_counts['fused_sparse_conv']} (b8) + "
-          f"{eval_counts['fused_sparse_conv']} (eval); K3 "
+          f"{dinms_counts['fused_sparse_conv']} (DI-NMS) + "
+          f"{eval_counts['fused_sparse_conv']} (eval) + "
+          f"{c3_counts['fused_sparse_conv']} (3-class eval); K3 "
           f"{b8_counts['fused_sparse_conv_stream']} (b8) + "
-          f"{eval_counts['fused_sparse_conv_stream']} (eval); eval K3 sums "
+          f"{dinms_counts['fused_sparse_conv_stream']} (DI-NMS) + "
+          f"{eval_counts['fused_sparse_conv_stream']} (eval) + "
+          f"{c3_counts['fused_sparse_conv_stream']} (3-class eval); "
+          f"K4/dFeat/dW {counts['sparse_conv_fwd']}/"
+          f"{counts['sparse_conv_dfeat']}/{counts['sparse_conv_dw']} (SE-SSD)"
+          f" + {c3_counts['sparse_conv_fwd']}/{c3_counts['sparse_conv_dfeat']}"
+          f"/{c3_counts['sparse_conv_dw']} (3-class); eval K3 sums "
           f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms, twin "
           f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")
     # times: K1 the 14 b1 bf16 convs, K3 the 7 streamed convs of a b8 bf16
@@ -1501,8 +1939,8 @@ def main():
                             ("sparse_conv_dw", "dw", 67)):
         kernels.append(_entry(
             name, "sessd_torch/csrc/sparse_conv_train.cu", f"{WCONV}:{line}",
-            counts[name], worst[key], train_ms[key][0], train_ms[key][1],
-            train_bounds[key]))
+            counts[name] + c3_counts[name], worst[key], train_ms[key][0],
+            train_ms[key][1], train_bounds[key]))
     kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
     kernels[3].update(

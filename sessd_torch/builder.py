@@ -20,6 +20,7 @@ from .data.dataset import KittiDataset
 from .data.loader import DataLoader
 from .data.pipeline import PipelineConfig
 from .models.detector import VoxelNet
+from .models.pillars import PointPillars
 from .models.predict import PredictConfig
 from .ops.voxelize import VoxelizerSpec
 from .train.losses import ConsistencyConfig, LossConfig
@@ -50,37 +51,48 @@ def build_voxelizer(cfg) -> VoxelizerSpec:
     )
 
 
-def build_detector(cfg, dense_from_stage: Optional[int] = None) -> VoxelNet:
+def build_detector(cfg, dense_from_stage: Optional[int] = None):
     """cfg: the full config (model + voxel_generator sections; ``precision``
-    sets the compute dtype, ``dense_from_stage`` the training plan, 3 by
-    default as in sessd_tpu/builder.py:70; the argument overrides it, e.g.
-    with ``teacher_dense_from_stage``). Parameters are left at construction
-    values; load a state dict or call ``reset_parameters(generator)``."""
+    sets the compute dtype) -> ``VoxelNet`` or ``PointPillars``
+    (sessd_tpu/builder.py:44-84). ``dense_from_stage`` is VoxelNet's
+    training plan, 3 by default as in sessd_tpu/builder.py:70; the argument
+    overrides it, e.g. with ``teacher_dense_from_stage``. Parameters are
+    left at construction values; load a state dict or call
+    ``reset_parameters(generator)``."""
     m = cfg.model
-    if m["type"] != "VoxelNet":
-        raise ValueError(f"detector type {m['type']} is not ported yet")
-    return VoxelNet(
-        num_input_features=m["reader"].get("num_input_features", 4),
-        sparse_shape=build_voxelizer(cfg.voxel_generator).sparse_shape,
-        tasks=tuple(dict(t) for t in m["bbox_head"]["tasks"]),
-        dtype=_DTYPES[cfg.get("precision", "float32")],
-        dense_from_stage=(cfg.get("dense_from_stage", 3)
-                          if dense_from_stage is None else dense_from_stage),
-    )
+    voxelizer = build_voxelizer(cfg.voxel_generator)
+    kw = dict(num_input_features=m["reader"].get("num_input_features", 4),
+              tasks=tuple(dict(t) for t in m["bbox_head"]["tasks"]),
+              dtype=_DTYPES[cfg.get("precision", "float32")])
+    if m["type"] == "VoxelNet":
+        return VoxelNet(
+            sparse_shape=voxelizer.sparse_shape,
+            dense_from_stage=(cfg.get("dense_from_stage", 3)
+                              if dense_from_stage is None
+                              else dense_from_stage), **kw)
+    if m["type"] == "PointPillars":
+        nx, ny, _ = voxelizer.grid_size
+        return PointPillars(grid_size=(ny, nx),
+                            voxel_size=tuple(voxelizer.voxel_size[:2]),
+                            pc_range=tuple(voxelizer.point_cloud_range),
+                            **kw)
+    raise ValueError(f"unknown detector type {m['type']}")
 
 
 def build_anchors(cfg) -> np.ndarray:
-    """[H*W*rotations, 7] anchors of the (single) anchor generator over the
-    BEV grid, the sparse shape's (y, x) extent // 8, in the head's
-    (y, x, rot) output order."""
-    gen = cfg.target_assigner["anchor_generators"][0]
-    _, h, w = build_voxelizer(cfg.voxel_generator).sparse_shape
-    return create_anchors_3d_range([1, h // 8, w // 8], gen["anchor_ranges"],
-                                   sizes=gen["sizes"],
-                                   rotations=gen["rotations"]).reshape(-1, 7)
+    """[H*W*classes*rotations, 7] anchors over the head's output grid (the
+    voxel grid // ``assigner.out_size_factor``), one block per anchor
+    generator, in the head's (y, x, class, rot) output order: the anchors
+    of the config's dataset (``data.pipeline.Pipeline.anchors``)."""
+    p = build_pipeline_config(cfg)
+    specs = p.anchor_specs or (dict(anchor_range=p.anchor_range,
+                                    sizes=p.anchor_sizes),)
+    return np.concatenate([create_anchors_3d_range(
+        p.feature_map_size, s["anchor_range"], s["sizes"],
+        p.anchor_rotations) for s in specs], axis=3).reshape(-1, 7)
 
 
-def set_cls_prior(model: VoxelNet, pi: Optional[float] = 0.01) -> None:
+def set_cls_prior(model, pi: Optional[float] = 0.01) -> None:
     """Every ``conv_cls`` bias to the focal prior logit log(pi / (1 - pi)),
     where a trained detector's background sits (bench.py:102-128); with
     ``pi=None`` the bias is 0 and every anchor scores about 0.5."""
@@ -93,8 +105,8 @@ def set_cls_prior(model: VoxelNet, pi: Optional[float] = 0.01) -> None:
 def build_predict_config(cfg) -> PredictConfig:
     tc = cfg.test_cfg
     nms_type = tc["nms"].get("nms_type", "rotate_nms")
-    if nms_type != "rotate_nms":
-        raise ValueError(f"nms_type {nms_type} is not ported yet")
+    if nms_type not in ("rotate_nms", "rotate_weighted_nms"):
+        raise ValueError(f"unknown nms_type {nms_type}")
     return PredictConfig(
         score_threshold=tc["score_threshold"],
         nms_pre_max_size=tc["nms"]["nms_pre_max_size"],
@@ -104,6 +116,7 @@ def build_predict_config(cfg) -> PredictConfig:
         post_center_range=tuple(tc["post_center_limit_range"]),
         use_dir_classifier=cfg.model["bbox_head"].get("loss_aux") is not None,
         direction_offset=cfg.model["bbox_head"].get("direction_offset", 0.0),
+        nms_type=nms_type,
     )
 
 

@@ -1,5 +1,6 @@
-"""Fixed-capacity rotated NMS (port of ``sessd_tpu/core/nms.py:19-83``),
-replacing the reference's CPU NMS (det3d/ops/nms/nms_cpu.h:72-170).
+"""Fixed-capacity rotated NMS (port of ``sessd_tpu/core/nms.py``),
+replacing the reference's CPU NMS (det3d/ops/nms/nms_cpu.h:72-170), and
+DI-NMS, its IoU-weighted variant (nms_cpu.h:174-383).
 
 Callers pass score-padded arrays (invalid rows carry score = -inf) and get a
 fixed-size index buffer plus a validity mask.
@@ -9,6 +10,15 @@ from __future__ import annotations
 import torch
 
 from .rotated_iou import iou_bev_matrix
+
+# DI-NMS settings (the reference's defaults, box_torch_ops.py:552-621):
+# keep a leader iff cnt > _CNT_THRESH; members and suppression at
+# _SUPPRESSED_THRESH; sigma by the leader's distance from the sensor,
+# (lo, hi, sigma) in m and m^2, 0 past the last edge
+_CENTERNESS_POW = 2
+_CNT_THRESH = 2.6
+_SUPPRESSED_THRESH = 0.3
+_SIGMA = ((0, 20, 0.0009), (20, 40, 0.009), (40, 60, 0.1))
 
 
 def rotate_nms(boxes5: torch.Tensor, scores: torch.Tensor, *,
@@ -51,3 +61,96 @@ def _greedy_keep(iou: torch.Tensor, valid_in: torch.Tensor,
         s, prev = ((~s)[:, None] & overlap).any(dim=0), s
         it += 1
     return ~s & valid_in
+
+
+def rotate_weighted_nms(boxes: torch.Tensor, boxes5: torch.Tensor,
+                        dir_labels: torch.Tensor, labels: torch.Tensor,
+                        scores: torch.Tensor, iou_preds: torch.Tensor,
+                        anchors: torch.Tensor, *,
+                        pre_max_size: int = 1000, post_max_size: int = 100,
+                        iou_threshold: float = 0.01):
+    """DI-NMS, the distance-interval IoU-weighted NMS of CIA-SSD (port of
+    ``sessd_tpu/core/nms.py:96-211``; reference nms_cpu.h:174-383 and its
+    wrapper box_torch_ops.py:552-621). The oracle is the literal host port
+    ``core.nms_np.rotate_weighted_nms_np``.
+
+    Boxes are taken in descending score order (``score = -inf`` rows are
+    padding; the lower index first on ties, as ``jax.lax.top_k``) and
+    damped by (1 - softmax of the box-to-anchor BEV distance over the valid
+    set)^2. Then leader by leader, in descending damped score among the
+    unsuppressed:
+
+    - cnt = sum over same-label j with iou(i, j) > 0 of iou * iou_preds[j];
+    - members: same-label j with iou > 0.3; the merged box averages all 7
+      dims of the members with weights exp(-(1 - iou)^2 / sigma) *
+      iou_preds[j], sigma by the leader's distance interval, 0 past the
+      last edge, where the leader's own box is kept;
+    - kept iff cnt > 2.6, scored with the members' best damped score, and
+      then every unsuppressed box at iou >= 0.3 (any label) is suppressed;
+      else only the leader is.
+
+    Each leader is one pass of vectorized [pre] work on the device against
+    the precomputed IoU matrix; the host reads one flag per leader (whether
+    any box is left), so the loop runs as many times as there are leaders.
+    ``iou_threshold`` is accepted and unused, as in the reference. Returns
+    (boxes [post, 7], dir_labels, labels, scores, valid), kept leaders first
+    in pick order, scores -inf where not valid."""
+    n = boxes5.shape[0]
+    pre = min(pre_max_size, n)
+    top_scores, order = torch.sort(scores, descending=True, stable=True)
+    top_scores, order = top_scores[:pre], order[:pre]
+    valid_in = top_scores > -torch.inf
+    d = (boxes[order, :2] - anchors[order, :2]).pow(2).sum(-1).sqrt()
+    d_max = torch.where(valid_in, d, -torch.inf).max()
+    e = torch.where(valid_in, torch.exp(d - d_max), 0.0)
+    softmax = e / e.sum().clamp_min(1e-20)
+    top_scores = torch.where(
+        valid_in, top_scores * (1.0 - softmax) ** _CENTERNESS_POW, -torch.inf)
+    b7 = boxes[order].float()
+    lab = labels[order]
+    iop = iou_preds[order].float()
+    iou = iou_bev_matrix(boxes5[order], boxes5[order])
+
+    dist = b7[:, :2].pow(2).sum(-1).sqrt()
+    sigma = torch.zeros_like(dist)
+    for lo, hi, sq in _SIGMA:
+        sigma = torch.where((dist >= lo) & (dist < hi), sq, sigma)
+
+    suppressed = ~valid_in
+    kept = torch.zeros_like(valid_in)
+    out_b = torch.zeros_like(b7)
+    out_s = torch.full_like(top_scores, -torch.inf)
+    while not bool(suppressed.all()):
+        # a [1] index keeps every step on the device (no .item())
+        idx = torch.where(suppressed, -torch.inf, top_scores).argmax().view(1)
+        ov = iou.index_select(0, idx)[0]
+        same = lab == lab.index_select(0, idx)
+        cnt = torch.where((ov > 0) & same & valid_in, ov * iop, 0.0).sum()
+        member = (ov > _SUPPRESSED_THRESH) & same & valid_in
+        sig = sigma.index_select(0, idx)
+        w = torch.where(member & (sig > 0),
+                        torch.exp(-(1.0 - ov) ** 2 / sig.clamp_min(1e-20))
+                        * iop, 0.0)
+        wsum = w.sum()
+        merged = torch.where(
+            wsum != 0,
+            (w[:, None] * b7).sum(0) / torch.where(wsum != 0, wsum, 1.0),
+            b7.index_select(0, idx)[0])
+        keep_it = cnt > _CNT_THRESH
+        suppressed = suppressed | (keep_it & (ov >= _SUPPRESSED_THRESH))
+        suppressed = suppressed.index_fill(0, idx, True)
+        kept = kept.index_put((idx,), keep_it.view(1))
+        out_b = out_b.index_put((idx,), torch.where(
+            keep_it, merged, out_b.index_select(0, idx)[0])[None])
+        out_s = out_s.index_put((idx,), torch.where(
+            keep_it, torch.where(member, top_scores, -torch.inf).max(),
+            out_s.index_select(0, idx)[0]).view(1))
+
+    # leaders are picked in strictly descending damped score (a recovery
+    # only restores boxes below the current leader), so kept leaders sorted
+    # by damped score are in pick order
+    kept_rank = torch.where(kept, -top_scores, torch.inf)
+    sel = torch.argsort(kept_rank, stable=True)[:post_max_size]
+    sel_valid = kept[sel]
+    return (out_b[sel], dir_labels[order][sel], labels[order][sel],
+            torch.where(sel_valid, out_s[sel], -torch.inf), sel_valid)

@@ -141,6 +141,39 @@ def make_train_rulebook_transform(
     return transform
 
 
+def make_chain_inputs_transform(
+    sparse_shape: Tuple[int, int, int],
+    stage_capacity: Sequence[int],
+    suffixes: Sequence[str] = ("",),
+) -> Callable[[dict], dict]:
+    """VoxelNet's host inputs as a batch transform: per suffix, the batch's
+    rulebook chain (one shard, no shard axis) under ``inputs<sfx>``, and
+    the stages whose id table is full under ``saturated<sfx>`` as (stage,
+    rows, rows cap). A full table means truncated voxels, or an exactly
+    filled stage: the chain reports no overflow count."""
+    chains = make_train_rulebook_transform(sparse_shape, stage_capacity,
+                                           suffixes=suffixes)
+    if chains is None:
+        raise RuntimeError("host rulebooks need native/rulebook.cpp")
+    sentinel = np.iinfo(np.int32).max
+
+    def transform(batch: dict) -> dict:
+        out = chains(batch)
+        for suffix in suffixes:
+            rb = {k: ([a[0] for a in v] if isinstance(v, list) else v[0])
+                  for k, v in out.pop("rulebooks" + suffix).items()}
+            b = np.asarray(batch["coords" + suffix]).shape[0]
+            rows = [int((np.asarray(rb["ids"][i]) < sentinel).sum())
+                    for i in range(len(stage_capacity))]
+            out["inputs" + suffix] = rb
+            out["saturated" + suffix] = [
+                (i, r, c * b) for i, (r, c) in enumerate(
+                    zip(rows, stage_capacity)) if r >= c * b]
+        return out
+
+    return transform
+
+
 def build_sharded_batch_rulebooks(coords, mask, sparse_shape, stage_capacity,
                                   num_shards, native=None, downs=None):
     """Per-shard chains with a leading [num_shards] axis for shard_map

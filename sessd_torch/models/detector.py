@@ -16,6 +16,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..data.rulebooks import make_chain_inputs_transform
 from .backbone import SpMiddleFHD
 from .head import MultiGroupHead
 from .layers import BatchNorm, uniform_
@@ -58,6 +59,15 @@ class VoxelNet(nn.Module):
                 uniform_(m.weight, math.sqrt(6.0 / m.in_channels), generator)
                 with torch.no_grad():
                     m.bias.zero_()
+
+    def host_transform(self, stage_capacity: Sequence[int],
+                       suffixes: Sequence[str] = ("",)) -> Callable:
+        """The batch transform that builds ``forward``'s third argument on
+        the host: per suffix, the rulebook chain at ``stage_capacity``
+        under ``inputs<sfx>``, its full stages under ``saturated<sfx>``
+        (``data.rulebooks.make_chain_inputs_transform``)."""
+        return make_chain_inputs_transform(self.sparse_shape, stage_capacity,
+                                           suffixes)
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
                 rulebooks: dict, batch_size: int,

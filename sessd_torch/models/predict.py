@@ -4,7 +4,8 @@ mg_head_sessd.py:893-1057):
 
     sigmoid score threshold (0.3)
     -> IoU-aware confidence rectification: score *= ((iou_pred+1)/2)^4
-    -> rotated NMS (pre 1000 / post 100 / IoU 0.01)
+    -> rotated NMS (pre 1000 / post 100 / IoU 0.01), or with
+       ``nms_type="rotate_weighted_nms"`` DI-NMS on the raw IoU predictions
     -> camera-frustum cull (evaluation; serving passes no frustum)
     -> direction-classifier heading flip by pi
     -> post_center_range mask
@@ -19,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import box_torch
-from ..core.nms import rotate_nms
+from ..core.nms import rotate_nms, rotate_weighted_nms
 
 
 class PredictConfig(NamedTuple):
@@ -35,6 +36,9 @@ class PredictConfig(NamedTuple):
     post_center_range: tuple = (0.0, -40.0, -5.0, 70.4, 40.0, 5.0)
     use_dir_classifier: bool = True
     direction_offset: float = 0.0
+    # "rotate_nms" or "rotate_weighted_nms" (the CIA-SSD DI-NMS decode mode
+    # kept in SE-SSD, mg_head_sessd.py:999-1022)
+    nms_type: str = "rotate_nms"
 
 
 def points_in_frustum(points: torch.Tensor,
@@ -66,17 +70,32 @@ def predict_single(preds: dict, anchors: torch.Tensor, cfg: PredictConfig,
     scores = scores * torch.pow(iou_r, cfg.iou_rectify_pow)
     nms_scores = torch.where(keep, scores, -torch.inf)
 
-    sel, valid = rotate_nms(boxes[:, box_torch.BEV5_COLUMNS], nms_scores,
-                            pre_max_size=cfg.nms_pre_max_size,
-                            post_max_size=cfg.nms_post_max_size,
-                            iou_threshold=cfg.nms_iou_threshold)
-    out_boxes = boxes[sel]
+    boxes5 = boxes[:, box_torch.BEV5_COLUMNS]
+    if cfg.nms_type == "rotate_weighted_nms":
+        # the reference's call (mg_head_sessd.py:1001-1018): raw iou_preds,
+        # before rectification, and the per-box anchors
+        out_boxes, dir_labels, out_labels, out_scores, valid = \
+            rotate_weighted_nms(
+                boxes, boxes5, preds["dir_cls_preds"].argmax(dim=-1),
+                top_labels, nms_scores, preds["iou_preds"][..., 0], anchors,
+                pre_max_size=cfg.nms_pre_max_size,
+                post_max_size=cfg.nms_post_max_size,
+                iou_threshold=cfg.nms_iou_threshold)
+    else:
+        sel, valid = rotate_nms(boxes5, nms_scores,
+                                pre_max_size=cfg.nms_pre_max_size,
+                                post_max_size=cfg.nms_post_max_size,
+                                iou_threshold=cfg.nms_iou_threshold)
+        out_boxes, out_scores, out_labels = boxes[sel], scores[sel], \
+            top_labels[sel]
+        dir_labels = None
     if frustum_surfaces is not None:
         valid = valid & points_in_frustum(out_boxes[:, :3], frustum_surfaces)
 
     if cfg.use_dir_classifier:
         # kept exactly as the JAX package has it (predict.py:118-122)
-        dir_labels = preds["dir_cls_preds"].argmax(dim=-1)[sel]
+        if dir_labels is None:
+            dir_labels = preds["dir_cls_preds"].argmax(dim=-1)[sel]
         opp = ((out_boxes[:, 6] - cfg.direction_offset) > 0) ^ (
             dir_labels == 1)
         out_boxes[:, 6] += torch.where(opp, math.pi, 0.0)  # a gathered copy
@@ -88,8 +107,8 @@ def predict_single(preds: dict, anchors: torch.Tensor, cfg: PredictConfig,
     valid = valid & in_range
     return {
         "box3d_lidar": torch.where(valid[:, None], out_boxes, 0.0),
-        "scores": torch.where(valid, scores[sel], 0.0),
-        "label_preds": torch.where(valid, top_labels[sel], 0),
+        "scores": torch.where(valid, out_scores, 0.0),
+        "label_preds": torch.where(valid, out_labels, 0),
         "valid": valid,
     }
 
@@ -101,15 +120,18 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
     [B, A, 7]; frustum_surfaces [B, 6, 4, 3] (evaluation) or None
     (serving). Returns the predict_single dict stacked over the batch.
 
-    Two-level NMS: when no sample has more than ``nms_pre_small`` boxes
-    above the score threshold, top-k at that capacity already holds every
-    candidate the full path would consider, so the small path is exact.
+    Two-level NMS (``rotate_nms`` only; DI-NMS always runs at
+    ``nms_pre_max_size``): when no sample has more than ``nms_pre_small``
+    boxes above the score threshold, top-k at that capacity already holds
+    every candidate the full path would consider, so the small path is
+    exact.
     """
     b, n_anchors = preds["box_preds"].shape[:2]
     if anchors.dim() == 2:
         anchors = anchors.expand(b, *anchors.shape)
     small = cfg.nms_pre_small
-    if small and small < min(cfg.nms_pre_max_size, n_anchors):
+    if (cfg.nms_type == "rotate_nms" and small
+            and small < min(cfg.nms_pre_max_size, n_anchors)):
         counts = (torch.sigmoid(preds["cls_preds"]).amax(dim=-1)
                   >= cfg.score_threshold).sum(dim=-1)
         if int(counts.max()) <= small:

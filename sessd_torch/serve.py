@@ -15,6 +15,12 @@ reusable buffers wraps (its aliasing contract below). Rulebooks arrive as
 int16 at batch 1 and as int32 at batch 4 and 8, where caps x batch exceed
 2^15; the kernels take both. ``make_scene`` is the seeded ray-cast
 KITTI-like scan used as a synthetic request.
+
+PointPillars serves through ``PillarPreprocessor`` and
+``make_pillar_infer_fn`` (``bench.py:178-260``'s prep and infer): the
+native voxelize at the pillar spec, padded to the fixed capacity with a
+mask and no rulebooks, then one device pass: PFN -> scatter -> RPN -> head
+-> decode + NMS.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from .data.rulebooks import DOWNS
+from .models.pillars import pillar_inputs
 from .models.predict import PredictConfig, predict_batch
 from .ops.voxelize import VoxelizerSpec
 from .utils.native import get_native
@@ -31,7 +38,7 @@ from .utils.synth_scene import make_scene
 
 __all__ = ["SERVING_CAPS", "TRAIN_CAPS", "DOWNS", "HostPreprocessor",
            "make_scene", "saturated_stages", "stage_inputs", "make_infer_fn",
-           "ExactBatchServer"]
+           "ExactBatchServer", "PillarPreprocessor", "make_pillar_infer_fn"]
 
 
 class HostPreprocessor:
@@ -249,3 +256,64 @@ class ExactBatchServer:
         if saturated_stages(p["rulebooks"], safe_b):
             self.stats["safe_saturated"] += 1
         return self.safe_infer(p["feats"], p["rulebooks"])
+
+
+class PillarPreprocessor:
+    """points [P, 4] (``batch``: a list of them) -> the pillar model's
+    inputs (numpy): the native FCFS voxelize at ``spec`` (0.16 m pillars,
+    ``max_points`` points, ``max_voxels`` pillars per scene), padded to that
+    capacity, with the mask in the placement dict. Every output array is
+    new."""
+
+    def __init__(self, spec: VoxelizerSpec):
+        self.spec = spec
+        self.native = get_native()
+        if self.native is None:
+            raise RuntimeError("native toolchain unavailable; pillar "
+                               "serving needs native/voxelize.cpp")
+
+    def __call__(self, points: np.ndarray) -> dict:
+        return self.batch([points])
+
+    def batch(self, scenes) -> dict:
+        """{"voxels" [B*V, P, 4], "num_points" [B*V], "pillars":
+        {"coords" [B*V, 4], "valid" [B*V]}}."""
+        spec, b = self.spec, len(scenes)
+        v, p = spec.max_voxels, spec.max_points
+        voxels = np.zeros((b, v, p, 4), np.float32)
+        coords = np.zeros((b, v, 3), np.int32)
+        num_points = np.zeros((b, v), np.int32)
+        mask = np.zeros((b, v), bool)
+        for s, points in enumerate(scenes):
+            vox, c, n = self.native.voxelize(
+                points, spec.point_cloud_range, spec.voxel_size, p, v)
+            k = vox.shape[0]
+            voxels[s, :k], coords[s, :k], num_points[s, :k] = vox, c, n
+            mask[s, :k] = True
+        return {"voxels": voxels.reshape(b * v, p, 4),
+                "num_points": num_points.reshape(b * v),
+                "pillars": pillar_inputs(coords, mask)}
+
+
+def make_pillar_infer_fn(model, anchors, predict_cfg: PredictConfig,
+                         batch_size: int, device) -> Callable:
+    """Returns ``infer(prepped) -> (box3d_lidar, scores, valid)`` for a
+    ``PointPillars`` already on ``device``; ``prepped`` is
+    ``PillarPreprocessor``'s output for ``batch_size`` scenes (numpy, or
+    device tensors)."""
+    device = torch.device(device)
+    anchors = _to_device(anchors, device).float()
+    model.eval()
+
+    @torch.inference_mode()
+    def infer(prepped):
+        pillars = {k: _to_device(a, device)
+                   for k, a in prepped["pillars"].items()}
+        preds = model(_to_device(prepped["voxels"], device),
+                      _to_device(prepped["num_points"], device), pillars,
+                      batch_size)
+        dets = predict_batch({k: v.float() for k, v in preds[0].items()},
+                             anchors, predict_cfg, frustum_surfaces=None)
+        return dets["box3d_lidar"], dets["scores"], dets["valid"]
+
+    return infer

@@ -37,12 +37,12 @@ def sigmoid_rampup(epoch, rampup_epochs: float = 15.0) -> float:
 
 def _flat(batch: dict, suffix: str = ""):
     """Loader layout [B, V, ...] -> the model's (voxels [B*V, P, F],
-    num_points [B*V], rulebook chain)."""
+    num_points [B*V], third forward argument)."""
     vox = batch["voxels" + suffix]
     b, v = vox.shape[:2]
     return (vox.reshape(b * v, *vox.shape[2:]),
             batch["num_points" + suffix].reshape(b * v),
-            batch["rulebooks" + suffix], b)
+            batch["inputs" + suffix], b)
 
 
 def make_train_step(loss_cfg: LossConfig = LossConfig(),
@@ -52,7 +52,8 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
     """Returns ``train_step(state, batch, consistency_weight) -> metrics``.
 
     batch (leading dim B, on the modules' device): voxels [B, V, P, F],
-    num_points [B, V], rulebooks (the host chain of the batch, as tensors),
+    num_points [B, V], inputs (the model's third forward argument: the
+    batch's host chain for VoxelNet, ``host_transform``, as tensors),
     the same three with the ``_raw`` suffix (teacher inputs, un-augmented),
     anchors [B, A, 7], labels / reg_targets (+ ``_raw``) [B, A(, 7)],
     transformation: flipped / noise_rotation / noise_scale [B].

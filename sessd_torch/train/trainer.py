@@ -24,6 +24,10 @@ student, Adam moments kept, the schedule restarted).
 chains (the fused sparse conv kernels, streaming where the JAX package
 streams), the predict path with the camera-frustum cull, and the official
 KITTI AP. Multi-host evaluation is not ported yet.
+
+The model builds its own third forward argument on the host
+(``host_transform``): VoxelNet its rulebook chain, PointPillars its pillars'
+coordinates and mask, with no chain (sessd_tpu/train/trainer.py:150-176).
 """
 from __future__ import annotations
 
@@ -38,10 +42,8 @@ import torch
 from .. import builder
 from ..data.kitti_eval import format_results
 from ..data.loader import _stack_examples
-from ..data.rulebooks import (build_batch_rulebooks,
-                              make_train_rulebook_transform)
 from ..models.predict import predict_batch
-from ..serve import TRAIN_CAPS, saturated_stages
+from ..serve import TRAIN_CAPS
 from ..utils import checkpoint as ckpt
 from ..utils.logging import (LogBuffer, TensorBoardLogger, TextLogger,
                              device_memory_stats, get_root_logger)
@@ -113,11 +115,9 @@ class Trainer:
 
         self.suffixes = ("", "_raw") if self.enable_ssl else ("",)
         self.stage_capacity = tuple(cfg.get("stage_capacity") or TRAIN_CAPS)
-        transform = make_train_rulebook_transform(
-            student.sparse_shape, self.stage_capacity, suffixes=self.suffixes)
-        if transform is None:
-            raise RuntimeError("host rulebooks need native/rulebook.cpp")
-        self.train_loader.batch_transform = transform
+        # the model's third forward argument, built by the loader
+        self.train_loader.batch_transform = student.host_transform(
+            self.stage_capacity, self.suffixes)
         self.anchors = torch.from_numpy(
             self.train_dataset.anchors.astype(np.float32)).to(self.device)
         self.predict_cfg = builder.build_predict_config(cfg)
@@ -140,8 +140,7 @@ class Trainer:
         return self._sat_total
 
     def _device_batch(self, batch: dict) -> dict:
-        """The step's inputs as device tensors; each rulebook leaf drops the
-        loader's leading shard axis (one shard). On a CUDA device each
+        """The step's inputs as device tensors. On a CUDA device each
         array goes through pinned memory with a non-blocking copy, so the
         host does not wait for the previous step's device work."""
         dev = self.device
@@ -155,10 +154,9 @@ class Trainer:
         for sfx in self.suffixes:
             for k in _STEP_KEYS:
                 out[k + sfx] = put(batch[k + sfx])
-            out["rulebooks" + sfx] = {
-                k: ([put(a[0]) for a in v] if isinstance(v, list)
-                    else put(v[0]))
-                for k, v in batch["rulebooks" + sfx].items()}
+            out["inputs" + sfx] = {
+                k: ([put(a) for a in v] if isinstance(v, list) else put(v))
+                for k, v in batch["inputs" + sfx].items()}
         if self.enable_ssl:
             out["transformation"] = {k: put(v) for k, v in
                                      batch["transformation"].items()}
@@ -342,19 +340,14 @@ class Trainer:
             log.tb.log(avg, self.state.step)
 
     def _check_train_saturation(self, batch):
-        """Per-batch capacity guard on the loader-built train chains
+        """Per-batch capacity guard on the loader-built model inputs
         (trainer.py:498-540). A stage whose id table is FULL has truncated
         voxels: the rest of that sample's scene contributes zero features.
         That is an accuracy fault, so every batch is checked (a few numpy
         sums) and the first one is warned about loudly; the count per epoch
         follows at the epoch's end."""
-        b = batch["voxels"].shape[0]
-        caps = [c * b for c in self.stage_capacity]
-        sentinel = np.iinfo(np.int32).max
-        hit = [(name, i, int((np.asarray(batch[name]["ids"][i])
-                              < sentinel).sum()), caps[i])
-               for name in ("rulebooks", "rulebooks_raw") if name in batch
-               for i in saturated_stages(batch[name], caps)]
+        hit = [("inputs" + sfx, *h) for sfx in self.suffixes
+               for h in batch["saturated" + sfx]]
         if not hit:
             return
         self._sat_batches += 1
@@ -375,8 +368,8 @@ class Trainer:
     # evaluation (trainer.py:363-467, 592-636, 753-829)
 
     def _build_eval_fn(self):
-        """``run(model, batch, rulebooks) -> dets``: the all-sparse serving
-        plan of ``model`` (eval mode) on the batch's host chain, then
+        """``run(model, batch, inputs) -> dets``: the all-sparse serving
+        plan of ``model`` (eval mode) on the batch's host inputs, then
         ``predict_batch`` with the batch's camera frustum."""
         dev, anchors, pcfg = self.device, self.anchors, self.predict_cfg
 
@@ -384,11 +377,11 @@ class Trainer:
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         @torch.inference_mode()
-        def run(model, batch, rulebooks):
+        def run(model, batch, inputs):
             vox = batch["voxels"]
             b, v = vox.shape[:2]
             rb = {k: ([put(a) for a in x] if isinstance(x, list) else put(x))
-                  for k, x in rulebooks.items()}
+                  for k, x in inputs.items()}
             was_training = model.training
             model.eval()
             try:
@@ -402,15 +395,13 @@ class Trainer:
 
         return run
 
-    def _batch_rulebooks(self, batch):
-        """The host C++ chain of a padded eval batch, with the capacity
-        saturation warning (once per trainer): a full stage id table means
-        truncated voxels, so degraded detections."""
-        rb = build_batch_rulebooks(batch["coords"], batch["voxel_mask"],
-                                   self.state.student.sparse_shape,
-                                   self.stage_capacity)
-        caps = [c * batch["coords"].shape[0] for c in self.stage_capacity]
-        full = saturated_stages(rb, caps)
+    def _eval_inputs(self, batch):
+        """The model's host inputs for a padded eval batch (VoxelNet: its
+        C++ chain), with the capacity saturation warning (once per
+        trainer): a full stage id table means truncated voxels, so
+        degraded detections."""
+        out = self.state.student.host_transform(self.stage_capacity)(batch)
+        full = out["saturated"]
         if full and not self._eval_sat_warned:
             self.logger.warning(
                 "EVAL CAP SATURATION at stages %s (rows %s): stage id table "
@@ -418,9 +409,9 @@ class Trainer:
                 "overflow count, so an exactly-full table also trips this); "
                 "if truncated, detections are degraded — raise "
                 "stage_capacity for this data density",
-                full, [caps[i] for i in full])
+                [i for i, _, _ in full], [c for _, _, c in full])
             self._eval_sat_warned = True
-        return rb
+        return out["inputs"]
 
     def _eval_batch(self, batch, use_ema: bool) -> dict:
         """Pad a trailing batch to ``samples_per_gpu`` and run it; returns
@@ -435,7 +426,7 @@ class Trainer:
         if self._eval_fn is None:
             self._eval_fn = self._build_eval_fn()
         model = self.state.teacher if use_ema else self.state.student
-        dets = self._eval_fn(model, batch, self._batch_rulebooks(batch))
+        dets = self._eval_fn(model, batch, self._eval_inputs(batch))
         return {k: v.cpu().numpy() for k, v in dets.items()}
 
     @staticmethod

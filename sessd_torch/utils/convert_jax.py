@@ -1,9 +1,11 @@
-"""JAX ``VoxelNet`` variables -> the port's state dict (det3d names).
+"""JAX ``VoxelNet`` and ``PointPillars`` variables -> the port's state dict
+(det3d names).
 
-The exact inverse of ``sessd_tpu/utils/convert_torch.convert_state_dict``
-(convert_torch.py:80-130), so ``convert_state_dict(convert_jax(v)) == v``.
-Inputs are the flax variables ``{"params", "batch_stats"}`` as numpy (or
-array-like) leaves; this module imports no JAX.
+For VoxelNet the exact inverse of
+``sessd_tpu/utils/convert_torch.convert_state_dict`` (convert_torch.py:
+80-130), so ``convert_state_dict(convert_jax(v)) == v``. Inputs are the
+flax variables ``{"params", "batch_stats"}`` as numpy (or array-like)
+leaves; this module imports no JAX.
 
 Layer mappings:
 - sparse kernels [K, cin, cout] -> spconv [kd, kh, kw, cin, cout]
@@ -13,6 +15,9 @@ Layer mappings:
   undone)
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var
+- PointPillars: the PFN's flax Dense [in, out] -> Linear [out, in]; the
+  RPN's stride-1 upsampler, a flax 1x1 Conv, -> the reference's 1x1
+  ConvTranspose2d [in, out, 1, 1]
 """
 from __future__ import annotations
 
@@ -43,7 +48,15 @@ SSFA_MODULES = [
     ("neck.w_0.0", "neck.w_0.1"),
     ("neck.w_1.0", "neck.w_1.1"),
 ]
-SSFA_TRANSPOSE = {8, 9}  # deconv blocks
+
+# the PointPillars RPN's (conv, BN) entries in the JAX call order
+# (ConvBnRelu_i): per stage the strided conv (index 1, after the block's
+# zero pad), its 3 or 5 convs at 4 + 3j, then the upsampler
+RPN_MODULES = [
+    pair for i, n in enumerate((3, 5, 5))
+    for pair in [(f"neck.blocks.{i}.{c}", f"neck.blocks.{i}.{c + 1}")
+                 for c in [1] + [4 + 3 * j for j in range(n)]]
+    + [(f"neck.deblocks.{i}.0", f"neck.deblocks.{i}.1")]]
 
 # kernel shape of each backbone block, in call order
 BACKBONE_KERNELS = [k for _, n_subm, dk, _, _ in PLAN
@@ -57,10 +70,56 @@ def _bn(prefix: str, params: dict, stats: dict) -> Dict[str, np.ndarray]:
             prefix + ".running_var": stats["var"]}
 
 
+def _conv2d(p: dict) -> np.ndarray:
+    """A flax ``Conv_0`` [kh, kw, in, out] -> torch Conv2d [out, in, kh, kw],
+    or a ``ConvTranspose_0``, spatially flipped, -> ConvTranspose2d [in,
+    out, kh, kw]."""
+    if "ConvTranspose_0" in p:
+        return np.transpose(
+            np.asarray(p["ConvTranspose_0"]["kernel"])[::-1, ::-1],
+            (2, 3, 0, 1))
+    return np.transpose(np.asarray(p["Conv_0"]["kernel"]), (3, 2, 0, 1))
+
+
+def _convert_pillars(params: dict, stats: dict) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    pfn, pfn_stats = params["reader"]["PFNLayer_0"], \
+        stats["reader"]["PFNLayer_0"]
+    sd["reader.pfn_layers.0.linear.weight"] = np.asarray(
+        pfn["Dense_0"]["kernel"]).T
+    sd.update(_bn("reader.pfn_layers.0.norm", pfn["MaskedBatchNorm_0"],
+                  pfn_stats["MaskedBatchNorm_0"]))
+    for i, (conv_prefix, bn_prefix) in enumerate(RPN_MODULES):
+        p = params["neck"][f"ConvBnRelu_{i}"]
+        kernel = _conv2d(p)
+        if conv_prefix.startswith("neck.deblocks") and "Conv_0" in p:
+            # 1x1 conv -> the reference's 1x1 ConvTranspose2d [in, out]
+            kernel = np.transpose(kernel, (1, 0, 2, 3))
+        sd[conv_prefix + ".weight"] = kernel
+        sd.update(_bn(bn_prefix, p["BatchNorm_0"],
+                      stats["neck"][f"ConvBnRelu_{i}"]["BatchNorm_0"]))
+    return sd
+
+
 def convert_jax(variables: dict) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} of sessd_tpu's VoxelNet -> state dict for
-    ``sessd_torch.models.detector.VoxelNet`` (float32 CPU tensors)."""
+    """{"params", "batch_stats"} of sessd_tpu's VoxelNet or PointPillars ->
+    state dict for ``sessd_torch.models.detector.VoxelNet`` or
+    ``sessd_torch.models.pillars.PointPillars`` (float32 CPU tensors)."""
     params, stats = variables["params"], variables["batch_stats"]
+    if "PFNLayer_0" in params.get("reader", {}):
+        sd = _convert_pillars(params, stats)
+    else:
+        sd = _convert_voxelnet(params, stats)
+    for name, conv in params["head"]["task_0"].items():
+        prefix = f"bbox_head.tasks.0.{name}"
+        sd[prefix + ".weight"] = np.transpose(np.asarray(conv["kernel"]),
+                                              (3, 2, 0, 1))
+        sd[prefix + ".bias"] = conv["bias"]
+    return {k: torch.tensor(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def _convert_voxelnet(params: dict, stats: dict) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
 
     for b, kshape in enumerate(BACKBONE_KERNELS):
@@ -74,25 +133,10 @@ def convert_jax(variables: dict) -> Dict[str, torch.Tensor]:
 
     for i, (conv_prefix, bn_prefix) in enumerate(SSFA_MODULES):
         p = params["neck"][f"ConvBnRelu_{i}"]
-        if i in SSFA_TRANSPOSE:  # -> ConvTranspose2d [in, out, kh, kw]
-            kernel = np.transpose(
-                np.asarray(p["ConvTranspose_0"]["kernel"])[::-1, ::-1],
-                (2, 3, 0, 1))
-        else:  # -> Conv2d [out, in, kh, kw]
-            kernel = np.transpose(np.asarray(p["Conv_0"]["kernel"]),
-                                  (3, 2, 0, 1))
-        sd[conv_prefix + ".weight"] = kernel
+        sd[conv_prefix + ".weight"] = _conv2d(p)
         sd.update(_bn(bn_prefix, p["BatchNorm_0"],
                       stats["neck"][f"ConvBnRelu_{i}"]["BatchNorm_0"]))
-
-    for name, conv in params["head"]["task_0"].items():
-        prefix = f"bbox_head.tasks.0.{name}"
-        sd[prefix + ".weight"] = np.transpose(np.asarray(conv["kernel"]),
-                                              (3, 2, 0, 1))
-        sd[prefix + ".bias"] = conv["bias"]
-
-    return {k: torch.tensor(np.array(v, dtype=np.float32))
-            for k, v in sd.items()}
+    return sd
 
 
 def _find(tree, *attrs):

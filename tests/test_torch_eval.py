@@ -111,8 +111,8 @@ def test_eval_warns_once_on_a_full_stage(setup, caplog):
     trainer._eval_sat_warned = False
     try:
         with caplog.at_level(logging.WARNING):
-            trainer._batch_rulebooks(batch)
-            trainer._batch_rulebooks(batch)
+            trainer._eval_inputs(batch)
+            trainer._eval_inputs(batch)
     finally:
         trainer.stage_capacity, trainer._eval_sat_warned = saved
     msgs = [r.getMessage() for r in caplog.records

@@ -1,8 +1,8 @@
 """The port's copy of the JAX package's host layer against the original, on
 the CPU: configs, synthetic scenes and KITTI roots, the serving
 preprocessor, the dataset (augmentation, GT sampling, targets), the batch
-rulebook chain, the KITTI AP evaluation and the frustum cull all give the
-same values, bit for bit. The two packages build the C++ host library from
+rulebook chain, the KITTI AP evaluation, the frustum cull and the host NMS
+oracles all give the same values, bit for bit. The two packages build the C++ host library from
 the same sources into separate files."""
 import pathlib
 import pickle
@@ -15,11 +15,13 @@ import torch
 from sessd_tpu import builder as jax_builder
 from sessd_tpu import config as jax_config
 from sessd_tpu import serve as jax_serve
+from sessd_tpu.core import nms_np as jax_nms_np
 from sessd_tpu.data import kitti_eval as jax_kitti_eval
 from sessd_tpu.data import rulebooks as jax_rulebooks
 from sessd_tpu.models import predict as jax_predict
 from sessd_tpu.utils import synth_scene as jax_synth
 from sessd_torch import builder, config, serve
+from sessd_torch.core import nms_np
 from sessd_torch.data import kitti_eval, rulebooks
 from sessd_torch.models import predict
 from sessd_torch.ops.voxelize import KITTI_VOXELIZER
@@ -56,7 +58,9 @@ def _public(cfg):
 
 @pytest.mark.parametrize("name", ["se_ssd_kitti_car.py",
                                   "se_ssd_kitti_car_bf16.py",
-                                  "cia_ssd_kitti_car.py"])
+                                  "cia_ssd_kitti_car.py",
+                                  "se_ssd_kitti_3class.py",
+                                  "point_pillars_kitti_car.py"])
 def test_config_copy(name):
     ours = builder.load_config(name)
     theirs = jax_config.Config.fromfile(
@@ -203,3 +207,31 @@ def test_points_in_frustum_copy(kitti_root):
                                                     jnp.asarray(frustum)))
     np.testing.assert_array_equal(got, want)
     assert 0 < got.sum() < len(got)
+
+
+@pytest.mark.parametrize("seed", [0, 6])
+def test_nms_np_copy(seed):
+    """``core/nms_np.py``: DI-NMS with its centerness damping, and the plain
+    rotated NMS, on clustered boxes with two labels."""
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform([5, -30], [65, 30], (6, 2))
+    n = 40
+    b7 = np.zeros((n, 7), np.float32)
+    b7[:, :2] = centers[rng.randint(0, 6, n)] + rng.normal(0, 0.4, (n, 2))
+    b7[:, 2:6] = (-1.0, 1.6, 3.9, 1.5) + rng.normal(0, 0.05, (n, 4))
+    b7[:, 6] = rng.uniform(-0.3, 0.3, n)
+    b5 = b7[:, [0, 1, 3, 4, 6]]
+    scores = rng.uniform(0.3, 1.0, n).astype(np.float32)
+    iou_preds = rng.uniform(0.6, 1.0, n).astype(np.float32)
+    dirs = rng.randint(0, 2, n).astype(np.int32)
+    labels = rng.randint(0, 2, n).astype(np.int32)
+    anchors = b7 + rng.normal(0, 0.2, b7.shape).astype(np.float32)
+    damped = nms_np.centerness_damp(b7, anchors, scores)
+    _assert_same(damped, jax_nms_np.centerness_damp(b7, anchors, scores))
+    got = nms_np.rotate_weighted_nms_np(b7, b5, dirs, labels, damped,
+                                        iou_preds)
+    _assert_same(got, jax_nms_np.rotate_weighted_nms_np(
+        b7, b5, dirs, labels, damped, iou_preds))
+    assert len(got[4]) > 0
+    _assert_same(nms_np.rotate_nms_np(b5, scores, 0.1),
+                 jax_nms_np.rotate_nms_np(b5, scores, 0.1))

@@ -41,8 +41,8 @@ from sessd_torch.utils import checkpoint as ckpt
 from sessd_torch.utils.convert_jax import (convert_jax, convert_train_state,
                                            load_train_state)
 from tests.test_torch_common import CAPS, SPARSE_SHAPE, jax_voxelnet_variables
-from tests.test_torch_train_step import (_loss_cfgs, as_torch, initial_state,
-                                         make_batch)
+from tests.test_torch_train_step import (_loss_cfgs, initial_state,
+                                         make_batch, port_batch)
 
 CIA_CFG = dict(lr_max=3e-3, total_steps=100)
 SE_CFG = dict(lr_max=3e-3, total_steps=40)  # another schedule, restarted
@@ -173,7 +173,7 @@ def port_warm_start(tmp):
     for a, b in zip(state.teacher.state_dict().values(),
                     state.student.state_dict().values()):
         assert torch.equal(a, b)
-    metrics = make_train_step(_loss_cfgs()[1])(state, as_torch(make_batch()),
+    metrics = make_train_step(_loss_cfgs()[1])(state, port_batch(make_batch()),
                                                0.7)
     return state, {k: float(v) for k, v in metrics.items()}
 

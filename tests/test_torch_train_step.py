@@ -142,6 +142,13 @@ def as_torch(tree):
     return to_torch(np.ascontiguousarray(tree))
 
 
+def port_batch(batch: dict) -> dict:
+    """A JAX step's batch as the port's step takes it: CPU tensors, the
+    chains under ``inputs`` (the model's third forward argument)."""
+    return as_torch({k.replace("rulebooks", "inputs"): v
+                     for k, v in batch.items()})
+
+
 @functools.lru_cache(maxsize=None)
 def port_step():
     """(student, teacher, grads by parameter name, metrics) of the port's
@@ -165,7 +172,7 @@ def port_step():
 
     opt.step = capture
     state = TrainState(conv["step"], student, teacher, opt)
-    metrics = make_train_step(_loss_cfgs()[1])(state, as_torch(make_batch()),
+    metrics = make_train_step(_loss_cfgs()[1])(state, port_batch(make_batch()),
                                                0.7)
     assert state.step == STEP + 1
     return student, teacher, grads, {k: float(v) for k, v in metrics.items()}
