@@ -124,6 +124,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``validate()`` with the K1 and K3 launches per batch the stream rule
    gives and ``cls_preds`` [4, 211200, 3]. Its launches join the K1, K3,
    K4 and K5 counts of the kernels line.
+15. Data parallel: two ranks, each a process of its own
+   (``chip_smoke.py --rank-worker``, ``rank_worker``) running
+   ``sessd_torch.tools.train`` with ``--coordinator 127.0.0.1:<free port>
+   --num-processes 2 --dist-backend gloo --device cuda:0`` (NCCL refuses
+   two ranks on one card): the bf16 SE-SSD Car config at ACCEPT_CAPS, 4
+   scenes per rank, one step per rank in each of DP_EPOCHS epochs of the
+   8-frame root, a checkpoint per epoch, the final validation over the
+   ranks. Fails unless both ranks exit 0 with DP_EPOCHS finite steps,
+   equal losses, no saturated batch and bit-equal final states (a sha256
+   per rank over both nets and the optimizer's moments), rank 0 alone
+   wrote checkpoints and ``eval_results.json`` (each rank has its own
+   work dir), the first masked BatchNorm's synced moments equal those of
+   both ranks' masked rows gathered within 1e-5 of their max, and each
+   rank launched 24 K4, 9 dFeat and 10 dW per step, as phase 5. Prints
+   per rank the step median, peak device memory, losses, launches and
+   collectives per step, beside the card line. Two ranks that share one
+   card through gloo say nothing of scaling over cards.
+16. Data parallel NCCL: a Trainer in a process group of one rank over NCCL
+   and one outside any group, f32, NCCL_STEPS steps, each from the outside
+   trainer's state before it: loss terms within 1e-4 relative, the same
+   launches, one gradient bucket per step.
+17. Multi-process eval: two ranks of ``tools.test --coordinator`` (gloo,
+   cuda:0) on phase 15's checkpoint: rank 0's AP tables equal one
+   process's ``tools.test`` of it entry for entry, rank 1 prints and
+   writes none, each rank launches the K1 and K3 the stream rule gives
+   for its batches. The launches of phases 15-17 (every rank's) join the
+   kernels line.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``sparse_conv_dfeat_scalar``,
@@ -168,6 +195,7 @@ from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import ablate
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
+from sessd_torch.parallel import mesh
 from sessd_torch.scripts import acceptance_ap
 from sessd_torch.scripts import bench_launch_overhead as bench_launch
 from sessd_torch.scripts import bench_sparse_conv_ablate as bench_ablate
@@ -1076,6 +1104,20 @@ def _table_diff(a, b) -> list:
                                        and math.isnan(fb[k])))]
 
 
+def _detections_diff(a, b) -> list:
+    """The images whose detections differ between two per-image lists (as
+    ``Trainer.val_detections``): image ids in dataset order, boxes, scores
+    and labels bit for bit."""
+    def image(d):
+        return d["metadata"]["image_idx"] if d["metadata"] else None
+
+    if [image(d) for d in a] != [image(d) for d in b]:
+        return [("image ids", [image(d) for d in a], [image(d) for d in b])]
+    keys = ("box3d_lidar", "scores", "label_preds")
+    return [(image(x), k) for x, y in zip(a, b) for k in keys
+            if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k])]
+
+
 def _ap_line(results) -> str:
     car = results["Car"]
     return ", ".join(f"{m} AP40 moderate {car[m][1]['AP40']:.4f}"
@@ -1292,16 +1334,6 @@ def phase_ablation(device):
     return res
 
 
-def _state_tensors(state) -> dict:
-    opt = state.optimizer
-    out = {f"student.{k}": v for k, v in state.student.state_dict().items()}
-    out.update({f"teacher.{k}": v
-                for k, v in state.teacher.state_dict().items()})
-    out.update({f"mu.{i}": t for i, t in enumerate(opt.mu)})
-    out.update({f"nu.{i}": t for i, t in enumerate(opt.nu)})
-    return out
-
-
 def write_config(config, path, **values) -> str:
     """Write ``path``: a config file that runs the shipped ``config``, under
     that file's name so its own includes resolve, then sets ``values`` as a
@@ -1338,7 +1370,7 @@ def phase_warm_start(root, tmp, device="cuda"):
     cia.run()
     _no_saturation(cia, "warm start: CIA-SSD")
     cia_state = {k: v.detach().clone()
-                 for k, v in _state_tensors(cia.state).items()}
+                 for k, v in mesh.state_tensors(cia.state).items()}
     cia_counts = (cia.state.optimizer.count, cia.state.optimizer.sched_count)
     del cia
 
@@ -1346,7 +1378,7 @@ def phase_warm_start(root, tmp, device="cuda"):
                        device)
     se.load_from(f"{tmp}/work_cia")
     opt = se.state.optimizer
-    got = _state_tensors(se.state)
+    got = mesh.state_tensors(se.state)
     for k, v in got.items():
         src = "student." + k.split(".", 1)[1] if k.startswith("teacher.") \
             else k
@@ -1380,7 +1412,8 @@ def phase_warm_start(root, tmp, device="cuda"):
     if have != want:
         raise AssertionError(f"resume: (epoch, step, count, sched_count) "
                              f"{have}, want {want}")
-    mine, theirs = _state_tensors(se.state), _state_tensors(again.state)
+    mine = mesh.state_tensors(se.state)
+    theirs = mesh.state_tensors(again.state)
     diff = [k for k in mine if not torch.equal(mine[k], theirs[k])]
     if diff:
         raise AssertionError(f"resume: {len(diff)} tensors differ, e.g. "
@@ -1773,6 +1806,358 @@ def phase_3class(root, tmp, device):
 
 
 
+# ---------------------------------------------------------------------------
+# data parallel: ranks in processes of their own, through the tools
+
+DP_WORLD = 2
+DP_EPOCHS = 3  # one step per rank per epoch: 8 frames, 4 scenes per rank
+SYNC_BOUND = 1e-5  # synced BN moments vs the gathered rows', of max|moment|
+
+
+def rank_worker(spec: dict):
+    """One rank of the data-parallel phases, in a process of its own
+    (``chip_smoke.py --rank-worker SPEC``): ``main(argv)`` of
+    ``sessd_torch.tools.train`` or ``tools.test``, with ``--coordinator``
+    among the flags. Records this rank's kernel launches (those of the
+    training steps apart from those of the final validation), its peak
+    device memory, its ``Trainer.rank_report()``, and the first masked
+    BatchNorm's synced moments beside the rows it normalized; writes them
+    to ``spec["report"]`` (JSON) and the rows to ``spec["rows"]``, and the
+    per-image detections of its last validation, where it has them (rank
+    0), to ``spec["dets"]`` (pickle)."""
+    from sessd_torch.models import layers
+    from sessd_torch.tools import test as test_cli
+    from sessd_torch.tools import train as train_cli
+
+    first = {}
+    batch_stats = layers.BatchNorm._batch_stats
+
+    def capture(self, xf, mask):
+        mean, var = batch_stats(self, xf, mask)
+        if mask is not None and xf.dim() == 2 and not first:
+            first.update(rows=xf[mask.reshape(-1).bool()].detach().cpu(),
+                         mean=mean.detach().cpu(), var=var.detach().cpu())
+        return mean, var
+
+    layers.BatchNorm._batch_stats = capture
+    phases = {}
+    validate = Trainer.validate
+
+    def counted_validate(self, *a, **k):
+        phases["train"] = _counts()
+        _reset_counts()
+        return validate(self, *a, **k)
+
+    Trainer.validate = counted_validate
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if spec["tool"] == "train":
+        trainer = train_cli.main(spec["argv"])
+    else:
+        trainer, _ = test_cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    phases["eval" if phases else "train"] = _counts()
+    report = dict(trainer.rank_report(),
+                  wall_s=time.perf_counter() - t0,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  launches=phases, collectives=dict(mesh.collectives))
+    if first:
+        torch.save(first, spec["rows"])
+    if trainer.val_detections is not None:
+        with open(spec["dets"], "wb") as f:
+            pickle.dump(trainer.val_detections, f)
+    with open(spec["report"], "w") as f:
+        json.dump(report, f)
+
+
+def _run_ranks(tool, argv, tmp, tag):
+    """``DP_WORLD`` rank workers of ``tool`` with ``argv`` ("{rank}" is the
+    rank) on cuda:0 over gloo; returns (reports, stdout per rank)."""
+    port = mesh.free_port()
+    procs, specs = [], []
+    for r in range(DP_WORLD):
+        spec = {"tool": tool, "report": f"{tmp}/{tag}_{r}.json",
+                "rows": f"{tmp}/{tag}_{r}_rows.pt",
+                "dets": f"{tmp}/{tag}_{r}_dets.pkl",
+                "log": f"{tmp}/{tag}_{r}.log",
+                "argv": [a.replace("{rank}", str(r)) for a in argv] + [
+                    "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                    str(DP_WORLD), "--process-id", str(r), "--dist-backend",
+                    "gloo", "--device", "cuda:0"]}
+        specs.append(spec)
+        with open(spec["log"], "w") as log, \
+                open(spec["log"] + ".err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 json.dumps(spec)], stdout=log, stderr=err,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    # a rank that fails leaves the others waiting in a collective: stop
+    # them all then
+    deadline = time.monotonic() + 600
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for spec in specs:
+        with open(spec["log"]) as f:
+            outs.append(f.read())
+    bad = [(r, p.returncode, open(s["log"] + ".err").read()[-3000:])
+           for r, (p, s) in enumerate(zip(procs, specs)) if p.returncode]
+    if bad:
+        raise AssertionError(f"{tag}: ranks failed: {bad}")
+    reports = []
+    for spec in specs:
+        with open(spec["report"]) as f:
+            reports.append(json.load(f))
+        if os.path.exists(spec["rows"]):
+            reports[-1]["first_bn"] = torch.load(spec["rows"],
+                                                 weights_only=True)
+        if os.path.exists(spec["dets"]):
+            with open(spec["dets"], "rb") as f:
+                reports[-1]["detections"] = pickle.load(f)
+    return reports, outs
+
+
+def _check_synced_moments(reports):
+    """The first masked BatchNorm's synced (mean, var) on every rank against
+    those of all ranks' masked rows together (f64)."""
+    rows = torch.cat([r["first_bn"]["rows"] for r in reports]).double()
+    mean, var = rows.mean(0), rows.var(0, unbiased=False)
+    worst = 0.0
+    for r in reports:
+        for got, want in ((r["first_bn"]["mean"], mean),
+                          (r["first_bn"]["var"], var)):
+            err = float((got.double() - want).abs().max()
+                        / want.abs().max())
+            worst = max(worst, err)
+    if not worst <= SYNC_BOUND:
+        raise AssertionError(f"synced BN moments off the gathered rows' by "
+                             f"{worst:.3e} of max")
+    return rows.shape, worst
+
+
+def phase_data_parallel(root, tmp, card):
+    """Two ranks on cuda:0 through ``tools.train --coordinator``, gloo: the
+    bf16 SE-SSD config at ACCEPT_CAPS, 4 scenes per rank, DP_EPOCHS epochs
+    of one step per rank (each rank a half of the 8 frames), a checkpoint
+    per epoch and the final validation over the ranks. Returns (rank 0's
+    work dir, the config file, the launches of both ranks)."""
+    cfg = write_config("se_ssd_kitti_car_bf16.py", f"{tmp}/dp.py",
+                       stage_capacity=ACCEPT_CAPS, total_epochs=DP_EPOCHS)
+    reports, outs = _run_ranks(
+        "train", [cfg, "--data-root", root, "--work_dir",
+                  f"{tmp}/work_dp_{{rank}}"], tmp, "dp")
+    h = [r["history"] for r in reports]
+    for r, rep in enumerate(reports):
+        if (rep["rank"], rep["world"]) != (r, DP_WORLD) \
+                or rep["step"] != DP_EPOCHS or len(rep["history"]) != \
+                DP_EPOCHS:
+            raise AssertionError(f"rank {r}: {rep['rank']}/{rep['world']} "
+                                 f"took {rep['step']} steps")
+        if rep["saturated"]:
+            raise AssertionError(f"rank {r}: {rep['saturated']} saturated "
+                                 f"batch(es)")
+        bad = [(s["step"], k) for s in rep["history"] for k, v in s.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"rank {r}: non-finite {bad}")
+    keys = [k for k in h[0][0] if k not in ("data_time", "step_time")]
+    if any([s[k] for s in h[r] for k in keys] != [s[k] for s in h[0]
+                                                for k in keys]
+           for r in range(1, DP_WORLD)):
+        raise AssertionError("the ranks' losses differ")
+    if len({rep["digest"] for rep in reports}) != 1:
+        raise AssertionError(f"final states differ: "
+                             f"{[rep['digest'][:12] for rep in reports]}")
+    lead = f"{tmp}/work_dp_0"
+    written = [os.listdir(f"{tmp}/work_dp_{r}") for r in range(DP_WORLD)]
+    if not os.path.exists(f"{lead}/checkpoints/epoch_{DP_EPOCHS}.pt") \
+            or any(written[1:]) \
+            or not os.path.exists(f"{lead}/eval_results.json"):
+        raise AssertionError(f"work dirs hold {written}")
+    want = {"sparse_conv_fwd": 24 * DP_EPOCHS,
+            "sparse_conv_dfeat": 9 * DP_EPOCHS,
+            "sparse_conv_dw": 10 * DP_EPOCHS}
+    for r, rep in enumerate(reports):
+        got = {k: rep["launches"]["train"][k] for k in want}
+        if got != want or rep["launches"]["train"]["fused_sparse_conv"]:
+            raise AssertionError(f"rank {r} training launches "
+                                 f"{rep['launches']['train']}, want {want}")
+    shape, worst = _check_synced_moments(reports)
+    for r, rep in enumerate(reports):
+        steps = rep["history"][1:]
+        ms = float(np.median([s["step_time"] for s in steps])) * 1e3
+        per_step = {k: v // DP_EPOCHS for k, v in
+                    rep["collectives"].items() if k in ("bn", "grad",
+                                                        "metrics")}
+        fwd, dfeat, dw = (rep["launches"]["train"][k] // DP_EPOCHS
+                          for k in want)
+        print(f"data parallel rank {r}/{DP_WORLD} (gloo, both on cuda:0, "
+              f"bf16 b4 per rank): step median {ms:.3f} ms (steps "
+              f"2-{DP_EPOCHS}), peak device memory {rep['peak_gib']:.3f} "
+              f"GiB, wall {rep['wall_s']:.1f} s, losses "
+              f"{[round(s['loss'], 5) for s in rep['history']]}, launches "
+              f"per step fwd {fwd} dfeat {dfeat} dw {dw}, collectives per "
+              f"step {per_step}; {card}")
+    print(f"data parallel: {DP_WORLD} ranks bit-equal after {DP_EPOCHS} "
+          f"steps (digest {reports[0]['digest'][:12]}), equal losses, no "
+          f"saturated batch, only rank 0 wrote checkpoints and "
+          f"eval_results.json; first masked BN's synced moments vs the "
+          f"{shape[0]} gathered rows x {shape[1]} channels: {worst:.2e} of "
+          f"max")
+    counts = {k: sum(rep["launches"][p][k] for rep in reports
+                     for p in rep["launches"])
+              for k in reports[0]["launches"]["train"]}
+    return lead, cfg, counts
+
+
+NCCL_STEPS = 2
+
+
+def _copy_state(dst, src):
+    """``src``'s TrainState into ``dst``'s, in place."""
+    dst.student.load_state_dict(src.student.state_dict())
+    dst.teacher.load_state_dict(src.teacher.state_dict())
+    dst.optimizer.load_state_dict(src.optimizer.state_dict())
+    dst.step = src.step
+
+
+def phase_data_parallel_nccl(root, tmp, device):
+    """One rank over NCCL (f32, TF32 off): a Trainer in a process group of
+    one against a Trainer outside any group, from the same seed on the same
+    batches, NCCL_STEPS steps, each from the outside trainer's state before
+    it; the loss terms within 1e-4 relative. (Chained, the second step
+    would differ by more: the group's BatchNorm takes its statistics
+    through the sums of [count, mean * count, (var + mean^2) * count], as
+    JAX's psum does, which rounds otherwise than the local two-pass
+    moments, and Adam's first step moves a parameter whose gradient is
+    within rounding of 0 by about lr either way.) The group's collectives
+    (BN syncs, gradient and metric buckets, the state broadcast, the
+    checkpoint barrier) run on the card."""
+    import torch.distributed as dist
+
+    _reset_counts()
+    ref = make_trainer("se_ssd_kitti_car.py", root, f"{tmp}/work_nccl_ref",
+                       device)
+    mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                          backend="nccl", device=device)
+    try:
+        mesh.collectives.clear()
+        dp = make_trainer("se_ssd_kitti_car.py", root,
+                          f"{tmp}/work_nccl_dp", device)
+        for n in range(1, NCCL_STEPS + 1):
+            _copy_state(dp.state, ref.state)
+            ref.run(max_steps=n)
+            dp.run(max_steps=n)
+        torch.cuda.synchronize()
+        coll = dict(mesh.collectives)
+        group = dp.group
+    finally:
+        dist.destroy_process_group()
+    counts = _counts()
+    if ref.group is not None or group is None \
+            or coll.get("grad") != NCCL_STEPS:
+        raise AssertionError(f"groups {ref.group}, {group}; collectives "
+                             f"{coll}")
+    worst = 0.0
+    for a, b in zip(ref.history, dp.history):
+        for k, v in a.items():
+            if k in ("step", "epoch", "lr", "data_time", "step_time"):
+                continue
+            err = abs(b[k] - v)
+            if not (err <= 1e-4 * abs(v) or err <= 1e-7):
+                raise AssertionError(f"NCCL step {a['step']} {k}: {b[k]} vs "
+                                     f"{v}")
+            worst = max(worst, err / abs(v) if err > 1e-7 else 0.0)
+    if len(dp.history) != NCCL_STEPS:
+        raise AssertionError(f"NCCL: {len(dp.history)} steps")
+    _no_saturation(dp, "data parallel NCCL")
+    print(f"data parallel NCCL: 1 rank, {NCCL_STEPS} f32 steps, loss terms "
+          f"within {worst:.2e} relative of the trainer outside a group; "
+          f"collectives {coll}; step times "
+          f"{[round(h['step_time'] * 1e3, 3) for h in dp.history]} ms vs "
+          f"{[round(h['step_time'] * 1e3, 3) for h in ref.history]} ms")
+    del ref, dp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_multiprocess_eval(root, tmp, lead, cfg):
+    """Two ranks of ``tools.test --coordinator`` (gloo, cuda:0) on the
+    data-parallel checkpoint against one process's ``tools.test`` of it
+    (PyTorch's default TF32 settings in both, the tool's): rank 0's table
+    equal entry for entry and its merged per-image detections bit for bit,
+    rank 1's output without either, K1 and K3 launches per rank as the
+    stream rule gives. Each rank names its own work dir, and rank 1's
+    holds no checkpoint: it evaluates the one rank 0 sends. Returns the
+    launches of both ranks."""
+    from sessd_torch.tools import test as test_cli
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer, single = test_cli.main([cfg, "--work_dir", lead,
+                                         "--data-root", root])
+        single_s = time.perf_counter() - t0
+        single_counts = _counts()
+        single_dets = trainer.val_detections
+        del trainer
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out = f"{tmp}/mp_eval_{{rank}}.pkl"
+    reports, outs = _run_ranks(
+        "test", [cfg, "--work_dir", f"{tmp}/work_dp_{{rank}}", "--data-root",
+                 root, "--out", out],
+        tmp, "mp_eval")
+    with open(out.format(rank=0), "rb") as f:
+        merged = pickle.load(f)
+    diff = _table_diff(merged, single)
+    if diff:
+        raise AssertionError(f"multi-process AP differs: {diff}")
+    diff = _detections_diff(reports[0]["detections"], single_dets)
+    if diff or "detections" in reports[1]:
+        raise AssertionError(f"multi-process detections differ: {diff[:5]}")
+    n_boxes = sum(len(d["scores"]) for d in single_dets)
+    if os.path.exists(out.format(rank=1)) or "AP11@" in outs[1] \
+            or "AP11@" not in outs[0]:
+        raise AssertionError("rank 1 printed or wrote a table, or rank 0 "
+                             "none")
+    conf = load_train_config(cfg, root)
+    per_gpu = conf.data["samples_per_gpu"]
+    per_rank = -(-len(builder.build_dataset(conf, "val")) // DP_WORLD)
+    n = -(-per_rank // per_gpu)
+    k1, k3 = _want_launches(ACCEPT_CAPS, per_gpu, torch.bfloat16)
+    for r, rep in enumerate(reports):
+        got = rep["launches"]["eval"]
+        if (got["fused_sparse_conv"], got["fused_sparse_conv_stream"]) != \
+                (k1 * n, k3 * n) or got["sparse_conv_fwd"]:
+            raise AssertionError(f"rank {r} eval launches {got}")
+        print(f"multi-process eval rank {r}/{DP_WORLD}: {n} batch(es) of "
+              f"{per_gpu}, launches K1 {got['fused_sparse_conv']} K3 "
+              f"{got['fused_sparse_conv_stream']}, wall {rep['wall_s']:.1f}"
+              f" s, peak device memory {rep['peak_gib']:.3f} GiB")
+    print(f"multi-process eval: rank 0's AP tables equal one process's "
+          f"tools.test ({single_s:.1f} s) entry for entry, its merged "
+          f"detections bit for bit ({len(single_dets)} images, {n_boxes} "
+          f"boxes, in dataset order); rank 1 printed none; "
+          f"{_ap_line(merged)}")
+    counts = {k: single_counts[k] + sum(rep["launches"]["eval"][k]
+                                        for rep in reports)
+              for k in single_counts}
+    return counts
+
+
+
 ACCEPT_ARGS = ("8", "4", "1", "1", "1")
 
 
@@ -1892,30 +2277,43 @@ def main():
             phase_pillar_train(root, tmp, device)
         with phase("3-class"):
             c3_counts = phase_3class(root, tmp, device)
+        with phase("data parallel"):
+            lead, dp_cfg, dp_counts = phase_data_parallel(root, tmp, card)
+        with phase("data parallel NCCL"):
+            nccl_counts = phase_data_parallel_nccl(root, tmp, device)
+        with phase("multi-process eval"):
+            mp_counts = phase_multiprocess_eval(root, tmp, lead, dp_cfg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # the 3-class and data-parallel phases' launches (every rank's)
+    late_counts = {k: c3_counts[k] + dp_counts[k] + nccl_counts[k]
+                   + mp_counts[k] for k in c3_counts}
 
     k1_launches = (launches + b8_counts["fused_sparse_conv"]
                    + dinms_counts["fused_sparse_conv"]
                    + eval_counts["fused_sparse_conv"]
-                   + c3_counts["fused_sparse_conv"])
+                   + late_counts["fused_sparse_conv"])
     k3_launches = (b8_counts["fused_sparse_conv_stream"]
                    + dinms_counts["fused_sparse_conv_stream"]
                    + eval_counts["fused_sparse_conv_stream"]
-                   + c3_counts["fused_sparse_conv_stream"])
+                   + late_counts["fused_sparse_conv_stream"])
     print(f"main-path launches: K1 {launches} (b1/b4) + "
           f"{b8_counts['fused_sparse_conv']} (b8) + "
           f"{dinms_counts['fused_sparse_conv']} (DI-NMS) + "
           f"{eval_counts['fused_sparse_conv']} (eval) + "
-          f"{c3_counts['fused_sparse_conv']} (3-class eval); K3 "
+          f"{late_counts['fused_sparse_conv']} (3-class eval and data "
+          f"parallel); K3 "
           f"{b8_counts['fused_sparse_conv_stream']} (b8) + "
           f"{dinms_counts['fused_sparse_conv_stream']} (DI-NMS) + "
           f"{eval_counts['fused_sparse_conv_stream']} (eval) + "
-          f"{c3_counts['fused_sparse_conv_stream']} (3-class eval); "
+          f"{late_counts['fused_sparse_conv_stream']} (3-class eval and data "
+          f"parallel); "
           f"K4/dFeat/dW {counts['sparse_conv_fwd']}/"
           f"{counts['sparse_conv_dfeat']}/{counts['sparse_conv_dw']} (SE-SSD)"
-          f" + {c3_counts['sparse_conv_fwd']}/{c3_counts['sparse_conv_dfeat']}"
-          f"/{c3_counts['sparse_conv_dw']} (3-class); eval K3 sums "
+          f" + {late_counts['sparse_conv_fwd']}/"
+          f"{late_counts['sparse_conv_dfeat']}/{late_counts['sparse_conv_dw']}"
+          f" (3-class and data parallel); "
+          f"eval K3 sums "
           f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms, twin "
           f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")
     # times: K1 the 14 b1 bf16 convs, K3 the 7 streamed convs of a b8 bf16
@@ -1939,7 +2337,7 @@ def main():
                             ("sparse_conv_dw", "dw", 67)):
         kernels.append(_entry(
             name, "sessd_torch/csrc/sparse_conv_train.cu", f"{WCONV}:{line}",
-            counts[name] + c3_counts[name], worst[key], train_ms[key][0],
+            counts[name] + late_counts[name], worst[key], train_ms[key][0],
             train_ms[key][1], train_bounds[key]))
     kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
@@ -1984,4 +2382,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -20,6 +20,7 @@ from .data.dataset import KittiDataset
 from .data.loader import DataLoader
 from .data.pipeline import PipelineConfig
 from .models.detector import VoxelNet
+from .models.layers import sync_batch_norm
 from .models.pillars import PointPillars
 from .models.predict import PredictConfig
 from .ops.voxelize import VoxelizerSpec
@@ -51,12 +52,15 @@ def build_voxelizer(cfg) -> VoxelizerSpec:
     )
 
 
-def build_detector(cfg, dense_from_stage: Optional[int] = None):
+def build_detector(cfg, dense_from_stage: Optional[int] = None,
+                   process_group=None):
     """cfg: the full config (model + voxel_generator sections; ``precision``
     sets the compute dtype) -> ``VoxelNet`` or ``PointPillars``
     (sessd_tpu/builder.py:44-84). ``dense_from_stage`` is VoxelNet's
     training plan, 3 by default as in sessd_tpu/builder.py:70; the argument
-    overrides it, e.g. with ``teacher_dense_from_stage``. Parameters are
+    overrides it, e.g. with ``teacher_dense_from_stage``. With a
+    ``process_group`` every BatchNorm takes its training statistics over
+    the group's ranks (the JAX builder's ``axis_name``). Parameters are
     left at construction values; load a state dict or call
     ``reset_parameters(generator)``."""
     m = cfg.model
@@ -65,18 +69,20 @@ def build_detector(cfg, dense_from_stage: Optional[int] = None):
               tasks=tuple(dict(t) for t in m["bbox_head"]["tasks"]),
               dtype=_DTYPES[cfg.get("precision", "float32")])
     if m["type"] == "VoxelNet":
-        return VoxelNet(
+        model = VoxelNet(
             sparse_shape=voxelizer.sparse_shape,
             dense_from_stage=(cfg.get("dense_from_stage", 3)
                               if dense_from_stage is None
                               else dense_from_stage), **kw)
-    if m["type"] == "PointPillars":
+    elif m["type"] == "PointPillars":
         nx, ny, _ = voxelizer.grid_size
-        return PointPillars(grid_size=(ny, nx),
-                            voxel_size=tuple(voxelizer.voxel_size[:2]),
-                            pc_range=tuple(voxelizer.point_cloud_range),
-                            **kw)
-    raise ValueError(f"unknown detector type {m['type']}")
+        model = PointPillars(grid_size=(ny, nx),
+                             voxel_size=tuple(voxelizer.voxel_size[:2]),
+                             pc_range=tuple(voxelizer.point_cloud_range),
+                             **kw)
+    else:
+        raise ValueError(f"unknown detector type {m['type']}")
+    return sync_batch_norm(model, process_group)
 
 
 def build_anchors(cfg) -> np.ndarray:
@@ -197,13 +203,15 @@ def build_dataset(cfg, split: str, seed: int = 0) -> KittiDataset:
         sampler=build_sampler(cfg, seed) if mode == "train" else None)
 
 
-def build_dataloader(cfg, dataset, shuffle: bool,
-                     seed: int = 0) -> DataLoader:
-    """One process's loader (the port has no multi-host sharding yet)."""
+def build_dataloader(cfg, dataset, shuffle: bool, seed: int = 0,
+                     num_shards: int = 1, shard_index: int = 0) -> DataLoader:
+    """One process's loader: ``samples_per_gpu`` scenes per batch from
+    shard ``shard_index`` of ``num_shards`` of every epoch (one shard per
+    rank, padded by wrapping to equal sizes)."""
     return DataLoader(
         dataset, batch_size=cfg.data["samples_per_gpu"], shuffle=shuffle,
         seed=seed, num_workers=cfg.data.get("workers_per_gpu", 4),
-        drop_last=shuffle,
+        drop_last=shuffle, num_shards=num_shards, shard_index=shard_index,
         worker_type=cfg.data.get("worker_type", "thread"))
 
 

@@ -14,8 +14,11 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
+
+from ..parallel.mesh import all_reduce_sum
 
 
 def derived(module: nn.Module, key, sources: Sequence[torch.Tensor],
@@ -54,13 +57,21 @@ class BatchNorm(nn.Module):
       moments over the rows where the mask holds, var = E[(x - mean)^2];
     - without: flax ``nn.BatchNorm`` (``batch_norm_2d``), var = E[x^2] -
       E[x]^2 clipped at 0.
+
+    With a ``process_group`` (``sync_batch_norm``) the batch statistics are
+    those of every rank's rows together, through one ``AllReduceSum`` per
+    forward, whose backward carries the other ranks' gradient terms (the
+    ``axis_name`` psum of sessd_tpu/models/layers.py:54-59 and flax's
+    ``pmean``): masked, the sums of [count, mean * count, (var + mean^2) *
+    count]; unmasked, the mean over ranks of [E[x], E[x^2]].
     """
 
     def __init__(self, channels: int, eps: float = 1e-3,
-                 momentum: float = 0.01):
+                 momentum: float = 0.01, process_group=None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -81,17 +92,29 @@ class BatchNorm(nn.Module):
         return s, self.bias.float() - self.running_mean.float() * s
 
     def _batch_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(mean, var) [C] of the batch, over every rank's rows where a
+        process group is set."""
         dims = [d for d in range(xf.dim()) if d != 1]
+        group = self.process_group
         if mask is None:
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
-            return mean, var
+            mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+            if group is not None:
+                mean, mean2 = (all_reduce_sum(torch.stack([mean, mean2]),
+                                              group)
+                               / dist.get_world_size(group))
+            return mean, (mean2 - mean * mean).clamp_min(0.0)
         m = mask.to(xf.dtype)
         cnt = torch.clamp_min(m.expand_as(xf[:, :1]).sum(), 1.0)
         shape = (1, -1) + (1,) * (xf.dim() - 2)
         mean = (xf * m).sum(dims) / cnt
         var = (((xf - mean.view(shape)) ** 2) * m).sum(dims) / cnt
-        return mean, var
+        if group is None:
+            return mean, var
+        c = mean.numel()
+        sums = all_reduce_sum(torch.cat([
+            cnt.reshape(1), mean * cnt, (var + mean * mean) * cnt]), group)
+        gmean = sums[1:1 + c] / sums[0]
+        return gmean, sums[1 + c:] / sums[0] - gmean * gmean
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -115,6 +138,16 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight
         out = (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
         return out.to(x.dtype)
+
+
+def sync_batch_norm(module: nn.Module, process_group) -> nn.Module:
+    """Set ``process_group`` on every ``BatchNorm`` of ``module`` (None
+    turns the sync off), in the idiom of
+    ``nn.SyncBatchNorm.convert_sync_batchnorm``; returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = process_group
+    return module
 
 
 def _cast(module: nn.Module, dtype: torch.dtype):

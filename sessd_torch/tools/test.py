@@ -1,5 +1,5 @@
 """Evaluate a checkpoint of the port on the KITTI val split (counterpart of
-``tools/test.py``; single host).
+``tools/test.py``).
 
     python -m sessd_torch.tools.test se_ssd_kitti_car.py --work_dir W \\
         [--checkpoint_epoch E] [--use_ema] [--out results.pkl] \\
@@ -12,7 +12,17 @@ checkpoint is the latest under ``W/checkpoints`` unless
 is evaluated, the AP tables are printed and, with ``--out``, pickled. With
 ``--eval_ids`` (KITTI image ids of the val split) only those samples run,
 and each one's detections are written as a KITTI label file to
-``--save_dir``. Multi-host evaluation (``--coordinator``) is not ported yet.
+``--save_dir``.
+
+Multi-process evaluation (the reference's ``tools/dist_test.py``): start
+it once per rank with ``--coordinator HOST:PORT --num-processes N
+--process-id I`` (or under ``torchrun``), with ``--device`` and
+``--dist-backend`` as ``tools.train`` takes them. Every rank evaluates
+rank 0's checkpoint (the one found in rank 0's ``--work_dir``, broadcast
+to the others) on its shard of the val split, the fixed-shape detection
+buffers are gathered, and rank 0 merges them, prints the AP tables and
+writes ``--out``; the other ranks print none. ``--eval_ids`` runs in one
+process only.
 """
 from __future__ import annotations
 
@@ -20,11 +30,13 @@ import argparse
 import os
 import pickle
 
+import torch.distributed as dist
+
 from ..data.kitti_common import annos_to_kitti_label
 from ..data.kitti_eval import format_results
 from ..train.trainer import Trainer
 from ..utils import checkpoint as ckpt
-from .train import load
+from .train import add_process_args, load, setup_process
 
 
 def main(argv=None):
@@ -40,22 +52,22 @@ def main(argv=None):
                          "detections as KITTI label files in --save_dir")
     ap.add_argument("--save_dir", default="sample_eval_results")
     ap.add_argument("--data-root", default=None)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--coordinator", default=None,
-                    help="multi-host evaluation (not ported yet)")
+    add_process_args(ap)
     args = ap.parse_args(argv)
-    if args.coordinator is not None:
-        raise SystemExit("--coordinator: multi-host evaluation is not "
-                         "ported yet")
+    device = setup_process(args)
 
     cfg = load(args.config, args.data_root)
     work_dir = args.work_dir or cfg.work_dir
-    trainer = Trainer(cfg, work_dir=work_dir, device=args.device)
+    trainer = Trainer(cfg, work_dir=work_dir, device=device)
+    if args.eval_ids is not None and trainer.world > 1:
+        raise SystemExit("--eval_ids runs in one process only")
     state, epoch = ckpt.load_checkpoint(work_dir, trainer.state,
                                         args.checkpoint_epoch)
-    if state is None:
+    if state is not None:
+        trainer.epoch = epoch
+    # every rank evaluates rank 0's checkpoint and epoch
+    if not trainer._replicate(state is not None):
         raise SystemExit(f"no checkpoint found under {work_dir}")
-    trainer.epoch = epoch
     trainer.logger.info(f"evaluating epoch {epoch} (ema={args.use_ema})")
 
     if args.eval_ids is not None:
@@ -79,12 +91,14 @@ def main(argv=None):
         return trainer, dets
 
     results = trainer.validate(use_ema=args.use_ema)
-    if results is not None:
+    if results is not None and trainer.rank == 0:
         print(format_results(results))
         if args.out:
             with open(args.out, "wb") as f:
                 pickle.dump(results, f)
             trainer.logger.info(f"wrote {args.out}")
+    if trainer.group is not None:
+        dist.destroy_process_group()
     return trainer, results
 
 

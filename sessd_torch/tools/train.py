@@ -15,6 +15,20 @@ the work dir from its latest checkpoint, as the JAX tool does.
 Checkpoints go to ``<work_dir>/checkpoints``. A run that is not cut by
 ``--max-steps`` ends with a validation, whose AP tables are written to
 ``<work_dir>/eval_results.json``.
+
+Data parallel, one process per GPU (the reference's
+``torch.distributed.launch``; the JAX tool's ``--coordinator``): start the
+same command once per rank with
+
+    --coordinator HOST:PORT --num-processes N --process-id I
+
+(``HOST:PORT`` where rank 0 listens), or under ``torchrun``, whose
+environment stands in for the three flags. Each rank trains on its shard
+with ``samples_per_gpu`` scenes per step on ``--device``, by default
+``cuda:<I % number of cards>``; the CPU only with ``--device cpu``.
+``--dist-backend`` is ``nccl`` on CUDA and ``gloo`` on the CPU by default;
+ranks that share one card need ``gloo`` (NCCL refuses two ranks on one
+device). Rank 0 alone writes checkpoints, logs and ``eval_results.json``.
 """
 from __future__ import annotations
 
@@ -22,7 +36,11 @@ import argparse
 import json
 import os
 
+import torch
+import torch.distributed as dist
+
 from .. import builder
+from ..parallel.mesh import init_distributed
 from ..train.trainer import Trainer
 
 
@@ -59,6 +77,43 @@ def _plain(o):
     return o
 
 
+def add_process_args(ap: argparse.ArgumentParser):
+    """The device and data-parallel flags both tools take."""
+    ap.add_argument("--device", default=None,
+                    help="cuda:<process id %% number of cards> by default; "
+                         "cpu runs on the CPU")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's rendezvous: data parallel, "
+                         "one process per GPU")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--dist-backend", default=None,
+                    help="nccl (CUDA) or gloo (CPU) by default")
+
+
+def setup_process(args) -> torch.device:
+    """This process's device, and its process group where ``--coordinator``
+    or torchrun's environment (WORLD_SIZE) asks for one. A CUDA device that
+    is absent is an error, never a CPU run."""
+    local = (args.process_id if args.process_id is not None
+             else int(os.environ.get("LOCAL_RANK", 0)))
+    device = torch.device(args.device or "cuda")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {device}: no CUDA device here (pass "
+                             f"--device cpu to run on the CPU)")
+        if device.index is None:
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if args.coordinator is not None or "WORLD_SIZE" in os.environ or \
+            args.num_processes is not None or args.process_id is not None:
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id, args.dist_backend
+                         or ("nccl" if device.type == "cuda" else "gloo"),
+                         device=device)
+    return device
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Train a detector (PyTorch)")
     ap.add_argument("config")
@@ -69,12 +124,12 @@ def main(argv=None):
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda")
+    add_process_args(ap)
     args = ap.parse_args(argv)
+    device = setup_process(args)
     cfg = load(args.config, args.data_root)
     work_dir = args.work_dir or cfg.work_dir
-    trainer = Trainer(cfg, work_dir=work_dir, seed=args.seed,
-                      device=args.device)
+    trainer = Trainer(cfg, work_dir=work_dir, seed=args.seed, device=device)
     load_from = args.load_from or cfg.get("load_from")
     if load_from:
         trainer.load_from(load_from)
@@ -82,15 +137,18 @@ def main(argv=None):
         trainer.resume()
     steps = len(trainer.history)
     results = trainer.run(max_steps=args.max_steps)
-    if results is not None:
+    if results is not None and trainer.rank == 0:
         path = os.path.join(work_dir, "eval_results.json")
         with open(path, "w") as f:
             json.dump(_plain(results), f, indent=1)
         trainer.logger.info(f"wrote {path}")
     last = trainer.history[-1] if len(trainer.history) > steps else {}
-    print(f"trained {len(trainer.history) - steps} steps to step "
+    rank = f"rank {trainer.rank}: " if trainer.group is not None else ""
+    print(f"{rank}trained {len(trainer.history) - steps} steps to step "
           f"{trainer.state.step}; last loss "
           f"{last.get('loss', float('nan')):.6g}")
+    if trainer.group is not None:
+        dist.destroy_process_group()
     return trainer
 
 

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_mean_
 from .losses import LossConfig, consistency_loss, detection_loss
 from .optim import AdamW
 
@@ -48,7 +49,7 @@ def _flat(batch: dict, suffix: str = ""):
 def make_train_step(loss_cfg: LossConfig = LossConfig(),
                     ema_decay_cap: float = 0.999,
                     compute_teacher_metrics: bool = True,
-                    enable_ssl: bool = True):
+                    enable_ssl: bool = True, process_group=None):
     """Returns ``train_step(state, batch, consistency_weight) -> metrics``.
 
     batch (leading dim B, on the modules' device): voxels [B, V, P, F],
@@ -61,6 +62,14 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
     ``enable_ssl=False`` is the CIA-SSD supervised step: no teacher forward
     and no consistency loss; the EMA parameters are still kept and the
     teacher's BatchNorm statistics mirror the student's.
+
+    With a ``process_group`` (data parallel: each rank its own batch, the
+    nets built with the same group) the gradients are averaged over the
+    ranks between ``autograd.grad`` and the optimizer step, so the clip
+    and ``grad_norm`` see the averaged gradients, and every metric is
+    averaged before the step returns (``jax.lax.pmean`` of grads and
+    metrics, sessd_tpu/train/train_step.py:249-252, 270-271): one bucket
+    per dtype each, and no read-back to the host.
     """
 
     def train_step(state: TrainState, batch: dict, consistency_weight):
@@ -86,6 +95,8 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if process_group is not None:
+            all_reduce_mean_(grads, process_group)
         metrics["grad_norm"] = state.optimizer.step(grads)
 
         # EMA teacher update (trainer_sessd.py:315-318)
@@ -108,6 +119,11 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
             metrics.update({k + "_ema": v for k, v in tea_metrics.items()})
             metrics["loss_ema"] = tea_loss
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if process_group is not None:
+            metrics = dict(zip(metrics, all_reduce_mean_(
+                [v.clone() for v in metrics.values()], process_group,
+                kind="metrics")))
+        return metrics
 
     return train_step

@@ -23,7 +23,20 @@ student, Adam moments kept, the schedule restarted).
 ``validate`` runs the val split through the all-sparse serving plan on host
 chains (the fused sparse conv kernels, streaming where the JAX package
 streams), the predict path with the camera-frustum cull, and the official
-KITTI AP. Multi-host evaluation is not ported yet.
+KITTI AP.
+
+Data parallel (``parallel.mesh``, trainer.py:50-57, 67-78, 638-750): where
+a process group is up (``init_distributed``), each process is one rank
+with its own device and ``samples_per_gpu`` scenes per step. The train
+loader reads the rank's shard of every epoch; both nets' BatchNorms take
+their statistics over all ranks, the step averages gradients and metrics
+over them, and the state starts from rank 0's (after init, ``resume`` and
+``load_from``), so the ranks stay bit-equal. Rank 0 alone writes the run
+context, checkpoints, ``train.log`` and ``log.json``; a barrier after each
+checkpoint lets no rank read a half-written file. ``validate`` evaluates
+the rank's shard of the val split, gathers fixed-shape detection buffers,
+and rank 0 merges them by dataset index and computes the AP (the others
+return None). Every rank must make the same calls in the same order.
 
 The model builds its own third forward argument on the host
 (``host_transform``): VoxelNet its rulebook chain, PointPillars its pillars'
@@ -38,11 +51,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import builder
 from ..data.kitti_eval import format_results
 from ..data.loader import _stack_examples
 from ..models.predict import predict_batch
+from ..parallel import mesh
 from ..serve import TRAIN_CAPS
 from ..utils import checkpoint as ckpt
 from ..utils.logging import (LogBuffer, TensorBoardLogger, TextLogger,
@@ -54,6 +69,36 @@ from .train_step import TrainState, make_train_step, sigmoid_rampup
 _STEP_KEYS = ("voxels", "num_points", "labels", "reg_targets")
 # eval batch keys padded to the full batch (trainer.py:777-784)
 _EVAL_KEYS = ("voxels", "coords", "num_points", "voxel_mask", "frustum")
+# the detection buffers a data-parallel eval gathers, one row per sample
+_GATHER_KEYS = ("ids", "box3d_lidar", "scores", "label_preds", "valid")
+
+
+def merge_rank_detections(gathered: dict, id_to_index: dict, n: int,
+                          partial: bool = False) -> List[dict]:
+    """Rank 0's merge of the gathered buffers ({key: [world, cap, ...]},
+    ``_GATHER_KEYS``) into the detections of dataset indices 0..n-1, as
+    ``validate`` lists them: the first row of each image id wins (the
+    shards' wrap padding repeats samples), ids < 0 or outside the split
+    are dropped, and an index no rank ran gets an empty entry. ``partial``
+    (an eval cut by ``max_batches``) lists only as many indices as were
+    run (trainer.py:718-736)."""
+    ids = gathered["ids"]
+    by_index = {}
+    for r, row in np.ndindex(ids.shape):
+        di = id_to_index.get(int(ids[r, row]))
+        if ids[r, row] < 0 or di is None or di in by_index:
+            continue
+        v = gathered["valid"][r, row]
+        by_index[di] = {"box3d_lidar": gathered["box3d_lidar"][r, row][v],
+                        "scores": gathered["scores"][r, row][v],
+                        "label_preds": gathered["label_preds"][r, row][v],
+                        "metadata": {"image_idx": int(ids[r, row])}}
+    boxes, scores, labels = (gathered[k] for k in _GATHER_KEYS[1:4])
+    empty = {"box3d_lidar": np.zeros((0, boxes.shape[-1]), boxes.dtype),
+             "scores": np.zeros((0,), scores.dtype),
+             "label_preds": np.zeros((0,), labels.dtype), "metadata": None}
+    n_eval = min(n, len(by_index)) if partial else n
+    return [by_index.get(i, empty) for i in range(n_eval)]
 
 
 class _LogState:
@@ -78,11 +123,19 @@ class Trainer:
     ``val_history``."""
 
     def __init__(self, cfg, work_dir: Optional[str] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", distributed: bool = True):
         self.cfg = cfg
         self.work_dir = work_dir or cfg.work_dir
+        self.seed = seed
+        # data parallel where a process group is up, one of any size (a
+        # group of one still runs its collectives); ``distributed=False``
+        # keeps this trainer out of it
+        self.group = (dist.group.WORLD if distributed and dist.is_available()
+                      and dist.is_initialized() else None)
+        self.rank = dist.get_rank() if self.group is not None else 0
+        self.world = dist.get_world_size() if self.group is not None else 1
         os.makedirs(self.work_dir, exist_ok=True)
-        self.logger = get_root_logger(self.work_dir)
+        self.logger = get_root_logger(self.work_dir, rank=self.rank)
         self.device = torch.device(device)
         # the host library is whole before any loader thread loads it
         ensure_native()
@@ -90,18 +143,21 @@ class Trainer:
         self.train_dataset = builder.build_dataset(cfg, "train", seed=seed)
         self.val_dataset = builder.build_dataset(cfg, "val", seed=seed)
         self.train_loader = builder.build_dataloader(
-            cfg, self.train_dataset, shuffle=True, seed=seed)
+            cfg, self.train_dataset, shuffle=True, seed=seed,
+            num_shards=self.world, shard_index=self.rank)
         self.val_loader = builder.build_dataloader(
             cfg, self.val_dataset, shuffle=False, seed=seed)
+        self._rank_val_loader = None
         self.enable_ssl = bool(cfg.get("my_paras", {}).get("enable_ssl",
                                                            True))
 
-        student = builder.build_detector(cfg)
+        student = builder.build_detector(cfg, process_group=self.group)
         student.reset_parameters(torch.Generator().manual_seed(seed))
         # the teacher is inference-shaped (no grads), so it may take another
         # execution plan; the parameter tree is the same
         teacher = builder.build_detector(
-            cfg, dense_from_stage=cfg.get("teacher_dense_from_stage"))
+            cfg, dense_from_stage=cfg.get("teacher_dense_from_stage"),
+            process_group=self.group)
         teacher.load_state_dict(student.state_dict())
         student.to(self.device)
         teacher.to(self.device).requires_grad_(False)
@@ -111,7 +167,7 @@ class Trainer:
         self.train_step = make_train_step(
             builder.build_loss_config(cfg),
             ema_decay_cap=cfg.get("ema_decay_cap", 0.999),
-            enable_ssl=self.enable_ssl)
+            enable_ssl=self.enable_ssl, process_group=self.group)
 
         self.suffixes = ("", "_raw") if self.enable_ssl else ("",)
         self.stage_capacity = tuple(cfg.get("stage_capacity") or TRAIN_CAPS)
@@ -124,12 +180,16 @@ class Trainer:
         self.epoch = 0
         self.history: List[dict] = []
         self.val_history: List[dict] = []
+        # the per-image detections the last validate() scored (rank 0's
+        # merge in data parallel; None on the other ranks)
+        self.val_detections: Optional[List[dict]] = None
         self._eval_fn = None
         self._eval_sat_warned = False
         self._sat_warned = False
         self._sat_batches = 0
         self._sat_total = 0
         self._saved_step = 0
+        self._replicate()
         self._snapshot_run_context()
 
     @property
@@ -138,6 +198,25 @@ class Trainer:
         stage (truncated voxels); the per-epoch count resets, this one
         does not."""
         return self._sat_total
+
+    def rank_report(self) -> dict:
+        """What this rank of a run reports, to be held against the other
+        ranks': its rank and world size, its step count and history, its
+        saturated batches and the digest of its state."""
+        return {"rank": self.rank, "world": self.world,
+                "step": self.state.step, "history": self.history,
+                "saturated": self.saturated_batches,
+                "digest": mesh.state_digest(self.state)}
+
+    def _replicate(self, found: bool = False) -> bool:
+        """Rank 0's state and epoch on every rank (no-op outside data
+        parallel); returns rank 0's ``found``."""
+        if self.group is None:
+            return found
+        mesh.replicate(self.state, self.group)
+        self.epoch, found = mesh.broadcast_ints(
+            [self.epoch, found], self.device, self.group)
+        return bool(found)
 
     def _device_batch(self, batch: dict) -> dict:
         """The step's inputs as device tensors. On a CUDA device each
@@ -167,7 +246,9 @@ class Trainer:
     def _snapshot_run_context(self):
         """Record the run's recipe in the work dir (trainer.py:181-213): the
         config text, the git revision, and the torch version and device.
-        Observability only: a failure never stops training."""
+        Observability only: a failure never stops training. Rank 0 only."""
+        if self.rank != 0:
+            return
         try:
             text = getattr(self.cfg, "text", "")
             if text:
@@ -193,25 +274,33 @@ class Trainer:
             self.logger.debug(f"run-context snapshot failed: {e}")
 
     def save_checkpoint(self):
-        """The state at the current epoch count (``utils/checkpoint``)."""
-        path = ckpt.save_checkpoint(self.work_dir, self.state, self.epoch)
+        """The state at the current epoch count (``utils/checkpoint``),
+        written by rank 0; every rank waits for the file."""
+        if self.rank == 0:
+            path = ckpt.save_checkpoint(self.work_dir, self.state, self.epoch)
+            self.logger.info(f"saved checkpoint at epoch {self.epoch}: "
+                             f"{path}")
+        if self.group is not None:
+            dist.barrier(group=self.group)
         self._saved_step = self.state.step
-        self.logger.info(f"saved checkpoint at epoch {self.epoch}: {path}")
 
     def resume(self):
         """Continue the run of ``work_dir`` from its latest checkpoint
         (trainer.py:216-222): both nets, the optimizer, the step and the
-        epoch."""
+        epoch; rank 0's on every rank."""
         state, epoch = ckpt.load_checkpoint(self.work_dir, self.state)
         if state is not None:
             self.epoch = epoch
+        if self._replicate(state is not None):
             self._saved_step = self.state.step
-            self.logger.info(f"resumed from epoch {epoch}")
+            self.logger.info(f"resumed from epoch {self.epoch}")
 
     def load_from(self, pretrained_dir):
         """Warm start from the latest checkpoint under ``pretrained_dir``
-        (trainer.py:224-229, ``checkpoint.load_params_only``)."""
-        if ckpt.load_params_only(pretrained_dir, self.state) is not None:
+        (trainer.py:224-229, ``checkpoint.load_params_only``); rank 0's on
+        every rank."""
+        found = ckpt.load_params_only(pretrained_dir, self.state) is not None
+        if self._replicate(found):
             self.logger.info(f"warm start (student+teacher) from "
                              f"{pretrained_dir}")
         else:
@@ -229,12 +318,14 @@ class Trainer:
         cfg = self.cfg
         total = cfg.total_epochs
         iters = len(self.train_loader)
+        lead = self.rank == 0
         log = _LogState(
             TextLogger(self.logger, cfg.log_config.get("interval", 10),
                        total_iters=total * iters,
-                       json_path=os.path.join(self.work_dir, "log.json")),
+                       json_path=os.path.join(self.work_dir, "log.json")
+                       if lead else None),
             TensorBoardLogger(os.path.join(self.work_dir, "tb"))
-            if cfg.log_config.get("tensorboard", False) else None,
+            if lead and cfg.log_config.get("tensorboard", False) else None,
             max_steps)
         ckpt_interval = cfg.get("checkpoint_config", {}).get("interval", 1)
         val_interval = cfg.get("val_interval", 0)
@@ -455,7 +546,9 @@ class Trainer:
                  max_batches: Optional[int] = None):
         """The student (or, with ``use_ema``, the teacher) over the val
         split -> official KITTI AP tables (None without ground truth).
-        Single host."""
+        Data parallel: ``_validate_ranks``, and None on every rank but 0."""
+        if self.group is not None:
+            return self._validate_ranks(use_ema, max_batches)
         detections = []
         batches = iter(self.val_loader)
         try:
@@ -471,6 +564,59 @@ class Trainer:
         finally:
             batches.close()
         detections = detections[:len(self.val_dataset)]
+        self.val_detections = detections
+        results, _ = self.val_dataset.evaluation(detections)
+        if results is not None:
+            self.logger.info("\n" + format_results(results))
+        self._record_val(results, use_ema)
+        return results
+
+    def _validate_ranks(self, use_ema: bool, max_batches: Optional[int]):
+        """The eval of a data-parallel run (trainer.py:638-750): each rank
+        runs its shard of the val split (the loader's padded-equal shards,
+        the trailing batch padded), fills fixed-shape buffers of
+        ceil(len(val) / world) rows (image ids, -1 where unused; boxes
+        [post, 7], scores, labels and valid flags [post]) and gathers them;
+        rank 0 merges them by dataset index and computes the AP, the others
+        return None. All ranks must call it with the same ``max_batches``."""
+        if self._rank_val_loader is None:
+            self._rank_val_loader = builder.build_dataloader(
+                self.cfg, self.val_dataset, shuffle=False, seed=self.seed,
+                num_shards=self.world, shard_index=self.rank)
+        full_b = self.cfg.data["samples_per_gpu"]
+        cap = -(-len(self.val_dataset) // self.world)
+        if max_batches is not None:
+            cap = min(cap, max_batches * full_b)
+        rows = []  # (image id, boxes, scores, labels, valid) per sample
+        batches = iter(self._rank_val_loader)
+        try:
+            for bi, batch in enumerate(batches):
+                if max_batches is not None and bi >= max_batches:
+                    break
+                dets = self._eval_batch(batch, use_ema)
+                rows += [(int(meta["image_idx"]), dets["box3d_lidar"][i],
+                          dets["scores"][i], dets["label_preds"][i],
+                          dets["valid"][i])
+                         for i, meta in enumerate(batch["metadata"])]
+        finally:
+            batches.close()
+        rows = rows[:cap]
+        bufs = [np.full((cap,), -1, np.int64)] + [
+            np.zeros((cap,) + a.shape, a.dtype) for a in rows[0][1:]]
+        for r, row in enumerate(rows):
+            for buf, a in zip(bufs, row):
+                buf[r] = a
+        gathered = mesh.all_gather_detections(
+            {k: torch.from_numpy(b) for k, b in zip(_GATHER_KEYS, bufs)},
+            self.group)
+        if self.rank != 0:
+            return None
+        detections = merge_rank_detections(
+            {k: v.numpy() for k, v in gathered.items()},
+            {int(info["image"]["image_idx"]): i
+             for i, info in enumerate(self.val_dataset.infos)},
+            len(self.val_dataset), partial=max_batches is not None)
+        self.val_detections = detections
         results, _ = self.val_dataset.evaluation(detections)
         if results is not None:
             self.logger.info("\n" + format_results(results))

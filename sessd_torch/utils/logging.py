@@ -18,9 +18,13 @@ import time
 from collections import OrderedDict, defaultdict
 
 
-def get_root_logger(work_dir=None, level=logging.INFO) -> logging.Logger:
+def get_root_logger(work_dir=None, level=logging.INFO,
+                    rank: int = 0) -> logging.Logger:
     """The run's logger: stdout and ``<work_dir>/train.log``, one logger
-    per work dir (so two trainers in one process write their own files)."""
+    per work dir (so two trainers in one process write their own files).
+    Of a data-parallel run only rank 0 logs so; every other rank logs its
+    warnings and errors to stdout alone (the reference's
+    ``get_root_logger(log_level)`` with ``rank != 0``)."""
     name = "sessd_torch" if work_dir is None else \
         f"sessd_torch.train.{pathlib.Path(work_dir).resolve()}"
     logger = logging.getLogger(name)
@@ -28,10 +32,10 @@ def get_root_logger(work_dir=None, level=logging.INFO) -> logging.Logger:
         pathlib.Path(work_dir).mkdir(parents=True, exist_ok=True)
     if logger.handlers:
         return logger
-    logger.setLevel(level)
+    logger.setLevel(level if rank == 0 else logging.WARNING)
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
     handlers = [logging.StreamHandler(sys.stdout)]
-    if work_dir is not None:
+    if work_dir is not None and rank == 0:
         handlers.append(logging.FileHandler(
             pathlib.Path(work_dir) / "train.log"))
     for h in handlers:
