@@ -151,6 +151,34 @@ Phases, each printing its own lines; any failure exits non-zero:
    writes none, each rank launches the K1 and K3 the stream rule gives
    for its batches. The launches of phases 15-17 (every rank's) join the
    kernels line.
+18. Device inputs (after phase 7): the voxelizer and the rulebook chain on
+   the card. ``build_device_chain`` equals HostPreprocessor's C++ chain
+   (dtype, shape, values) on the same coords for ``make_scene(0-7)`` at
+   batch 1 and in 8 batches of 8 at SERVING_CAPS (int32 at batch 8, its
+   stage-0 lookups by binary search). Batch-1 ``make_points_infer_fn``
+   (points on the card -> ``voxelize_torch`` -> VFE -> chain -> K1 ->
+   neck, head, predict) against ``make_infer_fn`` on host prep, same
+   weights, on the scenes whose voxels fit ``max_voxels`` (those over it
+   are printed: the card keeps the lowest ids, the host the first seen):
+   head outputs within 1e-3 (f32) and 2e-2 (bf16) of the max, and in f32
+   with the cls bias at 0 the same detections; bf16 p50/p90 over 16
+   requests (14 K1 each), the device prep ms (CUDA events) and the host
+   prep ms per scene; voxelize, chain and backbone under
+   ``torch.cuda.set_sync_debug_mode("error")``. A bf16 batch-4 Trainer
+   with ``data.host_rulebooks=False`` at ACCEPT_CAPS: its first step on
+   device chains against the same step on the host chains from the same
+   state, loss terms within 1e-4 relative; then DEVICE_STEPS steps with
+   24/9/10 K4/dFeat/dW launches each, finite, no saturated batch, and the
+   device chains of every batch it trained on (student and teacher) equal
+   to its host chains; step median and peak memory; then one training
+   forward and backward on a batch-1 int16 device chain and on its int32
+   copy, outputs and weight gradients bit-equal. An f32 Trainer with
+   the key off: the hybrid eval plan's head outputs (K4 + cuDNN) within
+   1e-3 of the host chain's all-sparse plan on val batch 0, then
+   ``validate()`` with 10 K4 launches per batch and no K1. Then
+   ``tools.get_flops`` (SE-SSD Car, 16000 voxels) and
+   ``tools.time_analyze`` on the card, their lines printed. The phase's
+   launches join the kernels line.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``sparse_conv_dfeat_scalar``,
@@ -203,9 +231,12 @@ from sessd_torch.scripts.profile_train import make_synthetic_root
 from sessd_torch.models.predict import predict_batch
 from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
                                PillarPreprocessor, make_pillar_infer_fn,
-                               HostPreprocessor, make_scene,
+                               HostPreprocessor, make_infer_fn,
+                               make_points_infer_fn, make_scene,
                                saturated_stages, stage_inputs)
+from sessd_torch.tools import get_flops, time_analyze
 from sessd_torch.tools.train import load as load_train_config
+from sessd_torch.train.train_step import sigmoid_rampup
 from sessd_torch.train.trainer import Trainer
 from sessd_torch.utils.profiling import card_line, queued_device_ms
 
@@ -1183,6 +1214,414 @@ def phase_eval(trainer, root, tmp):
           f"{time.perf_counter() - t0:.1f} s gave the same AP tables and "
           f"wrote {os.path.basename(out)}")
     return counts
+
+
+# --- device inputs: voxelize and the rulebook chain on the card -----------
+
+DEVICE_STEPS = 4
+HEAD_BOUNDS = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+def _chain_diff(host: dict, dev: dict) -> list:
+    """The arrays in which a device chain differs from a host one in dtype,
+    shape or values."""
+    bad = []
+    for k in ("perm", "ids", "subm", "down"):
+        hs = host[k] if isinstance(host[k], list) else [host[k]]
+        ds = dev[k] if isinstance(dev[k], list) else [dev[k]]
+        if len(hs) != len(ds):
+            bad.append(f"{k}: {len(ds)} arrays, host {len(hs)}")
+            continue
+        for i, (h, d) in enumerate(zip(hs, ds)):
+            h, d = np.asarray(h), d.cpu().numpy()
+            if d.dtype != h.dtype or d.shape != h.shape \
+                    or not np.array_equal(d, h):
+                bad.append(f"{k}[{i}] {d.dtype}{d.shape} vs host "
+                           f"{h.dtype}{h.shape}")
+    return bad
+
+
+def _host_coords(prep, scenes):
+    """The coords [B*cap0, 4] bzyx and mask HostPreprocessor builds its
+    chain from (its C++ voxelizer, each scene at the head of its block)."""
+    spec, cap0 = prep.spec, prep.caps[0]
+    coords = np.zeros((len(scenes) * cap0, 4), np.int32)
+    valid = np.zeros((len(scenes) * cap0,), bool)
+    for s, pts in enumerate(scenes):
+        _, zyx, _ = prep.native.voxelize(
+            pts, spec.point_cloud_range, spec.voxel_size, spec.max_points,
+            min(spec.max_voxels, cap0))
+        coords[s * cap0:s * cap0 + len(zyx)] = np.c_[
+            np.full(len(zyx), s, np.int32), zyx]
+        valid[s * cap0:s * cap0 + len(zyx)] = True
+    return coords, valid
+
+
+def _serving_chains(spec, scenes, device):
+    """build_device_chain against HostPreprocessor's C++ chain on the same
+    coords: each scene at batch 1 and 8 batches of 8 at SERVING_CAPS."""
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    requests = [[s] for s in scenes] + [
+        [scenes[(r + j) % len(scenes)] for j in range(8)]
+        for r in range(len(scenes))]
+    dtypes = set()
+    for n, batch in enumerate(requests):
+        b = len(batch)
+        host = (prep(batch[0]) if b == 1 else prep.batch(batch))["rulebooks"]
+        coords, valid = _host_coords(prep, batch)
+        dev, _ = sp.build_device_chain(
+            _put(coords, device), _put(valid, device),
+            (b,) + spec.sparse_shape, [c * b for c in SERVING_CAPS])
+        bad = _chain_diff(host, dev)
+        if bad:
+            raise AssertionError(f"serving request {n} (batch {b}): device "
+                                 f"chain differs from the host's: {bad}")
+        dtypes.add((b, str(dev["subm"][0].dtype).replace("torch.", "")))
+    print(f"device chain == host C++ chain (dtype, shape, values) on "
+          f"{len(requests)} serving requests: {len(scenes)} at batch 1, "
+          f"{len(scenes)} at batch 8, SERVING_CAPS; dtypes {sorted(dtypes)} "
+          f"(batch 8: int32, stage-0 lookups by binary search)")
+    return len(requests)
+
+
+def _voxel_count(prep, pts) -> int:
+    """Distinct in-range voxels of a scan, before any cap."""
+    spec = prep.spec
+    return len(prep.native.voxelize(pts, spec.point_cloud_range,
+                                    spec.voxel_size, spec.max_points,
+                                    10 ** 7)[1])
+
+
+def _points_serving(spec, scenes, device):
+    """Batch-1 points-in serving against host prep, f32 and bf16; returns
+    (launch counts, timing line values)."""
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    counts = [_voxel_count(prep, pts) for pts in scenes]
+    fits = [i for i, c in enumerate(counts) if c <= spec.max_voxels]
+    over = [i for i, c in enumerate(counts) if c > spec.max_voxels]
+    print(f"points-in serving: voxels per scene {counts}; scenes over "
+          f"max_voxels={spec.max_voxels} (lowest-id survivors on the card, "
+          f"FCFS on the host): {over or 'none'}")
+    if not fits:
+        raise AssertionError("no scene fits max_voxels: nothing to compare")
+    stats = {}
+    for config, dtype in (("se_ssd_kitti_car.py", torch.float32),
+                          ("se_ssd_kitti_car_bf16.py", torch.bfloat16)):
+        model, cfg = build_model(config, device, prior=True)
+        anchors = builder.build_anchors(cfg)
+        pcfg = builder.build_predict_config(cfg)
+        infer = make_points_infer_fn(model, anchors, pcfg, spec,
+                                     SERVING_CAPS, device)
+        host_infer = make_infer_fn(model, anchors, pcfg, SERVING_CAPS, 1,
+                                   device)
+        worst = 0.0
+        for i in fits:
+            pts = _put(scenes[i], device)
+            feats, rb = stage_inputs(**prep(scenes[i]), device=device)
+            ones = torch.ones(feats.shape[0], dtype=torch.int32,
+                              device=device)
+            with torch.inference_mode():
+                vox, num, chain, full = infer.stages(pts)
+                if full.any():
+                    raise AssertionError(f"scene {i}: stages "
+                                         f"{full.tolist()} full")
+                got = model(vox, num, chain, 1)[0]
+                want = model(feats[:, None, :], ones, rb, 1)[0]
+            for k in want:
+                err = float((got[k].float() - want[k].float()).abs().max()
+                            / want[k].float().abs().max())
+                worst = max(worst, err)
+        tag = str(dtype).replace("torch.", "")
+        print(f"points-in head outputs {tag} vs host prep, {len(fits)} "
+              f"scenes: worst {worst:.2e} of the max "
+              f"(bound {HEAD_BOUNDS[dtype]})")
+        if not worst <= HEAD_BOUNDS[dtype]:
+            raise AssertionError(f"points-in heads {tag}: {worst:.3e}")
+        if dtype == torch.float32:
+            set_prior(model, False)  # scores ~0.5: detections to compare
+            found = 0
+            for i in fits:
+                got = infer(scenes[i])
+                want = host_infer(**prep(scenes[i]))
+                if not (torch.equal(got[2], want[2])
+                        and torch.allclose(got[0], want[0], atol=1e-4)
+                        and torch.allclose(got[1], want[1], atol=1e-5)):
+                    raise AssertionError(f"scene {i}: points-in detections "
+                                         "differ from host prep's")
+                found += int(got[2].sum())
+            if not found:
+                raise AssertionError("no detection to compare")
+            print(f"points-in detections f32 (cls bias 0): the same "
+                  f"{found} boxes as host prep on {len(fits)} scenes")
+            continue
+        # bf16 serving: latency, device prep on the card, host prep
+        reqs = [scenes[i % len(scenes)] for i in range(2 * len(scenes) + 1)]
+        lat = []
+        before = sc.fused_sparse_conv.launches
+        for n, pts in enumerate(reqs):
+            t0 = time.perf_counter()
+            out = infer(pts)
+            torch.cuda.synchronize()
+            if n:  # request 0 is the warm-up
+                lat.append((time.perf_counter() - t0) * 1e3)
+            if not all(torch.isfinite(t.float()).all() for t in out[:2]):
+                raise AssertionError("points-in: non-finite outputs")
+        k1 = sc.fused_sparse_conv.launches - before
+        if k1 != 14 * len(reqs) or sc.fused_sparse_conv_stream.launches:
+            raise AssertionError(f"points-in: {k1} K1 launches for "
+                                 f"{len(reqs)} requests")
+        dev_ms, host_ms = [], []
+        for pts in scenes:
+            on_card = _put(pts, device)
+            with torch.inference_mode():
+                dev_ms.append(median_ms(lambda: infer.stages(on_card), 5))
+            prep(pts)
+            t0 = time.perf_counter()
+            prep(pts)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        stats = {"p50": float(np.percentile(lat, 50)),
+                 "p90": float(np.percentile(lat, 90)),
+                 "dev_prep": dev_ms, "host_prep": host_ms}
+        print(f"points-in serving bf16 b1: {len(lat)} requests, p50 "
+              f"{stats['p50']:.3f} ms p90 {stats['p90']:.3f} ms, 14 K1 "
+              f"launches each; device prep (voxelize + VFE-ready voxels + "
+              f"chain, CUDA events) per scene "
+              f"{', '.join(f'{t:.3f}' for t in dev_ms)} ms; host prep "
+              f"(C++ voxelize + VFE + chain) per scene "
+              f"{', '.join(f'{t:.3f}' for t in host_ms)} ms")
+
+        # no host sync on the card's half: voxelize, chain, backbone
+        pts = _put(scenes[fits[0]], device)
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                vox, num, chain, _ = infer.stages(pts)
+                model.backbone(model.reader(vox, num), chain, 1,
+                               model.sparse_shape, model.dtype)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        print("no host sync: voxelize_torch, build_device_chain and the "
+              "backbone ran under torch.cuda.set_sync_debug_mode('error')")
+    return stats
+
+
+def _device_trainer(config, root, work, device, **values):
+    """make_trainer's Trainer with ``data.host_rulebooks`` off."""
+    path = write_config(config, f"{work}.py",
+                        **{"stage_capacity": ACCEPT_CAPS, **values})
+    with open(path, "a") as f:
+        f.write("data = dict(data, host_rulebooks=False)\n")
+    trainer = Trainer(load_train_config(path, root), work_dir=work,
+                      seed=SEED, device=device)
+    if trainer.host_inputs or trainer.train_loader.batch_transform:
+        raise AssertionError("host_rulebooks=False left host chains on")
+    return trainer
+
+
+def _host_device_batch(trainer, batch):
+    """The step's device batch with the loader's host chains added."""
+    db = trainer._device_batch(batch)
+    host = trainer.state.student.host_transform(trainer.stage_capacity,
+                                                trainer.suffixes)(batch)
+    for sfx in trainer.suffixes:
+        db["inputs" + sfx] = {
+            k: ([_put(a, trainer.device) for a in v] if isinstance(v, list)
+                else _put(v, trainer.device))
+            for k, v in host["inputs" + sfx].items()}
+    return db, host
+
+
+def _check_batch_chains(trainer, batch, host, what):
+    b = batch["voxels"].shape[0]
+    for sfx in trainer.suffixes:
+        with torch.inference_mode():
+            chain, _ = trainer.state.student.device_inputs(
+                _put(batch["coords" + sfx], trainer.device),
+                _put(batch["voxel_mask" + sfx], trainer.device), b)
+        bad = _chain_diff(host["inputs" + sfx], chain)
+        if bad:
+            raise AssertionError(f"{what} chain{sfx or ' (student)'}: "
+                                 f"{bad}")
+
+
+def _index_types(trainer, batch):
+    """One bf16 training forward and backward of the student on the
+    batch-1 device chain of the batch's first scan (int16 at ACCEPT_CAPS)
+    and on its int32 copy: outputs and every sparse conv's weight gradient
+    bit-equal (K4, dFeat over the inverse rulebooks, dW)."""
+    model, dev = trainer.state.student.train(), trainer.device
+    chain, _ = model.device_inputs(_put(batch["coords"][:1], dev),
+                                   _put(batch["voxel_mask"][:1], dev), 1)
+    if chain["subm"][0].dtype != torch.int16:
+        raise AssertionError(f"batch-1 chain is {chain['subm'][0].dtype}")
+    chain32 = {k: ([a.int() for a in v] if isinstance(v, list) else v.int())
+               for k, v in chain.items()}
+    weights = [conv.weight for conv, _ in model.backbone.blocks()]
+    got = []
+    for rb in (chain, chain32):
+        out = model(_put(batch["voxels"][0], dev),
+                    _put(batch["num_points"][0], dev), rb, 1, train=True)[0]
+        loss = sum(v.float().square().mean() for v in out.values())
+        got.append([out["box_preds"].detach(),
+                    *torch.autograd.grad(loss, weights, allow_unused=True)])
+    if not all(a is b or torch.equal(a, b) for a, b in zip(*got)):
+        raise AssertionError("int16 and int32 device chains train apart")
+    print("device chain int16 (batch 1) and its int32 copy: training "
+          "forward and the sparse convs' weight gradients bit-equal")
+
+
+def _device_train(root, tmp, device):
+    """bf16 batch-4 training on device chains at ACCEPT_CAPS; returns its
+    launch counts."""
+    trainer = _device_trainer("se_ssd_kitti_car_bf16.py", root,
+                              f"{tmp}/work_device", device)
+    batches = iter(trainer.train_loader)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    # the first step on device chains and on host chains, same state
+    db_host, _ = _host_device_batch(trainer, batch)
+    db_dev = trainer._device_batch(batch)
+    cw = sigmoid_rampup(0, trainer.cfg.get("consistency_rampup_epochs", 15))
+    metrics = []
+    for db in (db_dev, db_host):
+        state = copy.deepcopy(trainer.state)
+        state.optimizer.params = list(state.student.parameters())
+        m = trainer.train_step(state, db, cw)
+        metrics.append({k: float(v) for k, v in m.items()
+                        if k != "saturated"})
+    torch.cuda.synchronize()
+    terms = [k for k in metrics[1] if k.endswith("loss")]
+    worst = max(abs(metrics[0][k] - metrics[1][k])
+                / (abs(metrics[1][k]) + 1e-6) for k in terms)
+    print(f"device-chain step vs host-chain step (bf16, same batch and "
+          f"state): {len(terms)} loss terms, worst rel {worst:.2e}; "
+          f"grad_norm {metrics[0]['grad_norm']:.6g} vs "
+          f"{metrics[1]['grad_norm']:.6g}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"device-chain loss terms differ by {worst}")
+
+    # the run; each batch it trained on is held against its host chains
+    seen = []
+    stage = trainer._device_batch
+
+    def keep(batch):
+        seen.append(batch)
+        return stage(batch)
+
+    trainer._device_batch = keep
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(max_steps=DEVICE_STEPS)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    trainer._device_batch = stage
+    _finite_history(trainer, "device-chain training")
+    _no_saturation(trainer, "device-chain training")
+    want = {"sparse_conv_fwd": 24, "sparse_conv_dfeat": 9,
+            "sparse_conv_dw": 10}
+    if any(counts[k] != n * DEVICE_STEPS for k, n in want.items()) or \
+            counts["fused_sparse_conv"] or counts["fused_sparse_conv_stream"]:
+        raise AssertionError(f"device-chain training launches {counts}")
+    for n, batch in enumerate(seen):
+        host = trainer.state.student.host_transform(
+            trainer.stage_capacity, trainer.suffixes)(batch)
+        _check_batch_chains(trainer, batch, host, f"training batch {n}")
+    _index_types(trainer, seen[0])
+    print(f"device-chain training (bf16 b4, {ACCEPT_CAPS}, no batch "
+          f"saturated): {_step_summary(trainer, peak)}; chains of all "
+          f"{len(seen)} batches (student and teacher) == host C++ chains; "
+          f"launches per step fwd 24 dfeat 9 dw 10")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _device_eval(root, tmp, device):
+    """f32 validate() on device chains (hybrid plan, K4); returns its
+    launch counts."""
+    trainer = _device_trainer("se_ssd_kitti_car.py", root,
+                              f"{tmp}/work_device_f32", device)
+    batches = iter(trainer.val_loader)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    b, v = batch["voxels"].shape[:2]
+    model = trainer.state.student.eval()
+    host = model.host_transform(trainer.stage_capacity)(batch)
+    rb = {k: ([_put(a, device) for a in x] if isinstance(x, list)
+              else _put(x, device)) for k, x in host["inputs"].items()}
+    vox = _put(batch["voxels"], device).reshape(b * v, *batch["voxels"]
+                                                .shape[2:])
+    num = _put(batch["num_points"], device).reshape(b * v)
+    with torch.inference_mode():
+        chain, full = model.device_inputs(_put(batch["coords"], device),
+                                          _put(batch["voxel_mask"], device),
+                                          b)
+        hyb = model(vox, num, chain, b, train=True)[0]
+        ref = model(vox, num, rb, b)[0]
+    if full.any() or _chain_diff(host["inputs"], chain):
+        raise AssertionError("eval batch: device chain saturated or off the "
+                             "host's")
+    worst = max(float((hyb[k] - ref[k]).abs().max() / ref[k].abs().max())
+                for k in ref)
+    print(f"device-chain eval f32: hybrid plan (dense_from_stage "
+          f"{model.dense_from_stage}, K4 + cuDNN) head outputs vs the host "
+          f"chain's all-sparse plan (K1/K3) on val batch 0: worst "
+          f"{worst:.2e} of the max")
+    if not worst <= 1e-3:
+        raise AssertionError(f"device-chain eval heads differ by {worst}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = trainer.validate()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    n = -(-len(trainer.val_dataset) // trainer.cfg.data["samples_per_gpu"])
+    # the sparse convs of the plan: stages 0-2 and the strided conv into 3
+    k4 = sum((1 if dk else 0) + (n_subm if stage < model.dense_from_stage
+                                 else 0)
+             for stage, (_, n_subm, dk, _, _) in enumerate(PLAN)
+             if stage <= model.dense_from_stage)
+    want = {k: 0 for k in counts}
+    want["sparse_conv_fwd"] = k4 * n
+    if counts != want:
+        raise AssertionError(f"device-chain validate launches {counts}, "
+                             f"want {want}")
+    if results is None or trainer._eval_sat_warned:
+        raise AssertionError("device-chain validate: no result, or a "
+                             "saturated eval chain")
+    print(f"device-chain eval: validate() over {len(trainer.val_dataset)} "
+          f"frames in {n} batches, {secs:.3f} s ({secs / n * 1e3:.1f} "
+          f"ms/batch with the loader), {k4} K4 launches per batch; "
+          f"{_ap_line(results)}")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_device_inputs(spec, root, tmp, device):
+    """The inputs built on the card; returns the phase's launch counts."""
+    scenes = [make_scene(seed=s)[0] for s in range(8)]
+    _serving_chains(spec, scenes, device)
+    _reset_counts()
+    _points_serving(spec, scenes, device)
+    serving = _counts()
+    train = _device_train(root, tmp, device)
+    evals = _device_eval(root, tmp, device)
+    _reset_counts()
+    get_flops.main(["se_ssd_kitti_car.py", "--device", str(device)])
+    time_analyze.main(["--device", str(device)])
+    tools = _counts()
+    return {k: serving[k] + train[k] + evals[k] + tools[k] for k in serving}
 
 
 ABLATE_BOUND = 2e-2  # bf16 inputs and outputs, f32 sums
@@ -2267,6 +2706,8 @@ def main():
             eval_counts = phase_eval(trainer, root, tmp)
             del trainer
             torch.cuda.empty_cache()
+        with phase("device inputs"):
+            dev_counts = phase_device_inputs(spec, root, tmp, device)
         with phase("ablation"):
             abl = phase_ablation(device)
         with phase("warm start / resume"):
@@ -2285,9 +2726,10 @@ def main():
             mp_counts = phase_multiprocess_eval(root, tmp, lead, dp_cfg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # the 3-class and data-parallel phases' launches (every rank's)
-    late_counts = {k: c3_counts[k] + dp_counts[k] + nccl_counts[k]
-                   + mp_counts[k] for k in c3_counts}
+    # the device-input, 3-class and data-parallel phases' launches (every
+    # rank's)
+    late_counts = {k: dev_counts[k] + c3_counts[k] + dp_counts[k]
+                   + nccl_counts[k] + mp_counts[k] for k in c3_counts}
 
     k1_launches = (launches + b8_counts["fused_sparse_conv"]
                    + dinms_counts["fused_sparse_conv"]
@@ -2301,18 +2743,18 @@ def main():
           f"{b8_counts['fused_sparse_conv']} (b8) + "
           f"{dinms_counts['fused_sparse_conv']} (DI-NMS) + "
           f"{eval_counts['fused_sparse_conv']} (eval) + "
-          f"{late_counts['fused_sparse_conv']} (3-class eval and data "
-          f"parallel); K3 "
+          f"{late_counts['fused_sparse_conv']} (device inputs, 3-class eval "
+          f"and data parallel); K3 "
           f"{b8_counts['fused_sparse_conv_stream']} (b8) + "
           f"{dinms_counts['fused_sparse_conv_stream']} (DI-NMS) + "
           f"{eval_counts['fused_sparse_conv_stream']} (eval) + "
-          f"{late_counts['fused_sparse_conv_stream']} (3-class eval and data "
-          f"parallel); "
+          f"{late_counts['fused_sparse_conv_stream']} (device inputs, 3-class "
+          f"eval and data parallel); "
           f"K4/dFeat/dW {counts['sparse_conv_fwd']}/"
           f"{counts['sparse_conv_dfeat']}/{counts['sparse_conv_dw']} (SE-SSD)"
           f" + {late_counts['sparse_conv_fwd']}/"
           f"{late_counts['sparse_conv_dfeat']}/{late_counts['sparse_conv_dw']}"
-          f" (3-class and data parallel); "
+          f" (device inputs, 3-class and data parallel); "
           f"eval K3 sums "
           f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms, twin "
           f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")

@@ -69,6 +69,9 @@ def build_detector(cfg, dense_from_stage: Optional[int] = None,
               tasks=tuple(dict(t) for t in m["bbox_head"]["tasks"]),
               dtype=_DTYPES[cfg.get("precision", "float32")])
     if m["type"] == "VoxelNet":
+        if cfg.get("stage_capacity") is not None:
+            kw["stage_capacity"] = tuple(int(c)
+                                         for c in cfg["stage_capacity"])
         model = VoxelNet(
             sparse_shape=voxelizer.sparse_shape,
             dense_from_stage=(cfg.get("dense_from_stage", 3)

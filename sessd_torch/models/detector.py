@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..data.rulebooks import make_chain_inputs_transform
+from ..ops.sparse import build_device_chain
 from .backbone import SpMiddleFHD
 from .head import MultiGroupHead
 from .layers import BatchNorm, uniform_
@@ -30,9 +31,13 @@ class VoxelNet(nn.Module):
                  tasks: Sequence[dict] = (dict(num_class=1,
                                                class_names=("Car",)),),
                  dtype: torch.dtype = torch.float32,
-                 dense_from_stage: int = 3):
+                 dense_from_stage: int = 3,
+                 stage_capacity: Sequence[int] = (20000, 22000, 18000, 12000,
+                                                  8000)):
         super().__init__()
         self.sparse_shape = tuple(sparse_shape)
+        # per-sample row capacity of each sparse stage (detector.py:29)
+        self.stage_capacity = tuple(int(c) for c in stage_capacity)
         self.dtype = dtype
         # training plan: stages from here on run as masked dense conv3d
         self.dense_from_stage = dense_from_stage
@@ -69,20 +74,43 @@ class VoxelNet(nn.Module):
         return make_chain_inputs_transform(self.sparse_shape, stage_capacity,
                                            suffixes)
 
+    def device_inputs(self, coords: torch.Tensor, valid: torch.Tensor,
+                      batch_size: int,
+                      stage_capacity: Optional[Sequence[int]] = None):
+        """``host_transform``'s device twin: the rulebook chain of coords
+        [B, V, 3] zyx with valid [B, V], built on their device
+        (``ops.sparse.build_device_chain``) at ``stage_capacity`` (default
+        the model's) scaled by the batch, as backbone.py:274 scales it.
+        Returns (chain, saturated [5] bool on the device)."""
+        caps = self.stage_capacity if stage_capacity is None \
+            else stage_capacity
+        b, v = coords.shape[:2]
+        bidx = torch.arange(b, dtype=coords.dtype, device=coords.device)
+        bzyx = torch.cat([bidx[:, None, None].expand(b, v, 1), coords], -1)
+        return build_device_chain(
+            bzyx.reshape(b * v, 4), valid.reshape(b * v),
+            (batch_size,) + self.sparse_shape,
+            [int(c) * batch_size for c in caps])
+
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
                 rulebooks: dict, batch_size: int,
                 conv: Optional[Callable] = None,
-                train: bool = False) -> list:
-        """voxels [B*V, P, F], num_points [B*V], host rulebook chain as
-        device tensors -> list of per-task dicts of [B, A, c] tensors in the
+                train: bool = False,
+                dense_from_stage: Optional[int] = None) -> list:
+        """voxels [B*V, P, F], num_points [B*V], the rulebook chain as
+        device tensors (``host_transform``'s or ``device_inputs``', int16
+        or int32) -> list of per-task dicts of [B, A, c] tensors in the
         compute dtype. ``train`` takes the training plan
-        (``SpMiddleFHD.forward_train`` at ``dense_from_stage``); BatchNorm
-        uses batch statistics when the module is in training mode."""
+        (``SpMiddleFHD.forward_train`` at ``dense_from_stage``, the
+        model's unless given); BatchNorm uses batch statistics when the
+        module is in training mode, its running ones in eval mode (the
+        hybrid eval plan of device chains)."""
         feats = self.reader(voxels, num_points)
         if train:
             bev = self.backbone.forward_train(
                 feats, rulebooks, batch_size, self.sparse_shape, self.dtype,
-                self.dense_from_stage)
+                self.dense_from_stage if dense_from_stage is None
+                else dense_from_stage)
         else:
             bev = self.backbone(feats, rulebooks, batch_size,
                                 self.sparse_shape, self.dtype, conv=conv)

@@ -1,4 +1,4 @@
-"""Point-cloud voxelization, host (numpy) and device (JAX) versions.
+"""Point-cloud voxelization, host (numpy, C++) and device (torch) versions.
 
 Semantics follow the reference's first-come-first-serve binning kernel
 (det3d/ops/point_cloud/point_cloud_ops_v2.py:9-63): points are walked in
@@ -120,3 +120,62 @@ def voxelize_host(points: np.ndarray, spec: VoxelizerSpec):
         return native.voxelize(points, spec.point_cloud_range, spec.voxel_size,
                                spec.max_points, spec.max_voxels)
     return voxelize_np(points, spec)
+
+
+def voxelize_torch(points, spec: VoxelizerSpec, num_valid_points=None):
+    """Device voxelizer on the points' device (port of
+    ``sessd_tpu/ops/voxelize.py:125-183``): fixed capacity, nothing read
+    back to the host.
+
+    Args:
+        points: [P, F] tensor.
+        num_valid_points: optional int or 0-dim tensor; rows >= it are
+            padding.
+    Returns:
+        voxels [max_voxels, max_points, F], coords [max_voxels, 3] int32
+        (z, y, x, -1-padded), num_points [max_voxels] int32, num_voxels
+        0-dim int32. Voxels in id order; past ``max_voxels`` the lowest ids
+        survive.
+    """
+    import torch
+
+    dev, p = points.device, points.shape[0]
+    nx, ny, nz = spec.grid_size
+    mv, mp = spec.max_voxels, spec.max_points
+    # per-axis bounds as device fills (a host list would be a copy), and a
+    # true division by a tensor, as XLA divides
+    lo = torch.stack([points.new_full((), v)
+                      for v in spec.point_cloud_range[:3]])
+    size = torch.stack([points.new_full((), v) for v in spec.voxel_size])
+    c = torch.floor((points[:, :3] - lo) / size).int()
+    valid = ((c[:, 0] >= 0) & (c[:, 0] < nx) & (c[:, 1] >= 0) & (c[:, 1] < ny)
+             & (c[:, 2] >= 0) & (c[:, 2] < nz))
+    if num_valid_points is not None:
+        valid &= torch.arange(p, device=dev) < num_valid_points
+
+    big = nx * ny * nz  # the id of an invalid point
+    ids = torch.where(valid, (c[:, 2].long() * ny + c[:, 1]) * nx + c[:, 0],
+                      big).int()
+    order = torch.argsort(ids, stable=True)  # invalid points sort last
+    sids = ids[order]
+    spts = points[order]
+
+    is_new = torch.cat([sids.new_ones(1, dtype=torch.bool),
+                        sids[1:] != sids[:-1]]) & (sids < big)
+    voxel_idx = torch.cumsum(is_new, 0) - 1  # garbage for invalid points
+    slot = torch.arange(p, device=dev) - torch.searchsorted(sids, sids)
+    num_voxels = is_new.sum().clamp(max=mv).int()
+
+    keep = (sids < big) & (voxel_idx < mv) & (slot < mp)
+    vi = torch.where(keep, voxel_idx, mv)  # row mv: the discarded overflow
+    si = torch.where(keep, slot, 0)
+    voxels = points.new_zeros((mv + 1, mp, points.shape[1]))
+    voxels[vi, si] = spts
+    num_points = torch.zeros(mv + 1, dtype=torch.int32, device=dev)
+    num_points.index_add_(0, vi, keep.int())
+
+    sc = c[order]
+    coords = torch.full((mv + 1, 3), -1, dtype=torch.int32, device=dev)
+    first = keep & (slot == 0)
+    coords[torch.where(first, voxel_idx, mv)] = sc.flip(1)
+    return voxels[:mv], coords[:mv], num_points[:mv], num_voxels

@@ -16,6 +16,12 @@ int16 at batch 1 and as int32 at batch 4 and 8, where caps x batch exceed
 2^15; the kernels take both. ``make_scene`` is the seeded ray-cast
 KITTI-like scan used as a synthetic request.
 
+``make_points_infer_fn`` is the other topology (``bench.py:460-480``, the
+``SESSD_BENCH=device`` path): the points go to the card and everything
+after runs there: ``voxelize_torch``, the mean VFE, ``build_device_chain``,
+the all-sparse backbone, neck, head and predict, with nothing read back
+before the detections.
+
 PointPillars serves through ``PillarPreprocessor`` and
 ``make_pillar_infer_fn`` (``bench.py:178-260``'s prep and infer): the
 native voxelize at the pillar spec, padded to the fixed capacity with a
@@ -32,13 +38,14 @@ import torch
 from .data.rulebooks import DOWNS
 from .models.pillars import pillar_inputs
 from .models.predict import PredictConfig, predict_batch
-from .ops.voxelize import VoxelizerSpec
+from .ops.voxelize import VoxelizerSpec, voxelize_torch
 from .utils.native import get_native
 from .utils.synth_scene import make_scene
 
 __all__ = ["SERVING_CAPS", "TRAIN_CAPS", "DOWNS", "HostPreprocessor",
            "make_scene", "saturated_stages", "stage_inputs", "make_infer_fn",
-           "ExactBatchServer", "PillarPreprocessor", "make_pillar_infer_fn"]
+           "ExactBatchServer", "PillarPreprocessor", "make_pillar_infer_fn",
+           "make_points_infer_fn"]
 
 
 class HostPreprocessor:
@@ -197,6 +204,42 @@ def make_infer_fn(model, anchors, predict_cfg: PredictConfig,
                              anchors, predict_cfg, frustum_surfaces=None)
         return dets["box3d_lidar"], dets["scores"], dets["valid"]
 
+    return infer
+
+
+def make_points_infer_fn(model, anchors, predict_cfg: PredictConfig,
+                         spec: VoxelizerSpec, caps: Sequence[int] = SERVING_CAPS,
+                         device="cuda") -> Callable:
+    """Returns ``infer(points) -> (box3d_lidar, scores, valid)``: one
+    batch-1 scan [P, F] (numpy, or a tensor) through the device topology of
+    ``bench.py:460-480``. ``model`` is a ``VoxelNet`` already on ``device``.
+    On the device: ``voxelize_torch`` at ``spec``, the mean VFE, the chain
+    at ``caps`` (``VoxelNet.device_inputs``), the all-sparse serving plan
+    (each conv K1 or K3 by ``pick_conv``), neck, head and predict. Past
+    ``spec.max_voxels`` the lowest voxel ids survive where the host's FCFS
+    voxelizer keeps the first seen (``ops/voxelize.py``). ``infer.stages``
+    (points on the device) -> (voxels, num_points, chain, saturated) is
+    the front half alone."""
+    device = torch.device(device)
+    anchors = _to_device(anchors, device).float()
+    caps = [int(c) for c in caps]
+    model.eval()
+
+    def stages(points: torch.Tensor):
+        voxels, coords, num_points, _ = voxelize_torch(points, spec)
+        chain, saturated = model.device_inputs(
+            coords[None], (coords[:, 0] >= 0)[None], 1, caps)
+        return voxels, num_points, chain, saturated
+
+    @torch.inference_mode()
+    def infer(points):
+        voxels, num_points, chain, _ = stages(_to_device(points, device))
+        preds = model(voxels, num_points, chain, 1)
+        dets = predict_batch({k: v.float() for k, v in preds[0].items()},
+                             anchors, predict_cfg, frustum_surfaces=None)
+        return dets["box3d_lidar"], dets["scores"], dets["valid"]
+
+    infer.stages = stages
     return infer
 
 

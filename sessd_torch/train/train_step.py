@@ -36,14 +36,22 @@ def sigmoid_rampup(epoch, rampup_epochs: float = 15.0) -> float:
     return float(np.exp(np.float32(-5.0) * phase * phase))
 
 
-def _flat(batch: dict, suffix: str = ""):
+def _flat(model, batch: dict, suffix: str, saturated: list):
     """Loader layout [B, V, ...] -> the model's (voxels [B*V, P, F],
-    num_points [B*V], third forward argument)."""
+    num_points [B*V], third forward argument, B). A batch without
+    ``inputs<sfx>`` carries ``coords<sfx>`` and ``voxel_mask<sfx>``
+    instead, and the model builds its chain from them on the device
+    (sessd_tpu/train/train_step.py:202-225 with ``rulebooks=None``); its
+    saturation flags go to ``saturated``."""
     vox = batch["voxels" + suffix]
     b, v = vox.shape[:2]
+    inputs = batch.get("inputs" + suffix)
+    if inputs is None:
+        inputs, sat = model.device_inputs(batch["coords" + suffix],
+                                          batch["voxel_mask" + suffix], b)
+        saturated.append(sat)
     return (vox.reshape(b * v, *vox.shape[2:]),
-            batch["num_points" + suffix].reshape(b * v),
-            batch["inputs" + suffix], b)
+            batch["num_points" + suffix].reshape(b * v), inputs, b)
 
 
 def make_train_step(loss_cfg: LossConfig = LossConfig(),
@@ -54,8 +62,10 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
 
     batch (leading dim B, on the modules' device): voxels [B, V, P, F],
     num_points [B, V], inputs (the model's third forward argument: the
-    batch's host chain for VoxelNet, ``host_transform``, as tensors),
-    the same three with the ``_raw`` suffix (teacher inputs, un-augmented),
+    batch's host chain for VoxelNet, ``host_transform``, as tensors) or,
+    for a chain built on the device in the step, coords [B, V, 3] zyx and
+    voxel_mask [B, V]; the same with the ``_raw`` suffix (teacher inputs,
+    un-augmented),
     anchors [B, A, 7], labels / reg_targets (+ ``_raw``) [B, A(, 7)],
     transformation: flipped / noise_rotation / noise_scale [B].
 
@@ -70,15 +80,21 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
     averaged before the step returns (``jax.lax.pmean`` of grads and
     metrics, sessd_tpu/train/train_step.py:249-252, 270-271): one bucket
     per dtype each, and no read-back to the host.
+
+    Where the step built chains on the device, the metrics also hold
+    ``saturated``: [chains, 5] bool, each chain's full stages (student
+    first), this rank's own, left on the device.
     """
 
     def train_step(state: TrainState, batch: dict, consistency_weight):
         stu, tea = state.student, state.teacher
-        voxels, num_points, rb, b = _flat(batch)
+        saturated = []
+        voxels, num_points, rb, b = _flat(stu, batch, "", saturated)
         if enable_ssl:
             tea.train()
             with torch.no_grad():
-                preds_tea = tea(*_flat(batch, "_raw")[:3], b, train=True)[0]
+                preds_tea = tea(*_flat(tea, batch, "_raw", saturated)[:3], b,
+                                train=True)[0]
 
         stu.train()
         preds_stu = stu(voxels, num_points, rb, b, train=True)[0]
@@ -124,6 +140,8 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
             metrics = dict(zip(metrics, all_reduce_mean_(
                 [v.clone() for v in metrics.values()], process_group,
                 kind="metrics")))
+        if saturated:
+            metrics["saturated"] = torch.stack(saturated)
         return metrics
 
     return train_step

@@ -25,6 +25,13 @@ chains (the fused sparse conv kernels, streaming where the JAX package
 streams), the predict path with the camera-frustum cull, and the official
 KITTI AP.
 
+With ``data.host_rulebooks`` off (a model with stage capacities only;
+trainer.py:146-157, 171-175, 365-378) the loader builds no chain: the
+coords and masks go to the device and the step builds both chains there,
+its saturation flags riding back with the metrics at the log points; an
+eval batch's chain is built there too and runs the hybrid plan at the
+student's ``dense_from_stage`` (K4 and cuDNN, BatchNorm in eval mode).
+
 Data parallel (``parallel.mesh``, trainer.py:50-57, 67-78, 638-750): where
 a process group is up (``init_distributed``), each process is one rank
 with its own device and ``samples_per_gpu`` scenes per step. The train
@@ -40,7 +47,8 @@ return None). Every rank must make the same calls in the same order.
 
 The model builds its own third forward argument on the host
 (``host_transform``): VoxelNet its rulebook chain, PointPillars its pillars'
-coordinates and mask, with no chain (sessd_tpu/train/trainer.py:150-176).
+coordinates and mask, with no chain (sessd_tpu/train/trainer.py:150-176);
+VoxelNet's device twin is ``device_inputs``.
 """
 from __future__ import annotations
 
@@ -171,9 +179,15 @@ class Trainer:
 
         self.suffixes = ("", "_raw") if self.enable_ssl else ("",)
         self.stage_capacity = tuple(cfg.get("stage_capacity") or TRAIN_CAPS)
-        # the model's third forward argument, built by the loader
-        self.train_loader.batch_transform = student.host_transform(
-            self.stage_capacity, self.suffixes)
+        # the model's third forward argument: built by the loader on the
+        # host, or, with ``data.host_rulebooks`` off, the chain of a model
+        # with stage capacities built on the device from the staged coords
+        # and masks (trainer.py:146-157, 171-175)
+        self.host_inputs = (bool(cfg.data.get("host_rulebooks", True))
+                            or not hasattr(student, "stage_capacity"))
+        if self.host_inputs:
+            self.train_loader.batch_transform = student.host_transform(
+                self.stage_capacity, self.suffixes)
         self.anchors = torch.from_numpy(
             self.train_dataset.anchors.astype(np.float32)).to(self.device)
         self.predict_cfg = builder.build_predict_config(cfg)
@@ -233,6 +247,10 @@ class Trainer:
         for sfx in self.suffixes:
             for k in _STEP_KEYS:
                 out[k + sfx] = put(batch[k + sfx])
+            if not self.host_inputs:
+                out["coords" + sfx] = put(batch["coords" + sfx])
+                out["voxel_mask" + sfx] = put(batch["voxel_mask" + sfx])
+                continue
             out["inputs" + sfx] = {
                 k: ([put(a) for a in v] if isinstance(v, list) else put(v))
                 for k, v in batch["inputs" + sfx].items()}
@@ -370,16 +388,22 @@ class Trainer:
         log.t_int = t_data = time.perf_counter()
         for it, batch in enumerate(batches):
             data_time = time.perf_counter() - t_data
-            self._check_train_saturation(batch)
+            if self.host_inputs:
+                self._check_train_saturation(batch)
             opt = self.state.optimizer
             metrics = self.train_step(self.state, self._device_batch(batch),
                                       cw)
+            # device chains' full stages ride behind the metrics, read
+            # back with them at the log point
+            sat = metrics.pop("saturated", None)
             log.keys = list(metrics)
+            values = torch.stack([v.float() for v in metrics.values()])
+            if sat is not None:
+                values = torch.cat([values, sat.reshape(-1).float()])
             log.pending.append((
                 {"step": self.state.step, "epoch": self.epoch + 1,
                  "lr": opt.hyperparams["learning_rate"],
-                 "data_time": data_time},
-                torch.stack([v.float() for v in metrics.values()])))
+                 "data_time": data_time}, values))
             done = (log.max_steps is not None and
                     len(self.history) + len(log.pending) >= log.max_steps)
             if log.text.will_log():
@@ -406,10 +430,17 @@ class Trainer:
         data = sum(rec["data_time"] for rec, _ in log.pending)
         step_time = max((now - log.t_int - data) / n, 0.0)
         rows = []
+        caps = [c * self.cfg.data["samples_per_gpu"]
+                for c in self.stage_capacity]
         for (rec, _), vals in zip(log.pending, values):
             rec["step_time"] = step_time
             rec.update(zip(log.keys, vals))
             rows.append(rec)
+            full = vals[len(log.keys):]  # [chains x 5] of a device step
+            self._note_saturation(
+                [("coords" + sfx, i, c, c) for j, sfx in
+                 enumerate(self.suffixes) for i, c in enumerate(caps)
+                 if full and full[j * len(caps) + i]])
         self.history += rows
         log.pending = []
         log.t_int = now
@@ -437,8 +468,12 @@ class Trainer:
         That is an accuracy fault, so every batch is checked (a few numpy
         sums) and the first one is warned about loudly; the count per epoch
         follows at the epoch's end."""
-        hit = [("inputs" + sfx, *h) for sfx in self.suffixes
-               for h in batch["saturated" + sfx]]
+        self._note_saturation([("inputs" + sfx, *h) for sfx in self.suffixes
+                               for h in batch["saturated" + sfx]])
+
+    def _note_saturation(self, hit):
+        """Count one batch whose chains saturated the stages ``hit`` lists
+        as (chain, stage, rows, rows cap), and warn at the first."""
         if not hit:
             return
         self._sat_batches += 1
@@ -459,10 +494,15 @@ class Trainer:
     # evaluation (trainer.py:363-467, 592-636, 753-829)
 
     def _build_eval_fn(self):
-        """``run(model, batch, inputs) -> dets``: the all-sparse serving
-        plan of ``model`` (eval mode) on the batch's host inputs, then
+        """``run(model, batch, inputs) -> (dets, saturated)``: ``model`` in
+        eval mode on the batch's host inputs through the all-sparse serving
+        plan (saturated None) or, with ``inputs`` None, on a chain built on
+        the device through the hybrid plan at the student's
+        ``dense_from_stage`` (K4 on the sparse stages, cuDNN on the dense
+        ones; trainer.py:365-378; saturated [5] bool on the device); then
         ``predict_batch`` with the batch's camera frustum."""
         dev, anchors, pcfg = self.device, self.anchors, self.predict_cfg
+        dfs = getattr(self.state.student, "dense_from_stage", None)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -471,28 +511,43 @@ class Trainer:
         def run(model, batch, inputs):
             vox = batch["voxels"]
             b, v = vox.shape[:2]
-            rb = {k: ([put(a) for a in x] if isinstance(x, list) else put(x))
-                  for k, x in inputs.items()}
+            sat, plan = None, {}
+            if inputs is None:
+                rb, sat = model.device_inputs(
+                    put(batch["coords"]), put(batch["voxel_mask"]), b,
+                    self.stage_capacity)
+                plan = {"train": True, "dense_from_stage": dfs}
+            else:
+                rb = {k: ([put(a) for a in x] if isinstance(x, list)
+                          else put(x)) for k, x in inputs.items()}
             was_training = model.training
             model.eval()
             try:
                 preds = model(put(vox).reshape(b * v, *vox.shape[2:]),
-                              put(batch["num_points"]).reshape(b * v), rb, b)
+                              put(batch["num_points"]).reshape(b * v), rb, b,
+                              **plan)
             finally:
                 model.train(was_training)
             return predict_batch(
                 {k: x.float() for k, x in preds[0].items()}, anchors, pcfg,
-                frustum_surfaces=put(batch["frustum"]).float())
+                frustum_surfaces=put(batch["frustum"]).float()), sat
 
         return run
 
     def _eval_inputs(self, batch):
         """The model's host inputs for a padded eval batch (VoxelNet: its
-        C++ chain), with the capacity saturation warning (once per
-        trainer): a full stage id table means truncated voxels, so
-        degraded detections."""
+        C++ chain; None where the chain is built on the device), with the
+        capacity saturation warning."""
+        if not self.host_inputs:
+            return None
         out = self.state.student.host_transform(self.stage_capacity)(batch)
-        full = out["saturated"]
+        self._eval_saturation([(i, c) for i, _, c in out["saturated"]])
+        return out["inputs"]
+
+    def _eval_saturation(self, full):
+        """Warn once per trainer of an eval chain's full stages, listed as
+        (stage, rows cap): a full stage id table means truncated voxels,
+        so degraded detections."""
         if full and not self._eval_sat_warned:
             self.logger.warning(
                 "EVAL CAP SATURATION at stages %s (rows %s): stage id table "
@@ -500,9 +555,8 @@ class Trainer:
                 "overflow count, so an exactly-full table also trips this); "
                 "if truncated, detections are degraded — raise "
                 "stage_capacity for this data density",
-                [i for i, _, _ in full], [c for _, _, c in full])
+                [i for i, _ in full], [c for _, c in full])
             self._eval_sat_warned = True
-        return out["inputs"]
 
     def _eval_batch(self, batch, use_ema: bool) -> dict:
         """Pad a trailing batch to ``samples_per_gpu`` and run it; returns
@@ -517,8 +571,13 @@ class Trainer:
         if self._eval_fn is None:
             self._eval_fn = self._build_eval_fn()
         model = self.state.teacher if use_ema else self.state.student
-        dets = self._eval_fn(model, batch, self._eval_inputs(batch))
-        return {k: v.cpu().numpy() for k, v in dets.items()}
+        dets, sat = self._eval_fn(model, batch, self._eval_inputs(batch))
+        out = {k: v.cpu().numpy() for k, v in dets.items()}
+        if sat is not None:  # read with the detections, no extra wait
+            self._eval_saturation([(i, c * full_b) for i, (s, c) in
+                                   enumerate(zip(sat.tolist(),
+                                                 self.stage_capacity)) if s])
+        return out
 
     @staticmethod
     def _valid_dets(dets: dict, i: int, meta) -> dict:
