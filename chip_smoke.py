@@ -35,7 +35,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. The training kernels against their twins: the forward (K4), input
    gradient and weight gradient (K5) of every sparse conv of both training
    plans (student: 10 convs on the augmented chain; teacher: 14 on the raw
-   chain), full width, batch 4, the loader's int32 chains from a synthetic
+   chain; the input gradient of the first conv too, 16 -> 4 on the scalar
+   tile in both types, timed apart from the sums), full width, batch 4, the loader's int32 chains from a synthetic
    KITTI root (``sessd_torch.utils.kitti_synth``) at the acceptance
    recipe's stage caps (ACCEPT_CAPS). Each conv takes the features the
    previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
@@ -53,7 +54,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    pairs skipped, the f32 partials' bytes, and its time at each chunk size
    of DW_CHUNK_SWEEP.
 5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
-   batch 4, SSL on, ACCEPT_CAPS) for 6 steps: every loss term and the
+   batch 4, SSL on, ACCEPT_CAPS, packed batches as every Trainer here:
+   ``data.pack_targets`` is on by default) for 6 steps: every loss term and the
    gradient norm finite, the student moved, the teacher equal to the EMA
    formula on the last step, exactly 24 forward, 9 input-gradient and 10
    weight-gradient launches per step, and no batch that saturated a stage.
@@ -172,13 +174,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    device chains of every batch it trained on (student and teacher) equal
    to its host chains; step median and peak memory; then one training
    forward and backward on a batch-1 int16 device chain and on its int32
-   copy, outputs and weight gradients bit-equal. An f32 Trainer with
+   copy: outputs, the voxels' gradient (10 dFeat launches, the first
+   conv's 16 -> 4 among them) and the weight gradients bit-equal. An f32
+   Trainer with
    the key off: the hybrid eval plan's head outputs (K4 + cuDNN) within
    1e-3 of the host chain's all-sparse plan on val batch 0, then
    ``validate()`` with 10 K4 launches per batch and no K1. Then
    ``tools.get_flops`` (SE-SSD Car, 16000 voxels) and
    ``tools.time_analyze`` on the card, their lines printed. The phase's
    launches join the kernels line.
+
+19. Pillar plan (after phase 3's head parity): ``sessd_torch.ops.pillar``
+   at full width on a SERVING_CAPS scene (``make_scene(0)``, stage 1 not
+   full), f32 (TF32 off) and bf16, with the serving model's raw kernels:
+   the first conv on K4 gives both plans their stage-0 input, then subm0b
+   (stage 0), down0 (into stage 1, with the cover mask) and subm1a (stage
+   1) run through the plan (pillar columns, one gather, one cuDNN conv)
+   chained on its own outputs and through K4 chained on its own. Each
+   output at the chain's voxel rows within 1e-4 (f32) / 2e-2 (bf16) of the
+   max of K4's; down0's covered sites exactly the chain's stage-1 voxels.
+   Prints per conv the pillars, the plan's and K4's device times and the
+   set-up time, each line with the card's name and power limit.
+20. Checkpoint import (after phase 19): the serving model's weights saved
+   as a det3d ``.pth`` ({state_dict, meta, optimizer}; ``module.`` keys,
+   ``num_batches_tracked`` beside each BatchNorm) and loaded by
+   ``utils.convert_torch.load_torch_checkpoint`` into a VoxelNet of the
+   same config on the card: meta kept, and one batch-1 request's head
+   outputs bit-equal to the source model's.
+21. Packed step (after phase 6): one f32 step on a batch packed by
+   ``train_step.pack_batch`` against the same step on the batch unpacked
+   (voxels rounded through f16 first, the one field packing rounds), from
+   the same state: ``unpack_batch`` on the card bit-equal to the unpacked
+   batch's tensors, loss terms within 1e-6 relative and the gradient norm
+   within 1e-5; the staged bytes of both.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``sparse_conv_dfeat_scalar``,
@@ -219,6 +247,7 @@ from sessd_torch.core import box_torch, nms_np
 from sessd_torch.core.nms import rotate_weighted_nms
 from sessd_torch.models.backbone import PLAN, pick_conv
 from sessd_torch.models.pillars import PointPillars, pillar_scatter
+from sessd_torch.ops import pillar as pil
 from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import ablate
 from sessd_torch.ops.cuda import sparse_conv as sc
@@ -236,8 +265,10 @@ from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
                                saturated_stages, stage_inputs)
 from sessd_torch.tools import get_flops, time_analyze
 from sessd_torch.tools.train import load as load_train_config
-from sessd_torch.train.train_step import sigmoid_rampup
+from sessd_torch.train.train_step import (pack_batch, sigmoid_rampup,
+                                          unpack_batch)
 from sessd_torch.train.trainer import Trainer
+from sessd_torch.utils import convert_torch
 from sessd_torch.utils.profiling import card_line, queued_device_ms
 
 CONV_NAMES = ["subm0a", "subm0b", "down0", "subm1a", "subm1b", "down1",
@@ -433,6 +464,162 @@ def phase_kernels(model, spec, device):
           f"{sums['plain_ms']:.4f} ms, bound {bound.ms():.4f} ms "
           f"({bound.by()})")
     return worst_abs, sums, bound
+
+
+# (name, output stage) of the convs the pillar plan runs: the second
+# stage-0 subm conv, the strided conv into stage 1 and stage 1's first subm
+PILLAR_CONVS = (("subm0b", 0), ("down0", 1), ("subm1a", 1))
+
+
+def _at_voxels(cols, pillars, ids, depth):
+    """The pillar columns' values [N, C] at the voxel rows of ``ids``
+    (z-minor, SENTINEL-padded; zero on padding rows)."""
+    valid = ids < sp.SENTINEL
+    v = torch.where(valid, ids, 0).long()
+    prow = torch.searchsorted(pillars.ids, (v // depth).int())
+    prow = prow.clamp_max(pillars.capacity - 1)
+    found = valid & (pillars.ids[prow] == (v // depth).int())
+    got = cols[prow, v % depth]
+    return torch.where(found[:, None], got, 0.0), found, valid
+
+
+def phase_pillar_plan(model, spec, device, card):
+    """The pillar-column plan (``sessd_torch.ops.pillar``) at full width on
+    stage 0 and stage 1 of a SERVING_CAPS scene against K4 on the same
+    chain and weights, f32 (TF32 off) and bf16: each conv's output at the
+    chain's voxel rows within BOUNDS of K4's, the strided conv's covered
+    sites exactly the chain's stage-1 voxels, and both times."""
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    feats, rb = stage_inputs(**prep(make_scene(seed=0)[0]), device=device)
+    ids = rb["ids"]
+    if ids[1][-1] < sp.SENTINEL:
+        raise AssertionError("stage 1 of the scene is full: the chain "
+                             "truncates where the plan does not")
+    depth0, depth1 = model.sparse_shape[0], sp.downsample_out_shape(
+        (1,) + model.sparse_shape, *PLAN[1][2:])[1]
+    blocks = model.backbone.blocks()
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        w = [blocks[i][0].weight.detach().reshape(
+            -1, *blocks[i][0].weight.shape[-2:]).to(dtype).contiguous()
+            for i in range(4)]
+        masks = [i < sp.SENTINEL for i in ids[:2]]
+        x = feats[rb["perm"].long()]
+        x = torch.where(masks[0][:, None], x, 0.0).to(dtype)
+        # the first conv (4 -> 16) on K4 gives both plans their input
+        x = torch.relu(kt.sparse_conv_fwd(x, rb["subm"][0], w[0], masks[0]))
+        grid = pil.SparseGrid(ids[0], (1,) + model.sparse_shape)
+
+        def setup():
+            p0, cols, occ = pil.pillars_from_grid(grid, x, ids[0].shape[0])
+            p1 = pil.downsample_pillars(p0, out_capacity=ids[1].shape[0],
+                                        out_depth=depth1)
+            return (p0, cols, occ, p1, pil.bev_rulebook(p0),
+                    pil.bev_rulebook(p0, p1, (3, 3), (2, 2), (1, 1)),
+                    pil.bev_rulebook(p1))
+
+        p0, cols, occ, p1, rb0, rbd, rb1 = setup()
+        setup_ms = median_ms(setup, 5)
+        runs = {
+            "subm0b": (lambda: pil.pillar_conv(cols, rb0, w[1]),
+                       lambda: kt.sparse_conv_fwd(x, rb["subm"][0], w[1],
+                                                  masks[0]))}
+        out0 = runs["subm0b"][0]() * occ[..., None]
+        y0 = runs["subm0b"][1]()
+        c0, x0 = torch.relu(out0), torch.relu(y0)
+        runs["down0"] = (
+            lambda: pil.pillar_conv(c0, rbd, w[2], z_stride=2, z_pad=1,
+                                    occ=occ),
+            lambda: kt.sparse_conv_fwd(x0, rb["down"][0], w[2], masks[1]))
+        out1, cover = runs["down0"][0]()
+        y1 = runs["down0"][1]()
+        c1, x1 = torch.relu(out1 * cover[..., None]), torch.relu(y1)
+        runs["subm1a"] = (
+            lambda: pil.pillar_conv(c1, rb1, w[3]),
+            lambda: kt.sparse_conv_fwd(x1, rb["subm"][1], w[3], masks[1]))
+        out2 = runs["subm1a"][0]() * cover[..., None]
+        y2 = runs["subm1a"][1]()
+        torch.cuda.synchronize()
+
+        # the strided conv's covered sites are the chain's stage-1 voxels
+        at, found, valid = _at_voxels(cover[..., None], p1, ids[1], depth1)
+        at = at[:, 0]
+        if not (torch.equal(found, valid) and bool((at[valid] == 1).all())
+                and int((cover > 0).sum()) == int(valid.sum())):
+            raise AssertionError(f"pillar plan {dtype}: covered sites differ "
+                                 f"from the chain's stage-1 voxels")
+        tag = str(dtype).replace("torch.", "")
+        for (name, stage), out, y in zip(
+                PILLAR_CONVS, (out0, out1 * cover[..., None], out2),
+                (y0, y1, y2)):
+            depth, pset = (depth0, p0) if stage == 0 else (depth1, p1)
+            got, _, _ = _at_voxels(out, pset, ids[stage], depth)
+            rel, _ = _rel(got, y)
+            if not torch.isfinite(out.float()).all() or \
+                    not rel <= BOUNDS[dtype]:
+                raise AssertionError(f"pillar plan {name} {tag}: rel_err "
+                                     f"{rel:.3e} > {BOUNDS[dtype]}")
+            plan_ms = median_ms(runs[name][0], 10)
+            k4_ms = median_ms(runs[name][1], 10)
+            lines.append(
+                f"pillar plan {name} (stage {stage}) {tag}: pillars "
+                f"{int(pset.mask.sum())} x depth {depth}, voxels "
+                f"{int((ids[stage] < sp.SENTINEL).sum())}; rel_err vs K4 "
+                f"{rel:.2e}; plan {plan_ms:.4f} ms (gather + cuDNN conv) vs "
+                f"K4 {k4_ms:.4f} ms")
+        lines.append(f"pillar plan set-up {tag} (pillar sets and 3 BEV "
+                     f"rulebooks): {setup_ms:.4f} ms")
+    for line in lines:
+        print(f"{line} [{card}]")
+
+
+def _det3d_state_dict(model) -> dict:
+    """A VoxelNet's weights as det3d saves them: DDP's ``module.`` prefix
+    and torch BatchNorm's ``num_batches_tracked`` beside its statistics."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        sd["module." + k] = v.detach().cpu().clone()
+        if k.endswith(".running_var"):
+            sd["module." + k.replace("running_var", "num_batches_tracked")] \
+                = torch.tensor(1000)
+    return sd
+
+
+def phase_checkpoint_import(model, cfg, spec, device, tmp):
+    """``utils.convert_torch.load_torch_checkpoint`` round trip on the card:
+    the bf16 serving model's weights saved as a det3d .pth (state_dict,
+    meta, optimizer), loaded into a VoxelNet built from the model's config
+    ``cfg`` on the card, and one batch-1 request through both: head
+    outputs bit-equal."""
+    path = os.path.join(tmp, "det3d_se_ssd.pth")
+    torch.save({"state_dict": _det3d_state_dict(model),
+                "meta": {"epoch": 60, "iter": 55680},
+                "optimizer": {"state": {}, "param_groups": [{"lr": 3e-3}]}},
+               path)
+    t0 = time.perf_counter()
+    loaded, meta = convert_torch.load_torch_checkpoint(path, cfg, device)
+    secs = time.perf_counter() - t0
+    if meta != {"epoch": 60, "iter": 55680} or loaded.training:
+        raise AssertionError(f"checkpoint meta {meta}")
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    feats, rb = stage_inputs(**prep(make_scene(seed=1)[0]), device=device)
+    ones = torch.ones(feats.shape[0], dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        want = model(feats[:, None, :], ones, rb, 1)[0]
+        got = loaded(feats[:, None, :], ones, rb, 1)[0]
+    torch.cuda.synchronize()
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k])
+                                        for k in want):
+        raise AssertionError("det3d checkpoint: heads differ from the "
+                             "source model's")
+    if not all(torch.isfinite(v.float()).all() for v in got.values()):
+        raise AssertionError("det3d checkpoint: non-finite heads")
+    print(f"det3d checkpoint ({os.path.getsize(path) / 1e6:.1f} MB, "
+          f"{len(_det3d_state_dict(model))} entries): loaded onto the card "
+          f"in {secs:.2f} s, batch-1 {str(model.dtype)[6:]} heads bit-equal "
+          f"to the source model's ({', '.join(f'{k} {tuple(v.shape)}' for k, v in got.items())})")
+    del loaded
+    torch.cuda.empty_cache()
 
 
 def old_tile(dtype):
@@ -796,18 +983,19 @@ def phase_train_kernels(trainer, db):
                                                                mask)),
                         "dw": (lambda: kt.sparse_conv_dw(x, rbk, dout),
                                lambda: kt.sparse_conv_dw_ref(x, rbk, dout))}
-                if i > 0:  # the first conv's input needs no gradient
-                    runs["dfeat"] = (
-                        lambda: kt.sparse_conv_dfeat(dout, inv, w),
-                        lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
-                    inst = sc.conv_instance("sparse_conv_dfeat", dtype,
-                                            w.shape[2], w.shape[1])
-                    if inst != ("mma" if dtype == torch.bfloat16
-                                else "scalar"):
-                        raise AssertionError(f"{CONV_NAMES[i]} {tag}: dfeat "
-                                             f"takes the {inst} body")
-                    if timed and i == 1:
-                        _one_dfeat_launch(dout, inv, w)
+                # every conv's input gradient, the first's 16 -> 4 (the
+                # voxel features', scalar tile) too
+                runs["dfeat"] = (
+                    lambda: kt.sparse_conv_dfeat(dout, inv, w),
+                    lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
+                inst = sc.conv_instance("sparse_conv_dfeat", dtype,
+                                        w.shape[2], w.shape[1])
+                if inst != ("mma" if dtype == torch.bfloat16 and i > 0
+                            else "scalar"):
+                    raise AssertionError(f"{CONV_NAMES[i]} {tag}: dfeat "
+                                         f"takes the {inst} body")
+                if timed and i == 1:
+                    _one_dfeat_launch(dout, inv, w)
                 line = (f"train conv {i:2d} {CONV_NAMES[i]:6s} "
                         f"{w.shape[1]:2d}->{w.shape[2]:2d} K={w.shape[0]:2d} "
                         f"rows {rbk.shape[0]:6d} {tag}:")
@@ -832,7 +1020,12 @@ def phase_train_kernels(trainer, db):
                         if not torch.equal(got, again):
                             raise AssertionError(f"{CONV_NAMES[i]} dw {tag}: "
                                                  "two runs differ")
-                    if timed:
+                    if timed and name == "dfeat" and i == 0:
+                        # off the step's path: timed apart, not summed
+                        line += (f" ({median_ms(kern, 10):.4f} vs twin "
+                                 f"{median_ms(twin, 10):.4f} ms, scalar "
+                                 f"tile)")
+                    elif timed:
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         ms[name][0] += k_ms
                         ms[name][1] += r_ms
@@ -1062,8 +1255,13 @@ def phase_step_parity(trainer):
             return step(gs)
 
         state.optimizer.step = capture
-        with ctx:
-            m = trainer.train_step(state, db, 0.5)
+        try:
+            with ctx:
+                m = trainer.train_step(state, db, 0.5)
+        finally:
+            # the class's step again: a deep copy of this state must not
+            # carry a closure that steps this optimizer
+            del state.optimizer.step
         torch.cuda.synchronize()
         metrics.append({k: float(v) for k, v in m.items()})
         grads.append(got)
@@ -1086,6 +1284,61 @@ def phase_step_parity(trainer):
         raise AssertionError(f"loss terms differ by {worst_m:.3e}")
     if not worst_g <= 1e-3:
         raise AssertionError(f"gradient {worst_name} differs by {worst_g}")
+
+
+def _same_tensors(a, b) -> bool:
+    """Nested dicts / lists of tensors equal in dtype, shape and bits."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_same_tensors, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_packed_step(trainer):
+    """One f32 step on a packed batch (``train_step.pack_batch``, the
+    Trainer's default) against the step on the same batch unpacked, from
+    the same state. The batch's voxels are rounded through f16 first (the
+    one field packing rounds), so ``unpack_batch`` on the card must give
+    the unpacked batch's tensors bit for bit, and the two steps the same
+    loss terms (1e-6 relative; 1e-5 for the gradient norm, whose backward
+    sums may take another order between two runs)."""
+    batches = iter(trainer.train_loader)
+    try:
+        batch = next(batches)
+    finally:
+        batches.close()
+    trainer._check_train_saturation(batch)
+    for sfx in trainer.suffixes:
+        batch["voxels" + sfx] = batch["voxels" + sfx].astype(
+            np.float16).astype(np.float32)
+    packed = pack_batch(batch)
+    plain_db, packed_db = (trainer._device_batch(b) for b in (batch, packed))
+    if not _same_tensors(unpack_batch(packed_db), plain_db):
+        raise AssertionError("unpack_batch on the card differs from the "
+                             "unpacked batch")
+
+    def wire(db):
+        return sum(v.numel() * v.element_size() for k, v in db.items()
+                   if isinstance(v, torch.Tensor) and k != "anchors")
+
+    metrics = []
+    for db in (packed_db, plain_db):
+        state = copy.deepcopy(trainer.state)
+        state.optimizer.params = list(state.student.parameters())
+        m = trainer.train_step(state, db, 0.5)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    worst = {k: abs(metrics[0][k] - v) / (abs(v) + 1e-12)
+             for k, v in metrics[1].items()}
+    loss_worst = max(v for k, v in worst.items() if k != "grad_norm")
+    print(f"packed step f32: {wire(packed_db) / 1e6:.2f} MB of step "
+          f"fields staged vs {wire(plain_db) / 1e6:.2f} MB unpacked; "
+          f"unpack on the card bit-equal; loss {metrics[0]['loss']:.6g} vs "
+          f"{metrics[1]['loss']:.6g}, worst loss term rel {loss_worst:.2e}, "
+          f"grad_norm rel {worst['grad_norm']:.2e}")
+    if not (loss_worst <= 1e-6 and worst["grad_norm"] <= 1e-5):
+        raise AssertionError(f"packed step differs: {worst}")
 
 
 def _put(a, device):
@@ -1460,15 +1713,25 @@ def _index_types(trainer, batch):
     weights = [conv.weight for conv, _ in model.backbone.blocks()]
     got = []
     for rb in (chain, chain32):
-        out = model(_put(batch["voxels"][0], dev),
-                    _put(batch["num_points"][0], dev), rb, 1, train=True)[0]
+        voxels = _put(batch["voxels"][0], dev).requires_grad_(True)
+        before = kt.sparse_conv_dfeat.launches
+        out = model(voxels, _put(batch["num_points"][0], dev), rb, 1,
+                    train=True)[0]
         loss = sum(v.float().square().mean() for v in out.values())
-        got.append([out["box_preds"].detach(),
-                    *torch.autograd.grad(loss, weights, allow_unused=True)])
+        grads = torch.autograd.grad(loss, [voxels] + weights,
+                                    allow_unused=True)
+        # 9 convs' input gradients and the first conv's 16 -> 4
+        if kt.sparse_conv_dfeat.launches - before != 10:
+            raise AssertionError("the voxels' gradient did not run dFeat "
+                                 "on the first conv")
+        got.append([out["box_preds"].detach(), *grads])
+    if not torch.isfinite(got[0][1]).all() or not got[0][1].any():
+        raise AssertionError("voxel gradient not finite or all zero")
     if not all(a is b or torch.equal(a, b) for a, b in zip(*got)):
         raise AssertionError("int16 and int32 device chains train apart")
     print("device chain int16 (batch 1) and its int32 copy: training "
-          "forward and the sparse convs' weight gradients bit-equal")
+          "forward, the voxels' gradient (dFeat 16 -> 4 on the first conv) "
+          "and the sparse convs' weight gradients bit-equal")
 
 
 def _device_train(root, tmp, device):
@@ -2473,11 +2736,11 @@ def phase_data_parallel_nccl(root, tmp, device):
     """One rank over NCCL (f32, TF32 off): a Trainer in a process group of
     one against a Trainer outside any group, from the same seed on the same
     batches, NCCL_STEPS steps, each from the outside trainer's state before
-    it; the loss terms within 1e-4 relative. (Chained, the second step
-    would differ by more: the group's BatchNorm takes its statistics
-    through the sums of [count, mean * count, (var + mean^2) * count], as
-    JAX's psum does, which rounds otherwise than the local two-pass
-    moments, and Adam's first step moves a parameter whose gradient is
+    it; the loss terms within 1e-4 relative. (The group's masked
+    BatchNorm combines each rank's moments pairwise, which in a group of
+    one gives the local moments bit for bit; its backward and the
+    collectives sum in another order. Chained, the second step would
+    differ by more: Adam's first step moves a parameter whose gradient is
     within rounding of 0 by about lr either way.) The group's collectives
     (BN syncs, gradient and metric buckets, the state broadcast, the
     checkpoint barrier) run on the card."""
@@ -2536,8 +2799,11 @@ def phase_multiprocess_eval(root, tmp, lead, cfg):
     equal entry for entry and its merged per-image detections bit for bit,
     rank 1's output without either, K1 and K3 launches per rank as the
     stream rule gives. Each rank names its own work dir, and rank 1's
-    holds no checkpoint: it evaluates the one rank 0 sends. Returns the
-    launches of both ranks."""
+    holds no checkpoint: it evaluates the one rank 0 sends. Both sides run
+    batches of ``samples_per_gpu`` (eval pads the last), so each K1 launch
+    has the same rows and cluster size S on both; K1 deals tap k to rank k
+    mod S, so a scan's bits do not depend on the scans beside it. Returns
+    the launches of both ranks."""
     from sessd_torch.tools import test as test_cli
 
     tf32 = torch.backends.cudnn.allow_tf32
@@ -2673,11 +2939,15 @@ def main():
         b8_counts = phase_serving_b8(model, cfg, spec, device)
     with phase("head parity"):
         phase_head_parity(spec, device, pcfg)
-    del model
-    torch.cuda.empty_cache()
+    with phase("pillar plan"):
+        phase_pillar_plan(model, spec, device, card)
 
     tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
     try:
+        with phase("checkpoint import"):
+            phase_checkpoint_import(model, cfg, spec, device, tmp)
+        del model
+        torch.cuda.empty_cache()
         with phase("pillars serving"):
             phase_pillar_serving(tmp, device)
         with phase("DI-NMS"):
@@ -2701,6 +2971,8 @@ def main():
                                    f"{tmp}/work_f32", device)
             phase_step_parity(trainer)
             _no_saturation(trainer, "step parity")
+        with phase("packed step"):
+            phase_packed_step(trainer)
         with phase("eval"):
             ev = phase_eval_kernels(trainer)
             eval_counts = phase_eval(trainer, root, tmp)

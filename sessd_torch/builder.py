@@ -25,7 +25,8 @@ from .models.pillars import PointPillars
 from .models.predict import PredictConfig
 from .ops.voxelize import VoxelizerSpec
 from .train.losses import ConsistencyConfig, LossConfig
-from .train.optim import AdamW, OneCycleConfig, one_cycle_lr, one_cycle_mom
+from .train.optim import (AdamW, OneCycleConfig, build_legacy_schedule,
+                          one_cycle_lr, one_cycle_mom)
 
 __all__ = ["Config", "load_config", "build_voxelizer", "build_detector",
            "build_anchors", "set_cls_prior", "build_predict_config",
@@ -219,23 +220,33 @@ def build_dataloader(cfg, dataset, shuffle: bool, seed: int = 0,
 
 
 def build_optimizer_from_cfg(cfg, steps_per_epoch: int, params):
-    """(AdamW over ``params``, lr_fn(step) -> lr) of the one-cycle recipe
-    (sessd_tpu/builder.py:183-215). The legacy LrUpdaterHook policies are
-    not ported."""
+    """(AdamW over ``params``, lr_fn(step) -> lr) (sessd_tpu/builder.py:
+    183-215). ``lr_config.type``: "one_cycle" (the SE-SSD/CIA-SSD recipe:
+    one-cycle lr and beta1) or a legacy LrUpdaterHook policy, fixed / step
+    / exp / poly / cosine with an optional warmup
+    (``build_legacy_schedule``), under AdamW with beta1 0.9."""
     lr = cfg.lr_config
+    total = cfg.total_epochs * steps_per_epoch
+    wd = cfg.optimizer.get("wd", 0.01)
+    clip = cfg.optimizer_config["grad_clip"]["max_norm"]
     policy = lr.get("type", lr.get("policy", "one_cycle"))
-    if policy != "one_cycle":
-        raise ValueError(f"lr policy {policy!r} is not ported yet")
-    ocfg = OneCycleConfig(
-        lr_max=lr["lr_max"], moms=tuple(lr["moms"]),
-        div_factor=lr["div_factor"], pct_start=lr["pct_start"],
-        total_steps=cfg.total_epochs * steps_per_epoch,
-        wd=cfg.optimizer.get("wd", 0.01),
-        grad_clip_norm=cfg.optimizer_config["grad_clip"]["max_norm"])
-    lr_fn = one_cycle_lr(ocfg)
-    return AdamW(params, lr_fn, one_cycle_mom(ocfg), b2=ocfg.beta2,
-                 eps=ocfg.eps, wd=ocfg.wd,
-                 grad_clip_norm=ocfg.grad_clip_norm), lr_fn
+    if policy == "one_cycle":
+        ocfg = OneCycleConfig(
+            lr_max=lr["lr_max"], moms=tuple(lr["moms"]),
+            div_factor=lr["div_factor"], pct_start=lr["pct_start"],
+            total_steps=total, wd=wd, grad_clip_norm=clip)
+        lr_fn = one_cycle_lr(ocfg)
+        return AdamW(params, lr_fn, one_cycle_mom(ocfg), b2=ocfg.beta2,
+                     eps=ocfg.eps, wd=ocfg.wd,
+                     grad_clip_norm=ocfg.grad_clip_norm), lr_fn
+    lr_fn = build_legacy_schedule(
+        policy, lr.get("lr", cfg.optimizer.get("lr", 3e-3)), steps_per_epoch,
+        total, gamma=lr.get("gamma", 0.1), milestones=lr.get("step", ()),
+        power=lr.get("power", 1.0), min_lr=lr.get("min_lr", 0.0),
+        warmup=lr.get("warmup"), warmup_iters=lr.get("warmup_iters", 500),
+        warmup_ratio=lr.get("warmup_ratio", 1.0 / 3.0))
+    return AdamW(params, lr_fn, lambda step: 0.9, b2=0.99, eps=1e-8, wd=wd,
+                 grad_clip_norm=clip), lr_fn
 
 
 def build_loss_config(cfg) -> LossConfig:

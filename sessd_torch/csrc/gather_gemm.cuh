@@ -72,10 +72,14 @@ __device__ __forceinline__ void gather_gemm_tile(
     int n_out, int taps, int relu) {
   constexpr int kCols = 4;                   // output channels per thread
   constexpr int kTx = COUT / kCols;          // threads across channels
-  constexpr int kTy = kThreads / kTx;        // threads across rows
+  // threads across rows: at COUT = 4 (the input gradient of the Cin = 4
+  // first conv) more threads than rows, and those past kRows only stage
+  constexpr int kTyAll = kThreads / kTx;
+  constexpr int kTy = kTyAll < kRows ? kTyAll : kRows;
   constexpr int kRowsPerThread = kRows / kTy;
   constexpr int kGStride = CIN + 1;          // padded: row reads hit distinct banks
-  static_assert(COUT % 16 == 0 && kRowsPerThread * kTy == kRows, "tile");
+  static_assert((COUT == 4 || COUT % 16 == 0) && kRowsPerThread * kTy == kRows,
+                "tile");
 
   __shared__ int s_rb[kRows * kMaxTaps];
   __shared__ int s_hit[kRows];
@@ -85,6 +89,8 @@ __device__ __forceinline__ void gather_gemm_tile(
   const int tid = threadIdx.x;
   const int tx = tid % kTx;
   const int ty = tid / kTx;
+  // every thread multiplies unless the block has more row slots than rows
+  const bool computes = kTyAll <= kRows || ty < kTy;
   const int row0 = blockIdx.x * kRows;
 
   // the tile's rulebook, read once (consecutive threads walk one row's taps,
@@ -128,21 +134,25 @@ __device__ __forceinline__ void gather_gemm_tile(
       s_w[i] = to_f32(W_T ? wk[(i % COUT) * CIN + i / COUT] : wk[i]);
     __syncthreads();
 
+    if (computes) {
 #pragma unroll 4
-    for (int c = 0; c < CIN; ++c) {
-      const float4 b = *reinterpret_cast<const float4*>(&s_w[c * COUT + tx * kCols]);
+      for (int c = 0; c < CIN; ++c) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(&s_w[c * COUT + tx * kCols]);
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float a = s_g[(ty + r * kTy) * kGStride + c];
-        acc[r][0] = fmaf(a, b.x, acc[r][0]);
-        acc[r][1] = fmaf(a, b.y, acc[r][1]);
-        acc[r][2] = fmaf(a, b.z, acc[r][2]);
-        acc[r][3] = fmaf(a, b.w, acc[r][3]);
+        for (int r = 0; r < kRowsPerThread; ++r) {
+          const float a = s_g[(ty + r * kTy) * kGStride + c];
+          acc[r][0] = fmaf(a, b.x, acc[r][0]);
+          acc[r][1] = fmaf(a, b.y, acc[r][1]);
+          acc[r][2] = fmaf(a, b.z, acc[r][2]);
+          acc[r][3] = fmaf(a, b.w, acc[r][3]);
+        }
       }
     }
     __syncthreads();
   }
 
+  if (!computes) return;
   float bv[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) bv[j] = EPI ? bias[tx * kCols + j] : 0.f;

@@ -66,12 +66,19 @@
 //   where a launch's tiles fill less than one wave of the card (batch-1
 //   serving: 63-344 tiles against ~400-1700 resident blocks), each tile
 //   runs as a cluster of S CTAs (cluster_split). Every CTA reads the tile's
-//   rulebook and builds its hit-tap list as above; rank r runs list
-//   positions r, r + S, r + 2S, ... through its own ring. Dealing the list
-//   round-robin, not in contiguous runs, keeps the ranks' tap counts within
-//   one of each other for any hit pattern, and the S ranks gather
-//   neighbouring taps (neighbouring voxel rows) at the same time, so they
-//   share L2 lines. Ranks 1..S-1 then write their f32 accumulators into
+//   rulebook and lists the hit taps k with k mod S equal to its rank, in
+//   order, as above, and runs them through its own ring. Dealing by the
+//   tap's index, not by its position in the tile's hit list, makes a row's
+//   partial sums a function of its own taps and S alone: the rows a tile
+//   shares with its neighbours (other scans of a batch, another alignment)
+//   do not regroup them. So at equal S a scan's rows get the same bits
+//   whatever scans share its batch; S itself follows the launch's tile
+//   count, so a batch of another size (other stage capacities) may group
+//   them otherwise. Full tiles get the hit list's round-robin deal all the
+//   same (13-14 taps each at S = 2); a partly hit tile may load its ranks
+//   unevenly. The S ranks gather neighbouring taps
+//   (neighbouring voxel rows) at the same time, so they share L2 lines.
+//   Ranks 1..S-1 then write their f32 accumulators into
 //   their own (now idle) ring; after a cluster barrier rank 0 reads them
 //   through distributed shared memory and adds them in rank order, so a
 //   run gives the same bits every time, then stores as above. A second
@@ -322,7 +329,7 @@ __device__ __forceinline__ void gather_mma_tile(
   unsigned char* ring = sessd_mma_smem;
   int* s_rb = reinterpret_cast<int*>(ring + L::kRingBytes);
   int* s_keep = s_rb + kRows * kMaxTaps;
-  int* s_taps = s_keep + kRows;  // the taps some row hits, in order
+  int* s_taps = s_keep + kRows;  // this rank's taps some row hits, in order
   int* s_n_taps = s_taps + kMaxTaps;
 
   const int tid = threadIdx.x;
@@ -359,16 +366,15 @@ __device__ __forceinline__ void gather_mma_tile(
       for (int r = 0; r < kRows && !hit; ++r)
         hit = static_cast<unsigned>(s_rb[r * taps + k]) <
               static_cast<unsigned>(n_in);
+    // this rank's taps: the hit taps k with k % split == rank
+    hit = hit && k % split == rank;
     const unsigned hits = __ballot_sync(0xffffffffu, hit);
     if (hit) s_taps[__popc(hits & ((1u << k) - 1u))] = k;
     if (k == 0) *s_n_taps = __popc(hits);
   }
   __syncthreads();
-  // this rank's taps: positions rank, rank + split, ... of the hit-tap list
-  const int n_taps = MODE != kTileFixed && *s_n_taps > rank
-                         ? (*s_n_taps - rank + split - 1) / split
-                         : 0;
-  const int* my_taps = s_taps + rank;
+  const int n_taps = MODE != kTileFixed ? *s_n_taps : 0;
+  const int* my_taps = s_taps;
 
   // tap k's gathered rows and weights into ring stage `stage`
   auto issue = [&](int k, int stage) {
@@ -428,7 +434,7 @@ __device__ __forceinline__ void gather_mma_tile(
     // counts taps
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
-      if (s < n_taps) issue(my_taps[s * split], s);
+      if (s < n_taps) issue(my_taps[s], s);
       cp_async_commit();
     }
     for (int t = 0; t < n_taps; ++t) {
@@ -437,7 +443,7 @@ __device__ __forceinline__ void gather_mma_tile(
       __syncthreads();
       // the slot of tap t - 1, whose wgmma every thread has waited for
       const int ahead = t + kStages - 1;
-      if (ahead < n_taps) issue(my_taps[ahead * split], ahead % kStages);
+      if (ahead < n_taps) issue(my_taps[ahead], ahead % kStages);
       cp_async_commit();
 
       if constexpr (MODE != kTileCopyOnly) {

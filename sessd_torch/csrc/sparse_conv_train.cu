@@ -36,7 +36,7 @@
 //
 // The input gradient, sparse_conv_dfeat_kernel, takes the same two bodies
 // by the same rule, fixed at compile time:
-// - bf16 (all five of its pairs, Cout -> Cin of each conv but the first):
+// - bf16 (five of its six pairs, Cout -> Cin of each conv but the first):
 //   gather_mma.cuh's tensor-core tile over the inverse rulebook, with no
 //   store mask (a padding row past a stage's voxels misses every tap and
 //   comes out zero). Its B operand is W[k] read K-major: the reduction
@@ -51,7 +51,8 @@
 //   The scalar body it replaces is kept in bf16 as
 //   sparse_conv_dfeat_scalar_kernel (sessd_sparse_conv_dfeat_scalar, with
 //   W^T as its weights) for same-call comparisons only.
-// - f32 (held to 1e-4, step parity): the scalar tile, staging W[k]
+// - f32 (held to 1e-4, step parity), and the first conv's 16 -> 4 (the
+//   voxel features' gradient, in both types): the scalar tile, staging W[k]
 //   transposed into shared memory (gather_gemm_tile's W_T).
 //
 // The weight gradient's partial kernel, sparse_conv_dw_partial_kernel, also
@@ -255,9 +256,11 @@ int fwd_instance(int cin, int cout) {
 }
 
 // the input gradient's (Cin, Cout) pairs as its gather sees them: the
-// swapped (Cout, Cin) of each conv but the first, 4 -> 16, whose input
-// needs no gradient
+// swapped (Cout, Cin) of each conv, the first's (16, 4) included (the
+// gradient of the voxel features; the scalar tile in both types, since
+// the tensor-core tile takes 16, 32 and 64 channels only)
 #define SESSD_DFEAT_PAIRS(CASE) \
+  CASE(16, 4)                   \
   CASE(16, 16)                  \
   CASE(32, 16)                  \
   CASE(32, 32)                  \

@@ -62,8 +62,11 @@ class BatchNorm(nn.Module):
     those of every rank's rows together, through one ``AllReduceSum`` per
     forward, whose backward carries the other ranks' gradient terms (the
     ``axis_name`` psum of sessd_tpu/models/layers.py:54-59 and flax's
-    ``pmean``): masked, the sums of [count, mean * count, (var + mean^2) *
-    count]; unmasked, the mean over ranks of [E[x], E[x^2]].
+    ``pmean``): masked, each rank's [count, sum, squared deviations from
+    its mean] gathered and combined pairwise (the same moments as JAX's
+    sums of [count, mean * count, (var + mean^2) * count], without their
+    cancellation, so that a group of one trains as no group does);
+    unmasked, the mean over ranks of [E[x], E[x^2]].
     """
 
     def __init__(self, channels: int, eps: float = 1e-3,
@@ -106,15 +109,24 @@ class BatchNorm(nn.Module):
         m = mask.to(xf.dtype)
         cnt = torch.clamp_min(m.expand_as(xf[:, :1]).sum(), 1.0)
         shape = (1, -1) + (1,) * (xf.dim() - 2)
-        mean = (xf * m).sum(dims) / cnt
-        var = (((xf - mean.view(shape)) ** 2) * m).sum(dims) / cnt
+        total = (xf * m).sum(dims)
+        mean = total / cnt
+        sq = (((xf - mean.view(shape)) ** 2) * m).sum(dims)
         if group is None:
-            return mean, var
+            return mean, sq / cnt
+        # every rank's (count, sum, squared deviations from its own mean)
+        # in a row of its own, gathered by one all-reduce, then combined as
+        # Chan et al.'s parallel variance does: no E[x^2] - E[x]^2
+        # cancellation, and in a group of one the local moments bit for bit
         c = mean.numel()
-        sums = all_reduce_sum(torch.cat([
-            cnt.reshape(1), mean * cnt, (var + mean * mean) * cnt]), group)
-        gmean = sums[1:1 + c] / sums[0]
-        return gmean, sums[1 + c:] / sums[0] - gmean * gmean
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        row = torch.cat([cnt.reshape(1), total, sq])[None]
+        rows = all_reduce_sum(F.pad(row, (0, 0, rank, world - rank - 1)),
+                              group)
+        n, s, q = rows[:, :1], rows[:, 1:1 + c], rows[:, 1 + c:]
+        big_n = n.sum(0)
+        gmean = s.sum(0) / big_n
+        return gmean, (q.sum(0) + (n * (s / n - gmean) ** 2).sum(0)) / big_n
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -64,11 +64,12 @@ def streams(cin: int, n_in: int, dtype: torch.dtype) -> bool:
 # (csrc/sparse_conv_train.cu: SESSD_FWD_PAIRS, SESSD_DFEAT_PAIRS,
 # SESSD_DW_PAIRS; csrc/sparse_conv_stream.cu: SESSD_STREAM_PAIRS;
 # csrc/sparse_conv.cu: SESSD_FUSED_PAIRS). The input gradient's pairs are
-# its gather's: (the conv's Cout, its Cin) of every conv but the first.
+# its gather's: (the conv's Cout, its Cin) of every conv, the first's
+# (16, 4) included.
 FWD_PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64))
 STREAM_PAIRS = FWD_PAIRS[1:]
 FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
-DFEAT_PAIRS = ((16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
+DFEAT_PAIRS = ((16, 4), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
           "fused_sparse_conv_stream": STREAM_PAIRS,

@@ -162,8 +162,10 @@ def sparse_conv_dfeat(dout, inv, w2):
     (``ops.sparse.inverse_rulebook``, miss N_out); w2 [K, Cin, Cout], read
     as it lies (no transposed copy). Returns [N_in, Cin] in dout's dtype.
     bf16 runs the tensor-core tile with a K-major B, which copies 16-byte
-    chunks and wants dout and w2 16-byte aligned; f32 runs the scalar tile
-    (``conv_instance("sparse_conv_dfeat", dtype, Cout, Cin)``)."""
+    chunks and wants dout and w2 16-byte aligned; f32, and the first
+    conv's Cin = 4 (the voxel features' gradient) in both types, run the
+    scalar tile (``conv_instance("sparse_conv_dfeat", dtype, Cout,
+    Cin)``)."""
     if not _device(dout):
         return sparse_conv_dfeat_ref(dout, inv, w2)
     taps, cin, cout = _check_dfeat(dout, inv, w2)

@@ -1,6 +1,7 @@
 """One-cycle AdamW with global-norm clipping (port of
 ``sessd_tpu/train/optim.py``), written out by hand so that each step is the
-one optax takes:
+one optax takes, and the legacy LrUpdaterHook schedules
+(``build_legacy_schedule``, for AdamW at a constant beta1 of 0.9):
 
 - one-cycle schedule (learning_schedules_fastai.py:77-96): two cosine
   phases split at ``pct_start``; lr lr_max/div -> lr_max -> lr_max/div/1e4,
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +69,58 @@ def one_cycle_lr(cfg: OneCycleConfig) -> Callable:
 
 def one_cycle_mom(cfg: OneCycleConfig) -> Callable:
     return _one_cycle(cfg, cfg.moms[0], cfg.moms[1], cfg.moms[0])
+
+
+def build_legacy_schedule(policy: str, base_lr: float, steps_per_epoch: int,
+                          total_steps: int, *, gamma: float = 0.1,
+                          milestones=(), power: float = 1.0,
+                          min_lr: float = 0.0, warmup: Optional[str] = None,
+                          warmup_iters: int = 500,
+                          warmup_ratio: float = 1.0 / 3.0) -> Callable:
+    """The reference's legacy LrUpdaterHook policies
+    (det3d/torchie/trainer/hooks/lr_updater.py; sessd_tpu/train/optim.py:
+    66-118): fixed / step / exp / poly / cosine, each with the hooks'
+    optional constant / linear / exp warmup ramp. The by-epoch policies
+    (step, exp) change at epoch boundaries, as the hooks'
+    ``before_train_epoch`` updates do. Evaluated in float32 in JAX's order
+    of operations at the update count."""
+    spe = max(int(steps_per_epoch), 1)
+    ms = sorted(int(m) for m in milestones)
+    lr0 = f32(base_lr)
+    if policy not in ("fixed", "step", "exp", "poly", "cosine"):
+        raise ValueError(f"unknown lr policy {policy!r}")
+    if warmup not in (None, "constant", "linear", "exp"):
+        raise ValueError(f"unknown warmup {warmup!r}")
+
+    def pct_of(step: int, span: int) -> np.float32:
+        return np.clip(f32(step) / f32(max(span, 1)), f32(0), f32(1))
+
+    def base(step: int) -> np.float32:
+        ep = step // spe
+        if policy == "fixed":
+            return lr0
+        if policy == "step":
+            return lr0 * f32(gamma) ** f32(sum(ep >= m for m in ms))
+        if policy == "exp":
+            return lr0 * f32(gamma) ** f32(ep)
+        if policy == "poly":
+            return lr0 * (f32(1) - pct_of(step, total_steps)) ** f32(power)
+        return annealing_cos(base_lr, min_lr, pct_of(step, total_steps))
+
+    def sched(step: int) -> float:
+        step = int(step)
+        lr = base(step)
+        if warmup is None or step >= warmup_iters:
+            return float(lr)
+        pct = pct_of(step, warmup_iters)
+        if warmup == "constant":
+            return float(lr * f32(warmup_ratio))
+        if warmup == "linear":
+            return float(lr * (f32(1) - (f32(1) - pct)
+                               * f32(1.0 - warmup_ratio)))
+        return float(lr * f32(warmup_ratio) ** (f32(1) - pct))
+
+    return sched
 
 
 class AdamW:

@@ -54,6 +54,81 @@ def _flat(model, batch: dict, suffix: str, saturated: list):
             batch["num_points" + suffix].reshape(b * v), inputs, b)
 
 
+PACK_POS_CAP = 1024  # >> the positive anchors of a sample (~200 at 15 cars)
+
+
+def pack_batch(batch: dict, pos_cap: int = PACK_POS_CAP) -> dict:
+    """Host-side compression of a train batch for the copy to the device
+    (numpy; a new dict, the input untouched), as
+    sessd_tpu/train/train_step.py:84-136 defines it, field for field:
+
+    - reg_targets [B, A, 7] f32 are nonzero only at positive anchors: sent
+      as the indices [B, pos_cap] int32 (A marks an unused slot) and values
+      [B, pos_cap, 7] of the positives, ``reg_targets<sfx>_idx`` and
+      ``_val``; a chain whose positives exceed ``pos_cap`` stays dense;
+    - labels [B, A] int32 in {-1, 0, 1..C} -> int8;
+    - voxels f32 -> f16, the one lossy field. Its 10-bit mantissa is finer
+      than the bf16 the bf16 config's backbone computes in; the f32 config
+      trains on f16-rounded voxels too, as the JAX trainer does;
+    - coords [B, V, 3] -> int16, num_points -> uint8.
+
+    ``unpack_batch`` at the top of the step restores every field."""
+    out = dict(batch)
+    for sfx in ("", "_raw"):
+        lk, rk = "labels" + sfx, "reg_targets" + sfx
+        if lk not in out:
+            continue
+        labels = np.asarray(out[lk])
+        out[lk] = labels.astype(np.int8)
+        if rk in out:
+            rt = np.asarray(out[rk])
+            b, a = labels.shape
+            n_pos = int((labels > 0).sum(axis=1).max()) if b else 0
+            if n_pos > pos_cap:
+                continue  # dense, still exact
+            idx = np.full((b, pos_cap), a, np.int32)  # a: an unused slot
+            val = np.zeros((b, pos_cap, rt.shape[-1]), np.float32)
+            for i in range(b):
+                pos = np.flatnonzero(labels[i] > 0)
+                idx[i, :len(pos)] = pos
+                val[i, :len(pos)] = rt[i, pos]
+            del out[rk]
+            out[rk + "_idx"] = idx
+            out[rk + "_val"] = val
+        for k, dt in (("voxels" + sfx, np.float16),
+                      ("coords" + sfx, np.int16),
+                      ("num_points" + sfx, np.uint8)):
+            if k in out:
+                out[k] = np.asarray(out[k]).astype(dt)
+    return out
+
+
+def unpack_batch(batch: dict) -> dict:
+    """The inverse of ``pack_batch`` on the batch's tensors (a no-op on a
+    batch that is not packed): dense reg_targets f32 with zeros off the
+    positives, int32 labels, coords and num_points, f32 voxels
+    (sessd_tpu/train/train_step.py:139-160)."""
+    out = dict(batch)
+    for sfx in ("", "_raw"):
+        ik = f"reg_targets{sfx}_idx"
+        if ik in out:
+            idx = out.pop(ik).long()
+            val = out.pop(f"reg_targets{sfx}_val").float()
+            b, a = out["labels" + sfx].shape
+            # one flat row per (sample, anchor) and one more that takes
+            # the unused slots (idx == a), dropped
+            rows = torch.arange(b, device=idx.device)[:, None] * a + idx
+            rows = torch.where(idx < a, rows, b * a)
+            dense = val.new_zeros(b * a + 1, val.shape[-1])
+            dense[rows.reshape(-1)] = val.reshape(-1, val.shape[-1])
+            out["reg_targets" + sfx] = dense[:b * a].view(b, a, -1)
+        for k, dt in (("labels", torch.int32), ("voxels", torch.float32),
+                      ("coords", torch.int32), ("num_points", torch.int32)):
+            if k + sfx in out and out[k + sfx].dtype != dt:
+                out[k + sfx] = out[k + sfx].to(dt)
+    return out
+
+
 def make_train_step(loss_cfg: LossConfig = LossConfig(),
                     ema_decay_cap: float = 0.999,
                     compute_teacher_metrics: bool = True,
@@ -67,7 +142,8 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
     voxel_mask [B, V]; the same with the ``_raw`` suffix (teacher inputs,
     un-augmented),
     anchors [B, A, 7], labels / reg_targets (+ ``_raw``) [B, A(, 7)],
-    transformation: flipped / noise_rotation / noise_scale [B].
+    transformation: flipped / noise_rotation / noise_scale [B]. A batch
+    compressed by ``pack_batch`` is unpacked first.
 
     ``enable_ssl=False`` is the CIA-SSD supervised step: no teacher forward
     and no consistency loss; the EMA parameters are still kept and the
@@ -87,6 +163,7 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
     """
 
     def train_step(state: TrainState, batch: dict, consistency_weight):
+        batch = unpack_batch(batch)  # no-op unless pack_batch compressed it
         stu, tea = state.student, state.teacher
         saturated = []
         voxels, num_points, rb, b = _flat(stu, batch, "", saturated)

@@ -5,8 +5,10 @@ C++ rulebook chains -> one copy to the device -> the port's train step.
     loader (KittiDataset + GT-AUG + augmentation, threads)
       -> make_train_rulebook_transform (student and ``_raw`` teacher
          chains; int32 at batch 4, where the capacities exceed int16)
-      -> H2D -> make_train_step (teacher fwd, student fwd + bwd, losses,
-         AdamW, EMA)
+      -> pack_batch (``data.pack_targets``, on by default: sparse
+         reg_targets, int8 labels, f16 voxels, int16 coords)
+      -> H2D -> make_train_step (unpack, teacher fwd, student fwd + bwd,
+         losses, AdamW, EMA)
 
 The loop reads nothing back from the device between log points: every
 ``log_config.interval`` steps (and where ``max_steps`` or an epoch ends) one
@@ -71,10 +73,12 @@ from ..utils import checkpoint as ckpt
 from ..utils.logging import (LogBuffer, TensorBoardLogger, TextLogger,
                              device_memory_stats, get_root_logger)
 from ..utils.native import ensure_native
-from .train_step import TrainState, make_train_step, sigmoid_rampup
+from .train_step import (TrainState, make_train_step, pack_batch,
+                         sigmoid_rampup)
 
-# batch keys the device step reads
-_STEP_KEYS = ("voxels", "num_points", "labels", "reg_targets")
+# batch keys the device step reads (reg_targets, or its packed
+# ``reg_targets<sfx>_idx`` / ``_val``)
+_STEP_KEYS = ("voxels", "num_points", "labels")
 # eval batch keys padded to the full batch (trainer.py:777-784)
 _EVAL_KEYS = ("voxels", "coords", "num_points", "voxel_mask", "frustum")
 # the detection buffers a data-parallel eval gathers, one row per sample
@@ -185,6 +189,10 @@ class Trainer:
         # and masks (trainer.py:146-157, 171-175)
         self.host_inputs = (bool(cfg.data.get("host_rulebooks", True))
                             or not hasattr(student, "stage_capacity"))
+        # compress each train batch for its copy to the device
+        # (``train_step.pack_batch``: sparse reg_targets, int8 labels, f16
+        # voxels), on by default as in the JAX trainer (trainer.py:283-287)
+        self.pack_targets = bool(cfg.data.get("pack_targets", True))
         if self.host_inputs:
             self.train_loader.batch_transform = student.host_transform(
                 self.stage_capacity, self.suffixes)
@@ -245,8 +253,10 @@ class Trainer:
 
         out = {}
         for sfx in self.suffixes:
-            for k in _STEP_KEYS:
-                out[k + sfx] = put(batch[k + sfx])
+            targets = [f"reg_targets{sfx}_idx", f"reg_targets{sfx}_val"] \
+                if f"reg_targets{sfx}_idx" in batch else ["reg_targets" + sfx]
+            for k in [k + sfx for k in _STEP_KEYS] + targets:
+                out[k] = put(batch[k])
             if not self.host_inputs:
                 out["coords" + sfx] = put(batch["coords" + sfx])
                 out["voxel_mask" + sfx] = put(batch["voxel_mask" + sfx])
@@ -390,6 +400,8 @@ class Trainer:
             data_time = time.perf_counter() - t_data
             if self.host_inputs:
                 self._check_train_saturation(batch)
+            if self.pack_targets:
+                batch = pack_batch(batch)
             opt = self.state.optimizer
             metrics = self.train_step(self.state, self._device_batch(batch),
                                       cw)

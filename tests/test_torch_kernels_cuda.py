@@ -214,7 +214,7 @@ def test_conv_instance_equals_the_c_entries(cuda):
     for entry, fn in entries.items():
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             for cin in (4, 8, 16, 32, 64):
-                for cout in (16, 32, 64):
+                for cout in (4, 16, 32, 64):
                     got = fn(cin, cout, code)
                     if (cin, cout) in pairs[entry]:
                         want = sc.conv_instance(entry, dtype, cin, cout)
@@ -274,6 +274,38 @@ def test_mma_tile_k1_matches_twin_at_every_split(cuda, cin, cout, k,
     rule = sc.launch_split(N_OUT, cin, cout, torch.bfloat16)
     assert torch.equal(got, sc.fused_sparse_conv_at_split(*args,
                                                           split=rule))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_mma_tile_k1_rows_do_not_depend_on_their_tile(cuda, cin, cout, k,
+                                                     split):
+    """bf16 K1 split over a cluster gives each row the same bits wherever
+    the rows before it put it in a tile (another scan batched ahead of
+    it): every rank sums the row's own taps of its residue class. Rows hit
+    half the taps and a few rare ones, so the taps a tile hits, and a
+    deal by position in that list, change with the rows it holds."""
+    feats, _, w2, bias, _ = _tile_inputs(cin, cout, k)
+    rng = np.random.RandomState(cin + cout + k)
+    n_out = 16384
+    rate = np.where(np.arange(k) % 4 == 1, 0.02, 0.5)
+    rb = np.where(rng.rand(n_out, k) < rate,
+                  rng.randint(0, N_IN, (n_out, k)), N_IN)
+    args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
+            torch.from_numpy(w2).to(cuda, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda))
+    want = sc.fused_sparse_conv_at_split(
+        args[0], torch.from_numpy(rb).to(cuda, torch.int32), *args[1:], N_IN,
+        split=split)
+    for shift in (1, 23, 40):
+        moved = np.concatenate([np.full((shift, k), N_IN), rb])
+        got = sc.fused_sparse_conv_at_split(
+            args[0], torch.from_numpy(moved).to(cuda, torch.int32),
+            *args[1:], N_IN, split=split)
+        torch.cuda.synchronize()
+        assert torch.equal(got[shift:], want), shift
 
 
 @pytest.mark.cuda
@@ -440,8 +472,8 @@ def test_train_fwd_kernel_matches_twin(cuda, cin, cout, k, idx_dtype, dtype,
 @pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
 @pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
                          ids=["int16", "int32"])
-@pytest.mark.parametrize("cin,cout,k", PLAN[1:],
-                         ids=[f"{a}x{b}x{c}" for a, b, c in PLAN[1:]])
+@pytest.mark.parametrize("cin,cout,k", PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in PLAN])
 def test_train_dfeat_kernel_matches_twin(cuda, cin, cout, k, idx_dtype,
                                          dtype, tol):
     f, rb, w, d, _ = _on(cuda, dtype, idx_dtype,
@@ -546,8 +578,9 @@ def test_dw_mma_rejects_misaligned_inputs(cuda):
     assert kt.sparse_conv_dw.launches == before
 
 
-# (conv Cin, conv Cout) of the input gradient's five gather pairs
-DFEAT_CONVS = [(b, a) for a, b in sc.DFEAT_PAIRS]
+# (conv Cin, conv Cout) of the input gradient's five tensor-core gather
+# pairs (the first conv's 16 -> 4 takes the scalar tile)
+DFEAT_CONVS = [(b, a) for a, b in sc.DFEAT_PAIRS if b != 4]
 DFEAT_CASES = [(cin, cout, k) for cin, cout in DFEAT_CONVS for k in (3, 27)]
 DEAD = slice(64, 192)  # input rows no output reads: two all-miss tiles
 LONE_IN = 200          # an input row read through one tap by one output
@@ -672,6 +705,30 @@ def test_sparse_conv_function_on_card_matches_cpu(cuda):
         outs.append([t.detach().cpu() for t in (y, x.grad, w.grad)])
     for got, want, tol in zip(outs[1], outs[0], (1e-4, 1e-4, 1e-3)):
         assert _err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
+def test_first_conv_input_gradient_on_card(cuda, dtype, tol):
+    """``autograd.grad`` with respect to the 4-channel input of the first
+    conv (4 -> 16) launches the dFeat kernel once, on the scalar tile, and
+    matches the same gradient through the plain twins."""
+    assert sc.conv_instance("sparse_conv_dfeat", dtype, 16, 4) == "scalar"
+    feats, rb, w2, dout, mask = _train_inputs(4, 16, 27, seed=2)
+    r = torch.from_numpy(rb).to(cuda, torch.int32)
+    m = torch.from_numpy(mask).to(cuda)
+    w = torch.from_numpy(w2).to(cuda, dtype)
+    d = torch.from_numpy(dout).to(cuda, dtype)
+    x = torch.from_numpy(feats).to(cuda, dtype).requires_grad_(True)
+    before = kt.sparse_conv_dfeat.launches
+    y = sp.SparseConvFunction.apply(x, w, r, m, None)
+    (got,) = torch.autograd.grad(y, x, d)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dfeat.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N_IN, 4)
+    inv = sp.inverse_rulebook(r, N_IN)
+    dm = torch.where(m[:, None], d, 0.0)
+    assert _err(got, kt.sparse_conv_dfeat_ref(dm, inv, w)) <= tol
 
 
 def _named_calls(cuda, dtype):

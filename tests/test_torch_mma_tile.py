@@ -259,9 +259,8 @@ def test_python_pairs_equal_the_c_dispatch_tables():
     assert sc.FUSED_PAIRS == _source_pairs(*ENTRIES["fused_sparse_conv"])
     assert sc.DW_PAIRS == _source_pairs(*ENTRIES["sparse_conv_dw"])
     assert sc.DFEAT_PAIRS == _source_pairs(*ENTRIES["sparse_conv_dfeat"])
-    # the input gradient's pairs are the convs' swapped, but the first's
-    assert sc.DFEAT_PAIRS == tuple(sorted((b, a) for a, b in sc.FWD_PAIRS
-                                          if a != 4))
+    # the input gradient's pairs are the convs' swapped, the first's too
+    assert sc.DFEAT_PAIRS == tuple(sorted((b, a) for a, b in sc.FWD_PAIRS))
     # each __global__ with two bodies picks the tensor-core one by the rule
     for path, kernel in (("sparse_conv.cu", "fused_sparse_conv_kernel("),
                          ("sparse_conv_train.cu",
@@ -289,11 +288,12 @@ def test_python_pairs_equal_the_c_dispatch_tables():
 def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     """bf16 with Cin, Cout in {16, 32, 64} takes the tensor-core body in
     every entry: K4 and K3 since the wgmma tile, K1 (with its cluster tap
-    split) and dW (mma.sync) since their redesign, dFeat (all five of its
-    pairs, K-major B) since its own; the rest the scalar one."""
+    split) and dW (mma.sync) since their redesign, dFeat (five of its six
+    pairs, K-major B) since its own; the rest, the 4-channel side of the
+    first conv included, the scalar one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
-    mma = dtype == torch.bfloat16 and cin != 4
+    mma = dtype == torch.bfloat16 and 4 not in pair
     assert got == ("mma" if mma else "scalar")
 
 

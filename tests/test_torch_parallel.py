@@ -230,6 +230,41 @@ def test_sync_batch_norm_equals_one_process(kind):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("kind", ["masked", "unmasked"])
+def test_sync_batch_norm_group_of_one_equals_local(kind):
+    """A group of one (gloo, this process) normalizes as no group does, on
+    channels whose mean is large against their spread (where E[x^2] -
+    E[x]^2 cancels): outputs and running statistics bit-equal, the input
+    gradient within 1e-7 of its max (the backward sums in another
+    order)."""
+    import torch.distributed as dist
+
+    from sessd_torch.parallel import mesh
+
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy((rng.randn(500, C) * 3 + 40).astype(np.float32))
+    mask = (torch.from_numpy(rng.rand(500, 1) > 0.3) if kind == "masked"
+            else None)
+    dy = torch.from_numpy(rng.randn(500, C).astype(np.float32))
+    weight = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{mesh.free_port()}")
+    try:
+        outs = []
+        for group in (None, dist.group.WORLD):
+            bn = BatchNorm(C, process_group=group).train()
+            bn.weight.data.copy_(weight)
+            xg = x.clone().requires_grad_(True)
+            y = bn(xg, mask)
+            (dx,) = torch.autograd.grad((y * dy).sum(), xg)
+            outs.append((y, bn.running_mean, bn.running_var, dx))
+    finally:
+        dist.destroy_process_group()
+    for want, got in zip(outs[0][:3], outs[1][:3]):
+        assert torch.equal(got, want)
+    assert rel_err(outs[1][3], outs[0][3]) <= 1e-7
+
+
 def test_all_gather_detections():
     d, res = units()
     for r in range(WORLD):

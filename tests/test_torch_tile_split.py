@@ -4,16 +4,19 @@ skipped steps and chunks), written out in torch from the CPU and held
 against the JAX package:
 
 - K1's split-tap sum: per 64-row tile, the taps some row hits, dealt to S
-  ranks as the kernel deals them (list position p to rank p mod S), each
+  ranks as the kernel deals them (tap k to rank k mod S), each
   rank's partial summed in f32 in tap order, the partials added in rank
   order, then bias, ReLU and the any-hit mask; against the Pallas
-  ``fused_conv_affine_t`` in interpret mode, S in {1, 2, 4};
+  ``fused_conv_affine_t`` in interpret mode, S in {1, 2, 4}; and a row's
+  output bit-equal at one S wherever the rows around it put it in a tile
+  (what lets a scan's detections not depend on the scans batched with it
+  in batches of one size);
 - dW's chunked sum: per (chunk, tap), the 64-row steps some row of which
   hits the tap, each step's G^T D in f32, a zero partial where no row of
   the chunk hits; the chunks then summed in order; against ``jax.grad``
   through ``windowed_conv`` (the Pallas ``_bwd_kernel``, interpret mode);
 - the Python mirrors of the kernels' rules (``cluster_split``, the
-  round-robin deal, ``conv_instance`` for K1 and dW) against the C
+  deal by tap index, ``conv_instance`` for K1 and dW) against the C
   sources, by regex, and the comparison-only wrappers' CPU contracts.
 
 Inputs come from a numpy seed on the host chains of
@@ -62,8 +65,8 @@ def chain(b):
 
 def deal(taps, split):
     """The hit taps of one tile dealt to ``split`` ranks as the kernel deals
-    them: rank r takes list positions r, r + split, ..."""
-    return [taps[r::split] for r in range(split)]
+    them: rank r takes the taps k with k % split == r, in order."""
+    return [[k for k in taps if k % split == r] for r in range(split)]
 
 
 def split_tile_sum(feats, rb, w2, bias, n_in, split, relu=True):
@@ -128,14 +131,34 @@ def test_k1_split_tap_sum_matches_pallas_fused(case, split):
     got = split_tile_sum(t(feats), t(rb), t(w2), t(bias), n_in, split)
     np.testing.assert_allclose(got.numpy(), pallas_fused(case), atol=ATOL,
                                rtol=RTOL)
-    # the deal covers each hit tap of a tile once, the ranks' counts
-    # within one of each other
+    # the deal covers each hit tap of a tile once, each rank its residue
+    # class; a tile that hits every tap gets the ranks' counts within one
+    # of each other
     hits, _ = tsp.tile_tap_hits(t(rb), n_in)
     for row in hits:
         taps = torch.nonzero(row).flatten().tolist()
         dealt = deal(taps, split)
         assert sorted(sum(dealt, [])) == taps
-        assert max(map(len, dealt)) - min(map(len, dealt)) <= 1
+        assert all(k % split == r for r, mine in enumerate(dealt)
+                   for k in mine)
+    full = deal(list(range(rb.shape[1])), split)
+    assert max(map(len, full)) - min(map(len, full)) <= 1
+
+
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("case", MMA_CONVS, ids=IDS)
+def test_k1_split_tap_sum_does_not_depend_on_tile_alignment(case, split):
+    """Rows moved to other tiles (all-miss rows put before them, as another
+    scan of a batch would) keep their outputs bit for bit: each rank sums a
+    row's own taps of its residue class, whatever else the tile hits."""
+    feats, rb, w2, bias, n_in = (torch.from_numpy(a) if isinstance(
+        a, np.ndarray) else a for a in _k1_inputs(case))
+    want = split_tile_sum(feats, rb, w2, bias, n_in, split)
+    for shift in (1, 23, 40):
+        moved = torch.cat([torch.full((shift, rb.shape[1]), n_in,
+                                      dtype=rb.dtype), rb])
+        got = split_tile_sum(feats, moved, w2, bias, n_in, split)[shift:]
+        assert torch.equal(got, want), shift
 
 
 def chunked_dw(feats, rb, dout, n_in, chunk_rows):
@@ -244,9 +267,9 @@ def test_cluster_split_mirrors_the_header():
     assert re.search(r"constexpr int kRows = (\d+);",
                      (CSRC / "gather_gemm.cuh").read_text()).group(1) \
         == str(sc.TILE_ROWS)
-    # the deal: rank r takes positions r, r + split, ... of the hit list
-    assert "const int* my_taps = s_taps + rank;" in text
-    assert "issue(my_taps[ahead * split], ahead % kStages)" in text
+    # the deal: rank r takes the hit taps k with k % split == r, in order
+    assert "hit = hit && k % split == rank;" in text
+    assert "issue(my_taps[ahead], ahead % kStages)" in text
     # the C entry launches K1 with the rule's S, in clusters along x
     entry = (CSRC / "sparse_conv.cu").read_text()
     assert "if (split == 0) split = sessd::cluster_split(tiles, wave);" \
