@@ -5,7 +5,8 @@
 Phases, each printing its own lines; any failure exits non-zero:
 1. The card (``nvidia-smi`` name and power limit) and the build of the CUDA
    kernels from ``sessd_torch/csrc`` (one nvcc per source, in parallel,
-   into ``build/sessd_torch/``).
+   into ``build/sessd_torch/``), with the body and blocks per SM of each
+   training tile instance (``kt.blocks_per_sm``).
 2. The fused sparse conv kernel (K1) against its plain PyTorch twin on the
    card, for every one of the 14 backbone convs on the features the
    previous conv produced, at full KITTI width (sparse shape (41, 1600,
@@ -41,15 +42,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    recipe's stage caps (ACCEPT_CAPS). Each conv takes the features the
    previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
    weight gradient, a reduction over all rows), bf16 2e-2; dW gives the
-   same bits on two runs. Kernel and twin device-time medians per conv
-   (bf16, student chain); for the forward also the scalar tile's time on
-   the same inputs (K1's scalar entry with zero bias and no ReLU) and the
-   share of (tile, tap) pairs skipped; for the input gradient, whose bf16
-   instances all take the tensor-core tile, the scalar entry's time
-   (``sparse_conv_dfeat_scalar``), the share of (tile, tap) pairs of the
-   inverse rulebook skipped and the share of gathered rows zero-filled,
-   and one call that makes one launch and one allocation, its output (no
-   transposed copy of the weights); for dW the scalar partial kernel's time
+   same bits on two runs. Each conv's K4 and dFeat body is checked: the
+   tensor-core tile in bf16, in f32 through 3xTF32 for dFeat, and the
+   scalar tile for f32 K4 and the first conv's 4-channel side; K4's f32
+   3xTF32 entry (``sparse_conv_fwd_tf32``, off the training path) is held
+   to K4's bound on every conv with 16-64 channels. In both types one K4
+   call and one dFeat call (and in f32 one call of the entry) each make one
+   launch and one allocation, their output (no copy or packing of the
+   weights). Kernel and twin device-time medians per conv (bf16, student
+   chain; f32: K4 on both chains with the 3xTF32 entry on the same calls,
+   dFeat and dW on the student's, printed per launch, dFeat with its
+   scalar entry ``sparse_conv_dfeat_scalar`` on the same calls); for the
+   bf16 forward also the scalar tile's time on the same inputs (K1's
+   scalar entry with zero bias and no ReLU) and the share of (tile, tap)
+   pairs skipped; for the input
+   gradient the scalar entry's time, the share of (tile, tap) pairs of the
+   inverse rulebook skipped and the share of gathered rows zero-filled;
+   for dW the scalar partial kernel's time
    (``sparse_conv_dw_scalar``), the shares of (chunk, tap) and (step, tap)
    pairs skipped, the f32 partials' bytes, and its time at each chunk size
    of DW_CHUNK_SWEEP.
@@ -66,7 +75,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    each gradient tensor within 1e-3 of its max.
 7. Evaluation on that f32 trainer: K3 against its twin and K1 on the convs
    that stream in one batch-4 eval batch at ACCEPT_CAPS (derived from the
-   stream rule at those caps), with no stage saturated;
+   stream rule at those caps), with no stage saturated, and K1 timed with
+   its twin on the convs it runs there (f32 per-launch times);
    ``Trainer.validate()`` over the val split (the same 8 frames), with the
    K1 and K3 launches per batch the rule gives; ``save_checkpoint``; then
    ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint
@@ -209,21 +219,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-5; the staged bytes of both.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
-``fused_sparse_conv_at_split``, ``sparse_conv_dfeat_scalar``,
-``sparse_conv_dw_scalar``) count their own launches; a main-path phase that
-launched one fails.
+``fused_sparse_conv_at_split``, ``sparse_conv_fwd_tf32``,
+``sparse_conv_dfeat_scalar``, ``sparse_conv_dw_scalar``) count their own
+launches; a main-path phase that launched one fails.
 
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its 2*hits*Cin*Cout flops over the
-peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16), the card
+peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16, and for a
+3xTF32 body three times those flops over 494.7 TFLOP/s TF32), the card
 line, and the result line ``{"ok": true, "device": {...}}``. The rows of
 K1, K3, K4, dFeat, dW and S1 also carry ``old_tile_ms`` (the scalar tile on
 the same convs in the same run; for S1 the scalar copy's ``full``), K1,
 dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
 ``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap) shares,
 its partials' bytes and its time by chunk rows, S1 its tensor-core mode
-tables. Without a CUDA device it raises and prints no result.
+tables, and K1, K3, K4, dFeat and dW an ``f32`` object: per-launch ms on
+the f32 paths (phases 4 and 7), the scalar entry's on the same calls for
+dFeat, whose f32 body changed, the twin's and the bound's, and the body;
+K4's also carries its 3xTF32 entry's per-launch numbers on the same calls
+and its max abs error. Without a CUDA device it raises and prints no
+result.
 """
 import ast
 import contextlib
@@ -276,9 +292,12 @@ CONV_NAMES = ["subm0a", "subm0b", "down0", "subm1a", "subm1b", "down1",
               "subm3c", "down3"]
 BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
-# the card's published rates (H100 SXM data sheet, dense, at 700 W)
+# the card's published rates (H100 SXM data sheet, dense, at 700 W): f32
+# on the CUDA cores, bf16 and TF32 on the tensor cores; a 3xTF32 body
+# ("tf32", f32 K4 and dFeat) runs three TF32 products per f32 one
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 494.7e12}
+TF32_PASSES = 3
 B8_REQUESTS = 6
 # every Trainer here runs at the acceptance recipe's stage caps: the
 # ray-cast frames with GT-AUG overflow TRAIN_CAPS at stage 1, and a
@@ -290,17 +309,21 @@ ACCEPT_CAPS = ast.literal_eval(re.search(
 class Bound:
     """The least time the card could take for a kernel's work summed over
     calls: each input read once and each output written once over the
-    memory rate, against 2*hits*Cin*Cout flops over the input type's peak;
-    the larger of the two."""
+    memory rate, against 2*hits*Cin*Cout flops over the input type's peak
+    (on a 3xTF32 body, ``body`` "tf32", three times those flops over the
+    TF32 peak); the larger of the two."""
 
     def __init__(self):
         self.seconds = {"bytes": 0.0, "operations": 0.0}
 
-    def add(self, tensors, hits: int, cin: int, cout: int, dtype):
+    def add(self, tensors, hits: int, cin: int, cout: int, dtype,
+            body: str = ""):
         moved = sum(t.numel() * t.element_size() for t in tensors)
         self.seconds["bytes"] += moved / HBM_BYTES_PER_S
-        self.seconds["operations"] += 2 * hits * cin * cout / \
-            PEAK_FLOPS[dtype]
+        flops = 2 * hits * cin * cout
+        self.seconds["operations"] += (
+            TF32_PASSES * flops / PEAK_FLOPS["tf32"] if body == "tf32"
+            else flops / PEAK_FLOPS[dtype])
 
     def ms(self) -> float:
         return max(self.seconds.values()) * 1e3
@@ -368,9 +391,23 @@ def phase_build():
     log = sc.build_info["log"]
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
+    # blocks per SM of each training tile instance, by (entry, dtype, pair),
+    # and of K4's f32 3xTF32 entry
+    blocks = {f"{entry[12:]} {str(dtype)[6:]} {cin}x{cout}":
+              f"{sc.conv_instance(entry, dtype, cin, cout)} "
+              f"{kt.blocks_per_sm(entry, dtype, cin, cout)}"
+              for entry, pairs in (("sparse_conv_fwd", sc.FWD_PAIRS),
+                                   ("sparse_conv_dfeat", sc.DFEAT_PAIRS))
+              for dtype in (torch.float32, torch.bfloat16)
+              for cin, cout in pairs}
+    blocks.update({f"fwd_tf32 float32 {cin}x{cout}": "tf32 " + str(
+        kt.blocks_per_sm("sparse_conv_fwd_tf32", torch.float32, cin, cout))
+        for cin, cout in sc.FWD_PAIRS if cin in sc.MMA_CHANNELS})
     print(f"build: {secs:.2f} s ({sc.build_info['path']}); "
           f"{len(regs)} kernel instances, max {max(regs, default=0)} "
-          f"registers, {spills} bytes spill stores")
+          f"registers, {spills} bytes spill stores; training tiles (body, "
+          f"blocks per SM): " + ", ".join(f"{k}: {v}"
+                                         for k, v in blocks.items()))
 
 
 def phase_kernels(model, spec, device):
@@ -630,16 +667,17 @@ def old_tile(dtype):
 
 
 def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
-                       want_streamed):
+                       want_streamed, resident=None):
     """The backbone's all-sparse plan on (feats, rb) with every conv that
     streams run through K3, its twin, K1 and the scalar tile on identical
     inputs: K3 within the bound of the twin, and equal to K1 bit for bit
     where K1 runs one CTA per tile (always in f32, where both keep K1's
     summation order; in bf16 both run the tensor-core tile); each of these
-    convs timed (device-time medians of 10). The other convs run K1.
+    convs timed (device-time medians of 10). The other convs run K1, timed
+    with its twin into ``resident`` (a PerLaunch) where one is given.
     Returns {"worst": max abs error vs twin, "vs_k1": max abs difference
     from K1, "ms", "k1_ms", "old_ms" (the scalar tile), "plain_ms": sums,
-    "bound": Bound, "tiles": TileSkips}."""
+    "bound": Bound, "tiles": TileSkips, "streamed": the streamed convs}."""
     out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
            "old_ms": 0.0, "plain_ms": 0.0, "bound": Bound(),
            "tiles": TileSkips()}
@@ -649,7 +687,21 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
     def checked(x, rbk, w2, bias, n_in):
         i = next(step)
         if pick_conv(x.shape[1], n_in, dtype) is sc.fused_sparse_conv:
-            return sc.fused_sparse_conv(x, rbk, w2, bias, n_in)
+            y = sc.fused_sparse_conv(x, rbk, w2, bias, n_in)
+            if resident is not None:
+                args = (x, rbk, w2, bias, n_in)
+                cin, cout = x.shape[1], w2.shape[2]
+                body = sc.conv_instance("fused_sparse_conv", dtype, cin,
+                                        cout)
+                k_ms = median_ms(lambda: sc.fused_sparse_conv(*args), 10)
+                r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(*args), 10)
+                resident.add(body, k_ms, r_ms)
+                resident.bound.add((x, rbk, w2, bias, y), hits(rbk, n_in),
+                                   cin, cout, dtype, body)
+                print(f"resident conv {i:2d} {CONV_NAMES[i]:6s} {cin:2d}->"
+                      f"{cout:2d} rows {rbk.shape[0]:6d} {tag}: K1 "
+                      f"[{body}] {k_ms:.4f} ms, twin {r_ms:.4f} ms")
+            return y
         streamed.append(CONV_NAMES[i])
         args = (x, rbk, w2, bias, n_in)
         y = sc.fused_sparse_conv_stream(*args)
@@ -692,6 +744,7 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
     if streamed != want_streamed:
         raise AssertionError(f"{tag}: streamed {streamed}, want "
                              f"{want_streamed}")
+    out["streamed"] = streamed
     print(f"stream kernel {tag}: {len(streamed)} convs within bounds; max "
           f"abs error vs twin {out['worst']:.3e}, max|K3-K1| "
           f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
@@ -935,6 +988,49 @@ class DwSkips:
         return chunk, step, moved
 
 
+class PerLaunch:
+    """A kernel's launches timed on the f32 chains: summed device ms of the
+    kernel, its twin and, where the body changed, the scalar entry of the
+    body it replaced, on the same calls; their bound and count."""
+
+    def __init__(self):
+        self.n = 0
+        self.ms = self.plain_ms = self.old_ms = 0.0
+        self.has_old = True
+        self.bound = Bound()
+        self.bodies = set()
+
+    def add(self, body, ms, plain_ms, old_ms=None):
+        self.n += 1
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.bodies.add(body)
+        if old_ms is None:
+            self.has_old = False
+        else:
+            self.old_ms += old_ms
+
+    def row(self) -> dict:
+        """Per-launch means (the kernel table's f32 row)."""
+        n = max(self.n, 1)
+        return {"tile": sorted(self.bodies), "launches_timed": self.n,
+                "ms_per_launch": self.ms / n,
+                "old_tile_ms_per_launch": self.old_ms / n
+                if self.has_old else None,
+                "plain_ms_per_launch": self.plain_ms / n,
+                "bound_ms_per_launch": self.bound.ms() / n,
+                "bound_by": self.bound.by()}
+
+
+def _train_body(dtype, i: int, name: str) -> str:
+    """The body K4 ("fwd") and dFeat take on training conv i: the
+    tensor-core tile in bf16, in f32 through 3xTF32 for dFeat, and the
+    scalar tile for the f32 forward and the first conv's 4-channel side."""
+    if i == 0 or (dtype == torch.float32 and name == "fwd"):
+        return "scalar"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
 @torch.no_grad()
 def phase_train_kernels(trainer, db):
     """K4 / K5 against their twins on every sparse conv of both plans.
@@ -942,12 +1038,19 @@ def phase_train_kernels(trainer, db):
     per kernel, Bound per kernel, {"old_ms": the scalar tile's summed ms,
     "tiles": TileSkips} of the forward and of dFeat, {"old_ms", "skips":
     DwSkips, "sweep": {chunk rows: summed ms}} of dW) with the times and
-    bounds of the bf16 student chain."""
+    bounds of the bf16 student chain, and {kernel: PerLaunch} of the f32
+    chains: K4 on the student's and the teacher's convs ("fwd", and its
+    3xTF32 entry "fwd_tf32", held to K4's bound on every conv with 16-64
+    channels), dFeat and dW on the student's (the step's), dFeat with the
+    scalar entry's time on the same calls; "tf32_worst" is the entry's max
+    abs error against the twin."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
     bounds = {k: Bound() for k in worst}
+    f32 = {k: PerLaunch() for k in (*worst, "fwd_tf32")}
+    tf32_worst = 0.0
     fwd_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     dfeat_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     dw_tile = {"old_ms": 0.0, "skips": DwSkips(),
@@ -988,14 +1091,23 @@ def phase_train_kernels(trainer, db):
                 runs["dfeat"] = (
                     lambda: kt.sparse_conv_dfeat(dout, inv, w),
                     lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
-                inst = sc.conv_instance("sparse_conv_dfeat", dtype,
-                                        w.shape[2], w.shape[1])
-                if inst != ("mma" if dtype == torch.bfloat16 and i > 0
-                            else "scalar"):
-                    raise AssertionError(f"{CONV_NAMES[i]} {tag}: dfeat "
-                                         f"takes the {inst} body")
-                if timed and i == 1:
-                    _one_dfeat_launch(dout, inv, w)
+                insts = {"fwd": sc.conv_instance(
+                             "sparse_conv_fwd", dtype, w.shape[1],
+                             w.shape[2]),
+                         "dfeat": sc.conv_instance(
+                             "sparse_conv_dfeat", dtype, w.shape[2],
+                             w.shape[1]),
+                         "dw": sc.conv_instance(
+                             "sparse_conv_dw", dtype, w.shape[1],
+                             w.shape[2])}
+                for name in ("fwd", "dfeat"):
+                    if insts[name] != _train_body(dtype, i, name):
+                        raise AssertionError(
+                            f"{CONV_NAMES[i]} {tag}: {name} takes the "
+                            f"{insts[name]} body")
+                if plan == "student" and i == 1:
+                    _one_launch_per_call(x, rbk, w, mask, dout, inv)
+                f32_timed = dtype == torch.float32
                 line = (f"train conv {i:2d} {CONV_NAMES[i]:6s} "
                         f"{w.shape[1]:2d}->{w.shape[2]:2d} K={w.shape[0]:2d} "
                         f"rows {rbk.shape[0]:6d} {tag}:")
@@ -1020,21 +1132,55 @@ def phase_train_kernels(trainer, db):
                         if not torch.equal(got, again):
                             raise AssertionError(f"{CONV_NAMES[i]} dw {tag}: "
                                                  "two runs differ")
-                    if timed and name == "dfeat" and i == 0:
+                    moved = {"fwd": (x, rbk, w, mask),
+                             "dw": (x, rbk, dout),
+                             "dfeat": (dout, inv, w)}[name] + (got,)
+                    args = (moved, hits(rbk, x.shape[0]), w.shape[1],
+                            w.shape[2], dtype, insts[name])
+                    tf32_entry = name == "fwd" and f32_timed and i > 0
+                    if tf32_entry:  # K4's 3xTF32 entry, same call
+                        tf = kt.sparse_conv_fwd_tf32(x, rbk, w, mask)
+                        torch.cuda.synchronize()
+                        rel_tf, diff_tf = _rel(tf, want)
+                        tf32_worst = max(tf32_worst, diff_tf)
+                        line += f" (tf32 entry {rel_tf:.1e})"
+                        if not rel_tf <= bound:
+                            raise AssertionError(
+                                f"{CONV_NAMES[i]} fwd tf32 entry {tag}: "
+                                f"rel_err {rel_tf:.3e} > {bound}")
+                    if (timed or f32_timed) and name == "dfeat" and i == 0:
                         # off the step's path: timed apart, not summed
-                        line += (f" ({median_ms(kern, 10):.4f} vs twin "
-                                 f"{median_ms(twin, 10):.4f} ms, scalar "
-                                 f"tile)")
+                        if plan == "student":
+                            line += (f" ({median_ms(kern, 10):.4f} vs twin "
+                                     f"{median_ms(twin, 10):.4f} ms, scalar "
+                                     f"tile)")
+                    elif f32_timed and (name == "fwd" or plan == "student"):
+                        k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
+                        # dFeat's scalar tile, the f32 body it replaced, on
+                        # the same call (f32 K4 and dW run the scalar tile)
+                        old_ms = median_ms(
+                            lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w),
+                            10) if name == "dfeat" else None
+                        f32[name].add(insts[name], k_ms, r_ms, old_ms)
+                        f32[name].bound.add(*args)
+                        line += (f" ({insts[name]} {k_ms:.4f} vs twin "
+                                 f"{r_ms:.4f} ms")
+                        if old_ms is not None:
+                            line += (f", scalar tile {old_ms:.4f} ms: "
+                                     f"{old_ms / k_ms:.2f}x")
+                        if tf32_entry:
+                            tf_ms = median_ms(lambda: kt.sparse_conv_fwd_tf32(
+                                x, rbk, w, mask), 10)
+                            f32["fwd_tf32"].add("tf32", tf_ms, r_ms)
+                            f32["fwd_tf32"].bound.add(*args[:-1], "tf32")
+                            line += (f", tf32 entry {tf_ms:.4f} ms: "
+                                     f"{k_ms / tf_ms:.2f}x")
+                        line += ")"
                     elif timed:
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         ms[name][0] += k_ms
                         ms[name][1] += r_ms
-                        moved = {"fwd": (x, rbk, w, mask),
-                                 "dw": (x, rbk, dout),
-                                 "dfeat": (dout, inv, w)}[name]
-                        bounds[name].add(moved + (got,),
-                                         hits(rbk, x.shape[0]), w.shape[1],
-                                         w.shape[2], dtype)
+                        bounds[name].add(*args)
                         line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms"
                         if name == "fwd":
                             old_ms = median_ms(
@@ -1064,6 +1210,7 @@ def phase_train_kernels(trainer, db):
                 print(line)
                 x = torch.relu(y)
     skips = dw_tile["skips"]
+    card = card_line()
     print("train kernels vs twin: all convs of both plans within bounds, dW "
           "the same bits on two runs; bf16 student chain sums " + ", ".join(
               f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms bound "
@@ -1084,28 +1231,50 @@ def phase_train_kernels(trainer, db):
           f"{skips.steps.share():.3f} of {skips.steps.pairs}, partials "
           f"{skips.partial_bytes / 1e6:.2f} MB moved; dw by chunk rows "
           + ", ".join(f"{c}: {t:.4f} ms" for c, t in dw_tile["sweep"].items()))
-    return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile
+    for name, per in f32.items():
+        r = per.row()
+        old = (f", scalar tile {r['old_tile_ms_per_launch']:.4f} ms "
+               f"({r['old_tile_ms_per_launch'] / r['ms_per_launch']:.2f}x)"
+               if r["old_tile_ms_per_launch"] is not None else "")
+        print(f"train kernels f32 {name}: {r['launches_timed']} launches "
+              f"timed ({', '.join(r['tile'])}), per launch "
+              f"{r['ms_per_launch']:.4f} ms{old}, twin "
+              f"{r['plain_ms_per_launch']:.4f} ms, bound "
+              f"{r['bound_ms_per_launch']:.4f} ms ({r['bound_by']}) [{card}]")
+    f32["tf32_worst"] = tf32_worst
+    return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile, f32
 
 
-def _one_dfeat_launch(dout, inv, w):
-    """One ``sparse_conv_dfeat`` call makes one launch and one device
-    allocation, its output: the weights are read as they lie, with no
-    transposed copy (the scalar entry, which takes W^T, makes two)."""
+def _one_launch_per_call(x, rbk, w, mask, dout, inv):
+    """One ``sparse_conv_fwd`` or ``sparse_conv_dfeat`` call (and in f32
+    one call of K4's 3xTF32 entry) makes one launch and one device
+    allocation, its output: the weights are read as they lie (transposed
+    and, in f32, split into TF32 parts inside the kernel), with no copy or
+    packing launch (the dFeat scalar entry, which takes W^T, makes two
+    allocations)."""
     def allocs():
         return torch.cuda.memory_stats()["allocation.all.allocated"]
 
-    torch.cuda.synchronize()
-    counts = [allocs(), kt.sparse_conv_dfeat.launches]
-    kt.sparse_conv_dfeat(dout, inv, w)
-    got = [allocs() - counts[0], kt.sparse_conv_dfeat.launches - counts[1]]
+    got, want = {}, {"fwd": [1, 1], "dfeat": [1, 1]}
+    calls = [("fwd", kt.sparse_conv_fwd, (x, rbk, w, mask)),
+             ("dfeat", kt.sparse_conv_dfeat, (dout, inv, w))]
+    if x.dtype == torch.float32:
+        calls.append(("fwd_tf32", kt.sparse_conv_fwd_tf32, (x, rbk, w, mask)))
+        want["fwd_tf32"] = [1, 1]
+    for name, fn, call in calls:
+        torch.cuda.synchronize()
+        counts = [allocs(), fn.launches]
+        fn(*call)
+        got[name] = [allocs() - counts[0], fn.launches - counts[1]]
     before = allocs()
     kt.sparse_conv_dfeat_scalar(dout, inv, w)
     scalar = allocs() - before
-    if got != [1, 1] or scalar != 2:
-        raise AssertionError(f"one dfeat call: (allocations, launches) {got}"
-                             f", the scalar entry's allocations {scalar}")
-    print("dfeat: one call, one launch, one allocation (its output; the "
-          "scalar entry's W^T copy makes two)")
+    if got != want or scalar != 2:
+        raise AssertionError(f"one call: (allocations, launches) {got}, "
+                             f"the dfeat scalar entry's allocations {scalar}")
+    print(f"{str(x.dtype)[6:]} {', '.join(want)}: one call, one launch, one "
+          "allocation (its output; the dfeat scalar entry's W^T copy makes "
+          "two)")
 
 
 def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
@@ -1131,7 +1300,8 @@ KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               ablate.empty_launch)
 # the entries kept for same-call comparisons: never on a main path
 COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-                  kt.sparse_conv_dfeat_scalar, kt.sparse_conv_dw_scalar)
+                  kt.sparse_conv_fwd_tf32, kt.sparse_conv_dfeat_scalar,
+                  kt.sparse_conv_dw_scalar)
 
 
 def _reset_counts():
@@ -1346,7 +1516,9 @@ def _put(a, device):
 
 
 def phase_eval_kernels(trainer):
-    """K3 on the 11 streamed convs of the first batch-4 eval batch."""
+    """K3 on the 11 streamed convs of the first batch-4 eval batch, and K1
+    timed on the 3 it keeps resident (``check_stream_convs``; the result's
+    "k1_f32" is their PerLaunch)."""
     batches = iter(trainer.val_loader)
     try:
         batch = next(batches)
@@ -1367,10 +1539,14 @@ def phase_eval_kernels(trainer):
     with torch.inference_mode():
         feats = model.reader(_put(vox, dev).reshape(b * v, *vox.shape[2:]),
                              _put(batch["num_points"], dev).reshape(b * v))
-    return check_stream_convs(
+    k1 = PerLaunch()
+    out = check_stream_convs(
         model.backbone, feats, rb, b, model.sparse_shape, torch.float32,
         "eval b4 f32 int32",
-        streamed_convs(trainer.stage_capacity, b, torch.float32))
+        streamed_convs(trainer.stage_capacity, b, torch.float32),
+        resident=k1)
+    out["k1_f32"] = k1
+    return out
 
 
 def _table_diff(a, b) -> list:
@@ -2960,8 +3136,8 @@ def main():
         with phase("training"):
             trainer = make_trainer("se_ssd_kitti_car_bf16.py", root,
                                    f"{tmp}/work_bf16", device)
-            worst, train_ms, train_bounds, fwd_tile, dfeat_tile, dw_tile = \
-                phase_train_kernels(trainer, first_batch(trainer))
+            (worst, train_ms, train_bounds, fwd_tile, dfeat_tile, dw_tile,
+             train_f32) = phase_train_kernels(trainer, first_batch(trainer))
             _no_saturation(trainer, "training kernels")
             counts = phase_train(trainer)
             del trainer
@@ -3055,6 +3231,24 @@ def main():
             train_ms[key][1], train_bounds[key]))
     kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
+    # f32: per-launch means on the f32 paths (K4 the 24 convs of both
+    # training chains, dFeat the step's 9, dW the student's 10; K1 the 3
+    # resident and K3 the 11 streamed convs of a batch-4 f32 eval batch)
+    n_k3 = len(ev["streamed"])
+    k3_f32 = {"tile": ["scalar"], "launches_timed": n_k3,
+              "ms_per_launch": ev["ms"] / n_k3,
+              "old_tile_ms_per_launch": None,
+              "plain_ms_per_launch": ev["plain_ms"] / n_k3,
+              "bound_ms_per_launch": ev["bound"].ms() / n_k3,
+              "bound_by": ev["bound"].by()}
+    kernels[0]["f32"] = ev["k1_f32"].row()
+    kernels[1]["f32"] = k3_f32
+    for row, key in zip(kernels[2:5], ("fwd", "dfeat", "dw")):
+        row["f32"] = train_f32[key].row()
+    # K4's 3xTF32 body, kept off the f32 training path: its times on the
+    # same calls and its error against the twin
+    kernels[2]["f32"].update(tf32_entry=train_f32["fwd_tf32"].row(),
+                             tf32_entry_max_abs_err=train_f32["tf32_worst"])
     kernels[3].update(
         tile="gather_mma.cuh: gather_mma_tile (wgmma, K-major B)",
         old_tile_ms=dfeat_tile["old_ms"],

@@ -1,15 +1,18 @@
-// Tensor-core gather tile over a rulebook, shared by the bf16 training
-// forward (sparse_conv_train.cu: sparse_conv_fwd_kernel, masked store), the
-// bf16 input gradient (sparse_conv_train.cu: sparse_conv_dfeat_kernel, over
-// the inverse rulebook with a K-major B), the bf16 streaming serving conv
+// Tensor-core gather tile over a rulebook, shared by the training forward
+// (sparse_conv_train.cu: sparse_conv_fwd_kernel, masked store), the input
+// gradient (sparse_conv_train.cu: sparse_conv_dfeat_kernel, over the
+// inverse rulebook with a K-major B), the bf16 streaming serving conv
 // (sparse_conv_stream.cu: fused_sparse_conv_stream_kernel) and the bf16
 // resident serving conv (sparse_conv.cu: fused_sparse_conv_kernel), both
 // with the bias + ReLU + any-hit store. Each keeps its own __global__; this
 // is the body all four call for bf16 and Cin, Cout in {16, 32, 64}
-// (kMmaTile). Every other instance (f32, the Cin = 4 first conv) stays on
-// gather_gemm.cuh's scalar tile. The micro-benchmark
-// sparse_conv_ablate_mma_kernel (sparse_conv_ablate.cu) runs it with one
-// cost removed at a time (TileMode).
+// (kMmaTile), and the body the input gradient calls for f32 at the same
+// channels through 3xTF32 (kTf32Tile, below), as does the f32 forward's
+// comparison kernel sparse_conv_fwd_tf32_kernel. Every other instance (the
+// forward, the serving convs and dW in f32, the Cin = 4 first conv) stays
+// on gather_gemm.cuh's scalar tile. The micro-benchmark
+// sparse_conv_ablate_mma_kernel (sparse_conv_ablate.cu) runs the bf16 tile
+// with one cost removed at a time (TileMode).
 //
 // Computes, for the 64 output rows of one tile:
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
@@ -62,6 +65,42 @@
 //   async proxy), barrier (every thread's chunks, and every thread done
 //   with the previous tap's wgmma), issue the refill of the slot the
 //   previous tap used, then wgmma.fence / mma / commit_group / wait_group 0.
+// - f32 through 3xTF32 (kTf32Tile: the input gradient, and the forward's
+//   comparison kernel; f32 kernels are held to 1e-4 of their twins). One
+//   TF32 pass keeps 10 mantissa bits and misses that bound, so
+//   each operand is split x = hi + lo with hi = tf32(x) and lo = tf32(x -
+//   hi), both rounded by cvt.rna.tf32.f32 (to nearest, ties away; not the
+//   tensor cores' truncation of the low 13 bits), and every k8 step adds
+//   lo_a hi_b, then hi_a lo_b, then hi_a hi_b into the tap's accumulator
+//   (the small products first; lo_a lo_b, ~2^-22 of the product, is
+//   dropped). Each tap's sum starts from zero in registers of its own and
+//   is added into the running sum by the CUDA cores: the tensor cores'
+//   own additions do not round to nearest, and over all taps in one chain
+//   (up to 3 * 8 * 27 instructions) they left the 64 -> 64 forward 1.5e-5
+//   of its max off the plain model of this arithmetic on an H100, ten
+//   times the error of per-tap sums (PERF.md, Findings). TF32 wgmma
+//   (m64n{Cout}k8, Cin/8 instructions per tap and part) reads A and B
+//   K-major only, and a 16-byte chunk holds 4 values:
+//   the layouts above with chunks of 4 channels (Cin / 4 of them per row),
+//   LBO 128 B, SBO Cin / 4 * 128 B, 256 B per k8 step. What changes:
+//     * the ring holds only the gathered rows, as f32, by cp.async as in
+//       bf16; after the tap's barrier every thread splits its share of
+//       them, writing hi in place and lo to a second buffer. A is split in
+//       shared memory and read by descriptor, not loaded into registers
+//       and fed from there: the three products then share one verified
+//       layout and the descriptors of the bf16 body, at 16-64 KB of shared
+//       memory per tap that the gather does not use;
+//     * the tap's weights are read from global memory (a few KB, L2
+//       resident across the launch's blocks) into registers before A's
+//       split, so their latency overlaps it, then split and written K-major
+//       into B_hi and B_lo: the input gradient's [Cout, Cin] as it lies
+//       (16-byte chunks), the forward's [Cin, Cout] transposed on the way
+//       (4 x 4 blocks per thread), so no launch transposes or packs them;
+//     * a second barrier (after fence.proxy.async) before the wgmma, since
+//       the split is written by the generic proxy;
+//     * 3 stages instead of 4 for 64 -> 64, so that two blocks fit an SM.
+//   Tap skipping, zero-filled misses and the masked store are the bf16
+//   tile's.
 // - Tap split across a cluster (SPLIT, the resident serving conv only):
 //   where a launch's tiles fill less than one wave of the card (batch-1
 //   serving: 63-344 tiles against ~400-1700 resident blocks), each tile
@@ -150,26 +189,54 @@ constexpr bool kMmaTile = std::is_same<T, __nv_bfloat16>::value &&
                           (CIN == 16 || CIN == 32 || CIN == 64) &&
                           (COUT == 16 || COUT == 32 || COUT == 64);
 
-template <int CIN, int COUT, bool KMAJOR_B = false>
+// the f32 instances that take it through 3xTF32; the input gradient
+// selects them (conv_instance names them "tf32"), and the forward's
+// comparison kernel runs them (sparse_conv_train.cu)
+template <typename T, int CIN, int COUT>
+constexpr bool kTf32Tile = std::is_same<T, float>::value &&
+                           (CIN == 16 || CIN == 32 || CIN == 64) &&
+                           (COUT == 16 || COUT == 32 || COUT == 64);
+
+// shared-memory layout of the tile for element type T (bf16, or f32 through
+// 3xTF32)
+template <int CIN, int COUT, bool KMAJOR_B = false,
+          typename T = __nv_bfloat16>
 struct MmaLayout {
-  static constexpr int kKc = CIN / 8;   // 16-byte chunks of a gathered row
-  static constexpr int kNc = COUT / 8;  // 16-byte chunks of an MN-major B row
-  static constexpr int kABytes = kRows * CIN * 2;
-  static constexpr int kBBytes = CIN * COUT * 2;
+  static constexpr bool kTf32 = std::is_same<T, float>::value;
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per chunk
+  static constexpr int kKc = CIN / kVec;   // 16-byte chunks of a gathered row
+  static constexpr int kNc = COUT / kVec;  // 16-byte chunks of an MN-major B row
+  static constexpr int kABytes = kRows * CIN * static_cast<int>(sizeof(T));
+  static constexpr int kBBytes = CIN * COUT * static_cast<int>(sizeof(T));
   // B's descriptor (leading and stride byte offsets) and the bytes between
-  // the B operands of consecutive k16 steps
-  static constexpr int kBLbo = KMAJOR_B ? 128 : kNc * 128;
-  static constexpr int kBSbo = KMAJOR_B ? kKc * 128 : 128;
-  static constexpr int kBStep = KMAJOR_B ? 256 : 2 * kNc * 128;
-  static constexpr int kStageBytes = kABytes + kBBytes;  // multiple of 128
-  static constexpr int kRingBytes = kStages * kStageBytes;
-  // ring, then the rulebook tile, the row keep flags, the hit-tap list and
-  // its length
-  static constexpr int kSmemBytes =
-      kRingBytes + (kRows * kMaxTaps + kRows + kMaxTaps + 1) * 4;
+  // the B operands of consecutive wgmma steps; TF32 reads B K-major only
+  static constexpr bool kBKMajor = KMAJOR_B || kTf32;
+  static constexpr int kBLbo = kBKMajor ? 128 : kNc * 128;
+  static constexpr int kBSbo = kBKMajor ? kKc * 128 : 128;
+  static constexpr int kBStep = kBKMajor ? 256 : 2 * kNc * 128;
+  // taps in the ring: 3 for f32 64 -> 64, where 4 would leave one block
+  // per SM
+  static constexpr int kRingStages = kTf32 && CIN == 64 && COUT == 64
+                                         ? kStages - 1
+                                         : kStages;
+  // a stage: bf16 the tap's gathered rows and weights; f32 the gathered rows
+  // alone (their hi part in place once split)
+  static constexpr int kStageBytes = kTf32 ? kABytes : kABytes + kBBytes;
+  static constexpr int kRingBytes = kRingStages * kStageBytes;
+  // f32: the current tap's A_lo, B_hi and B_lo after the ring
+  static constexpr int kSplitBytes = kTf32 ? kABytes + 2 * kBBytes : 0;
+  // ring, split buffers, then the rulebook tile, the row keep flags, the
+  // hit-tap list and its length
+  static constexpr int kSmemBytes = kRingBytes + kSplitBytes +
+                                    (kRows * kMaxTaps + kRows + kMaxTaps + 1) *
+                                        4;
   // a split rank's f32 accumulators, [COUT / 2][kMmaThreads], in its ring
   static_assert(kRows * COUT * 4 <= kRingBytes, "split partials fit");
 };
+
+// the dynamic shared memory a block of the tile takes for (T, CIN, COUT)
+template <typename T, int CIN, int COUT>
+constexpr int kTileSmemBytes = MmaLayout<CIN, COUT, false, T>::kSmemBytes;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -267,6 +334,103 @@ struct Wgmma<64, KMAJOR_B> {
   }
 };
 
+// D[64, N] += A[64, 8] @ B[8, N], both K-major, tf32 in (f32 registers whose
+// low 13 bits are zero), f32 out
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// x = hi + lo: hi = tf32(x), lo = tf32(x - hi), each rounded to nearest
+// (ties away from zero) by cvt.rna; x - hi is exact in f32
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split_tf32(const float4& x, float4& hi,
+                                           float4& lo) {
+  hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                   tf32_rna(x.w));
+  lo = make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y),
+                   tf32_rna(x.z - hi.z), tf32_rna(x.w - hi.w));
+}
+
+// component i (a constant once unrolled) of v
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// How a 3xTF32 tile stages one tap's weights w [CIN, COUT] (or, K-major,
+// [COUT, CIN]) into B_hi / B_lo: a thread's unit is one 16-byte chunk of a
+// K-major row, or a 4 x 4 block of the MN-major array (four input channels
+// of four outputs), transposed in registers.
+template <int CIN, int COUT, bool KMAJOR_B>
+struct Tf32Weights {
+  static constexpr int kVecs = KMAJOR_B ? 1 : 4;  // float4 loads per unit
+  static constexpr int kUnits = CIN * COUT / (4 * kVecs);
+  static constexpr int kPer = (kUnits + kMmaThreads - 1) / kMmaThreads;
+};
+
 // the cluster of this CTA: its size and this CTA's rank in it (1 and 0 for a
 // launch without clusters), a barrier over all its threads (release /
 // acquire: shared-memory writes before it are visible to every CTA of the
@@ -311,23 +475,33 @@ __device__ __forceinline__ void fence_accumulators(float (&d)[N]) {
 }
 
 // The body of one block of kMmaThreads threads over output rows
-// [tile * kRows, + kRows), with MmaLayout<CIN, COUT>::kSmemBytes of dynamic
+// [tile * kRows, + kRows), with kTileSmemBytes<T, CIN, COUT> of dynamic
 // shared memory; tile is blockIdx.x, or with SPLIT blockIdx.x / S for a
 // launch in clusters of S blocks along x. w2 is [taps, CIN, COUT], or with
-// KMAJOR_B [taps, COUT, CIN]. feats and w2 must be 16-byte aligned. Every
-// conv runs MODE kTileFull; the other modes are the ablation's (TileMode).
+// KMAJOR_B [taps, COUT, CIN]. feats and w2 must be 16-byte aligned. T (bf16,
+// or f32 through 3xTF32) is deduced from feats. Every conv runs MODE
+// kTileFull; the other modes are the bf16 ablation's (TileMode).
 template <typename IdxT, int CIN, int COUT, bool EPI, bool SPLIT = false,
-          bool KMAJOR_B = false, int MODE = kTileFull>
+          bool KMAJOR_B = false, int MODE = kTileFull, typename T>
 __device__ __forceinline__ void gather_mma_tile(
-    const __nv_bfloat16* __restrict__ feats, const IdxT* __restrict__ rb,
-    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ bias,
-    const uint8_t* __restrict__ row_mask, __nv_bfloat16* __restrict__ out,
-    int n_in, int n_out, int taps, int relu) {
-  using L = MmaLayout<CIN, COUT, KMAJOR_B>;
+    const T* __restrict__ feats, const IdxT* __restrict__ rb,
+    const T* __restrict__ w2, const float* __restrict__ bias,
+    const uint8_t* __restrict__ row_mask, T* __restrict__ out, int n_in,
+    int n_out, int taps, int relu) {
+  using L = MmaLayout<CIN, COUT, KMAJOR_B, T>;
+  constexpr bool kTf32 = L::kTf32;
+  static_assert(kTf32 || std::is_same<T, __nv_bfloat16>::value,
+                "bf16, or f32 through 3xTF32");
+  static_assert(!kTf32 || (!SPLIT && MODE == kTileFull),
+                "the 3xTF32 tile runs whole tiles, unablated");
   constexpr bool kLinear = MODE == kTileLinear;
+  constexpr int kStages = L::kRingStages;  // this instance's ring
   extern __shared__ __align__(128) unsigned char sessd_mma_smem[];
   unsigned char* ring = sessd_mma_smem;
-  int* s_rb = reinterpret_cast<int*>(ring + L::kRingBytes);
+  unsigned char* a_lo = ring + L::kRingBytes;  // f32: the tap's split parts
+  unsigned char* b_hi = a_lo + L::kABytes;
+  unsigned char* b_lo = b_hi + L::kBBytes;
+  int* s_rb = reinterpret_cast<int*>(ring + L::kRingBytes + L::kSplitBytes);
   int* s_keep = s_rb + kRows * kMaxTaps;
   int* s_taps = s_keep + kRows;  // this rank's taps some row hits, in order
   int* s_n_taps = s_taps + kMaxTaps;
@@ -376,7 +550,8 @@ __device__ __forceinline__ void gather_mma_tile(
   const int n_taps = MODE != kTileFixed ? *s_n_taps : 0;
   const int* my_taps = s_taps;
 
-  // tap k's gathered rows and weights into ring stage `stage`
+  // tap k's gathered rows (and, in bf16, its weights) into ring stage
+  // `stage`
   auto issue = [&](int k, int stage) {
     const uint32_t a_s = smem_u32(ring + stage * L::kStageBytes);
     const uint32_t b_s = a_s + L::kABytes;
@@ -386,21 +561,84 @@ __device__ __forceinline__ void gather_mma_tile(
       const int src = kLinear ? row0 + r : s_rb[r * taps + k];
       const bool hit = static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
       const int row = MODE == kTileNoGather ? 0 : src;
-      cp_async16(a_s + j * 16, feats + (size_t)(hit ? row : 0) * CIN + c * 8,
-                     hit ? 16 : 0);
+      cp_async16(a_s + j * 16,
+                 feats + (size_t)(hit ? row : 0) * CIN + c * L::kVec,
+                 hit ? 16 : 0);
     }
-    const __nv_bfloat16* wk = w2 + (size_t)k * CIN * COUT;
-    if constexpr (KMAJOR_B) {  // wk [COUT, CIN]: laid out as A
-      for (int j = tid; j < COUT * L::kKc; j += kMmaThreads) {
+    if constexpr (!kTf32) {  // f32 weights are split at the tap (split_tap)
+      const T* wk = w2 + (size_t)k * CIN * COUT;
+      if constexpr (KMAJOR_B) {  // wk [COUT, CIN]: laid out as A
+        for (int j = tid; j < COUT * L::kKc; j += kMmaThreads) {
+          const int n = (j / (8 * L::kKc)) * 8 + j % 8;
+          const int c = (j / 8) % L::kKc;
+          cp_async16(b_s + j * 16, wk + n * CIN + c * 8, 16);
+        }
+      } else {
+        for (int j = tid; j < CIN * L::kNc; j += kMmaThreads) {
+          const int i = (j / (8 * L::kNc)) * 8 + j % 8;
+          const int c = (j / 8) % L::kNc;
+          cp_async16(b_s + j * 16, wk + i * COUT + c * 8, 16);
+        }
+      }
+    }
+  };
+
+  // f32: split tap k's gathered rows in ring stage `stage` (hi in place, lo
+  // into a_lo) and its weights (read from global memory) into b_hi / b_lo,
+  // K-major; the caller fences and synchronizes before the wgmma reads them.
+  // Generic, so only the f32 tiles that call it instantiate it.
+  auto split_tap = [&](auto k, int stage) {
+    using W = Tf32Weights<CIN, COUT, KMAJOR_B>;
+    const float* wk = reinterpret_cast<const float*>(w2) + (size_t)k * CIN *
+                                                             COUT;
+    float4 wv[W::kPer][W::kVecs];
+#pragma unroll
+    for (int p = 0; p < W::kPer; ++p) {
+      const int j = tid + p * kMmaThreads;
+      if (j >= W::kUnits) continue;
+      if constexpr (KMAJOR_B) {  // chunk (output n, channels 4c..4c+3)
         const int n = (j / (8 * L::kKc)) * 8 + j % 8;
         const int c = (j / 8) % L::kKc;
-        cp_async16(b_s + j * 16, wk + n * CIN + c * 8, 16);
+        wv[p][0] = __ldg(reinterpret_cast<const float4*>(wk + n * CIN +
+                                                         c * 4));
+      } else {  // block (channels 4c..4c+3, outputs 4q..4q+3)
+        const int q = j % (COUT / 4);
+        const int c = j / (COUT / 4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          wv[p][u] = __ldg(reinterpret_cast<const float4*>(
+              wk + (4 * c + u) * COUT + 4 * q));
       }
-    } else {
-      for (int j = tid; j < CIN * L::kNc; j += kMmaThreads) {
-        const int i = (j / (8 * L::kNc)) * 8 + j % 8;
-        const int c = (j / 8) % L::kNc;
-        cp_async16(b_s + j * 16, wk + i * COUT + c * 8, 16);
+    }
+    unsigned char* a_hi = ring + stage * L::kStageBytes;
+    for (int j = tid; j < kRows * L::kKc; j += kMmaThreads) {
+      float4 hi, lo;
+      split_tf32(*reinterpret_cast<const float4*>(a_hi + j * 16), hi, lo);
+      *reinterpret_cast<float4*>(a_hi + j * 16) = hi;
+      *reinterpret_cast<float4*>(a_lo + j * 16) = lo;
+    }
+#pragma unroll
+    for (int p = 0; p < W::kPer; ++p) {
+      const int j = tid + p * kMmaThreads;
+      if (j >= W::kUnits) continue;
+      float4 hi, lo;
+      if constexpr (KMAJOR_B) {
+        split_tf32(wv[p][0], hi, lo);
+        *reinterpret_cast<float4*>(b_hi + j * 16) = hi;
+        *reinterpret_cast<float4*>(b_lo + j * 16) = lo;
+      } else {
+        const int q = j % (COUT / 4);
+        const int c = j / (COUT / 4);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {  // output n = 4q + v: B[n, 4c..4c+3]
+          const int n = 4 * q + v;
+          split_tf32(make_float4(lane4(wv[p][0], v), lane4(wv[p][1], v),
+                                 lane4(wv[p][2], v), lane4(wv[p][3], v)),
+                     hi, lo);
+          const int off = (n / 8) * L::kKc * 128 + c * 128 + (n % 8) * 16;
+          *reinterpret_cast<float4*>(b_hi + off) = hi;
+          *reinterpret_cast<float4*>(b_lo + off) = lo;
+        }
       }
     }
   };
@@ -446,8 +684,41 @@ __device__ __forceinline__ void gather_mma_tile(
       if (ahead < n_taps) issue(my_taps[ahead], ahead % kStages);
       cp_async_commit();
 
-      if constexpr (MODE != kTileCopyOnly) {
-        const uint32_t a_s = smem_u32(ring + (t % kStages) * L::kStageBytes);
+      const uint32_t a_s = smem_u32(ring + (t % kStages) * L::kStageBytes);
+      if constexpr (kTf32) {
+        split_tap(my_taps[t], t % kStages);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();  // every thread's share of the split
+        const uint32_t al = smem_u32(a_lo);
+        const uint32_t bh = smem_u32(b_hi);
+        const uint32_t bl = smem_u32(b_lo);
+        // the tap's sum in registers of its own, added into acc on the
+        // CUDA cores (round to nearest): the tensor cores' additions do
+        // not round to nearest, and one chain over every tap's 3 * Cin / 8
+        // instructions carried their error into f32 K4 and dFeat (PERF.md,
+        // Findings)
+        float part[COUT / 2];
+#pragma unroll
+        for (int i = 0; i < COUT / 2; ++i) part[i] = 0.f;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int s = 0; s < CIN / 8; ++s) {  // the small products first
+          WgmmaTf32<COUT>::mma(
+              part, wgmma_desc(al + s * 256, 128, L::kKc * 128),
+              wgmma_desc(bh + s * 256, 128, L::kKc * 128));
+          WgmmaTf32<COUT>::mma(
+              part, wgmma_desc(a_s + s * 256, 128, L::kKc * 128),
+              wgmma_desc(bl + s * 256, 128, L::kKc * 128));
+          WgmmaTf32<COUT>::mma(
+              part, wgmma_desc(a_s + s * 256, 128, L::kKc * 128),
+              wgmma_desc(bh + s * 256, 128, L::kKc * 128));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_accumulators(part);
+#pragma unroll
+        for (int i = 0; i < COUT / 2; ++i) acc[i] += part[i];
+      } else if constexpr (MODE != kTileCopyOnly) {
         const uint32_t b_s = a_s + L::kABytes;
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -508,8 +779,12 @@ __device__ __forceinline__ void gather_mma_tile(
         }
       }
       const bool keep = s_keep[lr] != 0;
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)n * COUT + col) =
-          __floats2bfloat162_rn(keep ? v0 : 0.f, keep ? v1 : 0.f);
+      if constexpr (kTf32)
+        *reinterpret_cast<float2*>(out + (size_t)n * COUT + col) =
+            make_float2(keep ? v0 : 0.f, keep ? v1 : 0.f);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)n * COUT + col) =
+            __floats2bfloat162_rn(keep ? v0 : 0.f, keep ? v1 : 0.f);
     }
   }
 }

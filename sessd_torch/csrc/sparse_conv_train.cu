@@ -31,8 +31,14 @@
 //   bounds it on this card and what that design does about it are in the
 //   header. The training step's bf16 student chain runs 9 of its 10 convs
 //   here.
-// - f32 (the step-parity and eval paths, held to 1e-4) and the Cin = 4
-//   first conv: gather_gemm.cuh's scalar tile, 256 threads.
+// - f32 (the reference config's precision: the step-parity path, and
+//   eval on device chains) and the Cin = 4 first conv: gather_gemm.cuh's
+//   scalar tile, 256 threads. The same tile through 3xTF32 (each operand
+//   split into two TF32 parts, three products per k8 step; the header says
+//   how), 2.2x faster per f32 launch, is sparse_conv_fwd_tf32_kernel
+//   (sessd_sparse_conv_fwd_tf32), for comparisons only: the f32 step parity
+//   it would have to hold moves past its bound for any change of the
+//   forward's rounding (see the kernel).
 //
 // The input gradient, sparse_conv_dfeat_kernel, takes the same two bodies
 // by the same rule, fixed at compile time:
@@ -48,12 +54,15 @@
 //   of that the inverse rulebook of a strided conv hits at most 8 of 27
 //   taps per input row (the row's coordinate parities pick them), so a
 //   64-row tile of inputs gathers many zero-filled rows and skips few taps.
-//   The scalar body it replaces is kept in bf16 as
+//   The scalar body it replaces is kept in both types as
 //   sparse_conv_dfeat_scalar_kernel (sessd_sparse_conv_dfeat_scalar, with
 //   W^T as its weights) for same-call comparisons only.
-// - f32 (held to 1e-4, step parity), and the first conv's 16 -> 4 (the
-//   voxel features' gradient, in both types): the scalar tile, staging W[k]
-//   transposed into shared memory (gather_gemm_tile's W_T).
+// - f32 at those pairs (held to 1e-4, step parity): the same tile through
+//   3xTF32. Its B is the bf16 body's K-major W[k], split on the way into
+//   shared memory.
+// - the first conv's 16 -> 4 (the voxel features' gradient, in both
+//   types): the scalar tile, staging W[k] transposed into shared memory
+//   (gather_gemm_tile's W_T).
 //
 // The weight gradient's partial kernel, sparse_conv_dw_partial_kernel, also
 // takes one of two bodies, fixed at compile time:
@@ -96,8 +105,9 @@
 //     chunk run together and share its rulebook rows and dout in L2.
 //   Sums run step by step in order, then over the warps' k-slices in order:
 //   the same bits on every run.
-// - f32 (step parity, held to 1e-3 of each gradient's max) and the Cin = 4
-//   first conv: dw_scalar_partial, 256 threads per (chunk, tap) block, which
+// - f32 (step parity, held to 1e-3 of each gradient's max; mma.sync's
+//   TF32 shape m16n8k8 is queued, ldmatrix.trans being 16-bit only) and the
+//   Cin = 4 first conv: dw_scalar_partial, 256 threads per (chunk, tap) block, which
 //   stages 64 gathered feature rows and the 64 matching dout rows in shared
 //   memory per step and accumulates its Cin x Cout tile in registers (up to
 //   4 x 4 per thread). Its bf16 instances stay reachable under their own
@@ -132,6 +142,25 @@ __global__ void __launch_bounds__(kThreads)
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
+// the forward in f32 through the 3xTF32 tile (Cin, Cout in {16, 32, 64}),
+// under a name of its own: for comparisons only. The f32 forward stays on
+// the scalar tile: one f32 training step is held to 1e-3 of each
+// gradient's max against its twins (cuBLAS f32), and the student's
+// gradients there move by 2e-2 for a 1e-7 relative change of the forward's
+// outputs, the exact (f64) conv included; the scalar tile passes only by
+// summing in the twin's order (scripts/probe_step_parity.py; PERF.md).
+template <typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+    sparse_conv_fwd_tf32_kernel(const float* __restrict__ x,
+                                const IdxT* __restrict__ rb,
+                                const float* __restrict__ w2,
+                                const uint8_t* __restrict__ row_mask,
+                                float* __restrict__ out, int n_in, int n_out,
+                                int taps) {
+  sessd::gather_mma_tile<IdxT, CIN, COUT, false>(
+      x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
+}
+
 // dfeat [n_out, COUT] = the same gather-GEMM of dout x [n_in, CIN] over the
 // inverse rulebook rb [n_out, taps] with the transposed weights, read from
 // w [taps, COUT, CIN] (the conv's [taps, Cin, Cout]), under a name of its
@@ -145,7 +174,8 @@ __global__ void __launch_bounds__(kThreads)
                              const uint8_t* __restrict__ row_mask,
                              T* __restrict__ out, int n_in, int n_out,
                              int taps) {
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+  if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                sessd::kTf32Tile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, false, false, true>(
         x, rb, w, nullptr, nullptr, out, n_in, n_out, taps, 0);
   else
@@ -153,18 +183,18 @@ __global__ void __launch_bounds__(kThreads)
         x, rb, w, nullptr, nullptr, out, n_in, n_out, taps, 0);
 }
 
-// the input gradient's scalar body in bf16 with W^T [taps, CIN, COUT] as its
-// weights, the kernel bf16 dFeat ran before the tensor-core tile: for
-// comparisons only
-template <typename IdxT, int CIN, int COUT>
+// the input gradient's scalar body in either type with W^T [taps, CIN,
+// COUT] as its weights, the kernel dFeat ran before the tensor-core tile:
+// for comparisons only
+template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
-    sparse_conv_dfeat_scalar_kernel(const __nv_bfloat16* __restrict__ x,
+    sparse_conv_dfeat_scalar_kernel(const T* __restrict__ x,
                                     const IdxT* __restrict__ rb,
-                                    const __nv_bfloat16* __restrict__ wt,
+                                    const T* __restrict__ wt,
                                     const uint8_t* __restrict__ row_mask,
-                                    __nv_bfloat16* __restrict__ out,
-                                    int n_in, int n_out, int taps) {
-  sessd::gather_gemm_tile<__nv_bfloat16, IdxT, CIN, COUT, false>(
+                                    T* __restrict__ out, int n_in, int n_out,
+                                    int taps) {
+  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(
       x, rb, wt, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
@@ -184,34 +214,67 @@ cudaError_t launch_gather(GatherKernel<T, IdxT> kernel,
   return cudaGetLastError();
 }
 
+// whether the instance for (T, CIN, COUT) of the forward (DFEAT false) or
+// of the input gradient takes gather_mma.cuh's tile: bf16 in both, f32
+// through 3xTF32 in the input gradient alone
+template <typename T, int CIN, int COUT, bool DFEAT>
+constexpr bool kTensorTile = sessd::kMmaTile<T, CIN, COUT> ||
+                             (DFEAT && sessd::kTf32Tile<T, CIN, COUT>);
+
+// the __global__ of entry E for (T, IdxT, CIN, COUT): 0 the forward, 1 the
+// input gradient, 2 the 3xTF32 forward (f32 only)
+template <int E, typename T, typename IdxT, int CIN, int COUT>
+GatherKernel<T, IdxT> kernel_of() {
+  if constexpr (E == 0)
+    return sparse_conv_fwd_kernel<T, IdxT, CIN, COUT>;
+  else if constexpr (E == 1)
+    return sparse_conv_dfeat_kernel<T, IdxT, CIN, COUT>;
+  else
+    return sparse_conv_fwd_tf32_kernel<IdxT, CIN, COUT>;
+}
+
+// above 48 KB a block's shared memory must be asked for, once per kernel
+template <int E, typename T, typename IdxT, int CIN, int COUT>
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel_of<E, T, IdxT, CIN, COUT>(),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sessd::kTileSmemBytes<T, CIN, COUT>);
+  return attr;
+}
+
+// one launch of entry E's __global__ on the tensor-core tile for (T, CIN,
+// COUT): kMmaThreads threads and the tile's shared memory
+template <int E, typename T, typename IdxT, int CIN, int COUT>
+cudaError_t launch_mma(const void* x, const void* rb, const void* w2,
+                       const uint8_t* row_mask, void* out, int n_in,
+                       int n_out, int taps, cudaStream_t stream) {
+  const cudaError_t attr = allow_smem<E, T, IdxT, CIN, COUT>();
+  if (attr != cudaSuccess) return attr;
+  const GatherKernel<T, IdxT> kern = kernel_of<E, T, IdxT, CIN, COUT>();
+  kern<<<sessd::gather_gemm_grid(n_out), sessd::kMmaThreads,
+         sessd::kTileSmemBytes<T, CIN, COUT>, stream>>>(
+      static_cast<const T*>(x), static_cast<const IdxT*>(rb),
+      static_cast<const T*>(w2), row_mask, static_cast<T*>(out), n_in, n_out,
+      taps);
+  return cudaGetLastError();
+}
+
 // one launch of the forward's (DFEAT false) or the input gradient's
 // __global__: the tensor-core tile's block and shared memory where (T, CIN,
-// COUT) takes it, else the scalar tile's. Each instance sets its kernel's
-// shared-memory attribute once.
+// COUT) takes it, else the scalar tile's.
 template <typename T, typename IdxT, int CIN, int COUT, bool DFEAT>
 cudaError_t launch_tile(const void* x, const void* rb, const void* w2,
                         const uint8_t* row_mask, void* out, int n_in,
                         int n_out, int taps, cudaStream_t stream) {
-  GatherKernel<T, IdxT> kern;
-  if constexpr (DFEAT)
-    kern = sparse_conv_dfeat_kernel<T, IdxT, CIN, COUT>;
+  constexpr int e = DFEAT ? 1 : 0;
+  if constexpr (kTensorTile<T, CIN, COUT, DFEAT>)
+    return launch_mma<e, T, IdxT, CIN, COUT>(x, rb, w2, row_mask, out, n_in,
+                                             n_out, taps, stream);
   else
-    kern = sparse_conv_fwd_kernel<T, IdxT, CIN, COUT>;
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
-    constexpr int smem = sessd::MmaLayout<CIN, COUT>::kSmemBytes;
-    // above 48 KB a block's shared memory must be asked for, once per kernel
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-    kern<<<sessd::gather_gemm_grid(n_out), sessd::kMmaThreads, smem,
-           stream>>>(static_cast<const T*>(x), static_cast<const IdxT*>(rb),
-                     static_cast<const T*>(w2), row_mask,
-                     static_cast<T*>(out), n_in, n_out, taps);
-    return cudaGetLastError();
-  } else {
-    return launch_gather<T, IdxT>(kern, x, rb, w2, row_mask, out, n_in,
-                                  n_out, taps, stream);
-  }
+    return launch_gather<T, IdxT>(kernel_of<e, T, IdxT, CIN, COUT>(), x, rb,
+                                  w2, row_mask, out, n_in, n_out, taps,
+                                  stream);
 }
 
 template <typename T, typename IdxT, int CIN, int COUT>
@@ -244,15 +307,43 @@ cudaError_t dispatch_fwd(int cin, int cout, const void* x, const void* rb,
   return cudaErrorInvalidValue;
 }
 
-// 2 where the forward's instance for (T, cin, cout) is the tensor-core
-// tile, 1 where it is the scalar tile, 0 where there is none
+// the code of a forward (DFEAT false) or input-gradient instance's body:
+// 3 the tensor-core tile through 3xTF32, 2 the tensor-core tile in bf16, 1
+// the scalar tile
+template <typename T, int CIN, int COUT, bool DFEAT>
+constexpr int tile_code() {
+  if constexpr (!kTensorTile<T, CIN, COUT, DFEAT>)
+    return 1;
+  else
+    return sessd::kTf32Tile<T, CIN, COUT> ? 3 : 2;
+}
+
+// tile_code of the forward's instance for (T, cin, cout), 0 where there is
+// none
 template <typename T>
 int fwd_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  if (cin == CI && cout == CO) return tile_code<T, CI, CO, false>();
   SESSD_FWD_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
+}
+
+// the 3xTF32 forward (comparison entry) for the pairs with 16-64 channels
+template <typename IdxT>
+cudaError_t dispatch_fwd_tf32(int cin, int cout, const void* x,
+                              const void* rb, const void* w2,
+                              const uint8_t* row_mask, void* out, int n_in,
+                              int n_out, int taps, cudaStream_t stream) {
+#define SESSD_CASE(CI, CO)                                                   \
+  if constexpr (sessd::kTf32Tile<float, CI, CO>) {                           \
+    if (cin == CI && cout == CO)                                             \
+      return launch_mma<2, float, IdxT, CI, CO>(x, rb, w2, row_mask, out,    \
+                                                n_in, n_out, taps, stream);  \
+  }
+  SESSD_FWD_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return cudaErrorInvalidValue;
 }
 
 // the input gradient's (Cin, Cout) pairs as its gather sees them: the
@@ -280,27 +371,70 @@ cudaError_t dispatch_dfeat(int cin, int cout, const void* x, const void* rb,
   return cudaErrorInvalidValue;
 }
 
-template <typename IdxT>
+template <typename T, typename IdxT>
 cudaError_t dispatch_dfeat_scalar(int cin, int cout, const void* x,
                                   const void* rb, const void* wt, void* out,
                                   int n_in, int n_out, int taps,
                                   cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch_gather<__nv_bfloat16, IdxT>(                               \
-        sparse_conv_dfeat_scalar_kernel<IdxT, CI, CO>, x, rb, wt, nullptr,   \
-        out, n_in, n_out, taps, stream);
+    return launch_gather<T, IdxT>(                                           \
+        sparse_conv_dfeat_scalar_kernel<T, IdxT, CI, CO>, x, rb, wt,         \
+        nullptr, out, n_in, n_out, taps, stream);
   SESSD_DFEAT_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
 
-// 2 where the input gradient's instance for (T, cin, cout) (its gather's
-// pair) is the tensor-core tile, 1 the scalar tile, 0 where there is none
+// tile_code of the input gradient's instance for (T, cin, cout) (its
+// gather's pair), 0 where there is none
 template <typename T>
 int dfeat_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  if (cin == CI && cout == CO) return tile_code<T, CI, CO, true>();
+  SESSD_DFEAT_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
+}
+
+// blocks of entry E's int32-rulebook instance for (T, CIN, COUT) that fit
+// one SM at its threads, registers and shared memory; 0 where it cannot be
+// read
+template <int E, typename T, int CIN, int COUT>
+int tile_blocks_per_sm() {
+  const auto kern = kernel_of<E, T, int32_t, CIN, COUT>();
+  int blocks = 0;
+  cudaError_t err;
+  if constexpr (E == 2 || kTensorTile<T, CIN, COUT, E == 1>) {
+    err = allow_smem<E, T, int32_t, CIN, COUT>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, sessd::kMmaThreads,
+          sessd::kTileSmemBytes<T, CIN, COUT>);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                        kThreads, 0);
+  }
+  return err == cudaSuccess ? blocks : 0;
+}
+
+// tile_blocks_per_sm of the forward (entry 0), the input gradient (1, its
+// gather's pair) or the 3xTF32 forward (2, f32 at 16-64 channels); 0 where
+// there is no such instance
+template <typename T>
+int blocks_per_sm(int entry, int cin, int cout) {
+#define SESSD_CASE(CI, CO)                                                 \
+  if (entry == 0 && cin == CI && cout == CO)                               \
+    return tile_blocks_per_sm<0, T, CI, CO>();                             \
+  if constexpr (sessd::kTf32Tile<T, CI, CO>) {                             \
+    if (entry == 2 && cin == CI && cout == CO)                             \
+      return tile_blocks_per_sm<2, T, CI, CO>();                           \
+  }
+  SESSD_FWD_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+#define SESSD_CASE(CI, CO) \
+  if (entry == 1 && cin == CI && cout == CO)  \
+    return tile_blocks_per_sm<1, T, CI, CO>();
   SESSD_DFEAT_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
@@ -776,9 +910,30 @@ extern "C" int sessd_sparse_conv_fwd(const void* feats, const void* rb,
 #undef SESSD_CALL
 }
 
-// Which body sessd_sparse_conv_fwd launches for (cin, cout, dtype): 2 the
-// tensor-core tile, 1 the scalar tile, 0 none (it answers
-// cudaErrorInvalidValue).
+// The forward in f32 through the 3xTF32 tile under its own kernel name
+// (sparse_conv_fwd_tf32_kernel), for comparisons: sessd_sparse_conv_fwd's
+// arguments, dtype 0 and Cin, Cout in {16, 32, 64} only; feats and w2
+// 16-byte aligned.
+extern "C" int sessd_sparse_conv_fwd_tf32(const void* feats, const void* rb,
+                                          const void* w2,
+                                          const uint8_t* row_mask, void* out,
+                                          int n_in, int n_out, int cin,
+                                          int cout, int taps, int dtype,
+                                          int idx_bytes, void* stream) {
+  if (bad_args(n_in, n_out, taps) || dtype != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx_bytes == 2)
+    return dispatch_fwd_tf32<int16_t>(cin, cout, feats, rb, w2, row_mask, out,
+                                      n_in, n_out, taps, s);
+  if (idx_bytes == 4)
+    return dispatch_fwd_tf32<int32_t>(cin, cout, feats, rb, w2, row_mask, out,
+                                      n_in, n_out, taps, s);
+  return cudaErrorInvalidValue;
+}
+
+// Which body sessd_sparse_conv_fwd launches for (cin, cout, dtype), as
+// tile_code: 2 the tensor-core tile (bf16), 1 the scalar tile (f32 too), 0
+// none (it answers cudaErrorInvalidValue).
 extern "C" int sessd_sparse_conv_fwd_instance(int cin, int cout, int dtype) {
   if (dtype == 0) return fwd_instance<float>(cin, cout);
   if (dtype == 1) return fwd_instance<__nv_bfloat16>(cin, cout);
@@ -788,8 +943,8 @@ extern "C" int sessd_sparse_conv_fwd_instance(int cin, int cout, int dtype) {
 // dfeat [n_in, cin] = sum_k dout[inv[i, k]] @ w2[k]^T for dout [n_out, cout]
 // (n_out = its miss), the inverse rulebook inv [n_in, taps] and the conv's
 // weights w2 [taps, cin, cout] as it holds them: the forward's gather-GEMM
-// with the roles of the two sides swapped. The tensor-core instances (bf16)
-// want dout and w2 16-byte aligned.
+// with the roles of the two sides swapped. The tensor-core instances (bf16,
+// and f32 through 3xTF32) want dout and w2 16-byte aligned.
 extern "C" int sessd_sparse_conv_dfeat(const void* dout, const void* inv,
                                        const void* w2, void* dfeat,
                                        int n_out, int n_in, int cin, int cout,
@@ -803,29 +958,28 @@ extern "C" int sessd_sparse_conv_dfeat(const void* dout, const void* inv,
 #undef SESSD_CALL
 }
 
-// The input gradient's scalar body in bf16 under its own kernel name, for
-// comparisons: sessd_sparse_conv_dfeat's arguments, but with the transposed
-// weights wt [taps, cout, cin]; dtype 1 only.
+// The input gradient's scalar body in either type under its own kernel
+// name, for comparisons: sessd_sparse_conv_dfeat's arguments, but with the
+// transposed weights wt [taps, cout, cin].
 extern "C" int sessd_sparse_conv_dfeat_scalar(const void* dout,
                                               const void* inv, const void* wt,
                                               void* dfeat, int n_out,
                                               int n_in, int cin, int cout,
                                               int taps, int dtype,
                                               int idx_bytes, void* stream) {
-  if (bad_args(n_out, n_in, taps) || dtype != 1) return cudaErrorInvalidValue;
+  if (bad_args(n_out, n_in, taps)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx_bytes == 2)
-    return dispatch_dfeat_scalar<int16_t>(cout, cin, dout, inv, wt, dfeat,
-                                          n_out, n_in, taps, s);
-  if (idx_bytes == 4)
-    return dispatch_dfeat_scalar<int32_t>(cout, cin, dout, inv, wt, dfeat,
-                                          n_out, n_in, taps, s);
-  return cudaErrorInvalidValue;
+#define SESSD_CALL(T, I)                                                     \
+  dispatch_dfeat_scalar<T, I>(cout, cin, dout, inv, wt, dfeat, n_out, n_in, \
+                              taps, s)
+  SESSD_TYPES(SESSD_CALL)
+#undef SESSD_CALL
 }
 
 // Which body sessd_sparse_conv_dfeat launches for the gather pair (cin,
-// cout) = (the conv's Cout, its Cin) and dtype: 2 the tensor-core tile, 1
-// the scalar tile, 0 none.
+// cout) = (the conv's Cout, its Cin) and dtype: 3 the tensor-core tile
+// through 3xTF32, 2 the tensor-core tile in bf16, 1 the scalar tile, 0
+// none.
 extern "C" int sessd_sparse_conv_dfeat_instance(int cin, int cout,
                                                 int dtype) {
   if (dtype == 0) return dfeat_instance<float>(cin, cout);
@@ -877,5 +1031,16 @@ extern "C" int sessd_sparse_conv_dw_scalar(const void* feats, const void* rb,
 extern "C" int sessd_sparse_conv_dw_instance(int cin, int cout, int dtype) {
   if (dtype == 0) return dw_instance<float>(cin, cout);
   if (dtype == 1) return dw_instance<__nv_bfloat16>(cin, cout);
+  return 0;
+}
+
+// Blocks of the int32-rulebook instance for (cin, cout, dtype) of
+// sessd_sparse_conv_fwd (entry 0), sessd_sparse_conv_dfeat (1, the
+// gather's pair) or sessd_sparse_conv_fwd_tf32 (2) that fit one SM at once;
+// 0 for a pair it has no instance of, or where it cannot be read.
+extern "C" int sessd_sparse_conv_train_blocks_per_sm(int entry, int cin,
+                                                     int cout, int dtype) {
+  if (dtype == 0) return blocks_per_sm<float>(entry, cin, cout);
+  if (dtype == 1) return blocks_per_sm<__nv_bfloat16>(entry, cin, cout);
   return 0;
 }

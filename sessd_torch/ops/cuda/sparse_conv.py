@@ -70,7 +70,13 @@ FWD_PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64))
 STREAM_PAIRS = FWD_PAIRS[1:]
 FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
 DFEAT_PAIRS = ((16, 4), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
-MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile
+MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile, kTf32Tile
+# the entries whose f32 instances at MMA_CHANNELS take the tensor-core tile
+# through 3xTF32 (csrc/sparse_conv_train.cu: kTensorTile); the f32 forward's
+# 3xTF32 body is the comparison entry sparse_conv_fwd_tf32
+TF32_ENTRIES = ("sparse_conv_dfeat",)
+# csrc/sparse_conv_train.cu: tile_code, what the C instance entries answer
+INSTANCE_CODES = {"tf32": 3, "mma": 2, "scalar": 1}
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
           "fused_sparse_conv_stream": STREAM_PAIRS,
           "fused_sparse_conv": FUSED_PAIRS,
@@ -88,16 +94,20 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
     compile time: "mma" (bf16 with Cin and Cout in {16, 32, 64}: the
     tensor-core tile of ``csrc/gather_mma.cuh`` for the convs and the input
     gradient, the mma.sync partial kernel of ``sparse_conv_train.cu`` for
-    dW) or "scalar" (``gather_gemm.cuh``'s tile, the stream kernel's f32
-    ring, or dW's scalar partial kernel). For "sparse_conv_dfeat", (cin,
-    cout) is its gather's pair: the conv's (Cout, Cin). Raises ValueError
-    where the entry has no instance."""
+    dW), "tf32" (f32 at those channels in the input gradient: the same
+    tile through 3xTF32) or "scalar"
+    (``gather_gemm.cuh``'s tile, the stream kernel's f32 ring, or dW's
+    scalar partial kernel). For "sparse_conv_dfeat", (cin, cout) is its
+    gather's pair: the conv's (Cout, Cin). Raises ValueError where the
+    entry has no instance."""
     if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
                          f"Cout={cout}")
-    mma = (dtype == torch.bfloat16 and cin in MMA_CHANNELS
-           and cout in MMA_CHANNELS)
-    return "mma" if mma else "scalar"
+    if cin not in MMA_CHANNELS or cout not in MMA_CHANNELS:
+        return "scalar"
+    if dtype == torch.bfloat16:
+        return "mma"
+    return "tf32" if entry in TF32_ENTRIES else "scalar"
 
 
 def cluster_split(tiles: int, wave: int) -> int:
@@ -183,6 +193,8 @@ def build() -> ctypes.CDLL:
         # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
         # dtype, idx_bytes; stream
         lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        lib.sessd_sparse_conv_fwd_tf32.argtypes = \
+            lib.sessd_sparse_conv_fwd.argtypes
         # dout, inv, w2 (wt for the scalar entry), dfeat; n_out, n_in, cin,
         # cout, taps, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dfeat.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
@@ -207,7 +219,7 @@ def build() -> ctypes.CDLL:
         # idx_bytes, reps; stream
         lib.sessd_sparse_conv_fwd_repeat.argtypes = \
             [ptr] * 4 + [i32] * 8 + [ptr]
-        # cin, cout, dtype -> 2 tensor-core tile, 1 scalar tile, 0 none
+        # cin, cout, dtype -> INSTANCE_CODES of the body, 0 none
         instances = (lib.sessd_sparse_conv_fwd_instance,
                      lib.sessd_fused_sparse_conv_stream_instance,
                      lib.sessd_fused_sparse_conv_instance,
@@ -219,11 +231,15 @@ def build() -> ctypes.CDLL:
         # n_out, cin, cout, dtype -> the cluster size K1 launches with
         lib.sessd_fused_sparse_conv_wave.argtypes = [i32] * 2
         lib.sessd_fused_sparse_conv_split.argtypes = [i32] * 4
+        # entry (0 fwd, 1 dfeat, 2 fwd_tf32), cin, cout, dtype -> blocks per
+        # SM of a training instance
+        lib.sessd_sparse_conv_train_blocks_per_sm.argtypes = [i32] * 4
         for fn in (lib.sessd_fused_sparse_conv,
                    lib.sessd_fused_sparse_conv_stream,
                    lib.sessd_fused_sparse_conv_scalar,
                    lib.sessd_fused_sparse_conv_at_split,
                    lib.sessd_sparse_conv_fwd,
+                   lib.sessd_sparse_conv_fwd_tf32,
                    lib.sessd_sparse_conv_dfeat,
                    lib.sessd_sparse_conv_dfeat_scalar,
                    lib.sessd_sparse_conv_dw, lib.sessd_sparse_conv_dw_scalar,
@@ -232,7 +248,8 @@ def build() -> ctypes.CDLL:
                    lib.sessd_empty_launch_repeat,
                    lib.sessd_sparse_conv_fwd_repeat,
                    lib.sessd_fused_sparse_conv_wave,
-                   lib.sessd_fused_sparse_conv_split, *instances):
+                   lib.sessd_fused_sparse_conv_split,
+                   lib.sessd_sparse_conv_train_blocks_per_sm, *instances):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
         lib.sessd_cuda_error_string.argtypes = [i32]

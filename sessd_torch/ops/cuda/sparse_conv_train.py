@@ -6,13 +6,15 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 ``sessd_tpu/ops/pallas/wconv.py`` (the custom VJP of ``windowed_conv``).
 The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
 ``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
-tensor-core tile of the bf16 forward and input gradient), built with the
-serving kernel by ``ops.cuda.sparse_conv.build`` at the first CUDA call.
-On a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches
-its kernel, counted in ``<wrapper>.launches``, or raises.
-``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar`` (the scalar
-bodies in bf16, which the tensor-core ones replaced) exist for same-call
-comparisons only; the training step never calls them.
+tensor-core tile of the forward and input gradient in bf16, and of the
+input gradient in f32 through 3xTF32), built with the serving kernel by ``ops.cuda.sparse_conv.build``
+at the first CUDA call. On a CPU tensor each wrapper runs its twin; on a
+CUDA tensor it launches its kernel, counted in ``<wrapper>.launches``, or
+raises. ``sparse_conv_dfeat_scalar`` (the scalar body in f32 and bf16)
+and ``sparse_conv_dw_scalar`` (in bf16), which the tensor-core ones
+replaced, and ``sparse_conv_fwd_tf32`` (the f32 forward through 3xTF32,
+which the f32 step's parity gate keeps off the training path) exist for
+same-call comparisons only; the training step never calls them.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -24,8 +26,8 @@ import torch
 
 from ..sparse import gather_gemm
 from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, DFEAT_PAIRS, DW_PAIRS,
-                          FWD_PAIRS, TILE_ROWS, build, conv_instance,
-                          raise_on_error)
+                          FWD_PAIRS, MMA_CHANNELS, TILE_ROWS, build,
+                          conv_instance, raise_on_error)
 
 # rows of one dW split-K chunk (a multiple of 64, at most DW_MAX_CHUNK_ROWS
 # for the tensor-core partial kernel): 59 chunks x 27 taps of blocks at the
@@ -58,6 +60,54 @@ def sparse_conv_dw_ref(feats, rb, dout):
     g = padded.index_select(0, rb.reshape(-1).long()).reshape(n_out, k, cin)
     return torch.einsum("nkc,nd->kcd", g.to(acc), dout.to(acc)).to(
         feats.dtype)
+
+
+TF32_DEPTH = 8  # the reduction depth of one TF32 wgmma (m64nNk8)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does (finite inputs): half a TF32
+    unit added to the magnitude's bits, the low 13 bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x = hi + lo with hi = tf32(x), lo = tf32(x - hi): the 3xTF32 tile's
+    split of each operand (x - hi is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def gather_gemm_tf32(feats, rb, w2, passes: int = 3) -> torch.Tensor:
+    """The f32 tensor-core tile's arithmetic in plain torch: the gather-GEMM
+    of ``ops.sparse.gather_gemm`` with both operands split by
+    ``split_tf32`` and, per tap in order, a partial sum from zero of, per 8
+    input channels, lo_a hi_b, then hi_a lo_b, then hi_a hi_b (``passes``
+    3; with ``passes`` 1 the single TF32 product hi_a hi_b), added into the
+    f32 running sum. The model of the kernel's numerics that the tests
+    hold against JAX; no path of the port calls it."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes {passes}: 1 or 3")
+    n_in, cin = feats.shape
+    n_out, taps = rb.shape
+    padded = torch.cat([feats.float(), feats.new_zeros(1, cin).float()])
+    idx = torch.where((rb >= 0) & (rb < n_in), rb.long(), n_in)
+    a_hi, a_lo = split_tf32(padded[idx])  # [n_out, taps, cin]
+    b_hi, b_lo = split_tf32(w2)
+    acc = torch.zeros(n_out, w2.shape[2], dtype=torch.float32,
+                      device=feats.device)
+    for k in range(taps):
+        part = torch.zeros_like(acc)
+        for c in range(0, cin, TF32_DEPTH):
+            s = slice(c, c + TF32_DEPTH)
+            if passes == 3:
+                part += a_lo[:, k, s] @ b_hi[k, s]
+                part += a_hi[:, k, s] @ b_lo[k, s]
+            part += a_hi[:, k, s] @ b_hi[k, s]
+        acc += part
+    return acc
 
 
 def _check(x, rb, *others):
@@ -102,6 +152,17 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     the scalar tile (``conv_instance``)."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
+    _check_fwd(feats, rb, w2, out_mask)
+    out = _launch_fwd("sparse_conv_fwd", feats, rb, w2, out_mask)
+    sparse_conv_fwd.launches += 1
+    return out
+
+
+def _tensor_tile(entry, dtype, cin, cout) -> bool:
+    return conv_instance(entry, dtype, cin, cout) in ("mma", "tf32")
+
+
+def _check_fwd(feats, rb, w2, out_mask):
     if out_mask is not None and (out_mask.dtype != torch.bool
                                  or out_mask.shape != rb.shape[:1]):
         raise ValueError("out_mask must be bool [N_out]")
@@ -109,24 +170,51 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     _check_gather(feats, rb, w2, "sparse_conv_fwd")
     taps, cin, cout = w2.shape
     if (cin, cout) in FWD_PAIRS \
-            and conv_instance("sparse_conv_fwd", feats.dtype, cin,
-                              cout) == "mma" \
+            and _tensor_tile("sparse_conv_fwd", feats.dtype, cin, cout) \
             and (feats.data_ptr() % 16 or w2.data_ptr() % 16):
         raise ValueError("feats and w2 must be 16-byte aligned")
+
+
+def _launch_fwd(entry, feats, rb, w2, out_mask):
+    taps, cin, cout = w2.shape
     lib = build()
     out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
                       device=feats.device)
     mask = None if out_mask is None else out_mask.view(torch.uint8)
     with torch.cuda.device(feats.device):
-        rc = lib.sessd_sparse_conv_fwd(
+        rc = getattr(lib, "sessd_" + entry)(
             feats.data_ptr(), rb.data_ptr(), w2.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             feats.shape[0], rb.shape[0], cin, cout, taps,
             _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype],
             torch.cuda.current_stream().cuda_stream)
-    raise_on_error(lib, rc, f"sparse_conv_fwd (Cin={cin}, Cout={cout}, "
-                            f"K={taps})")
-    sparse_conv_fwd.launches += 1
+    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
+    return out
+
+
+def sparse_conv_fwd_tf32(feats, rb, w2, out_mask=None):
+    """``sparse_conv_fwd`` in f32 through the tensor-core tile by 3xTF32
+    (``sparse_conv_fwd_tf32_kernel``): for same-call comparisons only. The
+    f32 forward of the training path stays on the scalar tile, because the
+    f32 step is held to 1e-3 of each gradient's max against its cuBLAS
+    twins and the student's gradients move past that for any 1e-7 change
+    of the forward's rounding, the exact conv's included
+    (``scripts/probe_step_parity.py``). f32 with Cin, Cout in {16, 32, 64}
+    only; feats and w2 16-byte
+    aligned. CPU tensors take the twin. Counted in
+    ``sparse_conv_fwd_tf32.launches``."""
+    if not _device(feats):
+        return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
+    _check_fwd(feats, rb, w2, out_mask)
+    taps, cin, cout = w2.shape
+    if feats.dtype != torch.float32 or cin not in MMA_CHANNELS \
+            or cout not in MMA_CHANNELS:
+        raise ValueError(f"the 3xTF32 entry takes f32 with 16-64 channels, "
+                         f"got {feats.dtype} {cin} -> {cout}")
+    if feats.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("feats and w2 must be 16-byte aligned")
+    out = _launch_fwd("sparse_conv_fwd_tf32", feats, rb, w2, out_mask)
+    sparse_conv_fwd_tf32.launches += 1
     return out
 
 
@@ -161,17 +249,16 @@ def sparse_conv_dfeat(dout, inv, w2):
     (zero on masked rows); inv [N_in, K] the inverse rulebook
     (``ops.sparse.inverse_rulebook``, miss N_out); w2 [K, Cin, Cout], read
     as it lies (no transposed copy). Returns [N_in, Cin] in dout's dtype.
-    bf16 runs the tensor-core tile with a K-major B, which copies 16-byte
-    chunks and wants dout and w2 16-byte aligned; f32, and the first
-    conv's Cin = 4 (the voxel features' gradient) in both types, run the
-    scalar tile (``conv_instance("sparse_conv_dfeat", dtype, Cout,
-    Cin)``)."""
+    Cin, Cout in {16, 32, 64} run the tensor-core tile with a K-major B
+    (bf16, and f32 through 3xTF32), which reads 16-byte chunks and wants
+    dout and w2 16-byte aligned; the first conv's Cin = 4 (the voxel
+    features' gradient) runs the scalar tile in both types
+    (``conv_instance("sparse_conv_dfeat", dtype, Cout, Cin)``)."""
     if not _device(dout):
         return sparse_conv_dfeat_ref(dout, inv, w2)
     taps, cin, cout = _check_dfeat(dout, inv, w2)
     if (cout, cin) in DFEAT_PAIRS \
-            and conv_instance("sparse_conv_dfeat", dout.dtype, cout,
-                              cin) == "mma" \
+            and _tensor_tile("sparse_conv_dfeat", dout.dtype, cout, cin) \
             and (dout.data_ptr() % 16 or w2.data_ptr() % 16):
         raise ValueError("dout and w2 must be 16-byte aligned")
     dfeat = _launch_dfeat("sparse_conv_dfeat", dout, inv, w2, cin, cout,
@@ -181,15 +268,13 @@ def sparse_conv_dfeat(dout, inv, w2):
 
 
 def sparse_conv_dfeat_scalar(dout, inv, w2):
-    """``sparse_conv_dfeat`` through the scalar tile's bf16 body
-    (``sparse_conv_dfeat_scalar_kernel``), the one bf16 dFeat ran before
-    the tensor-core tile, with the transposed weights it takes: for
-    same-call comparisons only. bf16 only; CPU tensors take the twin.
-    Counted in ``sparse_conv_dfeat_scalar.launches``."""
+    """``sparse_conv_dfeat`` through the scalar tile
+    (``sparse_conv_dfeat_scalar_kernel``), the body dFeat ran before the
+    tensor-core tile, in f32 or bf16, with the transposed weights it takes:
+    for same-call comparisons only. CPU tensors take the twin. Counted in
+    ``sparse_conv_dfeat_scalar.launches``."""
     if not _device(dout):
         return sparse_conv_dfeat_ref(dout, inv, w2)
-    if dout.dtype != torch.bfloat16:
-        raise ValueError("the scalar entry takes bf16 only")
     taps, cin, cout = _check_dfeat(dout, inv, w2)
     wt = w2.transpose(1, 2).contiguous()
     dfeat = _launch_dfeat("sparse_conv_dfeat_scalar", dout, inv, wt, cin,
@@ -265,7 +350,22 @@ def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
     return dw
 
 
+BLOCKS_ENTRIES = ("sparse_conv_fwd", "sparse_conv_dfeat",
+                  "sparse_conv_fwd_tf32")
+
+
+def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int,
+                  cout: int) -> int:
+    """Blocks of the int32-rulebook instance of ``entry`` (one of
+    BLOCKS_ENTRIES; the input gradient by its gather's pair) for these
+    types and channels that fit one SM of the current card at once (the
+    occupancy API), 0 where there is none; needs a CUDA device."""
+    return build().sessd_sparse_conv_train_blocks_per_sm(
+        BLOCKS_ENTRIES.index(entry), cin, cout, _DTYPE_CODES[dtype])
+
+
 sparse_conv_fwd.launches = 0
+sparse_conv_fwd_tf32.launches = 0
 sparse_conv_dfeat.launches = 0
 sparse_conv_dfeat_scalar.launches = 0
 sparse_conv_dw.launches = 0

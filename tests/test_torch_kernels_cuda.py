@@ -3,7 +3,10 @@ card: the serving convs (K1, and K3, the streaming one, also against K1:
 bit for bit in f32, and in bf16 where K1 runs one CTA per tile), the
 training conv's forward (K4), input gradient and weight gradient (K5), the
 tensor-core tile of bf16 K1, K3, K4 and dFeat (K-major B, one launch per
-call) on tiles that skip taps, K1's tap split over a cluster against one
+call) on tiles that skip taps, the same tile through 3xTF32 in f32 dFeat
+and in the f32 forward's comparison entry ``sparse_conv_fwd_tf32`` (against
+the twins, the scalar bodies and the plain model of its arithmetic,
+``kt.gather_gemm_tf32``, on every pair of both entries), K1's tap split over a cluster against one
 CTA per tile and against itself, dW's tensor-core partial kernel on chunks
 and steps that skip, the scalar entries kept for comparisons, and the
 micro-benchmark kernels (S1: the ablated scalar tile, whose ``full`` mode
@@ -143,6 +146,15 @@ def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
     assert not got[miss].any()
 
 
+# f32 1e-4 (TF32 off in the twins' matmuls; the 3xTF32 tile keeps ~21
+# mantissa bits of each product), bf16 2e-2
+TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+# the f32 tile against the plain model of its arithmetic (the same split,
+# the same three products per k8 step in the same order, per-tap partials):
+# only the order of the f32 additions inside one wgmma differs
+TF32_MODEL_BOUND = 1e-5
+
+
 def _tile_inputs(cin, cout, k, seed=0):
     """Rows in tiles of 64 with a ragged last tile (N_OUT = 39 * 64 + 4),
     tile 1 all miss, tile 2 hit by one tap in one row, tile 3 by every tap
@@ -161,24 +173,32 @@ def _tile_inputs(cin, cout, k, seed=0):
     return feats, rb, w2, bias, mask
 
 
-MMA_PLAN = [p for p in PLAN if p[0] != 4]  # bf16 Cin in {16, 32, 64}
+MMA_PLAN = [p for p in PLAN if p[0] != 4]  # Cin in {16, 32, 64}
+# the body K4 and dFeat take on MMA_PLAN: the tensor-core tile in bf16; in
+# f32 K4 the scalar tile, dFeat the tile through 3xTF32
+K4_BODY = {torch.bfloat16: "mma", torch.float32: "scalar"}
+DFEAT_BODY = {torch.bfloat16: "mma", torch.float32: "tf32"}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
 @pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
                          ids=["int16", "int32"])
 @pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
                          ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
-def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype):
-    """bf16 K4 and K3 (the tensor-core tile) within 2e-2 of their twins on
-    tiles that skip every tap, all but one, or none; K4 zeroes masked rows,
-    K3 rows with no hit, and the rows of the all-miss tile come out 0."""
+def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype,
+                                        dtype, tol):
+    """K4 (the tensor-core tile in bf16, the scalar tile in f32) and K3
+    (the tile in bf16, its scalar ring in f32) within the type's bound of
+    their twins on tiles that skip every tap, all but one, or none; K4
+    zeroes masked rows, K3 rows with no hit, and the rows of the all-miss
+    tile come out 0."""
     feats, rb, w2, bias, mask = _tile_inputs(cin, cout, k)
-    assert sc.conv_instance("sparse_conv_fwd", torch.bfloat16, cin,
-                            cout) == "mma"
-    f = torch.from_numpy(feats).to(cuda, torch.bfloat16)
+    assert sc.conv_instance("sparse_conv_fwd", dtype, cin,
+                            cout) == K4_BODY[dtype]
+    f = torch.from_numpy(feats).to(cuda, dtype)
     r = torch.from_numpy(rb).to(cuda, idx_dtype)
-    w = torch.from_numpy(w2).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(w2).to(cuda, dtype)
     b = torch.from_numpy(bias).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     y4 = kt.sparse_conv_fwd(f, r, w, m)
@@ -186,14 +206,14 @@ def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype):
     torch.cuda.synchronize()
     want4 = kt.sparse_conv_fwd_ref(f, r, w, m)
     want3 = sc.fused_sparse_conv_ref(f, r, w, b, N_IN)
-    assert _err(y4, want4) <= 2e-2 and _err(y3, want3) <= 2e-2
+    assert _err(y4, want4) <= tol and _err(y3, want3) <= tol
     assert not y4[~m].any() and not y4[64:128].any()
     assert not y3[torch.from_numpy((rb == N_IN).all(1)).to(cuda)].any()
     # the lone hits: one tap of one row, every tap of one row
     for row in (128 + 17, 192 + 63):
-        assert _err(y3[row:row + 1], want3[row:row + 1]) <= 2e-2
+        assert _err(y3[row:row + 1], want3[row:row + 1]) <= tol
         if mask[row]:
-            assert _err(y4[row:row + 1], want4[row:row + 1]) <= 2e-2
+            assert _err(y4[row:row + 1], want4[row:row + 1]) <= tol
 
 
 @pytest.mark.cuda
@@ -218,21 +238,32 @@ def test_conv_instance_equals_the_c_entries(cuda):
                     got = fn(cin, cout, code)
                     if (cin, cout) in pairs[entry]:
                         want = sc.conv_instance(entry, dtype, cin, cout)
-                        assert got == {"mma": 2, "scalar": 1}[want]
+                        assert got == sc.INSTANCE_CODES[want]
                     else:
                         assert got == 0
 
 
 @pytest.mark.cuda
-def test_mma_forward_rejects_misaligned_inputs(cuda):
-    f = torch.zeros(N_IN * 16 + 4, dtype=torch.bfloat16,
-                    device=cuda)[4:].view(N_IN, 16)  # 8 bytes off
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mma_forward_rejects_misaligned_inputs(cuda, dtype):
+    """The tensor-core forward (bf16 K4; in f32 its 3xTF32 entry) copies
+    16-byte chunks: a misaligned call raises, it does not fall back to the
+    scalar tile."""
+    f = torch.zeros(N_IN * 16 + 2, dtype=dtype,
+                    device=cuda)[2:].view(N_IN, 16)  # 4 or 8 bytes off
     r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
-    w = torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda)
-    before = kt.sparse_conv_fwd.launches
+    w = torch.zeros(27, 16, 16, dtype=dtype, device=cuda)
+    w_off = torch.zeros(27 * 256 + 2, dtype=dtype,
+                        device=cuda)[2:].view(27, 16, 16)
+    fn = kt.sparse_conv_fwd if dtype == torch.bfloat16 \
+        else kt.sparse_conv_fwd_tf32
+    before = fn.launches
     with pytest.raises(ValueError, match="aligned"):
-        kt.sparse_conv_fwd(f, r, w)
-    assert kt.sparse_conv_fwd.launches == before
+        fn(f, r, w)
+    with pytest.raises(ValueError, match="aligned"):
+        fn(f.clone(), r, w_off)
+    assert fn.launches == before
 
 
 @pytest.mark.cuda
@@ -418,9 +449,6 @@ def test_wrapper_raises_off_cpu_and_cuda():
         with pytest.raises(ValueError, match="no kernel for device"):
             fn(feats, rb, w2, bias, N_IN)
         assert fn.launches == before
-
-
-TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
 
 def _train_inputs(cin, cout, k, seed=0):
@@ -609,47 +637,122 @@ def _dfeat_inputs(cin, cout, k, seed=0):
                          ids=["int16", "int32"])
 @pytest.mark.parametrize("cin,cout,k", DFEAT_CASES,
                          ids=[f"{a}x{b}x{c}" for a, b, c in DFEAT_CASES])
-def test_dfeat_mma_matches_twin(cuda, cin, cout, k, idx_dtype):
-    """bf16 dFeat on the tensor-core tile (W read K-major as it lies)
-    within 2e-2 of its twin and of the scalar entry, over the inverse
-    rulebook of a conv whose inverse tiles skip every tap (all-miss rows
-    come out 0) or all but one."""
-    assert sc.conv_instance("sparse_conv_dfeat", torch.bfloat16, cout,
-                            cin) == "mma"
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
+def test_dfeat_mma_matches_twin(cuda, cin, cout, k, idx_dtype, dtype, tol):
+    """dFeat on the tensor-core tile (W read K-major as it lies; bf16, and
+    f32 through 3xTF32) within the type's bound of its twin and of the
+    scalar entry, over the inverse rulebook of a conv whose inverse tiles
+    skip every tap (all-miss rows come out 0) or all but one; in f32 also
+    within 1e-5 of the model of its arithmetic (``kt.gather_gemm_tf32``
+    over the inverse rulebook with W^T)."""
+    assert sc.conv_instance("sparse_conv_dfeat", dtype, cout,
+                            cin) == DFEAT_BODY[dtype]
     rb, w2, dout = _dfeat_inputs(cin, cout, k, seed=cin + cout + k)
     r = torch.from_numpy(rb).to(cuda, idx_dtype)
-    w = torch.from_numpy(w2).to(cuda, torch.bfloat16)
-    d = torch.from_numpy(dout).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(w2).to(cuda, dtype)
+    d = torch.from_numpy(dout).to(cuda, dtype)
     inv = sp.inverse_rulebook(r, N_IN)
     before = kt.sparse_conv_dfeat.launches
     got = kt.sparse_conv_dfeat(d, inv, w)
     torch.cuda.synchronize()
     assert kt.sparse_conv_dfeat.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == (N_IN, cin)
+    assert got.dtype == dtype and got.shape == (N_IN, cin)
     want = kt.sparse_conv_dfeat_ref(d, inv, w)
-    assert _err(got, want) <= 2e-2
-    assert _err(got, kt.sparse_conv_dfeat_scalar(d, inv, w)) <= 2e-2
+    assert _err(got, want) <= tol
+    assert _err(got, kt.sparse_conv_dfeat_scalar(d, inv, w)) <= tol
     assert not got[DEAD].any()
-    assert _err(got[LONE_IN:LONE_IN + 1], want[LONE_IN:LONE_IN + 1]) <= 2e-2
+    assert _err(got[LONE_IN:LONE_IN + 1], want[LONE_IN:LONE_IN + 1]) <= tol
+    if dtype == torch.float32:
+        model = kt.gather_gemm_tf32(d, inv, w.transpose(1, 2))
+        assert _err(got, model) <= TF32_MODEL_BOUND
 
 
 @pytest.mark.cuda
 def test_dfeat_scalar_entry_matches_twin_and_takes_bf16_only(cuda):
+    """The input gradient's scalar entry, kept for comparisons, under its
+    own counter. It took bf16 only until the f32 input gradient moved to
+    the 3xTF32 tile; it now takes f32 too (within 1e-4) and refuses other
+    types."""
     rb, w2, dout = _dfeat_inputs(32, 64, 27)
     r = torch.from_numpy(rb).to(cuda, torch.int32)
-    w = torch.from_numpy(w2).to(cuda, torch.bfloat16)
-    d = torch.from_numpy(dout).to(cuda, torch.bfloat16)
     inv = sp.inverse_rulebook(r, N_IN)
-    counts = (kt.sparse_conv_dfeat.launches,
-              kt.sparse_conv_dfeat_scalar.launches)
-    got = kt.sparse_conv_dfeat_scalar(d, inv, w)
+    for dtype, tol in TOLS:
+        w = torch.from_numpy(w2).to(cuda, dtype)
+        d = torch.from_numpy(dout).to(cuda, dtype)
+        counts = (kt.sparse_conv_dfeat.launches,
+                  kt.sparse_conv_dfeat_scalar.launches)
+        got = kt.sparse_conv_dfeat_scalar(d, inv, w)
+        torch.cuda.synchronize()
+        assert (kt.sparse_conv_dfeat.launches,
+                kt.sparse_conv_dfeat_scalar.launches) == (counts[0],
+                                                          counts[1] + 1)
+        assert got.dtype == dtype
+        assert _err(got, kt.sparse_conv_dfeat_ref(d, inv, w)) <= tol
+    with pytest.raises(ValueError, match="dtype"):
+        kt.sparse_conv_dfeat_scalar(d.half(), inv, w.half())
+
+
+def _allocs():
+    return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_tf32_forward_matches_model_and_scalar_entry(cuda, cin, cout, k,
+                                                     idx_dtype):
+    """The f32 forward's 3xTF32 entry on every pair of SESSD_FWD_PAIRS it
+    takes: within 1e-5 of the model ``kt.gather_gemm_tf32`` (masked) and
+    1e-4 of f32 K4 (the scalar tile) and its twin on the same call, over
+    tiles that skip every tap, all but one, or none, and a ragged last
+    tile; one call is one launch and one allocation (its output: the
+    weights are transposed and split inside the kernel)."""
+    feats, rb, w2, _, mask = _tile_inputs(cin, cout, k)
+    f = torch.from_numpy(feats).to(cuda)
+    r = torch.from_numpy(rb).to(cuda, idx_dtype)
+    w = torch.from_numpy(w2).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
     torch.cuda.synchronize()
-    assert (kt.sparse_conv_dfeat.launches,
-            kt.sparse_conv_dfeat_scalar.launches) == (counts[0],
-                                                      counts[1] + 1)
-    assert _err(got, kt.sparse_conv_dfeat_ref(d, inv, w)) <= 2e-2
-    with pytest.raises(ValueError, match="bf16"):
-        kt.sparse_conv_dfeat_scalar(d.float(), inv, w.float())
+    counts = (_allocs(), kt.sparse_conv_fwd_tf32.launches,
+              kt.sparse_conv_fwd.launches)
+    got = kt.sparse_conv_fwd_tf32(f, r, w, m)
+    assert (_allocs(), kt.sparse_conv_fwd_tf32.launches,
+            kt.sparse_conv_fwd.launches) == (counts[0] + 1, counts[1] + 1,
+                                             counts[2])
+    model = torch.where(m[:, None], kt.gather_gemm_tf32(f, r, w), 0.0)
+    scalar = kt.sparse_conv_fwd(f, r, w, m)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (N_OUT, cout)
+    assert _err(got, model) <= TF32_MODEL_BOUND
+    assert _err(got, scalar) <= 1e-4
+    assert _err(got, kt.sparse_conv_fwd_ref(f, r, w, m)) <= 1e-4
+    assert not got[~m].any() and not got[64:128].any()
+
+
+@pytest.mark.cuda
+def test_training_tiles_fit_the_sm(cuda):
+    """Every instance of the forward and input gradient fits at least one
+    block per SM, and each 3xTF32 one (dFeat's, the forward's entry) two
+    (its ring stages are chosen so), to overlap one block's gathers with
+    another's tensor-core work; the 3xTF32 entry has no bf16 or 4-channel
+    instance."""
+    for entry, pairs in (("sparse_conv_fwd", sc.FWD_PAIRS),
+                         ("sparse_conv_dfeat", sc.DFEAT_PAIRS),
+                         ("sparse_conv_fwd_tf32", sc.FWD_PAIRS)):
+        for cin, cout in pairs:
+            for dtype in (torch.float32, torch.bfloat16):
+                blocks = kt.blocks_per_sm(entry, dtype, cin, cout)
+                if entry == "sparse_conv_fwd_tf32":
+                    tf32 = dtype == torch.float32 and 4 not in (cin, cout)
+                    want = 2 if tf32 else 0
+                    assert blocks >= want and (tf32 or blocks == 0), (
+                        entry, dtype, cin, cout, blocks)
+                    continue
+                body = sc.conv_instance(entry, dtype, cin, cout)
+                assert blocks >= (2 if body == "tf32" else 1), (
+                    entry, dtype, cin, cout, blocks)
 
 
 @pytest.mark.cuda
@@ -670,21 +773,26 @@ def test_dfeat_allocates_only_its_output(cuda, dtype):
     before = allocs()
     kt.sparse_conv_dfeat(d, inv, w)
     assert allocs() == before + 1
-    if dtype == torch.bfloat16:  # the scalar entry copies W^T: two
-        before = allocs()
-        kt.sparse_conv_dfeat_scalar(d, inv, w)
-        assert allocs() == before + 2
+    before = allocs()  # the scalar entry copies W^T: two
+    kt.sparse_conv_dfeat_scalar(d, inv, w)
+    assert allocs() == before + 2
 
 
 @pytest.mark.cuda
-def test_dfeat_mma_rejects_misaligned_inputs(cuda):
-    d = torch.zeros(N_OUT * 16 + 4, dtype=torch.bfloat16,
-                    device=cuda)[4:].view(N_OUT, 16)  # 8 bytes off
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dfeat_mma_rejects_misaligned_inputs(cuda, dtype):
+    d = torch.zeros(N_OUT * 16 + 2, dtype=dtype,
+                    device=cuda)[2:].view(N_OUT, 16)  # 4 or 8 bytes off
     inv = torch.full((N_IN, 27), N_OUT, dtype=torch.int32, device=cuda)
-    w = torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(27, 16, 16, dtype=dtype, device=cuda)
+    w_off = torch.zeros(27 * 256 + 2, dtype=dtype,
+                        device=cuda)[2:].view(27, 16, 16)
     before = kt.sparse_conv_dfeat.launches
     with pytest.raises(ValueError, match="aligned"):
         kt.sparse_conv_dfeat(d, inv, w)
+    with pytest.raises(ValueError, match="aligned"):
+        kt.sparse_conv_dfeat(d.clone(), inv, w_off)
     assert kt.sparse_conv_dfeat.launches == before
 
 
@@ -732,8 +840,9 @@ def test_first_conv_input_gradient_on_card(cuda, dtype, tol):
 
 
 def _named_calls(cuda, dtype):
-    """(kernel name, call) of every wrapper at ``dtype``; in bf16 also K1
-    at S = 4 and the scalar entries."""
+    """(kernel name, call) of every wrapper at ``dtype`` and of the input
+    gradient's scalar entry; in f32 also the forward's 3xTF32 entry, in
+    bf16 K1 at S = 4 and the other scalar entries."""
     feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
                            for a in _inputs(16, 32, 27))
     feats, w2, rb = feats.to(dtype), w2.to(dtype), rb.int()
@@ -749,6 +858,11 @@ def _named_calls(cuda, dtype):
                  d, inv, w)),
              ("sparse_conv_dw_partial_kernel", lambda: kt.sparse_conv_dw(
                  f, r, d))]
+    calls.append(("sparse_conv_dfeat_scalar_kernel",
+                  lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)))
+    if dtype == torch.float32:
+        calls.append(("sparse_conv_fwd_tf32_kernel",
+                      lambda: kt.sparse_conv_fwd_tf32(f, r, w, m)))
     if dtype == torch.bfloat16:
         calls += [
             ("fused_sparse_conv_kernel",
@@ -756,8 +870,6 @@ def _named_calls(cuda, dtype):
                                                    split=4)),
             ("fused_sparse_conv_scalar_kernel",
              lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, N_IN)),
-            ("sparse_conv_dfeat_scalar_kernel",
-             lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)),
             ("sparse_conv_dw_scalar_kernel",
              lambda: kt.sparse_conv_dw_scalar(f, r, d))]
     return calls
@@ -769,9 +881,10 @@ def _named_calls(cuda, dtype):
 def test_kernels_profile_under_their_own_names(cuda, dtype):
     """Each wrapper's launch shows in a device profile under a kernel name
     of its own, the names the step and request profilers
-    (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the scalar
-    bodies, in bf16 the tensor-core ones (K1 also at S = 4) and the scalar
-    entries kept for comparisons. A dFeat call is one kernel and nothing
+    (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the 3xTF32 tile
+    of dFeat and the scalar bodies of the rest, in bf16 the tensor-core
+    ones (K1 also at S = 4), and the entries kept for comparisons. A dFeat
+    call is one kernel and nothing
     else: no transposed copy of the weights. The profiler on the card
     now and then delivers no device event of a whole profile; such an
     empty capture says nothing of the kernels, so it is taken again (at
@@ -800,6 +913,7 @@ def test_train_wrappers_raise_off_cpu_and_cuda():
     feats, rb, w2, dout, mask = (torch.from_numpy(a).to("meta") for a in
                                  _train_inputs(16, 32, 27))
     for fn, args in ((kt.sparse_conv_fwd, (feats, rb, w2)),
+                     (kt.sparse_conv_fwd_tf32, (feats, rb, w2)),
                      (kt.sparse_conv_dfeat, (dout, rb, w2)),
                      (kt.sparse_conv_dfeat_scalar, (dout, rb, w2)),
                      (kt.sparse_conv_dw, (feats, rb, dout))):

@@ -1,6 +1,7 @@
 """The tensor-core gather tile of the bf16 convs (K1, K3, K4) and of the bf16
-input gradient (dFeat, over the inverse rulebook with a K-major B),
-``sessd_torch/csrc/gather_mma.cuh``, from the CPU:
+input gradient (dFeat, over the inverse rulebook with a K-major B), and of
+the f32 input gradient through 3xTF32, ``sessd_torch/csrc/gather_mma.cuh``,
+from the CPU:
 
 - ``ops.sparse.tile_tap_hits``, the per-(tile, tap) any-hit flags that
   decide which taps the tile gathers and multiplies, against a numpy loop
@@ -16,8 +17,8 @@ input gradient (dFeat, over the inverse rulebook with a K-major B),
   zero, so the sum is the same (atol 3e-4, rtol 1e-3: f32 sums in another
   order);
 - ``ops.cuda.sparse_conv.conv_instance``, which names the body a call takes
-  (tensor-core or scalar) for K4, K3, K1, dFeat and dW, against the C
-  entries' dispatch tables and the header's rule;
+  (tensor-core bf16, 3xTF32 or scalar) for K4, K3, K1, dFeat and dW,
+  against the C entries' dispatch tables and the header's rules;
 - the wrappers' contracts: CPU tensors take the plain twin, any device but
   CPU and CUDA raises.
 
@@ -261,8 +262,15 @@ def test_python_pairs_equal_the_c_dispatch_tables():
     assert sc.DFEAT_PAIRS == _source_pairs(*ENTRIES["sparse_conv_dfeat"])
     # the input gradient's pairs are the convs' swapped, the first's too
     assert sc.DFEAT_PAIRS == tuple(sorted((b, a) for a, b in sc.FWD_PAIRS))
-    # each __global__ with two bodies picks the tensor-core one by the rule
+    # each __global__ with two bodies picks the tensor-core one by the rule:
+    # bf16 (kMmaTile) everywhere, and f32 through 3xTF32 (kTf32Tile) in
+    # the input gradient alone
+    mma = "if constexpr (sessd::kMmaTile<T, CIN, COUT>"
+    tf32 = "sessd::kTf32Tile<T, CIN, COUT>"
     for path, kernel in (("sparse_conv.cu", "fused_sparse_conv_kernel("),
+                         ("sparse_conv_stream.cu",
+                          "fused_sparse_conv_stream_kernel("),
+                         ("sparse_conv_train.cu", "sparse_conv_fwd_kernel("),
                          ("sparse_conv_train.cu",
                           "sparse_conv_dfeat_kernel("),
                          ("sparse_conv_train.cu",
@@ -270,16 +278,21 @@ def test_python_pairs_equal_the_c_dispatch_tables():
         text = (CSRC / path).read_text()
         body = text[text.index(kernel):]
         body = body[:body.index("\n}\n")]
-        assert "if constexpr (sessd::kMmaTile<T, CIN, COUT>)" in body
-    rule = (CSRC / "gather_mma.cuh").read_text()
-    rule = rule[rule.index("constexpr bool kMmaTile"):]
-    rule = rule[:rule.index(";")]
-    assert tuple(sorted({int(c) for c in re.findall(r"CIN == (\d+)", rule)})
-                 ) == sc.MMA_CHANNELS
-    assert tuple(sorted({int(c) for c in re.findall(r"COUT == (\d+)",
-                                                    rule)})) == \
-        sc.MMA_CHANNELS
-    assert "std::is_same<T, __nv_bfloat16>" in rule
+        assert mma in body
+        entry = kernel[:-len("_kernel(")].replace("_partial", "")
+        assert (tf32 in body) == (entry in sc.TF32_ENTRIES), kernel
+    header = (CSRC / "gather_mma.cuh").read_text()
+    for name, dtype in (("kMmaTile", "__nv_bfloat16"), ("kTf32Tile",
+                                                         "float")):
+        rule = header[header.index(f"constexpr bool {name}"):]
+        rule = rule[:rule.index(";")]
+        assert tuple(sorted({int(c) for c in re.findall(r"CIN == (\d+)",
+                                                        rule)})) == \
+            sc.MMA_CHANNELS
+        assert tuple(sorted({int(c) for c in re.findall(r"COUT == (\d+)",
+                                                        rule)})) == \
+            sc.MMA_CHANNELS
+        assert f"std::is_same<T, {dtype}>" in rule
 
 
 @pytest.mark.parametrize(
@@ -289,12 +302,18 @@ def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     """bf16 with Cin, Cout in {16, 32, 64} takes the tensor-core body in
     every entry: K4 and K3 since the wgmma tile, K1 (with its cluster tap
     split) and dW (mma.sync) since their redesign, dFeat (five of its six
-    pairs, K-major B) since its own; the rest, the 4-channel side of the
-    first conv included, the scalar one."""
+    pairs, K-major B) since its own; f32 at those channels takes the same
+    tile through 3xTF32 in dFeat alone; the rest (f32 K4, K1, K3 and dW,
+    the 4-channel side of the first conv in both types) the scalar one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
-    mma = dtype == torch.bfloat16 and 4 not in pair
-    assert got == ("mma" if mma else "scalar")
+    tensor = 4 not in pair
+    if dtype == torch.bfloat16:
+        want = "mma" if tensor else "scalar"
+    else:
+        want = "tf32" if tensor and entry == "sparse_conv_dfeat" \
+            else "scalar"
+    assert got == want
 
 
 @pytest.mark.parametrize("entry,pair", [
