@@ -6,7 +6,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. The card (``nvidia-smi`` name and power limit) and the build of the CUDA
    kernels from ``sessd_torch/csrc`` (one nvcc per source, in parallel,
    into ``build/sessd_torch/``), with the body and blocks per SM of each
-   training tile instance (``kt.blocks_per_sm``).
+   training tile instance (``kt.blocks_per_sm``), and the body, blocks per
+   SM, registers and spill stores of each dW partial-kernel and K3
+   instance (``instance_resources`` on the build's ptxas log).
 2. The fused sparse conv kernel (K1) against its plain PyTorch twin on the
    card, for every one of the 14 backbone convs on the features the
    previous conv produced, at full KITTI width (sparse shape (41, 1600,
@@ -42,17 +44,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    recipe's stage caps (ACCEPT_CAPS). Each conv takes the features the
    previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
    weight gradient, a reduction over all rows), bf16 2e-2; dW gives the
-   same bits on two runs. Each conv's K4 and dFeat body is checked: the
-   tensor-core tile in bf16, in f32 through 3xTF32 for dFeat, and the
-   scalar tile for f32 K4 and the first conv's 4-channel side; K4's f32
+   same bits on two runs. Each conv's K4, dFeat and dW body is checked:
+   the tensor-core ones in bf16, in f32 through 3xTF32 for dFeat and dW,
+   and the scalar ones for f32 K4 and the first conv's 4-channel side; K4's f32
    3xTF32 entry (``sparse_conv_fwd_tf32``, off the training path) is held
    to K4's bound on every conv with 16-64 channels. In both types one K4
    call and one dFeat call (and in f32 one call of the entry) each make one
    launch and one allocation, their output (no copy or packing of the
    weights). Kernel and twin device-time medians per conv (bf16, student
    chain; f32: K4 on both chains with the 3xTF32 entry on the same calls,
-   dFeat and dW on the student's, printed per launch, dFeat with its
-   scalar entry ``sparse_conv_dfeat_scalar`` on the same calls); for the
+   dFeat and dW on the student's, printed per launch, dFeat and dW with
+   their scalar entries ``sparse_conv_dfeat_scalar`` and
+   ``sparse_conv_dw_scalar`` on the same calls, dW's bound also with its
+   partials); for the
    bf16 forward also the scalar tile's time on the same inputs (K1's
    scalar entry with zero bias and no ReLU) and the share of (tile, tap)
    pairs skipped; for the input
@@ -73,10 +77,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. One f32 step (TF32 off) on one batch through the kernels and, from an
    identical state, through their twins: loss terms within 1e-4 relative,
    each gradient tensor within 1e-3 of its max.
-7. Evaluation on that f32 trainer: K3 against its twin and K1 on the convs
-   that stream in one batch-4 eval batch at ACCEPT_CAPS (derived from the
-   stream rule at those caps), with no stage saturated, and K1 timed with
-   its twin on the convs it runs there (f32 per-launch times);
+7. Evaluation on that f32 trainer: K3 (3xTF32) against its twin and K1
+   (the scalar tile) within 1e-4 and bit-equal to K4's 3xTF32 entry with
+   K3's epilogue, on the convs that stream in one batch-4 eval batch at
+   ACCEPT_CAPS (derived from the stream rule at those caps), timed with
+   K1, its two-slot ring (``fused_sparse_conv_stream_ring``, the f32 body
+   it replaced) and the twin on the same calls, with no stage saturated,
+   and K1 timed with its twin on the convs it runs there (f32 per-launch
+   times);
    ``Trainer.validate()`` over the val split (the same 8 frames), with the
    K1 and K3 launches per batch the rule gives; ``save_checkpoint``; then
    ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint
@@ -219,9 +227,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-5; the staged bytes of both.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
-``fused_sparse_conv_at_split``, ``sparse_conv_fwd_tf32``,
-``sparse_conv_dfeat_scalar``, ``sparse_conv_dw_scalar``) count their own
-launches; a main-path phase that launched one fails.
+``fused_sparse_conv_at_split``, ``fused_sparse_conv_stream_ring``,
+``sparse_conv_fwd_tf32``, ``sparse_conv_dfeat_scalar``,
+``sparse_conv_dw_scalar``) count their own launches; a main-path phase
+that launched one fails.
 
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
@@ -235,11 +244,12 @@ dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
 ``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap) shares,
 its partials' bytes and its time by chunk rows, S1 its tensor-core mode
 tables, and K1, K3, K4, dFeat and dW an ``f32`` object: per-launch ms on
-the f32 paths (phases 4 and 7), the scalar entry's on the same calls for
-dFeat, whose f32 body changed, the twin's and the bound's, and the body;
-K4's also carries its 3xTF32 entry's per-launch numbers on the same calls
-and its max abs error. Without a CUDA device it raises and prints no
-result.
+the f32 paths (phases 4 and 7), the old body's on the same calls for
+dFeat, dW and K3, whose f32 bodies changed (their scalar entries, K3's
+ring), the twin's and the bound's (dW's also with its partials), and the
+body; K3's also K1's time and its distance from K1, K4's its 3xTF32
+entry's per-launch numbers on the same calls and its max abs error.
+Without a CUDA device it raises and prints no result.
 """
 import ast
 import contextlib
@@ -294,7 +304,8 @@ BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
 # the card's published rates (H100 SXM data sheet, dense, at 700 W): f32
 # on the CUDA cores, bf16 and TF32 on the tensor cores; a 3xTF32 body
-# ("tf32", f32 K4 and dFeat) runs three TF32 products per f32 one
+# ("tf32": f32 dFeat, K3 and dW, K4's entry) runs three TF32 products per
+# f32 one
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 494.7e12}
 TF32_PASSES = 3
@@ -317,9 +328,9 @@ class Bound:
         self.seconds = {"bytes": 0.0, "operations": 0.0}
 
     def add(self, tensors, hits: int, cin: int, cout: int, dtype,
-            body: str = ""):
+            body: str = "", extra_bytes: int = 0):
         moved = sum(t.numel() * t.element_size() for t in tensors)
-        self.seconds["bytes"] += moved / HBM_BYTES_PER_S
+        self.seconds["bytes"] += (moved + extra_bytes) / HBM_BYTES_PER_S
         flops = 2 * hits * cin * cout
         self.seconds["operations"] += (
             TF32_PASSES * flops / PEAK_FLOPS["tf32"] if body == "tf32"
@@ -384,6 +395,36 @@ def set_prior(model, on: bool):
     builder.set_cls_prior(model, 0.01 if on else None)
 
 
+# the template arguments of a kernel instance as the compiler mangles them:
+# element type (f f32, 13__nv_bfloat16 bf16), index type (s int16, i
+# int32), Cin, Cout
+_MANGLED_ARGS = r"I(f|13__nv_bfloat16)([si])Li(\d+)ELi(\d+)E"
+
+
+def instance_resources(log: str, kernel: str) -> dict:
+    """{(dtype, idx, cin, cout): (registers, spill store bytes)} of each
+    instance of ``kernel`` in nvcc's ``-Xptxas=-v`` log."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        key = name and re.search(kernel + _MANGLED_ARGS, name)
+        if m and key:
+            dtype = "float32" if key.group(1) == "f" else "bfloat16"
+            idx = "int16" if key.group(2) == "s" else "int32"
+            out[dtype, idx, int(key.group(3)), int(key.group(4))] = (
+                int(m.group(1)), spill)
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     sc.build()
@@ -408,6 +449,30 @@ def phase_build():
           f"registers, {spills} bytes spill stores; training tiles (body, "
           f"blocks per SM): " + ", ".join(f"{k}: {v}"
                                          for k, v in blocks.items()))
+    # dW's partial kernel (at DW_CHUNK_ROWS) and the stream kernel: body,
+    # blocks per SM and, from this build's log, each int32 instance's
+    # registers and spill stores (none where the library was cached)
+    res = {"dw": instance_resources(log, "sparse_conv_dw_partial_kernel"),
+           "stream": instance_resources(log,
+                                        "fused_sparse_conv_stream_kernel")}
+    lines = []
+    for name, entry, pairs in (("dw", "sparse_conv_dw", sc.DW_PAIRS),
+                               ("stream", "fused_sparse_conv_stream",
+                                sc.STREAM_PAIRS)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for cin, cout in pairs:
+                n_blocks = (kt.blocks_per_sm(entry, dtype, cin, cout)
+                            if name == "dw" else
+                            sc.stream_blocks_per_sm(cin, cout, dtype))
+                regs_spill = res[name].get((str(dtype)[6:], "int32", cin,
+                                            cout), ("?", "?"))
+                lines.append(f"{name} {str(dtype)[6:]} {cin}x{cout}: "
+                             f"{sc.conv_instance(entry, dtype, cin, cout)} "
+                             f"{n_blocks} blocks, {regs_spill[0]} registers,"
+                             f" {regs_spill[1]} B spilled")
+    print(f"build: dW (at {kt.DW_CHUNK_ROWS}-row chunks) and K3 instances "
+          f"(body, blocks per SM, registers, spill stores): "
+          + "; ".join(lines))
 
 
 def phase_kernels(model, spec, device):
@@ -660,24 +725,36 @@ def phase_checkpoint_import(model, cfg, spec, device, tmp):
 
 
 def old_tile(dtype):
-    """The scalar tile a conv ran before the tensor-core tile: bf16 K1's
-    scalar entry (kept for these comparisons), in f32 K1 itself."""
+    """The scalar body K3 ran before its tensor-core tile: bf16 K1's scalar
+    entry (the same function on the scalar tile), in f32 K3's two-slot
+    ring (both kept for these comparisons)."""
     return (sc.fused_sparse_conv_scalar if dtype == torch.bfloat16
-            else sc.fused_sparse_conv)
+            else sc.fused_sparse_conv_stream_ring)
+
+
+def tf32_with_epilogue(x, rbk, w2, bias, n_in, relu=True):
+    """K4's 3xTF32 entry (the tile f32 K3 runs, without the epilogue) with
+    K3's bias, ReLU and any-hit mask added in torch: f32 K3's bits."""
+    y = kt.sparse_conv_fwd_tf32(x, rbk, w2) + bias
+    if relu:
+        y = torch.relu(y)
+    return torch.where((rbk != n_in).any(1, keepdim=True), y, 0.0)
 
 
 def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                        want_streamed, resident=None):
     """The backbone's all-sparse plan on (feats, rb) with every conv that
-    streams run through K3, its twin, K1 and the scalar tile on identical
-    inputs: K3 within the bound of the twin, and equal to K1 bit for bit
-    where K1 runs one CTA per tile (always in f32, where both keep K1's
-    summation order; in bf16 both run the tensor-core tile); each of these
-    convs timed (device-time medians of 10). The other convs run K1, timed
-    with its twin into ``resident`` (a PerLaunch) where one is given.
-    Returns {"worst": max abs error vs twin, "vs_k1": max abs difference
-    from K1, "ms", "k1_ms", "old_ms" (the scalar tile), "plain_ms": sums,
-    "bound": Bound, "tiles": TileSkips, "streamed": the streamed convs}."""
+    streams run through K3, its twin, K1 and the old scalar body on
+    identical inputs: K3 within the bound of the twin and of K1; in bf16
+    (both on the tensor-core tile) equal to K1 bit for bit where K1 runs
+    one CTA per tile; in f32 (K3 through 3xTF32, K1 on the scalar tile)
+    equal bit for bit to K4's 3xTF32 entry with K3's epilogue
+    (``tf32_with_epilogue``); each of these convs timed (device-time
+    medians of 10). The other convs run K1, timed with its twin into
+    ``resident`` (a PerLaunch) where one is given. Returns {"worst": max
+    abs error vs twin, "vs_k1": max abs difference from K1, "ms", "k1_ms",
+    "old_ms" (``old_tile``), "plain_ms": sums, "bound": Bound, "tiles":
+    TileSkips, "streamed": the streamed convs, "body": K3's}."""
     out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
            "old_ms": 0.0, "plain_ms": 0.0, "bound": Bound(),
            "tiles": TileSkips()}
@@ -711,7 +788,7 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
         if not torch.isfinite(y.float()).all():
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: non-finite")
         rel, diff = _rel(y, want)
-        vs_k1 = float((y.float() - k1.float()).abs().max())
+        rel_k1, vs_k1 = _rel(y, k1)
         split = sc.launch_split(rbk.shape[0], x.shape[1], w2.shape[2], dtype)
         out["worst"] = max(out["worst"], diff)
         out["vs_k1"] = max(out["vs_k1"], vs_k1)
@@ -720,19 +797,29 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
             old_tile(dtype), sc.fused_sparse_conv_ref)]
         for key, t in zip(("ms", "k1_ms", "old_ms", "plain_ms"), times):
             out[key] += t
+        body = sc.conv_instance("fused_sparse_conv_stream", dtype,
+                                x.shape[1], w2.shape[2])
+        out["body"] = body
         out["bound"].add((x, rbk, w2, bias, y), hits(rbk, n_in), x.shape[1],
-                         w2.shape[2], dtype)
+                         w2.shape[2], dtype, body)
         skipped = out["tiles"].add(rbk, n_in)
         print(f"stream conv {i:2d} {CONV_NAMES[i]:6s} {x.shape[1]:2d}->"
               f"{w2.shape[2]:2d} K={w2.shape[0]:2d} rows {rbk.shape[0]:6d} "
-              f"{tag}: rel_err vs twin {rel:.2e}, max|K3-K1| {vs_k1:.3e} (K1 "
-              f"S={split}); K3 {times[0]:.4f} ms, K1 {times[1]:.4f} ms, old "
-              f"tile {times[2]:.4f} ms, twin {times[3]:.4f} ms; taps skipped "
+              f"{tag}: K3 [{body}] rel_err vs twin {rel:.2e}, vs K1 "
+              f"{rel_k1:.2e}, max|K3-K1| {vs_k1:.3e} (K1 S={split}); K3 "
+              f"{times[0]:.4f} ms, K1 {times[1]:.4f} ms, old tile "
+              f"{times[2]:.4f} ms, twin {times[3]:.4f} ms; taps skipped "
               f"{skipped:.3f}")
-        if not rel <= BOUNDS[dtype]:
+        if not (rel <= BOUNDS[dtype] and rel_k1 <= BOUNDS[dtype]):
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 rel_err "
-                                 f"{rel:.3e} > {BOUNDS[dtype]}")
-        if split == 1 and not torch.equal(y, k1):
+                                 f"{rel:.3e} vs twin, {rel_k1:.3e} vs K1 > "
+                                 f"{BOUNDS[dtype]}")
+        if dtype == torch.float32:
+            if not torch.equal(y, tf32_with_epilogue(*args)):
+                raise AssertionError(f"{CONV_NAMES[i]} {tag}: f32 K3 differs "
+                                     "from the 3xTF32 entry with its "
+                                     "epilogue")
+        elif split == 1 and not torch.equal(y, k1):
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 differs from K1 "
                                  "at one CTA per tile")
         return y
@@ -745,9 +832,11 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
         raise AssertionError(f"{tag}: streamed {streamed}, want "
                              f"{want_streamed}")
     out["streamed"] = streamed
-    print(f"stream kernel {tag}: {len(streamed)} convs within bounds; max "
-          f"abs error vs twin {out['worst']:.3e}, max|K3-K1| "
-          f"{out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
+    same = ("the 3xTF32 entry with the epilogue" if dtype == torch.float32
+            else "K1 at one CTA per tile")
+    print(f"stream kernel {tag}: {len(streamed)} convs within bounds and "
+          f"equal to {same}; max abs error vs twin {out['worst']:.3e}, "
+          f"max|K3-K1| {out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
           f"{out['k1_ms']:.4f} ms, old tile {out['old_ms']:.4f} ms, twin "
           f"{out['plain_ms']:.4f} ms, bound {out['bound'].ms():.4f} ms "
           f"({out['bound'].by()}); taps skipped {out['tiles'].share():.3f} of "
@@ -982,22 +1071,32 @@ class DwSkips:
     def add(self, rb, miss: int, cin: int, cout: int, chunk_rows: int):
         chunk = self.chunks.add(rb, miss, chunk_rows)
         step = self.steps.add(rb, miss)
-        chunks = -(-rb.shape[0] // chunk_rows)
-        moved = 2 * chunks * rb.shape[1] * cin * cout * 4
+        moved = _partial_bytes(rb, cin, cout, chunk_rows)
         self.partial_bytes += moved
         return chunk, step, moved
+
+
+def _partial_bytes(rb, cin: int, cout: int, chunk_rows: int) -> int:
+    """The bytes of dW's f32 partials [chunks, K, Cin, Cout] for rulebook
+    ``rb``: written once by the partial kernel and read once by the
+    ordered reduce."""
+    chunks = -(-rb.shape[0] // chunk_rows)
+    return 2 * chunks * rb.shape[1] * cin * cout * 4
 
 
 class PerLaunch:
     """A kernel's launches timed on the f32 chains: summed device ms of the
     kernel, its twin and, where the body changed, the scalar entry of the
-    body it replaced, on the same calls; their bound and count."""
+    body it replaced, on the same calls; their bound and count (dW also
+    its bound with the f32 partials written and read back,
+    ``bound_partials``)."""
 
     def __init__(self):
         self.n = 0
         self.ms = self.plain_ms = self.old_ms = 0.0
         self.has_old = True
         self.bound = Bound()
+        self.bound_partials = Bound()
         self.bodies = set()
 
     def add(self, body, ms, plain_ms, old_ms=None):
@@ -1013,19 +1112,24 @@ class PerLaunch:
     def row(self) -> dict:
         """Per-launch means (the kernel table's f32 row)."""
         n = max(self.n, 1)
-        return {"tile": sorted(self.bodies), "launches_timed": self.n,
-                "ms_per_launch": self.ms / n,
-                "old_tile_ms_per_launch": self.old_ms / n
-                if self.has_old else None,
-                "plain_ms_per_launch": self.plain_ms / n,
-                "bound_ms_per_launch": self.bound.ms() / n,
-                "bound_by": self.bound.by()}
+        row = {"tile": sorted(self.bodies), "launches_timed": self.n,
+               "ms_per_launch": self.ms / n,
+               "old_tile_ms_per_launch": self.old_ms / n
+               if self.has_old else None,
+               "plain_ms_per_launch": self.plain_ms / n,
+               "bound_ms_per_launch": self.bound.ms() / n,
+               "bound_by": self.bound.by()}
+        if self.bound_partials.ms() > 0:
+            row["bound_with_partials_ms_per_launch"] = \
+                self.bound_partials.ms() / n
+        return row
 
 
 def _train_body(dtype, i: int, name: str) -> str:
-    """The body K4 ("fwd") and dFeat take on training conv i: the
-    tensor-core tile in bf16, in f32 through 3xTF32 for dFeat, and the
-    scalar tile for the f32 forward and the first conv's 4-channel side."""
+    """The body K4 ("fwd"), dFeat and dW take on training conv i: the
+    tensor-core ones in bf16, in f32 through 3xTF32 for dFeat and dW, and
+    the scalar ones for the f32 forward and the first conv's 4-channel
+    side."""
     if i == 0 or (dtype == torch.float32 and name == "fwd"):
         return "scalar"
     return "mma" if dtype == torch.bfloat16 else "tf32"
@@ -1100,7 +1204,7 @@ def phase_train_kernels(trainer, db):
                          "dw": sc.conv_instance(
                              "sparse_conv_dw", dtype, w.shape[1],
                              w.shape[2])}
-                for name in ("fwd", "dfeat"):
+                for name in ("fwd", "dfeat", "dw"):
                     if insts[name] != _train_body(dtype, i, name):
                         raise AssertionError(
                             f"{CONV_NAMES[i]} {tag}: {name} takes the "
@@ -1156,13 +1260,21 @@ def phase_train_kernels(trainer, db):
                                      f"tile)")
                     elif f32_timed and (name == "fwd" or plan == "student"):
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
-                        # dFeat's scalar tile, the f32 body it replaced, on
-                        # the same call (f32 K4 and dW run the scalar tile)
-                        old_ms = median_ms(
-                            lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w),
-                            10) if name == "dfeat" else None
+                        # dFeat's and dW's scalar bodies, the f32 ones they
+                        # replaced, on the same call (f32 K4 runs the
+                        # scalar tile)
+                        old = {"dfeat": lambda: kt.sparse_conv_dfeat_scalar(
+                                   dout, inv, w),
+                               "dw": lambda: kt.sparse_conv_dw_scalar(
+                                   x, rbk, dout)}.get(name)
+                        old_ms = median_ms(old, 10) if old else None
                         f32[name].add(insts[name], k_ms, r_ms, old_ms)
                         f32[name].bound.add(*args)
+                        if name == "dw":  # the partials, written and read
+                            f32[name].bound_partials.add(
+                                *args, extra_bytes=_partial_bytes(
+                                    rbk, w.shape[1], w.shape[2],
+                                    kt.DW_CHUNK_ROWS))
                         line += (f" ({insts[name]} {k_ms:.4f} vs twin "
                                  f"{r_ms:.4f} ms")
                         if old_ms is not None:
@@ -1300,8 +1412,8 @@ KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               ablate.empty_launch)
 # the entries kept for same-call comparisons: never on a main path
 COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-                  kt.sparse_conv_fwd_tf32, kt.sparse_conv_dfeat_scalar,
-                  kt.sparse_conv_dw_scalar)
+                  sc.fused_sparse_conv_stream_ring, kt.sparse_conv_fwd_tf32,
+                  kt.sparse_conv_dfeat_scalar, kt.sparse_conv_dw_scalar)
 
 
 def _reset_counts():
@@ -3221,7 +3333,9 @@ def main():
         tile="gather_mma.cuh: gather_mma_tile (wgmma) + cluster tap split",
         old_tile_ms=k1_ms["old_ms"])
     kernels[1].update(covers=f"{WCONV}:350", old_tile_ms=b8["old_ms"],
-                      skipped_tap_share=b8["tiles"].share())
+                      skipped_tap_share=b8["tiles"].share(),
+                      tile="gather_mma.cuh: gather_mma_tile (wgmma; f32 "
+                           "3xTF32)")
     for name, key, line in (("sparse_conv_fwd", "fwd", 51),
                             ("sparse_conv_dfeat", "dfeat", 67),
                             ("sparse_conv_dw", "dw", 67)):
@@ -3235,12 +3349,15 @@ def main():
     # training chains, dFeat the step's 9, dW the student's 10; K1 the 3
     # resident and K3 the 11 streamed convs of a batch-4 f32 eval batch)
     n_k3 = len(ev["streamed"])
-    k3_f32 = {"tile": ["scalar"], "launches_timed": n_k3,
+    # f32 K3's old tile: its two-slot ring on the same calls
+    k3_f32 = {"tile": [ev["body"]], "launches_timed": n_k3,
               "ms_per_launch": ev["ms"] / n_k3,
-              "old_tile_ms_per_launch": None,
+              "old_tile_ms_per_launch": ev["old_ms"] / n_k3,
               "plain_ms_per_launch": ev["plain_ms"] / n_k3,
               "bound_ms_per_launch": ev["bound"].ms() / n_k3,
-              "bound_by": ev["bound"].by()}
+              "bound_by": ev["bound"].by(),
+              "k1_ms_per_launch": ev["k1_ms"] / n_k3,
+              "max_abs_vs_k1": ev["vs_k1"]}
     kernels[0]["f32"] = ev["k1_f32"].row()
     kernels[1]["f32"] = k3_f32
     for row, key in zip(kernels[2:5], ("fwd", "dfeat", "dw")):
@@ -3256,7 +3373,8 @@ def main():
         zero_filled_row_share=dfeat_tile["tiles"].fill_share())
     skips = dw_tile["skips"]
     kernels[4].update(
-        tile="sparse_conv_train.cu: dw_mma_partial (mma.sync m16n8k16)",
+        tile="sparse_conv_train.cu: dw_mma_partial (mma.sync m16n8k16; "
+             "f32 3xTF32 on m16n8k8)",
         old_tile_ms=dw_tile["old_ms"],
         skipped_chunk_tap_share=skips.chunks.share(),
         skipped_step_tap_share=skips.steps.share(),

@@ -15,25 +15,34 @@
 //               if any(rb[n, :] != n_in) else 0
 //
 // What bounds it on Hopper: gather bytes, as for K1: at most 2*Cout flops
-// per loaded value, below the card's ridge. The kernel takes one of two
-// bodies by type, fixed at compile time (no fallback at run time):
-// - bf16: gather_mma.cuh's tensor-core tile with its bias + ReLU + any-hit
-//   store. The scalar two-slot ring it replaces converted each staged bf16
-//   value to f32 at every use and ran a scalar FMA loop over every tap of
-//   every tile (7% slower than K1 in bf16, PERF.md). The new tile stays in
-//   bf16 from gather to wgmma, keeps three taps' gathers in flight in a
-//   4-stage cp.async ring, and skips the taps no row of the tile hits. It
-//   sums in the tensor cores' order; bf16 K1 runs the same tile, so the two
-//   agree bit for bit wherever K1 runs one CTA per tile.
-// - f32 (the eval path, held to 1e-4): the two-stage ring below, K1's tile,
-//   thread mapping and summation order (tap by tap, input channel by input
-//   channel, one fmaf per product), so f32 K3 equals K1 bit for bit. While
-//   the block runs tap k out of slot k%2, every thread has already issued
-//   tap k+1's gathered rows and weights into the other slot with cp.async
-//   (16-byte chunks, L2 only); a miss row is a zero-fill copy (src-size 0).
-//   Two slots of 64 rows plus a [Cin, Cout] weight tile each and the
-//   rulebook tile take up to 73 KB (64x64), so it uses dynamic shared
-//   memory.
+// per loaded value, below the card's ridge. The kernel takes
+// gather_mma.cuh's tensor-core tile with its bias + ReLU + any-hit store,
+// fixed at compile time (no fallback at run time), in both types:
+// - bf16: wgmma on bf16. The scalar two-slot ring it replaced converted
+//   each staged bf16 value to f32 at every use and ran a scalar FMA loop
+//   over every tap of every tile (7% slower than K1 in bf16, PERF.md). The
+//   tile stays in bf16 from gather to wgmma, keeps three taps' gathers in
+//   flight in a 4-stage cp.async ring, and skips the taps no row of the
+//   tile hits. It sums in the tensor cores' order; bf16 K1 runs the same
+//   tile, so the two agree bit for bit wherever K1 runs one CTA per tile.
+// - f32 (the eval path on host chains and f32 serving, held to 1e-4):
+//   the same tile through 3xTF32, each operand split into two TF32 parts
+//   and each tap's three products summed from zero and added on the CUDA
+//   cores (gather_mma.cuh says how). It no longer keeps K1's order (f32 K1
+//   stays on the scalar tile): it equals the f32 forward's 3xTF32 entry
+//   (sparse_conv_fwd_tf32_kernel, the same tile without the epilogue) plus
+//   bias, ReLU and the any-hit mask bit for bit, and K1 within 1e-4. A
+//   row's sum runs over its tile's hit taps in order, and a tap that misses
+//   the row adds a zero partial, so a row's bits do not depend on the rows
+//   batched with it.
+// The two-slot ring below is what f32 K3 ran before (K1's tile, thread
+// mapping and summation order, one tap's gather in flight): while the block
+// runs tap k out of slot k%2, every thread has already issued tap k+1's
+// gathered rows and weights into the other slot with cp.async (16-byte
+// chunks, L2 only); a miss row is a zero-fill copy (src-size 0). It stays
+// reachable as fused_sparse_conv_stream_ring_kernel
+// (sessd_fused_sparse_conv_stream_ring), f32 only, for same-call
+// comparisons.
 
 #include "gather_mma.cuh"
 
@@ -95,8 +104,8 @@ __device__ __forceinline__ void issue_tap(unsigned char* slot,
   sessd::cp_async_commit();
 }
 
-// The scalar two-slot body (f32): K1's tile with each tap's gather issued
-// one tap ahead.
+// The scalar two-slot body: K1's tile with each tap's gather issued one
+// tap ahead.
 template <typename T, typename IdxT, int CIN, int COUT>
 __device__ __forceinline__ void stream_fma_tile(const T* __restrict__ feats,
                                                 const IdxT* __restrict__ rb,
@@ -194,39 +203,68 @@ fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
                                 const float* __restrict__ bias,
                                 T* __restrict__ out, int n_in, int n_out,
                                 int taps, int relu) {
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+  // every pair of SESSD_STREAM_PAIRS has 16-64 channels: the 4-channel
+  // first conv never streams
+  if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                sessd::kTf32Tile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
-  else
-    stream_fma_tile<T, IdxT, CIN, COUT>(feats, rb, w2, bias, out, n_in,
-                                        n_out, taps, relu);
+  else {
+    static_assert(sizeof(T) == 0, "the stream kernel takes 16-64 channels");
+  }
 }
 
-// dynamic shared memory of one block of the instance
-template <typename T, int CIN, int COUT>
-constexpr int smem_bytes() {
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
-    return sessd::MmaLayout<CIN, COUT>::kSmemBytes;
-  else
-    return StreamLayout<T, CIN, COUT>::kSmemBytes;
+// the two-slot ring under a name of its own, the body f32 K3 ran before
+// the 3xTF32 tile: for comparisons only
+template <typename T, typename IdxT, int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+fused_sparse_conv_stream_ring_kernel(const T* __restrict__ feats,
+                                     const IdxT* __restrict__ rb,
+                                     const T* __restrict__ w2,
+                                     const float* __restrict__ bias,
+                                     T* __restrict__ out, int n_in,
+                                     int n_out, int taps, int relu) {
+  stream_fma_tile<T, IdxT, CIN, COUT>(feats, rb, w2, bias, out, n_in, n_out,
+                                      taps, relu);
 }
 
 template <typename T, typename IdxT, int CIN, int COUT>
+using StreamKernel = void (*)(const T*, const IdxT*, const T*, const float*,
+                              T*, int, int, int, int);
+
+// the stream kernel (RING false) or the ring's comparison kernel for the
+// instance, its threads and its dynamic shared memory
+template <typename T, typename IdxT, int CIN, int COUT, bool RING>
+struct Launch {
+  static constexpr int kBlock = RING ? kThreads : sessd::kMmaThreads;
+  static constexpr int kSmem = RING ? StreamLayout<T, CIN, COUT>::kSmemBytes
+                                    : sessd::kTileSmemBytes<T, CIN, COUT>;
+  static StreamKernel<T, IdxT, CIN, COUT> kernel() {
+    if constexpr (RING)
+      return fused_sparse_conv_stream_ring_kernel<T, IdxT, CIN, COUT>;
+    else
+      return fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT>;
+  }
+  // above 48 KB a block's shared memory must be asked for, once per kernel
+  static cudaError_t allow_smem() {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    return attr;
+  }
+};
+
+template <typename T, typename IdxT, int CIN, int COUT, bool RING>
 cudaError_t launch(const void* feats, const void* rb, const void* w2,
                    const float* bias, void* out, int n_in, int n_out,
                    int taps, int relu, cudaStream_t stream) {
-  constexpr bool kMma = sessd::kMmaTile<T, CIN, COUT>;
-  constexpr int smem = smem_bytes<T, CIN, COUT>();
-  auto* kern = fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT>;
-  // above 48 KB a block's shared memory must be asked for, once per kernel
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using L = Launch<T, IdxT, CIN, COUT, RING>;
+  const cudaError_t attr = L::allow_smem();
   if (attr != cudaSuccess) return attr;
-  kern<<<sessd::gather_gemm_grid(n_out), kMma ? sessd::kMmaThreads : kThreads,
-         smem, stream>>>(static_cast<const T*>(feats),
-                         static_cast<const IdxT*>(rb),
-                         static_cast<const T*>(w2), bias,
-                         static_cast<T*>(out), n_in, n_out, taps, relu);
+  L::kernel()<<<sessd::gather_gemm_grid(n_out), L::kBlock, L::kSmem,
+                stream>>>(static_cast<const T*>(feats),
+                          static_cast<const IdxT*>(rb),
+                          static_cast<const T*>(w2), bias,
+                          static_cast<T*>(out), n_in, n_out, taps, relu);
   return cudaGetLastError();
 }
 
@@ -239,7 +277,7 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
   CASE(32, 64)                   \
   CASE(64, 64)
 
-template <typename T, typename IdxT>
+template <typename T, typename IdxT, bool RING>
 cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* rb, const void* w2,
                               const float* bias, void* out, int n_in,
@@ -247,19 +285,39 @@ cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in, n_out,    \
-                                   taps, relu, stream);
+    return launch<T, IdxT, CI, CO, RING>(feats, rb, w2, bias, out, n_in,     \
+                                         n_out, taps, relu, stream);
   SESSD_STREAM_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
 
-// 2 where the instance for (T, cin, cout) is the tensor-core tile, 1 where
-// it is the scalar two-slot ring, 0 where there is none
+// 3 where the instance for (T, cin, cout) is the tensor-core tile through
+// 3xTF32, 2 the tile in bf16, 0 where there is none
 template <typename T>
 int stream_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  if (cin == CI && cout == CO) return sessd::kTf32Tile<T, CI, CO> ? 3 : 2;
+  SESSD_STREAM_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
+}
+
+// blocks of the stream kernel's int32-rulebook instance for (T, cin, cout)
+// that fit one SM at its threads, registers and shared memory; 0 where
+// there is none or it cannot be read
+template <typename T>
+int stream_blocks_per_sm(int cin, int cout) {
+#define SESSD_CASE(CI, CO)                                                   \
+  if (cin == CI && cout == CO) {                                             \
+    using L = Launch<T, int32_t, CI, CO, false>;                             \
+    int blocks = 0;                                                          \
+    cudaError_t err = L::allow_smem();                                       \
+    if (err == cudaSuccess)                                                  \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+          &blocks, L::kernel(), L::kBlock, L::kSmem);                        \
+    return err == cudaSuccess ? blocks : 0;                                  \
+  }
   SESSD_STREAM_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
@@ -280,25 +338,56 @@ extern "C" int sessd_fused_sparse_conv_stream(const void* feats,
   if (n_out <= 0 || taps <= 0 || taps > kMaxTaps) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && idx_bytes == 2)
-    return dispatch_channels<float, int16_t>(cin, cout, feats, rb, w2, bias,
-                                             out, n_in, n_out, taps, relu, s);
+    return dispatch_channels<float, int16_t, false>(
+        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   if (dtype == 0 && idx_bytes == 4)
-    return dispatch_channels<float, int32_t>(cin, cout, feats, rb, w2, bias,
-                                             out, n_in, n_out, taps, relu, s);
+    return dispatch_channels<float, int32_t, false>(
+        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   if (dtype == 1 && idx_bytes == 2)
-    return dispatch_channels<__nv_bfloat16, int16_t>(
+    return dispatch_channels<__nv_bfloat16, int16_t, false>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   if (dtype == 1 && idx_bytes == 4)
-    return dispatch_channels<__nv_bfloat16, int32_t>(
+    return dispatch_channels<__nv_bfloat16, int32_t, false>(
+        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
+  return cudaErrorInvalidValue;
+}
+
+// The two-slot ring f32 K3 ran before the 3xTF32 tile, under its own kernel
+// name (fused_sparse_conv_stream_ring_kernel), for comparisons:
+// sessd_fused_sparse_conv_stream's arguments, dtype 0 only.
+extern "C" int sessd_fused_sparse_conv_stream_ring(
+    const void* feats, const void* rb, const void* w2, const float* bias,
+    void* out, int n_in, int n_out, int cin, int cout, int taps, int dtype,
+    int idx_bytes, int relu, void* stream) {
+  if (n_out <= 0 || taps <= 0 || taps > kMaxTaps || dtype != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx_bytes == 2)
+    return dispatch_channels<float, int16_t, true>(
+        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
+  if (idx_bytes == 4)
+    return dispatch_channels<float, int32_t, true>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   return cudaErrorInvalidValue;
 }
 
 // Which body sessd_fused_sparse_conv_stream launches for (cin, cout,
-// dtype): 2 the tensor-core tile, 1 the scalar ring, 0 none.
+// dtype): 3 the tensor-core tile through 3xTF32, 2 the tile in bf16, 0
+// none.
 extern "C" int sessd_fused_sparse_conv_stream_instance(int cin, int cout,
                                                        int dtype) {
   if (dtype == 0) return stream_instance<float>(cin, cout);
   if (dtype == 1) return stream_instance<__nv_bfloat16>(cin, cout);
+  return 0;
+}
+
+// Blocks of sessd_fused_sparse_conv_stream's int32-rulebook instance for
+// (cin, cout, dtype) that fit one SM at once; 0 for a pair it has no
+// instance of, or where it cannot be read.
+extern "C" int sessd_fused_sparse_conv_stream_blocks_per_sm(int cin,
+                                                            int cout,
+                                                            int dtype) {
+  if (dtype == 0) return stream_blocks_per_sm<float>(cin, cout);
+  if (dtype == 1) return stream_blocks_per_sm<__nv_bfloat16>(cin, cout);
   return 0;
 }

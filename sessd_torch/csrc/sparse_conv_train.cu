@@ -65,7 +65,7 @@
 //   (gather_gemm_tile's W_T).
 //
 // The weight gradient's partial kernel, sparse_conv_dw_partial_kernel, also
-// takes one of two bodies, fixed at compile time:
+// takes one of two bodies, the first in two types, fixed at compile time:
 // - bf16 with Cin, Cout in {16, 32, 64}: dw_mma_partial below, on tensor
 //   cores. What bounds dW on this card: the gather of feats[rb[n, k]] and
 //   the dout rows, 2*Cin*Cout flops per (row, tap) hit against 2*(Cin +
@@ -105,13 +105,38 @@
 //     chunk run together and share its rulebook rows and dout in L2.
 //   Sums run step by step in order, then over the warps' k-slices in order:
 //   the same bits on every run.
-// - f32 (step parity, held to 1e-3 of each gradient's max; mma.sync's
-//   TF32 shape m16n8k8 is queued, ldmatrix.trans being 16-bit only) and the
-//   Cin = 4 first conv: dw_scalar_partial, 256 threads per (chunk, tap) block, which
-//   stages 64 gathered feature rows and the 64 matching dout rows in shared
-//   memory per step and accumulates its Cin x Cout tile in registers (up to
-//   4 x 4 per thread). Its bf16 instances stay reachable under their own
-//   name, sparse_conv_dw_scalar_kernel (sessd_sparse_conv_dw_scalar), for
+// - f32 with Cin, Cout in {16, 32, 64} (the reference config's step: 1e-3
+//   of its twin, a reduction over all rows, and of each gradient's max in
+//   the step): the same
+//   body through 3xTF32 on mma.sync.m16n8k8 (tf32 in, f32 accumulators).
+//   ldmatrix.trans is 16-bit only, so each lane reads its fragment values
+//   with 32-bit shared loads (staged row t, column g of the slice), rows
+//   padded by 8 words so one load's 32 lanes fall in 32 banks, and splits
+//   each value in registers into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna,
+//   as gather_mma.cuh's 3xTF32 tile does in shared memory). Per 8-row
+//   k-slice it issues lo_a hi_b, hi_a lo_b, hi_a hi_b into a partial of the
+//   64-row step that starts from zero and is added into the running sum on
+//   the CUDA cores: the tensor cores' own additions do not round to nearest,
+//   and a chunk runs up to 1024 k8 slices. Three products per value make
+//   the multiply what bounds it, so the block multiplies no zero row: it
+//   compacts the chunk's rows that hit tap k, in order, into a list (one
+//   scan over the block), and step u is list entries [64u, 64u + 64), all
+//   hits but the last step's tail, where bf16's steps of 64 consecutive
+//   rows zero-fill ~2/3 of a subm conv's rows. Each slice chains three mma
+//   into one accumulator, so a block has 8 warps (256 threads), twice
+//   bf16's: they split Cin and Cout as in bf16 and a step's eight slices
+//   among the rest (2 at 32 -> 32 and up, 8 at 16 -> 16), so twice the
+//   chains run side by side, each half as long. f32 doubles a stage (37 KB
+//   at 64 -> 64), so the ring keeps 4, 3 or 2 steps, the most that leave
+//   two blocks per SM (DwMma::kStages).
+//   The rulebook column read once, the tap-fastest grid and the
+//   fixed-order sums are the bf16 body's.
+// - the Cin = 4 first conv, in both types: dw_scalar_partial, 256 threads
+//   per (chunk, tap) block, which stages 64 gathered feature rows and the 64
+//   matching dout rows in shared memory per step and accumulates its Cin x
+//   Cout tile in registers (up to 4 x 4 per thread). Its instances at every
+//   pair stay reachable in both types under their own name,
+//   sparse_conv_dw_scalar_kernel (sessd_sparse_conv_dw_scalar), for
 //   same-call comparisons only.
 // Both write f32 partials [chunks, K, Cin, Cout]; sparse_conv_dw_reduce_kernel
 // sums the chunks in order.
@@ -519,29 +544,62 @@ __device__ __forceinline__ void dw_scalar_partial(
       dst[(ti * kTi + i) * COUT + tj * kTj + j] = acc[i][j];
 }
 
-constexpr int kDwStages = 4;          // 64-row steps in the ring
+constexpr int kDwStages = 4;           // 64-row steps in the ring (bf16)
 constexpr int kDwMaxChunkRows = 8192;  // the rulebook column in shared memory
+// the f32 ring's bytes at most: with the rulebook column and the hit-row
+// list of a 2048-row chunk (ops/cuda/sparse_conv_train.py: DW_CHUNK_ROWS)
+// two blocks fit an SM
+constexpr int kDwTf32RingBytes = 96 * 1024;
 
-// shared-memory layout and warp split of the tensor-core dW tile
-template <int CIN, int COUT>
+// shared-memory layout and warp split of the tensor-core dW tile, bf16
+// (mma.sync m16n8k16) or f32 through 3xTF32 (m16n8k8)
+template <typename T, int CIN, int COUT>
 struct DwMma {
-  static constexpr int kGStride = CIN * 2 + 16;   // bytes per staged row:
-  static constexpr int kDStride = COUT * 2 + 16;  // one chunk of padding
+  static constexpr bool kTf32 = std::is_same<T, float>::value;
+  static constexpr int kElem = static_cast<int>(sizeof(T));
+  static constexpr int kVec = 16 / kElem;  // values per 16-byte chunk
+  // bytes per staged row: bf16 one chunk of padding, so the eight rows one
+  // ldmatrix reads fall in distinct banks; f32 eight words, so a row's
+  // stride is 8 or 24 words mod 32 and the 32 lanes of one fragment load
+  // (staged row t, column g; lane 4g + t) fall in 32 distinct banks
+  static constexpr int kGStride = CIN * kElem + (kTf32 ? 32 : 16);
+  static constexpr int kDStride = COUT * kElem + (kTf32 ? 32 : 16);
   static constexpr int kGBytes = kRows * kGStride;
   static constexpr int kDBytes = kRows * kDStride;
   static constexpr int kStageBytes = kGBytes + kDBytes;
-  static constexpr int kRingBytes = kDwStages * kStageBytes;
+  // steps in the ring: bf16 4; f32 4, 3 or 2, the most that fit
+  // kDwTf32RingBytes (f32 doubles a stage: 37 KB at 64 -> 64)
+  static constexpr int kStages =
+      !kTf32                                      ? kDwStages
+      : kDwStages * kStageBytes <= kDwTf32RingBytes ? kDwStages
+      : 3 * kStageBytes <= kDwTf32RingBytes         ? 3
+                                                    : 2;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kSliceRows = kTf32 ? 8 : 16;   // the mma's K
+  static constexpr int kSlices = kRows / kSliceRows;  // k-slices of a step
+  // warps of a block: f32 8, twice bf16's, so that twice the independent
+  // mma chains hide their latency (a 3xTF32 slice chains three mma into
+  // one accumulator)
+  static constexpr int kWarps = kTf32 ? 8 : 4;
+  static constexpr int kBlock = kWarps * 32;
   static constexpr int kWm = CIN / 16 < 2 ? CIN / 16 : 2;    // warps over Cin
   static constexpr int kWn = COUT / 16 < 2 ? COUT / 16 : 2;  // over Cout
-  static constexpr int kWk = 4 / (kWm * kWn);  // over a step's 4 k-slices
+  static constexpr int kWk = kWarps / (kWm * kWn);  // over a step's slices
   static constexpr int kMt = CIN / 16 / kWm;   // m16 tiles per warp
-  static constexpr int kNt = COUT / 16 / kWn;  // n16 tiles per warp
-  static_assert(kWm * kWn * kWk * 32 == sessd::kMmaThreads, "4 warps");
+  static constexpr int kNt = COUT / 16 / kWn;  // n16 tiles (2 n8) per warp
+  static_assert(kWm * kWn * kWk == kWarps && kSlices % kWk == 0,
+                "warps split Cin, Cout and a step's slices");
+  static_assert(kBlock <= kThreads, "the kernel's launch bounds");
+  static_assert(kStages >= 2, "a step in flight while one computes");
   // the warps' partial tiles [kWk, CIN, COUT] f32, in the ring at the end
   static_assert(kWk * CIN * COUT * 4 <= kRingBytes, "reduction fits");
-  // ring, the rulebook column, the step flags and the hit-step list + count
+  // the ring and the rulebook column, then bf16 the step flags and the
+  // hit-step list + count, f32 the hit-row list and the warps' counts
   static constexpr int smem_bytes(int chunk_rows) {
-    return kRingBytes + (chunk_rows + 2 * (chunk_rows / kRows) + 1) * 4;
+    return kRingBytes +
+           (kTf32 ? 2 * chunk_rows + kWarps
+                  : chunk_rows + 2 * (chunk_rows / kRows) + 1) *
+               4;
   }
 };
 
@@ -566,23 +624,49 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d[16 x 8] += a[16 x 8] (row) @ b[8 x 8] (col), tf32 in (f32 bits whose
+// low 13 are zero), f32 out
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo as two tf32 mma operands: hi = tf32(x), lo = tf32(x - hi),
+// each rounded to nearest by cvt.rna (x - hi is exact in f32)
+__device__ __forceinline__ void split_tf32_u32(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  const float h = sessd::tf32_rna(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(sessd::tf32_rna(x - h));
+}
+
 // partial[chunk, k] as dw_scalar_partial, on tensor cores: one block of
-// kMmaThreads threads per (tap, chunk), DwMma<CIN, COUT>::smem_bytes
+// DwMma<T, CIN, COUT>::kBlock threads per (tap, chunk), ::smem_bytes
 // (chunk_rows) of dynamic shared memory; chunk_rows a multiple of kRows, at
-// most kDwMaxChunkRows; feats and dout 16-byte aligned.
-template <typename IdxT, int CIN, int COUT>
+// most kDwMaxChunkRows; feats and dout 16-byte aligned. T is bf16
+// (mma.sync m16n8k16) or f32 through 3xTF32 (m16n8k8, three products per
+// k8 slice, a fresh partial per 64-row step).
+template <typename T, typename IdxT, int CIN, int COUT>
 __device__ __forceinline__ void dw_mma_partial(
-    const __nv_bfloat16* __restrict__ feats, const IdxT* __restrict__ rb,
-    const __nv_bfloat16* __restrict__ dout, float* __restrict__ partial,
-    int n_in, int n_out, int taps, int chunk_rows, int chunk, int k) {
-  using L = DwMma<CIN, COUT>;
+    const T* __restrict__ feats, const IdxT* __restrict__ rb,
+    const T* __restrict__ dout, float* __restrict__ partial, int n_in,
+    int n_out, int taps, int chunk_rows, int chunk, int k) {
+  using L = DwMma<T, CIN, COUT>;
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(128) unsigned char sessd_dw_smem[];
   unsigned char* ring = sessd_dw_smem;
   int* s_col = reinterpret_cast<int*>(ring + L::kRingBytes);
   const int steps = chunk_rows / kRows;
-  int* s_flag = s_col + chunk_rows;
+  int* s_flag = s_col + chunk_rows;  // bf16
   int* s_steps = s_flag + steps;  // the steps some row of which hits tap k
   int* s_n_steps = s_steps + steps;
+  int* s_list = s_col + chunk_rows;  // f32: the rows that hit tap k
+  int* s_warp = s_list + chunk_rows;  // f32: each warp's count of them
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -590,54 +674,130 @@ __device__ __forceinline__ void dw_mma_partial(
   const int begin = chunk * chunk_rows;
   const int rows = min(n_out - begin, chunk_rows);
 
-  // the chunk's rulebook column, read once: the source row of each of its
-  // rows through tap k, -1 for a miss (and past n_out), and which steps hit
-  for (int s = tid; s < steps; s += sessd::kMmaThreads) s_flag[s] = 0;
-  __syncthreads();
-  for (int i = tid; i < chunk_rows; i += sessd::kMmaThreads) {
-    const int src =
-        i < rows ? static_cast<int>(rb[(size_t)(begin + i) * taps + k]) : -1;
-    const bool hit = static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
-    s_col[i] = hit ? src : -1;
-    if (hit) s_flag[i / kRows] = 1;  // every writer writes 1
-  }
-  __syncthreads();
-  if (warp == 0) {
+  int n_hit = 0, n_steps;
+  if constexpr (L::kTf32) {
+    // the chunk's rulebook column, read once (the source row of each of its
+    // rows through tap k, -1 for a miss and past n_out), and its hit rows
+    // compacted in order: s_list[j] is the j-th row that hits tap k. Step
+    // u is entries [64u, 64u + 64), so every row of a step hits but the
+    // last step's tail: the f32 body multiplies no zero row where bf16's
+    // 64-row steps zero-fill ~2/3 of a subm conv's rows. Each thread takes
+    // a run of rows, a scan of the counts in thread order places them.
+    const int per = (chunk_rows + L::kBlock - 1) / L::kBlock;
+    const int lo = min(tid * per, chunk_rows);
+    const int hi = min(lo + per, chunk_rows);
     int count = 0;
-    for (int base = 0; base < steps; base += 32) {
-      const int s = base + lane;
-      const bool hit = s < steps && s_flag[s] != 0;
-      const unsigned m = __ballot_sync(0xffffffffu, hit);
-      if (hit) s_steps[count + __popc(m & ((1u << lane) - 1u))] = s;
-      count += __popc(m);
+    for (int i = lo; i < hi; ++i) {
+      const int src =
+          i < rows ? static_cast<int>(rb[(size_t)(begin + i) * taps + k])
+                   : -1;
+      const bool hit =
+          static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
+      s_col[i] = hit ? src : -1;
+      count += hit;
     }
-    if (lane == 0) *s_n_steps = count;
+    int incl = count;  // inclusive scan over the warp's lanes
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    int pos = incl - count;
+    for (int w = 0; w < L::kWarps; ++w) {
+      if (w < warp) pos += s_warp[w];
+      n_hit += s_warp[w];
+    }
+    for (int i = lo; i < hi; ++i)
+      if (s_col[i] >= 0) s_list[pos++] = i;
+    __syncthreads();
+    n_steps = (n_hit + kRows - 1) / kRows;
+  } else {
+    // the chunk's rulebook column, read once: the source row of each of
+    // its rows through tap k, -1 for a miss (and past n_out), and which
+    // steps hit
+    for (int s = tid; s < steps; s += L::kBlock) s_flag[s] = 0;
+    __syncthreads();
+    for (int i = tid; i < chunk_rows; i += L::kBlock) {
+      const int src =
+          i < rows ? static_cast<int>(rb[(size_t)(begin + i) * taps + k])
+                   : -1;
+      const bool hit =
+          static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
+      s_col[i] = hit ? src : -1;
+      if (hit) s_flag[i / kRows] = 1;  // every writer writes 1
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int count = 0;
+      for (int base = 0; base < steps; base += 32) {
+        const int s = base + lane;
+        const bool hit = s < steps && s_flag[s] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) s_steps[count + __popc(m & ((1u << lane) - 1u))] = s;
+        count += __popc(m);
+      }
+      if (lane == 0) *s_n_steps = count;
+    }
+    __syncthreads();
+    n_steps = *s_n_steps;
   }
-  __syncthreads();
-  const int n_steps = *s_n_steps;
 
   // step s's gathered rows and dout rows into ring stage `stage`; a row
-  // that misses tap k is zero on both sides and reads nothing
+  // that misses tap k is zero on both sides and reads nothing. bf16's step
+  // s is the chunk's rows [64s, 64s + 64), f32's the hit rows s_list[64s
+  // ..] (zero rows past the last)
   auto issue = [&](int s, int stage) {
     const uint32_t g_s = sessd::smem_u32(ring + stage * L::kStageBytes);
     const uint32_t d_s = g_s + L::kGBytes;
-    for (int j = tid; j < kRows * (CIN / 8); j += sessd::kMmaThreads) {
-      const int r = j / (CIN / 8);
-      const int c = j % (CIN / 8);
-      const int src = s_col[s * kRows + r];
-      sessd::cp_async16(g_s + r * L::kGStride + c * 16,
-                        feats + (size_t)(src >= 0 ? src : 0) * CIN + c * 8,
-                        src >= 0 ? 16 : 0);
+    if constexpr (L::kTf32) {
+      for (int j = tid; j < kRows * (CIN / L::kVec); j += L::kBlock) {
+        const int r = j / (CIN / L::kVec);
+        const int c = j % (CIN / L::kVec);
+        const int e = s * kRows + r;
+        const int src = e < n_hit ? s_col[s_list[e]] : 0;
+        sessd::cp_async16(g_s + r * L::kGStride + c * 16,
+                          feats + (size_t)src * CIN + c * L::kVec,
+                          e < n_hit ? 16 : 0);
+      }
+      for (int j = tid; j < kRows * (COUT / L::kVec); j += L::kBlock) {
+        const int r = j / (COUT / L::kVec);
+        const int c = j % (COUT / L::kVec);
+        const int e = s * kRows + r;
+        const int row = e < n_hit ? begin + s_list[e] : 0;
+        sessd::cp_async16(d_s + r * L::kDStride + c * 16,
+                          dout + (size_t)row * COUT + c * L::kVec,
+                          e < n_hit ? 16 : 0);
+      }
+    } else {
+      for (int j = tid; j < kRows * (CIN / L::kVec); j += L::kBlock) {
+        const int r = j / (CIN / L::kVec);
+        const int c = j % (CIN / L::kVec);
+        const int src = s_col[s * kRows + r];
+        sessd::cp_async16(g_s + r * L::kGStride + c * 16,
+                          feats + (size_t)(src >= 0 ? src : 0) * CIN +
+                              c * L::kVec,
+                          src >= 0 ? 16 : 0);
+      }
+      for (int j = tid; j < kRows * (COUT / L::kVec); j += L::kBlock) {
+        const int r = j / (COUT / L::kVec);
+        const int c = j % (COUT / L::kVec);
+        const bool hit = s_col[s * kRows + r] >= 0;
+        sessd::cp_async16(
+            d_s + r * L::kDStride + c * 16,
+            dout + (size_t)(hit ? begin + s * kRows + r : 0) * COUT +
+                c * L::kVec,
+            hit ? 16 : 0);
+      }
     }
-    for (int j = tid; j < kRows * (COUT / 8); j += sessd::kMmaThreads) {
-      const int r = j / (COUT / 8);
-      const int c = j % (COUT / 8);
-      const bool hit = s_col[s * kRows + r] >= 0;
-      sessd::cp_async16(
-          d_s + r * L::kDStride + c * 16,
-          dout + (size_t)(hit ? begin + s * kRows + r : 0) * COUT + c * 8,
-          hit ? 16 : 0);
-    }
+  };
+  // the step the pipeline's u-th slot runs
+  auto step_at = [&](int u) -> int {
+    if constexpr (L::kTf32)
+      return u;
+    else
+      return s_steps[u];
   };
 
   const int wm = warp % L::kWm;
@@ -654,46 +814,106 @@ __device__ __forceinline__ void dw_mma_partial(
   // one cp.async group per slot, empty ones too, so that wait_group counts
   // steps
 #pragma unroll
-  for (int s = 0; s < kDwStages - 1; ++s) {
-    if (s < n_steps) issue(s_steps[s], s);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) issue(step_at(s), s);
     sessd::cp_async_commit();
   }
-  // lane l addresses row l % 8 of 8 x 8 box l / 8 of an ldmatrix.x4
+  // bf16: lane l addresses row l % 8 of 8 x 8 box l / 8 of an ldmatrix.x4;
+  // f32: lane l holds fragment row (group) l / 4, column l % 4
   const int box = lane / 8;
   const int box_row = lane % 8;
+  const int grp = lane / 4;
+  const int thr = lane % 4;
   for (int u = 0; u < n_steps; ++u) {
-    sessd::cp_async_wait<kDwStages - 2>();
+    sessd::cp_async_wait<kStages - 2>();
     __syncthreads();  // every thread's chunks of step u; step u - 1 read
-    const int ahead = u + kDwStages - 1;
-    if (ahead < n_steps) issue(s_steps[ahead], ahead % kDwStages);
+    const int ahead = u + kStages - 1;
+    if (ahead < n_steps) issue(step_at(ahead), ahead % kStages);
     sessd::cp_async_commit();
 
-    const uint32_t g_s = sessd::smem_u32(ring + (u % kDwStages) *
-                                                    L::kStageBytes);
-    const uint32_t d_s = g_s + L::kGBytes;
+    unsigned char* stage = ring + (u % kStages) * L::kStageBytes;
+    if constexpr (L::kTf32) {
+      // A = G^T [Cin x 8 rows], B = D [8 rows x Cout], from the staged
+      // rows by 32-bit loads (ldmatrix.trans is b16 only): m16n8k8's a0-a3
+      // are (m g, k t), (m g + 8, k t), (m g, k t + 4), (m g + 8, k t + 4)
+      // and b0, b1 (k t, n g), (k t + 4, n g), i.e. staged rows t and t + 4
+      // of the slice, columns g and g + 8. Each is split into tf32 hi and
+      // lo in registers; per slice the small products first, lo_a hi_b,
+      // hi_a lo_b, then hi_a hi_b (lo_a lo_b, ~2^-22 of the product, is
+      // dropped), into a partial of the step that starts from zero and is
+      // added into acc on the CUDA cores: the tensor cores' own additions
+      // do not round to nearest, and a chunk is up to 8192 rows.
+      const float* g = reinterpret_cast<const float*>(stage);
+      const float* d = reinterpret_cast<const float*>(stage + L::kGBytes);
+      constexpr int g_words = L::kGStride / 4;  // words per staged row
+      constexpr int d_words = L::kDStride / 4;
+      float part[L::kMt][2 * L::kNt][4];
 #pragma unroll
-    for (int kk = wk; kk < 4; kk += L::kWk) {  // 16-row slices of the step
-      // A = G^T [Cin x 16 rows]: boxes (m 0-7, k 0-7), (m 8-15, k 0-7),
-      // (m 0-7, k 8-15), (m 8-15, k 8-15)
-      uint32_t a[L::kMt][4];
+      for (int m = 0; m < L::kMt; ++m)
 #pragma unroll
-      for (int m = 0; m < L::kMt; ++m) {
-        const int row = kk * 16 + (box >> 1) * 8 + box_row;
-        const int col = (wm * L::kMt + m) * 16 + (box & 1) * 8;
-        ldmatrix_x4_trans(a[m], g_s + row * L::kGStride + col * 2);
-      }
-      // B = D [16 rows x Cout]: boxes (k 0-7, n 0-7), (k 8-15, n 0-7),
-      // (k 0-7, n 8-15), (k 8-15, n 8-15): two n8 tiles' fragments
+        for (int n = 0; n < 2 * L::kNt; ++n)
 #pragma unroll
-      for (int n = 0; n < L::kNt; ++n) {
-        uint32_t b[4];
-        const int row = kk * 16 + (box & 1) * 8 + box_row;
-        const int col = (wn * L::kNt + n) * 16 + (box >> 1) * 8;
-        ldmatrix_x4_trans(b, d_s + row * L::kDStride + col * 2);
+          for (int e = 0; e < 4; ++e) part[m][n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < L::kSlices / L::kWk; ++j) {  // the group's slices
+        const int kk = wk + j * L::kWk;
+        const int r0 = kk * 8 + thr;  // staged rows r0 and r0 + 4
+        uint32_t a_hi[L::kMt][4], a_lo[L::kMt][4];
 #pragma unroll
         for (int m = 0; m < L::kMt; ++m) {
-          mma_bf16_16816(acc[m][2 * n], a[m], b[0], b[1]);
-          mma_bf16_16816(acc[m][2 * n + 1], a[m], b[2], b[3]);
+          const int c = (wm * L::kMt + m) * 16 + grp;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32_u32(g[(r0 + (e >> 1) * 4) * g_words + c + (e & 1) * 8],
+                           a_hi[m][e], a_lo[m][e]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2 * L::kNt; ++n) {
+          const int c = (wn * 2 * L::kNt + n) * 8 + grp;
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32_u32(d[r0 * d_words + c], b_hi[0], b_lo[0]);
+          split_tf32_u32(d[(r0 + 4) * d_words + c], b_hi[1], b_lo[1]);
+#pragma unroll
+          for (int m = 0; m < L::kMt; ++m) {  // the small products first
+            mma_tf32_1688(part[m][n], a_lo[m], b_hi[0], b_hi[1]);
+            mma_tf32_1688(part[m][n], a_hi[m], b_lo[0], b_lo[1]);
+            mma_tf32_1688(part[m][n], a_hi[m], b_hi[0], b_hi[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < L::kMt; ++m)
+#pragma unroll
+        for (int n = 0; n < 2 * L::kNt; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
+    } else {
+      const uint32_t g_s = sessd::smem_u32(stage);
+      const uint32_t d_s = g_s + L::kGBytes;
+#pragma unroll
+      for (int kk = wk; kk < L::kSlices; kk += L::kWk) {  // 16-row slices
+        // A = G^T [Cin x 16 rows]: boxes (m 0-7, k 0-7), (m 8-15, k 0-7),
+        // (m 0-7, k 8-15), (m 8-15, k 8-15)
+        uint32_t a[L::kMt][4];
+#pragma unroll
+        for (int m = 0; m < L::kMt; ++m) {
+          const int row = kk * 16 + (box >> 1) * 8 + box_row;
+          const int col = (wm * L::kMt + m) * 16 + (box & 1) * 8;
+          ldmatrix_x4_trans(a[m], g_s + row * L::kGStride + col * 2);
+        }
+        // B = D [16 rows x Cout]: boxes (k 0-7, n 0-7), (k 8-15, n 0-7),
+        // (k 0-7, n 8-15), (k 8-15, n 8-15): two n8 tiles' fragments
+#pragma unroll
+        for (int n = 0; n < L::kNt; ++n) {
+          uint32_t b[4];
+          const int row = kk * 16 + (box & 1) * 8 + box_row;
+          const int col = (wn * L::kNt + n) * 16 + (box >> 1) * 8;
+          ldmatrix_x4_trans(b, d_s + row * L::kDStride + col * 2);
+#pragma unroll
+          for (int m = 0; m < L::kMt; ++m) {
+            mma_bf16_16816(acc[m][2 * n], a[m], b[0], b[1]);
+            mma_bf16_16816(acc[m][2 * n + 1], a[m], b[2], b[3]);
+          }
         }
       }
     }
@@ -719,7 +939,7 @@ __device__ __forceinline__ void dw_mma_partial(
       }
   __syncthreads();
   float* dst = partial + ((size_t)chunk * taps + k) * CIN * COUT;
-  for (int e = tid; e < CIN * COUT; e += sessd::kMmaThreads) {
+  for (int e = tid; e < CIN * COUT; e += L::kBlock) {
     float v = red[e];
 #pragma unroll
     for (int w = 1; w < L::kWk; ++w) v += red[w * CIN * COUT + e];
@@ -727,9 +947,17 @@ __device__ __forceinline__ void dw_mma_partial(
   }
 }
 
+// whether the weight gradient's partial kernel for (T, CIN, COUT) takes
+// the tensor-core body: bf16 (mma.sync m16n8k16) or f32 through 3xTF32
+// (m16n8k8) with Cin, Cout in {16, 32, 64}
+template <typename T, int CIN, int COUT>
+constexpr bool kDwTensor =
+    sessd::kMmaTile<T, CIN, COUT> || sessd::kTf32Tile<T, CIN, COUT>;
+
 // The partial kernel of the weight gradient: the tensor-core body for
-// bf16 with Cin, Cout in {16, 32, 64} (grid [taps, chunks], kMmaThreads),
-// the scalar body otherwise (grid [chunks, taps], kThreads).
+// bf16, and f32 through 3xTF32, with Cin, Cout in {16, 32, 64} (grid
+// [taps, chunks], DwMma::kBlock threads), the scalar body otherwise (grid
+// [chunks, taps], kThreads).
 template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
 sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
@@ -737,26 +965,29 @@ sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
                               const T* __restrict__ dout,
                               float* __restrict__ partial, int n_in,
                               int n_out, int taps, int chunk_rows) {
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
-    dw_mma_partial<IdxT, CIN, COUT>(feats, rb, dout, partial, n_in, n_out,
-                                    taps, chunk_rows, blockIdx.y, blockIdx.x);
+  if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                sessd::kTf32Tile<T, CIN, COUT>)
+    dw_mma_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in, n_out,
+                                       taps, chunk_rows, blockIdx.y,
+                                       blockIdx.x);
   else
     dw_scalar_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
                                           n_out, taps, chunk_rows,
                                           blockIdx.x, blockIdx.y);
 }
 
-// the scalar body in bf16 under a name of its own, for comparisons only
-template <typename IdxT, int CIN, int COUT>
+// the scalar body in either type under a name of its own, for comparisons
+// only: the body bf16 dW ran before mma.sync and f32 dW before 3xTF32
+template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
-sparse_conv_dw_scalar_kernel(const __nv_bfloat16* __restrict__ feats,
+sparse_conv_dw_scalar_kernel(const T* __restrict__ feats,
                              const IdxT* __restrict__ rb,
-                             const __nv_bfloat16* __restrict__ dout,
+                             const T* __restrict__ dout,
                              float* __restrict__ partial, int n_in,
                              int n_out, int taps, int chunk_rows) {
-  dw_scalar_partial<__nv_bfloat16, IdxT, CIN, COUT>(
-      feats, rb, dout, partial, n_in, n_out, taps, chunk_rows, blockIdx.x,
-      blockIdx.y);
+  dw_scalar_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
+                                        n_out, taps, chunk_rows, blockIdx.x,
+                                        blockIdx.y);
 }
 
 // dw[e] = sum over chunks, in order, of partial[chunk, e]; e over K*Cin*Cout
@@ -779,22 +1010,30 @@ cudaError_t launch_dw_reduce(const float* partial, void* dw, int chunks,
   return cudaGetLastError();
 }
 
+// above 48 KB a block's shared memory must be asked for, once per
+// tensor-core instance (at the largest chunk)
+template <typename T, typename IdxT, int CIN, int COUT>
+cudaError_t dw_allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sparse_conv_dw_partial_kernel<T, IdxT, CIN, COUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DwMma<T, CIN, COUT>::smem_bytes(kDwMaxChunkRows));
+  return attr;
+}
+
 template <typename T, typename IdxT, int CIN, int COUT>
 cudaError_t launch_dw(const void* feats, const void* rb, const void* dout,
                       float* partial, void* dw, int n_in, int n_out, int taps,
                       int chunk_rows, cudaStream_t stream) {
   const int chunks = (n_out + chunk_rows - 1) / chunk_rows;
   auto* kern = sparse_conv_dw_partial_kernel<T, IdxT, CIN, COUT>;
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
-    using L = DwMma<CIN, COUT>;
+  if constexpr (kDwTensor<T, CIN, COUT>) {
+    using L = DwMma<T, CIN, COUT>;
     if (chunk_rows % kRows != 0 || chunk_rows > kDwMaxChunkRows)
       return cudaErrorInvalidValue;
-    // above 48 KB a block's shared memory must be asked for, once per kernel
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::smem_bytes(kDwMaxChunkRows));
+    const cudaError_t attr = dw_allow_smem<T, IdxT, CIN, COUT>();
     if (attr != cudaSuccess) return attr;
-    kern<<<dim3(taps, chunks), sessd::kMmaThreads, L::smem_bytes(chunk_rows),
+    kern<<<dim3(taps, chunks), L::kBlock, L::smem_bytes(chunk_rows),
            stream>>>(static_cast<const T*>(feats),
                      static_cast<const IdxT*>(rb),
                      static_cast<const T*>(dout), partial, n_in, n_out, taps,
@@ -809,22 +1048,20 @@ cudaError_t launch_dw(const void* feats, const void* rb, const void* dout,
   return launch_dw_reduce<T>(partial, dw, chunks, taps * CIN * COUT, stream);
 }
 
-template <typename IdxT, int CIN, int COUT>
+template <typename T, typename IdxT, int CIN, int COUT>
 cudaError_t launch_dw_scalar(const void* feats, const void* rb,
                              const void* dout, float* partial, void* dw,
                              int n_in, int n_out, int taps, int chunk_rows,
                              cudaStream_t stream) {
   const int chunks = (n_out + chunk_rows - 1) / chunk_rows;
-  sparse_conv_dw_scalar_kernel<IdxT, CIN, COUT>
+  sparse_conv_dw_scalar_kernel<T, IdxT, CIN, COUT>
       <<<dim3(chunks, taps), kThreads, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(feats),
-          static_cast<const IdxT*>(rb),
-          static_cast<const __nv_bfloat16*>(dout), partial, n_in, n_out, taps,
+          static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
+          static_cast<const T*>(dout), partial, n_in, n_out, taps,
           chunk_rows);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_dw_reduce<__nv_bfloat16>(partial, dw, chunks,
-                                         taps * CIN * COUT, stream);
+  return launch_dw_reduce<T>(partial, dw, chunks, taps * CIN * COUT, stream);
 }
 
 // the weight gradient's (Cin, Cout) pairs: the forward's
@@ -850,7 +1087,7 @@ cudaError_t dispatch_dw(int cin, int cout, const void* feats, const void* rb,
   return cudaErrorInvalidValue;
 }
 
-template <typename IdxT>
+template <typename T, typename IdxT>
 cudaError_t dispatch_dw_scalar(int cin, int cout, const void* feats,
                                const void* rb, const void* dout,
                                float* partial, void* dw, int n_in, int n_out,
@@ -858,20 +1095,53 @@ cudaError_t dispatch_dw_scalar(int cin, int cout, const void* feats,
                                cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch_dw_scalar<IdxT, CI, CO>(feats, rb, dout, partial, dw,      \
-                                          n_in, n_out, taps, chunk_rows,     \
-                                          stream);
+    return launch_dw_scalar<T, IdxT, CI, CO>(feats, rb, dout, partial, dw,   \
+                                             n_in, n_out, taps, chunk_rows,  \
+                                             stream);
   SESSD_DW_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
 
-// 2 where the weight gradient's partial kernel for (T, cin, cout) takes the
-// tensor-core body, 1 the scalar body, 0 where there is none
+// the code of the weight gradient's partial kernel for (T, cin, cout), as
+// tile_code: 3 the tensor-core body through 3xTF32, 2 the tensor-core body
+// in bf16, 1 the scalar body, 0 where there is none
 template <typename T>
 int dw_instance(int cin, int cout) {
+#define SESSD_CASE(CI, CO)                                                   \
+  if (cin == CI && cout == CO)                                               \
+    return !kDwTensor<T, CI, CO> ? 1 : sessd::kTf32Tile<T, CI, CO> ? 3 : 2;
+  SESSD_DW_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  return 0;
+}
+
+// blocks of the int32-rulebook partial kernel for (T, CIN, COUT) that fit
+// one SM at its threads, registers and the shared memory of a chunk of
+// chunk_rows rows; 0 where it cannot be read
+template <typename T, int CIN, int COUT>
+int dw_tile_blocks_per_sm(int chunk_rows) {
+  const auto kern = sparse_conv_dw_partial_kernel<T, int32_t, CIN, COUT>;
+  int blocks = 0;
+  cudaError_t err;
+  if constexpr (kDwTensor<T, CIN, COUT>) {
+    err = dw_allow_smem<T, int32_t, CIN, COUT>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, DwMma<T, CIN, COUT>::kBlock,
+          DwMma<T, CIN, COUT>::smem_bytes(chunk_rows));
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                        kThreads, 0);
+  }
+  return err == cudaSuccess ? blocks : 0;
+}
+
+template <typename T>
+int dw_blocks_per_sm(int cin, int cout, int chunk_rows) {
 #define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+  if (cin == CI && cout == CO)              \
+    return dw_tile_blocks_per_sm<T, CI, CO>(chunk_rows);
   SESSD_DW_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
@@ -989,8 +1259,8 @@ extern "C" int sessd_sparse_conv_dfeat_instance(int cin, int cout,
 
 // dw [taps, cin, cout] = sum_n feats[rb[n, k]]^T dout[n]; partial is f32
 // scratch of [ceil(n_out / chunk_rows), taps, cin, cout]. The tensor-core
-// instances want chunk_rows a multiple of 64 up to 8192, and feats and dout
-// 16-byte aligned.
+// instances (bf16, and f32 through 3xTF32) want chunk_rows a multiple of 64
+// up to 8192, and feats and dout 16-byte aligned.
 extern "C" int sessd_sparse_conv_dw(const void* feats, const void* rb,
                                     const void* dout, float* partial,
                                     void* dw, int n_in, int n_out, int cin,
@@ -1006,31 +1276,44 @@ extern "C" int sessd_sparse_conv_dw(const void* feats, const void* rb,
 #undef SESSD_CALL
 }
 
-// The scalar partial body in bf16 under its own kernel name, for
-// comparisons: sessd_sparse_conv_dw's arguments, dtype 1 only.
+// The scalar partial body in either type under its own kernel name
+// (sparse_conv_dw_scalar_kernel), for comparisons: sessd_sparse_conv_dw's
+// arguments.
 extern "C" int sessd_sparse_conv_dw_scalar(const void* feats, const void* rb,
                                            const void* dout, float* partial,
                                            void* dw, int n_in, int n_out,
                                            int cin, int cout, int taps,
                                            int chunk_rows, int dtype,
                                            int idx_bytes, void* stream) {
-  if (bad_args(n_in, n_out, taps) || chunk_rows <= 0 || dtype != 1)
+  if (bad_args(n_in, n_out, taps) || chunk_rows <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx_bytes == 2)
-    return dispatch_dw_scalar<int16_t>(cin, cout, feats, rb, dout, partial,
-                                       dw, n_in, n_out, taps, chunk_rows, s);
-  if (idx_bytes == 4)
-    return dispatch_dw_scalar<int32_t>(cin, cout, feats, rb, dout, partial,
-                                       dw, n_in, n_out, taps, chunk_rows, s);
-  return cudaErrorInvalidValue;
+#define SESSD_CALL(T, I)                                                     \
+  dispatch_dw_scalar<T, I>(cin, cout, feats, rb, dout, partial, dw, n_in,   \
+                           n_out, taps, chunk_rows, s)
+  SESSD_TYPES(SESSD_CALL)
+#undef SESSD_CALL
 }
 
 // Which body sessd_sparse_conv_dw's partial kernel takes for (cin, cout,
-// dtype): 2 the tensor-core body, 1 the scalar body, 0 none.
+// dtype): 3 the tensor-core body through 3xTF32, 2 the tensor-core body in
+// bf16, 1 the scalar body, 0 none.
 extern "C" int sessd_sparse_conv_dw_instance(int cin, int cout, int dtype) {
   if (dtype == 0) return dw_instance<float>(cin, cout);
   if (dtype == 1) return dw_instance<__nv_bfloat16>(cin, cout);
+  return 0;
+}
+
+// Blocks of the int32-rulebook partial kernel of sessd_sparse_conv_dw for
+// (cin, cout, dtype) that fit one SM at once, at the shared memory of a
+// chunk of chunk_rows rows; 0 for a pair it has no instance of, or where it
+// cannot be read.
+extern "C" int sessd_sparse_conv_dw_blocks_per_sm(int cin, int cout,
+                                                  int dtype, int chunk_rows) {
+  if (chunk_rows <= 0 || chunk_rows > kDwMaxChunkRows) return 0;
+  if (dtype == 0) return dw_blocks_per_sm<float>(cin, cout, chunk_rows);
+  if (dtype == 1)
+    return dw_blocks_per_sm<__nv_bfloat16>(cin, cout, chunk_rows);
   return 0;
 }
 

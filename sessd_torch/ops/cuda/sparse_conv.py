@@ -10,9 +10,11 @@ CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
 it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
 ``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes,
 ``cluster_split`` the cluster size of a bf16 ``fused_sparse_conv``) or
-raises. ``fused_sparse_conv_scalar`` (the scalar tile's bf16 body) and
-``fused_sparse_conv_at_split`` (K1 at a given cluster size) exist for
-same-call comparisons only; nothing on the serving path calls them. The
+raises. ``fused_sparse_conv_scalar`` (the scalar tile's bf16 body),
+``fused_sparse_conv_at_split`` (K1 at a given cluster size) and
+``fused_sparse_conv_stream_ring`` (the two-slot ring f32 K3 ran before its
+3xTF32 tile) exist for same-call comparisons only; nothing on the serving
+path calls them. The
 kernels are compiled with nvcc into ``build/sessd_torch/`` at the first
 CUDA call (cached by a hash of the sources and flags) and loaded with
 ctypes; importing this module builds nothing.
@@ -71,10 +73,12 @@ STREAM_PAIRS = FWD_PAIRS[1:]
 FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
 DFEAT_PAIRS = ((16, 4), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile, kTf32Tile
-# the entries whose f32 instances at MMA_CHANNELS take the tensor-core tile
-# through 3xTF32 (csrc/sparse_conv_train.cu: kTensorTile); the f32 forward's
-# 3xTF32 body is the comparison entry sparse_conv_fwd_tf32
-TF32_ENTRIES = ("sparse_conv_dfeat",)
+# the entries whose f32 instances at MMA_CHANNELS take a tensor-core body
+# through 3xTF32 (csrc/sparse_conv_train.cu: kTensorTile, kDwTensor;
+# csrc/sparse_conv_stream.cu: kTensor); the f32 forward's 3xTF32 body is the
+# comparison entry sparse_conv_fwd_tf32, and f32 K1 keeps the scalar tile
+TF32_ENTRIES = ("fused_sparse_conv_stream", "sparse_conv_dfeat",
+                "sparse_conv_dw")
 # csrc/sparse_conv_train.cu: tile_code, what the C instance entries answer
 INSTANCE_CODES = {"tf32": 3, "mma": 2, "scalar": 1}
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
@@ -94,12 +98,11 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
     compile time: "mma" (bf16 with Cin and Cout in {16, 32, 64}: the
     tensor-core tile of ``csrc/gather_mma.cuh`` for the convs and the input
     gradient, the mma.sync partial kernel of ``sparse_conv_train.cu`` for
-    dW), "tf32" (f32 at those channels in the input gradient: the same
-    tile through 3xTF32) or "scalar"
-    (``gather_gemm.cuh``'s tile, the stream kernel's f32 ring, or dW's
-    scalar partial kernel). For "sparse_conv_dfeat", (cin, cout) is its
-    gather's pair: the conv's (Cout, Cin). Raises ValueError where the
-    entry has no instance."""
+    dW), "tf32" (f32 at those channels in the entries of TF32_ENTRIES: the
+    same bodies through 3xTF32, dW's on mma.sync m16n8k8) or "scalar"
+    (``gather_gemm.cuh``'s tile, or dW's scalar partial kernel). For
+    "sparse_conv_dfeat", (cin, cout) is its gather's pair: the conv's
+    (Cout, Cin). Raises ValueError where the entry has no instance."""
     if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
                          f"Cout={cout}")
@@ -187,6 +190,8 @@ def build() -> ctypes.CDLL:
             lib.sessd_fused_sparse_conv.argtypes
         lib.sessd_fused_sparse_conv_scalar.argtypes = \
             lib.sessd_fused_sparse_conv.argtypes
+        lib.sessd_fused_sparse_conv_stream_ring.argtypes = \
+            lib.sessd_fused_sparse_conv.argtypes
         # ... relu, split; stream
         lib.sessd_fused_sparse_conv_at_split.argtypes = \
             [ptr] * 5 + [i32] * 9 + [ptr]
@@ -232,11 +237,15 @@ def build() -> ctypes.CDLL:
         lib.sessd_fused_sparse_conv_wave.argtypes = [i32] * 2
         lib.sessd_fused_sparse_conv_split.argtypes = [i32] * 4
         # entry (0 fwd, 1 dfeat, 2 fwd_tf32), cin, cout, dtype -> blocks per
-        # SM of a training instance
+        # SM of a training instance; dW's at (cin, cout, dtype, chunk_rows),
+        # the stream kernel's at (cin, cout, dtype)
         lib.sessd_sparse_conv_train_blocks_per_sm.argtypes = [i32] * 4
+        lib.sessd_sparse_conv_dw_blocks_per_sm.argtypes = [i32] * 4
+        lib.sessd_fused_sparse_conv_stream_blocks_per_sm.argtypes = [i32] * 3
         for fn in (lib.sessd_fused_sparse_conv,
                    lib.sessd_fused_sparse_conv_stream,
                    lib.sessd_fused_sparse_conv_scalar,
+                   lib.sessd_fused_sparse_conv_stream_ring,
                    lib.sessd_fused_sparse_conv_at_split,
                    lib.sessd_sparse_conv_fwd,
                    lib.sessd_sparse_conv_fwd_tf32,
@@ -249,7 +258,10 @@ def build() -> ctypes.CDLL:
                    lib.sessd_sparse_conv_fwd_repeat,
                    lib.sessd_fused_sparse_conv_wave,
                    lib.sessd_fused_sparse_conv_split,
-                   lib.sessd_sparse_conv_train_blocks_per_sm, *instances):
+                   lib.sessd_sparse_conv_train_blocks_per_sm,
+                   lib.sessd_sparse_conv_dw_blocks_per_sm,
+                   lib.sessd_fused_sparse_conv_stream_blocks_per_sm,
+                   *instances):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p
         lib.sessd_cuda_error_string.argtypes = [i32]
@@ -445,23 +457,56 @@ def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
                              w2: torch.Tensor, bias: torch.Tensor, n_in: int,
                              relu: bool = True) -> torch.Tensor:
     """``fused_sparse_conv``'s function and contract, through the streaming
-    kernel (``csrc/sparse_conv_stream.cu``): in bf16 the tensor-core tile
-    of ``gather_mma.cuh`` (a 4-stage cp.async ring, taps no row of a tile
-    hits skipped), bit-equal to K1 where K1 runs one CTA per tile; in f32 a
-    two-slot ring with K1's summation order, bit-equal to K1
-    (``conv_instance``). Takes Cin in {16, 32, 64}: the 4-channel first
-    conv never streams. CPU tensors take the twin; CUDA tensors launch the
-    kernel, counted in ``fused_sparse_conv_stream.launches``.
+    kernel (``csrc/sparse_conv_stream.cu``): the tensor-core tile of
+    ``gather_mma.cuh`` (a 4-stage cp.async ring, taps no row of a tile hits
+    skipped), in bf16 bit-equal to K1 where K1 runs one CTA per tile, in f32
+    through 3xTF32, bit-equal to ``sparse_conv_fwd_tf32`` plus bias, ReLU
+    and the any-hit mask, and within 1e-4 of f32 K1 (``conv_instance``).
+    Takes Cin in {16, 32, 64}: the 4-channel first conv never streams. CPU
+    tensors take the twin; CUDA tensors launch the kernel, counted in
+    ``fused_sparse_conv_stream.launches``.
     """
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if w2.shape[1] not in (16, 32, 64):
-        raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
-                         "or 64 input channels")
-    _check_aligned(feats, w2)
+    _check_stream(feats, w2)
     out = _launch("fused_sparse_conv_stream", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv_stream.launches += 1
     return out
 
 
 fused_sparse_conv_stream.launches = 0
+
+
+def _check_stream(feats, w2):
+    if w2.shape[1] not in MMA_CHANNELS:
+        raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
+                         "or 64 input channels")
+    _check_aligned(feats, w2)
+
+
+def fused_sparse_conv_stream_ring(feats, rb, w2, bias, n_in, relu=True):
+    """``fused_sparse_conv_stream`` through the two-slot scalar ring
+    (``fused_sparse_conv_stream_ring_kernel``), the body f32 K3 ran before
+    the 3xTF32 tile, in K1's summation order: for same-call comparisons
+    only. f32 only; CPU tensors take the twin. Counted in
+    ``fused_sparse_conv_stream_ring.launches``."""
+    if not _on_device(feats, rb, w2, bias, n_in):
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+    if feats.dtype != torch.float32:
+        raise ValueError("the ring entry takes f32 only")
+    _check_stream(feats, w2)
+    out = _launch("fused_sparse_conv_stream_ring", feats, rb, w2, bias, n_in,
+                  relu)
+    fused_sparse_conv_stream_ring.launches += 1
+    return out
+
+
+fused_sparse_conv_stream_ring.launches = 0
+
+
+def stream_blocks_per_sm(cin: int, cout: int, dtype) -> int:
+    """Blocks of the int32-rulebook instance of ``fused_sparse_conv_stream``
+    for these channels and type that fit one SM of the current card (the
+    occupancy API), 0 where there is none; needs a CUDA device."""
+    return build().sessd_fused_sparse_conv_stream_blocks_per_sm(
+        cin, cout, _DTYPE_CODES[dtype])

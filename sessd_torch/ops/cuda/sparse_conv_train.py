@@ -7,14 +7,16 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
 ``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
 tensor-core tile of the forward and input gradient in bf16, and of the
-input gradient in f32 through 3xTF32), built with the serving kernel by ``ops.cuda.sparse_conv.build``
-at the first CUDA call. On a CPU tensor each wrapper runs its twin; on a
-CUDA tensor it launches its kernel, counted in ``<wrapper>.launches``, or
-raises. ``sparse_conv_dfeat_scalar`` (the scalar body in f32 and bf16)
-and ``sparse_conv_dw_scalar`` (in bf16), which the tensor-core ones
-replaced, and ``sparse_conv_fwd_tf32`` (the f32 forward through 3xTF32,
-which the f32 step's parity gate keeps off the training path) exist for
-same-call comparisons only; the training step never calls them.
+input gradient in f32 through 3xTF32), built with the serving kernel by
+``ops.cuda.sparse_conv.build`` at the first CUDA call; dW's tensor-core
+body (mma.sync, bf16 and f32 through 3xTF32) is in the ``.cu`` itself. On
+a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches its
+kernel, counted in ``<wrapper>.launches``, or raises.
+``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar`` (the scalar
+bodies in f32 and bf16, which the tensor-core ones replaced) and
+``sparse_conv_fwd_tf32`` (the f32 forward through 3xTF32, which the f32
+step's parity gate keeps off the training path) exist for same-call
+comparisons only; the training step never calls them.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -62,7 +64,7 @@ def sparse_conv_dw_ref(feats, rb, dout):
         feats.dtype)
 
 
-TF32_DEPTH = 8  # the reduction depth of one TF32 wgmma (m64nNk8)
+TF32_DEPTH = 8  # the reduction depth of one TF32 mma: wgmma m64nNk8, mma.sync m16n8k8
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -108,6 +110,80 @@ def gather_gemm_tf32(feats, rb, w2, passes: int = 3) -> torch.Tensor:
             part += a_hi[:, k, s] @ b_hi[k, s]
         acc += part
     return acc
+
+
+DW_TF32_WARPS = 8  # csrc/sparse_conv_train.cu: DwMma::kWarps in f32
+
+
+def dw_warp_split(cin: int, cout: int) -> int:
+    """How many groups of warps split each 64-row step's eight k8 slices in
+    dW's f32 tensor-core body (``csrc/sparse_conv_train.cu``:
+    ``DwMma::kWk``): the block's 8 warps split Cin and Cout in up to 2
+    each, the rest the slices (16 -> 16: 8, 16 -> 32: 4, from 32 -> 32 on:
+    2)."""
+    wm, wn = min(cin // 16, 2), min(cout // 16, 2)
+    return DW_TF32_WARPS // (wm * wn)
+
+
+def dw_tf32(feats, rb, dout, chunk_rows: int = DW_CHUNK_ROWS,
+            passes: int = 3) -> torch.Tensor:
+    """The f32 tensor-core dW's arithmetic in plain torch: per (chunk, tap)
+    the chunk's rows that hit the tap, in order, in steps of 64 (zero rows
+    after the last hit, as the kernel's compacted list runs); both operands
+    split by ``split_tf32``; per group of warps (``dw_warp_split``), for
+    each step in order, a partial from zero of, per 8-row k-slice of the
+    group in order, lo_a hi_b, then hi_a lo_b, then hi_a hi_b (``passes``
+    3; with ``passes`` 1 the single TF32 product hi_a hi_b), added into the
+    group's f32 sum; the groups added in order, then the chunks in order
+    (the reduce kernel). Steps of zero rows add zero partials, as the
+    kernel runs no such step. The model of the kernel's numerics that the
+    tests hold against JAX; no path of the port calls it. Returns [K, Cin,
+    Cout] f32."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes {passes}: 1 or 3")
+    n_in, cin = feats.shape
+    n_out, taps = rb.shape
+    cout = dout.shape[1]
+    groups = dw_warp_split(cin, cout)
+    chunks = -(-n_out // chunk_rows)
+    steps, slices = chunk_rows // TILE_ROWS, TILE_ROWS // TF32_DEPTH
+    pad = chunks * chunk_rows - n_out
+    padded = torch.cat([feats.float(), feats.new_zeros(1, cin).float()])
+    hit = (rb >= 0) & (rb < n_in)
+    idx = torch.cat([torch.where(hit, rb.long(), n_in),
+                     rb.new_full((pad, taps), n_in, dtype=torch.long)])
+    hit = torch.cat([hit, hit.new_zeros(pad, taps)]).reshape(
+        chunks, chunk_rows, taps)
+    # per (chunk, tap) its hit rows in order, then its misses
+    order = torch.sort((~hit).to(torch.uint8), dim=1, stable=True).indices
+    rows = (order + torch.arange(chunks, device=rb.device)[:, None, None]
+            * chunk_rows).reshape(-1, taps)
+    keep = hit.gather(1, order).reshape(-1, taps, 1)
+    g = padded[idx.gather(0, rows)]  # [chunks * chunk_rows, taps, cin]
+    d = torch.where(keep, torch.cat([dout.float(), dout.new_zeros(
+        pad, cout).float()])[rows], 0.0)
+    # [chunk, step, slice, row, tap, ...]
+    a_hi, a_lo = split_tf32(g.reshape(chunks, steps, slices, TF32_DEPTH,
+                                      taps, cin))
+    b_hi, b_lo = split_tf32(d.reshape(chunks, steps, slices, TF32_DEPTH,
+                                      taps, cout))
+    prods = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)) if passes == 3 \
+        else ((a_hi, b_hi),)
+    total = None
+    for group in range(groups):
+        acc = torch.zeros(chunks, taps, cin, cout, device=feats.device)
+        for s in range(steps):
+            part = torch.zeros_like(acc)
+            for kk in range(group, slices, groups):
+                for a, b in prods:
+                    part += torch.einsum("crti,crtj->ctij", a[:, s, kk],
+                                         b[:, s, kk])
+            acc += part
+        total = acc if total is None else total + acc
+    dw = total[0].clone()
+    for c in range(1, chunks):
+        dw += total[c]
+    return dw
 
 
 def _check(x, rb, *others):
@@ -291,8 +367,8 @@ def _check_dw(feats, rb, dout, chunk_rows):
                          f"{dout.dtype} for rulebook {tuple(rb.shape)}, "
                          f"features {feats.dtype}")
     cin, cout = feats.shape[1], dout.shape[1]
-    if (cin, cout) in DW_PAIRS and conv_instance(
-            "sparse_conv_dw", feats.dtype, cin, cout) == "mma":
+    if (cin, cout) in DW_PAIRS \
+            and _tensor_tile("sparse_conv_dw", feats.dtype, cin, cout):
         if chunk_rows % TILE_ROWS or not 0 < chunk_rows <= DW_MAX_CHUNK_ROWS:
             raise ValueError(f"chunk_rows {chunk_rows}: the tensor-core dW "
                              f"takes multiples of {TILE_ROWS} up to "
@@ -324,9 +400,12 @@ def sparse_conv_dw(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
     """dw[k] = sum_n feats[rb[n, k]]^T dout[n] ([K, Cin, Cout] in feats'
     dtype, summed in f32 in a fixed order: split-K partials over chunks of
     ``chunk_rows`` rows, then one ordered reduce). dout [N_out, Cout] must
-    be zero on masked rows. bf16 with Cin, Cout in {16, 32, 64} runs the
-    tensor-core partial kernel (feats and dout 16-byte aligned), the rest
-    the scalar one (``conv_instance``)."""
+    be zero on masked rows. Cin, Cout in {16, 32, 64} run the tensor-core
+    partial kernel (bf16 on mma.sync m16n8k16, f32 through 3xTF32 on
+    m16n8k8, whose arithmetic ``dw_tf32`` models), which takes chunk_rows
+    a multiple of 64 up to DW_MAX_CHUNK_ROWS and feats and dout 16-byte
+    aligned; the first conv's Cin = 4 runs the scalar one
+    (``conv_instance``)."""
     if not _device(feats):
         return sparse_conv_dw_ref(feats, rb, dout)
     _check_dw(feats, rb, dout, chunk_rows)
@@ -336,14 +415,13 @@ def sparse_conv_dw(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
 
 
 def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
-    """``sparse_conv_dw`` through the scalar partial kernel's bf16 body
-    (``sparse_conv_dw_scalar_kernel``), the one bf16 dW ran before the
-    tensor-core kernel: for same-call comparisons only. bf16 only; CPU
-    tensors take the twin. Counted in ``sparse_conv_dw_scalar.launches``."""
+    """``sparse_conv_dw`` through the scalar partial kernel
+    (``sparse_conv_dw_scalar_kernel``), the body dW ran before the
+    tensor-core kernel (bf16 before mma.sync, f32 before 3xTF32), in either
+    type: for same-call comparisons only. CPU tensors take the twin.
+    Counted in ``sparse_conv_dw_scalar.launches``."""
     if not _device(feats):
         return sparse_conv_dw_ref(feats, rb, dout)
-    if feats.dtype != torch.bfloat16:
-        raise ValueError("the scalar entry takes bf16 only")
     _check_dw(feats, rb, dout, chunk_rows)
     dw = _launch_dw("sparse_conv_dw_scalar", feats, rb, dout, chunk_rows)
     sparse_conv_dw_scalar.launches += 1
@@ -351,16 +429,21 @@ def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
 
 
 BLOCKS_ENTRIES = ("sparse_conv_fwd", "sparse_conv_dfeat",
-                  "sparse_conv_fwd_tf32")
+                  "sparse_conv_fwd_tf32", "sparse_conv_dw")
 
 
-def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int,
-                  cout: int) -> int:
+def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int, cout: int,
+                  chunk_rows: int = DW_CHUNK_ROWS) -> int:
     """Blocks of the int32-rulebook instance of ``entry`` (one of
-    BLOCKS_ENTRIES; the input gradient by its gather's pair) for these
+    BLOCKS_ENTRIES; the input gradient by its gather's pair, dW's partial
+    kernel at the shared memory of ``chunk_rows``-row chunks) for these
     types and channels that fit one SM of the current card at once (the
     occupancy API), 0 where there is none; needs a CUDA device."""
-    return build().sessd_sparse_conv_train_blocks_per_sm(
+    lib = build()
+    if entry == "sparse_conv_dw":
+        return lib.sessd_sparse_conv_dw_blocks_per_sm(
+            cin, cout, _DTYPE_CODES[dtype], chunk_rows)
+    return lib.sessd_sparse_conv_train_blocks_per_sm(
         BLOCKS_ENTRIES.index(entry), cin, cout, _DTYPE_CODES[dtype])
 
 

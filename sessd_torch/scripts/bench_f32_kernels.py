@@ -16,18 +16,22 @@ make_synthetic_root``), seeded random weights:
   the student's convs after the first: 9) and dW (``sparse_conv_dw``, the
   student's 10), each with its plain twin and, where the tree has them,
   K4's 3xTF32 entry (``sparse_conv_fwd_tf32``, on the convs with 16-64
-  channels) and dFeat's scalar entry (``sparse_conv_dfeat_scalar``, the
-  body f32 dFeat ran before) on the same calls;
+  channels) and the scalar entries of dFeat and dW
+  (``sparse_conv_dfeat_scalar``, ``sparse_conv_dw_scalar`` in f32: the
+  bodies f32 dFeat and dW ran before 3xTF32) on the same calls;
 - its first val batch on host chains (batch 4): K1 (``fused_sparse_conv``)
   on the convs the stream rule keeps resident and K3
-  (``fused_sparse_conv_stream``) on the others, with their twin.
+  (``fused_sparse_conv_stream``) on the others, with their twin and, where
+  the tree has it, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
+  the body f32 K3 ran before 3xTF32) on the same calls.
 
 Every time is a device time (``queued_device_ms``, the median of 20). Per
 kernel: the mean ms per launch over its convs, the bound per launch (each
 input read and each output written once over 3.35 TB/s, against 2 x hits x
 Cin x Cout flops over 67 TFLOP/s on the scalar body, or three times those
 flops over TF32's 494.7 TFLOP/s on a 3xTF32 body, the larger; the body as
-``conv_instance`` names it in the tree under test), and its launches per
+``conv_instance`` names it in the tree under test; dW's also with its f32
+partials written and read back), and its launches per
 f32 path: a training step (24 K4, 9 dFeat, 10 dW), an eval batch on device
 chains (the student's 10 K4) and an eval batch on host chains (the K1 and
 K3 the stream rule gives). The second form times another tree's kernels
@@ -75,10 +79,12 @@ CONV_CHAIN = [c for stage, (_, n_subm, dk, _, _) in enumerate(PLAN)
               + [("subm", stage, stage)] * n_subm]
 
 
-def bound_ms(tensors, hits: int, cin: int, cout: int, body: str) -> dict:
-    """The least device ms of one launch: its bytes over the memory rate
-    against its flops over the rate of its body, and which of the two."""
-    moved = sum(t.numel() * t.element_size() for t in tensors)
+def bound_ms(tensors, hits: int, cin: int, cout: int, body: str,
+             extra_bytes: int = 0) -> dict:
+    """The least device ms of one launch: its bytes (the tensors' and
+    ``extra_bytes``) over the memory rate against its flops over the rate
+    of its body, and which of the two."""
+    moved = sum(t.numel() * t.element_size() for t in tensors) + extra_bytes
     flops = 2 * hits * cin * cout
     secs = {"bytes": moved / HBM_BYTES_PER_S,
             "operations": TF32_PASSES * flops / TF32_FLOPS
@@ -101,7 +107,8 @@ class Rows:
     def summary(self) -> dict:
         n = len(self.rows)
         out = {"convs": n}
-        for key in ("ms", "plain_ms", "old_tile_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "old_tile_ms", "bound_ms",
+                    "bound_with_partials_ms"):
             vals = [r[key] for r in self.rows if r.get(key) is not None]
             out[key] = sum(vals) / len(vals) if len(vals) == n else None
         # K4's 3xTF32 entry: over the convs it takes (16-64 channels), with
@@ -142,8 +149,9 @@ def first_batch(trainer):
     return trainer._device_batch(batch)
 
 
-def time_train(trainer, records, has_entries):
-    """K4 on both chains, dFeat and dW on the student's."""
+def time_train(trainer, records, has_entries, has_dw_entry):
+    """K4 on both chains, dFeat and dW on the student's; the old bodies'
+    entries on the same calls where the tree has them."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     db = first_batch(trainer)
@@ -209,6 +217,8 @@ def time_train(trainer, records, has_entries):
                 body = sc.conv_instance("sparse_conv_dw", torch.float32,
                                         cin, cout)
                 got = kt.sparse_conv_dw(x, rbk, dout)
+                chunks = -(-rbk.shape[0] // kt.DW_CHUNK_ROWS)
+                partials = 2 * chunks * rbk.shape[1] * cin * cout * 4
                 row = records["dw"].add(
                     plan=plan, conv=i, cin=cin, cout=cout, rows=rbk.shape[0],
                     body=body,
@@ -216,6 +226,12 @@ def time_train(trainer, records, has_entries):
                                                                   dout), REPS),
                     plain_ms=queued_device_ms(
                         lambda: kt.sparse_conv_dw_ref(x, rbk, dout), REPS),
+                    old_tile_ms=queued_device_ms(
+                        lambda: kt.sparse_conv_dw_scalar(x, rbk, dout),
+                        REPS) if has_dw_entry else None,
+                    bound_with_partials_ms=bound_ms(
+                        (x, rbk, dout, got), n_hits, cin, cout, body,
+                        partials)["ms"],
                     **_bound(bound_ms((x, rbk, dout, got), n_hits, cin, cout,
                                       body)))
                 line += _line("dw", row)
@@ -238,9 +254,10 @@ def _line(name, row) -> str:
             f"({row['bound_by']});")
 
 
-def time_eval(trainer, records):
+def time_eval(trainer, records, has_ring):
     """K1 and K3 on the first val batch's host chains, as validate() runs
-    them (the stream rule at the trainer's caps)."""
+    them (the stream rule at the trainer's caps); K3 with its ring on the
+    same calls where the tree has it."""
     batch = first(trainer.val_loader)
     host_rb = trainer._eval_inputs(batch)
     def put(a):
@@ -260,14 +277,18 @@ def time_eval(trainer, records):
         args = (x, rbk, w2, bias, n_in)
         y = fn(*args)
         cin, cout = x.shape[1], w2.shape[2]
+        body = sc.conv_instance(fn.__name__, torch.float32, cin, cout)
+        ring = has_ring and name == "k3"
         row = records[name].add(
-            conv=i, cin=cin, cout=cout, rows=rbk.shape[0],
-            body=sc.conv_instance(fn.__name__, torch.float32, cin, cout),
+            conv=i, cin=cin, cout=cout, rows=rbk.shape[0], body=body,
             ms=queued_device_ms(lambda: fn(*args), REPS),
             plain_ms=queued_device_ms(
                 lambda: sc.fused_sparse_conv_ref(*args), REPS),
+            old_tile_ms=queued_device_ms(
+                lambda: sc.fused_sparse_conv_stream_ring(*args), REPS)
+            if ring else None,
             **_bound(bound_ms((x, rbk, w2, bias, y), int((rbk != n_in).sum()),
-                              cin, cout, "scalar")))
+                              cin, cout, body)))
         print(f"eval conv {i:2d} {cin:2d}->{cout:2d} rows "
               f"{rbk.shape[0]:6d}:{_line(name, row)}")
         return y
@@ -289,6 +310,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     has_entries = hasattr(kt, "sparse_conv_fwd_tf32")
+    # trees whose f32 dW and K3 run 3xTF32 keep the old bodies as entries
+    has_dw_entry = sc.conv_instance("sparse_conv_dw", torch.float32, 16,
+                                    16) == "tf32"
+    has_ring = hasattr(sc, "fused_sparse_conv_stream_ring")
     records = {k: Rows() for k in ("fwd", "dfeat", "dw", "k1", "k3")}
     with tempfile.TemporaryDirectory(prefix="bench_f32_") as tmp:
         root = f"{tmp}/kitti"
@@ -299,8 +324,8 @@ def main(argv=None):
         if cfg.get("precision") != "float32":
             raise SystemExit(f"{CONFIG} is not the f32 config")
         with torch.no_grad():
-            time_train(trainer, records, has_entries)
-        time_eval(trainer, records)
+            time_train(trainer, records, has_entries, has_dw_entry)
+        time_eval(trainer, records, has_ring)
     summary = {k: r.summary() for k, r in records.items()}
     launches = {"train_step": {"fwd": 24, "dfeat": 9, "dw": 10},
                 "eval_device_chains": {"fwd": 10},
@@ -314,6 +339,8 @@ def main(argv=None):
                     f"{s['ms_on_tf32_entry_convs']:.4f} against the tf32 "
                     f"entry's {s['tf32_entry_ms']:.4f} (bound "
                     f"{s['tf32_entry_bound_ms']:.4f})")
+        if s["bound_with_partials_ms"] is not None:
+            old += f", bound with partials {s['bound_with_partials_ms']:.4f}"
         print(f"f32 {k}: {s['convs']} convs, {s['body']}, per launch "
               f"{s['ms']:.4f} ms{old}, twin {s['plain_ms']:.4f}, bound "
               f"{s['bound_ms']:.4f} ({', '.join(s['bound_by'])}) [{card}]")

@@ -1,14 +1,18 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
 card: the serving convs (K1, and K3, the streaming one, also against K1:
-bit for bit in f32, and in bf16 where K1 runs one CTA per tile), the
+in bf16 bit for bit where K1 runs one CTA per tile; in f32, where K3 runs
+3xTF32 and K1 the scalar tile, within 1e-4, and K3 bit for bit equal to
+the forward's 3xTF32 entry with bias, ReLU and the any-hit mask), the
 training conv's forward (K4), input gradient and weight gradient (K5), the
 tensor-core tile of bf16 K1, K3, K4 and dFeat (K-major B, one launch per
-call) on tiles that skip taps, the same tile through 3xTF32 in f32 dFeat
-and in the f32 forward's comparison entry ``sparse_conv_fwd_tf32`` (against
-the twins, the scalar bodies and the plain model of its arithmetic,
-``kt.gather_gemm_tf32``, on every pair of both entries), K1's tap split over a cluster against one
-CTA per tile and against itself, dW's tensor-core partial kernel on chunks
-and steps that skip, the scalar entries kept for comparisons, and the
+call) on tiles that skip taps, the same tile through 3xTF32 in f32 dFeat,
+f32 K3 and the f32 forward's comparison entry ``sparse_conv_fwd_tf32``
+(against the twins, the scalar bodies and the plain model of its
+arithmetic, ``kt.gather_gemm_tf32``, on every pair of those entries), K1's
+tap split over a cluster against one CTA per tile and against itself, dW's
+tensor-core partial kernel (bf16, and f32 through 3xTF32 against its model
+``kt.dw_tf32``) on chunks and steps that skip, the scalar entries kept for
+comparisons (the f32 ring of K3 and the scalar dW among them), and the
 micro-benchmark kernels (S1: the ablated scalar tile, whose ``full`` mode
 equals the scalar entry of K1 with zero bias and no ReLU bit for bit, and
 the ablated tensor-core tile, whose ``full`` mode equals bf16 K4 bit for
@@ -119,11 +123,13 @@ STREAM_PLAN = [p for p in PLAN if p[0] != 4]  # Cin = 4 never streams
                          ids=[f"{a}x{b}x{c}" for a, b, c in STREAM_PLAN])
 def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
                                            dtype, tol):
-    """K3 within the bound of the twin. In f32 it equals K1 bit for bit (the
-    two sum every output in the same order); in bf16 both run the
-    tensor-core tile, and K1 splits these 40 tiles' taps over clusters, so
-    the two stay within the bf16 bound (at one CTA per tile they agree bit
-    for bit: test_bf16_k1_at_one_cta_per_tile_equals_k3)."""
+    """K3 within the bound of the twin and of K1. In f32 K3 runs the 3xTF32
+    tile and K1 the scalar tile, so they agree within 1e-4, and K3 equals
+    the forward's 3xTF32 entry (the same tile, taps and order, without the
+    epilogue) with bias, ReLU and the any-hit mask added bit for bit; in
+    bf16 both run the tensor-core tile, and K1 splits these 40 tiles' taps
+    over clusters (at one CTA per tile they agree bit for bit:
+    test_bf16_k1_at_one_cta_per_tile_equals_k3)."""
     feats, rb, w2, bias = _inputs(cin, cout, k)
     args = (torch.from_numpy(feats).to(cuda, dtype),
             torch.from_numpy(rb).to(cuda, idx_dtype),
@@ -138,12 +144,68 @@ def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert float(err) <= tol
     k1 = sc.fused_sparse_conv(*args)
-    if dtype == torch.float32:
-        assert torch.equal(got, k1)
-    else:
-        assert _err(got, k1) <= tol
+    assert _err(got, k1) <= tol
     miss = torch.from_numpy((rb == N_IN).all(1)).to(cuda)
     assert not got[miss].any()
+    if dtype == torch.float32:
+        f, r, w, b, _ = args
+        for relu in (True, False):
+            y = sc.fused_sparse_conv_stream(*args, relu=relu)
+            assert torch.equal(y, _tf32_with_epilogue(f, r, w, b, relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", STREAM_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in STREAM_PLAN])
+def test_stream_ring_entry_is_the_old_f32_body(cuda, cin, cout, k,
+                                               idx_dtype):
+    """K3's two-slot ring, kept for comparisons, is the body f32 K3 ran
+    before the 3xTF32 tile: K1's summation order, so equal to f32 K1 (the
+    scalar tile) bit for bit, within 1e-4 of the twin, under its own
+    counter and not K3's; it takes f32 only."""
+    feats, rb, w2, bias = _inputs(cin, cout, k)
+    args = (torch.from_numpy(feats).to(cuda),
+            torch.from_numpy(rb).to(cuda, idx_dtype),
+            torch.from_numpy(w2).to(cuda), torch.from_numpy(bias).to(cuda),
+            N_IN)
+    counts = (sc.fused_sparse_conv_stream.launches,
+              sc.fused_sparse_conv_stream_ring.launches)
+    got = sc.fused_sparse_conv_stream_ring(*args)
+    torch.cuda.synchronize()
+    assert (sc.fused_sparse_conv_stream.launches,
+            sc.fused_sparse_conv_stream_ring.launches) == (counts[0],
+                                                           counts[1] + 1)
+    assert torch.equal(got, sc.fused_sparse_conv(*args))
+    assert _err(got, sc.fused_sparse_conv_ref(*args)) <= 1e-4
+    with pytest.raises(ValueError, match="f32 only"):
+        sc.fused_sparse_conv_stream_ring(args[0].bfloat16(), args[1],
+                                         args[2].bfloat16(), *args[3:])
+
+
+@pytest.mark.cuda
+def test_dw_scalar_entry_is_the_old_f32_body(cuda):
+    """dW's scalar entry in f32 runs the body the partial kernel keeps for
+    the 4-channel first conv, so it equals f32 dW there bit for bit, and
+    is within the dW bound of the twin on every tensor-core pair."""
+    for cin, cout, k in PLAN:
+        f, r, _, d, _ = _on(cuda, torch.float32, torch.int32,
+                            *_train_inputs(cin, cout, k))
+        got = kt.sparse_conv_dw_scalar(f, r, d)
+        torch.cuda.synchronize()
+        if cin == 4:
+            assert torch.equal(got, kt.sparse_conv_dw(f, r, d))
+        assert _err(got, kt.sparse_conv_dw_ref(f, r, d)) <= 1e-3
+
+
+def _tf32_with_epilogue(f, r, w, b, relu=True):
+    """The forward's 3xTF32 entry with K3's epilogue added in torch: bias,
+    ReLU, and zero where no tap of the row hits."""
+    y = kt.sparse_conv_fwd_tf32(f, r, w) + b
+    if relu:
+        y = torch.relu(y)
+    return torch.where((r != N_IN).any(1, keepdim=True), y, 0.0)
 
 
 # f32 1e-4 (TF32 off in the twins' matmuls; the 3xTF32 tile keeps ~21
@@ -189,10 +251,11 @@ DFEAT_BODY = {torch.bfloat16: "mma", torch.float32: "tf32"}
 def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype,
                                         dtype, tol):
     """K4 (the tensor-core tile in bf16, the scalar tile in f32) and K3
-    (the tile in bf16, its scalar ring in f32) within the type's bound of
+    (the tile in bf16, through 3xTF32 in f32) within the type's bound of
     their twins on tiles that skip every tap, all but one, or none; K4
     zeroes masked rows, K3 rows with no hit, and the rows of the all-miss
-    tile come out 0."""
+    tile come out 0; f32 K3 within 1e-5 of the model of its arithmetic
+    (``kt.gather_gemm_tf32`` with the epilogue)."""
     feats, rb, w2, bias, mask = _tile_inputs(cin, cout, k)
     assert sc.conv_instance("sparse_conv_fwd", dtype, cin,
                             cout) == K4_BODY[dtype]
@@ -214,6 +277,11 @@ def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype,
         assert _err(y3[row:row + 1], want3[row:row + 1]) <= tol
         if mask[row]:
             assert _err(y4[row:row + 1], want4[row:row + 1]) <= tol
+    if dtype == torch.float32:
+        hit = (r != N_IN).any(1, keepdim=True)
+        model = torch.where(hit, torch.relu(kt.gather_gemm_tf32(f, r, w)
+                                            + b), 0.0)
+        assert _err(y3, model) <= TF32_MODEL_BOUND
 
 
 @pytest.mark.cuda
@@ -381,7 +449,9 @@ def test_cluster_split_equals_the_c_entry(cuda):
 @pytest.mark.cuda
 def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
     """The scalar entries kept for comparisons: within 2e-2 of the twins,
-    launched under their own counters, refusing f32."""
+    launched under their own counters; K1's refuses f32. dW's took bf16
+    only until f32 dW moved to 3xTF32; it now takes f32 too (within 1e-3)
+    and refuses other types."""
     feats, rb, w2, bias = _inputs(32, 64, 27)
     args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
             torch.from_numpy(rb).to(cuda, torch.int32),
@@ -403,8 +473,14 @@ def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
     with pytest.raises(ValueError, match="bf16"):
         sc.fused_sparse_conv_scalar(args[0].float(), args[1],
                                     args[2].float(), args[3], N_IN)
-    with pytest.raises(ValueError, match="bf16"):
-        kt.sparse_conv_dw_scalar(f.float(), r, d.float())
+    before = kt.sparse_conv_dw_scalar.launches
+    dw = kt.sparse_conv_dw_scalar(f.float(), r, d.float())
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dw_scalar.launches == before + 1
+    assert dw.dtype == torch.float32
+    assert _err(dw, kt.sparse_conv_dw_ref(f.float(), r, d.float())) <= 1e-3
+    with pytest.raises(ValueError, match="dtype"):
+        kt.sparse_conv_dw_scalar(f.half(), r, d.half())
     with pytest.raises(ValueError, match="1, 2 or 4"):
         sc.fused_sparse_conv_at_split(*args, split=3)
     with pytest.raises(ValueError, match="1, 2 or 4"):
@@ -596,14 +672,58 @@ def test_dw_mma_kernel_skips_and_matches_twin(cuda, cin, cout, k, idx_dtype):
 
 @pytest.mark.cuda
 def test_dw_mma_rejects_misaligned_inputs(cuda):
-    f = torch.zeros(N_IN * 16 + 4, dtype=torch.bfloat16,
-                    device=cuda)[4:].view(N_IN, 16)  # 8 bytes off
+    """bf16 and, since its 3xTF32 body, f32: a misaligned call or a chunk
+    the tensor-core body does not take raises before any launch."""
     r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
-    d = torch.zeros(N_OUT, 16, dtype=torch.bfloat16, device=cuda)
-    before = kt.sparse_conv_dw.launches
-    with pytest.raises(ValueError, match="aligned"):
-        kt.sparse_conv_dw(f, r, d)
-    assert kt.sparse_conv_dw.launches == before
+    for dtype in (torch.bfloat16, torch.float32):
+        f = torch.zeros(N_IN * 16 + 2, dtype=dtype,
+                        device=cuda)[2:].view(N_IN, 16)  # 4 or 8 bytes off
+        d = torch.zeros(N_OUT, 16, dtype=dtype, device=cuda)
+        before = kt.sparse_conv_dw.launches
+        with pytest.raises(ValueError, match="aligned"):
+            kt.sparse_conv_dw(f, r, d)
+        with pytest.raises(ValueError, match="chunk_rows"):
+            kt.sparse_conv_dw(f.clone(), r, d, chunk_rows=100)
+        assert kt.sparse_conv_dw.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
+def test_dw_tf32_kernel_skips_and_matches_twin_and_model(cuda, cin, cout, k,
+                                                         idx_dtype):
+    """f32 dW through 3xTF32 (mma.sync m16n8k8), at several chunk sizes,
+    over chunks and steps that no row hits: within the f32 dW bound (1e-3)
+    of its twin and of the scalar entry on the same call, within 1e-5 of
+    the model of its arithmetic (``kt.dw_tf32``), the same bits on a second
+    run, and a tap that one row hits carries that row's product."""
+    assert sc.conv_instance("sparse_conv_dw", torch.float32, cin,
+                            cout) == "tf32"
+    feats, rb, dout = _dw_skip_inputs(cin, cout, k)
+    f = torch.from_numpy(feats).to(cuda)
+    r = torch.from_numpy(rb).to(cuda, idx_dtype)
+    d = torch.from_numpy(dout).to(cuda)
+    want = kt.sparse_conv_dw_ref(f, r, d)
+    counts = (kt.sparse_conv_dw.launches, kt.sparse_conv_dw_scalar.launches)
+    scalar = kt.sparse_conv_dw_scalar(f, r, d)
+    torch.cuda.synchronize()
+    assert (kt.sparse_conv_dw.launches,
+            kt.sparse_conv_dw_scalar.launches) == (counts[0], counts[1] + 1)
+    lone = torch.outer(f[5], d[LONE_ROW])
+    for chunk in (64, 2048, kt.DW_MAX_CHUNK_ROWS):
+        before = kt.sparse_conv_dw.launches
+        got = kt.sparse_conv_dw(f, r, d, chunk_rows=chunk)
+        again = kt.sparse_conv_dw(f, r, d, chunk_rows=chunk)
+        torch.cuda.synchronize()
+        assert kt.sparse_conv_dw.launches == before + 2
+        assert got.dtype == torch.float32 and got.shape == (k, cin, cout)
+        assert _err(got, want) <= 1e-3 and _err(got, scalar) <= 1e-3
+        model = kt.dw_tf32(f, r, d, chunk_rows=chunk)
+        assert _err(got, model) <= TF32_MODEL_BOUND
+        assert _err(got[k - 1], lone) <= 1e-4
+        assert torch.equal(got, again)
 
 
 # (conv Cin, conv Cout) of the input gradient's five tensor-core gather
@@ -733,13 +853,21 @@ def test_tf32_forward_matches_model_and_scalar_entry(cuda, cin, cout, k,
 
 @pytest.mark.cuda
 def test_training_tiles_fit_the_sm(cuda):
-    """Every instance of the forward and input gradient fits at least one
-    block per SM, and each 3xTF32 one (dFeat's, the forward's entry) two
-    (its ring stages are chosen so), to overlap one block's gathers with
-    another's tensor-core work; the 3xTF32 entry has no bf16 or 4-channel
-    instance."""
+    """Every instance of the forward, input gradient and dW partial kernel
+    (at DW_CHUNK_ROWS) fits at least one block per SM, and each 3xTF32 one
+    (dFeat's, dW's, the forward's entry) two (their ring stages are chosen
+    so), to overlap one block's gathers with another's tensor-core work;
+    the 3xTF32 entry has no bf16 or 4-channel instance. So do the stream
+    kernel's 3xTF32 instances."""
+    for cin, cout in sc.STREAM_PAIRS:
+        for dtype in (torch.float32, torch.bfloat16):
+            body = sc.conv_instance("fused_sparse_conv_stream", dtype, cin,
+                                    cout)
+            assert sc.stream_blocks_per_sm(cin, cout, dtype) >= (
+                2 if body == "tf32" else 1), (cin, cout, dtype)
     for entry, pairs in (("sparse_conv_fwd", sc.FWD_PAIRS),
                          ("sparse_conv_dfeat", sc.DFEAT_PAIRS),
+                         ("sparse_conv_dw", sc.DW_PAIRS),
                          ("sparse_conv_fwd_tf32", sc.FWD_PAIRS)):
         for cin, cout in pairs:
             for dtype in (torch.float32, torch.bfloat16):
@@ -841,8 +969,8 @@ def test_first_conv_input_gradient_on_card(cuda, dtype, tol):
 
 def _named_calls(cuda, dtype):
     """(kernel name, call) of every wrapper at ``dtype`` and of the input
-    gradient's scalar entry; in f32 also the forward's 3xTF32 entry, in
-    bf16 K1 at S = 4 and the other scalar entries."""
+    gradient's and dW's scalar entries; in f32 also the forward's 3xTF32
+    entry and K3's ring, in bf16 K1 at S = 4 and K1's scalar entry."""
     feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
                            for a in _inputs(16, 32, 27))
     feats, w2, rb = feats.to(dtype), w2.to(dtype), rb.int()
@@ -858,20 +986,24 @@ def _named_calls(cuda, dtype):
                  d, inv, w)),
              ("sparse_conv_dw_partial_kernel", lambda: kt.sparse_conv_dw(
                  f, r, d))]
-    calls.append(("sparse_conv_dfeat_scalar_kernel",
-                  lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)))
+    calls += [("sparse_conv_dfeat_scalar_kernel",
+               lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)),
+              ("sparse_conv_dw_scalar_kernel",
+               lambda: kt.sparse_conv_dw_scalar(f, r, d))]
     if dtype == torch.float32:
-        calls.append(("sparse_conv_fwd_tf32_kernel",
-                      lambda: kt.sparse_conv_fwd_tf32(f, r, w, m)))
+        calls += [
+            ("sparse_conv_fwd_tf32_kernel",
+             lambda: kt.sparse_conv_fwd_tf32(f, r, w, m)),
+            ("fused_sparse_conv_stream_ring_kernel",
+             lambda: sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
+                                                      N_IN))]
     if dtype == torch.bfloat16:
         calls += [
             ("fused_sparse_conv_kernel",
              lambda: sc.fused_sparse_conv_at_split(feats, rb, w2, bias, N_IN,
                                                    split=4)),
             ("fused_sparse_conv_scalar_kernel",
-             lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, N_IN)),
-            ("sparse_conv_dw_scalar_kernel",
-             lambda: kt.sparse_conv_dw_scalar(f, r, d))]
+             lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, N_IN))]
     return calls
 
 
@@ -881,9 +1013,10 @@ def _named_calls(cuda, dtype):
 def test_kernels_profile_under_their_own_names(cuda, dtype):
     """Each wrapper's launch shows in a device profile under a kernel name
     of its own, the names the step and request profilers
-    (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the 3xTF32 tile
-    of dFeat and the scalar bodies of the rest, in bf16 the tensor-core
-    ones (K1 also at S = 4), and the entries kept for comparisons. A dFeat
+    (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the 3xTF32
+    bodies of dFeat, K3 and dW and the scalar bodies of K1 and K4, in bf16
+    the tensor-core ones (K1 also at S = 4), and the entries kept for
+    comparisons. A dFeat
     call is one kernel and nothing
     else: no transposed copy of the weights. The profiler on the card
     now and then delivers no device event of a whole profile; such an

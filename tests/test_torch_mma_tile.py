@@ -264,7 +264,7 @@ def test_python_pairs_equal_the_c_dispatch_tables():
     assert sc.DFEAT_PAIRS == tuple(sorted((b, a) for a, b in sc.FWD_PAIRS))
     # each __global__ with two bodies picks the tensor-core one by the rule:
     # bf16 (kMmaTile) everywhere, and f32 through 3xTF32 (kTf32Tile) in
-    # the input gradient alone
+    # the entries of TF32_ENTRIES (dFeat, K3 and dW; not K4 or K1)
     mma = "if constexpr (sessd::kMmaTile<T, CIN, COUT>"
     tf32 = "sessd::kTf32Tile<T, CIN, COUT>"
     for path, kernel in (("sparse_conv.cu", "fused_sparse_conv_kernel("),
@@ -303,16 +303,18 @@ def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     every entry: K4 and K3 since the wgmma tile, K1 (with its cluster tap
     split) and dW (mma.sync) since their redesign, dFeat (five of its six
     pairs, K-major B) since its own; f32 at those channels takes the same
-    tile through 3xTF32 in dFeat alone; the rest (f32 K4, K1, K3 and dW,
-    the 4-channel side of the first conv in both types) the scalar one."""
+    bodies through 3xTF32 in dFeat, K3 and dW (m16n8k8); the rest (f32 K4
+    and K1, the 4-channel side of the first conv in both types) the scalar
+    one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
     tensor = 4 not in pair
     if dtype == torch.bfloat16:
         want = "mma" if tensor else "scalar"
     else:
-        want = "tf32" if tensor and entry == "sparse_conv_dfeat" \
-            else "scalar"
+        want = "tf32" if tensor and entry in (
+            "sparse_conv_dfeat", "fused_sparse_conv_stream",
+            "sparse_conv_dw") else "scalar"
     assert got == want
 
 

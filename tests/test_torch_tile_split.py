@@ -292,7 +292,7 @@ def test_dw_chunk_limits_mirror_the_source():
     assert kt.DW_CHUNK_ROWS % sc.TILE_ROWS == 0
     assert 0 < kt.DW_CHUNK_ROWS <= kt.DW_MAX_CHUNK_ROWS
     # tap-fastest grid: the K blocks of a chunk run together
-    assert "kern<<<dim3(taps, chunks), sessd::kMmaThreads" in text
+    assert "kern<<<dim3(taps, chunks), L::kBlock" in text
 
 
 def _conv_args(cin=32, cout=64, k=27, n_in=300, n_out=200, seed=0,
@@ -316,10 +316,12 @@ def test_comparison_wrappers_on_cpu_take_their_twins():
     feats, rb, w2, bias, n_in, dout = _conv_args()
     counts = [fn.launches for fn in (
         sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-        kt.sparse_conv_dw_scalar)]
+        sc.fused_sparse_conv_stream_ring, kt.sparse_conv_dw_scalar)]
     want = sc.fused_sparse_conv_ref(feats, rb, w2, bias, n_in)
     assert torch.equal(sc.fused_sparse_conv_scalar(feats, rb, w2, bias,
                                                    n_in), want)
+    assert torch.equal(sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
+                                                        n_in), want)
     for split in (1, 2, 4):
         assert torch.equal(sc.fused_sparse_conv_at_split(
             feats, rb, w2, bias, n_in, split), want)
@@ -327,7 +329,7 @@ def test_comparison_wrappers_on_cpu_take_their_twins():
                        kt.sparse_conv_dw_ref(feats, rb, dout))
     assert counts == [fn.launches for fn in (
         sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-        kt.sparse_conv_dw_scalar)]
+        sc.fused_sparse_conv_stream_ring, kt.sparse_conv_dw_scalar)]
     assert want.dtype == torch.bfloat16 and not want[:5].any()
 
 
@@ -339,6 +341,8 @@ def test_comparison_wrappers_raise_off_cpu_and_cuda():
             lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, n_in),
             lambda: sc.fused_sparse_conv_at_split(feats, rb, w2, bias, n_in,
                                                   2),
+            lambda: sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
+                                                     n_in),
             lambda: kt.sparse_conv_dw_scalar(feats, rb, dout),
             lambda: kt.sparse_conv_dw(feats, rb, dout)):
         with pytest.raises(ValueError, match="no kernel for device"):
