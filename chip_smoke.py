@@ -45,18 +45,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
    weight gradient, a reduction over all rows), bf16 2e-2; dW gives the
    same bits on two runs. Each conv's K4, dFeat and dW body is checked:
-   the tensor-core ones in bf16, in f32 through 3xTF32 for dFeat and dW,
-   and the scalar ones for f32 K4 and the first conv's 4-channel side; K4's f32
-   3xTF32 entry (``sparse_conv_fwd_tf32``, off the training path) is held
-   to K4's bound on every conv with 16-64 channels. In both types one K4
-   call and one dFeat call (and in f32 one call of the entry) each make one
-   launch and one allocation, their output (no copy or packing of the
-   weights). Kernel and twin device-time medians per conv (bf16, student
-   chain; f32: K4 on both chains with the 3xTF32 entry on the same calls,
-   dFeat and dW on the student's, printed per launch, dFeat and dW with
-   their scalar entries ``sparse_conv_dfeat_scalar`` and
-   ``sparse_conv_dw_scalar`` on the same calls, dW's bound also with its
-   partials); for the
+   the tensor-core ones in bf16, in f32 through 3xTF32, and the scalar
+   ones for the first conv's 4-channel side; K4's f32 scalar entry
+   (``sparse_conv_fwd_scalar``, off the training path) is held to K4's
+   bound on every conv. In both types one K4 call and one dFeat call (and
+   in f32 one call of the entry) each make one launch and one allocation,
+   their output (no copy or packing of the weights). Kernel and twin
+   device-time medians per conv (bf16, student chain; f32: K4 on both
+   chains, dFeat and dW on the student's, printed per launch, each with
+   its scalar entry, ``sparse_conv_fwd_scalar``,
+   ``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar``, on the same
+   calls, dW's bound also with its partials); for the
    bf16 forward also the scalar tile's time on the same inputs (K1's
    scalar entry with zero bias and no ReLU) and the share of (tile, tap)
    pairs skipped; for the input
@@ -74,17 +73,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    weight-gradient launches per step, and no batch that saturated a stage.
    Prints the step-time median, the data-time share and the peak device
    memory.
-6. One f32 step (TF32 off) on one batch through the kernels and, from an
-   identical state, through their twins: loss terms within 1e-4 relative,
-   each gradient tensor within 1e-3 of its max.
-7. Evaluation on that f32 trainer: K3 (3xTF32) against its twin and K1
-   (the scalar tile) within 1e-4 and bit-equal to K4's 3xTF32 entry with
-   K3's epilogue, on the convs that stream in one batch-4 eval batch at
-   ACCEPT_CAPS (derived from the stream rule at those caps), timed with
-   K1, its two-slot ring (``fused_sparse_conv_stream_ring``, the f32 body
-   it replaced) and the twin on the same calls, with no stage saturated,
-   and K1 timed with its twin on the convs it runs there (f32 per-launch
-   times);
+6. One f32 step (TF32 off) on one batch through the kernels, K4 through
+   its scalar entry (``sparse_conv_fwd_scalar``, the body that sums in the
+   twins' order), and, from an identical state, through their twins: loss
+   terms within 1e-4 relative, each gradient tensor within 1e-3 of its
+   max. It holds the step's wiring and the 3xTF32 dFeat and dW.
+   Before it, from copies of the same fresh state, the shipped path (K4
+   through 3xTF32) against the twins: the twin step records its choices of
+   ``probe_step_parity.PINNED`` (every ReLU mask, student and teacher,
+   and the minimum-area rectangle ODIoU's diagonal takes) and the kernel
+   step replays them (``StepPins``), held to the same bounds; the free
+   reading (no replay) and the flipped ReLU elements per call are
+   printed, not gated. Any change of the forward's rounding flips a few
+   ReLU elements, each of which moves a weight gradient by ~1/sqrt(rows)
+   of its max, and now and then an ODIoU rectangle near a tie in area.
+7. Evaluation on that f32 trainer: K3 and K1 (both 3xTF32 at one CTA per
+   tile) against their twin within 1e-4, bit-equal to each other and to
+   f32 K4 with their epilogue, on the convs that stream in one batch-4
+   eval batch at ACCEPT_CAPS (derived from the stream rule at those caps),
+   timed with K1, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
+   the f32 body it replaced) and the twin on the same calls, with no stage
+   saturated; and K1 on the convs it runs there within 1e-4 of its twin
+   and, on the 3xTF32 tile, bit-equal to K4 with the epilogue, timed with
+   its twin and its scalar entry (``fused_sparse_conv_scalar``) (f32
+   per-launch times);
    ``Trainer.validate()`` over the val split (the same 8 frames), with the
    K1 and K3 launches per batch the rule gives; ``save_checkpoint``; then
    ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint
@@ -228,9 +240,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``fused_sparse_conv_stream_ring``,
-``sparse_conv_fwd_tf32``, ``sparse_conv_dfeat_scalar``,
+``sparse_conv_fwd_scalar``, ``sparse_conv_dfeat_scalar``,
 ``sparse_conv_dw_scalar``) count their own launches; a main-path phase
-that launched one fails.
+that launched one fails (phase 6's unpinned step runs K4's on purpose).
 
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
@@ -240,15 +252,15 @@ peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16, and for a
 line, and the result line ``{"ok": true, "device": {...}}``. The rows of
 K1, K3, K4, dFeat, dW and S1 also carry ``old_tile_ms`` (the scalar tile on
 the same convs in the same run; for S1 the scalar copy's ``full``), K1,
-dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
+K3, K4, dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
 ``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap) shares,
 its partials' bytes and its time by chunk rows, S1 its tensor-core mode
 tables, and K1, K3, K4, dFeat and dW an ``f32`` object: per-launch ms on
-the f32 paths (phases 4 and 7), the old body's on the same calls for
-dFeat, dW and K3, whose f32 bodies changed (their scalar entries, K3's
-ring), the twin's and the bound's (dW's also with its partials), and the
-body; K3's also K1's time and its distance from K1, K4's its 3xTF32
-entry's per-launch numbers on the same calls and its max abs error.
+the f32 paths (phases 4 and 7), the old body's on the same calls (the
+scalar entries; K3's ring), the twin's and the bound's (dW's also with its
+partials), and the body; K3's also K1's time and its distance from K1,
+K1's its max abs error against the twin, K4's its scalar entry's max abs
+error against the twin.
 Without a CUDA device it raises and prints no result.
 """
 import ast
@@ -282,6 +294,7 @@ from sessd_torch.parallel import mesh
 from sessd_torch.scripts import acceptance_ap
 from sessd_torch.scripts import bench_launch_overhead as bench_launch
 from sessd_torch.scripts import bench_sparse_conv_ablate as bench_ablate
+from sessd_torch.scripts import probe_step_parity as pins
 from sessd_torch.scripts.profile_train import make_synthetic_root
 from sessd_torch.models.predict import predict_batch
 from sessd_torch.serve import (SERVING_CAPS, TRAIN_CAPS, ExactBatchServer,
@@ -433,7 +446,7 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     # blocks per SM of each training tile instance, by (entry, dtype, pair),
-    # and of K4's f32 3xTF32 entry
+    # and of K4's f32 scalar entry
     blocks = {f"{entry[12:]} {str(dtype)[6:]} {cin}x{cout}":
               f"{sc.conv_instance(entry, dtype, cin, cout)} "
               f"{kt.blocks_per_sm(entry, dtype, cin, cout)}"
@@ -441,9 +454,9 @@ def phase_build():
                                    ("sparse_conv_dfeat", sc.DFEAT_PAIRS))
               for dtype in (torch.float32, torch.bfloat16)
               for cin, cout in pairs}
-    blocks.update({f"fwd_tf32 float32 {cin}x{cout}": "tf32 " + str(
-        kt.blocks_per_sm("sparse_conv_fwd_tf32", torch.float32, cin, cout))
-        for cin, cout in sc.FWD_PAIRS if cin in sc.MMA_CHANNELS})
+    blocks.update({f"fwd_scalar float32 {cin}x{cout}": "scalar " + str(
+        kt.blocks_per_sm("sparse_conv_fwd_scalar", torch.float32, cin, cout))
+        for cin, cout in sc.FWD_PAIRS})
     print(f"build: {secs:.2f} s ({sc.build_info['path']}); "
           f"{len(regs)} kernel instances, max {max(regs, default=0)} "
           f"registers, {spills} bytes spill stores; training tiles (body, "
@@ -733,9 +746,10 @@ def old_tile(dtype):
 
 
 def tf32_with_epilogue(x, rbk, w2, bias, n_in, relu=True):
-    """K4's 3xTF32 entry (the tile f32 K3 runs, without the epilogue) with
-    K3's bias, ReLU and any-hit mask added in torch: f32 K3's bits."""
-    y = kt.sparse_conv_fwd_tf32(x, rbk, w2) + bias
+    """f32 K4 (the 3xTF32 tile f32 K1 and K3 run, without the epilogue)
+    with their bias, ReLU and any-hit mask added in torch: f32 K1's and
+    K3's bits."""
+    y = kt.sparse_conv_fwd(x, rbk, w2) + bias
     if relu:
         y = torch.relu(y)
     return torch.where((rbk != n_in).any(1, keepdim=True), y, 0.0)
@@ -745,19 +759,23 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                        want_streamed, resident=None):
     """The backbone's all-sparse plan on (feats, rb) with every conv that
     streams run through K3, its twin, K1 and the old scalar body on
-    identical inputs: K3 within the bound of the twin and of K1; in bf16
-    (both on the tensor-core tile) equal to K1 bit for bit where K1 runs
-    one CTA per tile; in f32 (K3 through 3xTF32, K1 on the scalar tile)
-    equal bit for bit to K4's 3xTF32 entry with K3's epilogue
+    identical inputs: K3 within the bound of the twin and of K1, and equal
+    to K1 bit for bit where K1 runs one CTA per tile (in bf16 both on the
+    tensor-core tile, in f32 both through 3xTF32 at S = 1); in f32 also
+    equal bit for bit to f32 K4 with K3's epilogue
     (``tf32_with_epilogue``); each of these convs timed (device-time
-    medians of 10). The other convs run K1, timed with its twin into
-    ``resident`` (a PerLaunch) where one is given. Returns {"worst": max
-    abs error vs twin, "vs_k1": max abs difference from K1, "ms", "k1_ms",
-    "old_ms" (``old_tile``), "plain_ms": sums, "bound": Bound, "tiles":
-    TileSkips, "streamed": the streamed convs, "body": K3's}."""
+    medians of 10). The other convs run K1; where ``resident`` (a
+    PerLaunch) is given, each is held within the bound of its twin and, on
+    the 3xTF32 tile, equal bit for bit to K4 with the epilogue, and timed
+    with its twin and its scalar entry (``fused_sparse_conv_scalar``, the
+    body it replaced) into ``resident``. Returns {"worst": max abs error
+    vs twin, "vs_k1": max abs difference from K1, "ms", "k1_ms", "old_ms"
+    (``old_tile``), "plain_ms": sums, "bound": Bound, "tiles": TileSkips,
+    "streamed": the streamed convs, "body": K3's, "k1_worst": max abs
+    error of the resident K1 vs twin}."""
     out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
            "old_ms": 0.0, "plain_ms": 0.0, "bound": Bound(),
-           "tiles": TileSkips()}
+           "tiles": TileSkips(), "k1_worst": 0.0}
     step = iter(range(len(CONV_NAMES)))
     streamed = []
 
@@ -770,14 +788,29 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                 cin, cout = x.shape[1], w2.shape[2]
                 body = sc.conv_instance("fused_sparse_conv", dtype, cin,
                                         cout)
+                rel, diff = _rel(y, sc.fused_sparse_conv_ref(*args))
+                out["k1_worst"] = max(out["k1_worst"], diff)
+                if not rel <= BOUNDS[dtype]:
+                    raise AssertionError(f"{CONV_NAMES[i]} {tag}: K1 rel_err "
+                                         f"{rel:.3e} > {BOUNDS[dtype]}")
+                if body == "tf32" and not torch.equal(
+                        y, tf32_with_epilogue(*args)):
+                    raise AssertionError(f"{CONV_NAMES[i]} {tag}: f32 K1 "
+                                         "differs from K4 with the epilogue")
                 k_ms = median_ms(lambda: sc.fused_sparse_conv(*args), 10)
                 r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(*args), 10)
-                resident.add(body, k_ms, r_ms)
+                o_ms = median_ms(lambda: sc.fused_sparse_conv_scalar(*args),
+                                 10)
+                resident.add(body, k_ms, r_ms, o_ms)
                 resident.bound.add((x, rbk, w2, bias, y), hits(rbk, n_in),
                                    cin, cout, dtype, body)
                 print(f"resident conv {i:2d} {CONV_NAMES[i]:6s} {cin:2d}->"
                       f"{cout:2d} rows {rbk.shape[0]:6d} {tag}: K1 "
-                      f"[{body}] {k_ms:.4f} ms, twin {r_ms:.4f} ms")
+                      f"[{body}] rel_err vs twin {rel:.2e}"
+                      + (", equal to K4 with the epilogue" if body == "tf32"
+                         else "")
+                      + f"; {k_ms:.4f} ms, scalar entry {o_ms:.4f} ms, twin "
+                      f"{r_ms:.4f} ms")
             return y
         streamed.append(CONV_NAMES[i])
         args = (x, rbk, w2, bias, n_in)
@@ -814,14 +847,13 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 rel_err "
                                  f"{rel:.3e} vs twin, {rel_k1:.3e} vs K1 > "
                                  f"{BOUNDS[dtype]}")
-        if dtype == torch.float32:
-            if not torch.equal(y, tf32_with_epilogue(*args)):
-                raise AssertionError(f"{CONV_NAMES[i]} {tag}: f32 K3 differs "
-                                     "from the 3xTF32 entry with its "
-                                     "epilogue")
-        elif split == 1 and not torch.equal(y, k1):
+        if split == 1 and not torch.equal(y, k1):
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 differs from K1 "
                                  "at one CTA per tile")
+        if dtype == torch.float32 and not torch.equal(
+                y, tf32_with_epilogue(*args)):
+            raise AssertionError(f"{CONV_NAMES[i]} {tag}: f32 K3 differs "
+                                 "from K4 with its epilogue")
         return y
 
     with torch.inference_mode():
@@ -832,7 +864,7 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
         raise AssertionError(f"{tag}: streamed {streamed}, want "
                              f"{want_streamed}")
     out["streamed"] = streamed
-    same = ("the 3xTF32 entry with the epilogue" if dtype == torch.float32
+    same = ("K1 and K4 with the epilogue" if dtype == torch.float32
             else "K1 at one CTA per tile")
     print(f"stream kernel {tag}: {len(streamed)} convs within bounds and "
           f"equal to {same}; max abs error vs twin {out['worst']:.3e}, "
@@ -1086,36 +1118,30 @@ def _partial_bytes(rb, cin: int, cout: int, chunk_rows: int) -> int:
 
 class PerLaunch:
     """A kernel's launches timed on the f32 chains: summed device ms of the
-    kernel, its twin and, where the body changed, the scalar entry of the
-    body it replaced, on the same calls; their bound and count (dW also
-    its bound with the f32 partials written and read back,
-    ``bound_partials``)."""
+    kernel, its twin and the scalar entry of the body it replaced, on the
+    same calls; their bound and count (dW also its bound with the f32
+    partials written and read back, ``bound_partials``)."""
 
     def __init__(self):
         self.n = 0
         self.ms = self.plain_ms = self.old_ms = 0.0
-        self.has_old = True
         self.bound = Bound()
         self.bound_partials = Bound()
         self.bodies = set()
 
-    def add(self, body, ms, plain_ms, old_ms=None):
+    def add(self, body, ms, plain_ms, old_ms):
         self.n += 1
         self.ms += ms
         self.plain_ms += plain_ms
+        self.old_ms += old_ms
         self.bodies.add(body)
-        if old_ms is None:
-            self.has_old = False
-        else:
-            self.old_ms += old_ms
 
     def row(self) -> dict:
         """Per-launch means (the kernel table's f32 row)."""
         n = max(self.n, 1)
         row = {"tile": sorted(self.bodies), "launches_timed": self.n,
                "ms_per_launch": self.ms / n,
-               "old_tile_ms_per_launch": self.old_ms / n
-               if self.has_old else None,
+               "old_tile_ms_per_launch": self.old_ms / n,
                "plain_ms_per_launch": self.plain_ms / n,
                "bound_ms_per_launch": self.bound.ms() / n,
                "bound_by": self.bound.by()}
@@ -1127,10 +1153,9 @@ class PerLaunch:
 
 def _train_body(dtype, i: int, name: str) -> str:
     """The body K4 ("fwd"), dFeat and dW take on training conv i: the
-    tensor-core ones in bf16, in f32 through 3xTF32 for dFeat and dW, and
-    the scalar ones for the f32 forward and the first conv's 4-channel
-    side."""
-    if i == 0 or (dtype == torch.float32 and name == "fwd"):
+    tensor-core ones in bf16, in f32 through 3xTF32, and the scalar ones
+    for the first conv's 4-channel side."""
+    if i == 0:
         return "scalar"
     return "mma" if dtype == torch.bfloat16 else "tf32"
 
@@ -1143,18 +1168,18 @@ def phase_train_kernels(trainer, db):
     "tiles": TileSkips} of the forward and of dFeat, {"old_ms", "skips":
     DwSkips, "sweep": {chunk rows: summed ms}} of dW) with the times and
     bounds of the bf16 student chain, and {kernel: PerLaunch} of the f32
-    chains: K4 on the student's and the teacher's convs ("fwd", and its
-    3xTF32 entry "fwd_tf32", held to K4's bound on every conv with 16-64
-    channels), dFeat and dW on the student's (the step's), dFeat with the
-    scalar entry's time on the same calls; "tf32_worst" is the entry's max
-    abs error against the twin."""
+    chains: K4 on the student's and the teacher's convs, dFeat and dW on
+    the student's (the step's), each with its scalar entry's time on the
+    same calls (K4's, ``sparse_conv_fwd_scalar``, held to K4's bound on
+    every conv); "scalar_worst" is K4's scalar entry's max abs error
+    against the twin."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
     bounds = {k: Bound() for k in worst}
-    f32 = {k: PerLaunch() for k in (*worst, "fwd_tf32")}
-    tf32_worst = 0.0
+    f32 = {k: PerLaunch() for k in worst}
+    scalar_worst = 0.0
     fwd_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     dfeat_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     dw_tile = {"old_ms": 0.0, "skips": DwSkips(),
@@ -1241,17 +1266,16 @@ def phase_train_kernels(trainer, db):
                              "dfeat": (dout, inv, w)}[name] + (got,)
                     args = (moved, hits(rbk, x.shape[0]), w.shape[1],
                             w.shape[2], dtype, insts[name])
-                    tf32_entry = name == "fwd" and f32_timed and i > 0
-                    if tf32_entry:  # K4's 3xTF32 entry, same call
-                        tf = kt.sparse_conv_fwd_tf32(x, rbk, w, mask)
+                    if name == "fwd" and f32_timed:  # K4's scalar entry
+                        entry = kt.sparse_conv_fwd_scalar(x, rbk, w, mask)
                         torch.cuda.synchronize()
-                        rel_tf, diff_tf = _rel(tf, want)
-                        tf32_worst = max(tf32_worst, diff_tf)
-                        line += f" (tf32 entry {rel_tf:.1e})"
-                        if not rel_tf <= bound:
+                        rel_old, diff_old = _rel(entry, want)
+                        scalar_worst = max(scalar_worst, diff_old)
+                        line += f" (scalar entry {rel_old:.1e})"
+                        if not rel_old <= bound:
                             raise AssertionError(
-                                f"{CONV_NAMES[i]} fwd tf32 entry {tag}: "
-                                f"rel_err {rel_tf:.3e} > {bound}")
+                                f"{CONV_NAMES[i]} fwd scalar entry {tag}: "
+                                f"rel_err {rel_old:.3e} > {bound}")
                     if (timed or f32_timed) and name == "dfeat" and i == 0:
                         # off the step's path: timed apart, not summed
                         if plan == "student":
@@ -1260,14 +1284,15 @@ def phase_train_kernels(trainer, db):
                                      f"tile)")
                     elif f32_timed and (name == "fwd" or plan == "student"):
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
-                        # dFeat's and dW's scalar bodies, the f32 ones they
-                        # replaced, on the same call (f32 K4 runs the
-                        # scalar tile)
-                        old = {"dfeat": lambda: kt.sparse_conv_dfeat_scalar(
+                        # the scalar bodies, the f32 ones the 3xTF32 bodies
+                        # replaced, on the same call
+                        old = {"fwd": lambda: kt.sparse_conv_fwd_scalar(
+                                   x, rbk, w, mask),
+                               "dfeat": lambda: kt.sparse_conv_dfeat_scalar(
                                    dout, inv, w),
                                "dw": lambda: kt.sparse_conv_dw_scalar(
-                                   x, rbk, dout)}.get(name)
-                        old_ms = median_ms(old, 10) if old else None
+                                   x, rbk, dout)}[name]
+                        old_ms = median_ms(old, 10)
                         f32[name].add(insts[name], k_ms, r_ms, old_ms)
                         f32[name].bound.add(*args)
                         if name == "dw":  # the partials, written and read
@@ -1276,18 +1301,8 @@ def phase_train_kernels(trainer, db):
                                     rbk, w.shape[1], w.shape[2],
                                     kt.DW_CHUNK_ROWS))
                         line += (f" ({insts[name]} {k_ms:.4f} vs twin "
-                                 f"{r_ms:.4f} ms")
-                        if old_ms is not None:
-                            line += (f", scalar tile {old_ms:.4f} ms: "
-                                     f"{old_ms / k_ms:.2f}x")
-                        if tf32_entry:
-                            tf_ms = median_ms(lambda: kt.sparse_conv_fwd_tf32(
-                                x, rbk, w, mask), 10)
-                            f32["fwd_tf32"].add("tf32", tf_ms, r_ms)
-                            f32["fwd_tf32"].bound.add(*args[:-1], "tf32")
-                            line += (f", tf32 entry {tf_ms:.4f} ms: "
-                                     f"{k_ms / tf_ms:.2f}x")
-                        line += ")"
+                                 f"{r_ms:.4f} ms, scalar tile {old_ms:.4f} "
+                                 f"ms: {old_ms / k_ms:.2f}x)")
                     elif timed:
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         ms[name][0] += k_ms
@@ -1345,21 +1360,20 @@ def phase_train_kernels(trainer, db):
           + ", ".join(f"{c}: {t:.4f} ms" for c, t in dw_tile["sweep"].items()))
     for name, per in f32.items():
         r = per.row()
-        old = (f", scalar tile {r['old_tile_ms_per_launch']:.4f} ms "
-               f"({r['old_tile_ms_per_launch'] / r['ms_per_launch']:.2f}x)"
-               if r["old_tile_ms_per_launch"] is not None else "")
+        old = r["old_tile_ms_per_launch"]
         print(f"train kernels f32 {name}: {r['launches_timed']} launches "
               f"timed ({', '.join(r['tile'])}), per launch "
-              f"{r['ms_per_launch']:.4f} ms{old}, twin "
+              f"{r['ms_per_launch']:.4f} ms, scalar tile {old:.4f} ms "
+              f"({old / r['ms_per_launch']:.2f}x), twin "
               f"{r['plain_ms_per_launch']:.4f} ms, bound "
               f"{r['bound_ms_per_launch']:.4f} ms ({r['bound_by']}) [{card}]")
-    f32["tf32_worst"] = tf32_worst
+    f32["scalar_worst"] = scalar_worst
     return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile, f32
 
 
 def _one_launch_per_call(x, rbk, w, mask, dout, inv):
     """One ``sparse_conv_fwd`` or ``sparse_conv_dfeat`` call (and in f32
-    one call of K4's 3xTF32 entry) makes one launch and one device
+    one call of K4's scalar entry) makes one launch and one device
     allocation, its output: the weights are read as they lie (transposed
     and, in f32, split into TF32 parts inside the kernel), with no copy or
     packing launch (the dFeat scalar entry, which takes W^T, makes two
@@ -1371,8 +1385,9 @@ def _one_launch_per_call(x, rbk, w, mask, dout, inv):
     calls = [("fwd", kt.sparse_conv_fwd, (x, rbk, w, mask)),
              ("dfeat", kt.sparse_conv_dfeat, (dout, inv, w))]
     if x.dtype == torch.float32:
-        calls.append(("fwd_tf32", kt.sparse_conv_fwd_tf32, (x, rbk, w, mask)))
-        want["fwd_tf32"] = [1, 1]
+        calls.append(("fwd_scalar", kt.sparse_conv_fwd_scalar,
+                      (x, rbk, w, mask)))
+        want["fwd_scalar"] = [1, 1]
     for name, fn, call in calls:
         torch.cuda.synchronize()
         counts = [allocs(), fn.launches]
@@ -1412,7 +1427,7 @@ KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               ablate.empty_launch)
 # the entries kept for same-call comparisons: never on a main path
 COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-                  sc.fused_sparse_conv_stream_ring, kt.sparse_conv_fwd_tf32,
+                  sc.fused_sparse_conv_stream_ring, kt.sparse_conv_fwd_scalar,
                   kt.sparse_conv_dfeat_scalar, kt.sparse_conv_dw_scalar)
 
 
@@ -1503,30 +1518,17 @@ def phase_train(trainer):
     return counts
 
 
-@contextlib.contextmanager
-def twins():
-    """SparseConvFunction through the kernels' plain twins (it looks its
-    kernels up in ``kt`` at each call): the reference side of phase 6."""
-    names = ("sparse_conv_fwd", "sparse_conv_dfeat", "sparse_conv_dw")
-    saved = {n: getattr(kt, n) for n in names}
-    try:
-        for n in names:
-            setattr(kt, n, getattr(kt, n + "_ref"))
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(kt, n, fn)
-
-
 def phase_step_parity(trainer):
-    """One f32 step through the kernels and through the twins from the
+    """One f32 step through the kernels, K4 through its scalar entry (the
+    body that sums in the twins' order), and through the twins from the
     same state on the same batch."""
     db = first_batch(trainer)
     states, grads, metrics = [trainer.state], [], []
     twin_state = copy.deepcopy(trainer.state)
     twin_state.optimizer.params = list(twin_state.student.parameters())
     states.append(twin_state)
-    for state, ctx in zip(states, (contextlib.nullcontext(), twins())):
+    kernels = pins.swapped(sparse_conv_fwd=kt.sparse_conv_fwd_scalar)
+    for state, ctx in zip(states, (kernels, pins.twins())):
         step = state.optimizer.step
         got = {}
 
@@ -1559,13 +1561,42 @@ def phase_step_parity(trainer):
         err = float((grads[0][name] - g).abs().max()) / peak
         if err > worst_g:
             worst_g, worst_name = err, name
-    print(f"step parity f32: loss {metrics[0]['loss']:.6g} vs twin "
+    print(f"step parity f32 (K4 scalar entry): loss "
+          f"{metrics[0]['loss']:.6g} vs twin "
           f"{metrics[1]['loss']:.6g}; worst loss term rel {worst_m:.2e}; "
           f"worst gradient {worst_g:.2e} of its max ({worst_name})")
     if not worst_m <= 1e-4:
         raise AssertionError(f"loss terms differ by {worst_m:.3e}")
     if not worst_g <= 1e-3:
         raise AssertionError(f"gradient {worst_name} differs by {worst_g}")
+
+
+def phase_step_parity_pinned(trainer):
+    """One f32 step through the kernels as the training step runs them (K4
+    through 3xTF32) against the same step through the twins, each from a
+    copy of the trainer's state on the same batch, with the twin step's
+    choices of ``pins.PINNED`` (every ReLU mask, student and teacher, and
+    the rectangle ODIoU's diagonal takes) replayed into the kernel step
+    (``StepPins``): loss terms within 1e-4 relative, each gradient within
+    1e-3 of its max, the bounds of phase 6. The free reading (no replay)
+    and the flipped ReLU elements per call are printed, not gated."""
+    db = first_batch(trainer)
+    card = card_line()
+    choices = pins.StepPins(pins.PINNED)
+    with choices.record():
+        twin = pins.step(trainer, db, pins.twins())
+    free = pins.compare(pins.step(trainer, db, choices.replay(pin=())), twin)
+    flips = choices.summary()
+    pinned = pins.compare(pins.step(trainer, db, choices.replay()), twin)
+    relu, rect = flips["relu"], flips["argmin"]
+    print(f"step parity f32, free (ungated): {pins.describe(free)}; ReLU "
+          f"elements flipped {relu['flipped']} in {relu['calls_flipped']} of "
+          f"{relu['calls']} calls, per call {relu['per_call']}; ODIoU "
+          f"rectangles flipped {rect['flipped']} [{card}]")
+    print(f"step parity f32, {', '.join(pins.PINNED)} pinned from the twin "
+          f"step: {pins.describe(pinned)} [{card}]")
+    if not pinned["ok"]:
+        raise AssertionError(f"pinned step parity: {pins.describe(pinned)}")
 
 
 def _same_tensors(a, b) -> bool:
@@ -3257,6 +3288,9 @@ def main():
         with phase("step parity"):
             trainer = make_trainer("se_ssd_kitti_car.py", root,
                                    f"{tmp}/work_f32", device)
+            # both gates from the fresh state: the pinned one on copies,
+            # then phase 6, which steps the trainer's own state
+            phase_step_parity_pinned(trainer)
             phase_step_parity(trainer)
             _no_saturation(trainer, "step parity")
         with phase("packed step"):
@@ -3330,7 +3364,8 @@ def main():
                k3_launches, max(b8["worst"], ev["worst"]), b8["ms"],
                b8["plain_ms"], b8["bound"])]
     kernels[0].update(
-        tile="gather_mma.cuh: gather_mma_tile (wgmma) + cluster tap split",
+        tile="gather_mma.cuh: gather_mma_tile (wgmma) + cluster tap split; "
+             "f32 3xTF32 at one CTA per tile",
         old_tile_ms=k1_ms["old_ms"])
     kernels[1].update(covers=f"{WCONV}:350", old_tile_ms=b8["old_ms"],
                       skipped_tap_share=b8["tiles"].share(),
@@ -3343,13 +3378,16 @@ def main():
             name, "sessd_torch/csrc/sparse_conv_train.cu", f"{WCONV}:{line}",
             counts[name] + late_counts[name], worst[key], train_ms[key][0],
             train_ms[key][1], train_bounds[key]))
-    kernels[2].update(old_tile_ms=fwd_tile["old_ms"],
+    kernels[2].update(tile="gather_mma.cuh: gather_mma_tile (wgmma; f32 "
+                           "3xTF32)",
+                      old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
     # f32: per-launch means on the f32 paths (K4 the 24 convs of both
     # training chains, dFeat the step's 9, dW the student's 10; K1 the 3
     # resident and K3 the 11 streamed convs of a batch-4 f32 eval batch)
     n_k3 = len(ev["streamed"])
-    # f32 K3's old tile: its two-slot ring on the same calls
+    # f32 K3's old tile: its two-slot ring on the same calls; K1's, K4's,
+    # dFeat's and dW's: their scalar entries on the same calls
     k3_f32 = {"tile": [ev["body"]], "launches_timed": n_k3,
               "ms_per_launch": ev["ms"] / n_k3,
               "old_tile_ms_per_launch": ev["old_ms"] / n_k3,
@@ -3358,14 +3396,11 @@ def main():
               "bound_by": ev["bound"].by(),
               "k1_ms_per_launch": ev["k1_ms"] / n_k3,
               "max_abs_vs_k1": ev["vs_k1"]}
-    kernels[0]["f32"] = ev["k1_f32"].row()
+    kernels[0]["f32"] = dict(ev["k1_f32"].row(), max_abs_err=ev["k1_worst"])
     kernels[1]["f32"] = k3_f32
     for row, key in zip(kernels[2:5], ("fwd", "dfeat", "dw")):
         row["f32"] = train_f32[key].row()
-    # K4's 3xTF32 body, kept off the f32 training path: its times on the
-    # same calls and its error against the twin
-    kernels[2]["f32"].update(tf32_entry=train_f32["fwd_tf32"].row(),
-                             tf32_entry_max_abs_err=train_f32["tf32_worst"])
+    kernels[2]["f32"]["scalar_entry_max_abs_err"] = train_f32["scalar_worst"]
     kernels[3].update(
         tile="gather_mma.cuh: gather_mma_tile (wgmma, K-major B)",
         old_tile_ms=dfeat_tile["old_ms"],

@@ -2,19 +2,16 @@
 // (sparse_conv_train.cu: sparse_conv_fwd_kernel, masked store), the input
 // gradient (sparse_conv_train.cu: sparse_conv_dfeat_kernel, over the
 // inverse rulebook with a K-major B), the streaming serving conv
-// (sparse_conv_stream.cu: fused_sparse_conv_stream_kernel) and the bf16
+// (sparse_conv_stream.cu: fused_sparse_conv_stream_kernel) and the
 // resident serving conv (sparse_conv.cu: fused_sparse_conv_kernel), the
 // serving convs with the bias + ReLU + any-hit store. Each keeps its own
 // __global__; this is the body all four call for bf16 and Cin, Cout in
-// {16, 32, 64} (kMmaTile), and the body the input gradient and the stream
-// kernel call for f32 at the same channels through 3xTF32 (kTf32Tile,
-// below), as does the f32 forward's comparison kernel
-// sparse_conv_fwd_tf32_kernel. Every other instance (the forward and the
-// resident serving conv in f32, the Cin = 4 first conv) stays on
-// gather_gemm.cuh's scalar tile; f32 dW has a 3xTF32 body of its own
-// (sparse_conv_train.cu: dw_mma_partial). The micro-benchmark
-// sparse_conv_ablate_mma_kernel (sparse_conv_ablate.cu) runs the bf16 tile
-// with one cost removed at a time (TileMode).
+// {16, 32, 64} (kMmaTile), and for f32 at the same channels through 3xTF32
+// (kTf32Tile, below). The Cin = 4 first conv stays on gather_gemm.cuh's
+// scalar tile; f32 dW has a 3xTF32 body of its own (sparse_conv_train.cu:
+// dw_mma_partial). The micro-benchmark sparse_conv_ablate_mma_kernel
+// (sparse_conv_ablate.cu) runs the bf16 tile with one cost removed at a
+// time (TileMode).
 //
 // Computes, for the 64 output rows of one tile:
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
@@ -67,9 +64,9 @@
 //   async proxy), barrier (every thread's chunks, and every thread done
 //   with the previous tap's wgmma), issue the refill of the slot the
 //   previous tap used, then wgmma.fence / mma / commit_group / wait_group 0.
-// - f32 through 3xTF32 (kTf32Tile: the input gradient, the stream kernel
-//   with the EPI store, and the forward's comparison kernel; f32 kernels
-//   are held to 1e-4 of their twins). One
+// - f32 through 3xTF32 (kTf32Tile: the forward, the input gradient, and
+//   both serving convs with the EPI store; f32 kernels are held to 1e-4 of
+//   their twins). One
 //   TF32 pass keeps 10 mantissa bits and misses that bound, so
 //   each operand is split x = hi + lo with hi = tf32(x) and lo = tf32(x -
 //   hi), both rounded by cvt.rna.tf32.f32 (to nearest, ties away; not the
@@ -192,9 +189,8 @@ constexpr bool kMmaTile = std::is_same<T, __nv_bfloat16>::value &&
                           (CIN == 16 || CIN == 32 || CIN == 64) &&
                           (COUT == 16 || COUT == 32 || COUT == 64);
 
-// the f32 instances that take it through 3xTF32; the input gradient and
-// the stream kernel select them (conv_instance names them "tf32"), and the
-// forward's comparison kernel runs them (sparse_conv_train.cu)
+// the f32 instances that take it through 3xTF32 in every kernel that calls
+// it (conv_instance names them "tf32")
 template <typename T, int CIN, int COUT>
 constexpr bool kTf32Tile = std::is_same<T, float>::value &&
                            (CIN == 16 || CIN == 32 || CIN == 64) &&

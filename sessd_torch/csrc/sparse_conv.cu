@@ -18,8 +18,8 @@
 // What bounds it on Hopper: the gather (at most 2*Cout flops per loaded
 // value, below the card's ridge) and, at batch 1, the grid: a request's
 // convs have 63-344 tiles of 64 rows, fewer than the card holds at once.
-// fused_sparse_conv_kernel takes one of two bodies by type and shape, fixed
-// at compile time (no fallback at run time):
+// fused_sparse_conv_kernel takes one of three bodies by type and shape,
+// fixed at compile time (no fallback at run time):
 // - bf16 with Cin, Cout in {16, 32, 64}: gather_mma.cuh's tensor-core tile
 //   (wgmma out of a 4-stage cp.async ring, taps no row of a tile hits
 //   skipped), 128 threads and dynamic shared memory per block, the body the
@@ -27,12 +27,19 @@
 //   runs each tile as a cluster of S = 2 or 4 CTAs that split its hit taps
 //   and add their partials in rank order (sessd::cluster_split; the header
 //   says how). At S = 1 it equals the bf16 stream kernel bit for bit.
-// - f32 (the eval path, held to 1e-4) and the Cin = 4 first conv:
-//   gather_gemm.cuh's scalar tile, 256 threads, one block per tile.
-// The scalar tile's bf16 instances stay reachable under a name of their own,
-// fused_sparse_conv_scalar_kernel (sessd_fused_sparse_conv_scalar), for the
-// same-call comparisons of the smoke check, the ablation and the card tests
-// only; nothing on the serving path launches it.
+// - f32 at those channels (the eval path on host chains and f32 serving,
+//   held to 1e-4): the same tile through 3xTF32 with the same epilogue, one
+//   CTA per tile (the 3xTF32 tile runs whole tiles: no cluster split). It
+//   is the f32 stream kernel's instance under this kernel's name, so f32
+//   K1 equals f32 K3, and the f32 forward (K4) plus bias, ReLU and the
+//   any-hit mask, bit for bit.
+// - the Cin = 4 first conv, in both types: gather_gemm.cuh's scalar tile,
+//   256 threads, one block per tile.
+// The scalar tile's instances at every pair stay reachable in both types
+// under a name of their own, fused_sparse_conv_scalar_kernel
+// (sessd_fused_sparse_conv_scalar), for the same-call comparisons of the
+// smoke check, the ablation and the card tests only; nothing on the serving
+// path launches it.
 
 #include "gather_mma.cuh"
 
@@ -48,21 +55,24 @@ fused_sparse_conv_kernel(const T* __restrict__ feats,
   if constexpr (sessd::kMmaTile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, true, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
+  else if constexpr (sessd::kTf32Tile<T, CIN, COUT>)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, true>(
+        feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
   else
     sessd::gather_gemm_tile<T, IdxT, CIN, COUT, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
 }
 
-// the scalar tile in bf16, for comparisons only
-template <typename IdxT, int CIN, int COUT>
+// the scalar tile in either type, for comparisons only
+template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(sessd::kThreads)
-fused_sparse_conv_scalar_kernel(const __nv_bfloat16* __restrict__ feats,
+fused_sparse_conv_scalar_kernel(const T* __restrict__ feats,
                                 const IdxT* __restrict__ rb,
-                                const __nv_bfloat16* __restrict__ w2,
+                                const T* __restrict__ w2,
                                 const float* __restrict__ bias,
-                                __nv_bfloat16* __restrict__ out, int n_in,
-                                int n_out, int taps, int relu) {
-  sessd::gather_gemm_tile<__nv_bfloat16, IdxT, CIN, COUT, true>(
+                                T* __restrict__ out, int n_in, int n_out,
+                                int taps, int relu) {
+  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, true>(
       feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
 }
 
@@ -72,7 +82,7 @@ cudaError_t allow_smem() {
   static const cudaError_t attr = cudaFuncSetAttribute(
       fused_sparse_conv_kernel<T, IdxT, CIN, COUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sessd::MmaLayout<CIN, COUT>::kSmemBytes);
+      sessd::kTileSmemBytes<T, CIN, COUT>);
   return attr;
 }
 
@@ -140,6 +150,15 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
         static_cast<const IdxT*>(rb), static_cast<const T*>(w2), bias,
         static_cast<T*>(out), n_in, n_out, taps, relu);
     return err != cudaSuccess ? err : cudaGetLastError();
+  } else if constexpr (sessd::kTf32Tile<T, CIN, COUT>) {
+    if (split > 1) return cudaErrorInvalidValue;  // whole tiles only
+    const cudaError_t smem_ok = allow_smem<T, IdxT, CIN, COUT>();
+    if (smem_ok != cudaSuccess) return smem_ok;
+    kern<<<tiles, sessd::kMmaThreads, sessd::kTileSmemBytes<T, CIN, COUT>,
+           stream>>>(static_cast<const T*>(feats),
+                     static_cast<const IdxT*>(rb), static_cast<const T*>(w2),
+                     bias, static_cast<T*>(out), n_in, n_out, taps, relu);
+    return cudaGetLastError();
   } else {
     kern<<<tiles, sessd::kThreads, 0, stream>>>(
         static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
@@ -149,16 +168,15 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
   }
 }
 
-template <typename IdxT, int CIN, int COUT>
+template <typename T, typename IdxT, int CIN, int COUT>
 cudaError_t launch_scalar(const void* feats, const void* rb, const void* w2,
                           const float* bias, void* out, int n_in, int n_out,
                           int taps, int relu, cudaStream_t stream) {
-  fused_sparse_conv_scalar_kernel<IdxT, CIN, COUT>
+  fused_sparse_conv_scalar_kernel<T, IdxT, CIN, COUT>
       <<<sessd::gather_gemm_grid(n_out), sessd::kThreads, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(feats),
-          static_cast<const IdxT*>(rb),
-          static_cast<const __nv_bfloat16*>(w2), bias,
-          static_cast<__nv_bfloat16*>(out), n_in, n_out, taps, relu);
+          static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
+          static_cast<const T*>(w2), bias, static_cast<T*>(out), n_in, n_out,
+          taps, relu);
   return cudaGetLastError();
 }
 
@@ -186,26 +204,29 @@ cudaError_t dispatch_channels(int cin, int cout, const void* feats,
   return cudaErrorInvalidValue;
 }
 
-template <typename IdxT>
+template <typename T, typename IdxT>
 cudaError_t dispatch_scalar(int cin, int cout, const void* feats,
                             const void* rb, const void* w2, const float* bias,
                             void* out, int n_in, int n_out, int taps,
                             int relu, cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch_scalar<IdxT, CI, CO>(feats, rb, w2, bias, out, n_in,       \
-                                       n_out, taps, relu, stream);
+    return launch_scalar<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in,    \
+                                          n_out, taps, relu, stream);
   SESSD_FUSED_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
 
-// 2 where the instance for (T, cin, cout) is the tensor-core tile, 1 where
-// it is the scalar tile, 0 where there is none
+// 3 where the instance for (T, cin, cout) is the tensor-core tile through
+// 3xTF32, 2 the tile in bf16, 1 the scalar tile, 0 where there is none
 template <typename T>
 int fused_instance(int cin, int cout) {
-#define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return sessd::kMmaTile<T, CI, CO> ? 2 : 1;
+#define SESSD_CASE(CI, CO)                                               \
+  if (cin == CI && cout == CO)                                           \
+    return sessd::kTf32Tile<T, CI, CO> ? 3                               \
+                                       : (sessd::kMmaTile<T, CI, CO> ? 2 \
+                                                                    : 1);
   SESSD_FUSED_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
@@ -275,26 +296,30 @@ extern "C" int sessd_fused_sparse_conv_at_split(
                idx_bytes, relu, split, stream);
 }
 
-// The scalar tile's bf16 body under its own kernel name, for comparisons:
-// sessd_fused_sparse_conv's arguments, dtype 1 only.
+// The scalar tile's body in either type under its own kernel name
+// (fused_sparse_conv_scalar_kernel), for comparisons:
+// sessd_fused_sparse_conv's arguments.
 extern "C" int sessd_fused_sparse_conv_scalar(
     const void* feats, const void* rb, const void* w2, const float* bias,
     void* out, int n_in, int n_out, int cin, int cout, int taps, int dtype,
     int idx_bytes, int relu, void* stream) {
-  if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps || dtype != 1)
+  if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx_bytes == 2)
-    return dispatch_scalar<int16_t>(cin, cout, feats, rb, w2, bias, out, n_in,
-                                    n_out, taps, relu, s);
-  if (idx_bytes == 4)
-    return dispatch_scalar<int32_t>(cin, cout, feats, rb, w2, bias, out, n_in,
-                                    n_out, taps, relu, s);
+#define SESSD_CALL(T, I)                                                     \
+  return dispatch_scalar<T, I>(cin, cout, feats, rb, w2, bias, out, n_in,   \
+                               n_out, taps, relu, s)
+  if (dtype == 0 && idx_bytes == 2) SESSD_CALL(float, int16_t);
+  if (dtype == 0 && idx_bytes == 4) SESSD_CALL(float, int32_t);
+  if (dtype == 1 && idx_bytes == 2) SESSD_CALL(__nv_bfloat16, int16_t);
+  if (dtype == 1 && idx_bytes == 4) SESSD_CALL(__nv_bfloat16, int32_t);
+#undef SESSD_CALL
   return cudaErrorInvalidValue;
 }
 
-// Which body sessd_fused_sparse_conv launches for (cin, cout, dtype): 2 the
-// tensor-core tile, 1 the scalar tile, 0 none.
+// Which body sessd_fused_sparse_conv launches for (cin, cout, dtype): 3 the
+// tensor-core tile through 3xTF32, 2 the tensor-core tile in bf16, 1 the
+// scalar tile, 0 none.
 extern "C" int sessd_fused_sparse_conv_instance(int cin, int cout,
                                                 int dtype) {
   if (dtype == 0) return fused_instance<float>(cin, cout);
@@ -309,11 +334,12 @@ extern "C" int sessd_fused_sparse_conv_wave(int cin, int cout) {
 }
 
 // The cluster size S sessd_fused_sparse_conv launches with for n_out rows:
-// 1 on the scalar tile, 0 where there is no instance.
+// 1 on the scalar tile and the 3xTF32 tile, 0 where there is no instance.
 extern "C" int sessd_fused_sparse_conv_split(int n_out, int cin, int cout,
                                              int dtype) {
   const int inst = sessd_fused_sparse_conv_instance(cin, cout, dtype);
-  if (inst != 2 || n_out <= 0) return inst;
+  if (inst == 0) return 0;
+  if (inst != 2 || n_out <= 0) return 1;
   const int wave = fused_wave(cin, cout);
   return wave > 0 ? sessd::cluster_split(
                         static_cast<int>(sessd::gather_gemm_grid(n_out).x),

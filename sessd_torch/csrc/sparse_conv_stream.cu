@@ -28,19 +28,18 @@
 // - f32 (the eval path on host chains and f32 serving, held to 1e-4):
 //   the same tile through 3xTF32, each operand split into two TF32 parts
 //   and each tap's three products summed from zero and added on the CUDA
-//   cores (gather_mma.cuh says how). It no longer keeps K1's order (f32 K1
-//   stays on the scalar tile): it equals the f32 forward's 3xTF32 entry
-//   (sparse_conv_fwd_tf32_kernel, the same tile without the epilogue) plus
-//   bias, ReLU and the any-hit mask bit for bit, and K1 within 1e-4. A
-//   row's sum runs over its tile's hit taps in order, and a tap that misses
-//   the row adds a zero partial, so a row's bits do not depend on the rows
-//   batched with it.
-// The two-slot ring below is what f32 K3 ran before (K1's tile, thread
-// mapping and summation order, one tap's gather in flight): while the block
-// runs tap k out of slot k%2, every thread has already issued tap k+1's
-// gathered rows and weights into the other slot with cp.async (16-byte
-// chunks, L2 only); a miss row is a zero-fill copy (src-size 0). It stays
-// reachable as fused_sparse_conv_stream_ring_kernel
+//   cores (gather_mma.cuh says how). f32 K1 runs the same instance, so
+//   the two agree bit for bit, and both equal the f32 forward
+//   (sparse_conv_fwd_kernel, the same tile without the epilogue) plus bias,
+//   ReLU and the any-hit mask. A row's sum runs over its tile's hit taps in
+//   order, and a tap that misses the row adds a zero partial, so a row's
+//   bits do not depend on the rows batched with it.
+// The two-slot ring below is what f32 K3 ran before (the scalar tile's
+// thread mapping and summation order, one tap's gather in flight): while
+// the block runs tap k out of slot k%2, every thread has already issued
+// tap k+1's gathered rows and weights into the other slot with cp.async
+// (16-byte chunks, L2 only); a miss row is a zero-fill copy (src-size 0).
+// It stays reachable as fused_sparse_conv_stream_ring_kernel
 // (sessd_fused_sparse_conv_stream_ring), f32 only, for same-call
 // comparisons.
 

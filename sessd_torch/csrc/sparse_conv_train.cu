@@ -25,20 +25,26 @@
 //
 // The forward, sparse_conv_fwd_kernel, takes one of two bodies by type and
 // shape, fixed at compile time (no fallback at run time):
-// - bf16 with Cin in {16, 32, 64}: gather_mma.cuh's tensor-core tile
-//   (wgmma out of a 4-stage cp.async ring, taps that no row of the tile
-//   hits skipped), 128 threads and dynamic shared memory per block. What
-//   bounds it on this card and what that design does about it are in the
-//   header. The training step's bf16 student chain runs 9 of its 10 convs
-//   here.
-// - f32 (the reference config's precision: the step-parity path, and
-//   eval on device chains) and the Cin = 4 first conv: gather_gemm.cuh's
-//   scalar tile, 256 threads. The same tile through 3xTF32 (each operand
-//   split into two TF32 parts, three products per k8 step; the header says
-//   how), 2.2x faster per f32 launch, is sparse_conv_fwd_tf32_kernel
-//   (sessd_sparse_conv_fwd_tf32), for comparisons only: the f32 step parity
-//   it would have to hold moves past its bound for any change of the
-//   forward's rounding (see the kernel).
+// - Cin, Cout in {16, 32, 64}: gather_mma.cuh's tensor-core tile (wgmma out
+//   of a cp.async ring, taps that no row of the tile hits skipped), 128
+//   threads and dynamic shared memory per block; in bf16 on bf16 operands,
+//   in f32 (the reference config's precision: the training step and eval
+//   on device chains) through 3xTF32 (each operand split into two TF32
+//   parts, three products per k8 step, each tap's partial added on the
+//   CUDA cores; the header says how). What bounds it on this card and what
+//   that design does about it are in the header. Both training plans run
+//   all their convs but the first here.
+// - the Cin = 4 first conv, in both types: gather_gemm.cuh's scalar tile,
+//   256 threads.
+// One f32 step through the kernels is held to 1e-3 of each gradient's max
+// against the same step through the cuBLAS twins. Any change of the
+// forward's rounding, the exact conv's included, flips a few of the step's
+// ReLU masks, each of which moves a weight gradient by ~1/sqrt(rows) of its
+// max (PERF.md), so the gate that holds the 3xTF32 body replays the twin
+// step's masks (scripts/probe_step_parity.py). The scalar body's f32
+// instances, which sum in the twin's order, stay reachable as
+// sparse_conv_fwd_scalar_kernel (sessd_sparse_conv_fwd_scalar), for
+// same-call comparisons and the unpinned step gate only.
 //
 // The input gradient, sparse_conv_dfeat_kernel, takes the same two bodies
 // by the same rule, fixed at compile time:
@@ -159,7 +165,8 @@ __global__ void __launch_bounds__(kThreads)
                            const uint8_t* __restrict__ row_mask,
                            T* __restrict__ out, int n_in, int n_out,
                            int taps) {
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+  if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                sessd::kTf32Tile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, false>(
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
   else
@@ -167,22 +174,17 @@ __global__ void __launch_bounds__(kThreads)
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
-// the forward in f32 through the 3xTF32 tile (Cin, Cout in {16, 32, 64}),
-// under a name of its own: for comparisons only. The f32 forward stays on
-// the scalar tile: one f32 training step is held to 1e-3 of each
-// gradient's max against its twins (cuBLAS f32), and the student's
-// gradients there move by 2e-2 for a 1e-7 relative change of the forward's
-// outputs, the exact (f64) conv included; the scalar tile passes only by
-// summing in the twin's order (scripts/probe_step_parity.py; PERF.md).
+// the forward's scalar body in f32 (every pair of the plan), the body f32
+// K4 ran before the 3xTF32 tile: for comparisons only
 template <typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
-    sparse_conv_fwd_tf32_kernel(const float* __restrict__ x,
-                                const IdxT* __restrict__ rb,
-                                const float* __restrict__ w2,
-                                const uint8_t* __restrict__ row_mask,
-                                float* __restrict__ out, int n_in, int n_out,
-                                int taps) {
-  sessd::gather_mma_tile<IdxT, CIN, COUT, false>(
+    sparse_conv_fwd_scalar_kernel(const float* __restrict__ x,
+                                  const IdxT* __restrict__ rb,
+                                  const float* __restrict__ w2,
+                                  const uint8_t* __restrict__ row_mask,
+                                  float* __restrict__ out, int n_in,
+                                  int n_out, int taps) {
+  sessd::gather_gemm_tile<float, IdxT, CIN, COUT, false>(
       x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
@@ -239,15 +241,15 @@ cudaError_t launch_gather(GatherKernel<T, IdxT> kernel,
   return cudaGetLastError();
 }
 
-// whether the instance for (T, CIN, COUT) of the forward (DFEAT false) or
-// of the input gradient takes gather_mma.cuh's tile: bf16 in both, f32
-// through 3xTF32 in the input gradient alone
-template <typename T, int CIN, int COUT, bool DFEAT>
+// whether the instance for (T, CIN, COUT) of the forward or of the input
+// gradient takes gather_mma.cuh's tile: bf16, and f32 through 3xTF32, at
+// 16-64 channels
+template <typename T, int CIN, int COUT>
 constexpr bool kTensorTile = sessd::kMmaTile<T, CIN, COUT> ||
-                             (DFEAT && sessd::kTf32Tile<T, CIN, COUT>);
+                             sessd::kTf32Tile<T, CIN, COUT>;
 
 // the __global__ of entry E for (T, IdxT, CIN, COUT): 0 the forward, 1 the
-// input gradient, 2 the 3xTF32 forward (f32 only)
+// input gradient, 2 the forward's scalar body (f32 only)
 template <int E, typename T, typename IdxT, int CIN, int COUT>
 GatherKernel<T, IdxT> kernel_of() {
   if constexpr (E == 0)
@@ -255,7 +257,7 @@ GatherKernel<T, IdxT> kernel_of() {
   else if constexpr (E == 1)
     return sparse_conv_dfeat_kernel<T, IdxT, CIN, COUT>;
   else
-    return sparse_conv_fwd_tf32_kernel<IdxT, CIN, COUT>;
+    return sparse_conv_fwd_scalar_kernel<IdxT, CIN, COUT>;
 }
 
 // above 48 KB a block's shared memory must be asked for, once per kernel
@@ -293,7 +295,7 @@ cudaError_t launch_tile(const void* x, const void* rb, const void* w2,
                         const uint8_t* row_mask, void* out, int n_in,
                         int n_out, int taps, cudaStream_t stream) {
   constexpr int e = DFEAT ? 1 : 0;
-  if constexpr (kTensorTile<T, CIN, COUT, DFEAT>)
+  if constexpr (kTensorTile<T, CIN, COUT>)
     return launch_mma<e, T, IdxT, CIN, COUT>(x, rb, w2, row_mask, out, n_in,
                                              n_out, taps, stream);
   else
@@ -332,12 +334,12 @@ cudaError_t dispatch_fwd(int cin, int cout, const void* x, const void* rb,
   return cudaErrorInvalidValue;
 }
 
-// the code of a forward (DFEAT false) or input-gradient instance's body:
-// 3 the tensor-core tile through 3xTF32, 2 the tensor-core tile in bf16, 1
-// the scalar tile
-template <typename T, int CIN, int COUT, bool DFEAT>
+// the code of a forward or input-gradient instance's body: 3 the
+// tensor-core tile through 3xTF32, 2 the tensor-core tile in bf16, 1 the
+// scalar tile
+template <typename T, int CIN, int COUT>
 constexpr int tile_code() {
-  if constexpr (!kTensorTile<T, CIN, COUT, DFEAT>)
+  if constexpr (!kTensorTile<T, CIN, COUT>)
     return 1;
   else
     return sessd::kTf32Tile<T, CIN, COUT> ? 3 : 2;
@@ -348,24 +350,23 @@ constexpr int tile_code() {
 template <typename T>
 int fwd_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return tile_code<T, CI, CO, false>();
+  if (cin == CI && cout == CO) return tile_code<T, CI, CO>();
   SESSD_FWD_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
 }
 
-// the 3xTF32 forward (comparison entry) for the pairs with 16-64 channels
+// the forward's scalar body in f32 (comparison entry), every pair
 template <typename IdxT>
-cudaError_t dispatch_fwd_tf32(int cin, int cout, const void* x,
-                              const void* rb, const void* w2,
-                              const uint8_t* row_mask, void* out, int n_in,
-                              int n_out, int taps, cudaStream_t stream) {
+cudaError_t dispatch_fwd_scalar(int cin, int cout, const void* x,
+                                const void* rb, const void* w2,
+                                const uint8_t* row_mask, void* out, int n_in,
+                                int n_out, int taps, cudaStream_t stream) {
 #define SESSD_CASE(CI, CO)                                                   \
-  if constexpr (sessd::kTf32Tile<float, CI, CO>) {                           \
-    if (cin == CI && cout == CO)                                             \
-      return launch_mma<2, float, IdxT, CI, CO>(x, rb, w2, row_mask, out,    \
-                                                n_in, n_out, taps, stream);  \
-  }
+  if (cin == CI && cout == CO)                                               \
+    return launch_gather<float, IdxT>(kernel_of<2, float, IdxT, CI, CO>(),   \
+                                      x, rb, w2, row_mask, out, n_in, n_out, \
+                                      taps, stream);
   SESSD_FWD_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
@@ -416,7 +417,7 @@ cudaError_t dispatch_dfeat_scalar(int cin, int cout, const void* x,
 template <typename T>
 int dfeat_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
-  if (cin == CI && cout == CO) return tile_code<T, CI, CO, true>();
+  if (cin == CI && cout == CO) return tile_code<T, CI, CO>();
   SESSD_DFEAT_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
@@ -430,7 +431,7 @@ int tile_blocks_per_sm() {
   const auto kern = kernel_of<E, T, int32_t, CIN, COUT>();
   int blocks = 0;
   cudaError_t err;
-  if constexpr (E == 2 || kTensorTile<T, CIN, COUT, E == 1>) {
+  if constexpr (E != 2 && kTensorTile<T, CIN, COUT>) {
     err = allow_smem<E, T, int32_t, CIN, COUT>();
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -444,14 +445,14 @@ int tile_blocks_per_sm() {
 }
 
 // tile_blocks_per_sm of the forward (entry 0), the input gradient (1, its
-// gather's pair) or the 3xTF32 forward (2, f32 at 16-64 channels); 0 where
-// there is no such instance
+// gather's pair) or the forward's scalar body (2, f32 only); 0 where there
+// is no such instance
 template <typename T>
 int blocks_per_sm(int entry, int cin, int cout) {
 #define SESSD_CASE(CI, CO)                                                 \
   if (entry == 0 && cin == CI && cout == CO)                               \
     return tile_blocks_per_sm<0, T, CI, CO>();                             \
-  if constexpr (sessd::kTf32Tile<T, CI, CO>) {                             \
+  if constexpr (std::is_same<T, float>::value) {                           \
     if (entry == 2 && cin == CI && cout == CO)                             \
       return tile_blocks_per_sm<2, T, CI, CO>();                           \
   }
@@ -1180,30 +1181,30 @@ extern "C" int sessd_sparse_conv_fwd(const void* feats, const void* rb,
 #undef SESSD_CALL
 }
 
-// The forward in f32 through the 3xTF32 tile under its own kernel name
-// (sparse_conv_fwd_tf32_kernel), for comparisons: sessd_sparse_conv_fwd's
-// arguments, dtype 0 and Cin, Cout in {16, 32, 64} only; feats and w2
-// 16-byte aligned.
-extern "C" int sessd_sparse_conv_fwd_tf32(const void* feats, const void* rb,
-                                          const void* w2,
-                                          const uint8_t* row_mask, void* out,
-                                          int n_in, int n_out, int cin,
-                                          int cout, int taps, int dtype,
-                                          int idx_bytes, void* stream) {
+// The forward's scalar body in f32 under its own kernel name
+// (sparse_conv_fwd_scalar_kernel), for comparisons: sessd_sparse_conv_fwd's
+// arguments, dtype 0 only.
+extern "C" int sessd_sparse_conv_fwd_scalar(const void* feats, const void* rb,
+                                            const void* w2,
+                                            const uint8_t* row_mask,
+                                            void* out, int n_in, int n_out,
+                                            int cin, int cout, int taps,
+                                            int dtype, int idx_bytes,
+                                            void* stream) {
   if (bad_args(n_in, n_out, taps) || dtype != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 2)
-    return dispatch_fwd_tf32<int16_t>(cin, cout, feats, rb, w2, row_mask, out,
-                                      n_in, n_out, taps, s);
+    return dispatch_fwd_scalar<int16_t>(cin, cout, feats, rb, w2, row_mask,
+                                        out, n_in, n_out, taps, s);
   if (idx_bytes == 4)
-    return dispatch_fwd_tf32<int32_t>(cin, cout, feats, rb, w2, row_mask, out,
-                                      n_in, n_out, taps, s);
+    return dispatch_fwd_scalar<int32_t>(cin, cout, feats, rb, w2, row_mask,
+                                        out, n_in, n_out, taps, s);
   return cudaErrorInvalidValue;
 }
 
 // Which body sessd_sparse_conv_fwd launches for (cin, cout, dtype), as
-// tile_code: 2 the tensor-core tile (bf16), 1 the scalar tile (f32 too), 0
-// none (it answers cudaErrorInvalidValue).
+// tile_code: 3 the tensor-core tile through 3xTF32, 2 the tensor-core tile
+// in bf16, 1 the scalar tile, 0 none (it answers cudaErrorInvalidValue).
 extern "C" int sessd_sparse_conv_fwd_instance(int cin, int cout, int dtype) {
   if (dtype == 0) return fwd_instance<float>(cin, cout);
   if (dtype == 1) return fwd_instance<__nv_bfloat16>(cin, cout);
@@ -1319,8 +1320,8 @@ extern "C" int sessd_sparse_conv_dw_blocks_per_sm(int cin, int cout,
 
 // Blocks of the int32-rulebook instance for (cin, cout, dtype) of
 // sessd_sparse_conv_fwd (entry 0), sessd_sparse_conv_dfeat (1, the
-// gather's pair) or sessd_sparse_conv_fwd_tf32 (2) that fit one SM at once;
-// 0 for a pair it has no instance of, or where it cannot be read.
+// gather's pair) or sessd_sparse_conv_fwd_scalar (2, f32) that fit one SM
+// at once; 0 for a pair it has no instance of, or where it cannot be read.
 extern "C" int sessd_sparse_conv_train_blocks_per_sm(int entry, int cin,
                                                      int cout, int dtype) {
   if (dtype == 0) return blocks_per_sm<float>(entry, cin, cout);

@@ -10,7 +10,7 @@ CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
 it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
 ``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes,
 ``cluster_split`` the cluster size of a bf16 ``fused_sparse_conv``) or
-raises. ``fused_sparse_conv_scalar`` (the scalar tile's bf16 body),
+raises. ``fused_sparse_conv_scalar`` (the scalar tile, in either type),
 ``fused_sparse_conv_at_split`` (K1 at a given cluster size) and
 ``fused_sparse_conv_stream_ring`` (the two-slot ring f32 K3 ran before its
 3xTF32 tile) exist for same-call comparisons only; nothing on the serving
@@ -73,12 +73,6 @@ STREAM_PAIRS = FWD_PAIRS[1:]
 FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
 DFEAT_PAIRS = ((16, 4), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile, kTf32Tile
-# the entries whose f32 instances at MMA_CHANNELS take a tensor-core body
-# through 3xTF32 (csrc/sparse_conv_train.cu: kTensorTile, kDwTensor;
-# csrc/sparse_conv_stream.cu: kTensor); the f32 forward's 3xTF32 body is the
-# comparison entry sparse_conv_fwd_tf32, and f32 K1 keeps the scalar tile
-TF32_ENTRIES = ("fused_sparse_conv_stream", "sparse_conv_dfeat",
-                "sparse_conv_dw")
 # csrc/sparse_conv_train.cu: tile_code, what the C instance entries answer
 INSTANCE_CODES = {"tf32": 3, "mma": 2, "scalar": 1}
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
@@ -98,8 +92,8 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
     compile time: "mma" (bf16 with Cin and Cout in {16, 32, 64}: the
     tensor-core tile of ``csrc/gather_mma.cuh`` for the convs and the input
     gradient, the mma.sync partial kernel of ``sparse_conv_train.cu`` for
-    dW), "tf32" (f32 at those channels in the entries of TF32_ENTRIES: the
-    same bodies through 3xTF32, dW's on mma.sync m16n8k8) or "scalar"
+    dW), "tf32" (f32 at those channels: the same bodies through 3xTF32,
+    dW's on mma.sync m16n8k8) or "scalar"
     (``gather_gemm.cuh``'s tile, or dW's scalar partial kernel). For
     "sparse_conv_dfeat", (cin, cout) is its gather's pair: the conv's
     (Cout, Cin). Raises ValueError where the entry has no instance."""
@@ -108,9 +102,7 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
                          f"Cout={cout}")
     if cin not in MMA_CHANNELS or cout not in MMA_CHANNELS:
         return "scalar"
-    if dtype == torch.bfloat16:
-        return "mma"
-    return "tf32" if entry in TF32_ENTRIES else "scalar"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
 
 
 def cluster_split(tiles: int, wave: int) -> int:
@@ -198,7 +190,7 @@ def build() -> ctypes.CDLL:
         # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
         # dtype, idx_bytes; stream
         lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
-        lib.sessd_sparse_conv_fwd_tf32.argtypes = \
+        lib.sessd_sparse_conv_fwd_scalar.argtypes = \
             lib.sessd_sparse_conv_fwd.argtypes
         # dout, inv, w2 (wt for the scalar entry), dfeat; n_out, n_in, cin,
         # cout, taps, dtype, idx_bytes; stream
@@ -236,7 +228,7 @@ def build() -> ctypes.CDLL:
         # n_out, cin, cout, dtype -> the cluster size K1 launches with
         lib.sessd_fused_sparse_conv_wave.argtypes = [i32] * 2
         lib.sessd_fused_sparse_conv_split.argtypes = [i32] * 4
-        # entry (0 fwd, 1 dfeat, 2 fwd_tf32), cin, cout, dtype -> blocks per
+        # entry (0 fwd, 1 dfeat, 2 fwd_scalar), cin, cout, dtype -> blocks per
         # SM of a training instance; dW's at (cin, cout, dtype, chunk_rows),
         # the stream kernel's at (cin, cout, dtype)
         lib.sessd_sparse_conv_train_blocks_per_sm.argtypes = [i32] * 4
@@ -248,7 +240,7 @@ def build() -> ctypes.CDLL:
                    lib.sessd_fused_sparse_conv_stream_ring,
                    lib.sessd_fused_sparse_conv_at_split,
                    lib.sessd_sparse_conv_fwd,
-                   lib.sessd_sparse_conv_fwd_tf32,
+                   lib.sessd_sparse_conv_fwd_scalar,
                    lib.sessd_sparse_conv_dfeat,
                    lib.sessd_sparse_conv_dfeat_scalar,
                    lib.sessd_sparse_conv_dw, lib.sessd_sparse_conv_dw_scalar,
@@ -358,10 +350,13 @@ def _on_device(feats, rb, w2, bias, n_in) -> bool:
     return True
 
 
-def _mma(feats, w2) -> bool:
+def _body(feats, w2) -> str:
+    """``conv_instance`` of ``fused_sparse_conv`` for these inputs ("" for
+    a pair it has no instance of: the C entry refuses it)."""
     taps, cin, cout = w2.shape
-    return (cin, cout) in FUSED_PAIRS and conv_instance(
-        "fused_sparse_conv", feats.dtype, cin, cout) == "mma"
+    if (cin, cout) not in FUSED_PAIRS:
+        return ""
+    return conv_instance("fused_sparse_conv", feats.dtype, cin, cout)
 
 
 def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
@@ -375,13 +370,16 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
     folded in); bias [Cout] f32. Returns [n_out, Cout] in the feats dtype.
     bf16 with Cin, Cout in {16, 32, 64} runs the tensor-core tile (feats and
     w2 16-byte aligned), in clusters of ``cluster_split`` CTAs per tile
-    where the launch fills less than a wave; the rest runs the scalar tile
-    (``conv_instance``). CPU tensors take the twin; CUDA tensors launch the
-    kernel on the current stream, counted in ``fused_sparse_conv.launches``.
+    where the launch fills less than a wave; f32 at those channels runs the
+    same tile through 3xTF32 at one CTA per tile (the f32 stream kernel's
+    instance: bit-equal to ``fused_sparse_conv_stream``); the Cin = 4 first
+    conv runs the scalar tile (``conv_instance``). CPU tensors take the
+    twin; CUDA tensors launch the kernel on the current stream, counted in
+    ``fused_sparse_conv.launches``.
     """
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if _mma(feats, w2):
+    if _body(feats, w2) in ("mma", "tf32"):
         _check_aligned(feats, w2)
     out = _launch("fused_sparse_conv", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv.launches += 1
@@ -392,14 +390,13 @@ fused_sparse_conv.launches = 0
 
 
 def fused_sparse_conv_scalar(feats, rb, w2, bias, n_in, relu=True):
-    """``fused_sparse_conv`` through the scalar tile's bf16 body
-    (``fused_sparse_conv_scalar_kernel``), the tile bf16 K1 ran before the
-    tensor-core tile: for same-call comparisons only. bf16 only; CPU tensors
-    take the twin. Counted in ``fused_sparse_conv_scalar.launches``."""
+    """``fused_sparse_conv`` through the scalar tile
+    (``fused_sparse_conv_scalar_kernel``), the tile K1 ran before the
+    tensor-core tile (bf16) and before 3xTF32 (f32), in either type: for
+    same-call comparisons only. CPU tensors take the twin. Counted in
+    ``fused_sparse_conv_scalar.launches``."""
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if feats.dtype != torch.bfloat16:
-        raise ValueError("the scalar entry takes bf16 only")
     out = _launch("fused_sparse_conv_scalar", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv_scalar.launches += 1
     return out
@@ -416,9 +413,9 @@ def fused_sparse_conv_at_split(feats, rb, w2, bias, n_in, split: int,
     ``fused_sparse_conv_at_split.launches``."""
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if not _mma(feats, w2) or split not in (1, 2, MAX_SPLIT):
+    if _body(feats, w2) != "mma" or split not in (1, 2, MAX_SPLIT):
         raise ValueError(f"split {split} of a {feats.dtype} "
-                         f"{tuple(w2.shape[1:])} conv: the tensor-core "
+                         f"{tuple(w2.shape[1:])} conv: the bf16 tensor-core "
                          "instances take 1, 2 or 4")
     _check_aligned(feats, w2)
     out = _launch("fused_sparse_conv_at_split", feats, rb, w2, bias, n_in,
@@ -432,8 +429,8 @@ fused_sparse_conv_at_split.launches = 0
 
 def launch_split(n_out: int, cin: int, cout: int, dtype) -> int:
     """The cluster size the C entry of ``fused_sparse_conv`` launches with
-    for ``n_out`` output rows on this card (1 on the scalar tile); reads
-    the card, so CUDA only."""
+    for ``n_out`` output rows on this card (1 on the scalar tile and in
+    f32); reads the card, so CUDA only."""
     lib = build()
     split = lib.sessd_fused_sparse_conv_split(n_out, cin, cout,
                                               _DTYPE_CODES[dtype])
@@ -460,8 +457,8 @@ def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
     kernel (``csrc/sparse_conv_stream.cu``): the tensor-core tile of
     ``gather_mma.cuh`` (a 4-stage cp.async ring, taps no row of a tile hits
     skipped), in bf16 bit-equal to K1 where K1 runs one CTA per tile, in f32
-    through 3xTF32, bit-equal to ``sparse_conv_fwd_tf32`` plus bias, ReLU
-    and the any-hit mask, and within 1e-4 of f32 K1 (``conv_instance``).
+    through 3xTF32, bit-equal to f32 K1 and to ``sparse_conv_fwd`` plus
+    bias, ReLU and the any-hit mask (``conv_instance``).
     Takes Cin in {16, 32, 64}: the 4-channel first conv never streams. CPU
     tensors take the twin; CUDA tensors launch the kernel, counted in
     ``fused_sparse_conv_stream.launches``.

@@ -6,17 +6,17 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 ``sessd_tpu/ops/pallas/wconv.py`` (the custom VJP of ``windowed_conv``).
 The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
 ``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
-tensor-core tile of the forward and input gradient in bf16, and of the
-input gradient in f32 through 3xTF32), built with the serving kernel by
+tensor-core tile of the forward and input gradient, in bf16 and in f32
+through 3xTF32), built with the serving kernel by
 ``ops.cuda.sparse_conv.build`` at the first CUDA call; dW's tensor-core
 body (mma.sync, bf16 and f32 through 3xTF32) is in the ``.cu`` itself. On
 a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches its
 kernel, counted in ``<wrapper>.launches``, or raises.
 ``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar`` (the scalar
 bodies in f32 and bf16, which the tensor-core ones replaced) and
-``sparse_conv_fwd_tf32`` (the f32 forward through 3xTF32, which the f32
-step's parity gate keeps off the training path) exist for same-call
-comparisons only; the training step never calls them.
+``sparse_conv_fwd_scalar`` (the f32 forward's scalar body, which 3xTF32
+replaced) exist for same-call comparisons only; the training step never
+calls them.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -28,8 +28,8 @@ import torch
 
 from ..sparse import gather_gemm
 from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, DFEAT_PAIRS, DW_PAIRS,
-                          FWD_PAIRS, MMA_CHANNELS, TILE_ROWS, build,
-                          conv_instance, raise_on_error)
+                          FWD_PAIRS, TILE_ROWS, build, conv_instance,
+                          raise_on_error)
 
 # rows of one dW split-K chunk (a multiple of 64, at most DW_MAX_CHUNK_ROWS
 # for the tensor-core partial kernel): 59 chunks x 27 taps of blocks at the
@@ -223,9 +223,10 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     """out[n] = sum_k feats[rb[n, k]] @ w2[k] where ``out_mask[n]`` (bool
     [N_out], or None for every row), else 0. feats [N_in, Cin]; rb
     [N_out, K] with N_in = miss. Returns [N_out, Cout] in feats' dtype.
-    bf16 with Cin in {16, 32, 64} runs the tensor-core tile, which copies
-    16-byte chunks and wants feats and w2 16-byte aligned; the rest runs
-    the scalar tile (``conv_instance``)."""
+    Cin in {16, 32, 64} runs the tensor-core tile (bf16, and f32 through
+    3xTF32, whose arithmetic ``gather_gemm_tf32`` models), which copies
+    16-byte chunks and wants feats and w2 16-byte aligned; the first conv's
+    Cin = 4 runs the scalar tile (``conv_instance``)."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
     _check_fwd(feats, rb, w2, out_mask)
@@ -268,29 +269,20 @@ def _launch_fwd(entry, feats, rb, w2, out_mask):
     return out
 
 
-def sparse_conv_fwd_tf32(feats, rb, w2, out_mask=None):
-    """``sparse_conv_fwd`` in f32 through the tensor-core tile by 3xTF32
-    (``sparse_conv_fwd_tf32_kernel``): for same-call comparisons only. The
-    f32 forward of the training path stays on the scalar tile, because the
-    f32 step is held to 1e-3 of each gradient's max against its cuBLAS
-    twins and the student's gradients move past that for any 1e-7 change
-    of the forward's rounding, the exact conv's included
-    (``scripts/probe_step_parity.py``). f32 with Cin, Cout in {16, 32, 64}
-    only; feats and w2 16-byte
-    aligned. CPU tensors take the twin. Counted in
-    ``sparse_conv_fwd_tf32.launches``."""
+def sparse_conv_fwd_scalar(feats, rb, w2, out_mask=None):
+    """``sparse_conv_fwd`` in f32 through the scalar tile
+    (``sparse_conv_fwd_scalar_kernel``), the body f32 K4 ran before 3xTF32,
+    which sums in the twin's order: for same-call comparisons and the
+    unpinned step-parity gate only. f32 only, every pair; CPU tensors take
+    the twin. Counted in ``sparse_conv_fwd_scalar.launches``."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
     _check_fwd(feats, rb, w2, out_mask)
-    taps, cin, cout = w2.shape
-    if feats.dtype != torch.float32 or cin not in MMA_CHANNELS \
-            or cout not in MMA_CHANNELS:
-        raise ValueError(f"the 3xTF32 entry takes f32 with 16-64 channels, "
-                         f"got {feats.dtype} {cin} -> {cout}")
-    if feats.data_ptr() % 16 or w2.data_ptr() % 16:
-        raise ValueError("feats and w2 must be 16-byte aligned")
-    out = _launch_fwd("sparse_conv_fwd_tf32", feats, rb, w2, out_mask)
-    sparse_conv_fwd_tf32.launches += 1
+    if feats.dtype != torch.float32:
+        raise ValueError(f"the scalar entry takes f32 only, got "
+                         f"{feats.dtype}")
+    out = _launch_fwd("sparse_conv_fwd_scalar", feats, rb, w2, out_mask)
+    sparse_conv_fwd_scalar.launches += 1
     return out
 
 
@@ -429,7 +421,7 @@ def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
 
 
 BLOCKS_ENTRIES = ("sparse_conv_fwd", "sparse_conv_dfeat",
-                  "sparse_conv_fwd_tf32", "sparse_conv_dw")
+                  "sparse_conv_fwd_scalar", "sparse_conv_dw")
 
 
 def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int, cout: int,
@@ -448,7 +440,7 @@ def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int, cout: int,
 
 
 sparse_conv_fwd.launches = 0
-sparse_conv_fwd_tf32.launches = 0
+sparse_conv_fwd_scalar.launches = 0
 sparse_conv_dfeat.launches = 0
 sparse_conv_dfeat_scalar.launches = 0
 sparse_conv_dw.launches = 0

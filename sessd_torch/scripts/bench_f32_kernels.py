@@ -15,15 +15,18 @@ make_synthetic_root``), seeded random weights:
   (``sparse_conv_fwd``) on all 24, the step's dFeat (``sparse_conv_dfeat``,
   the student's convs after the first: 9) and dW (``sparse_conv_dw``, the
   student's 10), each with its plain twin and, where the tree has them,
-  K4's 3xTF32 entry (``sparse_conv_fwd_tf32``, on the convs with 16-64
-  channels) and the scalar entries of dFeat and dW
-  (``sparse_conv_dfeat_scalar``, ``sparse_conv_dw_scalar`` in f32: the
-  bodies f32 dFeat and dW ran before 3xTF32) on the same calls;
+  the scalar entries of K4, dFeat and dW (``sparse_conv_fwd_scalar``,
+  ``sparse_conv_dfeat_scalar``, ``sparse_conv_dw_scalar`` in f32: the
+  bodies they ran before 3xTF32) or K4's 3xTF32 entry
+  (``sparse_conv_fwd_tf32``, on the convs with 16-64 channels, in trees
+  whose f32 K4 ran the scalar tile) on the same calls;
 - its first val batch on host chains (batch 4): K1 (``fused_sparse_conv``)
   on the convs the stream rule keeps resident and K3
   (``fused_sparse_conv_stream``) on the others, with their twin and, where
-  the tree has it, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
-  the body f32 K3 ran before 3xTF32) on the same calls.
+  the tree has them, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
+  the body f32 K3 ran before 3xTF32) and K1's scalar entry in f32
+  (``fused_sparse_conv_scalar``, the body f32 K1 ran before 3xTF32) on the
+  same calls.
 
 Every time is a device time (``queued_device_ms``, the median of 20). Per
 kernel: the mean ms per launch over its convs, the bound per launch (each
@@ -149,9 +152,11 @@ def first_batch(trainer):
     return trainer._device_batch(batch)
 
 
-def time_train(trainer, records, has_entries, has_dw_entry):
+def time_train(trainer, records, entries):
     """K4 on both chains, dFeat and dW on the student's; the old bodies'
-    entries on the same calls where the tree has them."""
+    entries on the same calls where the tree has them (``entries``:
+    {"fwd", "fwd_tf32", "dfeat", "dw": whether it has K4's scalar entry,
+    K4's 3xTF32 entry, the f32 scalar entries of dFeat and dW})."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     db = first_batch(trainer)
@@ -183,9 +188,12 @@ def time_train(trainer, records, has_entries, has_dw_entry):
                                                                mask), REPS),
                 plain_ms=queued_device_ms(
                     lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask), REPS),
+                old_tile_ms=queued_device_ms(
+                    lambda: kt.sparse_conv_fwd_scalar(x, rbk, w, mask), REPS)
+                if entries["fwd"] else None,
                 **_bound(bound_ms((x, rbk, w, mask, y), n_hits, cin, cout,
                                   body)))
-            if has_entries and i > 0:  # K4's 3xTF32 entry, same call
+            if entries["fwd_tf32"] and i > 0:  # same call
                 row["tf32_entry_ms"] = queued_device_ms(
                     lambda: kt.sparse_conv_fwd_tf32(x, rbk, w, mask), REPS)
                 row["tf32_entry_bound_ms"] = bound_ms(
@@ -210,7 +218,7 @@ def time_train(trainer, records, has_entries, has_dw_entry):
                             REPS),
                         old_tile_ms=queued_device_ms(
                             lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w),
-                            REPS) if has_entries else None,
+                            REPS) if entries["dfeat"] else None,
                         **_bound(bound_ms((dout, inv, w, got), n_hits, cout,
                                           cin, body)))
                     line += _line("dfeat", row)
@@ -228,7 +236,7 @@ def time_train(trainer, records, has_entries, has_dw_entry):
                         lambda: kt.sparse_conv_dw_ref(x, rbk, dout), REPS),
                     old_tile_ms=queued_device_ms(
                         lambda: kt.sparse_conv_dw_scalar(x, rbk, dout),
-                        REPS) if has_dw_entry else None,
+                        REPS) if entries["dw"] else None,
                     bound_with_partials_ms=bound_ms(
                         (x, rbk, dout, got), n_hits, cin, cout, body,
                         partials)["ms"],
@@ -254,10 +262,10 @@ def _line(name, row) -> str:
             f"({row['bound_by']});")
 
 
-def time_eval(trainer, records, has_ring):
+def time_eval(trainer, records, has_ring, has_k1_entry):
     """K1 and K3 on the first val batch's host chains, as validate() runs
-    them (the stream rule at the trainer's caps); K3 with its ring on the
-    same calls where the tree has it."""
+    them (the stream rule at the trainer's caps); K3 with its ring and K1
+    with its f32 scalar entry on the same calls where the tree has them."""
     batch = first(trainer.val_loader)
     host_rb = trainer._eval_inputs(batch)
     def put(a):
@@ -278,15 +286,16 @@ def time_eval(trainer, records, has_ring):
         y = fn(*args)
         cin, cout = x.shape[1], w2.shape[2]
         body = sc.conv_instance(fn.__name__, torch.float32, cin, cout)
-        ring = has_ring and name == "k3"
+        old = {"k3": sc.fused_sparse_conv_stream_ring if has_ring else None,
+               "k1": sc.fused_sparse_conv_scalar if has_k1_entry
+               else None}[name]
         row = records[name].add(
             conv=i, cin=cin, cout=cout, rows=rbk.shape[0], body=body,
             ms=queued_device_ms(lambda: fn(*args), REPS),
             plain_ms=queued_device_ms(
                 lambda: sc.fused_sparse_conv_ref(*args), REPS),
-            old_tile_ms=queued_device_ms(
-                lambda: sc.fused_sparse_conv_stream_ring(*args), REPS)
-            if ring else None,
+            old_tile_ms=queued_device_ms(lambda: old(*args), REPS)
+            if old else None,
             **_bound(bound_ms((x, rbk, w2, bias, y), int((rbk != n_in).sum()),
                               cin, cout, body)))
         print(f"eval conv {i:2d} {cin:2d}->{cout:2d} rows "
@@ -309,11 +318,18 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    has_entries = hasattr(kt, "sparse_conv_fwd_tf32")
-    # trees whose f32 dW and K3 run 3xTF32 keep the old bodies as entries
-    has_dw_entry = sc.conv_instance("sparse_conv_dw", torch.float32, 16,
-                                    16) == "tf32"
+    # a tree whose f32 body of a kernel runs 3xTF32 keeps the old one as an
+    # entry (K1's and dW's scalar entries took bf16 only before); one whose
+    # f32 K4 ran the scalar tile had its 3xTF32 entry
+    def tf32(entry):
+        return sc.conv_instance(entry, torch.float32, 16, 16) == "tf32"
+
+    entries = {"fwd": hasattr(kt, "sparse_conv_fwd_scalar"),
+               "fwd_tf32": hasattr(kt, "sparse_conv_fwd_tf32"),
+               "dfeat": hasattr(kt, "sparse_conv_dfeat_scalar"),
+               "dw": tf32("sparse_conv_dw")}
     has_ring = hasattr(sc, "fused_sparse_conv_stream_ring")
+    has_k1_entry = tf32("fused_sparse_conv")
     records = {k: Rows() for k in ("fwd", "dfeat", "dw", "k1", "k3")}
     with tempfile.TemporaryDirectory(prefix="bench_f32_") as tmp:
         root = f"{tmp}/kitti"
@@ -324,8 +340,8 @@ def main(argv=None):
         if cfg.get("precision") != "float32":
             raise SystemExit(f"{CONFIG} is not the f32 config")
         with torch.no_grad():
-            time_train(trainer, records, has_entries, has_dw_entry)
-        time_eval(trainer, records, has_ring)
+            time_train(trainer, records, entries)
+        time_eval(trainer, records, has_ring, has_k1_entry)
     summary = {k: r.summary() for k, r in records.items()}
     launches = {"train_step": {"fwd": 24, "dfeat": 9, "dw": 10},
                 "eval_device_chains": {"fwd": 10},

@@ -1,13 +1,12 @@
 """The CUDA kernels of sessd_torch against their plain PyTorch twins, on the
 card: the serving convs (K1, and K3, the streaming one, also against K1:
-in bf16 bit for bit where K1 runs one CTA per tile; in f32, where K3 runs
-3xTF32 and K1 the scalar tile, within 1e-4, and K3 bit for bit equal to
-the forward's 3xTF32 entry with bias, ReLU and the any-hit mask), the
-training conv's forward (K4), input gradient and weight gradient (K5), the
-tensor-core tile of bf16 K1, K3, K4 and dFeat (K-major B, one launch per
-call) on tiles that skip taps, the same tile through 3xTF32 in f32 dFeat,
-f32 K3 and the f32 forward's comparison entry ``sparse_conv_fwd_tf32``
-(against the twins, the scalar bodies and the plain model of its
+in bf16 bit for bit where K1 runs one CTA per tile; in f32, where both run
+3xTF32 at one CTA per tile, bit for bit, and both bit for bit equal to the
+f32 forward with bias, ReLU and the any-hit mask), the training conv's
+forward (K4), input gradient and weight gradient (K5), the tensor-core
+tile of bf16 K1, K3, K4 and dFeat (K-major B, one launch per call) on
+tiles that skip taps, the same tile through 3xTF32 in f32 K1, K3, K4 and
+dFeat (against the twins, the scalar entries and the plain model of its
 arithmetic, ``kt.gather_gemm_tf32``, on every pair of those entries), K1's
 tap split over a cluster against one CTA per tile and against itself, dW's
 tensor-core partial kernel (bf16, and f32 through 3xTF32 against its model
@@ -123,12 +122,12 @@ STREAM_PLAN = [p for p in PLAN if p[0] != 4]  # Cin = 4 never streams
                          ids=[f"{a}x{b}x{c}" for a, b, c in STREAM_PLAN])
 def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
                                            dtype, tol):
-    """K3 within the bound of the twin and of K1. In f32 K3 runs the 3xTF32
-    tile and K1 the scalar tile, so they agree within 1e-4, and K3 equals
-    the forward's 3xTF32 entry (the same tile, taps and order, without the
-    epilogue) with bias, ReLU and the any-hit mask added bit for bit; in
-    bf16 both run the tensor-core tile, and K1 splits these 40 tiles' taps
-    over clusters (at one CTA per tile they agree bit for bit:
+    """K3 within the bound of the twin and of K1. In f32 K3 and K1 run the
+    3xTF32 tile at one CTA per tile, so they agree bit for bit, and both
+    equal the f32 forward (the same tile, taps and order, without the
+    epilogue) with bias, ReLU and the any-hit mask added; in bf16 both run
+    the tensor-core tile, and K1 splits these 40 tiles' taps over clusters
+    (at one CTA per tile they agree bit for bit:
     test_bf16_k1_at_one_cta_per_tile_equals_k3)."""
     feats, rb, w2, bias = _inputs(cin, cout, k)
     args = (torch.from_numpy(feats).to(cuda, dtype),
@@ -152,6 +151,7 @@ def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
         for relu in (True, False):
             y = sc.fused_sparse_conv_stream(*args, relu=relu)
             assert torch.equal(y, _tf32_with_epilogue(f, r, w, b, relu))
+            assert torch.equal(y, sc.fused_sparse_conv(*args, relu=relu))
 
 
 @pytest.mark.cuda
@@ -162,9 +162,9 @@ def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
 def test_stream_ring_entry_is_the_old_f32_body(cuda, cin, cout, k,
                                                idx_dtype):
     """K3's two-slot ring, kept for comparisons, is the body f32 K3 ran
-    before the 3xTF32 tile: K1's summation order, so equal to f32 K1 (the
-    scalar tile) bit for bit, within 1e-4 of the twin, under its own
-    counter and not K3's; it takes f32 only."""
+    before the 3xTF32 tile: the scalar tile's summation order, so equal to
+    K1's scalar entry in f32 bit for bit, within 1e-4 of the twin, under
+    its own counter and not K3's; it takes f32 only."""
     feats, rb, w2, bias = _inputs(cin, cout, k)
     args = (torch.from_numpy(feats).to(cuda),
             torch.from_numpy(rb).to(cuda, idx_dtype),
@@ -177,7 +177,7 @@ def test_stream_ring_entry_is_the_old_f32_body(cuda, cin, cout, k,
     assert (sc.fused_sparse_conv_stream.launches,
             sc.fused_sparse_conv_stream_ring.launches) == (counts[0],
                                                            counts[1] + 1)
-    assert torch.equal(got, sc.fused_sparse_conv(*args))
+    assert torch.equal(got, sc.fused_sparse_conv_scalar(*args))
     assert _err(got, sc.fused_sparse_conv_ref(*args)) <= 1e-4
     with pytest.raises(ValueError, match="f32 only"):
         sc.fused_sparse_conv_stream_ring(args[0].bfloat16(), args[1],
@@ -200,9 +200,9 @@ def test_dw_scalar_entry_is_the_old_f32_body(cuda):
 
 
 def _tf32_with_epilogue(f, r, w, b, relu=True):
-    """The forward's 3xTF32 entry with K3's epilogue added in torch: bias,
-    ReLU, and zero where no tap of the row hits."""
-    y = kt.sparse_conv_fwd_tf32(f, r, w) + b
+    """The f32 forward (the 3xTF32 tile) with K3's epilogue added in torch:
+    bias, ReLU, and zero where no tap of the row hits."""
+    y = kt.sparse_conv_fwd(f, r, w) + b
     if relu:
         y = torch.relu(y)
     return torch.where((r != N_IN).any(1, keepdim=True), y, 0.0)
@@ -236,10 +236,9 @@ def _tile_inputs(cin, cout, k, seed=0):
 
 
 MMA_PLAN = [p for p in PLAN if p[0] != 4]  # Cin in {16, 32, 64}
-# the body K4 and dFeat take on MMA_PLAN: the tensor-core tile in bf16; in
-# f32 K4 the scalar tile, dFeat the tile through 3xTF32
-K4_BODY = {torch.bfloat16: "mma", torch.float32: "scalar"}
-DFEAT_BODY = {torch.bfloat16: "mma", torch.float32: "tf32"}
+# the body K1, K3, K4 and dFeat take on MMA_PLAN: the tensor-core tile in
+# bf16, the tile through 3xTF32 in f32
+K4_BODY = DFEAT_BODY = {torch.bfloat16: "mma", torch.float32: "tf32"}
 
 
 @pytest.mark.cuda
@@ -250,12 +249,12 @@ DFEAT_BODY = {torch.bfloat16: "mma", torch.float32: "tf32"}
                          ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
 def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype,
                                         dtype, tol):
-    """K4 (the tensor-core tile in bf16, the scalar tile in f32) and K3
-    (the tile in bf16, through 3xTF32 in f32) within the type's bound of
-    their twins on tiles that skip every tap, all but one, or none; K4
-    zeroes masked rows, K3 rows with no hit, and the rows of the all-miss
-    tile come out 0; f32 K3 within 1e-5 of the model of its arithmetic
-    (``kt.gather_gemm_tf32`` with the epilogue)."""
+    """K4 and K3 (the tensor-core tile in bf16, through 3xTF32 in f32)
+    within the type's bound of their twins on tiles that skip every tap,
+    all but one, or none; K4 zeroes masked rows, K3 rows with no hit, and
+    the rows of the all-miss tile come out 0; in f32 both within 1e-5 of
+    the model of their arithmetic (``kt.gather_gemm_tf32``, K3's with the
+    epilogue, K4's masked)."""
     feats, rb, w2, bias, mask = _tile_inputs(cin, cout, k)
     assert sc.conv_instance("sparse_conv_fwd", dtype, cin,
                             cout) == K4_BODY[dtype]
@@ -279,9 +278,11 @@ def test_mma_tile_k4_and_k3_match_twins(cuda, cin, cout, k, idx_dtype,
             assert _err(y4[row:row + 1], want4[row:row + 1]) <= tol
     if dtype == torch.float32:
         hit = (r != N_IN).any(1, keepdim=True)
-        model = torch.where(hit, torch.relu(kt.gather_gemm_tf32(f, r, w)
-                                            + b), 0.0)
-        assert _err(y3, model) <= TF32_MODEL_BOUND
+        model = kt.gather_gemm_tf32(f, r, w)
+        assert _err(y3, torch.where(hit, torch.relu(model + b), 0.0)) \
+            <= TF32_MODEL_BOUND
+        assert _err(y4, torch.where(m[:, None], model, 0.0)) \
+            <= TF32_MODEL_BOUND
 
 
 @pytest.mark.cuda
@@ -315,7 +316,7 @@ def test_conv_instance_equals_the_c_entries(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_mma_forward_rejects_misaligned_inputs(cuda, dtype):
-    """The tensor-core forward (bf16 K4; in f32 its 3xTF32 entry) copies
+    """The tensor-core forward (bf16 K4, and f32 K4 through 3xTF32) copies
     16-byte chunks: a misaligned call raises, it does not fall back to the
     scalar tile."""
     f = torch.zeros(N_IN * 16 + 2, dtype=dtype,
@@ -324,8 +325,7 @@ def test_mma_forward_rejects_misaligned_inputs(cuda, dtype):
     w = torch.zeros(27, 16, 16, dtype=dtype, device=cuda)
     w_off = torch.zeros(27 * 256 + 2, dtype=dtype,
                         device=cuda)[2:].view(27, 16, 16)
-    fn = kt.sparse_conv_fwd if dtype == torch.bfloat16 \
-        else kt.sparse_conv_fwd_tf32
+    fn = kt.sparse_conv_fwd
     before = fn.launches
     with pytest.raises(ValueError, match="aligned"):
         fn(f, r, w)
@@ -449,9 +449,9 @@ def test_cluster_split_equals_the_c_entry(cuda):
 @pytest.mark.cuda
 def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
     """The scalar entries kept for comparisons: within 2e-2 of the twins,
-    launched under their own counters; K1's refuses f32. dW's took bf16
-    only until f32 dW moved to 3xTF32; it now takes f32 too (within 1e-3)
-    and refuses other types."""
+    launched under their own counters. K1's and dW's took bf16 only until
+    f32 K1 and dW moved to 3xTF32; they now take f32 too (within 1e-4 and
+    1e-3) and refuse other types."""
     feats, rb, w2, bias = _inputs(32, 64, 27)
     args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
             torch.from_numpy(rb).to(cuda, torch.int32),
@@ -470,9 +470,16 @@ def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
     dw = kt.sparse_conv_dw_scalar(f, r, d)
     torch.cuda.synchronize()
     assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= 2e-2
-    with pytest.raises(ValueError, match="bf16"):
-        sc.fused_sparse_conv_scalar(args[0].float(), args[1],
-                                    args[2].float(), args[3], N_IN)
+    f32_args = (args[0].float(), args[1], args[2].float(), args[3], N_IN)
+    before = sc.fused_sparse_conv_scalar.launches
+    got = sc.fused_sparse_conv_scalar(*f32_args)
+    torch.cuda.synchronize()
+    assert sc.fused_sparse_conv_scalar.launches == before + 1
+    assert got.dtype == torch.float32
+    assert _err(got, sc.fused_sparse_conv_ref(*f32_args)) <= 1e-4
+    with pytest.raises(ValueError, match="dtype"):
+        sc.fused_sparse_conv_scalar(args[0].half(), args[1],
+                                    args[2].half(), args[3], N_IN)
     before = kt.sparse_conv_dw_scalar.launches
     dw = kt.sparse_conv_dw_scalar(f.float(), r, d.float())
     torch.cuda.synchronize()
@@ -490,11 +497,15 @@ def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
 
 
 @pytest.mark.cuda
-def test_mma_k1_rejects_misaligned_inputs(cuda):
-    f = torch.zeros(N_IN * 16 + 4, dtype=torch.bfloat16,
-                    device=cuda)[4:].view(N_IN, 16)  # 8 bytes off
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mma_k1_rejects_misaligned_inputs(cuda, dtype):
+    """K1 on the tensor-core tile (bf16, and f32 through 3xTF32) copies
+    16-byte chunks: a misaligned call raises."""
+    f = torch.zeros(N_IN * 16 + 2, dtype=dtype,
+                    device=cuda)[2:].view(N_IN, 16)  # 4 or 8 bytes off
     r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
-    w = torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(27, 16, 16, dtype=dtype, device=cuda)
     b = torch.zeros(16, device=cuda)
     before = sc.fused_sparse_conv.launches
     with pytest.raises(ValueError, match="aligned"):
@@ -823,26 +834,29 @@ def _allocs():
                          ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
 def test_tf32_forward_matches_model_and_scalar_entry(cuda, cin, cout, k,
                                                      idx_dtype):
-    """The f32 forward's 3xTF32 entry on every pair of SESSD_FWD_PAIRS it
-    takes: within 1e-5 of the model ``kt.gather_gemm_tf32`` (masked) and
-    1e-4 of f32 K4 (the scalar tile) and its twin on the same call, over
-    tiles that skip every tap, all but one, or none, and a ragged last
-    tile; one call is one launch and one allocation (its output: the
-    weights are transposed and split inside the kernel)."""
+    """The f32 forward (K4 through 3xTF32) on every pair of
+    SESSD_FWD_PAIRS it takes: within 1e-5 of the model
+    ``kt.gather_gemm_tf32`` (masked) and 1e-4 of its scalar entry
+    (``sparse_conv_fwd_scalar``, the body it replaced, under its own
+    counter) and its twin on the same call, over tiles that skip every
+    tap, all but one, or none, and a ragged last tile; one call is one
+    launch and one allocation (its output: the weights are transposed and
+    split inside the kernel)."""
     feats, rb, w2, _, mask = _tile_inputs(cin, cout, k)
     f = torch.from_numpy(feats).to(cuda)
     r = torch.from_numpy(rb).to(cuda, idx_dtype)
     w = torch.from_numpy(w2).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     torch.cuda.synchronize()
-    counts = (_allocs(), kt.sparse_conv_fwd_tf32.launches,
-              kt.sparse_conv_fwd.launches)
-    got = kt.sparse_conv_fwd_tf32(f, r, w, m)
-    assert (_allocs(), kt.sparse_conv_fwd_tf32.launches,
-            kt.sparse_conv_fwd.launches) == (counts[0] + 1, counts[1] + 1,
-                                             counts[2])
+    counts = (_allocs(), kt.sparse_conv_fwd.launches,
+              kt.sparse_conv_fwd_scalar.launches)
+    got = kt.sparse_conv_fwd(f, r, w, m)
+    assert (_allocs(), kt.sparse_conv_fwd.launches,
+            kt.sparse_conv_fwd_scalar.launches) == (counts[0] + 1,
+                                                    counts[1] + 1, counts[2])
     model = torch.where(m[:, None], kt.gather_gemm_tf32(f, r, w), 0.0)
-    scalar = kt.sparse_conv_fwd(f, r, w, m)
+    scalar = kt.sparse_conv_fwd_scalar(f, r, w, m)
+    assert kt.sparse_conv_fwd_scalar.launches == counts[2] + 1
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (N_OUT, cout)
     assert _err(got, model) <= TF32_MODEL_BOUND
@@ -855,9 +869,9 @@ def test_tf32_forward_matches_model_and_scalar_entry(cuda, cin, cout, k,
 def test_training_tiles_fit_the_sm(cuda):
     """Every instance of the forward, input gradient and dW partial kernel
     (at DW_CHUNK_ROWS) fits at least one block per SM, and each 3xTF32 one
-    (dFeat's, dW's, the forward's entry) two (their ring stages are chosen
-    so), to overlap one block's gathers with another's tensor-core work;
-    the 3xTF32 entry has no bf16 or 4-channel instance. So do the stream
+    (the forward's, dFeat's, dW's) two (their ring stages are chosen so),
+    to overlap one block's gathers with another's tensor-core work; the
+    forward's scalar entry has f32 instances alone. So do the stream
     kernel's 3xTF32 instances."""
     for cin, cout in sc.STREAM_PAIRS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -868,14 +882,13 @@ def test_training_tiles_fit_the_sm(cuda):
     for entry, pairs in (("sparse_conv_fwd", sc.FWD_PAIRS),
                          ("sparse_conv_dfeat", sc.DFEAT_PAIRS),
                          ("sparse_conv_dw", sc.DW_PAIRS),
-                         ("sparse_conv_fwd_tf32", sc.FWD_PAIRS)):
+                         ("sparse_conv_fwd_scalar", sc.FWD_PAIRS)):
         for cin, cout in pairs:
             for dtype in (torch.float32, torch.bfloat16):
                 blocks = kt.blocks_per_sm(entry, dtype, cin, cout)
-                if entry == "sparse_conv_fwd_tf32":
-                    tf32 = dtype == torch.float32 and 4 not in (cin, cout)
-                    want = 2 if tf32 else 0
-                    assert blocks >= want and (tf32 or blocks == 0), (
+                if entry == "sparse_conv_fwd_scalar":
+                    f32 = dtype == torch.float32
+                    assert blocks >= 1 if f32 else blocks == 0, (
                         entry, dtype, cin, cout, blocks)
                     continue
                 body = sc.conv_instance(entry, dtype, cin, cout)
@@ -969,8 +982,8 @@ def test_first_conv_input_gradient_on_card(cuda, dtype, tol):
 
 def _named_calls(cuda, dtype):
     """(kernel name, call) of every wrapper at ``dtype`` and of the input
-    gradient's and dW's scalar entries; in f32 also the forward's 3xTF32
-    entry and K3's ring, in bf16 K1 at S = 4 and K1's scalar entry."""
+    gradient's, dW's and K1's scalar entries; in f32 also the forward's
+    scalar entry and K3's ring, in bf16 K1 at S = 4."""
     feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
                            for a in _inputs(16, 32, 27))
     feats, w2, rb = feats.to(dtype), w2.to(dtype), rb.int()
@@ -989,11 +1002,14 @@ def _named_calls(cuda, dtype):
     calls += [("sparse_conv_dfeat_scalar_kernel",
                lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)),
               ("sparse_conv_dw_scalar_kernel",
-               lambda: kt.sparse_conv_dw_scalar(f, r, d))]
+               lambda: kt.sparse_conv_dw_scalar(f, r, d)),
+              ("fused_sparse_conv_scalar_kernel",
+               lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias,
+                                                   N_IN))]
     if dtype == torch.float32:
         calls += [
-            ("sparse_conv_fwd_tf32_kernel",
-             lambda: kt.sparse_conv_fwd_tf32(f, r, w, m)),
+            ("sparse_conv_fwd_scalar_kernel",
+             lambda: kt.sparse_conv_fwd_scalar(f, r, w, m)),
             ("fused_sparse_conv_stream_ring_kernel",
              lambda: sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
                                                       N_IN))]
@@ -1001,9 +1017,7 @@ def _named_calls(cuda, dtype):
         calls += [
             ("fused_sparse_conv_kernel",
              lambda: sc.fused_sparse_conv_at_split(feats, rb, w2, bias, N_IN,
-                                                   split=4)),
-            ("fused_sparse_conv_scalar_kernel",
-             lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, N_IN))]
+                                                   split=4))]
     return calls
 
 
@@ -1014,9 +1028,8 @@ def test_kernels_profile_under_their_own_names(cuda, dtype):
     """Each wrapper's launch shows in a device profile under a kernel name
     of its own, the names the step and request profilers
     (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the 3xTF32
-    bodies of dFeat, K3 and dW and the scalar bodies of K1 and K4, in bf16
-    the tensor-core ones (K1 also at S = 4), and the entries kept for
-    comparisons. A dFeat
+    bodies of K1, K3, K4, dFeat and dW, in bf16 the tensor-core ones (K1
+    also at S = 4), and the entries kept for comparisons. A dFeat
     call is one kernel and nothing
     else: no transposed copy of the weights. The profiler on the card
     now and then delivers no device event of a whole profile; such an
@@ -1046,7 +1059,7 @@ def test_train_wrappers_raise_off_cpu_and_cuda():
     feats, rb, w2, dout, mask = (torch.from_numpy(a).to("meta") for a in
                                  _train_inputs(16, 32, 27))
     for fn, args in ((kt.sparse_conv_fwd, (feats, rb, w2)),
-                     (kt.sparse_conv_fwd_tf32, (feats, rb, w2)),
+                     (kt.sparse_conv_fwd_scalar, (feats, rb, w2)),
                      (kt.sparse_conv_dfeat, (dout, rb, w2)),
                      (kt.sparse_conv_dfeat_scalar, (dout, rb, w2)),
                      (kt.sparse_conv_dw, (feats, rb, dout))):

@@ -263,8 +263,7 @@ def test_python_pairs_equal_the_c_dispatch_tables():
     # the input gradient's pairs are the convs' swapped, the first's too
     assert sc.DFEAT_PAIRS == tuple(sorted((b, a) for a, b in sc.FWD_PAIRS))
     # each __global__ with two bodies picks the tensor-core one by the rule:
-    # bf16 (kMmaTile) everywhere, and f32 through 3xTF32 (kTf32Tile) in
-    # the entries of TF32_ENTRIES (dFeat, K3 and dW; not K4 or K1)
+    # bf16 (kMmaTile) and f32 through 3xTF32 (kTf32Tile) in every entry
     mma = "if constexpr (sessd::kMmaTile<T, CIN, COUT>"
     tf32 = "sessd::kTf32Tile<T, CIN, COUT>"
     for path, kernel in (("sparse_conv.cu", "fused_sparse_conv_kernel("),
@@ -279,8 +278,7 @@ def test_python_pairs_equal_the_c_dispatch_tables():
         body = text[text.index(kernel):]
         body = body[:body.index("\n}\n")]
         assert mma in body
-        entry = kernel[:-len("_kernel(")].replace("_partial", "")
-        assert (tf32 in body) == (entry in sc.TF32_ENTRIES), kernel
+        assert tf32 in body, kernel
     header = (CSRC / "gather_mma.cuh").read_text()
     for name, dtype in (("kMmaTile", "__nv_bfloat16"), ("kTf32Tile",
                                                          "float")):
@@ -303,18 +301,15 @@ def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     every entry: K4 and K3 since the wgmma tile, K1 (with its cluster tap
     split) and dW (mma.sync) since their redesign, dFeat (five of its six
     pairs, K-major B) since its own; f32 at those channels takes the same
-    bodies through 3xTF32 in dFeat, K3 and dW (m16n8k8); the rest (f32 K4
-    and K1, the 4-channel side of the first conv in both types) the scalar
-    one."""
+    bodies through 3xTF32 in every entry (dW's on m16n8k8); the 4-channel
+    side of the first conv, in both types, the scalar one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
     tensor = 4 not in pair
     if dtype == torch.bfloat16:
         want = "mma" if tensor else "scalar"
     else:
-        want = "tf32" if tensor and entry in (
-            "sparse_conv_dfeat", "fused_sparse_conv_stream",
-            "sparse_conv_dw") else "scalar"
+        want = "tf32" if tensor else "scalar"
     assert got == want
 
 

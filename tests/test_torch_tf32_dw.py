@@ -16,8 +16,8 @@ through 3xTF32, from the CPU:
   JAX's plain conv with the same epilogue;
 - the dW body's order of products, rounding and per-step partials parsed
   from the source, and its warp split against ``dw_warp_split``;
-- ``conv_instance``: "tf32" for f32 dW and f32 K3 at 16-64 channels,
-  "scalar" for f32 K1 and the 4-channel first conv.
+- ``conv_instance``: "tf32" for f32 dW, K1, K3 and K4 at 16-64 channels,
+  "scalar" for the 4-channel first conv.
 
 The kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py holds them against their twins, their
@@ -177,13 +177,13 @@ def test_dw_model_sums_groups_and_chunks_in_order():
 
 @pytest.mark.parametrize("entry", ["sparse_conv_dw",
                                    "fused_sparse_conv_stream",
-                                   "fused_sparse_conv"])
+                                   "fused_sparse_conv", "sparse_conv_fwd"])
 def test_conv_instance_names_the_f32_bodies(entry):
-    """f32 dW and K3 take their 3xTF32 bodies at 16-64 channels; f32 K1
-    keeps the scalar tile, and so does every 4-channel instance."""
+    """f32 dW, K3, K1 and K4 take their 3xTF32 bodies at 16-64 channels;
+    every 4-channel instance keeps the scalar tile."""
     for cin, cout in sc._PAIRS[entry]:
         got = sc.conv_instance(entry, torch.float32, cin, cout)
-        if 4 in (cin, cout) or entry == "fused_sparse_conv":
+        if 4 in (cin, cout):
             assert got == "scalar", (cin, cout)
         else:
             assert got == "tf32", (cin, cout)

@@ -1,8 +1,6 @@
 """The 3xTF32 arithmetic of the f32 tensor-core tile (``kTf32Tile`` in
-``sessd_torch/csrc/gather_mma.cuh``: f32 dFeat and f32 K3 at Cin, Cout in
-{16, 32, 64}, and the f32 forward's comparison entry
-``sparse_conv_fwd_tf32``), from
-the CPU, through its plain model
+``sessd_torch/csrc/gather_mma.cuh``: f32 K1, K3, K4 and dFeat at Cin, Cout
+in {16, 32, 64}), from the CPU, through its plain model
 ``ops.cuda.sparse_conv_train.gather_gemm_tf32``:
 
 - ``tf32_round`` (the kernel's ``cvt.rna.tf32.f32``) against the rounding
@@ -171,9 +169,8 @@ def test_model_order_and_rounding_are_the_kernels():
     """The tile issues, per k8 step, lo_a hi_b, hi_a lo_b, hi_a hi_b into
     a per-tap partial added into the running sum (the model's order) and
     rounds both parts with cvt.rna; the f32 dispatch takes the tile in
-    dFeat, the stream kernel and the forward's comparison kernel, and dW
-    its own 3xTF32 body (tests/test_torch_tf32_dw.py parses it); f32 K4
-    and K1 keep the scalar tile."""
+    the forward, dFeat and both serving convs, and dW its own 3xTF32 body
+    (tests/test_torch_tf32_dw.py parses it)."""
     text = (CSRC / "gather_mma.cuh").read_text()
     body = text[text.index("if constexpr (kTf32) {\n        split_tap"):]
     body = body[:body.index("wgmma.commit_group")]
@@ -189,10 +186,10 @@ def test_model_order_and_rounding_are_the_kernels():
     assert tail.index("acc[i] += part[i];") < tail.index("} else if")
     assert "k8" in text and "cvt.rna.tf32.f32" in text
     for path, kernel, takes in (
-            ("sparse_conv_train.cu", "sparse_conv_fwd_kernel", False),
+            ("sparse_conv_train.cu", "sparse_conv_fwd_kernel", True),
             ("sparse_conv_train.cu", "sparse_conv_dfeat_kernel", True),
             ("sparse_conv_train.cu", "sparse_conv_dw_partial_kernel", True),
-            ("sparse_conv.cu", "fused_sparse_conv_kernel", False),
+            ("sparse_conv.cu", "fused_sparse_conv_kernel", True),
             ("sparse_conv_stream.cu", "fused_sparse_conv_stream_kernel",
              True)):
         src = (CSRC / path).read_text()
@@ -200,6 +197,6 @@ def test_model_order_and_rounding_are_the_kernels():
         kbody = kbody[:kbody.index("\n}\n")]
         assert ("sessd::kTf32Tile<T, CIN, COUT>" in kbody) == takes, kernel
     train = (CSRC / "sparse_conv_train.cu").read_text()
-    kbody = train[train.index("sparse_conv_fwd_tf32_kernel("):]
+    kbody = train[train.index("sparse_conv_fwd_kernel("):]
     assert "sessd::gather_mma_tile<IdxT, CIN, COUT, false>(" in \
         kbody[:kbody.index("\n}\n")]
