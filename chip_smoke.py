@@ -20,7 +20,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    of ``csrc/gather_mma.cuh``), the cluster size S its launch took, the
    scalar tile's time (``fused_sparse_conv_scalar``, the body bf16 K1 ran
    before), the count of 64-row tiles with a hit and, where S > 1, its
-   time at one CTA per tile and its distance from that result.
+   time at one CTA per tile and its distance from that result. The first
+   conv (4 -> 16, ``csrc/gather_direct.cuh``'s direct body) must equal the
+   scalar entry bit for bit in both types at both batches, and prints its
+   time beside the scalar entry's, the twin's and its bound.
    The streaming kernel (K3) against its twin and against K1 on every conv
    that streams in one bf16 batch-8 request at SERVING_CAPS (stages 1-2),
    equal to K1 bit for bit where K1 runs one CTA per tile, with K3, K1,
@@ -38,15 +41,20 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. The training kernels against their twins: the forward (K4), input
    gradient and weight gradient (K5) of every sparse conv of both training
    plans (student: 10 convs on the augmented chain; teacher: 14 on the raw
-   chain; the input gradient of the first conv too, 16 -> 4 on the scalar
-   tile in both types, timed apart from the sums), full width, batch 4, the loader's int32 chains from a synthetic
+   chain; the input gradient of the first conv too, 16 -> 4 on the direct
+   body in both types, timed apart from the sums), full width, batch 4,
+   the loader's int32 chains from a synthetic
    KITTI root (``sessd_torch.utils.kitti_synth``) at the acceptance
    recipe's stage caps (ACCEPT_CAPS). Each conv takes the features the
    previous one produced. Bounds: f32 1e-4 of max|twin| (1e-3 for the
    weight gradient, a reduction over all rows), bf16 2e-2; dW gives the
    same bits on two runs. Each conv's K4, dFeat and dW body is checked:
-   the tensor-core ones in bf16, in f32 through 3xTF32, and the scalar
-   ones for the first conv's 4-channel side; K4's f32 scalar entry
+   the tensor-core ones in bf16, in f32 through 3xTF32, and the direct
+   ones for the first conv's 4-channel side, which must equal their
+   scalar entries bit for bit (K4 on both chains, dFeat 16 -> 4 and dW on
+   the student's; bf16 K4 against K1's scalar entry with zero bias, no
+   ReLU and the row mask applied) and are timed beside them; K4's f32
+   scalar entry
    (``sparse_conv_fwd_scalar``, off the training path) is held to K4's
    bound on every conv. In both types one K4 call and one dFeat call (and
    in f32 one call of the entry) each make one launch and one allocation,
@@ -94,7 +102,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    timed with K1, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
    the f32 body it replaced) and the twin on the same calls, with no stage
    saturated; and K1 on the convs it runs there within 1e-4 of its twin
-   and, on the 3xTF32 tile, bit-equal to K4 with the epilogue, timed with
+   and, on the 3xTF32 tile, bit-equal to K4 with the epilogue (on the
+   first conv's direct body, to its scalar entry), timed with
    its twin and its scalar entry (``fused_sparse_conv_scalar``) (f32
    per-launch times);
    ``Trainer.validate()`` over the val split (the same 8 frames), with the
@@ -260,7 +269,11 @@ the f32 paths (phases 4 and 7), the old body's on the same calls (the
 scalar entries; K3's ring), the twin's and the bound's (dW's also with its
 partials), and the body; K3's also K1's time and its distance from K1,
 K1's its max abs error against the twin, K4's its scalar entry's max abs
-error against the twin.
+error against the twin. K1, K4, dFeat and dW also carry ``cin4``: the
+first conv's 4-channel side on the direct body, per call (K1 at batch 1
+and 4 in both types, K4 on both training chains, dFeat 16 -> 4 and dW on
+the student's), its ms, its scalar entry's on the same call, the twin's
+and the call's bound.
 Without a CUDA device it raises and prints no result.
 """
 import ast
@@ -488,18 +501,47 @@ def phase_build():
           + "; ".join(lines))
 
 
+class Direct:
+    """The first conv's 4-channel side on the direct body, per (kernel,
+    tag): device ms of the body, of its scalar entry on the same call and
+    of the twin, and the call's Bound; every call held bit-equal to the
+    scalar entry (``check``)."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def check(self, what, got, old):
+        if not torch.equal(got, old):
+            raise AssertionError(f"{what}: the direct body differs from its "
+                                 f"scalar entry by "
+                                 f"{float((got.float() - old.float()).abs().max()):.3e}")
+
+    def add(self, kernel, tag, ms, old_ms, plain_ms, bound):
+        self.rows.setdefault(kernel, {})[tag] = {
+            "ms": ms, "old_tile_ms": old_ms, "plain_ms": plain_ms,
+            "bound_ms": bound.ms(), "bound_by": bound.by(),
+            "old_tile_over_ms": old_ms / ms}
+        return (f"direct {ms:.4f} ms, scalar entry {old_ms:.4f} ms "
+                f"({old_ms / ms:.2f}x), twin {plain_ms:.4f} ms, bound "
+                f"{bound.ms():.4f} ms ({bound.by()}), bit-equal to the "
+                "scalar entry")
+
+
 def phase_kernels(model, spec, device):
     """Every backbone conv through kernel and twin on identical inputs; the
     batch-1 convs timed, in bf16 also through the scalar tile's entry and,
-    where K1 splits its tiles over a cluster, at one CTA per tile. Returns
-    (max abs error, {"ms", "old_ms", "plain_ms": sums over the 14 b1 bf16
-    convs}, the bound of those convs)."""
+    where K1 splits its tiles over a cluster, at one CTA per tile. The
+    first conv (the direct body) is held bit-equal to the scalar entry in
+    both types and batches and timed with it at both batches. Returns (max
+    abs error, {"ms", "old_ms", "plain_ms": sums over the 14 b1 bf16
+    convs}, the bound of those convs, a Direct)."""
     prep = HostPreprocessor(spec, SERVING_CAPS)
     scenes = [make_scene(seed=s)[0] for s in range(4)]
     staged = {1: stage_inputs(**prep(scenes[0]), device=device),
               4: stage_inputs(**prep.batch(scenes), device=device)}
     worst_abs, bound = 0.0, Bound()
     sums = {"ms": 0.0, "old_ms": 0.0, "plain_ms": 0.0}
+    direct = Direct()
     for batch, dtype in ((1, torch.float32), (1, torch.bfloat16),
                          (4, torch.float32), (4, torch.bfloat16)):
         feats, rb = staged[batch]
@@ -530,6 +572,18 @@ def phase_kernels(model, spec, device):
                     f"K={w2.shape[0]:2d} rows {rbk.shape[0]:5d} {tag}: "
                     f"{inst} S={split}{wave} max|twin| {peak:.3e} rel_err "
                     f"{rel:.2e}")
+            if inst == "direct":
+                args = (x, rbk, w2, bias, n_in)
+                direct.check(f"{CONV_NAMES[i]} {tag}", y,
+                             sc.fused_sparse_conv_scalar(*args))
+                one = Bound()
+                one.add((x, rbk, w2, bias, y), hits(rbk, n_in), cin, cout,
+                        dtype)
+                line += "; " + direct.add(
+                    "fused_sparse_conv", tag,
+                    median_ms(lambda: sc.fused_sparse_conv(*args)),
+                    median_ms(lambda: sc.fused_sparse_conv_scalar(*args)),
+                    median_ms(lambda: sc.fused_sparse_conv_ref(*args)), one)
             if timed:
                 args = (x, rbk, w2, bias, n_in)
                 k_ms = median_ms(lambda: sc.fused_sparse_conv(*args))
@@ -574,11 +628,12 @@ def phase_kernels(model, spec, device):
         if next(step, None) is not None:
             raise AssertionError("backbone ran fewer than 14 convs")
     print(f"kernel vs twin: all 14 convs within bounds at b1/int16 and "
-          f"b4/int32, f32 and bf16; b1 bf16 sums kernel {sums['ms']:.4f} ms, "
+          f"b4/int32, f32 and bf16, the first conv's direct body bit-equal "
+          f"to its scalar entry; b1 bf16 sums kernel {sums['ms']:.4f} ms, "
           f"scalar tile {sums['old_ms']:.4f} ms, twin "
           f"{sums['plain_ms']:.4f} ms, bound {bound.ms():.4f} ms "
-          f"({bound.by()})")
-    return worst_abs, sums, bound
+          f"({bound.by()}) [{card_line()}]")
+    return worst_abs, sums, bound, direct
 
 
 # (name, output stage) of the convs the pillar plan runs: the second
@@ -766,7 +821,8 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
     (``tf32_with_epilogue``); each of these convs timed (device-time
     medians of 10). The other convs run K1; where ``resident`` (a
     PerLaunch) is given, each is held within the bound of its twin and, on
-    the 3xTF32 tile, equal bit for bit to K4 with the epilogue, and timed
+    the 3xTF32 tile, equal bit for bit to K4 with the epilogue (on the
+    direct body to its scalar entry), and timed
     with its twin and its scalar entry (``fused_sparse_conv_scalar``, the
     body it replaced) into ``resident``. Returns {"worst": max abs error
     vs twin, "vs_k1": max abs difference from K1, "ms", "k1_ms", "old_ms"
@@ -797,6 +853,10 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                         y, tf32_with_epilogue(*args)):
                     raise AssertionError(f"{CONV_NAMES[i]} {tag}: f32 K1 "
                                          "differs from K4 with the epilogue")
+                if body == "direct" and not torch.equal(
+                        y, sc.fused_sparse_conv_scalar(*args)):
+                    raise AssertionError(f"{CONV_NAMES[i]} {tag}: K1's direct "
+                                         "body differs from its scalar entry")
                 k_ms = median_ms(lambda: sc.fused_sparse_conv(*args), 10)
                 r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(*args), 10)
                 o_ms = median_ms(lambda: sc.fused_sparse_conv_scalar(*args),
@@ -807,8 +867,8 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                 print(f"resident conv {i:2d} {CONV_NAMES[i]:6s} {cin:2d}->"
                       f"{cout:2d} rows {rbk.shape[0]:6d} {tag}: K1 "
                       f"[{body}] rel_err vs twin {rel:.2e}"
-                      + (", equal to K4 with the epilogue" if body == "tf32"
-                         else "")
+                      + {"tf32": ", equal to K4 with the epilogue",
+                         "direct": ", equal to its scalar entry"}.get(body, "")
                       + f"; {k_ms:.4f} ms, scalar entry {o_ms:.4f} ms, twin "
                       f"{r_ms:.4f} ms")
             return y
@@ -1153,11 +1213,57 @@ class PerLaunch:
 
 def _train_body(dtype, i: int, name: str) -> str:
     """The body K4 ("fwd"), dFeat and dW take on training conv i: the
-    tensor-core ones in bf16, in f32 through 3xTF32, and the scalar ones
+    tensor-core ones in bf16, in f32 through 3xTF32, and the direct ones
     for the first conv's 4-channel side."""
     if i == 0:
-        return "scalar"
+        return "direct"
     return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
+def _direct_conv0(direct, x, rbk, w, mask, dout, inv, dtype, tag,
+                  plan) -> str:
+    """The first conv's K4 and, on the student's chain (the step's), its
+    dFeat (16 -> 4) and dW on the direct bodies against their scalar
+    entries on the same inputs: bit-equal (bf16 K4, which has no scalar
+    entry of its own, to K1's with zero bias, no ReLU and the row mask
+    applied), and timed with them and the twins (device-time medians of
+    10) into ``direct``."""
+    n_in = x.shape[0]
+    if dtype == torch.float32:
+        def old_fwd():
+            return kt.sparse_conv_fwd_scalar(x, rbk, w, mask)
+        want_fwd = old_fwd()
+    else:
+        zero = torch.zeros(w.shape[2], device=x.device)
+
+        def old_fwd():
+            return sc.fused_sparse_conv_scalar(x, rbk, w, zero, n_in,
+                                               relu=False)
+        want_fwd = torch.where(mask[:, None], old_fwd(), 0.0)
+    calls = [("sparse_conv_fwd", lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
+              old_fwd, lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask),
+              (x, rbk, w, mask), w.shape[1], w.shape[2])]
+    if plan == "student":
+        calls += [
+            ("sparse_conv_dfeat", lambda: kt.sparse_conv_dfeat(dout, inv, w),
+             lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w),
+             lambda: kt.sparse_conv_dfeat_ref(dout, inv, w), (dout, inv, w),
+             w.shape[2], w.shape[1]),
+            ("sparse_conv_dw", lambda: kt.sparse_conv_dw(x, rbk, dout),
+             lambda: kt.sparse_conv_dw_scalar(x, rbk, dout),
+             lambda: kt.sparse_conv_dw_ref(x, rbk, dout), (x, rbk, dout),
+             w.shape[1], w.shape[2])]
+    parts = []
+    for name, kern, old, twin, ins, cin, cout in calls:
+        got = kern()
+        direct.check(f"subm0a {name} {tag}", got,
+                     want_fwd if name == "sparse_conv_fwd" else old())
+        one = Bound()
+        one.add(ins + (got,), hits(rbk, n_in), cin, cout, dtype)
+        parts.append(f"{name[12:]} " + direct.add(
+            name, tag, median_ms(kern, 10), median_ms(old, 10),
+            median_ms(twin, 10), one))
+    return "; first conv: " + "; ".join(parts)
 
 
 @torch.no_grad()
@@ -1172,7 +1278,8 @@ def phase_train_kernels(trainer, db):
     the student's (the step's), each with its scalar entry's time on the
     same calls (K4's, ``sparse_conv_fwd_scalar``, held to K4's bound on
     every conv); "scalar_worst" is K4's scalar entry's max abs error
-    against the twin."""
+    against the twin; and a Direct of the first conv on both chains in
+    both types (``_direct_conv0``)."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
@@ -1184,6 +1291,7 @@ def phase_train_kernels(trainer, db):
     dfeat_tile = {"old_ms": 0.0, "tiles": TileSkips()}
     dw_tile = {"old_ms": 0.0, "skips": DwSkips(),
                "sweep": dict.fromkeys(DW_CHUNK_SWEEP, 0.0)}
+    direct = Direct()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
         for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
@@ -1216,7 +1324,7 @@ def phase_train_kernels(trainer, db):
                         "dw": (lambda: kt.sparse_conv_dw(x, rbk, dout),
                                lambda: kt.sparse_conv_dw_ref(x, rbk, dout))}
                 # every conv's input gradient, the first's 16 -> 4 (the
-                # voxel features', scalar tile) too
+                # voxel features', direct body) too
                 runs["dfeat"] = (
                     lambda: kt.sparse_conv_dfeat(dout, inv, w),
                     lambda: kt.sparse_conv_dfeat_ref(dout, inv, w))
@@ -1280,8 +1388,8 @@ def phase_train_kernels(trainer, db):
                         # off the step's path: timed apart, not summed
                         if plan == "student":
                             line += (f" ({median_ms(kern, 10):.4f} vs twin "
-                                     f"{median_ms(twin, 10):.4f} ms, scalar "
-                                     f"tile)")
+                                     f"{median_ms(twin, 10):.4f} ms, "
+                                     f"{insts[name]})")
                     elif f32_timed and (name == "fwd" or plan == "student"):
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         # the scalar bodies, the f32 ones the 3xTF32 bodies
@@ -1334,6 +1442,9 @@ def phase_train_kernels(trainer, db):
                         line += ")"
                     if name == "fwd":
                         y = got
+                if i == 0:
+                    line += _direct_conv0(direct, x, rbk, w, mask, dout, inv,
+                                          dtype, tag, plan)
                 print(line)
                 x = torch.relu(y)
     skips = dw_tile["skips"]
@@ -1368,7 +1479,7 @@ def phase_train_kernels(trainer, db):
               f"{r['plain_ms_per_launch']:.4f} ms, bound "
               f"{r['bound_ms_per_launch']:.4f} ms ({r['bound_by']}) [{card}]")
     f32["scalar_worst"] = scalar_worst
-    return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile, f32
+    return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile, f32, direct
 
 
 def _one_launch_per_call(x, rbk, w, mask, dout, inv):
@@ -3250,7 +3361,8 @@ def main():
     model, cfg = build_model("se_ssd_kitti_car_bf16.py", device, prior=True)
     spec = builder.build_voxelizer(cfg.voxel_generator)
     with phase("kernels"):
-        max_abs, k1_ms, k1_bound = phase_kernels(model, spec, device)
+        max_abs, k1_ms, k1_bound, k1_direct = phase_kernels(model, spec,
+                                                            device)
         b8 = phase_stream_serving(model, spec, device)
     with phase("serving b1/b4"):
         launches, pcfg = phase_serving(model, cfg, spec, device)
@@ -3280,7 +3392,8 @@ def main():
             trainer = make_trainer("se_ssd_kitti_car_bf16.py", root,
                                    f"{tmp}/work_bf16", device)
             (worst, train_ms, train_bounds, fwd_tile, dfeat_tile, dw_tile,
-             train_f32) = phase_train_kernels(trainer, first_batch(trainer))
+             train_f32, train_direct) = phase_train_kernels(
+                trainer, first_batch(trainer))
             _no_saturation(trainer, "training kernels")
             counts = phase_train(trainer)
             del trainer
@@ -3365,7 +3478,8 @@ def main():
                b8["plain_ms"], b8["bound"])]
     kernels[0].update(
         tile="gather_mma.cuh: gather_mma_tile (wgmma) + cluster tap split; "
-             "f32 3xTF32 at one CTA per tile",
+             "f32 3xTF32 at one CTA per tile; Cin = 4: gather_direct.cuh: "
+             "gather_direct",
         old_tile_ms=k1_ms["old_ms"])
     kernels[1].update(covers=f"{WCONV}:350", old_tile_ms=b8["old_ms"],
                       skipped_tap_share=b8["tiles"].share(),
@@ -3379,7 +3493,8 @@ def main():
             counts[name] + late_counts[name], worst[key], train_ms[key][0],
             train_ms[key][1], train_bounds[key]))
     kernels[2].update(tile="gather_mma.cuh: gather_mma_tile (wgmma; f32 "
-                           "3xTF32)",
+                           "3xTF32); Cin = 4: gather_direct.cuh: "
+                           "gather_direct",
                       old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
     # f32: per-launch means on the f32 paths (K4 the 24 convs of both
@@ -3402,19 +3517,28 @@ def main():
         row["f32"] = train_f32[key].row()
     kernels[2]["f32"]["scalar_entry_max_abs_err"] = train_f32["scalar_worst"]
     kernels[3].update(
-        tile="gather_mma.cuh: gather_mma_tile (wgmma, K-major B)",
+        tile="gather_mma.cuh: gather_mma_tile (wgmma, K-major B); 16 -> 4: "
+             "gather_direct.cuh: gather_direct (W_T)",
         old_tile_ms=dfeat_tile["old_ms"],
         skipped_tap_share=dfeat_tile["tiles"].share(),
         zero_filled_row_share=dfeat_tile["tiles"].fill_share())
     skips = dw_tile["skips"]
     kernels[4].update(
         tile="sparse_conv_train.cu: dw_mma_partial (mma.sync m16n8k16; "
-             "f32 3xTF32 on m16n8k8)",
+             "f32 3xTF32 on m16n8k8); Cin = 4: dw_direct_partial",
         old_tile_ms=dw_tile["old_ms"],
         skipped_chunk_tap_share=skips.chunks.share(),
         skipped_step_tap_share=skips.steps.share(),
         partial_bytes=skips.partial_bytes,
         ms_by_chunk_rows=dw_tile["sweep"])
+    # the first conv's 4-channel side on the direct bodies: per call (K1 at
+    # batch 1 and 4 in both types, K4 on both training chains, dFeat and dW
+    # on the student's) its ms, its scalar entry's on the same call, the
+    # twin's and the call's bound
+    kernels[0]["cin4"] = k1_direct.rows["fused_sparse_conv"]
+    for row, name in zip(kernels[2:5], ("sparse_conv_fwd", "sparse_conv_dfeat",
+                                        "sparse_conv_dw")):
+        row["cin4"] = train_direct.rows[name]
     # S1: the tensor-core full mode's time, the scalar copy's as the old
     # tile; S2: device time per launch at 256 rows
     kernels += [

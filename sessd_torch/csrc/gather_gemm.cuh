@@ -1,9 +1,12 @@
-// Row-gather GEMM over a rulebook, the scalar body shared by the serving
-// conv (sparse_conv.cu: fused_sparse_conv_kernel, with its fused epilogue),
-// the training forward's and the input gradient's f32 and Cin = 4 instances
-// (sparse_conv_train.cu: sparse_conv_fwd_kernel, sparse_conv_dfeat_kernel;
-// their bf16 instances with Cin, Cout in {16, 32, 64} take gather_mma.cuh's
-// tensor-core tile).
+// Row-gather GEMM over a rulebook, the scalar body every instance of the
+// serving conv (sparse_conv.cu, with its fused epilogue), the training
+// forward and the input gradient (sparse_conv_train.cu) ran first. The
+// main path no longer runs it: gather_mma.cuh's tensor-core tile took the
+// 16-64-channel instances and gather_direct.cuh's direct body the first
+// conv's 4-channel side. It stays as the comparison entries'
+// (fused_sparse_conv_scalar_kernel, sparse_conv_fwd_scalar_kernel,
+// sparse_conv_dfeat_scalar_kernel), which the card tests and the smoke
+// check hold the new bodies against on the same calls.
 //
 // Computes, for every output row n (row-major [N, C] features):
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
@@ -30,9 +33,7 @@
 // and used Cout times from shared memory. The rulebook tile is read once per
 // block and the epilogue is fused into the store, so the output is written
 // once and never re-read. Neighbouring rows in a tile are neighbouring voxels
-// (z-minor ids), so their gathers share cache lines in L2. The tensor-core
-// tile (gather_mma.cuh) is what this body became for bf16 K1, K3, K4 and
-// dFeat.
+// (z-minor ids), so their gathers share cache lines in L2.
 #pragma once
 
 #include <cuda_bf16.h>

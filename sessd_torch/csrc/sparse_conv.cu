@@ -33,14 +33,17 @@
 //   is the f32 stream kernel's instance under this kernel's name, so f32
 //   K1 equals f32 K3, and the f32 forward (K4) plus bias, ReLU and the
 //   any-hit mask, bit for bit.
-// - the Cin = 4 first conv, in both types: gather_gemm.cuh's scalar tile,
-//   256 threads, one block per tile.
-// The scalar tile's instances at every pair stay reachable in both types
-// under a name of their own, fused_sparse_conv_scalar_kernel
-// (sessd_fused_sparse_conv_scalar), for the same-call comparisons of the
-// smoke check, the ablation and the card tests only; nothing on the serving
-// path launches it.
+// - the Cin = 4 first conv, in both types: gather_direct.cuh's direct body
+//   on the CUDA cores (all 27 taps' weights staged once per block, one
+//   thread per row walking its taps without a barrier), 128 threads, 128
+//   rows a block; it sums in the scalar tile's order.
+// The scalar tile (gather_gemm.cuh), the body every instance ran first,
+// stays reachable at every pair in both types under a name of its own,
+// fused_sparse_conv_scalar_kernel (sessd_fused_sparse_conv_scalar), for
+// the same-call comparisons of the smoke check, the ablation and the card
+// tests only; nothing on the serving path launches it.
 
+#include "gather_direct.cuh"
 #include "gather_mma.cuh"
 
 namespace {
@@ -58,9 +61,11 @@ fused_sparse_conv_kernel(const T* __restrict__ feats,
   else if constexpr (sessd::kTf32Tile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
-  else
-    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, true>(
+  else if constexpr (sessd::kDirect<T, CIN, COUT>)
+    sessd::gather_direct<T, IdxT, CIN, COUT, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
+  else
+    static_assert(sessd::kDirect<T, CIN, COUT>, "no body for this pair");
 }
 
 // the scalar tile in either type, for comparisons only
@@ -160,10 +165,11 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
                      bias, static_cast<T*>(out), n_in, n_out, taps, relu);
     return cudaGetLastError();
   } else {
-    kern<<<tiles, sessd::kThreads, 0, stream>>>(
-        static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
-        static_cast<const T*>(w2), bias, static_cast<T*>(out), n_in, n_out,
-        taps, relu);
+    if (split > 1) return cudaErrorInvalidValue;  // no cluster
+    kern<<<sessd::direct_grid<CIN, COUT>(n_out), sessd::kDirectThreads, 0,
+           stream>>>(static_cast<const T*>(feats),
+                     static_cast<const IdxT*>(rb), static_cast<const T*>(w2),
+                     bias, static_cast<T*>(out), n_in, n_out, taps, relu);
     return cudaGetLastError();
   }
 }
@@ -219,7 +225,7 @@ cudaError_t dispatch_scalar(int cin, int cout, const void* feats,
 }
 
 // 3 where the instance for (T, cin, cout) is the tensor-core tile through
-// 3xTF32, 2 the tile in bf16, 1 the scalar tile, 0 where there is none
+// 3xTF32, 2 the tile in bf16, 1 the direct body, 0 where there is none
 template <typename T>
 int fused_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO)                                               \
@@ -233,7 +239,7 @@ int fused_instance(int cin, int cout) {
 }
 
 // the wave of the tensor-core instance for (cin, cout), 0 where the
-// instance is scalar or missing
+// instance is the direct body or missing
 int fused_wave(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
   if (cin == CI && cout == CO) return wave_of<CI, CO>();
@@ -319,7 +325,7 @@ extern "C" int sessd_fused_sparse_conv_scalar(
 
 // Which body sessd_fused_sparse_conv launches for (cin, cout, dtype): 3 the
 // tensor-core tile through 3xTF32, 2 the tensor-core tile in bf16, 1 the
-// scalar tile, 0 none.
+// direct body (gather_direct.cuh), 0 none.
 extern "C" int sessd_fused_sparse_conv_instance(int cin, int cout,
                                                 int dtype) {
   if (dtype == 0) return fused_instance<float>(cin, cout);
@@ -334,7 +340,7 @@ extern "C" int sessd_fused_sparse_conv_wave(int cin, int cout) {
 }
 
 // The cluster size S sessd_fused_sparse_conv launches with for n_out rows:
-// 1 on the scalar tile and the 3xTF32 tile, 0 where there is no instance.
+// 1 on the direct body and the 3xTF32 tile, 0 where there is no instance.
 extern "C" int sessd_fused_sparse_conv_split(int n_out, int cin, int cout,
                                              int dtype) {
   const int inst = sessd_fused_sparse_conv_instance(cin, cout, dtype);

@@ -34,8 +34,10 @@
 //   CUDA cores; the header says how). What bounds it on this card and what
 //   that design does about it are in the header. Both training plans run
 //   all their convs but the first here.
-// - the Cin = 4 first conv, in both types: gather_gemm.cuh's scalar tile,
-//   256 threads.
+// - the Cin = 4 first conv, in both types: gather_direct.cuh's direct body
+//   on the CUDA cores (every tap's weights staged once per block, one
+//   thread per row walking its taps without a barrier), 128 threads, 128
+//   rows a block; it sums in the scalar tile's order.
 // One f32 step through the kernels is held to 1e-3 of each gradient's max
 // against the same step through the cuBLAS twins. Any change of the
 // forward's rounding, the exact conv's included, flips a few of the step's
@@ -67,8 +69,9 @@
 //   3xTF32. Its B is the bf16 body's K-major W[k], split on the way into
 //   shared memory.
 // - the first conv's 16 -> 4 (the voxel features' gradient, in both
-//   types): the scalar tile, staging W[k] transposed into shared memory
-//   (gather_gemm_tile's W_T).
+//   types): the forward's direct body at 16 -> 4, one thread per 2 rows,
+//   256 rows a block, staging every W[k] transposed into shared memory
+//   once (gather_direct's W_T). It is off the training step's path.
 //
 // The weight gradient's partial kernel, sparse_conv_dw_partial_kernel, also
 // takes one of two bodies, the first in two types, fixed at compile time:
@@ -137,16 +140,48 @@
 //   two blocks per SM (DwMma::kStages).
 //   The rulebook column read once, the tap-fastest grid and the
 //   fixed-order sums are the bf16 body's.
-// - the Cin = 4 first conv, in both types: dw_scalar_partial, 256 threads
-//   per (chunk, tap) block, which stages 64 gathered feature rows and the 64
-//   matching dout rows in shared memory per step and accumulates its Cin x
-//   Cout tile in registers (up to 4 x 4 per thread). Its instances at every
-//   pair stay reachable in both types under their own name,
-//   sparse_conv_dw_scalar_kernel (sessd_sparse_conv_dw_scalar), for
-//   same-call comparisons only.
+// - the Cin = 4 first conv (4 -> 16), in both types: dw_direct_partial, on
+//   the CUDA cores. What bounds it: the bytes, the rulebook's 27 entries
+//   and the 16 dout values of each row (a hit adds 4 gathered values and
+//   2*4*16 flops); on the card, the serial sums of the densest tap and
+//   each step's staging (PERF.md). The scalar body it replaces ran one
+//   (chunk, tap) block of 256 threads of which 16 multiplied (4 x 4 sums
+//   each), so the grid read dout 27 times, multiplied every miss, and
+//   every 64-row step sat behind two barriers. The design:
+//   * One block of 4 warps per (chunk, tap group), a warp per tap, 7
+//     groups: 280 blocks at batch 4's 40 chunks of 2048 rows. A block
+//     reads the chunk's dout rows once and its taps' rulebook entries
+//     once, coalesced (consecutive threads, consecutive entries of a row).
+//     The grid is one dimension, chunk x group, group-fastest: any chunk
+//     count launches, and a chunk's groups run together, sharing its dout
+//     in L2 and spreading the centre tap's heavy group over the run
+//     (chunk-fastest was 10% slower at 512-row chunks on the card).
+//   * Every lane multiplies: a warp's 32 lanes hold its tap's Cin x Cout =
+//     64 sums, two each (one input channel, two output channels).
+//   * Steps of 256 rows staged in shared memory (the gathered f32 rows,
+//     their hit flags and the dout rows) through registers: step u + 1's
+//     loads (and step u + 2's rulebook entries) are issued before step
+//     u's FMAs. A miss reads nothing.
+//   * Each warp counts its tap's hits in the step (a ballot of the flags,
+//     32 rows a word) and lists them in order. Most hits of the first conv
+//     are the centre tap's (it hits ~64% of a training batch's rows, the
+//     other taps 2-15%), so one warp of a group carries its block's sums:
+//     a tap that hits more than an eighth of the step's rows multiplies
+//     all of them (misses as zero rows, 2 shared loads and 2 FMAs a row at
+//     fixed offsets), the others only their listed rows, 8 a round.
+//   * The scalar body's order: each sum runs over the chunk's rows in
+//     order by fmaf; a skipped miss is the scalar body's fmaf(0, d, acc),
+//     which leaves the sum as it is (for finite d, and a sum that is not
+//     -0). So it equals sparse_conv_dw_scalar_kernel at the same chunk rows
+//     bit for bit.
+// The scalar body, dw_scalar_partial (one block of 256 threads per (chunk,
+// tap)), stays reachable at every pair in both types under its own name,
+// sparse_conv_dw_scalar_kernel (sessd_sparse_conv_dw_scalar), for same-call
+// comparisons only.
 // Both write f32 partials [chunks, K, Cin, Cout]; sparse_conv_dw_reduce_kernel
 // sums the chunks in order.
 
+#include "gather_direct.cuh"
 #include "gather_mma.cuh"
 
 namespace {
@@ -169,9 +204,11 @@ __global__ void __launch_bounds__(kThreads)
                 sessd::kTf32Tile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, false>(
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
-  else
-    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(
+  else if constexpr (sessd::kDirect<T, CIN, COUT>)
+    sessd::gather_direct<T, IdxT, CIN, COUT, false>(
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
+  else
+    static_assert(sessd::kDirect<T, CIN, COUT>, "no body for this pair");
 }
 
 // the forward's scalar body in f32 (every pair of the plan), the body f32
@@ -205,9 +242,11 @@ __global__ void __launch_bounds__(kThreads)
                 sessd::kTf32Tile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, false, false, true>(
         x, rb, w, nullptr, nullptr, out, n_in, n_out, taps, 0);
-  else
-    sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false, true>(
+  else if constexpr (sessd::kDirect<T, CIN, COUT>)
+    sessd::gather_direct<T, IdxT, CIN, COUT, false, true>(
         x, rb, w, nullptr, nullptr, out, n_in, n_out, taps, 0);
+  else
+    static_assert(sessd::kDirect<T, CIN, COUT>, "no body for this pair");
 }
 
 // the input gradient's scalar body in either type with W^T [taps, CIN,
@@ -289,19 +328,23 @@ cudaError_t launch_mma(const void* x, const void* rb, const void* w2,
 
 // one launch of the forward's (DFEAT false) or the input gradient's
 // __global__: the tensor-core tile's block and shared memory where (T, CIN,
-// COUT) takes it, else the scalar tile's.
+// COUT) takes it, else the direct body's block and grid.
 template <typename T, typename IdxT, int CIN, int COUT, bool DFEAT>
 cudaError_t launch_tile(const void* x, const void* rb, const void* w2,
                         const uint8_t* row_mask, void* out, int n_in,
                         int n_out, int taps, cudaStream_t stream) {
   constexpr int e = DFEAT ? 1 : 0;
-  if constexpr (kTensorTile<T, CIN, COUT>)
+  if constexpr (kTensorTile<T, CIN, COUT>) {
     return launch_mma<e, T, IdxT, CIN, COUT>(x, rb, w2, row_mask, out, n_in,
                                              n_out, taps, stream);
-  else
-    return launch_gather<T, IdxT>(kernel_of<e, T, IdxT, CIN, COUT>(), x, rb,
-                                  w2, row_mask, out, n_in, n_out, taps,
-                                  stream);
+  } else {
+    const GatherKernel<T, IdxT> kern = kernel_of<e, T, IdxT, CIN, COUT>();
+    kern<<<sessd::direct_grid<CIN, COUT>(n_out), sessd::kDirectThreads, 0,
+           stream>>>(static_cast<const T*>(x), static_cast<const IdxT*>(rb),
+                     static_cast<const T*>(w2), row_mask,
+                     static_cast<T*>(out), n_in, n_out, taps);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, typename IdxT, int CIN, int COUT>
@@ -336,7 +379,7 @@ cudaError_t dispatch_fwd(int cin, int cout, const void* x, const void* rb,
 
 // the code of a forward or input-gradient instance's body: 3 the
 // tensor-core tile through 3xTF32, 2 the tensor-core tile in bf16, 1 the
-// scalar tile
+// direct body
 template <typename T, int CIN, int COUT>
 constexpr int tile_code() {
   if constexpr (!kTensorTile<T, CIN, COUT>)
@@ -374,7 +417,7 @@ cudaError_t dispatch_fwd_scalar(int cin, int cout, const void* x,
 
 // the input gradient's (Cin, Cout) pairs as its gather sees them: the
 // swapped (Cout, Cin) of each conv, the first's (16, 4) included (the
-// gradient of the voxel features; the scalar tile in both types, since
+// gradient of the voxel features; the direct body in both types, since
 // the tensor-core tile takes 16, 32 and 64 channels only)
 #define SESSD_DFEAT_PAIRS(CASE) \
   CASE(16, 4)                   \
@@ -437,6 +480,9 @@ int tile_blocks_per_sm() {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kern, sessd::kMmaThreads,
           sessd::kTileSmemBytes<T, CIN, COUT>);
+  } else if constexpr (E != 2) {  // the direct body's block (launch_tile)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kern, sessd::kDirectThreads, 0);
   } else {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
                                                         kThreads, 0);
@@ -543,6 +589,229 @@ __device__ __forceinline__ void dw_scalar_partial(
 #pragma unroll
     for (int j = 0; j < kTj; ++j)
       dst[(ti * kTi + i) * COUT + tj * kTj + j] = acc[i][j];
+}
+
+// the direct dW body's block: kDwDirectTaps warps, one per tap, over steps
+// of kDwDirectStep rows of a chunk
+constexpr int kDwDirectTaps = 4;
+constexpr int kDwDirectStep = 256;
+constexpr int kDwDirectThreads = kDwDirectTaps * 32;
+
+// the instances that take dw_direct_partial: the first conv's 4 -> 16
+template <typename T, int CIN, int COUT>
+constexpr bool kDwDirect = sessd::kDirect<T, CIN, COUT> && CIN == 4;
+
+// 4 values (16 bytes of f32, 8 of bf16) at p as f32, or zeros where `on`
+// is false (nothing is read)
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ p, bool on,
+                                      float (&v)[4]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 q = on ? *reinterpret_cast<const float4*>(p)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    const uint2 q = on ? *reinterpret_cast<const uint2*>(p)
+                       : make_uint2(0u, 0u);
+    v[0] = __uint_as_float(q.x << 16);
+    v[1] = __uint_as_float(q.x & 0xffff0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xffff0000u);
+  }
+}
+
+// partial[chunk, k] as dw_scalar_partial for the kDwDirectTaps taps of
+// one group, k = 4 group + warp, of one chunk: block b is group b % groups
+// of chunk b / groups (a grid of one dimension, so any chunk count
+// launches, group-fastest);
+// kDwDirectThreads threads; feats and dout 16-byte aligned. Lane l owns
+// input channel l / 8 and output channels 2 (l % 8), + 1 of its warp's
+// tap. Each step stages the gathered rows of the block's taps, their hit
+// flags and the dout rows in shared memory (loaded into registers a step
+// ahead, the rulebook entries two); each warp then sums over all the
+// step's rows where its tap hits more than an eighth of them, else over
+// its listed hit rows.
+// A dense step adds the scalar body's fmaf(0, d, acc) for a miss; a listed
+// step skips it, which leaves acc as it is for finite d and a sum that is
+// not -0 (a sum from +0 by fmaf is -0 only where a product underflows past
+// the smallest denormal). So the partials equal
+// sparse_conv_dw_scalar_kernel's at the same chunk rows bit for bit.
+template <typename T, typename IdxT, int CIN, int COUT>
+__device__ __forceinline__ void dw_direct_partial(
+    const T* __restrict__ feats, const IdxT* __restrict__ rb,
+    const T* __restrict__ dout, float* __restrict__ partial, int n_in,
+    int n_out, int taps, int chunk_rows) {
+  constexpr int kG = kDwDirectTaps;
+  constexpr int kStep = kDwDirectStep;
+  constexpr int kBlock = kDwDirectThreads;
+  static_assert(CIN == 4 && COUT == 16 && CIN * (COUT / 2) == 32,
+                "the first conv's 4 -> 16: a warp's lanes hold a tap's sums");
+  constexpr int kPairs = kStep * kG / kBlock;  // (row, tap) per thread
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per dout load
+  constexpr int kDout = kStep * COUT / kVec / kBlock;      // per thread
+  // one buffer: gathered rows [kStep][kG][CIN], dout rows [kStep][COUT]
+  // (f32), hit flags [kStep][kG]
+  __shared__ __align__(16) float s_g[kStep * kG * CIN];
+  __shared__ __align__(16) float s_d[kStep * COUT];
+  __shared__ uint8_t s_hit[kStep * kG];
+  __shared__ uint8_t s_list[kG][kStep];  // each warp's hit rows, in order
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int groups = (taps + kG - 1) / kG;
+  const int k0 = static_cast<int>(blockIdx.x) % groups * kG;
+  const int g_act = min(kG, taps - k0);  // the last group may hold fewer
+  const int chunk = static_cast<int>(blockIdx.x) / groups;
+  const int begin = chunk * chunk_rows;
+  const int end = min(n_out, begin + chunk_rows);
+  const int steps = (end - begin + kStep - 1) / kStep;
+
+  // staging: this thread's (row, tap) pairs p = tid + kBlock i, row p / kG
+  // and tap p % kG, so consecutive threads read consecutive rulebook
+  // entries of a row
+  const int st_tap = tid % kG;
+  const bool st_on = st_tap < g_act;
+  int idx[kPairs];      // the source rows of the next step to gather
+  float gv[kPairs][4];  // the next step's gathered rows
+  unsigned hv = 0u;     // bit i: pair i hits
+  float dv[kDout][kVec];  // the next step's dout rows
+  auto load_idx = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int n = begin + s * kStep + (tid + kBlock * i) / kG;
+      idx[i] = st_on && n < end
+                   ? static_cast<int>(rb[(size_t)n * taps + k0 + st_tap])
+                   : -1;
+    }
+  };
+  auto load_step = [&](int s) {
+    hv = 0u;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const bool hit =
+          static_cast<unsigned>(idx[i]) < static_cast<unsigned>(n_in);
+      load4<T>(feats + (size_t)(hit ? idx[i] : 0) * CIN, hit, gv[i]);
+      hv |= static_cast<unsigned>(hit) << i;
+    }
+#pragma unroll
+    for (int i = 0; i < kDout; ++i) {
+      const int q = tid + kBlock * i;
+      const int n = begin + s * kStep + q / (COUT / kVec);
+      const bool on = n < end;
+      const T* src = dout + (size_t)(on ? n : 0) * COUT +
+                     q % (COUT / kVec) * kVec;
+      if constexpr (std::is_same<T, float>::value) {
+        const float4 v = on ? *reinterpret_cast<const float4*>(src)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        dv[i][0] = v.x;
+        dv[i][1] = v.y;
+        dv[i][2] = v.z;
+        dv[i][3] = v.w;
+      } else {
+        const uint4 v = on ? *reinterpret_cast<const uint4*>(src)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv[i][2 * e] = __uint_as_float(w[e] << 16);
+          dv[i][2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+        }
+      }
+    }
+  };
+  auto store_step = [&]() {
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int p = tid + kBlock * i;
+      *reinterpret_cast<float4*>(&s_g[p * CIN]) =
+          make_float4(gv[i][0], gv[i][1], gv[i][2], gv[i][3]);
+      s_hit[p] = (hv >> i) & 1u;
+    }
+#pragma unroll
+    for (int i = 0; i < kDout; ++i) {
+      const int q = tid + kBlock * i;
+#pragma unroll
+      for (int e = 0; e < kVec; e += 4)
+        *reinterpret_cast<float4*>(&s_d[q * kVec + e]) = make_float4(
+            dv[i][e], dv[i][e + 1], dv[i][e + 2], dv[i][e + 3]);
+    }
+  };
+
+  const int c = lane / (COUT / 2);
+  const int j = 2 * (lane % (COUT / 2));
+  float acc0 = 0.f, acc1 = 0.f;
+  load_idx(0);
+  load_step(0);
+  if (steps > 1) load_idx(1);
+  store_step();
+  __syncthreads();
+  for (int u = 0; u < steps; ++u) {
+    if (u + 1 < steps) {  // the next step's loads in flight over this one
+      load_step(u + 1);
+      if (u + 2 < steps) load_idx(u + 2);
+    }
+    if (warp < g_act) {
+      // the warp's tap's hit rows of the step, in order: a ballot of the
+      // flags, 32 rows a word, each hit row placed by its rank
+      int n_hit = 0;
+#pragma unroll
+      for (int w = 0; w < kStep / 32; ++w) {
+        const bool hit = s_hit[(32 * w + lane) * kG + warp] != 0;
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit)
+          s_list[warp][n_hit + __popc(m & ((1u << lane) - 1u))] =
+              static_cast<uint8_t>(32 * w + lane);
+        n_hit += __popc(m);
+      }
+      __syncwarp();
+      const float* g_col = s_g + warp * CIN + c;
+      const float* d_col = s_d + j;
+      if (n_hit > kStep / 8) {
+        // a dense tap (the centre tap hits most rows): every row of the
+        // step, misses as zero rows, as the scalar body sums them
+#pragma unroll 8
+        for (int r = 0; r < kStep; ++r) {
+          const float a = g_col[r * kG * CIN];
+          const float2 b = *reinterpret_cast<const float2*>(d_col + r * COUT);
+          acc0 = fmaf(a, b.x, acc0);
+          acc1 = fmaf(a, b.y, acc1);
+        }
+      } else {
+        // the listed rows, kBatch a round, their loads issued together
+        constexpr int kBatch = 8;
+        for (int i0 = 0; i0 < n_hit; i0 += kBatch) {
+          float a[kBatch];
+          float2 b[kBatch];
+#pragma unroll
+          for (int t = 0; t < kBatch; ++t) {
+            const int r = s_list[warp][min(i0 + t, kStep - 1)];
+            a[t] = g_col[r * kG * CIN];
+            b[t] = *reinterpret_cast<const float2*>(d_col + r * COUT);
+          }
+#pragma unroll
+          for (int t = 0; t < kBatch; ++t) {
+            if (i0 + t < n_hit) {
+              acc0 = fmaf(a[t], b[t].x, acc0);
+              acc1 = fmaf(a[t], b[t].y, acc1);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (u + 1 < steps) {
+      store_step();
+      __syncthreads();
+    }
+  }
+  if (warp < g_act)
+    *reinterpret_cast<float2*>(
+        partial + (((size_t)chunk * taps + k0 + warp) * CIN + c) * COUT + j) =
+        make_float2(acc0, acc1);
 }
 
 constexpr int kDwStages = 4;           // 64-row steps in the ring (bf16)
@@ -957,8 +1226,9 @@ constexpr bool kDwTensor =
 
 // The partial kernel of the weight gradient: the tensor-core body for
 // bf16, and f32 through 3xTF32, with Cin, Cout in {16, 32, 64} (grid
-// [taps, chunks], DwMma::kBlock threads), the scalar body otherwise (grid
-// [chunks, taps], kThreads).
+// [taps, chunks], DwMma::kBlock threads), the direct body for the first
+// conv's 4 -> 16 (chunks x tap groups blocks on x, kDwDirectThreads
+// threads).
 template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
 sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
@@ -971,14 +1241,16 @@ sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
     dw_mma_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in, n_out,
                                        taps, chunk_rows, blockIdx.y,
                                        blockIdx.x);
+  else if constexpr (kDwDirect<T, CIN, COUT>)
+    dw_direct_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
+                                          n_out, taps, chunk_rows);
   else
-    dw_scalar_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
-                                          n_out, taps, chunk_rows,
-                                          blockIdx.x, blockIdx.y);
+    static_assert(kDwDirect<T, CIN, COUT>, "no body for this pair");
 }
 
 // the scalar body in either type under a name of its own, for comparisons
-// only: the body bf16 dW ran before mma.sync and f32 dW before 3xTF32
+// only: the body bf16 dW ran before mma.sync, f32 dW before 3xTF32 and the
+// first conv's before the direct body
 template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
 sparse_conv_dw_scalar_kernel(const T* __restrict__ feats,
@@ -1040,7 +1312,8 @@ cudaError_t launch_dw(const void* feats, const void* rb, const void* dout,
                      static_cast<const T*>(dout), partial, n_in, n_out, taps,
                      chunk_rows);
   } else {
-    kern<<<dim3(chunks, taps), kThreads, 0, stream>>>(
+    kern<<<chunks * ((taps + kDwDirectTaps - 1) / kDwDirectTaps),
+           kDwDirectThreads, 0, stream>>>(
         static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
         static_cast<const T*>(dout), partial, n_in, n_out, taps, chunk_rows);
   }
@@ -1106,7 +1379,7 @@ cudaError_t dispatch_dw_scalar(int cin, int cout, const void* feats,
 
 // the code of the weight gradient's partial kernel for (T, cin, cout), as
 // tile_code: 3 the tensor-core body through 3xTF32, 2 the tensor-core body
-// in bf16, 1 the scalar body, 0 where there is none
+// in bf16, 1 the direct body, 0 where there is none
 template <typename T>
 int dw_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO)                                                   \
@@ -1132,8 +1405,8 @@ int dw_tile_blocks_per_sm(int chunk_rows) {
           &blocks, kern, DwMma<T, CIN, COUT>::kBlock,
           DwMma<T, CIN, COUT>::smem_bytes(chunk_rows));
   } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kern, kDwDirectThreads, 0);
   }
   return err == cudaSuccess ? blocks : 0;
 }
@@ -1204,7 +1477,7 @@ extern "C" int sessd_sparse_conv_fwd_scalar(const void* feats, const void* rb,
 
 // Which body sessd_sparse_conv_fwd launches for (cin, cout, dtype), as
 // tile_code: 3 the tensor-core tile through 3xTF32, 2 the tensor-core tile
-// in bf16, 1 the scalar tile, 0 none (it answers cudaErrorInvalidValue).
+// in bf16, 1 the direct body, 0 none (it answers cudaErrorInvalidValue).
 extern "C" int sessd_sparse_conv_fwd_instance(int cin, int cout, int dtype) {
   if (dtype == 0) return fwd_instance<float>(cin, cout);
   if (dtype == 1) return fwd_instance<__nv_bfloat16>(cin, cout);
@@ -1249,7 +1522,7 @@ extern "C" int sessd_sparse_conv_dfeat_scalar(const void* dout,
 
 // Which body sessd_sparse_conv_dfeat launches for the gather pair (cin,
 // cout) = (the conv's Cout, its Cin) and dtype: 3 the tensor-core tile
-// through 3xTF32, 2 the tensor-core tile in bf16, 1 the scalar tile, 0
+// through 3xTF32, 2 the tensor-core tile in bf16, 1 the direct body, 0
 // none.
 extern "C" int sessd_sparse_conv_dfeat_instance(int cin, int cout,
                                                 int dtype) {
@@ -1298,7 +1571,7 @@ extern "C" int sessd_sparse_conv_dw_scalar(const void* feats, const void* rb,
 
 // Which body sessd_sparse_conv_dw's partial kernel takes for (cin, cout,
 // dtype): 3 the tensor-core body through 3xTF32, 2 the tensor-core body in
-// bf16, 1 the scalar body, 0 none.
+// bf16, 1 the direct body, 0 none.
 extern "C" int sessd_sparse_conv_dw_instance(int cin, int cout, int dtype) {
   if (dtype == 0) return dw_instance<float>(cin, cout);
   if (dtype == 1) return dw_instance<__nv_bfloat16>(cin, cout);

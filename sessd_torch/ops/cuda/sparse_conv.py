@@ -10,7 +10,8 @@ CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
 it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
 ``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes,
 ``cluster_split`` the cluster size of a bf16 ``fused_sparse_conv``) or
-raises. ``fused_sparse_conv_scalar`` (the scalar tile, in either type),
+raises. ``fused_sparse_conv_scalar`` (the scalar tile, the body every instance
+ran first, in either type),
 ``fused_sparse_conv_at_split`` (K1 at a given cluster size) and
 ``fused_sparse_conv_stream_ring`` (the two-slot ring f32 K3 ran before its
 3xTF32 tile) exist for same-call comparisons only; nothing on the serving
@@ -74,7 +75,7 @@ FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
 DFEAT_PAIRS = ((16, 4), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile, kTf32Tile
 # csrc/sparse_conv_train.cu: tile_code, what the C instance entries answer
-INSTANCE_CODES = {"tf32": 3, "mma": 2, "scalar": 1}
+INSTANCE_CODES = {"tf32": 3, "mma": 2, "direct": 1}
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
           "fused_sparse_conv_stream": STREAM_PAIRS,
           "fused_sparse_conv": FUSED_PAIRS,
@@ -93,15 +94,17 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
     tensor-core tile of ``csrc/gather_mma.cuh`` for the convs and the input
     gradient, the mma.sync partial kernel of ``sparse_conv_train.cu`` for
     dW), "tf32" (f32 at those channels: the same bodies through 3xTF32,
-    dW's on mma.sync m16n8k8) or "scalar"
-    (``gather_gemm.cuh``'s tile, or dW's scalar partial kernel). For
-    "sparse_conv_dfeat", (cin, cout) is its gather's pair: the conv's
-    (Cout, Cin). Raises ValueError where the entry has no instance."""
+    dW's on mma.sync m16n8k8) or "direct" (the 4-channel side of the first
+    conv, in both types: ``csrc/gather_direct.cuh``'s body on the CUDA
+    cores for the convs and the input gradient's 16 -> 4, dW's
+    ``dw_direct_partial``). For "sparse_conv_dfeat", (cin, cout) is its
+    gather's pair: the conv's (Cout, Cin). Raises ValueError where the
+    entry has no instance."""
     if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
                          f"Cout={cout}")
     if cin not in MMA_CHANNELS or cout not in MMA_CHANNELS:
-        return "scalar"
+        return "direct"
     return "mma" if dtype == torch.bfloat16 else "tf32"
 
 
@@ -334,7 +337,8 @@ def _launch(entry: str, feats, rb, w2, bias, n_in, relu,
 
 
 def _check_aligned(feats, w2):
-    """The tensor-core tile copies 16-byte chunks."""
+    """The tensor-core tile copies 16-byte chunks; the direct body loads
+    each gathered row whole and stores 4 channels at once."""
     if feats.data_ptr() % 16 or w2.data_ptr() % 16:
         raise ValueError("feats and w2 must be 16-byte aligned")
 
@@ -373,13 +377,14 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
     where the launch fills less than a wave; f32 at those channels runs the
     same tile through 3xTF32 at one CTA per tile (the f32 stream kernel's
     instance: bit-equal to ``fused_sparse_conv_stream``); the Cin = 4 first
-    conv runs the scalar tile (``conv_instance``). CPU tensors take the
-    twin; CUDA tensors launch the kernel on the current stream, counted in
-    ``fused_sparse_conv.launches``.
+    conv runs the direct body (``conv_instance``), bit-equal to
+    ``fused_sparse_conv_scalar``. Every body wants feats and w2 16-byte
+    aligned. CPU tensors take the twin; CUDA tensors launch the kernel on
+    the current stream, counted in ``fused_sparse_conv.launches``.
     """
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if _body(feats, w2) in ("mma", "tf32"):
+    if _body(feats, w2):
         _check_aligned(feats, w2)
     out = _launch("fused_sparse_conv", feats, rb, w2, bias, n_in, relu)
     fused_sparse_conv.launches += 1
@@ -392,9 +397,9 @@ fused_sparse_conv.launches = 0
 def fused_sparse_conv_scalar(feats, rb, w2, bias, n_in, relu=True):
     """``fused_sparse_conv`` through the scalar tile
     (``fused_sparse_conv_scalar_kernel``), the tile K1 ran before the
-    tensor-core tile (bf16) and before 3xTF32 (f32), in either type: for
-    same-call comparisons only. CPU tensors take the twin. Counted in
-    ``fused_sparse_conv_scalar.launches``."""
+    tensor-core tile (bf16), before 3xTF32 (f32) and before the direct body
+    (Cin = 4), in either type: for same-call comparisons only. CPU tensors
+    take the twin. Counted in ``fused_sparse_conv_scalar.launches``."""
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
     out = _launch("fused_sparse_conv_scalar", feats, rb, w2, bias, n_in, relu)
@@ -429,7 +434,7 @@ fused_sparse_conv_at_split.launches = 0
 
 def launch_split(n_out: int, cin: int, cout: int, dtype) -> int:
     """The cluster size the C entry of ``fused_sparse_conv`` launches with
-    for ``n_out`` output rows on this card (1 on the scalar tile and in
+    for ``n_out`` output rows on this card (1 on the direct body and in
     f32); reads the card, so CUDA only."""
     lib = build()
     split = lib.sessd_fused_sparse_conv_split(n_out, cin, cout,

@@ -7,16 +7,17 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
 ``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
 tensor-core tile of the forward and input gradient, in bf16 and in f32
-through 3xTF32), built with the serving kernel by
-``ops.cuda.sparse_conv.build`` at the first CUDA call; dW's tensor-core
-body (mma.sync, bf16 and f32 through 3xTF32) is in the ``.cu`` itself. On
+through 3xTF32) and ``gather_direct.cuh`` (the first conv's 4-channel
+side), built with the serving kernel by ``ops.cuda.sparse_conv.build`` at
+the first CUDA call; dW's bodies (mma.sync, bf16 and f32 through 3xTF32,
+and the first conv's direct one) are in the ``.cu`` itself. On
 a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches its
 kernel, counted in ``<wrapper>.launches``, or raises.
 ``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar`` (the scalar
-bodies in f32 and bf16, which the tensor-core ones replaced) and
-``sparse_conv_fwd_scalar`` (the f32 forward's scalar body, which 3xTF32
-replaced) exist for same-call comparisons only; the training step never
-calls them.
+bodies in f32 and bf16, which the tensor-core and direct ones replaced)
+and ``sparse_conv_fwd_scalar`` (the f32 forward's scalar body, which
+3xTF32 and the direct body replaced) exist for same-call comparisons
+only; the training step never calls them.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -225,18 +226,15 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     [N_out, K] with N_in = miss. Returns [N_out, Cout] in feats' dtype.
     Cin in {16, 32, 64} runs the tensor-core tile (bf16, and f32 through
     3xTF32, whose arithmetic ``gather_gemm_tf32`` models), which copies
-    16-byte chunks and wants feats and w2 16-byte aligned; the first conv's
-    Cin = 4 runs the scalar tile (``conv_instance``)."""
+    16-byte chunks; the first conv's Cin = 4 runs the direct body
+    (``conv_instance``), bit-equal to the scalar tile. Both want feats and
+    w2 16-byte aligned."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
     _check_fwd(feats, rb, w2, out_mask)
     out = _launch_fwd("sparse_conv_fwd", feats, rb, w2, out_mask)
     sparse_conv_fwd.launches += 1
     return out
-
-
-def _tensor_tile(entry, dtype, cin, cout) -> bool:
-    return conv_instance(entry, dtype, cin, cout) in ("mma", "tf32")
 
 
 def _check_fwd(feats, rb, w2, out_mask):
@@ -246,8 +244,8 @@ def _check_fwd(feats, rb, w2, out_mask):
     _check(feats, rb, w2, *(() if out_mask is None else (out_mask,)))
     _check_gather(feats, rb, w2, "sparse_conv_fwd")
     taps, cin, cout = w2.shape
+    # every body loads 16-byte chunks (the direct one a gathered row whole)
     if (cin, cout) in FWD_PAIRS \
-            and _tensor_tile("sparse_conv_fwd", feats.dtype, cin, cout) \
             and (feats.data_ptr() % 16 or w2.data_ptr() % 16):
         raise ValueError("feats and w2 must be 16-byte aligned")
 
@@ -271,10 +269,11 @@ def _launch_fwd(entry, feats, rb, w2, out_mask):
 
 def sparse_conv_fwd_scalar(feats, rb, w2, out_mask=None):
     """``sparse_conv_fwd`` in f32 through the scalar tile
-    (``sparse_conv_fwd_scalar_kernel``), the body f32 K4 ran before 3xTF32,
-    which sums in the twin's order: for same-call comparisons and the
-    unpinned step-parity gate only. f32 only, every pair; CPU tensors take
-    the twin. Counted in ``sparse_conv_fwd_scalar.launches``."""
+    (``sparse_conv_fwd_scalar_kernel``), the body f32 K4 ran before 3xTF32
+    and the direct body, which sums in the twin's order: for same-call
+    comparisons and the unpinned step-parity gate only. f32 only, every
+    pair; CPU tensors take the twin. Counted in
+    ``sparse_conv_fwd_scalar.launches``."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
     _check_fwd(feats, rb, w2, out_mask)
@@ -318,15 +317,14 @@ def sparse_conv_dfeat(dout, inv, w2):
     (``ops.sparse.inverse_rulebook``, miss N_out); w2 [K, Cin, Cout], read
     as it lies (no transposed copy). Returns [N_in, Cin] in dout's dtype.
     Cin, Cout in {16, 32, 64} run the tensor-core tile with a K-major B
-    (bf16, and f32 through 3xTF32), which reads 16-byte chunks and wants
-    dout and w2 16-byte aligned; the first conv's Cin = 4 (the voxel
-    features' gradient) runs the scalar tile in both types
-    (``conv_instance("sparse_conv_dfeat", dtype, Cout, Cin)``)."""
+    (bf16, and f32 through 3xTF32), which reads 16-byte chunks; the first
+    conv's Cin = 4 (the voxel features' gradient) runs the direct body in
+    both types (``conv_instance("sparse_conv_dfeat", dtype, Cout, Cin)``),
+    bit-equal to the scalar tile. Both want dout and w2 16-byte aligned."""
     if not _device(dout):
         return sparse_conv_dfeat_ref(dout, inv, w2)
     taps, cin, cout = _check_dfeat(dout, inv, w2)
     if (cout, cin) in DFEAT_PAIRS \
-            and _tensor_tile("sparse_conv_dfeat", dout.dtype, cout, cin) \
             and (dout.data_ptr() % 16 or w2.data_ptr() % 16):
         raise ValueError("dout and w2 must be 16-byte aligned")
     dfeat = _launch_dfeat("sparse_conv_dfeat", dout, inv, w2, cin, cout,
@@ -359,14 +357,16 @@ def _check_dw(feats, rb, dout, chunk_rows):
                          f"{dout.dtype} for rulebook {tuple(rb.shape)}, "
                          f"features {feats.dtype}")
     cin, cout = feats.shape[1], dout.shape[1]
-    if (cin, cout) in DW_PAIRS \
-            and _tensor_tile("sparse_conv_dw", feats.dtype, cin, cout):
-        if chunk_rows % TILE_ROWS or not 0 < chunk_rows <= DW_MAX_CHUNK_ROWS:
-            raise ValueError(f"chunk_rows {chunk_rows}: the tensor-core dW "
-                             f"takes multiples of {TILE_ROWS} up to "
-                             f"{DW_MAX_CHUNK_ROWS}")
-        if feats.data_ptr() % 16 or dout.data_ptr() % 16:
-            raise ValueError("feats and dout must be 16-byte aligned")
+    if (cin, cout) not in DW_PAIRS:
+        return
+    if conv_instance("sparse_conv_dw", feats.dtype, cin, cout) != "direct" \
+            and (chunk_rows % TILE_ROWS
+                 or not 0 < chunk_rows <= DW_MAX_CHUNK_ROWS):
+        raise ValueError(f"chunk_rows {chunk_rows}: the tensor-core dW "
+                         f"takes multiples of {TILE_ROWS} up to "
+                         f"{DW_MAX_CHUNK_ROWS}")
+    if feats.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("feats and dout must be 16-byte aligned")
 
 
 def _launch_dw(entry, feats, rb, dout, chunk_rows):
@@ -395,9 +395,10 @@ def sparse_conv_dw(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
     be zero on masked rows. Cin, Cout in {16, 32, 64} run the tensor-core
     partial kernel (bf16 on mma.sync m16n8k16, f32 through 3xTF32 on
     m16n8k8, whose arithmetic ``dw_tf32`` models), which takes chunk_rows
-    a multiple of 64 up to DW_MAX_CHUNK_ROWS and feats and dout 16-byte
-    aligned; the first conv's Cin = 4 runs the scalar one
-    (``conv_instance``)."""
+    a multiple of 64 up to DW_MAX_CHUNK_ROWS; the first conv's Cin = 4
+    runs the direct one (``conv_instance``), which takes any chunk_rows and
+    equals the scalar one at the same chunk_rows bit for bit. Both want
+    feats and dout 16-byte aligned."""
     if not _device(feats):
         return sparse_conv_dw_ref(feats, rb, dout)
     _check_dw(feats, rb, dout, chunk_rows)
@@ -409,8 +410,9 @@ def sparse_conv_dw(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
 def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
     """``sparse_conv_dw`` through the scalar partial kernel
     (``sparse_conv_dw_scalar_kernel``), the body dW ran before the
-    tensor-core kernel (bf16 before mma.sync, f32 before 3xTF32), in either
-    type: for same-call comparisons only. CPU tensors take the twin.
+    tensor-core kernel (bf16 before mma.sync, f32 before 3xTF32) and before
+    the direct one (Cin = 4), in either type: for same-call comparisons
+    only. CPU tensors take the twin.
     Counted in ``sparse_conv_dw_scalar.launches``."""
     if not _device(feats):
         return sparse_conv_dw_ref(feats, rb, dout)

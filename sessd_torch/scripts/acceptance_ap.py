@@ -117,6 +117,12 @@ train_preprocessor = dict(mode="train", shuffle_points=True,
                           class_names=class_names, enable_similar_type=True)
 data = dict(
     samples_per_gpu=4, workers_per_gpu=2,
+    # rulebook chains built on the card (ops.sparse.build_device_chain), as
+    # the reference recipe trains: on an NVIDIA H100 80GB HBM3 (700 W) the
+    # device chains were also the faster route, 245.3 against 253.1 ms per
+    # bf16 step at these caps, with a data-time share of 0.213 against the
+    # loader-built chains' 0.492 (PERF.md, section 5)
+    host_rulebooks=False,
     train=dict(type="KittiDataset", root_path=data_root,
                info_path=data_root + "/infos_train.pkl",
                class_names=class_names),

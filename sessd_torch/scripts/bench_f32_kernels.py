@@ -28,8 +28,18 @@ make_synthetic_root``), seeded random weights:
   (``fused_sparse_conv_scalar``, the body f32 K1 ran before 3xTF32) on the
   same calls.
 
+- the first conv (4 -> 16, the direct body where the tree has it) of that
+  training batch in f32 and in bf16: K4 on both chains, dFeat (16 -> 4,
+  the voxel features' gradient, off the step's path) and dW on the
+  student's, each with its twin, its scalar entry on the same calls
+  (bf16 K4, which has none, K1's with zero bias and no ReLU) and its
+  bound; dW also with the share of rows each tap hits and, at chunks of
+  1024 and 512 rows (DW_CHUNK_SWEEP) besides DW_CHUNK_ROWS, its time, its
+  scalar entry's and whether the two give the same bits.
+
 Every time is a device time (``queued_device_ms``, the median of 20). Per
-kernel: the mean ms per launch over its convs, the bound per launch (each
+kernel: the mean ms per launch over its convs (and over those with 16-64
+channels apart), the bound per launch (each
 input read and each output written once over 3.35 TB/s, against 2 x hits x
 Cin x Cout flops over 67 TFLOP/s on the scalar body, or three times those
 flops over TF32's 494.7 TFLOP/s on a 3xTF32 body, the larger; the body as
@@ -68,11 +78,13 @@ CONFIG = "se_ssd_kitti_car.py"
 REPS = 20
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
+DW_CHUNK_SWEEP = (1024, 512)  # conv 0's dW besides DW_CHUNK_ROWS
 # the card's published dense rates (H100 SXM data sheet, at 700 W): f32 on
 # the CUDA cores, and TF32 on the tensor cores, which a 3xTF32 body runs
 # three times over
 F32_FLOPS = 67e12
 TF32_FLOPS = 494.7e12
+BF16_FLOPS = 989e12
 TF32_PASSES = 3
 ACCEPT_CAPS = ast.literal_eval(re.search(
     r"^stage_capacity = (\(.*\))$", acceptance_ap.CONFIG, re.M).group(1))
@@ -83,15 +95,21 @@ CONV_CHAIN = [c for stage, (_, n_subm, dk, _, _) in enumerate(PLAN)
 
 
 def bound_ms(tensors, hits: int, cin: int, cout: int, body: str,
-             extra_bytes: int = 0) -> dict:
+             extra_bytes: int = 0, dtype=torch.float32) -> dict:
     """The least device ms of one launch: its bytes (the tensors' and
     ``extra_bytes``) over the memory rate against its flops over the rate
-    of its body, and which of the two."""
+    of its body (f32 on the CUDA cores, in either type for a body off the
+    tensor cores; three TF32 passes for "tf32"; the bf16 peak for a bf16
+    tensor-core body), and which of the two."""
     moved = sum(t.numel() * t.element_size() for t in tensors) + extra_bytes
     flops = 2 * hits * cin * cout
-    secs = {"bytes": moved / HBM_BYTES_PER_S,
-            "operations": TF32_PASSES * flops / TF32_FLOPS
-            if body == "tf32" else flops / F32_FLOPS}
+    if body == "tf32":
+        op_s = TF32_PASSES * flops / TF32_FLOPS
+    elif body == "mma" and dtype == torch.bfloat16:
+        op_s = flops / BF16_FLOPS
+    else:
+        op_s = flops / F32_FLOPS
+    secs = {"bytes": moved / HBM_BYTES_PER_S, "operations": op_s}
     by = max(secs, key=secs.get)
     return {"ms": secs[by] * 1e3, "by": by}
 
@@ -125,6 +143,12 @@ class Rows:
                 if entry else None
         out["bound_by"] = sorted({r["bound_by"] for r in self.rows})
         out["body"] = sorted({r["body"] for r in self.rows})
+        # the convs with 16-64 channels on both sides, apart from the first
+        # conv's 4-channel side
+        wide = [r for r in self.rows if 4 not in (r["cin"], r["cout"])]
+        out["wide_convs"] = len(wide)
+        out["wide_ms"] = sum(r["ms"] for r in wide) / len(wide) \
+            if wide else None
         return out
 
 
@@ -152,23 +176,28 @@ def first_batch(trainer):
     return trainer._device_batch(batch)
 
 
-def time_train(trainer, records, entries):
+def conv_inputs(model, db, sfx):
+    """The first conv's input of one chain: the reader's features in the
+    chain's row order, zero on padding rows."""
+    rb = db["inputs" + sfx]
+    vox = db["voxels" + sfx]
+    b, v = vox.shape[:2]
+    feats = model.reader(vox.reshape(b * v, *vox.shape[2:]),
+                         db["num_points" + sfx].reshape(b * v))
+    x = feats[rb["perm"].long()]
+    return rb, torch.where((rb["ids"][0] < sp.SENTINEL)[:, None], x, 0.0)
+
+
+def time_train(trainer, db, records, entries):
     """K4 on both chains, dFeat and dW on the student's; the old bodies'
     entries on the same calls where the tree has them (``entries``:
     {"fwd", "fwd_tf32", "dfeat", "dw": whether it has K4's scalar entry,
     K4's 3xTF32 entry, the f32 scalar entries of dFeat and dW})."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
-    db = first_batch(trainer)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for plan, sfx, n in (("student", "", 10), ("teacher", "_raw", 14)):
-        rb = db["inputs" + sfx]
-        vox = db["voxels" + sfx]
-        b, v = vox.shape[:2]
-        feats = model.reader(vox.reshape(b * v, *vox.shape[2:]),
-                             db["num_points" + sfx].reshape(b * v))
-        x = feats[rb["perm"].long()]
-        x = torch.where((rb["ids"][0] < sp.SENTINEL)[:, None], x, 0.0)
+        rb, x = conv_inputs(model, db, sfx)
         for i in range(n):
             conv = blocks[i][0]
             kind, idx, out_stage = CONV_CHAIN[i]
@@ -248,6 +277,82 @@ def time_train(trainer, records, entries):
             x = torch.relu(y)
 
 
+def time_conv0(trainer, db, records):
+    """The first conv of the training batch in f32 and bf16: K4 on both
+    chains, dFeat (16 -> 4) and dW on the student's, each with its twin,
+    its bound and its scalar entry on the same calls (bf16 K4: K1's scalar
+    entry with zero bias and no ReLU, the same tile without the mask); dW
+    with each tap's hit share and its chunk sweep."""
+    model = trainer.state.student
+    conv = model.backbone.blocks()[0][0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        w = conv.weight.detach().reshape(
+            -1, *conv.weight.shape[-2:]).to(dtype).contiguous()
+        cin, cout = w.shape[1], w.shape[2]
+        zero = torch.zeros(cout, device="cuda")
+        for plan, sfx in (("student", ""), ("teacher", "_raw")):
+            rb, x = conv_inputs(model, db, sfx)
+            x = x.to(dtype)
+            kind, idx, out_stage = CONV_CHAIN[0]
+            rbk = rb[kind][idx]
+            mask = rb["ids"][out_stage] < sp.SENTINEL
+            n_hits = int((rbk != x.shape[0]).sum())
+            old_fwd = (lambda: kt.sparse_conv_fwd_scalar(x, rbk, w, mask)) \
+                if dtype == torch.float32 else (
+                lambda: sc.fused_sparse_conv_scalar(x, rbk, w, zero,
+                                                    x.shape[0], relu=False))
+            calls = [("fwd", cin, cout, (x, rbk, w, mask),
+                      lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
+                      lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask),
+                      old_fwd)]
+            if plan == "student":
+                dout = torch.randn(rbk.shape[0], cout, device="cuda",
+                                   generator=gen)
+                dout = torch.where(mask[:, None], dout, 0.0).to(dtype)
+                inv = sp.inverse_rulebook(rbk, x.shape[0])
+                calls += [
+                    ("dfeat", cout, cin, (dout, inv, w),
+                     lambda: kt.sparse_conv_dfeat(dout, inv, w),
+                     lambda: kt.sparse_conv_dfeat_ref(dout, inv, w),
+                     lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w)),
+                    ("dw", cin, cout, (x, rbk, dout),
+                     lambda: kt.sparse_conv_dw(x, rbk, dout),
+                     lambda: kt.sparse_conv_dw_ref(x, rbk, dout),
+                     lambda: kt.sparse_conv_dw_scalar(x, rbk, dout))]
+            line = ""
+            for kernel, a, b, ins, kern, twin, old in calls:
+                got = kern()
+                body = sc.conv_instance(f"sparse_conv_{kernel}", dtype, a, b)
+                row = records[f"{kernel} conv0 {name}"].add(
+                    plan=plan, conv=0, cin=a, cout=b, rows=rbk.shape[0],
+                    body=body, ms=queued_device_ms(kern, REPS),
+                    plain_ms=queued_device_ms(twin, REPS),
+                    old_tile_ms=queued_device_ms(old, REPS),
+                    **_bound(bound_ms(ins + (got,), n_hits, a, b, body,
+                                      dtype=dtype)))
+                if kernel == "dw":
+                    row["tap_hit_share"] = (
+                        rbk != x.shape[0]).float().mean(0).tolist()
+                    row["chunk_sweep"] = {
+                        c: dw_chunk(x, rbk, dout, c) for c in DW_CHUNK_SWEEP}
+                line += _line(kernel, row)
+            print(f"conv 0 {name} {plan} rows {rbk.shape[0]:6d}:{line}")
+
+
+def dw_chunk(x, rbk, dout, chunk: int) -> dict:
+    """dW and its scalar entry at chunks of ``chunk`` rows on the same
+    calls, and whether the two give the same bits."""
+    return {"ms": queued_device_ms(
+                lambda: kt.sparse_conv_dw(x, rbk, dout, chunk), REPS),
+            "old_tile_ms": queued_device_ms(
+                lambda: kt.sparse_conv_dw_scalar(x, rbk, dout, chunk), REPS),
+            "same_bits": torch.equal(
+                kt.sparse_conv_dw(x, rbk, dout, chunk),
+                kt.sparse_conv_dw_scalar(x, rbk, dout, chunk))}
+
+
 def _bound(b: dict) -> dict:
     return {"bound_ms": b["ms"], "bound_by": b["by"]}
 
@@ -257,6 +362,15 @@ def _line(name, row) -> str:
         if row.get("old_tile_ms") is not None else ""
     if row.get("tf32_entry_ms") is not None:
         old += f", tf32 entry {row['tf32_entry_ms']:.4f}"
+    if "tap_hit_share" in row:
+        share = row["tap_hit_share"]
+        old += (f", hit share per tap "
+                f"{[round(h, 3) for h in share]} (all taps "
+                f"{sum(share) / len(share):.4f})")
+    for c, t in row.get("chunk_sweep", {}).items():
+        old += (f", at {c}-row chunks {t['ms']:.4f} (old tile "
+                f"{t['old_tile_ms']:.4f}, "
+                f"{'the same bits' if t['same_bits'] else 'other bits'})")
     return (f" {name} [{row['body']}] {row['ms']:.4f} ms{old}, twin "
             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
             f"({row['bound_by']});")
@@ -331,6 +445,8 @@ def main(argv=None):
     has_ring = hasattr(sc, "fused_sparse_conv_stream_ring")
     has_k1_entry = tf32("fused_sparse_conv")
     records = {k: Rows() for k in ("fwd", "dfeat", "dw", "k1", "k3")}
+    records.update({f"{k} conv0 {t}": Rows() for k in ("fwd", "dfeat", "dw")
+                    for t in ("float32", "bfloat16")})
     with tempfile.TemporaryDirectory(prefix="bench_f32_") as tmp:
         root = f"{tmp}/kitti"
         make_synthetic_root(root, num_frames=8, num_cars=10)
@@ -339,8 +455,10 @@ def main(argv=None):
         trainer = Trainer(cfg, work_dir=work, seed=SEED, device="cuda")
         if cfg.get("precision") != "float32":
             raise SystemExit(f"{CONFIG} is not the f32 config")
+        db = first_batch(trainer)
         with torch.no_grad():
-            time_train(trainer, records, entries)
+            time_train(trainer, db, records, entries)
+            time_conv0(trainer, db, records)
         time_eval(trainer, records, has_ring, has_k1_entry)
     summary = {k: r.summary() for k, r in records.items()}
     launches = {"train_step": {"fwd": 24, "dfeat": 9, "dw": 10},
@@ -357,6 +475,9 @@ def main(argv=None):
                     f"{s['tf32_entry_bound_ms']:.4f})")
         if s["bound_with_partials_ms"] is not None:
             old += f", bound with partials {s['bound_with_partials_ms']:.4f}"
+        if s["wide_ms"] is not None and s["wide_convs"] < s["convs"]:
+            old += (f"; over its {s['wide_convs']} convs of 16-64 channels "
+                    f"{s['wide_ms']:.4f}")
         print(f"f32 {k}: {s['convs']} convs, {s['body']}, per launch "
               f"{s['ms']:.4f} ms{old}, twin {s['plain_ms']:.4f}, bound "
               f"{s['bound_ms']:.4f} ({', '.join(s['bound_by'])}) [{card}]")

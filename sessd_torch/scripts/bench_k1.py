@@ -1,5 +1,6 @@
 """K1's device time per backbone conv at batch 1, 2, 4 and 8, with the
-cluster size S of each launch, on one CUDA device.
+cluster size S of each launch and the body each conv takes, on one CUDA
+device.
 
     python -m sessd_torch.scripts.bench_k1
     PYTHONPATH=OTHER_TREE python sessd_torch/scripts/bench_k1.py
@@ -9,10 +10,12 @@ The SE-SSD Car VoxelNet (bf16 config, seeded random weights) on
 backbone convs through ``fused_sparse_conv`` (K1) as serving launches it,
 its device time (``queued_device_ms``, the median of 30). S > 1 (a tile's
 taps dealt over a cluster) comes where a launch's tiles fill less than a
-wave: batch 1 and 2, some convs at batch 4. The second form times another
-tree's kernels with this script (imports are absolute), so two trees
-compare in turns on one card. The last line is one JSON object with every
-number and the card.
+wave: batch 1 and 2, some convs at batch 4. The first conv (Cin = 4) is
+also timed through K1's scalar entry (``fused_sparse_conv_scalar``, the
+scalar tile) on the same calls. The second form times another tree's
+kernels with this script (imports are absolute), so two trees compare in
+turns on one card. The last line is one JSON object with every number and
+the card.
 """
 from __future__ import annotations
 
@@ -51,10 +54,15 @@ def main():
             rows, cin, cout = rbk.shape[0], x.shape[1], w2.shape[2]
             convs.append({
                 "cin": cin, "cout": cout, "rows": rows,
+                "body": sc.conv_instance("fused_sparse_conv", dtype, cin,
+                                         cout),
                 "S": sc.launch_split(rows, cin, cout, dtype)
                 if cin > 4 else 1,
                 "ms": queued_device_ms(lambda: sc.fused_sparse_conv(*args),
-                                       30)})
+                                       30),
+                "scalar_ms": queued_device_ms(
+                    lambda: sc.fused_sparse_conv_scalar(*args), 30)
+                if cin == 4 else None})
             return sc.fused_sparse_conv(*args)
 
         feats, rb = stage_inputs(**prep.batch(
@@ -65,13 +73,21 @@ def main():
         torch.cuda.synchronize()
         total = sum(c["ms"] for c in convs)
         for i, c in enumerate(convs):
+            old = (f", scalar entry {c['scalar_ms']:.4f} ms"
+                   if c["scalar_ms"] is not None else "")
             print(f"batch {batch} conv {i:2d} {c['cin']:2d}->{c['cout']:2d} "
-                  f"rows {c['rows']:6d} S={c['S']}: {c['ms']:.4f} ms")
+                  f"rows {c['rows']:6d} [{c['body']}] S={c['S']}: "
+                  f"{c['ms']:.4f} ms{old}")
+        first = convs[0]
         print(f"K1 bf16 batch {batch}, {len(convs)} convs: {total:.4f} ms "
-              f"[{card}]")
+              f"(conv 0 [{first['body']}] {first['ms']:.4f} ms, its scalar "
+              f"entry {first['scalar_ms']:.4f} ms; the other "
+              f"{len(convs) - 1} {total - first['ms']:.4f} ms) [{card}]")
         result[f"b{batch}"] = {"ms_sum": total,
                                "ms": [c["ms"] for c in convs],
-                               "S": [c["S"] for c in convs]}
+                               "S": [c["S"] for c in convs],
+                               "body": [c["body"] for c in convs],
+                               "conv0_scalar_ms": first["scalar_ms"]}
     print(json.dumps(result))
 
 

@@ -10,7 +10,10 @@ dFeat (against the twins, the scalar entries and the plain model of its
 arithmetic, ``kt.gather_gemm_tf32``, on every pair of those entries), K1's
 tap split over a cluster against one CTA per tile and against itself, dW's
 tensor-core partial kernel (bf16, and f32 through 3xTF32 against its model
-``kt.dw_tf32``) on chunks and steps that skip, the scalar entries kept for
+``kt.dw_tf32``) on chunks and steps that skip, the direct bodies of the
+first conv's 4-channel side (K1, K4, dFeat 16 -> 4 and dW, both types,
+bit-equal to their scalar entries on ragged row counts), the scalar entries
+kept for
 comparisons (the f32 ring of K3 and the scalar dW among them), and the
 micro-benchmark kernels (S1: the ablated scalar tile, whose ``full`` mode
 equals the scalar entry of K1 with zero bias and no ReLU bit for bit, and
@@ -186,9 +189,10 @@ def test_stream_ring_entry_is_the_old_f32_body(cuda, cin, cout, k,
 
 @pytest.mark.cuda
 def test_dw_scalar_entry_is_the_old_f32_body(cuda):
-    """dW's scalar entry in f32 runs the body the partial kernel keeps for
-    the 4-channel first conv, so it equals f32 dW there bit for bit, and
-    is within the dW bound of the twin on every tensor-core pair."""
+    """dW's scalar entry in f32 runs the body the partial kernel ran for
+    the 4-channel first conv before the direct body, which sums in its
+    order, so it equals f32 dW there bit for bit, and is within the dW
+    bound of the twin on every tensor-core pair."""
     for cin, cout, k in PLAN:
         f, r, _, d, _ = _on(cuda, torch.float32, torch.int32,
                             *_train_inputs(cin, cout, k))
@@ -308,6 +312,9 @@ def test_conv_instance_equals_the_c_entries(cuda):
                     if (cin, cout) in pairs[entry]:
                         want = sc.conv_instance(entry, dtype, cin, cout)
                         assert got == sc.INSTANCE_CODES[want]
+                        # the 4-channel side of the first conv: the direct
+                        # body in both types, in every entry that has it
+                        assert (want == "direct") == (4 in (cin, cout))
                     else:
                         assert got == 0
 
@@ -872,7 +879,9 @@ def test_training_tiles_fit_the_sm(cuda):
     (the forward's, dFeat's, dW's) two (their ring stages are chosen so),
     to overlap one block's gathers with another's tensor-core work; the
     forward's scalar entry has f32 instances alone. So do the stream
-    kernel's 3xTF32 instances."""
+    kernel's 3xTF32 instances. The direct bodies of the forward and the
+    input gradient are counted at the 128-thread block they launch with
+    (sessd::kDirectThreads), and fit at least four."""
     for cin, cout in sc.STREAM_PAIRS:
         for dtype in (torch.float32, torch.bfloat16):
             body = sc.conv_instance("fused_sparse_conv_stream", dtype, cin,
@@ -892,8 +901,10 @@ def test_training_tiles_fit_the_sm(cuda):
                         entry, dtype, cin, cout, blocks)
                     continue
                 body = sc.conv_instance(entry, dtype, cin, cout)
-                assert blocks >= (2 if body == "tf32" else 1), (
-                    entry, dtype, cin, cout, blocks)
+                least = {"tf32": 2, "direct": 4}.get(body, 1)
+                if entry == "sparse_conv_dw" and body == "direct":
+                    least = 1
+                assert blocks >= least, (entry, dtype, cin, cout, blocks)
 
 
 @pytest.mark.cuda
@@ -960,9 +971,9 @@ def test_sparse_conv_function_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
 def test_first_conv_input_gradient_on_card(cuda, dtype, tol):
     """``autograd.grad`` with respect to the 4-channel input of the first
-    conv (4 -> 16) launches the dFeat kernel once, on the scalar tile, and
+    conv (4 -> 16) launches the dFeat kernel once, on the direct body, and
     matches the same gradient through the plain twins."""
-    assert sc.conv_instance("sparse_conv_dfeat", dtype, 16, 4) == "scalar"
+    assert sc.conv_instance("sparse_conv_dfeat", dtype, 16, 4) == "direct"
     feats, rb, w2, dout, mask = _train_inputs(4, 16, 27, seed=2)
     r = torch.from_numpy(rb).to(cuda, torch.int32)
     m = torch.from_numpy(mask).to(cuda)
@@ -978,6 +989,145 @@ def test_first_conv_input_gradient_on_card(cuda, dtype, tol):
     inv = sp.inverse_rulebook(r, N_IN)
     dm = torch.where(m[:, None], d, 0.0)
     assert _err(got, kt.sparse_conv_dfeat_ref(dm, inv, w)) <= tol
+
+
+# (n_in, n_out) of the direct bodies' cases: ragged against the forward's
+# 64-row blocks, dFeat's 256-row blocks and dW's chunks and 64-row steps
+DIRECT_ROWS = [(3000, 2500), (20011, 20003)]
+# chunk rows of dW's cases: the default, one that is no multiple of 64, and
+# one small enough that every SM has chunks (the largest tap group)
+DIRECT_DW_CHUNKS = (kt.DW_CHUNK_ROWS, 1000, 64)
+
+
+def _direct_inputs(n_in, n_out, seed=0):
+    """The first conv's shapes (4 -> 16, 27 taps): injective taps at a 40%
+    hit rate, 50 all-miss rows, a row mask with zeros and dout zero on the
+    masked rows."""
+    rng = np.random.RandomState(seed)
+    rb = np.full((n_out, 27), n_in)
+    for t in range(27):
+        rows = rng.choice(n_out, int(min(n_in, n_out) * 0.4), replace=False)
+        rb[rows, t] = rng.choice(n_in, len(rows), replace=False)
+    dead = rng.choice(n_out, 50, replace=False)
+    rb[dead] = n_in
+    feats = rng.randn(n_in, 4).astype(np.float32)
+    w2 = (rng.randn(27, 4, 16) / np.sqrt(27 * 4)).astype(np.float32)
+    bias = (rng.randn(16) * 0.3).astype(np.float32)
+    mask = rng.rand(n_out) > 0.1
+    dout = np.where(mask[:, None], rng.randn(n_out, 16), 0.0).astype(
+        np.float32)
+    return feats, rb, w2, bias, dout, mask, dead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("n_in,n_out", DIRECT_ROWS,
+                         ids=[f"{a}to{b}" for a, b in DIRECT_ROWS])
+def test_direct_bodies_match_twins_and_scalar_entries(cuda, n_in, n_out,
+                                                      idx_dtype, dtype, tol):
+    """The first conv's 4-channel side on the direct bodies: K1 (with and
+    without ReLU), K4 (row mask), dFeat 16 -> 4 and dW within the type's
+    bound of their twins (dW 1e-3 in f32), one launch each on the main
+    counters, and bit-equal to the scalar entries on the same inputs, which
+    sum in the same order (bf16 K4 to K1's scalar entry with zero bias, no
+    ReLU and the mask applied; dW at each chunk size of
+    DIRECT_DW_CHUNKS); rows with no hit and masked rows come out 0."""
+    for entry in ("fused_sparse_conv", "sparse_conv_fwd", "sparse_conv_dw"):
+        assert sc.conv_instance(entry, dtype, 4, 16) == "direct"
+    assert sc.conv_instance("sparse_conv_dfeat", dtype, 16, 4) == "direct"
+    feats, rb, w2, bias, dout, mask, dead = _direct_inputs(n_in, n_out)
+    f, r, w, d, m = _on(cuda, dtype, idx_dtype, feats, rb, w2, dout, mask)
+    b = torch.from_numpy(bias).to(cuda)
+    for relu in (True, False):
+        counts = (sc.fused_sparse_conv.launches,
+                  sc.fused_sparse_conv_scalar.launches)
+        y = sc.fused_sparse_conv(f, r, w, b, n_in, relu=relu)
+        old = sc.fused_sparse_conv_scalar(f, r, w, b, n_in, relu=relu)
+        torch.cuda.synchronize()
+        assert (sc.fused_sparse_conv.launches,
+                sc.fused_sparse_conv_scalar.launches) == (counts[0] + 1,
+                                                          counts[1] + 1)
+        assert y.dtype == dtype and y.shape == (n_out, 16)
+        assert _err(y, sc.fused_sparse_conv_ref(f, r, w, b, n_in,
+                                                relu=relu)) <= tol
+        assert torch.equal(y, old)
+        assert not y[torch.from_numpy(dead).to(cuda)].any()
+    before = kt.sparse_conv_fwd.launches
+    y4 = kt.sparse_conv_fwd(f, r, w, m)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_fwd.launches == before + 1
+    if dtype == torch.float32:
+        old = kt.sparse_conv_fwd_scalar(f, r, w, m)
+    else:  # no bf16 scalar entry of K4: K1's with its epilogue off
+        old = torch.where(m[:, None], sc.fused_sparse_conv_scalar(
+            f, r, w, torch.zeros_like(b), n_in, relu=False), 0.0)
+    assert _err(y4, kt.sparse_conv_fwd_ref(f, r, w, m)) <= tol
+    assert torch.equal(y4, old)
+    assert not y4[~m].any()
+    inv = sp.inverse_rulebook(r, n_in)
+    before = kt.sparse_conv_dfeat.launches
+    g = kt.sparse_conv_dfeat(d, inv, w)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dfeat.launches == before + 1
+    assert g.dtype == dtype and g.shape == (n_in, 4)
+    assert _err(g, kt.sparse_conv_dfeat_ref(d, inv, w)) <= tol
+    assert torch.equal(g, kt.sparse_conv_dfeat_scalar(d, inv, w))
+    dw_tol = 1e-3 if dtype == torch.float32 else tol
+    for chunk in DIRECT_DW_CHUNKS:
+        before = kt.sparse_conv_dw.launches
+        dw = kt.sparse_conv_dw(f, r, d, chunk)
+        torch.cuda.synchronize()
+        assert kt.sparse_conv_dw.launches == before + 1
+        assert dw.dtype == dtype and dw.shape == (27, 4, 16)
+        assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= dw_tol, chunk
+        assert torch.equal(dw, kt.sparse_conv_dw_scalar(f, r, d, chunk)), \
+            chunk
+
+
+@pytest.mark.cuda
+def test_direct_dw_takes_any_chunk_count(cuda):
+    """The direct dW launches one block per (chunk, tap group) on a grid of
+    one dimension, so any positive chunk_rows runs: at one row a chunk,
+    66000 chunks (above 65535, a grid's limit in y) equal the scalar entry
+    bit for bit and the twin within 1e-3."""
+    n = 66000
+    feats, rb, w2, _, dout, mask, _ = _direct_inputs(n, n)
+    f, r, _, d, _ = _on(cuda, torch.float32, torch.int32, feats, rb, w2,
+                        dout, mask)
+    dw = kt.sparse_conv_dw(f, r, d, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, kt.sparse_conv_dw_scalar(f, r, d, 1))
+    assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_direct_bodies_reject_misaligned_inputs(cuda, dtype):
+    """The direct bodies load each gathered row whole (16 bytes in f32, 8
+    in bf16) and dW's its dout rows in 16-byte parts: a misaligned call
+    raises before any launch; there is no fallback to the scalar tile."""
+    feats, rb, w2, bias, dout, mask, _ = _direct_inputs(3000, 2500)
+    f, r, w, d, m = _on(cuda, dtype, torch.int32, feats, rb, w2, dout, mask)
+    b = torch.from_numpy(bias).to(cuda)
+    f_off = torch.zeros(f.numel() + 2, dtype=dtype,
+                        device=cuda)[2:].view_as(f)
+    d_off = torch.zeros(d.numel() + 2, dtype=dtype,
+                        device=cuda)[2:].view_as(d)
+    inv = sp.inverse_rulebook(r, 3000)
+    fns = (sc.fused_sparse_conv, kt.sparse_conv_fwd, kt.sparse_conv_dfeat,
+           kt.sparse_conv_dw)
+    before = [fn.launches for fn in fns]
+    for call in (lambda: sc.fused_sparse_conv(f_off, r, w, b, 3000),
+                 lambda: kt.sparse_conv_fwd(f_off, r, w, m),
+                 lambda: kt.sparse_conv_dfeat(d_off, inv, w),
+                 lambda: kt.sparse_conv_dw(f_off, r, d),
+                 lambda: kt.sparse_conv_dw(f, r, d_off)):
+        with pytest.raises(ValueError, match="aligned"):
+            call()
+    assert [fn.launches for fn in fns] == before
 
 
 def _named_calls(cuda, dtype):

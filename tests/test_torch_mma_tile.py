@@ -17,8 +17,9 @@ from the CPU:
   zero, so the sum is the same (atol 3e-4, rtol 1e-3: f32 sums in another
   order);
 - ``ops.cuda.sparse_conv.conv_instance``, which names the body a call takes
-  (tensor-core bf16, 3xTF32 or scalar) for K4, K3, K1, dFeat and dW,
-  against the C entries' dispatch tables and the header's rules;
+  (tensor-core bf16, 3xTF32, or the direct body of the first conv's
+  4-channel side) for K4, K3, K1, dFeat and dW, against the C entries'
+  dispatch tables and the headers' rules;
 - the wrappers' contracts: CPU tensors take the plain twin, any device but
   CPU and CUDA raises.
 
@@ -291,6 +292,26 @@ def test_python_pairs_equal_the_c_dispatch_tables():
                                                         rule)})) == \
             sc.MMA_CHANNELS
         assert f"std::is_same<T, {dtype}>" in rule
+    # the other body of each of those kernels but the stream kernel's, by
+    # the direct rule: the pairs with a 4-channel side, in both types
+    for path, kernel, rule in (
+            ("sparse_conv.cu", "fused_sparse_conv_kernel(",
+             "sessd::kDirect<T, CIN, COUT>"),
+            ("sparse_conv_train.cu", "sparse_conv_fwd_kernel(",
+             "sessd::kDirect<T, CIN, COUT>"),
+            ("sparse_conv_train.cu", "sparse_conv_dfeat_kernel(",
+             "sessd::kDirect<T, CIN, COUT>"),
+            ("sparse_conv_train.cu", "sparse_conv_dw_partial_kernel(",
+             "kDwDirect<T, CIN, COUT>")):
+        text = (CSRC / path).read_text()
+        body = text[text.index(kernel):]
+        assert rule in body[:body.index("\n}\n")], kernel
+    header = (CSRC / "gather_direct.cuh").read_text()
+    rule = header[header.index("constexpr bool kDirect"):]
+    rule = rule[:rule.index(";")]
+    direct = set(map(tuple, (map(int, m) for m in re.findall(
+        r"CIN == (\d+) && COUT == (\d+)", rule))))
+    assert direct == {p for p in sc.FWD_PAIRS + sc.DFEAT_PAIRS if 4 in p}
 
 
 @pytest.mark.parametrize(
@@ -302,14 +323,14 @@ def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     split) and dW (mma.sync) since their redesign, dFeat (five of its six
     pairs, K-major B) since its own; f32 at those channels takes the same
     bodies through 3xTF32 in every entry (dW's on m16n8k8); the 4-channel
-    side of the first conv, in both types, the scalar one."""
+    side of the first conv, in both types, the direct one."""
     cin, cout = pair
     got = sc.conv_instance(entry, dtype, cin, cout)
     tensor = 4 not in pair
     if dtype == torch.bfloat16:
-        want = "mma" if tensor else "scalar"
+        want = "mma" if tensor else "direct"
     else:
-        want = "tf32" if tensor else "scalar"
+        want = "tf32" if tensor else "direct"
     assert got == want
 
 

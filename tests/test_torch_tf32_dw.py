@@ -17,7 +17,7 @@ through 3xTF32, from the CPU:
 - the dW body's order of products, rounding and per-step partials parsed
   from the source, and its warp split against ``dw_warp_split``;
 - ``conv_instance``: "tf32" for f32 dW, K1, K3 and K4 at 16-64 channels,
-  "scalar" for the 4-channel first conv.
+  "direct" for the 4-channel first conv.
 
 The kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py holds them against their twins, their
@@ -180,12 +180,12 @@ def test_dw_model_sums_groups_and_chunks_in_order():
                                    "fused_sparse_conv", "sparse_conv_fwd"])
 def test_conv_instance_names_the_f32_bodies(entry):
     """f32 dW, K3, K1 and K4 take their 3xTF32 bodies at 16-64 channels;
-    every 4-channel instance keeps the scalar tile."""
+    every 4-channel instance takes the direct body."""
     for cin, cout in sc._PAIRS[entry]:
         got = sc.conv_instance(entry, torch.float32, cin, cout)
         if 4 in (cin, cout):
-            assert got == "scalar", (cin, cout)
+            assert got == "direct", (cin, cout)
         else:
             assert got == "tf32", (cin, cout)
         assert sc.conv_instance(entry, torch.bfloat16, cin, cout) == (
-            "scalar" if 4 in (cin, cout) else "mma")
+            "direct" if 4 in (cin, cout) else "mma")

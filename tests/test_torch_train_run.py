@@ -11,9 +11,13 @@ their twins):
   (``val_history`` rows at epochs 1 and 2) and writes
   ``eval_results.json``; ``--resume_from`` then continues it;
 - ``sessd_torch.scripts.acceptance_ap`` runs both stages (1 + 1 epochs)
-  and writes a record with the JAX script's keys.
+  and writes a record with the JAX script's keys; its recipe's ``data``
+  block sets every key of the JAX script's to the same value.
 """
+import ast
 import json
+import pathlib
+import re
 
 import pytest
 import torch
@@ -130,6 +134,29 @@ RECORD_KEYS = {"acceptance", "date", "hardware", "train_frames",
 STAGE_KEYS = {"work", "steps", "epochs", "train_plus_eval_s",
               "trainer_init_s", "timing", "train_split_3d_ap",
               "ap_trajectory", "final_ap"}
+
+
+def _recipe_data(path) -> dict:
+    """The ``data`` dict of an acceptance script's CONFIG, its placeholders
+    filled with a dummy."""
+    tree = ast.parse(pathlib.Path(path).read_text())
+    text = next(node.value.value for node in tree.body
+                if isinstance(node, ast.Assign)
+                and [t.id for t in node.targets] == ["CONFIG"])
+    ns = {}
+    exec(re.sub(r"\{[A-Z_]+\}", "1", text), ns)
+    return ns["data"]
+
+
+def test_acceptance_recipe_data_equals_jax():
+    """The port's recipe sets every key of the JAX script's ``data`` block
+    to the same value, ``host_rulebooks=False`` (chains on the device)
+    among them."""
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    want = _recipe_data(repo / "scripts" / "acceptance_ap.py")
+    got = _recipe_data(acceptance_ap.__file__)
+    assert want["host_rulebooks"] is False
+    assert {k: got.get(k) for k in want} == want
 
 
 def test_acceptance_two_stages(tmp_path):
