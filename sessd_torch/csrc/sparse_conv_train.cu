@@ -110,8 +110,10 @@
 //     compacts them into a list (one warp's ballot); only those steps are
 //     gathered and multiplied, and a (chunk, tap) pair with no hit writes a
 //     zero partial without reading dout.
-//   * Blocks run tap-fastest (grid [taps, chunks]), so the K blocks of one
-//     chunk run together and share its rulebook rows and dout in L2.
+//   * Blocks run tap-fastest on a grid of one dimension (block b is tap
+//     b % taps of chunk b / taps), so the K blocks of one chunk run
+//     together and share its rulebook rows and dout in L2, and any chunk
+//     count launches (a grid stops at 65535 blocks on y).
 //   Sums run step by step in order, then over the warps' k-slices in order:
 //   the same bits on every run.
 // - f32 with Cin, Cout in {16, 32, 64} (the reference config's step: 1e-3
@@ -816,6 +818,9 @@ __device__ __forceinline__ void dw_direct_partial(
 
 constexpr int kDwStages = 4;           // 64-row steps in the ring (bf16)
 constexpr int kDwMaxChunkRows = 8192;  // the rulebook column in shared memory
+// a grid's blocks on x: the tensor-core dW's taps x chunks at most
+// (ops/cuda/sparse_conv_train.py: GRID_X_MAX)
+constexpr long long kGridXMax = 2147483647;
 // the f32 ring's bytes at most: with the rulebook column and the hit-row
 // list of a 2048-row chunk (ops/cuda/sparse_conv_train.py: DW_CHUNK_ROWS)
 // two blocks fit an SM
@@ -1225,10 +1230,10 @@ constexpr bool kDwTensor =
     sessd::kMmaTile<T, CIN, COUT> || sessd::kTf32Tile<T, CIN, COUT>;
 
 // The partial kernel of the weight gradient: the tensor-core body for
-// bf16, and f32 through 3xTF32, with Cin, Cout in {16, 32, 64} (grid
-// [taps, chunks], DwMma::kBlock threads), the direct body for the first
-// conv's 4 -> 16 (chunks x tap groups blocks on x, kDwDirectThreads
-// threads).
+// bf16, and f32 through 3xTF32, with Cin, Cout in {16, 32, 64} (taps x
+// chunks blocks on x, tap-fastest, DwMma::kBlock threads), the direct body
+// for the first conv's 4 -> 16 (chunks x tap groups blocks on x,
+// kDwDirectThreads threads).
 template <typename T, typename IdxT, int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
 sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
@@ -1238,9 +1243,10 @@ sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
                               int n_out, int taps, int chunk_rows) {
   if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
                 sessd::kTf32Tile<T, CIN, COUT>)
-    dw_mma_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in, n_out,
-                                       taps, chunk_rows, blockIdx.y,
-                                       blockIdx.x);
+    dw_mma_partial<T, IdxT, CIN, COUT>(
+        feats, rb, dout, partial, n_in, n_out, taps, chunk_rows,
+        static_cast<int>(blockIdx.x / taps),
+        static_cast<int>(blockIdx.x % taps));
   else if constexpr (kDwDirect<T, CIN, COUT>)
     dw_direct_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
                                           n_out, taps, chunk_rows);
@@ -1306,11 +1312,12 @@ cudaError_t launch_dw(const void* feats, const void* rb, const void* dout,
       return cudaErrorInvalidValue;
     const cudaError_t attr = dw_allow_smem<T, IdxT, CIN, COUT>();
     if (attr != cudaSuccess) return attr;
-    kern<<<dim3(taps, chunks), L::kBlock, L::smem_bytes(chunk_rows),
-           stream>>>(static_cast<const T*>(feats),
-                     static_cast<const IdxT*>(rb),
-                     static_cast<const T*>(dout), partial, n_in, n_out, taps,
-                     chunk_rows);
+    const long long blocks = static_cast<long long>(taps) * chunks;
+    if (blocks > kGridXMax) return cudaErrorInvalidConfiguration;
+    kern<<<static_cast<unsigned>(blocks), L::kBlock,
+           L::smem_bytes(chunk_rows), stream>>>(
+        static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
+        static_cast<const T*>(dout), partial, n_in, n_out, taps, chunk_rows);
   } else {
     kern<<<chunks * ((taps + kDwDirectTaps - 1) / kDwDirectTaps),
            kDwDirectThreads, 0, stream>>>(

@@ -37,6 +37,8 @@ from .sparse_conv import (_DTYPE_CODES, _INDEX_BYTES, DFEAT_PAIRS, DW_PAIRS,
 # largest training stage (120,000 rows at batch 4 and the acceptance caps)
 DW_CHUNK_ROWS = 2048
 DW_MAX_CHUNK_ROWS = 8192  # csrc/sparse_conv_train.cu: kDwMaxChunkRows
+# a grid's blocks on x (2^31 - 1): dW's chunks x taps at most
+GRID_X_MAX = 2 ** 31 - 1  # csrc/sparse_conv_train.cu: kGridXMax
 
 
 def sparse_conv_fwd_ref(feats, rb, w2, out_mask=None):
@@ -356,6 +358,13 @@ def _check_dw(feats, rb, dout, chunk_rows):
         raise ValueError(f"sparse_conv_dw: dout {tuple(dout.shape)} "
                          f"{dout.dtype} for rulebook {tuple(rb.shape)}, "
                          f"features {feats.dtype}")
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows {chunk_rows}: want at least one row")
+    chunks, taps = -(-n_out // chunk_rows), rb.shape[1]
+    if chunks * taps > GRID_X_MAX:
+        raise ValueError(f"sparse_conv_dw: {chunks} chunks x {taps} taps of "
+                         f"blocks pass a grid's {GRID_X_MAX} (chunk_rows "
+                         f"{chunk_rows})")
     cin, cout = feats.shape[1], dout.shape[1]
     if (cin, cout) not in DW_PAIRS:
         return

@@ -49,13 +49,16 @@ f32 path: a training step (24 K4, 9 dFeat, 10 dW), an eval batch on device
 chains (the student's 10 K4) and an eval batch on host chains (the K1 and
 K3 the stream rule gives). The second form times another tree's kernels
 with this script (its imports are absolute), so two trees compare in
-turns on one card. The last line is one JSON object with every number and
-the card.
+turns on one card, and where two runs print the same ``dw_sha256`` (a
+digest of every student conv's dW, in f32 and on the same inputs in bf16)
+their dW bits are the same. The last line is one JSON object with every
+number and the card.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import hashlib
 import json
 import re
 import tempfile
@@ -188,11 +191,13 @@ def conv_inputs(model, db, sfx):
     return rb, torch.where((rb["ids"][0] < sp.SENTINEL)[:, None], x, 0.0)
 
 
-def time_train(trainer, db, records, entries):
+def time_train(trainer, db, records, entries, dw_outputs):
     """K4 on both chains, dFeat and dW on the student's; the old bodies'
     entries on the same calls where the tree has them (``entries``:
     {"fwd", "fwd_tf32", "dfeat", "dw": whether it has K4's scalar entry,
-    K4's 3xTF32 entry, the f32 scalar entries of dFeat and dW})."""
+    K4's 3xTF32 entry, the f32 scalar entries of dFeat and dW}). Each
+    student conv's dW, in f32 and on the same inputs in bf16, goes into
+    ``dw_outputs`` (for ``digest``)."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -254,6 +259,9 @@ def time_train(trainer, db, records, entries):
                 body = sc.conv_instance("sparse_conv_dw", torch.float32,
                                         cin, cout)
                 got = kt.sparse_conv_dw(x, rbk, dout)
+                dw_outputs[f"conv {i} float32"] = got
+                dw_outputs[f"conv {i} bfloat16"] = kt.sparse_conv_dw(
+                    x.bfloat16(), rbk, dout.bfloat16())
                 chunks = -(-rbk.shape[0] // kt.DW_CHUNK_ROWS)
                 partials = 2 * chunks * rbk.shape[1] * cin * cout * 4
                 row = records["dw"].add(
@@ -353,6 +361,15 @@ def dw_chunk(x, rbk, dout, chunk: int) -> dict:
                 kt.sparse_conv_dw_scalar(x, rbk, dout, chunk))}
 
 
+def digest(tensors: dict) -> str:
+    """sha256 of the names and bytes of ``tensors`` in order."""
+    h = hashlib.sha256()
+    for name, t in tensors.items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
 def _bound(b: dict) -> dict:
     return {"bound_ms": b["ms"], "bound_by": b["by"]}
 
@@ -447,6 +464,7 @@ def main(argv=None):
     records = {k: Rows() for k in ("fwd", "dfeat", "dw", "k1", "k3")}
     records.update({f"{k} conv0 {t}": Rows() for k in ("fwd", "dfeat", "dw")
                     for t in ("float32", "bfloat16")})
+    dw_outputs = {}
     with tempfile.TemporaryDirectory(prefix="bench_f32_") as tmp:
         root = f"{tmp}/kitti"
         make_synthetic_root(root, num_frames=8, num_cars=10)
@@ -457,7 +475,7 @@ def main(argv=None):
             raise SystemExit(f"{CONFIG} is not the f32 config")
         db = first_batch(trainer)
         with torch.no_grad():
-            time_train(trainer, db, records, entries)
+            time_train(trainer, db, records, entries, dw_outputs)
             time_conv0(trainer, db, records)
         time_eval(trainer, records, has_ring, has_k1_entry)
     summary = {k: r.summary() for k, r in records.items()}
@@ -481,13 +499,17 @@ def main(argv=None):
         print(f"f32 {k}: {s['convs']} convs, {s['body']}, per launch "
               f"{s['ms']:.4f} ms{old}, twin {s['plain_ms']:.4f}, bound "
               f"{s['bound_ms']:.4f} ({', '.join(s['bound_by'])}) [{card}]")
+    dw_sha256 = digest(dw_outputs)
+    print(f"dW outputs: {len(dw_outputs)} (each student conv, f32 and "
+          f"bf16), sha256 {dw_sha256} [{card}]")
     result = {"card": card, "summary": summary, "launches": launches,
+              "dw_sha256": dw_sha256,
               "convs": {k: r.rows for k, r in records.items()}}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(json.dumps({"card": card, "summary": summary,
-                      "launches": launches}))
+                      "launches": launches, "dw_sha256": dw_sha256}))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from sessd_tpu.ops.pallas.wconv import windowed_conv
 from sessd_torch.ops.cuda import ablate
 from sessd_torch.scripts import bench_launch_overhead as bench_launch
 from sessd_torch.scripts import bench_sparse_conv_ablate as bench
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 N, NPAD, C, K = 300, 320, 16, 27
 WINDOW, BLOCK = 256, 32

@@ -17,6 +17,7 @@ from sessd_torch.ops import correlation as tcorr
 from sessd_torch.ops import pointnet as tpn
 from sessd_torch.ops import points as tpts
 from sessd_torch.ops import roi as troi
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 TOL = 1e-5
 

@@ -16,6 +16,7 @@ from sessd_torch.serve import stage_inputs
 from tests.test_torch_common import (CAPS, SEED, SPARSE_SHAPE, as_int16,
                                      host_inputs, jax_fused_reference,
                                      jax_voxelnet_variables, port_voxelnet)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 TINY = dict(subm_windows_small=(128,) * 4, down_windows_small=(128,) * 4)
 

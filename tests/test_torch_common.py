@@ -17,6 +17,7 @@ import torch
 from sessd_tpu.data.rulebooks import DOWNS
 from sessd_tpu.utils import native as ref_native
 from sessd_torch.utils import native as port_native
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 
 def guard_reference_native():

@@ -27,6 +27,7 @@ from sessd_torch.serve import make_infer_fn, stage_inputs
 from sessd_torch.utils import convert_torch
 from tests.test_torch_common import (CAPS, SPARSE_SHAPE, as_int16,
                                      host_inputs, rel_err)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 WIDE_RANGE = (-100.0, -100.0, -100.0, 100.0, 100.0, 100.0)
 # (cin, cout, kernel) of the reference's 14 backbone blocks (scn.py:105-151)

@@ -29,6 +29,7 @@ from sessd_torch.ops.voxelize import voxelize_torch
 from tests.test_torch_common import (CAPS, NATIVE, SPARSE_SHAPE, host_inputs,
                                      jax_voxelnet_variables, port_voxelnet,
                                      rel_err, to_torch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 SMALL = dict(point_cloud_range=(0.0, 0.0, 0.0, 4.0, 4.0, 2.0),
              voxel_size=(1.0, 1.0, 1.0), max_points=2, max_voxels=8)

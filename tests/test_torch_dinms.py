@@ -21,6 +21,7 @@ from sessd_tpu.models import predict as jax_predict
 from sessd_torch.core import nms_np
 from sessd_torch.core.nms import rotate_weighted_nms
 from sessd_torch.models import predict
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 
 def _clustered_boxes(rng, n_clusters=6, max_per=6):

@@ -19,6 +19,7 @@ from sessd_torch.tools.create_data import create_kitti_data
 from sessd_torch.train.trainer import Trainer
 from sessd_torch.utils import checkpoint as ckpt
 from sessd_torch.utils.convert_jax import convert_jax
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # a low score threshold, so random weights give detections to compare
 TINY = """

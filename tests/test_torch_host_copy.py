@@ -30,6 +30,7 @@ from sessd_torch.tools.create_data import create_kitti_data
 from sessd_torch.utils import kitti_synth, synth_scene
 
 import kitti_synth as jax_kitti_synth
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -16,6 +16,7 @@ import sys
 import textwrap
 
 import pytest
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

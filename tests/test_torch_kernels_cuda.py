@@ -37,6 +37,7 @@ import torch
 from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # (Cin, Cout, K) of the backbone plan
 PLAN = [(4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
@@ -1100,6 +1101,37 @@ def test_direct_dw_takes_any_chunk_count(cuda):
     torch.cuda.synchronize()
     assert torch.equal(dw, kt.sparse_conv_dw_scalar(f, r, d, 1))
     assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= 1e-3
+
+
+MANY_CHUNKS = 65_600  # of 64 rows: past 65535, a grid's limit in y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_dw_mma_takes_any_chunk_count(cuda, dtype, tol):
+    """The tensor-core dW launches taps x chunks blocks on a grid of one
+    dimension, tap-fastest, so 65,600 chunks of 64 rows (4.2 M rows at
+    16 -> 16, 27 taps; 1.8 GB of partials) run: one launch within the dW
+    bound of its twin (1e-3 in f32, 2e-2 in bf16)."""
+    n_out, n_in = MANY_CHUNKS * 64, 100_000
+    rng = np.random.RandomState(0)
+    rb = rng.randint(0, n_in * 5 // 3, (n_out, 27), dtype=np.int32)
+    rb[rb >= n_in] = n_in  # 40% misses
+    r = torch.from_numpy(rb).to(cuda)
+    f = torch.from_numpy(rng.randn(n_in, 16).astype(np.float32)).to(
+        cuda, dtype)
+    d = torch.from_numpy(rng.randn(n_out, 16).astype(np.float32)).to(
+        cuda, dtype)
+    assert sc.conv_instance("sparse_conv_dw", dtype, 16, 16) in ("mma",
+                                                                 "tf32")
+    before = kt.sparse_conv_dw.launches
+    dw = kt.sparse_conv_dw(f, r, d, 64)
+    torch.cuda.synchronize()
+    assert kt.sparse_conv_dw.launches == before + 1
+    assert dw.dtype == dtype and dw.shape == (27, 16, 16)
+    assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= tol
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from sessd_torch import builder
 from sessd_torch.config import Config
 from sessd_torch.train import optim as to
 from tests.test_torch_common import rel_err, to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 SPE, TOTAL = 7, 49  # steps per epoch, steps of the run
 POLICIES = [

@@ -15,6 +15,7 @@ import torch
 from sessd_tpu.utils import logging as jlog
 from sessd_torch.utils import logging as tlog
 from sessd_torch.utils import profiling
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 
 class _Capture(logging.Handler):

@@ -40,6 +40,7 @@ from sessd_torch.ops import sparse as tsp
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
 from tests.test_torch_common import CAPS, host_inputs
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CSRC = pathlib.Path(sc.__file__).resolve().parents[2] / "csrc"
 ROWS = 64  # output rows per tile (csrc/gather_gemm.cuh: kRows)

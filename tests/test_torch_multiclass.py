@@ -44,6 +44,7 @@ from tests.test_torch_common import (CAPS, SPARSE_SHAPE, host_inputs,
                                      random_variables, rel_err, to_torch)
 from tests.test_torch_train_step import (_capture_grads, as_torch,
                                          port_batch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 REPO = builder.CONFIG_DIR.parents[1]
 TASKS = (dict(num_class=3, class_names=("Car", "Pedestrian", "Cyclist")),)

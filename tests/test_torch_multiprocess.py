@@ -41,6 +41,7 @@ from sessd_torch.tools import train as train_cli
 from sessd_torch.tools.create_data import create_kitti_data
 from tests import test_torch_rank_workers as workers
 from tests.test_torch_train_entry import TINY
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 WORLD = 2
 

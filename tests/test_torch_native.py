@@ -17,6 +17,7 @@ from sessd_tpu.utils import native as ref_native
 from sessd_torch.ops.voxelize import KITTI_VOXELIZER
 from sessd_torch.utils import native as tn
 from tests.test_torch_common import guard_reference_native
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PROCS = 4

@@ -10,6 +10,7 @@ from sessd_tpu.models.head import MultiGroupHead as JaxHead
 from sessd_tpu.models.ssfa import SSFA as JaxSSFA
 from tests.test_torch_common import (jax_voxelnet_variables, port_voxelnet,
                                      rel_err, to_torch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 
 @pytest.fixture(scope="module")

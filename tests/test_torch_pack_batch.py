@@ -23,6 +23,7 @@ from sessd_torch.train.train_step import (TrainState, make_train_step,
 from tests.test_torch_common import SPARSE_SHAPE
 from tests.test_torch_train_step import (OCFG, _loss_cfgs, as_torch,
                                          make_batch, port_batch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 
 def fake_batch(seed=0, b=2, v=64, a=512, with_raw=True):

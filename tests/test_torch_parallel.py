@@ -63,6 +63,7 @@ from tests import test_torch_rank_workers as workers
 from tests.test_torch_common import CAPS, SPARSE_SHAPE, host_inputs, rel_err
 from tests.test_torch_train_step import (OCFG, STEP, K, _loss_cfgs,
                                          initial_state, port_batch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 WORLD = 2
 C = 16

@@ -21,6 +21,7 @@ from sessd_tpu.ops import sparse as jsp
 from sessd_torch.ops import pillar as pl
 from sessd_torch.ops import sparse as sp
 from tests.test_torch_common import rel_err
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 SHAPE = (2, 9, 13, 11)
 DOWNS = [((3, 3, 3), (2, 2, 2), (1, 1, 1)),   # stages 1 and 2

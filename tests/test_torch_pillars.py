@@ -41,6 +41,7 @@ from sessd_torch.utils.convert_jax import convert_jax
 from sessd_torch.utils.kitti_synth import make_kitti_root
 from tests.golden_utils import reference_state_dict
 from tests.test_torch_common import random_variables, rel_err, to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 B, V, P = 2, 96, 8
 PC_RANGE = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)

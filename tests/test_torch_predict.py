@@ -15,6 +15,7 @@ from sessd_tpu.models import predict as jpredict
 from sessd_torch.core import box_torch, nms, rotated_iou
 from sessd_torch.models import predict
 from tests.test_torch_common import to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 
 def _clustered_boxes(rng, n_clusters=8, per=6):

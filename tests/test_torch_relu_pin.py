@@ -34,6 +34,7 @@ from sessd_torch.train.train_step import TrainState, make_train_step
 from tests.test_torch_common import SPARSE_SHAPE
 from tests.test_torch_train_step import (OCFG, STEP, _loss_cfgs, make_batch,
                                          port_batch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # ReLU calls of one step: 14 backbone convs and 12 SSFA ReLUs per net, the
 # teacher's and the student's

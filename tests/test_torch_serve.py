@@ -19,6 +19,7 @@ from sessd_torch.models.detector import VoxelNet
 from sessd_torch.models.predict import PredictConfig
 from sessd_torch.ops.voxelize import KITTI_VOXELIZER as PORT_KITTI_VOXELIZER
 from sessd_torch.serve import ExactBatchServer, make_infer_fn
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAR = os.path.join(REPO, "sessd_tpu", "configs", "se_ssd_kitti_car.py")

@@ -32,6 +32,7 @@ from tests.test_torch_common import (CAPS, NATIVE, SEED, as_int16,
                                      jax_fused_reference,
                                      jax_voxelnet_variables, port_voxelnet,
                                      rel_err, to_torch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "ref_full_model.npz")

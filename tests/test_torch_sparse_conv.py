@@ -16,6 +16,7 @@ from sessd_tpu.ops.pallas.wconv import (cols_for, fused_conv_affine_t,
 from sessd_torch.ops import sparse as tsp
 from sessd_torch.ops.cuda import sparse_conv as sc
 from tests.test_torch_common import CAPS, as_int16, host_inputs, to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # (name, Cin, Cout, rulebook kind, chain index, n_in) of the backbone plan
 PLAN_CONVS = [

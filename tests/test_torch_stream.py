@@ -25,6 +25,7 @@ from sessd_torch.models import backbone as bb
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.serve import SERVING_CAPS, TRAIN_CAPS
 from tests.test_torch_common import CAPS, host_inputs, to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # (name, Cin, Cout, rulebook kind, chain index, n_in) of the convs that can
 # stream: every (Cin, Cout, K) of the plan but the 4-channel first conv

@@ -36,6 +36,7 @@ from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
 from tests.test_torch_tf32_split import (BOUND, CSRC, IDS, N_IN, N_OUT,
                                          TF32_CONVS, _inputs, _rel)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # dW's bound against its twin and the JAX gradient is the f32 kernels'
 # 1e-4: the model keeps ~21 mantissa bits of each product and sums in f32

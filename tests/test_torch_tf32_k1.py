@@ -31,6 +31,7 @@ from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
 from tests.test_torch_tf32_split import (CSRC, IDS, N_IN, N_OUT, TF32_CONVS,
                                          _inputs, _rel)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 K1_BOUND = 1e-5  # the model against JAX's plain conv (it keeps ~21 bits)
 

@@ -32,6 +32,7 @@ from sessd_tpu.ops.sparse import sparse_conv_apply
 from sessd_torch.ops import sparse as tsp
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CSRC = pathlib.Path(sc.__file__).resolve().parents[2] / "csrc"
 N_IN, N_OUT = 3000, 2500  # 2500 = 39 tiles of 64 rows + 4

@@ -40,6 +40,7 @@ from sessd_torch.ops import sparse as tsp
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
 from tests.test_torch_common import CAPS, host_inputs
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CSRC = pathlib.Path(sc.__file__).resolve().parents[2] / "csrc"
 ROWS = 64  # rows of a tile and of a dW step (csrc/gather_gemm.cuh: kRows)
@@ -291,8 +292,36 @@ def test_dw_chunk_limits_mirror_the_source():
                      text).group(1) == str(kt.DW_MAX_CHUNK_ROWS)
     assert kt.DW_CHUNK_ROWS % sc.TILE_ROWS == 0
     assert 0 < kt.DW_CHUNK_ROWS <= kt.DW_MAX_CHUNK_ROWS
-    # tap-fastest grid: the K blocks of a chunk run together
-    assert "kern<<<dim3(taps, chunks), L::kBlock" in text
+    # tap-fastest grid of one dimension: the K blocks of a chunk run
+    # together, and any chunk count up to GRID_X_MAX blocks launches
+    assert re.search(r"constexpr long long kGridXMax = (\d+);",
+                     text).group(1) == str(kt.GRID_X_MAX)
+    assert "blocks = static_cast<long long>(taps) * chunks;" in text
+    assert "if (blocks > kGridXMax) return" in text
+    assert "kern<<<static_cast<unsigned>(blocks), L::kBlock," in text
+    assert re.search(r"dw_mma_partial<T, IdxT, CIN, COUT>\(\s*feats, rb, "
+                     r"dout, partial, n_in, n_out, taps, chunk_rows,\s*"
+                     r"static_cast<int>\(blockIdx\.x / taps\),\s*"
+                     r"static_cast<int>\(blockIdx\.x % taps\)\);", text)
+
+
+@pytest.mark.parametrize("chunk_rows,refused", [
+    (1, True), (2, False), (64, False), (0, True), (-64, True)])
+def test_dw_refuses_a_grid_past_its_blocks_before_any_launch(chunk_rows,
+                                                             refused):
+    """dW launches chunks x taps blocks on x: 80 M rows x 27 taps at one
+    row a chunk pass GRID_X_MAX and raise in the wrapper's check (shapes
+    only: meta tensors, no memory), as does a chunk of no rows; two rows a
+    chunk fit."""
+    n = 80_000_000
+    f = torch.empty(100, 4, device="meta")
+    r = torch.empty(n, 27, dtype=torch.int32, device="meta")
+    d = torch.empty(n, 16, device="meta")
+    if refused:
+        with pytest.raises(ValueError, match="chunk"):
+            kt._check_dw(f, r, d, chunk_rows)
+    else:
+        kt._check_dw(f, r, d, chunk_rows)
 
 
 def _conv_args(cin=32, cout=64, k=27, n_in=300, n_out=200, seed=0,

@@ -16,6 +16,7 @@ from sessd_torch.tools import get_flops, time_analyze
 from sessd_torch.utils.flops import count_model_flops
 from tests.test_torch_common import (host_inputs, jax_voxelnet_variables,
                                      port_voxelnet, to_torch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 # a 32 x 32 x 40 voxel grid cut from the shipped Car config
 TINY = """

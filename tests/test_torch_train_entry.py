@@ -12,6 +12,7 @@ import torch
 from kitti_synth import make_kitti_root
 from sessd_torch.tools import train as train_cli
 from sessd_torch.tools.create_data import create_kitti_data
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 TINY = """
 _base = "{BASE}"

@@ -27,6 +27,7 @@ from sessd_torch.core import rotated_iou as tiou
 from sessd_torch.train import losses as tl
 from tests.test_odiou_ref_goldens import (GRAD_ATOL, GRAD_RTOL, VAL_RTOL)
 from tests.test_torch_common import rel_err, to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 

@@ -26,6 +26,7 @@ from sessd_torch.utils.convert_jax import convert_jax
 from tests.test_torch_common import (CAPS, SPARSE_SHAPE, host_inputs,
                                      jax_voxelnet_variables, port_voxelnet,
                                      rel_err, to_torch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 B = 2
 

@@ -14,6 +14,7 @@ import torch
 from sessd_tpu.train import optim as jo
 from sessd_torch.train import optim as to
 from tests.test_torch_common import rel_err, to_torch
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CFG = dict(lr_max=3e-3, total_steps=50, pct_start=0.4, div_factor=10.0)
 

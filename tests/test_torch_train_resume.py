@@ -43,6 +43,7 @@ from sessd_torch.utils.convert_jax import (convert_jax, convert_train_state,
 from tests.test_torch_common import CAPS, SPARSE_SHAPE, jax_voxelnet_variables
 from tests.test_torch_train_step import (_loss_cfgs, initial_state,
                                          make_batch, port_batch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CIA_CFG = dict(lr_max=3e-3, total_steps=100)
 SE_CFG = dict(lr_max=3e-3, total_steps=40)  # another schedule, restarted

@@ -29,6 +29,7 @@ from sessd_torch.tools import train as train_cli
 from sessd_torch.tools.create_data import create_kitti_data
 from sessd_torch.train.trainer import Trainer
 from sessd_torch.utils import checkpoint as ckpt
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 TINY = """
 _base = "{BASE}"

@@ -48,6 +48,7 @@ from sessd_torch.utils.convert_jax import convert_train_state
 from tests.test_torch_common import (CAPS, SPARSE_SHAPE, host_inputs,
                                      jax_voxelnet_variables, rel_err,
                                      to_torch)
+import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 B = 2
 STEP = 5  # EMA alpha = 1 - 1/6
