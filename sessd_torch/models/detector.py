@@ -18,6 +18,7 @@ from torch import nn
 
 from ..data.rulebooks import make_chain_inputs_transform
 from ..ops.sparse import build_device_chain
+from ..utils.profiling import span
 from .backbone import SpMiddleFHD
 from .head import MultiGroupHead
 from .layers import BatchNorm, uniform_
@@ -105,13 +106,17 @@ class VoxelNet(nn.Module):
         model's unless given); BatchNorm uses batch statistics when the
         module is in training mode, its running ones in eval mode (the
         hybrid eval plan of device chains)."""
-        feats = self.reader(voxels, num_points)
-        if train:
-            bev = self.backbone.forward_train(
-                feats, rulebooks, batch_size, self.sparse_shape, self.dtype,
-                self.dense_from_stage if dense_from_stage is None
-                else dense_from_stage)
-        else:
-            bev = self.backbone(feats, rulebooks, batch_size,
-                                self.sparse_shape, self.dtype, conv=conv)
-        return self.bbox_head(self.neck(bev))
+        with span("model.backbone"):
+            feats = self.reader(voxels, num_points)
+            if train:
+                bev = self.backbone.forward_train(
+                    feats, rulebooks, batch_size, self.sparse_shape,
+                    self.dtype, self.dense_from_stage
+                    if dense_from_stage is None else dense_from_stage)
+            else:
+                bev = self.backbone(feats, rulebooks, batch_size,
+                                    self.sparse_shape, self.dtype, conv=conv)
+        with span("model.neck"):
+            x = self.neck(bev)
+        with span("model.head"):
+            return self.bbox_head(x)

@@ -21,6 +21,7 @@ import torch
 
 from ..core import box_torch
 from ..core.nms import rotate_nms, rotate_weighted_nms
+from ..utils.profiling import count, span
 
 
 class PredictConfig(NamedTuple):
@@ -130,13 +131,22 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
     if anchors.dim() == 2:
         anchors = anchors.expand(b, *anchors.shape)
     small = cfg.nms_pre_small
+    path = "nms_full"
     if (cfg.nms_type == "rotate_nms" and small
             and small < min(cfg.nms_pre_max_size, n_anchors)):
         counts = (torch.sigmoid(preds["cls_preds"]).amax(dim=-1)
                   >= cfg.score_threshold).sum(dim=-1)
-        if int(counts.max()) <= small:
+        with span("predict.sync"):
+            count("host_sync")
+            most = int(counts.max())
+        if most <= small:
             cfg = cfg._replace(nms_pre_max_size=small)
-    outs = [predict_single({k: v[i] for k, v in preds.items()}, anchors[i],
-                           cfg, None if frustum_surfaces is None
-                           else frustum_surfaces[i]) for i in range(b)]
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            path = "nms_small"
+    count(path)
+    with span("predict.scenes"):
+        outs = [predict_single({k: v[i] for k, v in preds.items()},
+                               anchors[i], cfg, None if frustum_surfaces
+                               is None else frustum_surfaces[i])
+                for i in range(b)]
+    with span("predict.stack"):
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

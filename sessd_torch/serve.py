@@ -40,6 +40,7 @@ from .models.pillars import pillar_inputs
 from .models.predict import PredictConfig, predict_batch
 from .ops.voxelize import VoxelizerSpec, voxelize_torch
 from .utils.native import get_native
+from .utils.profiling import span
 from .utils.synth_scene import make_scene
 
 __all__ = ["SERVING_CAPS", "TRAIN_CAPS", "DOWNS", "HostPreprocessor",
@@ -195,14 +196,21 @@ def make_infer_fn(model, anchors, predict_cfg: PredictConfig,
 
     @torch.inference_mode()
     def infer(feats, rulebooks):
-        feats, rulebooks = stage_inputs(feats, rulebooks, device)
-        if feats.shape[0] != rows:
-            raise ValueError(f"feats has {feats.shape[0]} rows, want {rows} "
-                             f"(caps[0]={caps[0]} x batch {batch_size})")
-        preds = model(feats[:, None, :], num_points, rulebooks, batch_size)
-        dets = predict_batch({k: v.float() for k, v in preds[0].items()},
-                             anchors, predict_cfg, frustum_surfaces=None)
-        return dets["box3d_lidar"], dets["scores"], dets["valid"]
+        with span("infer.batch"):
+            with span("infer.stage"):
+                feats, rulebooks = stage_inputs(feats, rulebooks, device)
+            if feats.shape[0] != rows:
+                raise ValueError(f"feats has {feats.shape[0]} rows, want "
+                                 f"{rows} (caps[0]={caps[0]} x batch "
+                                 f"{batch_size})")
+            with span("infer.forward"):
+                preds = model(feats[:, None, :], num_points, rulebooks,
+                              batch_size)
+            with span("infer.predict"):
+                dets = predict_batch(
+                    {k: v.float() for k, v in preds[0].items()}, anchors,
+                    predict_cfg, frustum_surfaces=None)
+            return dets["box3d_lidar"], dets["scores"], dets["valid"]
 
     return infer
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import all_reduce_mean_
+from ..utils.profiling import span
 from .losses import LossConfig, consistency_loss, detection_loss
 from .optim import AdamW
 
@@ -163,54 +164,68 @@ def make_train_step(loss_cfg: LossConfig = LossConfig(),
     """
 
     def train_step(state: TrainState, batch: dict, consistency_weight):
-        batch = unpack_batch(batch)  # no-op unless pack_batch compressed it
+        with span("train.step"):
+            return _step(state, batch, consistency_weight)
+
+    def _step(state: TrainState, batch: dict, consistency_weight):
         stu, tea = state.student, state.teacher
         saturated = []
-        voxels, num_points, rb, b = _flat(stu, batch, "", saturated)
+        with span("train.inputs"):
+            batch = unpack_batch(batch)  # no-op unless pack_batch packed it
+            voxels, num_points, rb, b = _flat(stu, batch, "", saturated)
+            if enable_ssl:
+                with torch.no_grad():
+                    inputs_tea = _flat(tea, batch, "_raw", saturated)[:3]
         if enable_ssl:
-            tea.train()
-            with torch.no_grad():
-                preds_tea = tea(*_flat(tea, batch, "_raw", saturated)[:3], b,
-                                train=True)[0]
+            with span("train.teacher_fwd"):
+                tea.train()
+                with torch.no_grad():
+                    preds_tea = tea(*inputs_tea, b, train=True)[0]
+                del inputs_tea  # freed before the student's forward
 
-        stu.train()
-        preds_stu = stu(voxels, num_points, rb, b, train=True)[0]
-        total, metrics = detection_loss(preds_stu, batch, loss_cfg)
-        if enable_ssl:
-            cons, cons_dir = consistency_loss(
-                preds_stu, preds_tea, batch["anchors"],
-                batch["transformation"], loss_cfg.consistency)
-            total = total + consistency_weight * cons
-            metrics.update(consistency_loss=cons,
-                           consistency_dir_loss=cons_dir)
-        metrics["loss"] = total
-        params = state.optimizer.params
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        if process_group is not None:
-            all_reduce_mean_(grads, process_group)
-        metrics["grad_norm"] = state.optimizer.step(grads)
+        with span("train.student_fwd"):
+            stu.train()
+            preds_stu = stu(voxels, num_points, rb, b, train=True)[0]
+        with span("train.loss"):
+            total, metrics = detection_loss(preds_stu, batch, loss_cfg)
+            if enable_ssl:
+                cons, cons_dir = consistency_loss(
+                    preds_stu, preds_tea, batch["anchors"],
+                    batch["transformation"], loss_cfg.consistency)
+                total = total + consistency_weight * cons
+                metrics.update(consistency_loss=cons,
+                               consistency_dir_loss=cons_dir)
+            metrics["loss"] = total
+        with span("train.backward"):
+            params = state.optimizer.params
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            if process_group is not None:
+                all_reduce_mean_(grads, process_group)
+        with span("train.optim"):
+            metrics["grad_norm"] = state.optimizer.step(grads)
 
         # EMA teacher update (trainer_sessd.py:315-318)
-        a32 = min(np.float32(1.0) - np.float32(1.0)
-                  / (np.float32(state.step) + np.float32(1.0)),
-                  np.float32(ema_decay_cap))
-        alpha, beta = float(a32), float(np.float32(1.0) - a32)
-        with torch.no_grad():
-            for e, p in zip(tea.parameters(), stu.parameters()):
-                e.copy_(alpha * e + beta * p)
-            if not enable_ssl:
-                for e, s in zip(tea.buffers(), stu.buffers()):
-                    e.copy_(s)
+        with span("train.ema"):
+            a32 = min(np.float32(1.0) - np.float32(1.0)
+                      / (np.float32(state.step) + np.float32(1.0)),
+                      np.float32(ema_decay_cap))
+            alpha, beta = float(a32), float(np.float32(1.0) - a32)
+            with torch.no_grad():
+                for e, p in zip(tea.parameters(), stu.parameters()):
+                    e.copy_(alpha * e + beta * p)
+                if not enable_ssl:
+                    for e, s in zip(tea.buffers(), stu.buffers()):
+                        e.copy_(s)
 
         if enable_ssl and compute_teacher_metrics:
-            with torch.no_grad():
+            with span("train.teacher_metrics"), torch.no_grad():
                 tea_loss, tea_metrics = detection_loss(
                     preds_tea, batch, loss_cfg, labels_key="labels_raw",
                     reg_targets_key="reg_targets_raw", include_odiou=False)
-            metrics.update({k + "_ema": v for k, v in tea_metrics.items()})
-            metrics["loss_ema"] = tea_loss
+                metrics.update({k + "_ema": v for k, v in tea_metrics.items()})
+                metrics["loss_ema"] = tea_loss
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         if process_group is not None:

@@ -3,15 +3,17 @@
 
 ``trace`` captures a ``torch.profiler`` trace of the enclosed block (host
 and, on a CUDA machine, device activities) into ``log_dir`` for TensorBoard
-or Perfetto; ``annotate`` names a region in it; ``StepTimer`` keeps running
-averages of the (data, step) phases of a loop. ``queued_device_ms`` and
-``queued_span_ms`` time work on the card with CUDA events while the launch
-waits behind a spin on the device, so the events measure the device and
-not the host's issue time. ``card_line`` is the card's name and power
-limit, as every recorded number carries it.
+or Perfetto. ``span`` and ``count`` record the host's time by phase and
+its counts inside the training step and the serving pass, into memory,
+while ``enable()`` has turned the recorder on; ``records()`` reads them.
+``queued_device_ms`` and ``queued_span_ms`` time work on the card with CUDA
+events while the launch waits behind a spin on the device, so the events
+measure the device and not the host's issue time. ``card_line`` is the
+card's name and power limit, as every recorded number carries it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import subprocess
 import time
@@ -38,37 +40,135 @@ def trace(log_dir: str):
         yield p
 
 
-def annotate(name: str):
-    """Named region visible in profiler timelines."""
-    return torch.profiler.record_function(name)
+class _Span:
+    """An open span: [name, start, end, parent span, root span]."""
+
+    __slots__ = ("rec", "entry")
+
+    def __init__(self, rec: "Recorder", name: str):
+        self.rec = rec
+        self.entry = [name, 0, None, None, None]
+
+    def __enter__(self):
+        stack, e = self.rec.stack, self.entry
+        parent = stack[-1] if stack else None
+        e[3], e[4] = parent, e if parent is None else parent[4]
+        self.rec.spans.append(e)
+        stack.append(e)
+        e[1] = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.entry[2] = time.time_ns()
+        stack = self.rec.stack
+        if stack and stack[-1] is self.entry:  # not where reset() came between
+            stack.pop()
+        return False
 
 
-class StepTimer:
-    """Wall-clock timing of (data, step) phases with running averages."""
+class _NoSpan:
+    __slots__ = ()
 
-    def __init__(self, warmup: int = 3):
-        self.warmup = warmup
-        self.n = 0
-        self.data_time = 0.0
-        self.step_time = 0.0
-        self._t = time.perf_counter()
+    def __enter__(self):
+        return self
 
-    def data_done(self):
-        self._data = time.perf_counter() - self._t
+    def __exit__(self, *exc):
+        return False
 
-    def step_done(self):
-        dt = time.perf_counter() - self._t - self._data
-        self.n += 1
-        if self.n > self.warmup:
-            self.data_time += self._data
-            self.step_time += dt
-        self._t = time.perf_counter()
 
-    @property
-    def averages(self):
-        n = max(self.n - self.warmup, 1)
-        return {"data_time": self.data_time / n,
-                "step_time": self.step_time / n}
+NO_SPAN = _NoSpan()
+
+
+class Recorder:
+    """Host spans and counters, in memory, for one thread.
+
+    A span records its name, its start and end on the clock that
+    ``torch.profiler`` stamps its events with (``time.time_ns()``,
+    CLOCK_REALTIME, on Linux), the span it opened inside and its root: the
+    outermost span it belongs to, the training step or the serving batch.
+    A counter adds up under the root open when it counts. Off, ``span``
+    gives one shared object that does nothing: no clock read, no
+    allocation. On or off, the recorder does no device work: no event, no
+    synchronize, nothing the profiler sees, so a trace taken with it on
+    holds the same events as one taken with it off.
+
+    It is for one thread and for bounded stretches: spans opened on two
+    threads at once nest into one another, and while it is on every span is
+    kept until ``reset()``. A span open across ``reset()`` closes without
+    a trace in the new records."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: list = []
+        self.stack: list = []
+        self.counts: collections.Counter = collections.Counter()
+
+    def reset(self):
+        self.spans, self.stack = [], []
+        self.counts = collections.Counter()
+
+    def records(self):
+        """(spans, counters) as plain tuples: spans (name, start_ns,
+        end_ns, parent, root) in the order they opened, parent and root
+        their indices in that list (parent -1 for a root, end None while
+        open); counters (root, name, n), root -1 outside any span."""
+        ids = {id(e): i for i, e in enumerate(self.spans)}
+        spans = [(n, a, b, -1 if p is None else ids[id(p)], ids[id(r)])
+                 for n, a, b, p, r in self.spans]
+        counts = [(ids.get(r, -1), n, v) for (r, n), v in self.counts.items()]
+        return spans, counts
+
+
+RECORDER = Recorder()
+
+
+def span(name: str):
+    """``with span(name):`` records the enclosed block as a span of the
+    recorder while it is on."""
+    return _Span(RECORDER, name) if RECORDER.on else NO_SPAN
+
+
+def count(name: str, n: int = 1):
+    """Adds ``n`` to the counter ``name`` of the current root while the
+    recorder is on."""
+    if RECORDER.on:
+        stack = RECORDER.stack
+        RECORDER.counts[(id(stack[0]) if stack else None, name)] += n
+
+
+def enable():
+    RECORDER.on = True
+
+
+def disable():
+    RECORDER.on = False
+
+
+def reset():
+    RECORDER.reset()
+
+
+def records():
+    return RECORDER.records()
+
+
+def self_ns(spans) -> list:
+    """Each span's self time in ns: its duration less the part of it that
+    its children cover (``records()``'s spans, all closed)."""
+    children = collections.defaultdict(list)
+    for _, a, b, p, _ in spans:
+        if p >= 0:
+            children[p].append((a, b))
+    out = []
+    for i, (_, a, b, _, _) in enumerate(spans):
+        covered, end = 0, a
+        for ca, cb in sorted(children[i]):
+            ca, cb = max(ca, end), min(cb, b)
+            if cb > ca:
+                covered += cb - ca
+                end = cb
+        out.append(b - a - covered)
+    return out
 
 
 def card_line() -> str:

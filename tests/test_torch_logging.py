@@ -101,15 +101,7 @@ def test_device_memory_stats_without_cuda():
     assert tlog.device_memory_stats() == {}
 
 
-def test_step_timer_and_trace(tmp_path):
-    timer = profiling.StepTimer(warmup=1)
-    for _ in range(3):
-        timer.data_done()
-        timer.step_done()
-    avg = timer.averages
-    assert timer.n == 3 and set(avg) == {"data_time", "step_time"}
-    assert all(v >= 0 for v in avg.values())
+def test_trace(tmp_path):
     with profiling.trace(tmp_path / "trace"):
-        with profiling.annotate("sessd_region"):
-            torch.ones(8).sum()
+        torch.ones(8).sum()
     assert any((tmp_path / "trace").iterdir())
