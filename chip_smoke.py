@@ -246,6 +246,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    the same state: ``unpack_batch`` on the card bit-equal to the unpacked
    batch's tensors, loss terms within 1e-6 relative and the gradient norm
    within 1e-5; the staged bytes of both.
+22. Rotated NMS (after phase 3): the kernel pair of ``ops/cuda/nms.py``
+   at serving's shapes, batch 8 of car-sized boxes in tight groups, IoU
+   0.01, post 100: pre 256 with 70 valid rows a scene (the small path of
+   the serving cell) and pre 1000 with every row valid (the full path).
+   The kept ranks and validity equal to the twin's (``rotated_nms_ref``)
+   on the card, the largest difference printed; device ms of the pair
+   (``median_ms``), the twin's on the host clock (it reads the device once
+   per fixpoint pass and scene), and the bound: the larger of the
+   triangle's IoU operations (NMS_PAIR_FLOPS a pair of valid boxes) over
+   67 TFLOP/s and the bytes (boxes and scores read, mask written and read,
+   slots written) over 3.35 TB/s. No PyTorch call computes a rotated NMS.
+   The main-path phases count the pair's launches: 2 a batch wherever
+   ``predict_batch`` runs ``rotate_nms`` on the card (serving b1/b4/b8,
+   points-in serving, eval, 3-class, data parallel, multi-process eval),
+   none on DI-NMS or in training steps; their sum joins the kernels
+   line.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``fused_sparse_conv_stream_ring``,
@@ -296,11 +312,13 @@ import torch
 from sessd_torch import builder
 from sessd_torch.core import box_torch, nms_np
 from sessd_torch.core.nms import rotate_weighted_nms
+from sessd_torch.core.nms import score_order as nms_score_order
 from sessd_torch.models.backbone import PLAN, pick_conv
 from sessd_torch.models.pillars import PointPillars, pillar_scatter
 from sessd_torch.ops import pillar as pil
 from sessd_torch.ops import sparse as sp
 from sessd_torch.ops.cuda import ablate
+from sessd_torch.ops.cuda import nms as nms_cuda
 from sessd_torch.ops.cuda import sparse_conv as sc
 from sessd_torch.ops.cuda import sparse_conv_train as kt
 from sessd_torch.parallel import mesh
@@ -986,6 +1004,7 @@ def phase_serving(model, cfg, spec, device):
         if name == "b1 no prior":
             set_prior(model, False)
         before = sc.fused_sparse_conv.launches
+        nms_before = nms_cuda.rotated_nms.launches
         t0 = time.perf_counter()
         out = server(batch)
         torch.cuda.synchronize()
@@ -994,14 +1013,18 @@ def phase_serving(model, cfg, spec, device):
         if sc.fused_sparse_conv_stream.launches:
             raise AssertionError(f"{name}: the stream kernel ran at batch "
                                  f"{len(batch)}")
+        nms = nms_cuda.rotated_nms.launches - nms_before
+        if nms != 2:
+            raise AssertionError(f"{name}: {nms} rotated NMS launches, "
+                                 "want 2")
         results.append((name, out, launched))
         if name == "b1 prior" and n > 0:  # request 0 is the warm-up
             lat.append(dt)
         print(f"request {n:2d} {name:11s}: {dt:8.3f} ms, {launched} kernel "
               f"launches, valid detections "
               f"{out[2].sum(dim=1).tolist()}")
-    launches = sc.fused_sparse_conv.launches
-    _counts()  # raises if a comparison entry ran on the main path
+    counts = _counts()  # raises if a comparison entry ran on the main path
+    launches = counts["fused_sparse_conv"]
     set_prior(model, True)
 
     for name, (boxes, scores, valid), launched in results:
@@ -1021,8 +1044,9 @@ def phase_serving(model, cfg, spec, device):
     print(f"serving: {len(requests)} requests over {len(anchors)} anchors, "
           f"stats b1 {server1.stats} b4 {server4.stats}; batch-1 latency p50 "
           f"{np.percentile(lat, 50):.3f} ms p90 {np.percentile(lat, 90):.3f}"
-          f" ms over {len(lat)} requests; host prep {prep_ms:.3f} ms/scene")
-    return launches, pcfg
+          f" ms over {len(lat)} requests; host prep {prep_ms:.3f} ms/scene; "
+          f"rotated NMS launches {counts['rotated_nms']} (2 a request)")
+    return counts, pcfg
 
 
 def _want_launches(caps, batch, dtype):
@@ -1034,7 +1058,7 @@ def _want_launches(caps, batch, dtype):
 def phase_serving_b8(model, cfg, spec, device):
     """Batch-8 serving, the main path at throughput: one warm-up request,
     then B8_REQUESTS requests of eight ray-cast scans. Returns the launches
-    {K1, K3} of the timed requests."""
+    {K1, K3, rotated NMS} of the timed requests."""
     anchors = builder.build_anchors(cfg)
     pcfg = builder.build_predict_config(cfg)
     server = ExactBatchServer(model, anchors, pcfg, spec, batch_size=8,
@@ -1050,19 +1074,22 @@ def phase_serving_b8(model, cfg, spec, device):
     _reset_counts()
     lat = []
     for n in range(B8_REQUESTS):
-        k1, k3 = (sc.fused_sparse_conv.launches,
-                  sc.fused_sparse_conv_stream.launches)
+        k1, k3, nms = (sc.fused_sparse_conv.launches,
+                       sc.fused_sparse_conv_stream.launches,
+                       nms_cuda.rotated_nms.launches)
         fast = server.stats["fast"]
         t0 = time.perf_counter()
         boxes, scores, valid = server(scenes)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
         got = (sc.fused_sparse_conv.launches - k1,
-               sc.fused_sparse_conv_stream.launches - k3)
+               sc.fused_sparse_conv_stream.launches - k3,
+               nms_cuda.rotated_nms.launches - nms)
         caps = SERVING_CAPS if server.stats["fast"] > fast else TRAIN_CAPS
-        want = _want_launches(caps, 8, torch.bfloat16)
+        want = _want_launches(caps, 8, torch.bfloat16) + (2,)
         print(f"request b8 {n}: {lat[-1]:8.3f} ms, K1 {got[0]} K3 {got[1]} "
-              f"launches, valid detections {valid.sum(dim=1).tolist()}")
+              f"rotated NMS {got[2]} launches, valid detections "
+              f"{valid.sum(dim=1).tolist()}")
         if got != want:
             raise AssertionError(f"b8 request {n}: launches {got}, want "
                                  f"{want}")
@@ -1072,14 +1099,16 @@ def phase_serving_b8(model, cfg, spec, device):
         if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
             raise AssertionError("b8: non-finite outputs")
     counts = {k: v for k, v in _counts().items()
-              if k in ("fused_sparse_conv", "fused_sparse_conv_stream")}
+              if k in ("fused_sparse_conv", "fused_sparse_conv_stream",
+                       "rotated_nms")}
     p50 = float(np.percentile(lat, 50))
     print(f"serving b8: {B8_REQUESTS} requests, stats {server.stats}, p50 "
           f"{p50:.3f} ms, p90 {np.percentile(lat, 90):.3f} ms, "
           f"{8e3 / p50:.1f} scenes/s, host prep of the 8 scans "
           f"{np.median(preps):.3f} ms; launches per request K1 "
           f"{counts['fused_sparse_conv'] // B8_REQUESTS} K3 "
-          f"{counts['fused_sparse_conv_stream'] // B8_REQUESTS}")
+          f"{counts['fused_sparse_conv_stream'] // B8_REQUESTS} rotated NMS "
+          f"{counts['rotated_nms'] // B8_REQUESTS}")
     return counts
 
 
@@ -1535,7 +1564,7 @@ def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
 KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw,
               ablate.sparse_conv_ablate, ablate.sparse_conv_ablate_mma,
-              ablate.empty_launch)
+              ablate.empty_launch, nms_cuda.rotated_nms)
 # the entries kept for same-call comparisons: never on a main path
 COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
                   sc.fused_sparse_conv_stream_ring, kt.sparse_conv_fwd_scalar,
@@ -1597,7 +1626,7 @@ def phase_train(trainer):
             "sparse_conv_dfeat": 9 * TRAIN_STEPS,
             "sparse_conv_dw": 10 * TRAIN_STEPS,
             "sparse_conv_ablate": 0, "sparse_conv_ablate_mma": 0,
-            "empty_launch": 0}
+            "empty_launch": 0, "rotated_nms": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, want {want}")
     moved = max(float((p.detach() - p0).abs().max()) for p, p0 in
@@ -1861,7 +1890,8 @@ def phase_eval(trainer, root, tmp):
     want = {"fused_sparse_conv": k1 * n, "fused_sparse_conv_stream": k3 * n,
             "sparse_conv_fwd": 0, "sparse_conv_dfeat": 0,
             "sparse_conv_dw": 0, "sparse_conv_ablate": 0,
-            "sparse_conv_ablate_mma": 0, "empty_launch": 0}
+            "sparse_conv_ablate_mma": 0, "empty_launch": 0,
+            "rotated_nms": 2 * n}
     if counts != want:
         raise AssertionError(f"validate launches {counts}, want {want}")
     if results is None or set(results) != {"Car"}:
@@ -1874,7 +1904,8 @@ def phase_eval(trainer, root, tmp):
           f"{n} batches of 4, {secs:.3f} s ({secs / n * 1e3:.1f} ms/batch "
           f"with the loader), launches per batch K1 "
           f"{counts['fused_sparse_conv'] // n} K3 "
-          f"{counts['fused_sparse_conv_stream'] // n}; {_ap_line(results)}")
+          f"{counts['fused_sparse_conv_stream'] // n} rotated NMS "
+          f"{counts['rotated_nms'] // n}; {_ap_line(results)}")
 
     trainer.save_checkpoint()
     out = os.path.join(tmp, "eval_results.pkl")
@@ -2023,6 +2054,7 @@ def _points_serving(spec, scenes, device):
         if dtype == torch.float32:
             set_prior(model, False)  # scores ~0.5: detections to compare
             found = 0
+            nms = nms_cuda.rotated_nms.launches
             for i in fits:
                 got = infer(scenes[i])
                 want = host_infer(**prep(scenes[i]))
@@ -2034,6 +2066,10 @@ def _points_serving(spec, scenes, device):
                 found += int(got[2].sum())
             if not found:
                 raise AssertionError("no detection to compare")
+            nms = nms_cuda.rotated_nms.launches - nms
+            if nms != 2 * 2 * len(fits):  # points-in and host prep
+                raise AssertionError(f"points-in f32: {nms} rotated NMS "
+                                     f"launches for {2 * len(fits)} requests")
             print(f"points-in detections f32 (cls bias 0): the same "
                   f"{found} boxes as host prep on {len(fits)} scenes")
             continue
@@ -2041,6 +2077,7 @@ def _points_serving(spec, scenes, device):
         reqs = [scenes[i % len(scenes)] for i in range(2 * len(scenes) + 1)]
         lat = []
         before = sc.fused_sparse_conv.launches
+        nms = nms_cuda.rotated_nms.launches
         for n, pts in enumerate(reqs):
             t0 = time.perf_counter()
             out = infer(pts)
@@ -2050,9 +2087,11 @@ def _points_serving(spec, scenes, device):
             if not all(torch.isfinite(t.float()).all() for t in out[:2]):
                 raise AssertionError("points-in: non-finite outputs")
         k1 = sc.fused_sparse_conv.launches - before
-        if k1 != 14 * len(reqs) or sc.fused_sparse_conv_stream.launches:
-            raise AssertionError(f"points-in: {k1} K1 launches for "
-                                 f"{len(reqs)} requests")
+        nms = nms_cuda.rotated_nms.launches - nms
+        if k1 != 14 * len(reqs) or sc.fused_sparse_conv_stream.launches \
+                or nms != 2 * len(reqs):
+            raise AssertionError(f"points-in: {k1} K1 and {nms} rotated NMS "
+                                 f"launches for {len(reqs)} requests")
         dev_ms, host_ms = [], []
         for pts in scenes:
             on_card = _put(pts, device)
@@ -2067,8 +2106,8 @@ def _points_serving(spec, scenes, device):
                  "dev_prep": dev_ms, "host_prep": host_ms}
         print(f"points-in serving bf16 b1: {len(lat)} requests, p50 "
               f"{stats['p50']:.3f} ms p90 {stats['p90']:.3f} ms, 14 K1 "
-              f"launches each; device prep (voxelize + VFE-ready voxels + "
-              f"chain, CUDA events) per scene "
+              f"and 2 rotated NMS launches each; device prep (voxelize + "
+              f"VFE-ready voxels + chain, CUDA events) per scene "
               f"{', '.join(f'{t:.3f}' for t in dev_ms)} ms; host prep "
               f"(C++ voxelize + VFE + chain) per scene "
               f"{', '.join(f'{t:.3f}' for t in host_ms)} ms")
@@ -2286,6 +2325,7 @@ def _device_eval(root, tmp, device):
              if stage <= model.dense_from_stage)
     want = {k: 0 for k in counts}
     want["sparse_conv_fwd"] = k4 * n
+    want["rotated_nms"] = 2 * n
     if counts != want:
         raise AssertionError(f"device-chain validate launches {counts}, "
                              f"want {want}")
@@ -2629,6 +2669,7 @@ def phase_pillar_serving(tmp, device):
         prep(pts)
     prep_ms = (time.perf_counter() - t0) / len(scenes) * 1e3
     lat, pillars = [], []
+    nms = nms_cuda.rotated_nms.launches
     for n in range(PILLAR_REQUESTS + 1):
         if n == PILLAR_REQUESTS:
             set_prior(model, False)
@@ -2647,6 +2688,10 @@ def phase_pillar_serving(tmp, device):
                                  f"{scores.shape}")
         if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
             raise AssertionError("pillars: non-finite outputs")
+    nms = nms_cuda.rotated_nms.launches - nms
+    if nms != 2 * (PILLAR_REQUESTS + 1):
+        raise AssertionError(f"pillars serving: {nms} rotated NMS launches "
+                             f"for {PILLAR_REQUESTS + 1} requests")
     bf16_valid = int(valid.sum())
     if not bf16_valid > 0:
         raise AssertionError("pillars bf16, prior off: no detections")
@@ -2656,8 +2701,8 @@ def phase_pillar_serving(tmp, device):
           f"{min(pillars)}-{max(pillars)} pillars per scene, p50 "
           f"{np.percentile(lat, 50):.3f} ms p90 {np.percentile(lat, 90):.3f}"
           f" ms over {len(lat)} requests (host prep included), host prep "
-          f"{prep_ms:.3f} ms/scene; prior off: {bf16_valid} valid "
-          f"detections")
+          f"{prep_ms:.3f} ms/scene, 2 rotated NMS launches a request; prior "
+          f"off: {bf16_valid} valid detections")
     print("pillars b1 bf16 split (prior on; host-clock medians of "
           f"{SPLIT_REPS}, each stage synchronized): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
@@ -2695,6 +2740,7 @@ def phase_pillar_serving(tmp, device):
           f"{n_host} from the CPU's decode of the card's head outputs, "
           f"{full_host} from the CPU's own forward")
     counts = _counts()
+    counts.pop("rotated_nms")  # the NMS pair of every decode on the card
     if any(counts.values()):
         raise AssertionError(f"pillars serving launched sparse kernels: "
                              f"{counts}")
@@ -2745,6 +2791,9 @@ def phase_dinms(spec, device):
         dets = predict_batch(preds, anchors, pcfg)
         torch.cuda.synchronize()
         predict_ms = (time.perf_counter() - t0) * 1e3
+        if nms_cuda.rotated_nms.launches:
+            raise AssertionError("predict_batch with DI-NMS launched the "
+                                 "rotated NMS pair")
         one = {k: v[0] for k, v in preds.items()}
         boxes = box_torch.second_box_decode(one["box_preds"], anchors)
         scores, labels = torch.sigmoid(one["cls_preds"]).max(dim=-1)
@@ -2843,6 +2892,10 @@ def phase_pillar_train(root, tmp, device):
         torch.backends.cudnn.allow_tf32 = tf32
     peak = torch.cuda.max_memory_allocated()
     counts = _counts()
+    n_val = -(-len(trainer.val_dataset) // trainer.cfg.data["samples_per_gpu"])
+    if counts.pop("rotated_nms") != 2 * n_val:
+        raise AssertionError(f"pillars validate: want 2 rotated NMS launches "
+                             f"for each of {n_val} batches")
     if any(counts.values()):
         raise AssertionError(f"pillars launched sparse kernels: {counts}")
     _finite_history(trainer, "pillars training")
@@ -2895,7 +2948,8 @@ def phase_3class(root, tmp, device):
             "sparse_conv_dw": 10 * C3_STEPS}
     got = {k: train_counts[k] for k in want}
     if got != want or train_counts["fused_sparse_conv"] \
-            or train_counts["fused_sparse_conv_stream"]:
+            or train_counts["fused_sparse_conv_stream"] \
+            or train_counts["rotated_nms"]:
         raise AssertionError(f"3-class training launches {train_counts}")
     summary = _step_summary(trainer, peak)
     del trainer
@@ -2919,7 +2973,8 @@ def phase_3class(root, tmp, device):
     n = -(-len(trainer.val_dataset) // per_gpu)
     k1, k3 = _want_launches(trainer.stage_capacity, per_gpu, torch.float32)
     got = (eval_counts["fused_sparse_conv"], eval_counts["fused_sparse_conv_stream"])
-    if got != (k1 * n, k3 * n) or eval_counts["sparse_conv_fwd"]:
+    if got != (k1 * n, k3 * n) or eval_counts["sparse_conv_fwd"] \
+            or eval_counts["rotated_nms"] != 2 * n:
         raise AssertionError(f"3-class validate launches {eval_counts}")
     if set(shapes) != {(per_gpu, len(trainer.anchors), 3)}:
         raise AssertionError(f"3-class cls_preds shapes {set(shapes)}")
@@ -2931,7 +2986,8 @@ def phase_3class(root, tmp, device):
           f"{want['sparse_conv_dfeat'] // C3_STEPS} dw "
           f"{want['sparse_conv_dw'] // C3_STEPS}, no batch saturated")
     print(f"3-class eval f32: cls_preds {list(shapes[0])}, {n} batches, "
-          f"launches per batch K1 {k1} K3 {k3}; {_ap_line(results)}")
+          f"launches per batch K1 {k1} K3 {k3} rotated NMS 2; "
+          f"{_ap_line(results)}")
     del trainer
     torch.cuda.empty_cache()
     return {k: train_counts[k] + eval_counts[k] for k in train_counts}
@@ -3118,11 +3174,17 @@ def phase_data_parallel(root, tmp, card):
     want = {"sparse_conv_fwd": 24 * DP_EPOCHS,
             "sparse_conv_dfeat": 9 * DP_EPOCHS,
             "sparse_conv_dw": 10 * DP_EPOCHS}
+    n_eval = _rank_batches(cfg, root)
     for r, rep in enumerate(reports):
         got = {k: rep["launches"]["train"][k] for k in want}
-        if got != want or rep["launches"]["train"]["fused_sparse_conv"]:
+        if got != want or rep["launches"]["train"]["fused_sparse_conv"] \
+                or rep["launches"]["train"]["rotated_nms"]:
             raise AssertionError(f"rank {r} training launches "
                                  f"{rep['launches']['train']}, want {want}")
+        if rep["launches"]["eval"]["rotated_nms"] != 2 * n_eval:
+            raise AssertionError(f"rank {r} validation launches "
+                                 f"{rep['launches']['eval']}, want 2 rotated "
+                                 f"NMS for each of {n_eval} batch(es)")
     shape, worst = _check_synced_moments(reports)
     for r, rep in enumerate(reports):
         steps = rep["history"][1:]
@@ -3222,6 +3284,15 @@ def phase_data_parallel_nccl(root, tmp, device):
     return counts
 
 
+def _rank_batches(cfg, root, world=DP_WORLD) -> int:
+    """Validation batches of one rank of ``world`` under config file
+    ``cfg``: its share of the val split in batches of ``samples_per_gpu``
+    (the last padded)."""
+    conf = load_train_config(cfg, root)
+    per_rank = -(-len(builder.build_dataset(conf, "val")) // world)
+    return -(-per_rank // conf.data["samples_per_gpu"])
+
+
 def phase_multiprocess_eval(root, tmp, lead, cfg):
     """Two ranks of ``tools.test --coordinator`` (gloo, cuda:0) on the
     data-parallel checkpoint against one process's ``tools.test`` of it
@@ -3269,17 +3340,22 @@ def phase_multiprocess_eval(root, tmp, lead, cfg):
                              "none")
     conf = load_train_config(cfg, root)
     per_gpu = conf.data["samples_per_gpu"]
-    per_rank = -(-len(builder.build_dataset(conf, "val")) // DP_WORLD)
-    n = -(-per_rank // per_gpu)
+    n = _rank_batches(cfg, root)
+    n_single = _rank_batches(cfg, root, world=1)
+    if single_counts["rotated_nms"] != 2 * n_single:
+        raise AssertionError(f"tools.test launches {single_counts}, want 2 "
+                             f"rotated NMS for each of {n_single} batches")
     k1, k3 = _want_launches(ACCEPT_CAPS, per_gpu, torch.bfloat16)
     for r, rep in enumerate(reports):
         got = rep["launches"]["eval"]
-        if (got["fused_sparse_conv"], got["fused_sparse_conv_stream"]) != \
-                (k1 * n, k3 * n) or got["sparse_conv_fwd"]:
+        if (got["fused_sparse_conv"], got["fused_sparse_conv_stream"],
+                got["rotated_nms"]) != (k1 * n, k3 * n, 2 * n) \
+                or got["sparse_conv_fwd"]:
             raise AssertionError(f"rank {r} eval launches {got}")
         print(f"multi-process eval rank {r}/{DP_WORLD}: {n} batch(es) of "
               f"{per_gpu}, launches K1 {got['fused_sparse_conv']} K3 "
-              f"{got['fused_sparse_conv_stream']}, wall {rep['wall_s']:.1f}"
+              f"{got['fused_sparse_conv_stream']} rotated NMS "
+              f"{got['rotated_nms']}, wall {rep['wall_s']:.1f}"
               f" s, peak device memory {rep['peak_gib']:.3f} GiB")
     print(f"multi-process eval: rank 0's AP tables equal one process's "
           f"tools.test ({single_s:.1f} s) entry for entry, its merged "
@@ -3320,6 +3396,86 @@ def phase_acceptance(tmp):
           f"{floor['required']}), trajectory rows "
           f"{[len(t) for t in traj.values()]}, timing "
           f"{rec['stage_sessd']['timing']}, wall {rec['wall_s']} s")
+
+
+# f32 operations of one IoU pair in csrc/rotated_nms.cu (iou_pair): two
+# clips of 4 edges, each edge 2 (its vector) + 4 half-planes x 12 (edge 2,
+# s0 5, sd 3, negation, division) + 8 (u, v) + 4 (the cross product
+# halved), 3 sums a clip; then the intersection's sum, the union's two and
+# the division. Comparisons and min/max are not counted.
+NMS_PAIR_FLOPS = 2 * (4 * (2 + 4 * 12 + 8 + 4) + 3) + 4
+
+
+def nms_inputs(pre: int, live: int, device, seed=SEED):
+    """Batch 8 of ``pre`` car-sized [7] boxes in groups of about six within
+    0.6 m, with ``live`` valid scores a scene (the rest -inf), each scene in
+    its stable descending score order, as ``predict_batch`` hands them to
+    the NMS."""
+    rng = np.random.RandomState(seed)
+    n = 8 * pre
+    # each scene's boxes around its own pre // 6 centers
+    at = rng.randint(0, max(1, pre // 6), n) + np.repeat(np.arange(8) * pre,
+                                                          pre)
+    cx, cy = rng.uniform(0, 70, n)[at], rng.uniform(-35, 35, n)[at]
+    boxes = np.stack([cx + rng.normal(0, 0.6, n), cy + rng.normal(0, 0.6, n),
+                      rng.uniform(-1.2, -0.8, n), 1.6 + rng.normal(0, 0.05, n),
+                      3.9 + rng.normal(0, 0.1, n), np.full(n, 1.5),
+                      rng.uniform(-np.pi, np.pi, n)], 1).reshape(8, pre, 7)
+    scores = rng.rand(8, pre)
+    scores[:, live:] = -np.inf
+    scores = torch.from_numpy(scores.astype(np.float32)).to(device)
+    top, order = nms_score_order(scores, pre)
+    rows = order[..., None].expand(-1, -1, 7)
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(device)
+    return boxes.gather(1, rows).contiguous(), top.contiguous()
+
+
+def phase_nms(device):
+    """Phase 22: the rotated-NMS pair at serving's shapes against its twin,
+    timed beside its bound; returns the kernels line's rows by pre."""
+    rows = {}
+    for pre, live in ((256, 70), (1000, 1000)):
+        boxes, scores = nms_inputs(pre, live, device)
+        got = nms_cuda.rotated_nms(boxes, scores, 100, 0.01)
+        want = nms_cuda.rotated_nms_ref(boxes, scores, 100, 0.01)
+        # kept ranks and validity flags as integers: 0 where they agree
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        if err:
+            raise AssertionError(f"rotated NMS at pre {pre}: the kernel "
+                                 f"pair's kept ranks differ from the twin's "
+                                 f"by up to {err}")
+        ms = median_ms(lambda: nms_cuda.rotated_nms(boxes, scores, 100, 0.01))
+        plain = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nms_cuda.rotated_nms_ref(boxes, scores, 100, 0.01)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        # the greedy needs the IoU of each pair of valid boxes
+        valid = (scores > -torch.inf).sum(dim=1)
+        pairs = int((valid * (valid - 1) // 2).sum())
+        words = (pre + 63) // 64
+        bound = Bound()
+        # boxes and scores read; the mask written, then read by the scan;
+        # int64 ranks and bool flags written
+        moved = (4 * (boxes.numel() + scores.numel()) + 2 * 8 * pre * words * 8
+                 + 8 * min(pre, 100) * 9)
+        bound.seconds = {"bytes": moved / HBM_BYTES_PER_S,
+                         "operations": pairs * NMS_PAIR_FLOPS
+                         / PEAK_FLOPS[torch.float32]}
+        rows[pre] = {"ms": ms, "plain_ms": float(np.median(plain)),
+                     "bound_ms": bound.ms(), "bound_by": bound.by(),
+                     "iou_pairs": pairs, "max_abs_err": float(err),
+                     "kept": int(got[1].sum())}
+        print(f"rotated NMS, batch 8, pre {pre}, {live} valid a scene: pair "
+              f"{ms:.4f} ms, twin {rows[pre]['plain_ms']:.2f} ms (host "
+              f"clock), bound {bound.ms():.5f} ms ({bound.by()}, {pairs} IoU "
+              f"pairs), share {100 * bound.ms() / ms:.2f}%, "
+              f"{rows[pre]['kept']} kept, largest difference from the twin "
+              f"{err}; {card_line()}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -3365,13 +3521,16 @@ def main():
                                                             device)
         b8 = phase_stream_serving(model, spec, device)
     with phase("serving b1/b4"):
-        launches, pcfg = phase_serving(model, cfg, spec, device)
+        serving_counts, pcfg = phase_serving(model, cfg, spec, device)
+        launches = serving_counts["fused_sparse_conv"]
     with phase("serving b8"):
         b8_counts = phase_serving_b8(model, cfg, spec, device)
     with phase("head parity"):
         phase_head_parity(spec, device, pcfg)
     with phase("pillar plan"):
         phase_pillar_plan(model, spec, device, card)
+    with phase("rotated NMS"):
+        nms_rows = phase_nms(device)
 
     tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
     try:
@@ -3446,6 +3605,9 @@ def main():
                    + dinms_counts["fused_sparse_conv_stream"]
                    + eval_counts["fused_sparse_conv_stream"]
                    + late_counts["fused_sparse_conv_stream"])
+    nms_launches = (serving_counts["rotated_nms"] + b8_counts["rotated_nms"]
+                    + dinms_counts["rotated_nms"] + eval_counts["rotated_nms"]
+                    + late_counts["rotated_nms"])
     print(f"main-path launches: K1 {launches} (b1/b4) + "
           f"{b8_counts['fused_sparse_conv']} (b8) + "
           f"{dinms_counts['fused_sparse_conv']} (DI-NMS) + "
@@ -3462,6 +3624,11 @@ def main():
           f" + {late_counts['sparse_conv_fwd']}/"
           f"{late_counts['sparse_conv_dfeat']}/{late_counts['sparse_conv_dw']}"
           f" (device inputs, 3-class and data parallel); "
+          f"rotated NMS {nms_launches} (2 a batch: "
+          f"{serving_counts['rotated_nms']} b1/b4, "
+          f"{b8_counts['rotated_nms']} b8, {eval_counts['rotated_nms']} eval"
+          f", {late_counts['rotated_nms']} device inputs, 3-class and data "
+          f"parallel; DI-NMS {dinms_counts['rotated_nms']}); "
           f"eval K3 sums "
           f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms, twin "
           f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")
@@ -3559,6 +3726,22 @@ def main():
         old_tile_launches=abl["counts"]["sparse_conv_ablate"],
         old_tile_max_abs_err=abl["s1_worst"], mma_ms=abl["mma_ms"],
         chain_ms=abl["chain_ms"], k1_at_split_ms=abl["k1_at_split_ms"])
+    # the rotated NMS pair: replaces no Pallas kernel (XLA code in the JAX
+    # package); no PyTorch call computes a rotated NMS. Its launches are the
+    # main-path phases'; its time and bound at serving's shape (pre 256)
+    nms_row = nms_rows[256]
+    kernels.append({
+        "name": "rotated_nms", "route": "cuda",
+        "source": "sessd_torch/csrc/rotated_nms.cu",
+        "replaces": None, "launches": nms_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in nms_rows.values()),
+        "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
+        "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
+        "library_ms": None,
+        "tile": "rotated_nms_mask_kernel (16 x 64 IoU tiles, 16 threads a "
+                "row, valid rows and columns only) + rotated_nms_scan_kernel "
+                "(a warp a scene)",
+        "by_pre": nms_rows})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,21 +28,39 @@ def rotate_nms(boxes5: torch.Tensor, scores: torch.Tensor, *,
 
     boxes5 [N, 5] (x, y, w, l, r), scores [N] -> (indices [min(pre, post)]
     into the inputs, valid mask). Boxes are visited in descending score
-    order; a box is kept iff no higher-scoring kept box overlaps it with
-    IoU > threshold.
+    order, the lower index first on ties; a box is kept iff no
+    higher-scoring kept box overlaps it with IoU > threshold.
     """
-    pre = min(pre_max_size, boxes5.shape[0])
-    top_scores, order = torch.topk(scores, pre)
-    iou = iou_bev_matrix(boxes5[order], boxes5[order])
-    valid_in = top_scores > -torch.inf
-    kept = _greedy_keep(iou, valid_in, iou_threshold)
-    # compact kept indices (score-descending) into post_max_size; stable as
+    top_scores, order = score_order(scores, pre_max_size)
+    keep, sel_valid = nms_sorted(boxes5[order], top_scores, post_max_size,
+                                 iou_threshold)
+    return torch.where(sel_valid, order[keep], 0), sel_valid
+
+
+def score_order(scores: torch.Tensor, pre_max_size: int):
+    """The first ``pre_max_size`` scores along the last dimension in
+    descending order and their indices, the lower index first on ties (as
+    ``jax.lax.top_k``): a stable sort, so a batch [B, N] orders each row as
+    the row alone."""
+    top, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return top[..., :pre_max_size], order[..., :pre_max_size]
+
+
+def nms_sorted(boxes5: torch.Tensor, top_scores: torch.Tensor,
+               post_max_size: int, iou_threshold: float):
+    """Greedy NMS of boxes already in descending score order: boxes5 [pre,
+    5], top_scores [pre] (-inf: padding) -> (keep [min(pre, post)], the
+    kept ranks into the rows in order, 0 past the last; valid mask)."""
+    pre = boxes5.shape[0]
+    iou = iou_bev_matrix(boxes5, boxes5)
+    kept = _greedy_keep(iou, top_scores > -torch.inf, iou_threshold)
+    # compact kept ranks (score-descending) into post_max_size; stable as
     # jnp.argsort is
-    rank = torch.arange(pre, device=scores.device)
+    rank = torch.arange(pre, device=boxes5.device)
     kept_rank = torch.where(kept, rank, pre + 1)
     sel = torch.argsort(kept_rank, stable=True)[:post_max_size]
     sel_valid = kept[sel]
-    return torch.where(sel_valid, order[sel], 0), sel_valid
+    return torch.where(sel_valid, sel, 0), sel_valid
 
 
 def _greedy_keep(iou: torch.Tensor, valid_in: torch.Tensor,

@@ -14,13 +14,15 @@ Every stage ANDs into a validity mask over a fixed [max_det] buffer.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import box_torch
-from ..core.nms import rotate_nms, rotate_weighted_nms
+from ..core.nms import rotate_nms, rotate_weighted_nms, score_order
+from ..ops.cuda.nms import rotated_nms
 from ..utils.profiling import count, span
 
 
@@ -44,15 +46,16 @@ class PredictConfig(NamedTuple):
 
 def points_in_frustum(points: torch.Tensor,
                       surfaces: torch.Tensor) -> torch.Tensor:
-    """[N, 3] points vs [S, 4, 3] convex-polyhedron surfaces -> [N] bool
+    """[..., N, 3] points vs [..., S, 4, 3] convex-polyhedron surfaces ->
+    [..., N] bool
     (sessd_tpu/models/predict.py:47-59; geometry.py:215-278 of the
     reference): inside iff strictly below every surface plane, the normal
     taken from the first three vertices."""
-    sv0 = surfaces[:, 0, :] - surfaces[:, 1, :]
-    sv1 = surfaces[:, 1, :] - surfaces[:, 2, :]
-    normal = torch.linalg.cross(sv0, sv1)  # [S, 3]
-    d = (normal * surfaces[:, 0, :]).sum(dim=-1)  # [S]
-    sign = points @ normal.T - d[None, :]  # [N, S]
+    sv0 = surfaces[..., 0, :] - surfaces[..., 1, :]
+    sv1 = surfaces[..., 1, :] - surfaces[..., 2, :]
+    normal = torch.linalg.cross(sv0, sv1)  # [..., S, 3]
+    d = (normal * surfaces[..., 0, :]).sum(dim=-1)  # [..., S]
+    sign = points @ normal.transpose(-1, -2) - d[..., None, :]  # [..., N, S]
     return ~(sign >= 0).any(dim=-1)
 
 
@@ -126,6 +129,10 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
     boxes above the score threshold, top-k at that capacity already holds
     every candidate the full path would consider, so the small path is
     exact.
+
+    ``rotate_nms`` runs once for the whole batch (``_predict_rotate_nms``),
+    equal to ``predict_single`` scene by scene; DI-NMS, whose leader loop
+    is another algorithm, runs ``predict_single`` per scene.
     """
     b, n_anchors = preds["box_preds"].shape[:2]
     if anchors.dim() == 2:
@@ -143,10 +150,70 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
             cfg = cfg._replace(nms_pre_max_size=small)
             path = "nms_small"
     count(path)
-    with span("predict.scenes"):
+    if cfg.nms_type == "rotate_nms":
+        return _predict_rotate_nms(preds, anchors, cfg, frustum_surfaces)
+    with span("predict.dinms"):
         outs = [predict_single({k: v[i] for k, v in preds.items()},
                                anchors[i], cfg, None if frustum_surfaces
                                is None else frustum_surfaces[i])
                 for i in range(b)]
-    with span("predict.stack"):
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+@functools.lru_cache(maxsize=8)
+def _range_bounds(post_center_range: tuple, dtype, device) -> torch.Tensor:
+    """post_center_range as a [6] tensor on the device, made once: a new
+    host tensor per batch would copy to the card and wait for it."""
+    return torch.tensor(post_center_range, dtype=dtype, device=device)
+
+
+def _predict_rotate_nms(preds: dict, anchors: torch.Tensor,
+                        cfg: PredictConfig,
+                        frustum_surfaces: Optional[torch.Tensor]) -> dict:
+    """predict_single's ``rotate_nms`` path over [B, A] at once: the same
+    elementwise decode and scores, one stable sort, the batched NMS
+    (``ops.cuda.nms.rotated_nms``: the kernel pair on the card, the
+    per-scene twin on the CPU), and the finish over [B, post]. Only the
+    ``pre`` rows the NMS visits are decoded (decoding is per anchor)."""
+    with span("predict.decode"):
+        scores_all = torch.sigmoid(preds["cls_preds"])
+        scores, top_labels = scores_all.max(dim=-1)
+        keep = scores >= cfg.score_threshold
+        iou_r = ((preds["iou_preds"][..., 0] + 1.0) * 0.5).clamp(0.0, 1.0)
+        scores = scores * torch.pow(iou_r, cfg.iou_rectify_pow)
+        nms_scores = torch.where(keep, scores, -torch.inf)
+        top, order = score_order(nms_scores, cfg.nms_pre_max_size)
+        rows = order[..., None].expand(-1, -1, 7)
+        boxes = box_torch.second_box_decode(
+            preds["box_preds"].gather(1, rows), anchors.gather(1, rows))
+    with span("predict.nms"):
+        rank, valid = rotated_nms(boxes, top.contiguous(),
+                                  cfg.nms_post_max_size,
+                                  cfg.nms_iou_threshold)
+    with span("predict.finish"):
+        sel = order.gather(1, rank)
+        out_boxes = boxes.gather(1, rank[..., None].expand(-1, -1, 7))
+        out_scores = scores.gather(1, sel)
+        out_labels = top_labels.gather(1, sel)
+        if frustum_surfaces is not None:
+            valid = valid & points_in_frustum(out_boxes[..., :3],
+                                              frustum_surfaces)
+        if cfg.use_dir_classifier:
+            dir_cls = preds["dir_cls_preds"]
+            dir_labels = dir_cls.gather(
+                1, sel[..., None].expand(-1, -1, dir_cls.shape[-1])).argmax(
+                    dim=-1)
+            opp = ((out_boxes[..., 6] - cfg.direction_offset) > 0) ^ (
+                dir_labels == 1)
+            out_boxes[..., 6] += torch.where(opp, math.pi, 0.0)
+        pcr = _range_bounds(tuple(cfg.post_center_range), out_boxes.dtype,
+                            out_boxes.device)
+        centers = out_boxes[..., :3]
+        valid = valid & ((centers >= pcr[:3]).all(dim=-1)
+                         & (centers <= pcr[3:]).all(dim=-1))
+        return {
+            "box3d_lidar": torch.where(valid[..., None], out_boxes, 0.0),
+            "scores": torch.where(valid, out_scores, 0.0),
+            "label_preds": torch.where(valid, out_labels, 0),
+            "valid": valid,
+        }

@@ -219,6 +219,10 @@ def build() -> ctypes.CDLL:
         # idx_bytes, reps; stream
         lib.sessd_sparse_conv_fwd_repeat.argtypes = \
             [ptr] * 4 + [i32] * 8 + [ptr]
+        # boxes, scores, mask, keep, valid; batch, pre, slots; threshold;
+        # stream (the rotated NMS, ops/cuda/nms.py)
+        lib.sessd_rotated_nms.argtypes = \
+            [ptr] * 5 + [i32] * 3 + [ctypes.c_float, ptr]
         # cin, cout, dtype -> INSTANCE_CODES of the body, 0 none
         instances = (lib.sessd_sparse_conv_fwd_instance,
                      lib.sessd_fused_sparse_conv_stream_instance,
@@ -256,6 +260,7 @@ def build() -> ctypes.CDLL:
                    lib.sessd_sparse_conv_train_blocks_per_sm,
                    lib.sessd_sparse_conv_dw_blocks_per_sm,
                    lib.sessd_fused_sparse_conv_stream_blocks_per_sm,
+                   lib.sessd_rotated_nms,
                    *instances):
             fn.restype = i32
         lib.sessd_cuda_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,15 @@
 """The port's decode path against the JAX package and the numpy oracles:
 box decode, rotated BEV IoU (vs JAX and core/rotated_iou_np.py, atol 1e-5),
 rotated NMS indices (vs JAX and core/nms_np.py, on tie-free scores), and
-both nms_pre_small branches of predict_batch (vs JAX predict_batch)."""
+both nms_pre_small branches of predict_batch (vs JAX predict_batch). Then
+the port alone: predict_batch, which runs rotate_nms once for the batch,
+bit for bit equal to predict_single scene by scene (both branches, with
+and without the frustum cull), and the batched NMS's CPU twin equal to
+rotate_nms scene by scene."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sessd_tpu.core import box_jax, rotated_iou_np
 from sessd_tpu.core import nms as jnms
@@ -12,8 +17,10 @@ from sessd_tpu.core import rotated_iou as jiou
 from sessd_tpu.core.anchors import create_anchors_3d_range
 from sessd_tpu.core.nms_np import rotate_nms_np
 from sessd_tpu.models import predict as jpredict
-from sessd_torch.core import box_torch, nms, rotated_iou
+from sessd_torch.core import box_np, box_torch, nms, rotated_iou
 from sessd_torch.models import predict
+from sessd_torch.ops.cuda import nms as nms_cuda
+from sessd_torch.utils import kitti_synth
 from tests.test_torch_common import to_torch
 import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
@@ -156,3 +163,81 @@ def test_direction_flip_as_jax():
     d = (on["box3d_lidar"] - off["box3d_lidar"])[..., 6].numpy()
     assert np.all(np.isclose(d, 0) | np.isclose(d, np.pi))
     assert np.isclose(d, np.pi).any() and np.isclose(d, 0).any()
+
+
+def _frustums(b):
+    """[b, 6, 4, 3] camera frustums of the synthetic KITTI calibration, the
+    image narrowing scene by scene, so each scene culls its own boxes."""
+    return np.stack([box_np.get_valid_frustum(
+        kitti_synth.R0, kitti_synth.TR, (375, w), kitti_synth.P2)[0]
+        for w in np.linspace(1242, 400, b).astype(int)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("frustum", [False, True], ids=["serving", "frustum"])
+@pytest.mark.parametrize("n_hot,branch", [(20, "small"), (50, "full")])
+@pytest.mark.parametrize("b", [3, 8])
+def test_predict_batch_equals_predict_single_per_scene(b, n_hot, branch,
+                                                       frustum):
+    rng = np.random.RandomState(100 * b + n_hot)
+    anchors = to_torch(_anchors(8, 16))
+    preds = {k: to_torch(v)
+             for k, v in _preds(rng, len(anchors), n_hot, b).items()}
+    cfg = predict.PredictConfig(nms_pre_max_size=64, nms_post_max_size=24,
+                                nms_pre_small=32)
+    surf = to_torch(_frustums(b)) if frustum else None
+    got = predict.predict_batch(preds, anchors, cfg, surf)
+    scene_cfg = cfg._replace(nms_pre_max_size=32) if branch == "small" \
+        else cfg
+    want = [predict.predict_single({k: v[i] for k, v in preds.items()},
+                                   anchors, scene_cfg,
+                                   None if surf is None else surf[i])
+            for i in range(b)]
+    for k, v in got.items():
+        assert torch.equal(v, torch.stack([w[k] for w in want])), k
+    kept = got["valid"].sum(dim=1)
+    assert (kept > 0).all()
+    if frustum:
+        whole = predict.predict_batch(preds, anchors, cfg)["valid"]
+        assert (got["valid"] <= whole).all()
+        assert got["valid"].sum() < whole.sum()
+    elif branch == "small":
+        assert (kept < 24).all()  # fewer kept than post
+    else:
+        assert (kept == 24).any()  # post cuts the kept list
+
+
+@pytest.mark.parametrize("post", [12, 40])
+@pytest.mark.parametrize("thresh", [0.01, 0.3])
+def test_batched_nms_twin_equals_rotate_nms_per_scene(thresh, post):
+    """The twin the wrapper takes on the CPU: -inf padding, an all-padding
+    scene, a one-box scene and tied scores, against rotate_nms after the
+    same stable sort; post under pre and equal to it."""
+    rng = np.random.RandomState(7)
+    b7 = np.stack([_clustered_boxes(rng) for _ in range(4)])  # [4, 48, 7]
+    scores = rng.rand(4, 48).astype(np.float32)
+    scores[0, 30:] = -np.inf
+    scores[1] = -np.inf
+    scores[2, 1:] = -np.inf
+    scores[3, ::2] = 0.5
+    top, order = nms.score_order(to_torch(scores), 40)
+    rows = order[..., None].expand(-1, -1, 7)
+    keep, valid = nms_cuda.rotated_nms(to_torch(b7).gather(1, rows),
+                                       top.contiguous(), post, thresh)
+    assert keep.shape == valid.shape == (4, post)
+    for i in range(4):
+        idx, ok = nms.rotate_nms(to_torch(b7[i][:, [0, 1, 3, 4, 6]]),
+                                 to_torch(scores[i]), pre_max_size=40,
+                                 post_max_size=post, iou_threshold=thresh)
+        assert torch.equal(valid[i], ok)
+        assert torch.equal(torch.where(ok, order[i][keep[i]], 0), idx)
+    assert valid[1].sum() == 0 and valid[2].sum() == 1
+    assert valid[0].sum() > 1
+
+
+def test_batched_nms_raises_off_cpu_and_cuda():
+    """Only CPU tensors take the twin; any other device raises."""
+    before = nms_cuda.rotated_nms.launches
+    with pytest.raises(ValueError, match="no kernel for device"):
+        nms_cuda.rotated_nms(torch.zeros(2, 8, 7, device="meta"),
+                             torch.zeros(2, 8, device="meta"), 4, 0.01)
+    assert nms_cuda.rotated_nms.launches == before

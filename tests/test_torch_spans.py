@@ -178,9 +178,11 @@ def test_serving_pass_records_its_phases(recorder):
             "infer.stage", "infer.forward", "infer.predict"]
         assert [spans[i][0] for i in _children(spans, phases[1])] == MODEL
         assert [spans[i][0] for i in _children(spans, phases[2])] == [
-            "predict.sync", "predict.scenes", "predict.stack"]
+            "predict.sync", "predict.decode", "predict.nms",
+            "predict.finish"]
         mine = {n: v for root, n, v in counts if root == r}
         assert mine["host_sync"] == 1
+        assert "nms_kernel" not in mine  # the CPU twin, not the kernel pair
         assert mine.get("nms_small", 0) + mine.get("nms_full", 0) == 1
         total, uncovered = _covered(spans, r)
         assert uncovered <= max(0.05 * total, 1e6)
