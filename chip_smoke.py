@@ -262,6 +262,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    points-in serving, eval, 3-class, data parallel, multi-process eval),
    none on DI-NMS or in training steps; their sum joins the kernels
    line.
+23. CenterPoint instances (after phase 22): the kernels CenterPoint-Voxel
+   (Waymo, ``centerpoint_waymo_bf16.py``) adds, once each against its
+   twin on the card at that model's row counts: bf16 K1 and K3 at (64,
+   128) and (128, 128) (``sc.WIDE_PAIRS``: 120,000 rows, random
+   rulebooks, 27 taps; within 2e-2 of the twin's max), the residual
+   blocks' store (``residual=``, the identity added before the ReLU) at 16,
+   32, 64 and 128 channels at their stages' rows in a batch of 4 scans
+   (430,000, 350,000, 150,000 and 60,000), the first conv's 5
+   input channels zero-padded to 16 through K1's and K3's 16 -> 16
+   instance against the 5-channel twin (800,000 rows), and the rotated-NMS
+   pair at pre 4096 (batch 4, 2,800 valid rows a scene, IoU 0.7, post
+   500) with kept ranks equal to the twin's; device ms of each beside its
+   bound.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``fused_sparse_conv_stream_ring``,
@@ -461,7 +474,9 @@ def instance_resources(log: str, kernel: str) -> dict:
             continue
         m = re.search(r"Used (\d+) registers", line)
         key = name and re.search(kernel + _MANGLED_ARGS, name)
-        if m and key:
+        # the residual-store instances (template flag RES, "Lb1E") of K3
+        # share the plain ones' channels: the plain ones are listed
+        if m and key and "Lb1E" not in name:
             dtype = "float32" if key.group(1) == "f" else "bfloat16"
             idx = "int16" if key.group(2) == "s" else "int32"
             out[dtype, idx, int(key.group(3)), int(key.group(4))] = (
@@ -3478,6 +3493,97 @@ def phase_nms(device):
     return rows
 
 
+def phase_centerpoint(device):
+    """Phase 23: CenterPoint's new kernel instances and the NMS at pre
+    4096, each against its twin, timed beside its bound."""
+    rng = np.random.RandomState(SEED)
+
+    def conv_inputs(n, cin, cout, taps=27, hit=0.3):
+        rb = rng.randint(0, n, (n, taps))
+        rb[rng.rand(n, taps) > hit] = n
+        rb[:, taps // 2] = np.arange(n)  # a submanifold conv's centre tap
+        f = torch.from_numpy(rng.randn(n, cin).astype(np.float32))
+        w = torch.from_numpy((rng.randn(taps, cin, cout)
+                              / np.sqrt(taps * cin)).astype(np.float32))
+        b = torch.from_numpy((rng.randn(cout) * 0.3).astype(np.float32))
+        return f, torch.from_numpy(rb.astype(np.int32)), w, b
+
+    def row(name, got, want, ms, bound):
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        if err > 2e-2:
+            raise AssertionError(f"{name}: {err:.3g} of the twin's max")
+        print(f"CenterPoint {name}: {ms:.4f} ms, bound {bound.ms():.4f} ms "
+              f"({bound.by()}), share {100 * bound.ms() / ms:.2f}%, "
+              f"{err:.2e} of the twin's max; {card_line()}")
+
+    n = 120000
+    for cin, cout in sc.WIDE_PAIRS:
+        f, rb, w, b = conv_inputs(n, cin, cout)
+        args = (f.to(device, torch.bfloat16), rb.to(device),
+                w.to(device, torch.bfloat16), b.to(device), n)
+        want = sc.fused_sparse_conv_ref(*args)
+        bound = Bound()
+        bound.add([args[0], args[1], args[2], want], hits(args[1], n), cin,
+                  cout, torch.bfloat16)
+        for name, fn in (("K1", sc.fused_sparse_conv),
+                         ("K3", sc.fused_sparse_conv_stream)):
+            row(f"{name} {cin} -> {cout} ({n} rows)", fn(*args), want,
+                median_ms(lambda: fn(*args)), bound)
+    # the residual blocks' store: the identity added before the ReLU, at
+    # each width of the backbone, at its stage's rows in a batch of 4 scans
+    for c, n in ((16, 430000), (32, 350000), (64, 150000), (128, 60000)):
+        f, rb, w, b = conv_inputs(n, c, c)
+        res = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(
+            device, torch.bfloat16)
+        args = (f.to(device, torch.bfloat16), rb.to(device),
+                w.to(device, torch.bfloat16), b.to(device), n)
+        want = sc.fused_sparse_conv_ref(*args, residual=res)
+        bound = Bound()
+        bound.add([args[0], args[1], args[2], res, want], hits(args[1], n),
+                  c, c, torch.bfloat16)
+        for name, fn in (("K1", sc.fused_sparse_conv),
+                         ("K3", sc.fused_sparse_conv_stream)):
+            row(f"{name} {c} -> {c} residual ({n} rows)",
+                fn(*args, residual=res), want,
+                median_ms(lambda: fn(*args, residual=res)), bound)
+    n = 800000
+    f, rb, w, b = conv_inputs(n, 5, 16, hit=0.15)
+    want = sc.fused_sparse_conv_ref(f.to(device, torch.bfloat16),
+                                    rb.to(device),
+                                    w.to(device, torch.bfloat16),
+                                    b.to(device), n)
+    args = (torch.nn.functional.pad(f, (0, 11)).to(device, torch.bfloat16),
+            rb.to(device),
+            torch.nn.functional.pad(w, (0, 0, 0, 11)).to(device,
+                                                         torch.bfloat16),
+            b.to(device), n)
+    bound = Bound()
+    bound.add([f, rb, w, want], hits(args[1], n), 5, 16, torch.bfloat16)
+    for name, fn in (("K1", sc.fused_sparse_conv),
+                     ("K3", sc.fused_sparse_conv_stream)):
+        row(f"{name} first conv 5 (padded to 16) -> 16 ({n} rows)",
+            fn(*args), want, median_ms(lambda: fn(*args)), bound)
+    boxes, scores = nms_inputs(4096, 2800, device)
+    boxes, scores = boxes[:4].contiguous(), scores[:4].contiguous()
+    got = nms_cuda.rotated_nms(boxes, scores, 500, 0.7)
+    want = nms_cuda.rotated_nms_ref(boxes, scores, 500, 0.7)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("rotated NMS at pre 4096: the pair's kept ranks "
+                             "differ from the twin's")
+    ms = median_ms(lambda: nms_cuda.rotated_nms(boxes, scores, 500, 0.7))
+    bound = Bound()
+    pairs = 4 * 2800 * 2799 // 2
+    bound.seconds = {"bytes": (4 * (boxes.numel() + scores.numel())
+                               + 2 * 8 * 4 * 4096 * 64) / HBM_BYTES_PER_S,
+                     "operations": pairs * NMS_PAIR_FLOPS
+                     / PEAK_FLOPS[torch.float32]}
+    print(f"CenterPoint rotated NMS, batch 4, pre 4096, 2800 valid a scene: "
+          f"pair {ms:.4f} ms, bound {bound.ms():.4f} ms ({bound.by()}), "
+          f"share {100 * bound.ms() / ms:.2f}%, {int(got[1].sum())} kept, "
+          f"equal to the twin; {card_line()}")
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -3531,6 +3637,8 @@ def main():
         phase_pillar_plan(model, spec, device, card)
     with phase("rotated NMS"):
         nms_rows = phase_nms(device)
+    with phase("CenterPoint instances"):
+        phase_centerpoint(device)
 
     tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
     try:

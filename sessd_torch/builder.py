@@ -19,9 +19,11 @@ from .data.augment import GroundTruthSampler
 from .data.dataset import KittiDataset
 from .data.loader import DataLoader
 from .data.pipeline import PipelineConfig
+from .models.backbone import SpMiddleResNetFHD
 from .models.detector import VoxelNet
+from .models.head import CenterHead
 from .models.layers import sync_batch_norm
-from .models.pillars import PointPillars
+from .models.pillars import RPN, PointPillars
 from .models.predict import PredictConfig
 from .ops.voxelize import VoxelizerSpec
 from .train.losses import ConsistencyConfig, LossConfig
@@ -44,12 +46,17 @@ def load_config(name: str) -> Config:
 
 
 def build_voxelizer(cfg) -> VoxelizerSpec:
-    """cfg: the ``voxel_generator`` section."""
+    """cfg: the ``voxel_generator`` section. A (training, test) pair of
+    voxel caps (det3d's Waymo configs) takes the test cap, which serving
+    runs at."""
+    max_voxels = cfg.get("max_voxel_num", 20000)
+    if isinstance(max_voxels, (list, tuple)):
+        max_voxels = max_voxels[-1]
     return VoxelizerSpec(
         point_cloud_range=tuple(cfg["range"]),
         voxel_size=tuple(cfg["voxel_size"]),
         max_points=cfg.get("max_points_in_voxel", 5),
-        max_voxels=cfg.get("max_voxel_num", 20000),
+        max_voxels=max_voxels,
     )
 
 
@@ -59,7 +66,10 @@ def build_detector(cfg, dense_from_stage: Optional[int] = None,
     sets the compute dtype) -> ``VoxelNet`` or ``PointPillars``
     (sessd_tpu/builder.py:44-84). ``dense_from_stage`` is VoxelNet's
     training plan, 3 by default as in sessd_tpu/builder.py:70; the argument
-    overrides it, e.g. with ``teacher_dense_from_stage``. With a
+    overrides it, e.g. with ``teacher_dense_from_stage``. VoxelNet's
+    backbone, neck and head follow their config types: SE-SSD's
+    (SpMiddleFHD, SSFA, MultiGroupHead) or CenterPoint's
+    (``_center_modules``). With a
     ``process_group`` every BatchNorm takes its training statistics over
     the group's ranks (the JAX builder's ``axis_name``). Parameters are
     left at construction values; load a state dict or call
@@ -77,7 +87,8 @@ def build_detector(cfg, dense_from_stage: Optional[int] = None,
             sparse_shape=voxelizer.sparse_shape,
             dense_from_stage=(cfg.get("dense_from_stage", 3)
                               if dense_from_stage is None
-                              else dense_from_stage), **kw)
+                              else dense_from_stage),
+            **_center_modules(m, kw["num_input_features"]), **kw)
     elif m["type"] == "PointPillars":
         nx, ny, _ = voxelizer.grid_size
         model = PointPillars(grid_size=(ny, nx),
@@ -87,6 +98,39 @@ def build_detector(cfg, dense_from_stage: Optional[int] = None,
     else:
         raise ValueError(f"unknown detector type {m['type']}")
     return sync_batch_norm(model, process_group)
+
+
+_SSD_TYPES = {"backbone": "SpMiddleFHD", "neck": "SSFA",
+              "bbox_head": "MultiGroupHead"}
+
+
+def _center_modules(m, num_input_features: int) -> dict:
+    """VoxelNet's ``backbone`` / ``neck`` / ``bbox_head`` arguments for
+    the config's module types: none for SE-SSD's (VoxelNet builds its
+    own), CenterPoint's ``SpMiddleResNetFHD``, ``RPN`` and ``CenterHead``
+    from their sections."""
+    out = {}
+    for key, default in _SSD_TYPES.items():
+        sec = m[key]
+        kind = sec["type"]
+        if kind == default:
+            continue
+        if kind == "SpMiddleResNetFHD":
+            out[key] = SpMiddleResNetFHD(
+                sec.get("num_input_features", num_input_features))
+        elif kind == "RPN":
+            out[key] = RPN(sec["num_input_features"], sec["layer_nums"],
+                           sec["ds_layer_strides"], sec["ds_num_filters"],
+                           sec["us_layer_strides"], sec["us_num_filters"])
+        elif kind == "CenterHead":
+            out[key] = CenterHead(
+                [dict(t) for t in sec["tasks"]], sec["in_channels"],
+                sec["share_conv_channel"],
+                {k: tuple(v) for k, v in sec["common_heads"].items()},
+                sec.get("num_hm_conv", 2), sec.get("init_bias", -2.19))
+        else:
+            raise ValueError(f"unknown {key} type {kind}")
+    return out
 
 
 def build_anchors(cfg) -> np.ndarray:
@@ -117,6 +161,15 @@ def build_predict_config(cfg) -> PredictConfig:
     nms_type = tc["nms"].get("nms_type", "rotate_nms")
     if nms_type not in ("rotate_nms", "rotate_weighted_nms"):
         raise ValueError(f"unknown nms_type {nms_type}")
+    center = ()
+    if cfg.model["bbox_head"]["type"] == "CenterHead":
+        # the head's grid: the voxel grid // out_size_factor, each cell
+        # out_size_factor voxels wide (center_head.py's decode)
+        f = tc["out_size_factor"]
+        nx, ny, _ = build_voxelizer(cfg.voxel_generator).grid_size
+        center = (ny // f, nx // f, f * tc["voxel_size"][0],
+                  f * tc["voxel_size"][1], tc["pc_range"][0],
+                  tc["pc_range"][1])
     return PredictConfig(
         score_threshold=tc["score_threshold"],
         nms_pre_max_size=tc["nms"]["nms_pre_max_size"],
@@ -127,6 +180,7 @@ def build_predict_config(cfg) -> PredictConfig:
         use_dir_classifier=cfg.model["bbox_head"].get("loss_aux") is not None,
         direction_offset=cfg.model["bbox_head"].get("direction_offset", 0.0),
         nms_type=nms_type,
+        center=center,
     )
 
 

@@ -17,6 +17,8 @@
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
 // with rb[n, k] outside [0, n_in) a miss (a zero row), and stores
 //   EPI:  out[n] = relu?(acc[n] + bias) if any rb[n, k] != n_in, else 0
+//         (RES: relu?(acc[n] + bias + residual[n]), the residual block's
+//         identity added in f32 before the ReLU, bf16 with CIN == COUT)
 //   else: out[n] = acc[n] if row_mask is null or row_mask[n], else 0.
 // The sum runs over taps in order and, inside a tap, in the tensor cores'
 // order, so it does not equal the scalar tile bit for bit.
@@ -189,6 +191,14 @@ constexpr bool kMmaTile = std::is_same<T, __nv_bfloat16>::value &&
                           (CIN == 16 || CIN == 32 || CIN == 64) &&
                           (COUT == 16 || COUT == 32 || COUT == 64);
 
+// the bf16 instances at 128 output channels, (64, 128) and (128, 128), of
+// the serving convs alone (K1 and K3): the last stages of CenterPoint's
+// residual backbone (SpMiddleResNetFHD). The same tile with 64 accumulators
+// a thread; mirrored by ops/cuda/sparse_conv.py:WIDE_PAIRS
+template <typename T, int CIN, int COUT>
+constexpr bool kWideTile = std::is_same<T, __nv_bfloat16>::value &&
+                           (CIN == 64 || CIN == 128) && COUT == 128;
+
 // the f32 instances that take it through 3xTF32 in every kernel that calls
 // it (conv_instance names them "tf32")
 template <typename T, int CIN, int COUT>
@@ -214,10 +224,11 @@ struct MmaLayout {
   static constexpr int kBSbo = kBKMajor ? kKc * 128 : 128;
   static constexpr int kBStep = kBKMajor ? 256 : 2 * kNc * 128;
   // taps in the ring: 3 for f32 64 -> 64, where 4 would leave one block
-  // per SM
-  static constexpr int kRingStages = kTf32 && CIN == 64 && COUT == 64
-                                         ? kStages - 1
-                                         : kStages;
+  // per SM; 2 for bf16 128 -> 128 (48 KB a tap), where 3 or 4 would
+  static constexpr int kRingStages =
+      kTf32 && CIN == 64 && COUT == 64 ? kStages - 1
+      : !kTf32 && CIN == 128 && COUT == 128 ? 2
+                                            : kStages;
   // a stage: bf16 the tap's gathered rows and weights; f32 the gathered rows
   // alone (their hi part in place once split)
   static constexpr int kStageBytes = kTf32 ? kABytes : kABytes + kBBytes;
@@ -329,6 +340,44 @@ struct Wgmma<64, KMAJOR_B> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1), "n"(KMAJOR_B ? 0 : 1));
+  }
+};
+
+// the 128-column instances (kWideTile): 64 f32 accumulators a thread
+template <bool KMAJOR_B>
+struct Wgmma<128, KMAJOR_B> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(a), "l"(b), "r"(1), "n"(KMAJOR_B ? 0 : 1));
   }
 };
@@ -479,20 +528,24 @@ __device__ __forceinline__ void fence_accumulators(float (&d)[N]) {
 // launch in clusters of S blocks along x. w2 is [taps, CIN, COUT], or with
 // KMAJOR_B [taps, COUT, CIN]. feats and w2 must be 16-byte aligned. T (bf16,
 // or f32 through 3xTF32) is deduced from feats. Every conv runs MODE
-// kTileFull; the other modes are the bf16 ablation's (TileMode).
+// kTileFull; the other modes are the bf16 ablation's (TileMode). RES (with
+// EPI) adds residual [n_out, COUT] in the store.
 template <typename IdxT, int CIN, int COUT, bool EPI, bool SPLIT = false,
-          bool KMAJOR_B = false, int MODE = kTileFull, typename T>
+          bool KMAJOR_B = false, int MODE = kTileFull, bool RES = false,
+          typename T>
 __device__ __forceinline__ void gather_mma_tile(
     const T* __restrict__ feats, const IdxT* __restrict__ rb,
     const T* __restrict__ w2, const float* __restrict__ bias,
     const uint8_t* __restrict__ row_mask, T* __restrict__ out, int n_in,
-    int n_out, int taps, int relu) {
+    int n_out, int taps, int relu, const T* __restrict__ residual = nullptr) {
   using L = MmaLayout<CIN, COUT, KMAJOR_B, T>;
   constexpr bool kTf32 = L::kTf32;
   static_assert(kTf32 || std::is_same<T, __nv_bfloat16>::value,
                 "bf16, or f32 through 3xTF32");
   static_assert(!kTf32 || (!SPLIT && MODE == kTileFull),
                 "the 3xTF32 tile runs whole tiles, unablated");
+  static_assert(!RES || (EPI && CIN == COUT && !kTf32),
+                "a residual joins a bf16 serving conv of equal widths");
   constexpr bool kLinear = MODE == kTileLinear;
   constexpr int kStages = L::kRingStages;  // this instance's ring
   extern __shared__ __align__(128) unsigned char sessd_mma_smem[];
@@ -772,6 +825,13 @@ __device__ __forceinline__ void gather_mma_tile(
       if (EPI) {
         v0 += b0;
         v1 += b1;
+        if constexpr (RES) {
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  residual + (size_t)n * COUT + col));
+          v0 += r.x;
+          v1 += r.y;
+        }
         if (relu) {
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);

@@ -21,8 +21,8 @@
 //   shared memory; bit j of word w of row i is set where rows i and j are
 //   both valid, j = 64 w + bit > i, and iou(i, j) > threshold. Output
 //   [batch, pre, words] u64.
-// rotated_nms_scan_kernel: one warp per scene. Lane w holds word w of the
-//   ranks still live (valid and not removed). The warp visits live ranks in
+// rotated_nms_scan_kernel: one warp per scene. Lane l holds words l and
+//   l + 32 of the ranks still live (valid and not removed). The warp visits live ranks in
 //   order; each is kept, appended to the next slot, and its mask row is
 //   cleared from the live words. It stops at min(pre, post) slots. Output:
 //   keep [batch, slots] int64 (rank into the sorted rows, 0 past the last
@@ -56,7 +56,8 @@ constexpr int kRows = 16;         // rows of a mask tile
 constexpr int kParts = 16;        // threads per row of a tile
 constexpr int kCols = kTile / kParts;  // columns per thread
 constexpr int kMaskThreads = kRows * kParts;
-constexpr int kMaxWords = 32;     // the scan's lanes: pre <= 2048
+constexpr int kWordsPerLane = 2;  // the scan's words a lane holds
+constexpr int kMaxWords = 32 * kWordsPerLane;  // pre <= 4096
 constexpr float kEps = 1e-8f;     // core/rotated_iou.py: _EPS
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -215,17 +216,24 @@ __global__ void __launch_bounds__(32)
   long long* kb = keep + static_cast<size_t>(b) * slots;
   bool* vb = valid + static_cast<size_t>(b) * slots;
 
-  unsigned long long live = 0;  // lane w: word w of the live ranks
+  // lane l: word l of the live ranks in lo_live, word l + 32 in hi_live
+  static_assert(kWordsPerLane == 2, "two words a lane");
+  unsigned long long lo_live = 0, hi_live = 0;
   for (int w = 0; w < words; ++w) {
     const int i0 = w * kTile + lane, i1 = i0 + 32;
     const unsigned lo = __ballot_sync(kFull, i0 < pre && live_score(sc[i0]));
     const unsigned hi = __ballot_sync(kFull, i1 < pre && live_score(sc[i1]));
-    if (lane == w) live = static_cast<unsigned long long>(hi) << 32 | lo;
+    const unsigned long long word = static_cast<unsigned long long>(hi) << 32 |
+                                    lo;
+    if (lane == w) lo_live = word;
+    if (lane + 32 == w) hi_live = word;
   }
 
   int kept = 0;
   for (int w = 0; w < words && kept < slots; ++w) {
-    unsigned long long cand = __shfl_sync(kFull, live, w);
+    const bool upper = w >= 32;  // the same for every lane: no divergence
+    unsigned long long cand =
+        __shfl_sync(kFull, upper ? hi_live : lo_live, w % 32);
     while (cand != 0 && kept < slots) {
       const int bit = __ffsll(static_cast<long long>(cand)) - 1;
       const int i = w * kTile + bit;
@@ -234,10 +242,14 @@ __global__ void __launch_bounds__(32)
         vb[kept] = true;
       }
       ++kept;
-      if (lane < words) live &= ~m[static_cast<size_t>(i) * words + lane];
+      const unsigned long long* row = m + static_cast<size_t>(i) * words;
+      if (lane < words) lo_live &= ~row[lane];
+      if (lane + 32 < words) hi_live &= ~row[lane + 32];
       // the ranks of this word above i that are still live
       cand = bit == 63 ? 0
-                       : __shfl_sync(kFull, live, w) & (~0ull << (bit + 1));
+                       : __shfl_sync(kFull, upper ? hi_live : lo_live,
+                                     w % 32) &
+                             (~0ull << (bit + 1));
     }
   }
   for (int k = kept + lane; k < slots; k += 32) {
@@ -251,7 +263,7 @@ __global__ void __launch_bounds__(32)
 // Both kernels on `stream`: boxes [batch, pre, 7] f32 in descending score
 // order, scores [batch, pre] f32, mask [batch, pre, ceil(pre / 64)] u64
 // (scratch; the caller may read the bits after), keep [batch, slots] int64
-// and valid [batch, slots] bool, pre <= 2048 and 0 < slots <= pre. Returns
+// and valid [batch, slots] bool, pre <= 4096 and 0 < slots <= pre. Returns
 // the first launch error, cudaErrorInvalidValue for arguments out of
 // range.
 extern "C" int sessd_rotated_nms(const float* boxes, const float* scores,

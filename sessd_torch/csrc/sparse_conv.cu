@@ -33,6 +33,11 @@
 //   is the f32 stream kernel's instance under this kernel's name, so f32
 //   K1 equals f32 K3, and the f32 forward (K4) plus bias, ReLU and the
 //   any-hit mask, bit for bit.
+// - bf16 at (64, 128) and (128, 128) (kWideTile, the last stages of
+//   CenterPoint's SpMiddleResNetFHD): the same tile and cluster split with
+//   64 accumulators a thread; a 128 -> 128 tap is 48 KB, so its ring holds
+//   2 taps, and two blocks of either instance fit an SM. f32 has no
+//   instance of these pairs.
 // - the Cin = 4 first conv, in both types: gather_direct.cuh's direct body
 //   on the CUDA cores (all 27 taps' weights staged once per block, one
 //   thread per row walking its taps without a barrier), 128 threads, 128
@@ -48,14 +53,24 @@
 
 namespace {
 
-template <typename T, typename IdxT, int CIN, int COUT>
+// RES: the store adds residual [n_out, COUT] before the ReLU (the second
+// conv of a residual block; bf16 tensor-core instances with CIN == COUT)
+template <typename T, typename IdxT, int CIN, int COUT, bool RES = false>
 __global__ void __launch_bounds__(sessd::kThreads)
 fused_sparse_conv_kernel(const T* __restrict__ feats,
                          const IdxT* __restrict__ rb,
                          const T* __restrict__ w2,
                          const float* __restrict__ bias, T* __restrict__ out,
-                         int n_in, int n_out, int taps, int relu) {
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>)
+                         int n_in, int n_out, int taps, int relu,
+                         const T* __restrict__ residual) {
+  if constexpr ((sessd::kMmaTile<T, CIN, COUT> ||
+                 sessd::kWideTile<T, CIN, COUT>) && RES)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, true, true, false,
+                           sessd::kTileFull, true>(
+        feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu,
+        residual);
+  else if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                     sessd::kWideTile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, true, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
   else if constexpr (sessd::kTf32Tile<T, CIN, COUT>)
@@ -82,10 +97,10 @@ fused_sparse_conv_scalar_kernel(const T* __restrict__ feats,
 }
 
 // above 48 KB a block's shared memory must be asked for, once per kernel
-template <typename T, typename IdxT, int CIN, int COUT>
+template <typename T, typename IdxT, int CIN, int COUT, bool RES = false>
 cudaError_t allow_smem() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fused_sparse_conv_kernel<T, IdxT, CIN, COUT>,
+      fused_sparse_conv_kernel<T, IdxT, CIN, COUT, RES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       sessd::kTileSmemBytes<T, CIN, COUT>);
   return attr;
@@ -116,24 +131,40 @@ int mma_wave() {
 
 template <int CIN, int COUT>
 int wave_of() {
-  if constexpr (sessd::kMmaTile<__nv_bfloat16, CIN, COUT>)
+  if constexpr (sessd::kMmaTile<__nv_bfloat16, CIN, COUT> ||
+                sessd::kWideTile<__nv_bfloat16, CIN, COUT>)
     return mma_wave<CIN, COUT>();
   else
     return 0;
 }
 
 // split: 0 = the rule's S (sessd::cluster_split), else that S (the
-// comparison entry, which takes tensor-core instances only)
-template <typename T, typename IdxT, int CIN, int COUT>
+// comparison entry, which takes tensor-core instances only); residual:
+// null, or the RES instance's [n_out, COUT] (bf16 tensor-core tiles with
+// CIN == COUT: the residual blocks' second convs)
+template <typename T, typename IdxT, int CIN, int COUT, bool RES = false>
 cudaError_t launch(const void* feats, const void* rb, const void* w2,
                    const float* bias, void* out, int n_in, int n_out,
-                   int taps, int relu, int split, cudaStream_t stream) {
-  auto* kern = fused_sparse_conv_kernel<T, IdxT, CIN, COUT>;
+                   int taps, int relu, int split, cudaStream_t stream,
+                   const void* residual = nullptr) {
+  constexpr bool kBf16 = sessd::kMmaTile<T, CIN, COUT> ||
+                         sessd::kWideTile<T, CIN, COUT>;
+  if constexpr (!RES && kBf16 && CIN == COUT) {
+    if (residual != nullptr)
+      return launch<T, IdxT, CIN, COUT, true>(feats, rb, w2, bias, out, n_in,
+                                             n_out, taps, relu, split, stream,
+                                             residual);
+  } else if constexpr (!RES) {
+    if (residual != nullptr) return cudaErrorInvalidValue;
+  }
+  auto* kern = fused_sparse_conv_kernel<T, IdxT, CIN, COUT, RES>;
+  const T* res = static_cast<const T*>(residual);
   const int tiles = sessd::gather_gemm_grid(n_out).x;
-  if constexpr (sessd::kMmaTile<T, CIN, COUT>) {
+  if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                sessd::kWideTile<T, CIN, COUT>) {
     const int wave = mma_wave<CIN, COUT>();
     if (wave <= 0) return cudaErrorInvalidConfiguration;
-    const cudaError_t smem_ok = allow_smem<T, IdxT, CIN, COUT>();
+    const cudaError_t smem_ok = allow_smem<T, IdxT, CIN, COUT, RES>();
     if (smem_ok != cudaSuccess) return smem_ok;
     if (split == 0) split = sessd::cluster_split(tiles, wave);
     if (split != 1 && split != 2 && split != sessd::kMaxSplit)
@@ -153,23 +184,25 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
     const cudaError_t err = cudaLaunchKernelEx(
         &cfg, kern, static_cast<const T*>(feats),
         static_cast<const IdxT*>(rb), static_cast<const T*>(w2), bias,
-        static_cast<T*>(out), n_in, n_out, taps, relu);
+        static_cast<T*>(out), n_in, n_out, taps, relu, res);
     return err != cudaSuccess ? err : cudaGetLastError();
   } else if constexpr (sessd::kTf32Tile<T, CIN, COUT>) {
     if (split > 1) return cudaErrorInvalidValue;  // whole tiles only
-    const cudaError_t smem_ok = allow_smem<T, IdxT, CIN, COUT>();
+    const cudaError_t smem_ok = allow_smem<T, IdxT, CIN, COUT, RES>();
     if (smem_ok != cudaSuccess) return smem_ok;
     kern<<<tiles, sessd::kMmaThreads, sessd::kTileSmemBytes<T, CIN, COUT>,
            stream>>>(static_cast<const T*>(feats),
                      static_cast<const IdxT*>(rb), static_cast<const T*>(w2),
-                     bias, static_cast<T*>(out), n_in, n_out, taps, relu);
+                     bias, static_cast<T*>(out), n_in, n_out, taps, relu,
+                     res);
     return cudaGetLastError();
   } else {
     if (split > 1) return cudaErrorInvalidValue;  // no cluster
     kern<<<sessd::direct_grid<CIN, COUT>(n_out), sessd::kDirectThreads, 0,
            stream>>>(static_cast<const T*>(feats),
                      static_cast<const IdxT*>(rb), static_cast<const T*>(w2),
-                     bias, static_cast<T*>(out), n_in, n_out, taps, relu);
+                     bias, static_cast<T*>(out), n_in, n_out, taps, relu,
+                     res);
     return cudaGetLastError();
   }
 }
@@ -195,17 +228,30 @@ cudaError_t launch_scalar(const void* feats, const void* rb, const void* w2,
   CASE(32, 64)                  \
   CASE(64, 64)
 
+// the bf16-only pairs of SpMiddleResNetFHD's last stages (kWideTile): the
+// 3xTF32 tile does not fit 128 -> 128 in an SM's shared memory, so f32 has
+// no instance of them
+#define SESSD_FUSED_WIDE_PAIRS(CASE) \
+  CASE(64, 128)                      \
+  CASE(128, 128)
+
+template <typename T>
+constexpr bool kHasWide = std::is_same<T, __nv_bfloat16>::value;
+
 template <typename T, typename IdxT>
 cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* rb, const void* w2,
                               const float* bias, void* out, int n_in,
                               int n_out, int taps, int relu, int split,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, const void* residual) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
     return launch<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in, n_out,    \
-                                   taps, relu, split, stream);
+                                   taps, relu, split, stream, residual);
   SESSD_FUSED_PAIRS(SESSD_CASE)
+  if constexpr (kHasWide<T>) {
+    SESSD_FUSED_WIDE_PAIRS(SESSD_CASE)
+  }
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
@@ -235,6 +281,12 @@ int fused_instance(int cin, int cout) {
                                                                     : 1);
   SESSD_FUSED_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
+  if constexpr (kHasWide<T>) {
+#define SESSD_CASE(CI, CO) \
+  if (cin == CI && cout == CO) return 2;
+    SESSD_FUSED_WIDE_PAIRS(SESSD_CASE)
+#undef SESSD_CASE
+  }
   return 0;
 }
 
@@ -244,6 +296,7 @@ int fused_wave(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
   if (cin == CI && cout == CO) return wave_of<CI, CO>();
   SESSD_FUSED_PAIRS(SESSD_CASE)
+  SESSD_FUSED_WIDE_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
 }
@@ -251,26 +304,26 @@ int fused_wave(int cin, int cout) {
 int fused(const void* feats, const void* rb, const void* w2,
           const float* bias, void* out, int n_in, int n_out, int cin,
           int cout, int taps, int dtype, int idx_bytes, int relu, int split,
-          void* stream) {
+          void* stream, const void* residual = nullptr) {
   if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && idx_bytes == 2)
     return dispatch_channels<float, int16_t>(cin, cout, feats, rb, w2, bias,
                                              out, n_in, n_out, taps, relu,
-                                             split, s);
+                                             split, s, residual);
   if (dtype == 0 && idx_bytes == 4)
     return dispatch_channels<float, int32_t>(cin, cout, feats, rb, w2, bias,
                                              out, n_in, n_out, taps, relu,
-                                             split, s);
+                                             split, s, residual);
   if (dtype == 1 && idx_bytes == 2)
     return dispatch_channels<__nv_bfloat16, int16_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, split,
-        s);
+        s, residual);
   if (dtype == 1 && idx_bytes == 4)
     return dispatch_channels<__nv_bfloat16, int32_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, split,
-        s);
+        s, residual);
   return cudaErrorInvalidValue;
 }
 
@@ -287,6 +340,18 @@ extern "C" int sessd_fused_sparse_conv(const void* feats, const void* rb,
                                        void* stream) {
   return fused(feats, rb, w2, bias, out, n_in, n_out, cin, cout, taps, dtype,
                idx_bytes, relu, 0, stream);
+}
+
+// sessd_fused_sparse_conv whose store adds `residual` [n_out, cout] (bf16,
+// 16-byte aligned) before the ReLU: the second conv of a residual block.
+// bf16 tensor-core instances with cin == cout only.
+extern "C" int sessd_fused_sparse_conv_residual(
+    const void* feats, const void* rb, const void* w2, const float* bias,
+    const void* residual, void* out, int n_in, int n_out, int cin, int cout,
+    int taps, int dtype, int idx_bytes, int relu, void* stream) {
+  if (residual == nullptr) return cudaErrorInvalidValue;
+  return fused(feats, rb, w2, bias, out, n_in, n_out, cin, cout, taps, dtype,
+               idx_bytes, relu, 0, stream, residual);
 }
 
 // sessd_fused_sparse_conv with the cluster size S fixed to `split` (1, 2 or

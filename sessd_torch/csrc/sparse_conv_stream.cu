@@ -25,6 +25,8 @@
 //   flight in a 4-stage cp.async ring, and skips the taps no row of the
 //   tile hits. It sums in the tensor cores' order; bf16 K1 runs the same
 //   tile, so the two agree bit for bit wherever K1 runs one CTA per tile.
+//   bf16 alone has the 128-channel pairs (64, 128) and (128, 128) of
+//   CenterPoint's residual backbone (gather_mma.cuh: kWideTile).
 // - f32 (the eval path on host chains and f32 serving, held to 1e-4):
 //   the same tile through 3xTF32, each operand split into two TF32 parts
 //   and each tap's three products summed from zero and added on the CUDA
@@ -194,18 +196,27 @@ __device__ __forceinline__ void stream_fma_tile(const T* __restrict__ feats,
   }
 }
 
-template <typename T, typename IdxT, int CIN, int COUT>
+// RES: the store adds residual [n_out, COUT] before the ReLU (the second
+// conv of a residual block: bf16, CIN == COUT)
+template <typename T, typename IdxT, int CIN, int COUT, bool RES = false>
 __global__ void __launch_bounds__(kThreads)
 fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
                                 const IdxT* __restrict__ rb,
                                 const T* __restrict__ w2,
                                 const float* __restrict__ bias,
                                 T* __restrict__ out, int n_in, int n_out,
-                                int taps, int relu) {
-  // every pair of SESSD_STREAM_PAIRS has 16-64 channels: the 4-channel
-  // first conv never streams
-  if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
-                sessd::kTf32Tile<T, CIN, COUT>)
+                                int taps, int relu,
+                                const T* __restrict__ residual) {
+  // every pair of SESSD_STREAM_PAIRS has 16-64 channels (the 4-channel
+  // first conv never streams), SESSD_STREAM_WIDE_PAIRS' 64-128, bf16 only
+  if constexpr (RES)
+    sessd::gather_mma_tile<IdxT, CIN, COUT, true, false, false,
+                           sessd::kTileFull, true>(
+        feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu,
+        residual);
+  else if constexpr (sessd::kMmaTile<T, CIN, COUT> ||
+                     sessd::kTf32Tile<T, CIN, COUT> ||
+                     sessd::kWideTile<T, CIN, COUT>)
     sessd::gather_mma_tile<IdxT, CIN, COUT, true>(
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
   else {
@@ -222,18 +233,21 @@ fused_sparse_conv_stream_ring_kernel(const T* __restrict__ feats,
                                      const T* __restrict__ w2,
                                      const float* __restrict__ bias,
                                      T* __restrict__ out, int n_in,
-                                     int n_out, int taps, int relu) {
+                                     int n_out, int taps, int relu,
+                                     const T* __restrict__ /*residual*/) {
   stream_fma_tile<T, IdxT, CIN, COUT>(feats, rb, w2, bias, out, n_in, n_out,
                                       taps, relu);
 }
 
 template <typename T, typename IdxT, int CIN, int COUT>
 using StreamKernel = void (*)(const T*, const IdxT*, const T*, const float*,
-                              T*, int, int, int, int);
+                              T*, int, int, int, int, const T*);
 
-// the stream kernel (RING false) or the ring's comparison kernel for the
-// instance, its threads and its dynamic shared memory
-template <typename T, typename IdxT, int CIN, int COUT, bool RING>
+// the stream kernel (RING false; RES: with the residual store) or the
+// ring's comparison kernel for the instance, its threads and its dynamic
+// shared memory
+template <typename T, typename IdxT, int CIN, int COUT, bool RING,
+          bool RES = false>
 struct Launch {
   static constexpr int kBlock = RING ? kThreads : sessd::kMmaThreads;
   static constexpr int kSmem = RING ? StreamLayout<T, CIN, COUT>::kSmemBytes
@@ -242,7 +256,7 @@ struct Launch {
     if constexpr (RING)
       return fused_sparse_conv_stream_ring_kernel<T, IdxT, CIN, COUT>;
     else
-      return fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT>;
+      return fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT, RES>;
   }
   // above 48 KB a block's shared memory must be asked for, once per kernel
   static cudaError_t allow_smem() {
@@ -252,18 +266,32 @@ struct Launch {
   }
 };
 
-template <typename T, typename IdxT, int CIN, int COUT, bool RING>
+// residual: null, or the RES instance's [n_out, COUT] (bf16, CIN == COUT:
+// the residual blocks' second convs)
+template <typename T, typename IdxT, int CIN, int COUT, bool RING,
+          bool RES = false>
 cudaError_t launch(const void* feats, const void* rb, const void* w2,
                    const float* bias, void* out, int n_in, int n_out,
-                   int taps, int relu, cudaStream_t stream) {
-  using L = Launch<T, IdxT, CIN, COUT, RING>;
+                   int taps, int relu, cudaStream_t stream,
+                   const void* residual = nullptr) {
+  if constexpr (!RING && !RES && CIN == COUT &&
+                std::is_same<T, __nv_bfloat16>::value) {
+    if (residual != nullptr)
+      return launch<T, IdxT, CIN, COUT, false, true>(
+          feats, rb, w2, bias, out, n_in, n_out, taps, relu, stream,
+          residual);
+  } else if constexpr (!RES) {
+    if (residual != nullptr) return cudaErrorInvalidValue;
+  }
+  using L = Launch<T, IdxT, CIN, COUT, RING, RES>;
   const cudaError_t attr = L::allow_smem();
   if (attr != cudaSuccess) return attr;
   L::kernel()<<<sessd::gather_gemm_grid(n_out), L::kBlock, L::kSmem,
                 stream>>>(static_cast<const T*>(feats),
                           static_cast<const IdxT*>(rb),
                           static_cast<const T*>(w2), bias,
-                          static_cast<T*>(out), n_in, n_out, taps, relu);
+                          static_cast<T*>(out), n_in, n_out, taps, relu,
+                          static_cast<const T*>(residual));
   return cudaGetLastError();
 }
 
@@ -276,17 +304,31 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
   CASE(32, 64)                   \
   CASE(64, 64)
 
+// the bf16-only pairs of SpMiddleResNetFHD's last stages (kWideTile), on
+// the tile alone: the ring's comparison entry takes f32 only
+#define SESSD_STREAM_WIDE_PAIRS(CASE) \
+  CASE(64, 128)                       \
+  CASE(128, 128)
+
+template <typename T, bool RING>
+constexpr bool kHasWide = !RING && std::is_same<T, __nv_bfloat16>::value;
+
 template <typename T, typename IdxT, bool RING>
 cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* rb, const void* w2,
                               const float* bias, void* out, int n_in,
                               int n_out, int taps, int relu,
-                              cudaStream_t stream) {
+                              cudaStream_t stream,
+                              const void* residual = nullptr) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
     return launch<T, IdxT, CI, CO, RING>(feats, rb, w2, bias, out, n_in,     \
-                                         n_out, taps, relu, stream);
+                                         n_out, taps, relu, stream,          \
+                                         residual);
   SESSD_STREAM_PAIRS(SESSD_CASE)
+  if constexpr (kHasWide<T, RING>) {
+    SESSD_STREAM_WIDE_PAIRS(SESSD_CASE)
+  }
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
@@ -298,6 +340,9 @@ int stream_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
   if (cin == CI && cout == CO) return sessd::kTf32Tile<T, CI, CO> ? 3 : 2;
   SESSD_STREAM_PAIRS(SESSD_CASE)
+  if constexpr (kHasWide<T, false>) {
+    SESSD_STREAM_WIDE_PAIRS(SESSD_CASE)
+  }
 #undef SESSD_CASE
   return 0;
 }
@@ -318,6 +363,9 @@ int stream_blocks_per_sm(int cin, int cout) {
     return err == cudaSuccess ? blocks : 0;                                  \
   }
   SESSD_STREAM_PAIRS(SESSD_CASE)
+  if constexpr (kHasWide<T, false>) {
+    SESSD_STREAM_WIDE_PAIRS(SESSD_CASE)
+  }
 #undef SESSD_CASE
   return 0;
 }
@@ -348,6 +396,27 @@ extern "C" int sessd_fused_sparse_conv_stream(const void* feats,
   if (dtype == 1 && idx_bytes == 4)
     return dispatch_channels<__nv_bfloat16, int32_t, false>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
+  return cudaErrorInvalidValue;
+}
+
+// sessd_fused_sparse_conv_stream whose store adds `residual` [n_out, cout]
+// (bf16, 16-byte aligned) before the ReLU: the second conv of a residual
+// block; bf16 with cin == cout only.
+extern "C" int sessd_fused_sparse_conv_stream_residual(
+    const void* feats, const void* rb, const void* w2, const float* bias,
+    const void* residual, void* out, int n_in, int n_out, int cin, int cout,
+    int taps, int dtype, int idx_bytes, int relu, void* stream) {
+  if (n_out <= 0 || taps <= 0 || taps > kMaxTaps || residual == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SESSD_CALL(T, I)                                                     \
+  return dispatch_channels<T, I, false>(cin, cout, feats, rb, w2, bias, out, \
+                                        n_in, n_out, taps, relu, s, residual)
+  if (dtype == 0 && idx_bytes == 2) SESSD_CALL(float, int16_t);
+  if (dtype == 0 && idx_bytes == 4) SESSD_CALL(float, int32_t);
+  if (dtype == 1 && idx_bytes == 2) SESSD_CALL(__nv_bfloat16, int16_t);
+  if (dtype == 1 && idx_bytes == 4) SESSD_CALL(__nv_bfloat16, int32_t);
+#undef SESSD_CALL
   return cudaErrorInvalidValue;
 }
 

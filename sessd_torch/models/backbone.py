@@ -38,6 +38,7 @@ from torch.nn import functional as F
 from ..ops import sparse as sp
 from ..ops.cuda.sparse_conv import (fused_sparse_conv,
                                     fused_sparse_conv_stream, streams)
+from ..utils.profiling import count
 from .layers import BatchNorm, derived, uniform_
 
 # (channels, n_subm, down_kernel, down_stride, down_pad) per stage
@@ -52,12 +53,15 @@ PLAN = [
 
 class SparseConv3d(nn.Module):
     """Weight holder of one sparse conv, in spconv's [kd, kh, kw, Cin, Cout]
-    layout; the backbone runs it through the fused kernel."""
+    layout (and its bias where ``bias``); the backbone runs it through the
+    fused kernel."""
 
-    def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int]):
+    def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int],
+                 bias: bool = False):
         super().__init__()
         self.kernel = tuple(kernel)
         self.weight = nn.Parameter(torch.zeros(*kernel, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
 
 class SpMiddleFHD(nn.Module):
@@ -216,3 +220,158 @@ def _cover_mask(occ: torch.Tensor, kernel, stride, padding) -> torch.Tensor:
     ones = occ.new_ones((1, 1) + tuple(kernel), dtype=torch.float32)
     c = F.conv3d(occ.float(), ones, stride=stride, padding=padding)
     return (c > 0).to(occ.dtype)
+
+
+# SpMiddleResNetFHD (CenterPoint, det3d/models/backbones/scn.py:195-366 of
+# the reference tree): (channels, residual blocks, down kernel, down
+# stride, down padding) per stage, the strided convs SpMiddleFHD's, so one
+# rulebook chain (``data.rulebooks.DOWNS``) serves both
+RES_PLAN = [
+    (16, 2, None, None, None),                     # subm 5->16, 2 blocks
+    (32, 2, (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    (64, 2, (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    (128, 2, (3, 3, 3), (2, 2, 2), (0, 1, 1)),
+    (128, 0, (3, 1, 1), (2, 1, 1), (0, 0, 0)),     # extra_conv
+]
+# the first conv's input is zero-padded to this width, the narrowest the
+# tensor-core tile takes: its weight rows past the 5 published ones are 0,
+# so the padded conv is the published one exactly
+PAD_INPUT_CHANNELS = 16
+
+
+class SparseBasicBlock(nn.Module):
+    """subm conv (bias) -> BN -> ReLU -> subm conv (bias) -> BN, plus the
+    block's input, then ReLU (scn.py's ``SparseBasicBlock``, its names)."""
+
+    def __init__(self, planes: int):
+        super().__init__()
+        self.conv1 = SparseConv3d(planes, planes, (3, 3, 3), bias=True)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = SparseConv3d(planes, planes, (3, 3, 3), bias=True)
+        self.bn2 = BatchNorm(planes)
+
+
+class SpMiddleResNetFHD(nn.Module):
+    """CenterPoint's residual sparse middle extractor: (features,
+    rulebooks) -> BEV [B, 128*D, H, W], 21 sparse convs (``RES_PLAN``).
+
+    Parameters carry the reference's names: ``conv_input.{0,1}``,
+    ``conv1.{0,1}`` (blocks), ``conv{2,3,4}.{0,1}`` (the strided conv and
+    its BN) and ``.{3,4}`` (blocks), ``extra_conv.{0,1}``. Serving runs
+    every conv through the fused kernels with BN folded, as ``SpMiddleFHD``
+    does; a block's second conv adds the block's input in its store,
+    before the ReLU (the kernels' ``residual``: no pass of its own over
+    the rows; counted as ``sparse_residual`` on the span recorder). Only
+    the serving plan is ported: ``forward_train`` raises.
+    """
+
+    def __init__(self, num_input_features: int = 5):
+        super().__init__()
+        if num_input_features > PAD_INPUT_CHANNELS:
+            raise ValueError(f"{num_input_features} input features: at most "
+                             f"{PAD_INPUT_CHANNELS}")
+        cin = num_input_features
+        for stage, (feats, n_blocks, dk, _, _) in enumerate(RES_PLAN):
+            head = [SparseConv3d(cin, feats, dk or (3, 3, 3)),
+                    BatchNorm(feats), nn.ReLU()]
+            blocks = [SparseBasicBlock(feats) for _ in range(n_blocks)]
+            if stage == 0:
+                self.conv_input = nn.ModuleList(head)
+                self.conv1 = nn.ModuleList(blocks)
+            elif stage < 4:
+                setattr(self, f"conv{stage + 1}", nn.ModuleList(head + blocks))
+            else:
+                self.extra_conv = nn.ModuleList(head)
+            cin = feats
+
+    def stages(self):
+        """Per stage: (its first conv's (conv, BN), its blocks)."""
+        out = []
+        for stage in range(len(RES_PLAN)):
+            if stage == 0:
+                head, blocks = self.conv_input, list(self.conv1)
+            elif stage < 4:
+                m = getattr(self, f"conv{stage + 1}")
+                head, blocks = m, list(m)[3:]
+            else:
+                head, blocks = self.extra_conv, []
+            out.append(((head[0], head[1]), blocks))
+        return out
+
+    def convs(self):
+        """(conv, BN) of every sparse conv in call order."""
+        return [pair for head, blocks in self.stages()
+                for pair in [head] + [p for b in blocks
+                                      for p in ((b.conv1, b.bn1),
+                                                (b.conv2, b.bn2))]]
+
+    def reset_parameters(self, generator: torch.Generator):
+        """He-uniform kernels over fan_in = K*Cin (as ``SpMiddleFHD``),
+        zero conv biases, BN at identity."""
+        for conv, bn in self.convs():
+            k, cin = math.prod(conv.kernel), conv.weight.shape[-2]
+            uniform_(conv.weight, math.sqrt(6.0 / (k * cin)), generator)
+            if conv.bias is not None:
+                with torch.no_grad():
+                    conv.bias.zero_()
+            bn.reset_parameters()
+
+    def folded(self, dtype: torch.dtype):
+        """Per conv in call order (w2 [K, Cin, Cout] in ``dtype``, bias
+        [Cout] f32): w2 = W * s and bias = conv bias * s + b for the BN's
+        (s, b); the first conv's Cin zero-padded to
+        ``PAD_INPUT_CHANNELS``."""
+        def fold():
+            out = []
+            for i, (conv, bn) in enumerate(self.convs()):
+                s, b = bn.fold()
+                w = conv.weight.float()
+                w = w.reshape(-1, w.shape[-2], w.shape[-1]) * s
+                if i == 0:
+                    w = F.pad(w, (0, 0, 0, PAD_INPUT_CHANNELS - w.shape[1]))
+                if conv.bias is not None:
+                    b = b + conv.bias.float() * s
+                out.append((w.to(dtype).contiguous(), b.contiguous()))
+            return out
+
+        sources = [t for conv, bn in self.convs()
+                   for t in (conv.weight, conv.bias, bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var)
+                   if t is not None]
+        return derived(self, ("folded", dtype), sources, fold)
+
+    def forward(self, voxel_features: torch.Tensor, rulebooks: dict,
+                batch_size: int, sparse_shape, dtype: torch.dtype,
+                conv: Optional[Callable] = None) -> torch.Tensor:
+        """``SpMiddleFHD.forward``'s inputs and output, over ``RES_PLAN``."""
+        ids = rulebooks["ids"]
+        shape = (batch_size,) + tuple(sparse_shape)
+        x = voxel_features[rulebooks["perm"].long()]
+        x = torch.where((ids[0] < sp.SENTINEL)[:, None], x, 0.0)
+        x = F.pad(x, (0, PAD_INPUT_CHANNELS - x.shape[1])).to(dtype)
+        params = iter(self.folded(dtype))
+
+        def block(x, rb, residual=None):
+            fn = conv or pick_conv(x.shape[1], x.shape[0], dtype)
+            if residual is None:
+                return fn(x, rb, *next(params), n_in=x.shape[0])
+            return fn(x, rb, *next(params), n_in=x.shape[0],
+                      residual=residual)
+
+        for stage, (_, n_blocks, dk, ds, dp) in enumerate(RES_PLAN):
+            if stage == 0:
+                x = block(x, rulebooks["subm"][0])
+            else:
+                x = block(x, rulebooks["down"][stage - 1])
+                shape = sp.downsample_out_shape(shape, dk, ds, dp)
+            for _ in range(n_blocks):
+                rb = rulebooks["subm"][stage]
+                count("sparse_residual")
+                x = block(block(x, rb), rb, residual=x)
+        dense = sp.to_dense(x, ids[4], shape)  # [B, D, H, W, C]
+        b, d, h, w, c = dense.shape
+        return dense.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)
+
+    def forward_train(self, *args, **kwargs):
+        raise NotImplementedError("SpMiddleResNetFHD serves only: its "
+                                  "training plan is not ported")

@@ -1,12 +1,15 @@
 """VoxelNet detector assembly (port of ``sessd_tpu/models/detector.py``;
 reference detectors/voxelnet_sessd.py:5-43).
 
-reader (mean VFE) -> SpMiddleFHD -> SSFA neck -> multi-group head.
-Submodules carry det3d's names (``reader``, ``backbone``, ``neck``,
-``bbox_head``). Parameters are kept in float32; ``dtype`` is the compute
-dtype, to which every layer casts its weights per call. The parameter tree
-does not depend on the execution plan (``dense_from_stage``), so a student
-and its teacher share one state-dict layout.
+reader (mean VFE) -> SpMiddleFHD -> SSFA neck -> multi-group head, or
+the modules given (``builder.build_detector`` takes them from the config:
+CenterPoint's SpMiddleResNetFHD -> RPN -> CenterHead), through the same
+``forward``, spans and serving entry. Submodules carry det3d's names
+(``reader``, ``backbone``, ``neck``, ``bbox_head``). Parameters are kept
+in float32; ``dtype`` is the compute dtype, to which every layer casts its
+weights per call. The parameter tree does not depend on the execution
+plan (``dense_from_stage``), so a student and its teacher share one
+state-dict layout.
 """
 from __future__ import annotations
 
@@ -34,7 +37,10 @@ class VoxelNet(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  dense_from_stage: int = 3,
                  stage_capacity: Sequence[int] = (20000, 22000, 18000, 12000,
-                                                  8000)):
+                                                  8000),
+                 backbone: Optional[nn.Module] = None,
+                 neck: Optional[nn.Module] = None,
+                 bbox_head: Optional[nn.Module] = None):
         super().__init__()
         self.sparse_shape = tuple(sparse_shape)
         # per-sample row capacity of each sparse stage (detector.py:29)
@@ -43,9 +49,11 @@ class VoxelNet(nn.Module):
         # training plan: stages from here on run as masked dense conv3d
         self.dense_from_stage = dense_from_stage
         self.reader = VoxelFeatureExtractorV3(num_input_features)
-        self.backbone = SpMiddleFHD(num_input_features)
-        self.neck = SSFA(128)
-        self.bbox_head = MultiGroupHead(tasks, in_channels=128)
+        self.backbone = (SpMiddleFHD(num_input_features) if backbone is None
+                         else backbone)
+        self.neck = SSFA(128) if neck is None else neck
+        self.bbox_head = (MultiGroupHead(tasks, in_channels=128)
+                          if bbox_head is None else bbox_head)
 
     def reset_parameters(self, generator: torch.Generator):
         """Seeded random init with the JAX package's distributions: He-uniform
@@ -65,6 +73,10 @@ class VoxelNet(nn.Module):
                 uniform_(m.weight, math.sqrt(6.0 / m.in_channels), generator)
                 with torch.no_grad():
                     m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+        if hasattr(self.bbox_head, "reset_hm_bias"):
+            self.bbox_head.reset_hm_bias()
 
     def host_transform(self, stage_capacity: Sequence[int],
                        suffixes: Sequence[str] = ("",)) -> Callable:

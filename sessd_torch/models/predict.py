@@ -11,6 +11,12 @@ mg_head_sessd.py:893-1057):
     -> post_center_range mask
 
 Every stage ANDs into a validity mask over a fixed [max_det] buffer.
+
+CenterPoint's center head decodes otherwise (``predict_center_batch``,
+center_head.py's ``predict`` / ``post_processing``): score = sigmoid of
+the heatmap's best class above the threshold, each BEV position's box from
+its offset, height, log size and (sin, cos) heading, the post-center range
+applied before NMS, then the same stable sort, rotated NMS pair and finish.
 """
 from __future__ import annotations
 
@@ -42,6 +48,10 @@ class PredictConfig(NamedTuple):
     # "rotate_nms" or "rotate_weighted_nms" (the CIA-SSD DI-NMS decode mode
     # kept in SE-SSD, mg_head_sessd.py:999-1022)
     nms_type: str = "rotate_nms"
+    # a center head's output grid (H, W, x step, y step, x origin, y
+    # origin) in m: position (y, x) + its offset, times the step, plus the
+    # origin; empty for an anchor head
+    center: tuple = ()
 
 
 def points_in_frustum(points: torch.Tensor,
@@ -132,24 +142,18 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
 
     ``rotate_nms`` runs once for the whole batch (``_predict_rotate_nms``),
     equal to ``predict_single`` scene by scene; DI-NMS, whose leader loop
-    is another algorithm, runs ``predict_single`` per scene.
+    is another algorithm, runs ``predict_single`` per scene. With no
+    ``anchors`` the outputs are a center head's (``predict_center_batch``).
     """
+    if anchors is None:
+        return predict_center_batch(preds, cfg)
     b, n_anchors = preds["box_preds"].shape[:2]
     if anchors.dim() == 2:
         anchors = anchors.expand(b, *anchors.shape)
-    small = cfg.nms_pre_small
-    path = "nms_full"
-    if (cfg.nms_type == "rotate_nms" and small
-            and small < min(cfg.nms_pre_max_size, n_anchors)):
-        counts = (torch.sigmoid(preds["cls_preds"]).amax(dim=-1)
-                  >= cfg.score_threshold).sum(dim=-1)
-        with span("predict.sync"):
-            count("host_sync")
-            most = int(counts.max())
-        if most <= small:
-            cfg = cfg._replace(nms_pre_max_size=small)
-            path = "nms_small"
-    count(path)
+    cfg = _nms_capacity(
+        cfg, n_anchors, cfg.nms_type == "rotate_nms",
+        lambda: (torch.sigmoid(preds["cls_preds"]).amax(dim=-1)
+                 >= cfg.score_threshold).sum(dim=-1))
     if cfg.nms_type == "rotate_nms":
         return _predict_rotate_nms(preds, anchors, cfg, frustum_surfaces)
     with span("predict.dinms"):
@@ -158,6 +162,26 @@ def predict_batch(preds: dict, anchors: torch.Tensor,
                                is None else frustum_surfaces[i])
                 for i in range(b)]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _nms_capacity(cfg: PredictConfig, n: int, two_level: bool,
+                  counts) -> PredictConfig:
+    """The NMS capacity of a batch: ``nms_pre_small`` where ``two_level``
+    and no scene has more candidates than that (``counts()``, [B] on the
+    device: one host read, ``host_sync``), else ``nms_pre_max_size``;
+    counts the path taken (``nms_small`` / ``nms_full``)."""
+    small = cfg.nms_pre_small
+    path = "nms_full"
+    if two_level and small and small < min(cfg.nms_pre_max_size, n):
+        most_of = counts()
+        with span("predict.sync"):
+            count("host_sync")
+            most = int(most_of.max())
+        if most <= small:
+            cfg = cfg._replace(nms_pre_max_size=small)
+            path = "nms_small"
+    count(path)
+    return cfg
 
 
 @functools.lru_cache(maxsize=8)
@@ -215,5 +239,71 @@ def _predict_rotate_nms(preds: dict, anchors: torch.Tensor,
             "box3d_lidar": torch.where(valid[..., None], out_boxes, 0.0),
             "scores": torch.where(valid, out_scores, 0.0),
             "label_preds": torch.where(valid, out_labels, 0),
+            "valid": valid,
+        }
+
+
+@functools.lru_cache(maxsize=8)
+def _center_grid(center: tuple, device):
+    """(positions [H*W, 2], step [2], origin [2]) of ``cfg.center`` on the
+    device, made once: the (x, y) indices of the output grid in (y, x)
+    order, and the grid's step and origin in m."""
+    h, w, sx, sy, x0, y0 = center
+    ys, xs = torch.meshgrid(torch.arange(h, device=device),
+                            torch.arange(w, device=device), indexing="ij")
+    return (torch.stack([xs, ys], -1).reshape(h * w, 2).float(),
+            torch.tensor((sx, sy), device=device),
+            torch.tensor((x0, y0), device=device))
+
+
+def predict_center_batch(preds: dict, cfg: PredictConfig) -> dict:
+    """A center head's task-0 outputs [B, H*W, c] (``hm``, ``reg``,
+    ``height``, ``dim``, ``rot``; f32) -> the ``predict_batch`` dict.
+
+    As center_head.py decodes: score and label the heatmap's best class
+    (sigmoid), kept above ``score_threshold`` (strictly) with the box
+    center inside ``post_center_range``; centers (position + ``reg``) x
+    step + origin (``cfg.center``), z the ``height``, sizes exp(``dim``),
+    heading atan2(``rot``). Boxes come out in CenterPoint's layout (x, y,
+    z, dx, dy, dz, heading); the NMS sees them in the port's BEV
+    convention, whose angle turns the other way (r = -heading). Classes
+    share one NMS. The kept candidates of each scene go through the
+    anchor path's stable sort and kernel pair at ``nms_pre_max_size``, with
+    no host read: the source has one capacity."""
+    dev = preds["hm"].device
+    count("nms_full")
+    with span("predict.decode"):
+        scores, labels = torch.sigmoid(preds["hm"]).max(dim=-1)
+        pos, step, origin = _center_grid(tuple(cfg.center), dev)
+        xy = (pos + preds["reg"]) * step + origin
+        centers = torch.cat([xy, preds["height"]], -1)
+        pcr = _range_bounds(tuple(cfg.post_center_range), centers.dtype, dev)
+        keep = ((scores > cfg.score_threshold)
+                & (centers >= pcr[:3]).all(dim=-1)
+                & (centers <= pcr[3:]).all(dim=-1))
+        top, order = score_order(torch.where(keep, scores, -torch.inf),
+                                 cfg.nms_pre_max_size)
+
+        def rows(key):
+            v = preds[key]
+            return v.gather(1, order[..., None].expand(-1, -1, v.shape[-1]))
+
+        rot = rows("rot")
+        boxes = torch.cat([centers.gather(1, order[..., None].expand(
+                               -1, -1, 3)),
+                           torch.exp(rows("dim")),
+                           torch.atan2(rot[..., :1], rot[..., 1:2])], -1)
+        bev = torch.cat([boxes[..., :6], -boxes[..., 6:]], -1)
+    with span("predict.nms"):
+        rank, valid = rotated_nms(bev, top.contiguous(),
+                                  cfg.nms_post_max_size,
+                                  cfg.nms_iou_threshold)
+    with span("predict.finish"):
+        sel = order.gather(1, rank)
+        out_boxes = boxes.gather(1, rank[..., None].expand(-1, -1, 7))
+        return {
+            "box3d_lidar": torch.where(valid[..., None], out_boxes, 0.0),
+            "scores": torch.where(valid, scores.gather(1, sel), 0.0),
+            "label_preds": torch.where(valid, labels.gather(1, sel), 0),
             "valid": valid,
         }

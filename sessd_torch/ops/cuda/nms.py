@@ -21,17 +21,28 @@ from ...core.nms import nms_sorted
 from ...utils.profiling import count
 from . import sparse_conv
 
-MAX_PRE = 2048  # csrc/rotated_nms.cu: kMaxWords words of 64 ranks
+MAX_PRE = 4096  # csrc/rotated_nms.cu: kMaxWords words of 64 ranks
 
 
 def rotated_nms_ref(boxes: torch.Tensor, scores: torch.Tensor,
                     post_max_size: int, iou_threshold: float):
     """Plain PyTorch twin (any device): ``core.nms.nms_sorted`` scene by
-    scene, the per-scene ``rotate_nms`` after its sort."""
-    outs = [nms_sorted(boxes[i][:, BEV5_COLUMNS], scores[i], post_max_size,
-                       iou_threshold) for i in range(boxes.shape[0])]
-    return (torch.stack([k for k, _ in outs]),
-            torch.stack([v for _, v in outs]))
+    scene, the per-scene ``rotate_nms`` after its sort, over the rows up
+    to a scene's last live score (the rows after it are padding, never
+    kept: the result is the whole scene's), padded to min(pre, post)
+    slots."""
+    b, pre = scores.shape
+    slots = min(pre, post_max_size)
+    keep = torch.zeros((b, slots), dtype=torch.int64, device=boxes.device)
+    valid = torch.zeros((b, slots), dtype=torch.bool, device=boxes.device)
+    for i in range(b):
+        live = torch.nonzero(scores[i] > -torch.inf)
+        n = int(live.max()) + 1 if len(live) else 0
+        if n:
+            k, v = nms_sorted(boxes[i, :n][:, BEV5_COLUMNS], scores[i, :n],
+                              post_max_size, iou_threshold)
+            keep[i, :len(k)], valid[i, :len(v)] = k, v
+    return keep, valid
 
 
 def _check(boxes, scores):

@@ -33,6 +33,8 @@ import time
 
 import torch
 
+from typing import Optional
+
 from ..sparse import gather_gemm
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -74,6 +76,12 @@ STREAM_PAIRS = FWD_PAIRS[1:]
 FUSED_PAIRS = DW_PAIRS = FWD_PAIRS
 DFEAT_PAIRS = ((16, 4), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64))
 MMA_CHANNELS = (16, 32, 64)  # csrc/gather_mma.cuh: kMmaTile, kTf32Tile
+# the bf16-only pairs of the two serving entries (csrc/sparse_conv.cu:
+# SESSD_FUSED_WIDE_PAIRS, csrc/sparse_conv_stream.cu:
+# SESSD_STREAM_WIDE_PAIRS; csrc/gather_mma.cuh: kWideTile): the 128-channel
+# stages of SpMiddleResNetFHD (CenterPoint); f32 has no instance of them
+WIDE_PAIRS = ((64, 128), (128, 128))
+WIDE_ENTRIES = ("fused_sparse_conv_stream", "fused_sparse_conv")
 # csrc/sparse_conv_train.cu: tile_code, what the C instance entries answer
 INSTANCE_CODES = {"tf32": 3, "mma": 2, "direct": 1}
 _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
@@ -93,13 +101,17 @@ def conv_instance(entry: str, dtype: torch.dtype, cin: int,
     compile time: "mma" (bf16 with Cin and Cout in {16, 32, 64}: the
     tensor-core tile of ``csrc/gather_mma.cuh`` for the convs and the input
     gradient, the mma.sync partial kernel of ``sparse_conv_train.cu`` for
-    dW), "tf32" (f32 at those channels: the same bodies through 3xTF32,
-    dW's on mma.sync m16n8k8) or "direct" (the 4-channel side of the first
+    dW; also bf16 at ``WIDE_PAIRS`` in the two serving entries), "tf32"
+    (f32 at those channels: the same bodies through 3xTF32, dW's on
+    mma.sync m16n8k8) or "direct" (the 4-channel side of the first
     conv, in both types: ``csrc/gather_direct.cuh``'s body on the CUDA
     cores for the convs and the input gradient's 16 -> 4, dW's
     ``dw_direct_partial``). For "sparse_conv_dfeat", (cin, cout) is its
     gather's pair: the conv's (Cout, Cin). Raises ValueError where the
     entry has no instance."""
+    if (entry in WIDE_ENTRIES and (cin, cout) in WIDE_PAIRS
+            and dtype == torch.bfloat16):
+        return "mma"
     if (cin, cout) not in _PAIRS[entry] or dtype not in _DTYPE_CODES:
         raise ValueError(f"{entry} has no instance for {dtype}, Cin={cin}, "
                          f"Cout={cout}")
@@ -187,6 +199,11 @@ def build() -> ctypes.CDLL:
             lib.sessd_fused_sparse_conv.argtypes
         lib.sessd_fused_sparse_conv_stream_ring.argtypes = \
             lib.sessd_fused_sparse_conv.argtypes
+        # feats, rb, w2, bias, residual, out; the rest as above
+        lib.sessd_fused_sparse_conv_residual.argtypes = \
+            [ptr] * 6 + [i32] * 8 + [ptr]
+        lib.sessd_fused_sparse_conv_stream_residual.argtypes = \
+            lib.sessd_fused_sparse_conv_residual.argtypes
         # ... relu, split; stream
         lib.sessd_fused_sparse_conv_at_split.argtypes = \
             [ptr] * 5 + [i32] * 9 + [ptr]
@@ -243,6 +260,8 @@ def build() -> ctypes.CDLL:
         lib.sessd_fused_sparse_conv_stream_blocks_per_sm.argtypes = [i32] * 3
         for fn in (lib.sessd_fused_sparse_conv,
                    lib.sessd_fused_sparse_conv_stream,
+                   lib.sessd_fused_sparse_conv_residual,
+                   lib.sessd_fused_sparse_conv_stream_residual,
                    lib.sessd_fused_sparse_conv_scalar,
                    lib.sessd_fused_sparse_conv_stream_ring,
                    lib.sessd_fused_sparse_conv_at_split,
@@ -282,11 +301,16 @@ def raise_on_error(lib, rc: int, what: str):
 
 def fused_sparse_conv_ref(feats: torch.Tensor, rb: torch.Tensor,
                           w2: torch.Tensor, bias: torch.Tensor, n_in: int,
-                          relu: bool = True) -> torch.Tensor:
+                          relu: bool = True,
+                          residual: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel (any device): zero-row pad,
-    index_select, one f32 matmul, bias, ReLU, hit mask; output in the
+    index_select, one f32 matmul, bias (and ``residual``, a residual
+    block's identity [n_out, Cout]), ReLU, hit mask; output in the
     features' dtype."""
     out = gather_gemm(feats[:n_in], rb, w2) + bias.float()
+    if residual is not None:
+        out = out + residual.float()
     if relu:
         out = out.clamp_min(0.0)
     hit = (rb != n_in).any(dim=1, keepdim=True)
@@ -325,20 +349,35 @@ def _check(feats, rb, w2, bias, n_in):
 
 
 def _launch(entry: str, feats, rb, w2, bias, n_in, relu,
-            *extra) -> torch.Tensor:
+            *extra, residual=None) -> torch.Tensor:
     lib = build()
     taps, cin, cout = w2.shape
     out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
                       device=feats.device)
+    res = () if residual is None else (residual.data_ptr(),)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "sessd_" + entry)(
+        rc = getattr(lib, "sessd_" + entry + ("_residual" if res else ""))(
             feats.data_ptr(), rb.data_ptr(), w2.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
+            *res, out.data_ptr(), n_in, rb.shape[0], cin, cout, taps,
             _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype], int(relu),
             *extra, stream)
     raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
     return out
+
+
+def _check_residual(feats, rb, w2, residual):
+    """A residual joins the bf16 tensor-core instances with Cin == Cout:
+    the output's shape, type and device, contiguous and 16-byte aligned."""
+    taps, cin, cout = w2.shape
+    if cin != cout or feats.dtype != torch.bfloat16:
+        raise ValueError(f"a residual needs bf16 and Cin == Cout (got "
+                         f"{feats.dtype}, {cin}, {cout})")
+    if (residual.shape != (rb.shape[0], cout) or residual.dtype != feats.dtype
+            or residual.device != feats.device
+            or not residual.is_contiguous() or residual.data_ptr() % 16):
+        raise ValueError(f"want a contiguous, 16-byte aligned {feats.dtype} "
+                         f"residual {(rb.shape[0], cout)} on {feats.device}")
 
 
 def _check_aligned(feats, w2):
@@ -363,35 +402,44 @@ def _body(feats, w2) -> str:
     """``conv_instance`` of ``fused_sparse_conv`` for these inputs ("" for
     a pair it has no instance of: the C entry refuses it)."""
     taps, cin, cout = w2.shape
-    if (cin, cout) not in FUSED_PAIRS:
+    try:
+        return conv_instance("fused_sparse_conv", feats.dtype, cin, cout)
+    except ValueError:
         return ""
-    return conv_instance("fused_sparse_conv", feats.dtype, cin, cout)
 
 
 def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
-                      bias: torch.Tensor, n_in: int,
-                      relu: bool = True) -> torch.Tensor:
+                      bias: torch.Tensor, n_in: int, relu: bool = True,
+                      residual: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """out[n] = relu(sum_k feats[rb[n, k]] @ w2[k] + bias) where any tap of
     row n hits, else 0.
 
     feats [n_in, Cin] f32/bf16; rb [n_out, K] int16/int32 with entries in
     [0, n_in] (n_in = miss); w2 [K, Cin, Cout] in the feats dtype (BN scale
     folded in); bias [Cout] f32. Returns [n_out, Cout] in the feats dtype.
-    bf16 with Cin, Cout in {16, 32, 64} runs the tensor-core tile (feats and
-    w2 16-byte aligned), in clusters of ``cluster_split`` CTAs per tile
-    where the launch fills less than a wave; f32 at those channels runs the
+    bf16 with Cin, Cout in {16, 32, 64}, or at ``WIDE_PAIRS``, runs the
+    tensor-core tile (feats and w2 16-byte aligned), in clusters of
+    ``cluster_split`` CTAs per tile where the launch fills less than a
+    wave; f32 at those channels runs the
     same tile through 3xTF32 at one CTA per tile (the f32 stream kernel's
     instance: bit-equal to ``fused_sparse_conv_stream``); the Cin = 4 first
     conv runs the direct body (``conv_instance``), bit-equal to
     ``fused_sparse_conv_scalar``. Every body wants feats and w2 16-byte
-    aligned. CPU tensors take the twin; CUDA tensors launch the kernel on
-    the current stream, counted in ``fused_sparse_conv.launches``.
+    aligned. ``residual`` [n_out, Cout] (a residual block's identity; bf16
+    tensor-core instances with Cin == Cout) is added before the ReLU, in
+    f32. CPU tensors take the twin; CUDA tensors launch the kernel on the
+    current stream, counted in ``fused_sparse_conv.launches``.
     """
     if not _on_device(feats, rb, w2, bias, n_in):
-        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu,
+                                     residual)
     if _body(feats, w2):
         _check_aligned(feats, w2)
-    out = _launch("fused_sparse_conv", feats, rb, w2, bias, n_in, relu)
+    if residual is not None:
+        _check_residual(feats, rb, w2, residual)
+    out = _launch("fused_sparse_conv", feats, rb, w2, bias, n_in, relu,
+                  residual=residual)
     fused_sparse_conv.launches += 1
     return out
 
@@ -462,21 +510,28 @@ def launch_wave(cin: int, cout: int) -> int:
 
 def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
                              w2: torch.Tensor, bias: torch.Tensor, n_in: int,
-                             relu: bool = True) -> torch.Tensor:
+                             relu: bool = True,
+                             residual: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """``fused_sparse_conv``'s function and contract, through the streaming
     kernel (``csrc/sparse_conv_stream.cu``): the tensor-core tile of
     ``gather_mma.cuh`` (a 4-stage cp.async ring, taps no row of a tile hits
     skipped), in bf16 bit-equal to K1 where K1 runs one CTA per tile, in f32
     through 3xTF32, bit-equal to f32 K1 and to ``sparse_conv_fwd`` plus
     bias, ReLU and the any-hit mask (``conv_instance``).
-    Takes Cin in {16, 32, 64}: the 4-channel first conv never streams. CPU
+    Takes Cin in {16, 32, 64}, and bf16 at ``WIDE_PAIRS``: the 4-channel
+    first conv never streams. ``residual`` as ``fused_sparse_conv``'s. CPU
     tensors take the twin; CUDA tensors launch the kernel, counted in
     ``fused_sparse_conv_stream.launches``.
     """
     if not _on_device(feats, rb, w2, bias, n_in):
-        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
+        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu,
+                                     residual)
     _check_stream(feats, w2)
-    out = _launch("fused_sparse_conv_stream", feats, rb, w2, bias, n_in, relu)
+    if residual is not None:
+        _check_residual(feats, rb, w2, residual)
+    out = _launch("fused_sparse_conv_stream", feats, rb, w2, bias, n_in, relu,
+                  residual=residual)
     fused_sparse_conv_stream.launches += 1
     return out
 
@@ -485,9 +540,11 @@ fused_sparse_conv_stream.launches = 0
 
 
 def _check_stream(feats, w2):
-    if w2.shape[1] not in MMA_CHANNELS:
+    if w2.shape[1] not in MMA_CHANNELS and not (
+            tuple(w2.shape[1:]) in WIDE_PAIRS and w2.dtype == torch.bfloat16):
         raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
-                         "or 64 input channels")
+                         "or 64 input channels, or bf16 (64, 128) and "
+                         "(128, 128)")
     _check_aligned(feats, w2)
 
 

@@ -186,11 +186,14 @@ def make_infer_fn(model, anchors, predict_cfg: PredictConfig,
     [batch_size*caps[0], F] and the rulebook chain come from
     ``HostPreprocessor`` (``__call__`` at batch 1, ``batch`` above), as
     numpy arrays or device tensors. The VFE is the parameter-free mean, so
-    host features pass through it as one-point voxels.
+    host features pass through it as one-point voxels. A model with no
+    anchors (CenterPoint's center head) takes ``anchors=None`` and
+    ``predict_cfg.center``'s decode.
     """
     device = torch.device(device)
     rows = int(caps[0]) * batch_size
-    anchors = _to_device(anchors, device).float()
+    if anchors is not None:
+        anchors = _to_device(anchors, device).float()
     num_points = torch.ones(rows, dtype=torch.int32, device=device)
     model.eval()
 

@@ -318,6 +318,13 @@ def test_conv_instance_equals_the_c_entries(cuda):
                         assert (want == "direct") == (4 in (cin, cout))
                     else:
                         assert got == 0
+    # the 128-channel pairs: bf16 K1 and K3 alone
+    for entry, fn in entries.items():
+        for cin, cout in sc.WIDE_PAIRS + ((128, 64), (32, 128)):
+            wide = (cin, cout) in sc.WIDE_PAIRS and entry in sc.WIDE_ENTRIES
+            assert fn(cin, cout, 1) == (sc.INSTANCE_CODES["mma"] if wide
+                                        else 0)
+            assert fn(cin, cout, 0) == 0
 
 
 @pytest.mark.cuda
@@ -340,6 +347,116 @@ def test_mma_forward_rejects_misaligned_inputs(cuda, dtype):
     with pytest.raises(ValueError, match="aligned"):
         fn(f.clone(), r, w_off)
     assert fn.launches == before
+
+
+# (Cin, Cout, K) of SpMiddleResNetFHD's 128-channel convs: the strided
+# 64 -> 128, the blocks' 128 -> 128, the extra conv's 3 taps
+WIDE_PLAN = [(64, 128, 27), (128, 128, 27), (128, 128, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("cin,cout,k", WIDE_PLAN,
+                         ids=[f"{a}x{b}x{c}" for a, b, c in WIDE_PLAN])
+def test_wide_instances_match_twin(cuda, cin, cout, k, idx_dtype):
+    """bf16 K1 and K3 at 128 output channels (``WIDE_PAIRS``) within 2e-2
+    of the twin on tiles that skip every tap, all but one, or none; K1 at
+    S = 1, 2 and 4, each equal to itself on a second run, and at S = 1
+    bit-equal to K3; rows with no hit 0; f32 has no instance."""
+    feats, rb, w2, bias, _ = _tile_inputs(cin, cout, k)
+    args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
+            torch.from_numpy(rb).to(cuda, idx_dtype),
+            torch.from_numpy(w2).to(cuda, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda), N_IN)
+    want = sc.fused_sparse_conv_ref(*args)
+    miss = torch.from_numpy((rb == N_IN).all(1)).to(cuda)
+    before = (sc.fused_sparse_conv.launches,
+              sc.fused_sparse_conv_stream.launches)
+    got = sc.fused_sparse_conv(*args)
+    k3 = sc.fused_sparse_conv_stream(*args)
+    lin = sc.fused_sparse_conv_stream(*args, relu=False)
+    torch.cuda.synchronize()
+    assert (sc.fused_sparse_conv.launches,
+            sc.fused_sparse_conv_stream.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+    for y in (got, k3):
+        assert y.shape == (N_OUT, cout) and y.dtype == torch.bfloat16
+        assert _err(y, want) <= 2e-2 and not y[miss].any()
+    assert _err(lin, sc.fused_sparse_conv_ref(*args, relu=False)) <= 2e-2
+    assert (lin < 0).any()
+    one = sc.fused_sparse_conv_at_split(*args, split=1)
+    assert torch.equal(one, k3)
+    for split in (2, 4):
+        y = sc.fused_sparse_conv_at_split(*args, split=split)
+        assert torch.equal(y, sc.fused_sparse_conv_at_split(*args,
+                                                            split=split))
+        assert _err(y, want) <= 2e-2 and not y[miss].any()
+    f32 = tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
+                else a for a in args)
+    for fn in (sc.fused_sparse_conv, sc.fused_sparse_conv_stream):
+        with pytest.raises((RuntimeError, ValueError)):
+            fn(*f32)
+    assert sc.stream_blocks_per_sm(cin, cout, torch.bfloat16) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+def test_residual_store_matches_twin(cuda, c, idx_dtype):
+    """bf16 K1 and K3 with a residual block's identity added in the store
+    (``residual``), before the ReLU: within 2e-2 of the twin, rows with no
+    hit 0, K1 at one CTA per tile bit-equal to K3; a residual of another
+    shape or type, f32 and a pair with Cin != Cout are refused."""
+    dtype, tol = torch.bfloat16, 2e-2
+    feats, rb, w2, bias, _ = _tile_inputs(c, c, 27)
+    args = (torch.from_numpy(feats).to(cuda, dtype),
+            torch.from_numpy(rb).to(cuda, idx_dtype),
+            torch.from_numpy(w2).to(cuda, dtype),
+            torch.from_numpy(bias).to(cuda), N_IN)
+    res = torch.randn(N_OUT, c, generator=torch.Generator().manual_seed(c)
+                      ).to(cuda, dtype)
+    want = sc.fused_sparse_conv_ref(*args, residual=res)
+    miss = torch.from_numpy((rb == N_IN).all(1)).to(cuda)
+    k1 = sc.fused_sparse_conv(*args, residual=res)
+    k3 = sc.fused_sparse_conv_stream(*args, residual=res)
+    for y in (k1, k3):
+        assert _err(y, want) <= tol and not y[miss].any()
+    assert _err(k1, sc.fused_sparse_conv_ref(*args)) > 10 * tol
+    assert torch.equal(sc.fused_sparse_conv_at_split(*args, split=1),
+                       sc.fused_sparse_conv_stream(*args))
+    for bad in (res[:-1], res.float()):
+        with pytest.raises(ValueError, match="residual"):
+            sc.fused_sparse_conv_stream(*args, residual=bad)
+    f32 = tuple(a.float() if torch.is_tensor(a) and a.dtype == dtype else a
+                for a in args)
+    if c < 128:
+        with pytest.raises(ValueError, match="residual"):
+            sc.fused_sparse_conv(*f32, residual=res.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_padded_first_conv_is_the_five_channel_conv(cuda, dtype, tol):
+    """CenterPoint's first conv (5 -> 16) on the card: its input and
+    weights zero-padded to 16 channels (``SpMiddleResNetFHD``) through K1
+    and K3's 16 -> 16 instance, against the twin of the published 5-channel
+    conv."""
+    feats, rb, w2, bias = _inputs(5, 16, 27)
+    pf = np.pad(feats, ((0, 0), (0, 11)))
+    pw = np.pad(w2, ((0, 0), (0, 11), (0, 0)))
+    r = torch.from_numpy(rb).to(cuda, torch.int32)
+    b = torch.from_numpy(bias).to(cuda)
+    want = sc.fused_sparse_conv_ref(torch.from_numpy(feats).to(cuda, dtype),
+                                    r, torch.from_numpy(w2).to(cuda, dtype),
+                                    b, N_IN)
+    args = (torch.from_numpy(pf).to(cuda, dtype), r,
+            torch.from_numpy(pw).to(cuda, dtype), b, N_IN)
+    for fn in (sc.fused_sparse_conv, sc.fused_sparse_conv_stream):
+        assert _err(fn(*args), want) <= tol
 
 
 @pytest.mark.cuda

@@ -335,6 +335,52 @@ def test_conv_instance_follows_the_dispatch(entry, dtype, pair):
     assert got == want
 
 
+WIDE_MACROS = {"fused_sparse_conv": ("sparse_conv.cu",
+                                     "SESSD_FUSED_WIDE_PAIRS"),
+               "fused_sparse_conv_stream": ("sparse_conv_stream.cu",
+                                            "SESSD_STREAM_WIDE_PAIRS")}
+
+
+@pytest.mark.parametrize("entry", sorted(WIDE_MACROS))
+def test_wide_pairs_equal_the_c_tables(entry):
+    """The 128-channel pairs of the two serving entries (CenterPoint's
+    last stages): the C tables and ``kWideTile`` name ``WIDE_PAIRS``, bf16
+    only, and each kernel takes the tile for them."""
+    assert _source_pairs(*WIDE_MACROS[entry]) == sc.WIDE_PAIRS
+    assert set(sc.WIDE_ENTRIES) == set(WIDE_MACROS)
+    header = (CSRC / "gather_mma.cuh").read_text()
+    rule = header[header.index("constexpr bool kWideTile"):]
+    rule = rule[:rule.index(";")]
+    assert "std::is_same<T, __nv_bfloat16>" in rule
+    assert {int(c) for c in re.findall(r"CIN == (\d+)", rule)} == {
+        cin for cin, _ in sc.WIDE_PAIRS}
+    assert {int(c) for c in re.findall(r"COUT == (\d+)", rule)} == {
+        cout for _, cout in sc.WIDE_PAIRS}
+    path, _ = WIDE_MACROS[entry]
+    kernel = {"fused_sparse_conv": "fused_sparse_conv_kernel(",
+              "fused_sparse_conv_stream": "fused_sparse_conv_stream_kernel("}
+    text = (CSRC / path).read_text()
+    body = text[text.index(kernel[entry]):]
+    assert "sessd::kWideTile<T, CIN, COUT>" in body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("pair", [(64, 128), (128, 128)])
+@pytest.mark.parametrize("entry", ["fused_sparse_conv",
+                                   "fused_sparse_conv_stream",
+                                   "sparse_conv_fwd", "sparse_conv_dfeat",
+                                   "sparse_conv_dw"])
+def test_conv_instance_of_the_wide_pairs(entry, pair):
+    """bf16 K1 and K3 take the tensor-core tile at (64, 128) and (128,
+    128); f32 and the training entries have no instance of them."""
+    if entry in sc.WIDE_ENTRIES:
+        assert sc.conv_instance(entry, torch.bfloat16, *pair) == "mma"
+    else:
+        with pytest.raises(ValueError, match="no instance"):
+            sc.conv_instance(entry, torch.bfloat16, *pair)
+    with pytest.raises(ValueError, match="no instance"):
+        sc.conv_instance(entry, torch.float32, *pair)
+
+
 @pytest.mark.parametrize("entry,pair", [
     ("sparse_conv_fwd", (8, 16)), ("sparse_conv_fwd", (16, 64)),
     ("fused_sparse_conv_stream", (4, 16)),

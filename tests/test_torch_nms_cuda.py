@@ -5,7 +5,8 @@ mask kernel's bits (the pair's scratch, passed in) equal to
 rows, and the pair's kept ranks and validity equal to the twin's
 (``core.nms.nms_sorted`` scene by scene), at batch 8 and pre 256 and
 1000, thresholds 0.01 and 0.3, with -inf padding, an all-padding scene, a
-one-box scene, tied scores and more kept boxes than post = 100; then the
+one-box scene, tied scores and more kept boxes than post = 100 (and at
+pre 4096, CenterPoint's capacity: the scan's 64 words); then the
 whole ``predict_batch`` on the card, which takes the pair, against
 ``predict_single`` scene by scene at the serving cell's density (~70
 candidates a scene over 70,400 anchors), with and without the frustum
@@ -83,7 +84,7 @@ def _unpack(mask, pre):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("thresh", [0.01, 0.3])
-@pytest.mark.parametrize("pre", [256, 1000])
+@pytest.mark.parametrize("pre", [256, 1000, 4096])
 def test_mask_bits_equal_the_twins_iou_over_threshold(cuda, pre, thresh):
     boxes, scores = (t.to(cuda) for t in _batch(pre))
     mask = torch.full((B, pre, (pre + 63) // 64), -1, dtype=torch.int64,
@@ -111,7 +112,7 @@ def test_mask_bits_equal_the_twins_iou_over_threshold(cuda, pre, thresh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("thresh", [0.01, 0.3])
-@pytest.mark.parametrize("pre", [256, 1000])
+@pytest.mark.parametrize("pre", [256, 1000, 4096])
 def test_pair_equals_twin(cuda, pre, thresh):
     boxes, scores = (t.to(cuda) for t in _batch(pre, seed=1))
     before = nms_cuda.rotated_nms.launches
@@ -137,8 +138,8 @@ def test_pair_rejects_what_it_does_not_take(cuda):
                        ((boxes.transpose(0, 1).contiguous().transpose(0, 1),
                          scores), "contiguous"),
                        ((boxes, scores.cpu()), "scores on"),
-                       ((torch.zeros(1, 2100, 7, device=cuda),
-                         torch.zeros(1, 2100, device=cuda)), "outside")):
+                       ((torch.zeros(1, 4200, 7, device=cuda),
+                         torch.zeros(1, 4200, device=cuda)), "outside")):
         with pytest.raises(ValueError, match=what):
             nms_cuda.rotated_nms(*args, 100, 0.01)
     with pytest.raises(ValueError, match="mask"):

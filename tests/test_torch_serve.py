@@ -144,10 +144,14 @@ def test_builder_det3d_names_and_dtype():
 
 
 def test_builder_predict_config_as_jax():
+    """Every field JAX's config has equal; the port's own field (``center``,
+    a center head's decode grid) empty for SE-SSD's anchor head."""
     cfg = Config.fromfile(CAR)
     ours, theirs = builder.build_predict_config(cfg), jax_predict_config(cfg)
-    for field in ours._fields:
+    assert set(theirs._fields) == set(ours._fields) - {"center"}
+    for field in theirs._fields:
         assert getattr(ours, field) == getattr(theirs, field), field
+    assert ours.center == ()
 
 
 def test_builder_serving_helpers():
