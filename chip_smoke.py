@@ -275,6 +275,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    pair at pre 4096 (batch 4, 2,800 valid rows a scene, IoU 0.7, post
    500) with kept ranks equal to the twin's; device ms of each beside its
    bound.
+24. BatchNorm fold (after phase 23): one serving batch of each model,
+   SE-SSD Car bf16 at batch 8 (the ray-cast scans of phase 3) and
+   CenterPoint-Voxel bf16 at batch 4 (a synthetic ground surface of
+   ~90k voxels a scan at the published grid and caps), staged, random
+   BatchNorm statistics, folded and channels-last (the serving path)
+   against the unfolded NCHW path in the same process (``unfolded_path``):
+   host ms a batch (median of 10, synchronised), device ms a batch and
+   launches by kernel name (``torch.profiler`` over 8 batches), the
+   launches and ms of what the fold removes (cuDNN's layout transposes,
+   the broadcast elementwise passes, the ReLU passes), the
+   ``conv_bn_folded`` count a batch (14 and 20), and each path's heads'
+   relative L2 distance from an f32 neck and head (TF32 off) on the same
+   BEV map (the folded one within 2e-2). Fails on a transpose left in the
+   folded batch but the one cuDNN writes a one-channel output through.
 
 The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
 ``fused_sparse_conv_at_split``, ``fused_sparse_conv_stream_ring``,
@@ -326,6 +340,8 @@ from sessd_torch import builder
 from sessd_torch.core import box_torch, nms_np
 from sessd_torch.core.nms import rotate_weighted_nms
 from sessd_torch.core.nms import score_order as nms_score_order
+from sessd_torch.models import backbone as bb
+from sessd_torch.models import layers
 from sessd_torch.models.backbone import PLAN, pick_conv
 from sessd_torch.models.pillars import PointPillars, pillar_scatter
 from sessd_torch.ops import pillar as pil
@@ -351,7 +367,7 @@ from sessd_torch.tools.train import load as load_train_config
 from sessd_torch.train.train_step import (pack_batch, sigmoid_rampup,
                                           unpack_batch)
 from sessd_torch.train.trainer import Trainer
-from sessd_torch.utils import convert_torch
+from sessd_torch.utils import convert_torch, profiling
 from sessd_torch.utils.profiling import card_line, queued_device_ms
 
 CONV_NAMES = ["subm0a", "subm0b", "down0", "subm1a", "subm1b", "down1",
@@ -3584,6 +3600,215 @@ def phase_centerpoint(device):
           f"equal to the twin; {card_line()}")
 
 
+FOLD_BATCHES = 8
+
+
+def _bev_nchw(dense):
+    b, d, h, w, c = dense.shape
+    return dense.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)
+
+
+@contextlib.contextmanager
+def unfolded_path():
+    """The serving path as it ran before the BatchNorm fold: every
+    ``layers.Sequential`` as ``nn.Sequential`` (each BatchNorm its own
+    passes), eval conv weights NCHW, the backbone's BEV map NCHW."""
+    saved = (layers.Sequential.forward, layers._eval_layout, bb.bev_nhwc)
+    layers.Sequential.forward = torch.nn.Sequential.forward
+    layers._eval_layout = lambda module: False
+    bb.bev_nhwc = _bev_nchw
+    try:
+        yield
+    finally:
+        (layers.Sequential.forward, layers._eval_layout,
+         bb.bev_nhwc) = saved
+
+
+def _random_bn(model, seed: int):
+    """Every BatchNorm's scale and variance in [0.5, 1.5), shift and mean
+    at 0.2 x N(0, 1), so that the fold is not the identity's."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                c = m.weight.numel()
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+
+
+def _ground_surface(batch, shape, cap0, side=210, seed=SEED):
+    """coords [batch, cap0, 3] (z, y, x) and valid [batch, cap0]: per scan
+    a side x side patch of ground at a random place of the grid, each site
+    at a ramp's height and one or two voxels above it (~2.5 a site)."""
+    rng = np.random.RandomState(seed)
+    d, h, w = shape
+    coords = np.zeros((batch, cap0, 3), np.int64)
+    valid = np.zeros((batch, cap0), bool)
+    yy, xx = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    z = d // 3 + (yy + xx).reshape(-1) * 4 // (2 * side)
+    for b in range(batch):
+        yx = np.stack([yy.reshape(-1) + rng.randint(0, h - side),
+                       xx.reshape(-1) + rng.randint(0, w - side)], 1)
+        up = z + rng.randint(1, 3, z.shape)
+        zyx = np.unique(np.concatenate(
+            [np.concatenate([z[:, None], yx], 1),
+             np.concatenate([up[:, None], yx], 1)]), axis=0)[:cap0]
+        coords[b, :len(zyx)] = zyx
+        valid[b, :len(zyx)] = True
+    return torch.from_numpy(coords), torch.from_numpy(valid)
+
+
+def _kernel_ms(fn, batches: int):
+    """{kernel name: [launches, ms]} a call of ``fn`` on the card over
+    ``batches`` profiled calls, after 3 warm-up calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = out.setdefault(e.name, [0.0, 0.0])
+            row[0] += 1 / batches
+            row[1] += (e.time_range.end - e.time_range.start) / 1e3 / batches
+    return out
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+FOLD_GROUPS = {
+    "transposes": lambda k: "nchwToNhwc" in k or "nhwcToNchw" in k,
+    "broadcast elementwise": lambda k: "at::native::elementwise_kernel<" in k,
+    "ReLU": lambda k: "launch_clamp_scalar" in k,
+}
+
+
+def _fold_report(tag, infer, inputs, model, pairs):
+    """Phase 24's lines for one model: the folded batch against the
+    unfolded one."""
+    seen = {}
+    hooks = [model.neck.register_forward_hook(
+                 lambda m, i, o: seen.__setitem__("bev", i[0])),
+             model.bbox_head.register_forward_hook(
+                 lambda m, i, o: seen.__setitem__("head", o[0]))]
+    try:
+        profiling.reset()
+        profiling.enable()
+        try:
+            infer(*inputs)
+            _, counts = profiling.records()
+        finally:
+            profiling.disable()
+            profiling.reset()
+        folded_n = sum(v for _, n, v in counts if n == "conv_bn_folded")
+        heads, bev = seen["head"], seen["bev"]
+        with unfolded_path():
+            infer(*inputs)
+            plain_heads = seen["head"]
+            plain = _kernel_ms(lambda: infer(*inputs), FOLD_BATCHES)
+            plain_host = _host_ms(lambda: infer(*inputs))
+        folded = _kernel_ms(lambda: infer(*inputs), FOLD_BATCHES)
+        folded_host = _host_ms(lambda: infer(*inputs))
+    finally:
+        for h in hooks:
+            h.remove()
+    m32 = copy.deepcopy(model).float()
+    with torch.no_grad(), unfolded_path():
+        want = m32.bbox_head(m32.neck(bev.float().contiguous()))[0]
+    del m32
+
+    def total(rows, i):
+        return sum(r[i] for r in rows.values())
+
+    print(f"BN fold {tag}: host {folded_host:.3f} ms a batch folded, "
+          f"{plain_host:.3f} unfolded; device {total(folded, 1):.3f} ms "
+          f"({total(folded, 0):.0f} launches) folded, {total(plain, 1):.3f} "
+          f"ms ({total(plain, 0):.0f}) unfolded; conv_bn_folded "
+          f"{folded_n} a batch; {card_line()}")
+    for group, match in FOLD_GROUPS.items():
+        a = [sum(r[i] for k, r in plain.items() if match(k)) for i in (0, 1)]
+        b = [sum(r[i] for k, r in folded.items() if match(k)) for i in (0, 1)]
+        print(f"  {group}: {a[0]:.0f} launches {a[1]:.4f} ms a batch "
+              f"unfolded -> {b[0]:.0f} launches {b[1]:.4f} ms folded")
+    delta = {k: folded.get(k, [0, 0])[1] - plain.get(k, [0, 0])[1]
+             for k in set(folded) | set(plain)}
+    for k in sorted(delta, key=lambda k: abs(delta[k]), reverse=True)[:8]:
+        print(f"  {delta[k]:+.4f} ms a batch ({plain.get(k, [0])[0]:.0f} -> "
+              f"{folded.get(k, [0])[0]:.0f} launches) {k[:110]}")
+    def gap(got, ref):
+        return float(torch.linalg.vector_norm(got.float() - ref)
+                     / torch.linalg.vector_norm(ref))
+
+    gaps = {k: gap(v, want[k]) for k, v in heads.items()}
+    print("  heads' relative L2 distance from the f32 neck and head on the "
+          "same BEV map (TF32 off), folded / unfolded: "
+          + ", ".join(f"{k} {g:.2e} / {gap(plain_heads[k], want[k]):.2e}"
+                      for k, g in gaps.items()))
+    # cuDNN writes a one-channel output of a window wider than 1x1 (the
+    # center head's height) through one transpose, on either path
+    one = sum(isinstance(m, layers.Conv2d) and m.out_channels == 1
+              and m.kernel_size != (1, 1) for m in model.modules())
+    left = {k: r for k, r in folded.items() if FOLD_GROUPS["transposes"](k)}
+    if sum(r[0] for r in left.values()) != one:
+        raise AssertionError(f"{tag}: layout transposes in the folded "
+                             f"batch: {left}, want {one}")
+    if folded_n != pairs:
+        raise AssertionError(f"{tag}: conv_bn_folded {folded_n}, want "
+                             f"{pairs}")
+    if max(gaps.values()) > BOUNDS[torch.bfloat16]:
+        raise AssertionError(f"{tag}: heads {gaps}")
+
+
+def phase_bn_fold(device):
+    """Phase 24: one serving batch of each model, folded NHWC against the
+    unfolded NCHW path."""
+    model, cfg = build_model("se_ssd_kitti_car_bf16.py", device, prior=True)
+    _random_bn(model, SEED)
+    spec = builder.build_voxelizer(cfg.voxel_generator)
+    prep = HostPreprocessor(spec, SERVING_CAPS)
+    batch = prep.batch([make_scene(seed=s)[0] for s in range(8)])
+    staged = stage_inputs(batch["feats"], batch["rulebooks"], device)
+    infer = make_infer_fn(model, builder.build_anchors(cfg),
+                          builder.build_predict_config(cfg), SERVING_CAPS, 8,
+                          device)
+    _fold_report("SE-SSD b8", infer, staged, model, 14)
+    del model, infer, staged
+
+    cfg = builder.load_config("centerpoint_waymo_bf16.py")
+    model = builder.build_detector(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    _random_bn(model, SEED + 1)
+    model = model.to(device).eval()
+    caps, b = model.stage_capacity, 4
+    coords, valid = _ground_surface(b, model.sparse_shape, caps[0])
+    chain, sat = model.device_inputs(coords.to(device), valid.to(device), b)
+    print(f"CenterPoint surface: {int(valid.sum()) // b} voxels a scan, "
+          f"saturated stages {sat.nonzero().flatten().tolist()}")
+    feats = torch.randn(b * caps[0], 5, device=device,
+                        generator=torch.Generator(device).manual_seed(SEED))
+    infer = make_infer_fn(model, None, builder.build_predict_config(cfg),
+                          caps, b, device)
+    _fold_report("CenterPoint b4", infer, (feats, chain), model, 20)
+    del model, infer
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def phase(name: str):
     t0 = time.perf_counter()
@@ -3639,6 +3864,8 @@ def main():
         nms_rows = phase_nms(device)
     with phase("CenterPoint instances"):
         phase_centerpoint(device)
+    with phase("BN fold"):
+        phase_bn_fold(device)
 
     tmp = tempfile.mkdtemp(prefix="sessd_smoke_")
     try:

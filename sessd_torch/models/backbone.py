@@ -65,7 +65,8 @@ class SparseConv3d(nn.Module):
 
 
 class SpMiddleFHD(nn.Module):
-    """Sparse middle extractor: (features, rulebooks) -> BEV [B, C*D, H, W].
+    """Sparse middle extractor: (features, rulebooks) -> BEV [B, C*D, H, W]
+    (channels-last from ``forward``, the serving plan: ``bev_nhwc``).
 
     ``middle_conv`` lists (conv, BN, ReLU) per block as the reference's
     Sequential does (scn.py:105-151), so parameters carry det3d's names
@@ -139,11 +140,7 @@ class SpMiddleFHD(nn.Module):
                 shape = sp.downsample_out_shape(shape, dk, ds, dp)
             for _ in range(n_subm):
                 x = block(x, rulebooks["subm"][stage])
-        dense = sp.to_dense(x, ids[4], shape)  # [B, D, H, W, C]
-        b, d, h, w, c = dense.shape
-        # channel order c*D + d, the reference's [N, C, D, H, W] ->
-        # [N, C*D, H, W] view (scn.py:186-188)
-        return dense.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)
+        return bev_nhwc(sp.to_dense(x, ids[4], shape))
 
     def forward_train(self, voxel_features: torch.Tensor, rulebooks: dict,
                       batch_size: int, sparse_shape, dtype: torch.dtype,
@@ -204,6 +201,16 @@ class SpMiddleFHD(nn.Module):
             dense = sp.to_dense(x, ids[4], shape).permute(0, 4, 1, 2, 3)
         b, c, d, h, w = dense.shape
         return dense.reshape(b, c * d, h, w)
+
+
+def bev_nhwc(dense: torch.Tensor) -> torch.Tensor:
+    """The serving BEV map of the dense grid [B, D, H, W, C]: [B, C*D, H,
+    W] in channel order c*D + d, the reference's [N, C, D, H, W] -> [N,
+    C*D, H, W] view (scn.py:186-188), written channels-last in one copy,
+    the layout the neck's cuDNN convs compute in."""
+    b, d, h, w, c = dense.shape
+    return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d).permute(
+        0, 3, 1, 2)
 
 
 def pick_conv(cin: int, n_in: int, dtype: torch.dtype) -> Callable:
@@ -368,9 +375,7 @@ class SpMiddleResNetFHD(nn.Module):
                 rb = rulebooks["subm"][stage]
                 count("sparse_residual")
                 x = block(block(x, rb), rb, residual=x)
-        dense = sp.to_dense(x, ids[4], shape)  # [B, D, H, W, C]
-        b, d, h, w, c = dense.shape
-        return dense.permute(0, 4, 1, 2, 3).reshape(b, c * d, h, w)
+        return bev_nhwc(sp.to_dense(x, ids[4], shape))
 
     def forward_train(self, *args, **kwargs):
         raise NotImplementedError("SpMiddleResNetFHD serves only: its "

@@ -5,7 +5,8 @@ center_head.py of tianweiy/CenterPoint).
 
 Per task, 1x1 convs over the [B, 128, H, W] BEV map. Each output goes back to
 [B, H*W*num_anchors, c] through permute(0, 2, 3, 1), the anchor-grid order
-(y, x, rot) of the flattened anchors, as the JAX head's NHWC reshape gives.
+(y, x, rot) of the flattened anchors, as the JAX head's NHWC reshape gives;
+on a channels-last map (serving) that is a view.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import BatchNorm, Conv2d
+from .layers import BatchNorm, Conv2d, Sequential
 
 
 class TaskHead(nn.Module):
@@ -78,7 +79,7 @@ class SepHead(nn.Module):
                            BatchNorm(head_conv, eps=1e-5), nn.ReLU()]
                 c = head_conv
             layers.append(Conv2d(c, classes, 3, padding=1, bias=True))
-            setattr(self, name, nn.Sequential(*layers))
+            setattr(self, name, Sequential(*layers))
         self.init_bias = init_bias
 
     def reset_hm_bias(self):
@@ -109,7 +110,7 @@ class CenterHead(nn.Module):
         super().__init__()
         common = dict(common_heads or dict(reg=(2, 2), height=(1, 2),
                                            dim=(3, 2), rot=(2, 2)))
-        self.shared_conv = nn.Sequential(
+        self.shared_conv = Sequential(
             Conv2d(in_channels, share_conv_channel, 3, padding=1, bias=True),
             BatchNorm(share_conv_channel, eps=1e-5), nn.ReLU())
         self.tasks = nn.ModuleList(

@@ -8,6 +8,14 @@ float32; convs cast their weights to the dtype of their input, which is the
 compute dtype (flax's ``nn.Conv(dtype=...)``). Outside autograd (serving,
 the teacher) those casts and the BatchNorm fold are made once and kept
 (``derived``), so a request launches no per-call weight casts.
+
+In eval mode outside autograd (serving, validation), ``Sequential`` runs
+each dense conv that an eval BatchNorm follows as one conv on the pair's
+folded parameters (``fold_conv_bn``), the ReLU after it fused into cuDNN's
+call on the card, with channels-last weights, as an eval conv on a
+channels-last input keeps its own: the BEV maps stay NHWC, the layout
+cuDNN computes in, so no BatchNorm pass and no layout transpose runs
+around a conv. Training mode and autograd take the plain path.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..parallel.mesh import all_reduce_sum
+from ..utils.profiling import count
 
 
 def derived(module: nn.Module, key, sources: Sequence[torch.Tensor],
@@ -162,29 +171,136 @@ def sync_batch_norm(module: nn.Module, process_group) -> nn.Module:
     return module
 
 
-def _cast(module: nn.Module, dtype: torch.dtype):
-    """(weight, bias or None) of a conv in ``dtype``."""
+def _eval_layout(module: nn.Module) -> bool:
+    """Whether ``module``'s call takes the eval path (eval mode, outside
+    autograd), on which 4-D weights may be kept channels-last."""
+    return not module.training and not torch.is_grad_enabled()
+
+
+def _cast(module: nn.Module, dtype: torch.dtype,
+          like: Optional[torch.Tensor] = None):
+    """(weight, bias or None) of a conv in ``dtype``; on the eval path a
+    4-D weight channels-last where ``like``, the conv's input, is: the
+    layout cuDNN's NHWC kernels read, so neither is transposed."""
     params = [p for p in (module.weight, module.bias) if p is not None]
-    cast = derived(module, dtype, params,
-                   lambda: [p.to(dtype) for p in params])
+    cl = (like is not None and module.weight.dim() == 4
+          and _eval_layout(module)
+          and like.is_contiguous(memory_format=torch.channels_last))
+
+    def make():
+        out = [p.to(dtype) for p in params]
+        if cl:
+            out[0] = out[0].contiguous(memory_format=torch.channels_last)
+        return out
+
+    cast = derived(module, (dtype, cl), params, make)
     return cast[0], (cast[1] if module.bias is not None else None)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its input's dtype (f32 parameters)."""
+def _pointwise(conv: nn.ConvTranspose2d) -> bool:
+    """A 1x1 stride-1 transposed conv: the plain 1x1 conv of its weight
+    with dims 0 and 1 swapped."""
+    return (conv.kernel_size == (1, 1) and conv.stride == (1, 1)
+            and conv.padding == (0, 0) and conv.output_padding == (0, 0)
+            and conv.dilation == (1, 1) and conv.groups == 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, *_cast(self, x.dtype))
+
+def fold_conv_bn(conv: nn.Module, bn: "BatchNorm", dtype: torch.dtype):
+    """(weight, bias) in ``dtype`` of the one conv that equals ``conv``
+    followed by ``bn`` in eval mode: W * s over the output channels (dim 1
+    of a transposed conv's weight) and b + conv bias * s, for the BN's
+    (s, b) in f32, the weight channels-last; a 1x1 stride-1 transposed
+    conv's weight as the plain conv's (``_pointwise``). Made once and kept
+    (``derived``): a new conv or BN parameter or running statistic folds
+    again."""
+    transposed = isinstance(conv, nn.ConvTranspose2d)
+
+    def make():
+        s, b = bn.fold()
+        w = conv.weight.float() * s.view((1, -1, 1, 1) if transposed
+                                         else (-1, 1, 1, 1))
+        if transposed and _pointwise(conv):
+            w = w.transpose(0, 1)
+        if conv.bias is not None:
+            b = b + conv.bias.float() * s
+        return (w.to(dtype).contiguous(memory_format=torch.channels_last),
+                b.to(dtype))
+
+    sources = [t for t in (conv.weight, conv.bias, bn.weight, bn.bias,
+                           bn.running_mean, bn.running_var) if t is not None]
+    return derived(conv, ("fold", dtype), sources, make)
+
+
+def _conv_relu(x: torch.Tensor, weight, bias, stride, padding, dilation,
+               groups, relu: bool) -> torch.Tensor:
+    """conv2d(x) + bias, then ReLU where ``relu``: on the card one cuDNN
+    call with the bias and ReLU in its epilogue."""
+    if relu and x.is_cuda:
+        return torch.cudnn_convolution_relu(x, weight, bias, stride, padding,
+                                            dilation, groups)
+    y = F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    return y.relu_() if relu else y
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype (f32 parameters).
+    Given ``bn``, the eval BatchNorm that follows it (``Sequential``), it
+    runs the pair, and a ReLU where ``relu``, as one conv on the folded
+    parameters (``fold_conv_bn``)."""
+
+    def forward(self, x: torch.Tensor, bn: Optional["BatchNorm"] = None,
+                relu: bool = False) -> torch.Tensor:
+        if bn is None:
+            return self._conv_forward(x, *_cast(self, x.dtype, x))
+        return _conv_relu(x, *fold_conv_bn(self, bn, x.dtype), self.stride,
+                          self.padding, self.dilation, self.groups, relu)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d`` that computes in its input's dtype."""
+    """``nn.ConvTranspose2d`` that computes in its input's dtype. With
+    ``bn``, as ``Conv2d``: a 1x1 stride-1 one runs as the plain conv it
+    equals; any other adds the bias and the ReLU in passes of their own
+    (cuDNN fuses neither into a transposed conv)."""
+
+    def forward(self, x: torch.Tensor, bn: Optional["BatchNorm"] = None,
+                relu: bool = False) -> torch.Tensor:
+        if bn is None:
+            weight, bias = _cast(self, x.dtype, x)
+        else:
+            weight, bias = fold_conv_bn(self, bn, x.dtype)
+            if _pointwise(self):
+                return _conv_relu(x, weight, bias, (1, 1), (0, 0), (1, 1), 1,
+                                  relu)
+        y = F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                               self.output_padding, self.groups,
+                               self.dilation)
+        return y.relu_() if relu else y
+
+
+class Sequential(nn.Sequential):
+    """``nn.Sequential`` (the same children, so the same state-dict keys)
+    that, outside autograd, runs each ``Conv2d`` or ``ConvTranspose2d``
+    followed by an eval ``BatchNorm`` (and a ReLU) as one call of the conv
+    with the BatchNorm folded in, counted as ``conv_bn_folded``; anything
+    else as ``nn.Sequential`` does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight, bias = _cast(self, x.dtype)
-        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
+        if torch.is_grad_enabled():
+            return super().forward(x)
+        mods = list(self)
+        i = 0
+        while i < len(mods):
+            m, bn = mods[i], mods[i + 1] if i + 1 < len(mods) else None
+            if (isinstance(m, (Conv2d, ConvTranspose2d))
+                    and isinstance(bn, BatchNorm) and not bn.training):
+                relu = i + 2 < len(mods) and isinstance(mods[i + 2], nn.ReLU)
+                x = m(x, bn=bn, relu=relu)
+                count("conv_bn_folded")
+                i += 3 if relu else 2
+            else:
+                x = m(x)
+                i += 1
+        return x
 
 
 @torch.no_grad()
@@ -198,7 +314,8 @@ def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):
 def conv_bn_relu(cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  padding: Optional[int] = None, transpose: bool = False,
                  relu: bool = True) -> List[nn.Module]:
-    """[conv, BN(, ReLU)] as the reference's Sequentials list them.
+    """[conv, BN(, ReLU)] as the reference's Sequentials list them (the
+    port puts them in a ``Sequential``, which folds the pair in eval).
 
     Plain convs pad symmetrically by k//2 (torch style). Transposed convs
     take padding k//2 and output_padding s-1, so the output is exactly s x

@@ -33,7 +33,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from .head import MultiGroupHead
-from .layers import BatchNorm, ConvTranspose2d, _cast, conv_bn_relu, uniform_
+from .layers import (BatchNorm, ConvTranspose2d, Sequential, _cast,
+                     conv_bn_relu, uniform_)
 
 
 class PFNLayer(nn.Module):
@@ -171,9 +172,9 @@ class RPN(nn.Module):
                                                     stride=ds_strides[i])
             for _ in range(n):
                 layers += conv_bn_relu(f, f, 3)
-            self.blocks.append(nn.Sequential(*layers))
+            self.blocks.append(Sequential(*layers))
             s = us_strides[i]
-            self.deblocks.append(nn.Sequential(
+            self.deblocks.append(Sequential(
                 ConvTranspose2d(f, us_filters[i], s, stride=s, bias=False),
                 BatchNorm(us_filters[i]), nn.ReLU()))
             cin = f

@@ -1,5 +1,6 @@
 """SSFA neck (port of ``sessd_tpu/models/ssfa.py``; reference
-rpn_v1.py:119-235), as NCHW cuDNN convs.
+rpn_v1.py:119-235), as cuDNN convs: in serving on channels-last maps with
+each conv's BatchNorm folded in (``layers.Sequential``).
 
 Two branches from the 128-ch BEV map: a spatial branch at full resolution
 and a stride-2 semantic branch at 256 ch; 1x1 transforms; the semantic
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import conv_bn_relu
+from .layers import Sequential, conv_bn_relu
 
 
 class SSFA(nn.Module):
@@ -20,22 +21,22 @@ class SSFA(nn.Module):
         super().__init__()
         c = num_input_features
         # index 0 is the reference's explicit ZeroPad2d(1)
-        self.bottom_up_block_0 = nn.Sequential(
+        self.bottom_up_block_0 = Sequential(
             nn.ZeroPad2d(1), *conv_bn_relu(c, 128, 3, padding=0),
             *conv_bn_relu(128, 128, 3), *conv_bn_relu(128, 128, 3))
-        self.bottom_up_block_1 = nn.Sequential(
+        self.bottom_up_block_1 = Sequential(
             *conv_bn_relu(128, 256, 3, stride=2),
             *conv_bn_relu(256, 256, 3), *conv_bn_relu(256, 256, 3))
-        self.trans_0 = nn.Sequential(*conv_bn_relu(128, 128, 1))
-        self.trans_1 = nn.Sequential(*conv_bn_relu(256, 256, 1))
-        self.deconv_block_0 = nn.Sequential(
+        self.trans_0 = Sequential(*conv_bn_relu(128, 128, 1))
+        self.trans_1 = Sequential(*conv_bn_relu(256, 256, 1))
+        self.deconv_block_0 = Sequential(
             *conv_bn_relu(256, 128, 3, stride=2, transpose=True))
-        self.deconv_block_1 = nn.Sequential(
+        self.deconv_block_1 = Sequential(
             *conv_bn_relu(256, 128, 3, stride=2, transpose=True))
-        self.conv_0 = nn.Sequential(*conv_bn_relu(128, 128, 3))
-        self.w_0 = nn.Sequential(*conv_bn_relu(128, 1, 1, relu=False))
-        self.conv_1 = nn.Sequential(*conv_bn_relu(128, 128, 3))
-        self.w_1 = nn.Sequential(*conv_bn_relu(128, 1, 1, relu=False))
+        self.conv_0 = Sequential(*conv_bn_relu(128, 128, 3))
+        self.w_0 = Sequential(*conv_bn_relu(128, 1, 1, relu=False))
+        self.conv_1 = Sequential(*conv_bn_relu(128, 128, 3))
+        self.w_1 = Sequential(*conv_bn_relu(128, 1, 1, relu=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x0 = self.bottom_up_block_0(x)

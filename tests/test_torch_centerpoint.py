@@ -5,9 +5,14 @@ kernels' plain twins) against the plain reference
 block, the whole SpMiddleResNetFHD, RPN + CenterHead, the center decode
 and NMS, ``build_detector`` on both configs, the NMS twin at pre 4096
 against the reference's greedy loop, the box layout's IoU on a hand-made
-pair, and the serving pass's spans and ``sparse_residual`` counter.
+pair, and the serving pass's spans and ``sparse_residual`` counter. On
+the card (``-m cuda``, skipped without one): a bf16 serving batch at the
+published grid with the RPN's and head's 20 conv + BatchNorm pairs folded
+on channels-last maps, against the unfolded NCHW path and an f32
+reference of the neck and head (``test_torch_bn_fold.check_serving``).
 
     python -m pytest tests/test_torch_centerpoint.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_centerpoint.py
 """
 import math
 
@@ -26,6 +31,7 @@ from sessd_torch.reference import centerpoint as ref
 from sessd_torch.serve import make_infer_fn
 from sessd_torch.utils import profiling
 import test_torch_threads  # noqa: F401 (torch's threads under xdist)
+from test_torch_bn_fold import check_serving, cuda, randomize  # noqa: F401
 
 SHAPE = (41, 64, 64)  # the smallest (D, H, W) whose last stage keeps D = 2
 B, V = 2, 400
@@ -356,3 +362,52 @@ def test_reference_imports_nothing_of_the_program():
             tops.add(node.module.split(".")[0])
     assert tops <= {"__future__", "itertools", "typing", "numpy", "torch",
                     "copy"}
+
+
+def _surface(batch: int, shape, side: int = 240, seed: int = 0):
+    """coords [batch, V, 3] (z, y, x) and valid [batch, V], V = shape's
+    voxels a scan at most: a ground surface of side x side sites a scan
+    at a random place of the grid, each at a height from a smooth ramp
+    plus one voxel of noise (~2 voxels a site)."""
+    rng = np.random.RandomState(seed)
+    d, h, w = shape
+    per = []
+    for _ in range(batch):
+        y0, x0 = rng.randint(0, h - side), rng.randint(0, w - side)
+        yy, xx = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+        z = (d // 3 + (yy + xx) * 4 // (2 * side)).reshape(-1)
+        yx = np.stack([yy.reshape(-1) + y0, xx.reshape(-1) + x0], 1)
+        zyx = np.concatenate([
+            np.concatenate([z[:, None], yx], 1),
+            np.concatenate([(z + rng.randint(1, 3, z.shape))[:, None], yx],
+                           1)])
+        per.append(np.unique(zyx, axis=0))
+    v = max(len(p) for p in per)
+    coords = np.zeros((batch, v, 3), np.int64)
+    valid = np.zeros((batch, v), bool)
+    for b, p in enumerate(per):
+        coords[b, :len(p)] = p
+        valid[b, :len(p)] = True
+    return torch.from_numpy(coords), torch.from_numpy(valid)
+
+
+@pytest.mark.cuda
+def test_card_serving_batch_folds_in_nhwc(cuda):
+    """A bf16 serving batch of 2 at the published grid (41, 1504, 1504)
+    and stage caps, on a synthetic ground surface: the neck's and head's
+    20 pairs (the RPN's 12 convs and 2 deblocks, the shared conv, 5
+    hidden convs) fold, with no cuDNN transpose and their BatchNorm passes
+    gone from the profile."""
+    cfg = builder.load_config("centerpoint_waymo_bf16.py")
+    model = randomize(builder.build_detector(cfg), seed=12).to(cuda).eval()
+    b, caps = 2, model.stage_capacity
+    coords, valid = _surface(b, model.sparse_shape)
+    pad = caps[0] - coords.shape[1]
+    coords = torch.nn.functional.pad(coords, (0, 0, 0, pad))
+    valid = torch.nn.functional.pad(valid, (0, pad))
+    chain, sat = model.device_inputs(coords.to(cuda), valid.to(cuda), b)
+    assert not sat.any()
+    feats = torch.randn(b * caps[0], 5, device=cuda)
+    infer = make_infer_fn(model, None, builder.build_predict_config(cfg),
+                          caps, b, cuda)
+    check_serving(model, infer, (feats, chain), pairs=20)

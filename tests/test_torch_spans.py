@@ -5,7 +5,9 @@ a span's duration less what its children cover. The training step (the
 small SE-SSD step of ``tests/test_torch_train_step.py``) and the serving
 pass (``make_infer_fn`` on the cropped grid of ``tests/test_torch_serve.py``)
 record their phases, and a ``torch.profiler`` trace taken with the
-recorder on holds no event named after a span."""
+recorder on holds no event named after a span. A serving batch counts
+SE-SSD's 14 folded conv + BatchNorm pairs (``conv_bn_folded``), a train
+step none."""
 import copy
 import time
 
@@ -187,6 +189,41 @@ def test_serving_pass_records_its_phases(recorder):
         total, uncovered = _covered(spans, r)
         assert uncovered <= max(0.05 * total, 1e6)
     assert sum(s[0] == "predict.sync" for s in spans) == 2
+
+
+def _serving_model():
+    model = VoxelNet(sparse_shape=SPEC.sparse_shape)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+@pytest.mark.parametrize("path", ["serving", "train"])
+def test_folded_convs_are_counted_a_serving_batch_not_a_train_step(
+        recorder, path):
+    """``conv_bn_folded``: SE-SSD's 14 SSFA conv + BatchNorm pairs in a
+    serving batch; none in a train step (training mode and autograd take
+    the unfolded path)."""
+    if path == "serving":
+        anchors = create_anchors_3d_range(
+            [1, 8, 8], [0.0, -1.6, -1.0, 3.2, 1.6, -1.0]).reshape(-1, 7)
+        cfg = PredictConfig(post_center_range=(-10.0, -10.0, -10.0, 10.0,
+                                               10.0, 10.0))
+        infer = make_infer_fn(_serving_model(), anchors, cfg, CAPS, 1, "cpu")
+        rng = np.random.RandomState(1)
+        pts = np.concatenate([rng.rand(1500, 3) * [3.2, 3.2, 4.0]
+                              + [0.0, -1.6, -3.0], rng.rand(1500, 1)], 1)
+        infer(**HostPreprocessor(SPEC, CAPS)(pts.astype(np.float32)))
+        root, want = "infer.batch", 14
+    else:
+        step = make_train_step(_loss_cfgs()[1])
+        step(_train_state(), port_batch(make_batch()), 0.7)
+        root, want = "train.step", 0
+    spans, counts = profiling.records()
+    roots = [i for i, s in enumerate(spans) if s[3] == -1]
+    assert [spans[i][0] for i in roots] == [root]
+    got = sum(v for r, n, v in counts if n == "conv_bn_folded")
+    assert got == want
+    assert all(r == roots[0] for r, n, _ in counts if n == "conv_bn_folded")
 
 
 def test_profile_with_recorder_on_holds_no_span(recorder):
