@@ -18,17 +18,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    CUDA-event medians of 20 launches, each queued behind a device spin).
    Each batch-1 bf16 conv also prints its body ("mma": the tensor-core tile
    of ``csrc/gather_mma.cuh``), the cluster size S its launch took, the
-   scalar tile's time (``fused_sparse_conv_scalar``, the body bf16 K1 ran
-   before), the count of 64-row tiles with a hit and, where S > 1, its
-   time at one CTA per tile and its distance from that result. The first
-   conv (4 -> 16, ``csrc/gather_direct.cuh``'s direct body) must equal the
-   scalar entry bit for bit in both types at both batches, and prints its
-   time beside the scalar entry's, the twin's and its bound.
+   count of 64-row tiles with a hit and, where S > 1, its time at one CTA
+   per tile and its distance from that result. The first conv (4 -> 16,
+   ``csrc/gather_direct.cuh``'s direct body) must give the same bits on two
+   runs in both types at both batches, and prints its time beside the
+   twin's and its bound.
    The streaming kernel (K3) against its twin and against K1 on every conv
    that streams in one bf16 batch-8 request at SERVING_CAPS (stages 1-2),
-   equal to K1 bit for bit where K1 runs one CTA per tile, with K3, K1,
-   scalar-tile and twin times and the share of (tile, tap) pairs no row
-   hits, which the tile skips, per conv.
+   equal to K1 bit for bit where K1 runs one CTA per tile, with K3, K1 and
+   twin times and the share of (tile, tap) pairs no row hits, which the
+   tile skips, per conv.
 3. End-to-end serving through ``sessd_torch.serve.ExactBatchServer``: the
    SE-SSD Car VoxelNet (sessd_torch/configs/se_ssd_kitti_car_bf16.py, seeded
    random weights, 70,400 anchors) serves 12 batch-1 requests and one
@@ -50,27 +49,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    weight gradient, a reduction over all rows), bf16 2e-2; dW gives the
    same bits on two runs. Each conv's K4, dFeat and dW body is checked:
    the tensor-core ones in bf16, in f32 through 3xTF32, and the direct
-   ones for the first conv's 4-channel side, which must equal their
-   scalar entries bit for bit (K4 on both chains, dFeat 16 -> 4 and dW on
-   the student's; bf16 K4 against K1's scalar entry with zero bias, no
-   ReLU and the row mask applied) and are timed beside them; K4's f32
-   scalar entry
-   (``sparse_conv_fwd_scalar``, off the training path) is held to K4's
-   bound on every conv. In both types one K4 call and one dFeat call (and
-   in f32 one call of the entry) each make one launch and one allocation,
-   their output (no copy or packing of the weights). Kernel and twin
+   ones for the first conv's 4-channel side, which must give the same
+   bits on two runs (K4 on both chains, dFeat 16 -> 4 and dW on the
+   student's) and are timed beside their twins. In both types one K4 call
+   and one dFeat call each make one launch and one allocation, their
+   output (no copy or packing of the weights). Kernel and twin
    device-time medians per conv (bf16, student chain; f32: K4 on both
-   chains, dFeat and dW on the student's, printed per launch, each with
-   its scalar entry, ``sparse_conv_fwd_scalar``,
-   ``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar``, on the same
-   calls, dW's bound also with its partials); for the
-   bf16 forward also the scalar tile's time on the same inputs (K1's
-   scalar entry with zero bias and no ReLU) and the share of (tile, tap)
-   pairs skipped; for the input
-   gradient the scalar entry's time, the share of (tile, tap) pairs of the
-   inverse rulebook skipped and the share of gathered rows zero-filled;
-   for dW the scalar partial kernel's time
-   (``sparse_conv_dw_scalar``), the shares of (chunk, tap) and (step, tap)
+   chains, dFeat and dW on the student's, printed per launch, dW's bound
+   also with its partials); for the bf16 forward also the share of
+   (tile, tap) pairs skipped; for the input gradient the share of (tile,
+   tap) pairs of the inverse rulebook skipped and the share of gathered
+   rows zero-filled; for dW the shares of (chunk, tap) and (step, tap)
    pairs skipped, the f32 partials' bytes, and its time at each chunk size
    of DW_CHUNK_SWEEP.
 5. Training through ``sessd_torch.train.trainer.Trainer`` (bf16 config,
@@ -82,8 +71,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    Prints the step-time median, the data-time share and the peak device
    memory.
 6. One f32 step (TF32 off) on one batch through the kernels, K4 through
-   its scalar entry (``sparse_conv_fwd_scalar``, the body that sums in the
-   twins' order), and, from an identical state, through their twins: loss
+   its plain twin (``kt.sparse_conv_fwd_ref``: the twin step's forward and
+   ReLU masks), and, from an identical state, through their twins: loss
    terms within 1e-4 relative, each gradient tensor within 1e-3 of its
    max. It holds the step's wiring and the 3xTF32 dFeat and dW.
    Before it, from copies of the same fresh state, the shipped path (K4
@@ -99,13 +88,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    tile) against their twin within 1e-4, bit-equal to each other and to
    f32 K4 with their epilogue, on the convs that stream in one batch-4
    eval batch at ACCEPT_CAPS (derived from the stream rule at those caps),
-   timed with K1, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
-   the f32 body it replaced) and the twin on the same calls, with no stage
+   timed with K1 and the twin on the same calls, with no stage
    saturated; and K1 on the convs it runs there within 1e-4 of its twin
    and, on the 3xTF32 tile, bit-equal to K4 with the epilogue (on the
-   first conv's direct body, to its scalar entry), timed with
-   its twin and its scalar entry (``fused_sparse_conv_scalar``) (f32
-   per-launch times);
+   first conv's direct body, the same bits on two runs), timed with its
+   twin (f32 per-launch times);
    ``Trainer.validate()`` over the val split (the same 8 frames), with the
    K1 and K3 launches per batch the rule gives; ``save_checkpoint``; then
    ``python -m sessd_torch.tools.test`` in a subprocess on that checkpoint
@@ -120,9 +107,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``sessd_torch.scripts.bench_launch_overhead``, the empty launch: host
    and device us per launch, through Python and from one C call, and the
    ``sparse_conv_fwd`` wrapper against its bare launches). Then S1's scalar
-   ``full`` mode must equal K1's scalar entry with zero bias and no ReLU
-   bit for bit, its tensor-core ``full`` mode bf16 K4 without a mask bit
-   for bit (on both shapes), every mode must match its plain version within
+   ``full`` mode must equal the scalar tile's in-order f32 sum
+   (``ablate.scalar_tile_sum``) bit for bit, its tensor-core ``full`` mode
+   bf16 K4 without a mask bit for bit (on both shapes), every mode must match its plain version within
    2e-2 of max|plain| (exactly zero where it stores zeros), and S2's output
    must be all zeros.
 9. Warm start and resume on the 8-frame root: a CIA-SSD bf16 trainer runs
@@ -290,33 +277,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    BEV map (the folded one within 2e-2). Fails on a transpose left in the
    folded batch but the one cuDNN writes a one-channel output through.
 
-The entries kept for same-call comparisons (``fused_sparse_conv_scalar``,
-``fused_sparse_conv_at_split``, ``fused_sparse_conv_stream_ring``,
-``sparse_conv_fwd_scalar``, ``sparse_conv_dfeat_scalar``,
-``sparse_conv_dw_scalar``) count their own launches; a main-path phase
-that launched one fails (phase 6's unpinned step runs K4's on purpose).
+The entry kept for same-call comparisons (``fused_sparse_conv_at_split``,
+K1 at a forced cluster size) counts its own launches; a main-path phase
+that launched it fails.
 
 The last lines are the kernels JSON line (each kernel's time, its plain
 twin's, its launches on the main path, and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its 2*hits*Cin*Cout flops over the
 peak for the input type, 67 TFLOP/s f32 or 989 TFLOP/s bf16, and for a
 3xTF32 body three times those flops over 494.7 TFLOP/s TF32), the card
-line, and the result line ``{"ok": true, "device": {...}}``. The rows of
-K1, K3, K4, dFeat, dW and S1 also carry ``old_tile_ms`` (the scalar tile on
-the same convs in the same run; for S1 the scalar copy's ``full``), K1,
-K3, K4, dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
+line, and the result line ``{"ok": true, "device": {...}}``. The S1 row
+also carries ``old_tile_ms`` (its scalar copy's ``full``), K1, K3, K4,
+dFeat, dW and S1 the name of their ``tile``, K3, K4 and dFeat
 ``skipped_tap_share``, dW its skipped (chunk, tap) and (step, tap) shares,
 its partials' bytes and its time by chunk rows, S1 its tensor-core mode
 tables, and K1, K3, K4, dFeat and dW an ``f32`` object: per-launch ms on
-the f32 paths (phases 4 and 7), the old body's on the same calls (the
-scalar entries; K3's ring), the twin's and the bound's (dW's also with its
-partials), and the body; K3's also K1's time and its distance from K1,
-K1's its max abs error against the twin, K4's its scalar entry's max abs
-error against the twin. K1, K4, dFeat and dW also carry ``cin4``: the
-first conv's 4-channel side on the direct body, per call (K1 at batch 1
-and 4 in both types, K4 on both training chains, dFeat 16 -> 4 and dW on
-the student's), its ms, its scalar entry's on the same call, the twin's
-and the call's bound.
+the f32 paths (phases 4 and 7), the twin's and the bound's (dW's also
+with its partials), and the body; K3's also K1's time and its distance
+from K1, K1's its max abs error against the twin. K1, K4, dFeat and dW
+also carry ``cin4``: the first conv's 4-channel side on the direct body,
+per call (K1 at batch 1 and 4 in both types, K4 on both training chains,
+dFeat 16 -> 4 and dW on the student's), its ms, the twin's and the
+call's bound.
 Without a CUDA device it raises and prints no result.
 """
 import ast
@@ -507,8 +489,7 @@ def phase_build():
     log = sc.build_info["log"]
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
-    # blocks per SM of each training tile instance, by (entry, dtype, pair),
-    # and of K4's f32 scalar entry
+    # blocks per SM of each training tile instance, by (entry, dtype, pair)
     blocks = {f"{entry[12:]} {str(dtype)[6:]} {cin}x{cout}":
               f"{sc.conv_instance(entry, dtype, cin, cout)} "
               f"{kt.blocks_per_sm(entry, dtype, cin, cout)}"
@@ -516,9 +497,6 @@ def phase_build():
                                    ("sparse_conv_dfeat", sc.DFEAT_PAIRS))
               for dtype in (torch.float32, torch.bfloat16)
               for cin, cout in pairs}
-    blocks.update({f"fwd_scalar float32 {cin}x{cout}": "scalar " + str(
-        kt.blocks_per_sm("sparse_conv_fwd_scalar", torch.float32, cin, cout))
-        for cin, cout in sc.FWD_PAIRS})
     print(f"build: {secs:.2f} s ({sc.build_info['path']}); "
           f"{len(regs)} kernel instances, max {max(regs, default=0)} "
           f"registers, {spills} bytes spill stores; training tiles (body, "
@@ -552,44 +530,41 @@ def phase_build():
 
 class Direct:
     """The first conv's 4-channel side on the direct body, per (kernel,
-    tag): device ms of the body, of its scalar entry on the same call and
-    of the twin, and the call's Bound; every call held bit-equal to the
-    scalar entry (``check``)."""
+    tag): device ms of the body and of the twin, and the call's Bound;
+    every call held to the same bits on a second run (``check``; the
+    twin bound is the caller's)."""
 
     def __init__(self):
         self.rows = {}
 
-    def check(self, what, got, old):
-        if not torch.equal(got, old):
-            raise AssertionError(f"{what}: the direct body differs from its "
-                                 f"scalar entry by "
-                                 f"{float((got.float() - old.float()).abs().max()):.3e}")
+    def check(self, what, got, again):
+        if not torch.equal(got, again):
+            diff = float((got.float() - again.float()).abs().max())
+            raise AssertionError(f"{what}: the direct body's second run "
+                                 f"differs by {diff:.3e}")
 
-    def add(self, kernel, tag, ms, old_ms, plain_ms, bound):
+    def add(self, kernel, tag, ms, plain_ms, bound):
         self.rows.setdefault(kernel, {})[tag] = {
-            "ms": ms, "old_tile_ms": old_ms, "plain_ms": plain_ms,
-            "bound_ms": bound.ms(), "bound_by": bound.by(),
-            "old_tile_over_ms": old_ms / ms}
-        return (f"direct {ms:.4f} ms, scalar entry {old_ms:.4f} ms "
-                f"({old_ms / ms:.2f}x), twin {plain_ms:.4f} ms, bound "
-                f"{bound.ms():.4f} ms ({bound.by()}), bit-equal to the "
-                "scalar entry")
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms(),
+            "bound_by": bound.by()}
+        return (f"direct {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+                f"{bound.ms():.4f} ms ({bound.by()}), the same bits on two "
+                "runs")
 
 
 def phase_kernels(model, spec, device):
     """Every backbone conv through kernel and twin on identical inputs; the
-    batch-1 convs timed, in bf16 also through the scalar tile's entry and,
-    where K1 splits its tiles over a cluster, at one CTA per tile. The
-    first conv (the direct body) is held bit-equal to the scalar entry in
-    both types and batches and timed with it at both batches. Returns (max
-    abs error, {"ms", "old_ms", "plain_ms": sums over the 14 b1 bf16
-    convs}, the bound of those convs, a Direct)."""
+    batch-1 convs timed, in bf16 also, where K1 splits its tiles over a
+    cluster, at one CTA per tile. The first conv (the direct body) gives
+    the same bits on two runs in both types and batches and is timed at
+    both batches. Returns (max abs error, {"ms", "plain_ms": sums over the
+    14 b1 bf16 convs}, the bound of those convs, a Direct)."""
     prep = HostPreprocessor(spec, SERVING_CAPS)
     scenes = [make_scene(seed=s)[0] for s in range(4)]
     staged = {1: stage_inputs(**prep(scenes[0]), device=device),
               4: stage_inputs(**prep.batch(scenes), device=device)}
     worst_abs, bound = 0.0, Bound()
-    sums = {"ms": 0.0, "old_ms": 0.0, "plain_ms": 0.0}
+    sums = {"ms": 0.0, "plain_ms": 0.0}
     direct = Direct()
     for batch, dtype in ((1, torch.float32), (1, torch.bfloat16),
                          (4, torch.float32), (4, torch.bfloat16)):
@@ -624,14 +599,13 @@ def phase_kernels(model, spec, device):
             if inst == "direct":
                 args = (x, rbk, w2, bias, n_in)
                 direct.check(f"{CONV_NAMES[i]} {tag}", y,
-                             sc.fused_sparse_conv_scalar(*args))
+                             sc.fused_sparse_conv(*args))
                 one = Bound()
                 one.add((x, rbk, w2, bias, y), hits(rbk, n_in), cin, cout,
                         dtype)
                 line += "; " + direct.add(
                     "fused_sparse_conv", tag,
                     median_ms(lambda: sc.fused_sparse_conv(*args)),
-                    median_ms(lambda: sc.fused_sparse_conv_scalar(*args)),
                     median_ms(lambda: sc.fused_sparse_conv_ref(*args)), one)
             if timed:
                 args = (x, rbk, w2, bias, n_in)
@@ -639,12 +613,9 @@ def phase_kernels(model, spec, device):
                 r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(*args))
                 line += f" kernel {k_ms:.4f} ms twin {r_ms:.4f} ms"
                 if dtype == torch.bfloat16:
-                    o_ms = median_ms(lambda: sc.fused_sparse_conv_scalar(
-                        *args))
                     flags, _ = sp.tile_tap_hits(rbk, n_in)
-                    line += (f" scalar tile {o_ms:.4f} ms; tiles "
-                             f"{flags.shape[0]}, {int(flags.any(1).sum())} "
-                             "with a hit")
+                    line += (f"; tiles {flags.shape[0]}, "
+                             f"{int(flags.any(1).sum())} with a hit")
                     if split > 1:
                         one = sc.fused_sparse_conv_at_split(*args, split=1)
                         torch.cuda.synchronize()
@@ -659,7 +630,6 @@ def phase_kernels(model, spec, device):
                                 f"{CONV_NAMES[i]} {tag}: S={split} differs "
                                 f"from S=1 by {s1_rel:.3e}")
                     sums["ms"] += k_ms
-                    sums["old_ms"] += o_ms
                     sums["plain_ms"] += r_ms
                     bound.add((x, rbk, w2, bias, y), hits(rbk, n_in), cin,
                               cout, dtype)
@@ -677,9 +647,8 @@ def phase_kernels(model, spec, device):
         if next(step, None) is not None:
             raise AssertionError("backbone ran fewer than 14 convs")
     print(f"kernel vs twin: all 14 convs within bounds at b1/int16 and "
-          f"b4/int32, f32 and bf16, the first conv's direct body bit-equal "
-          f"to its scalar entry; b1 bf16 sums kernel {sums['ms']:.4f} ms, "
-          f"scalar tile {sums['old_ms']:.4f} ms, twin "
+          f"b4/int32, f32 and bf16, the first conv's direct body the same "
+          f"bits on two runs; b1 bf16 sums kernel {sums['ms']:.4f} ms, twin "
           f"{sums['plain_ms']:.4f} ms, bound {bound.ms():.4f} ms "
           f"({bound.by()}) [{card_line()}]")
     return worst_abs, sums, bound, direct
@@ -841,14 +810,6 @@ def phase_checkpoint_import(model, cfg, spec, device, tmp):
     torch.cuda.empty_cache()
 
 
-def old_tile(dtype):
-    """The scalar body K3 ran before its tensor-core tile: bf16 K1's scalar
-    entry (the same function on the scalar tile), in f32 K3's two-slot
-    ring (both kept for these comparisons)."""
-    return (sc.fused_sparse_conv_scalar if dtype == torch.bfloat16
-            else sc.fused_sparse_conv_stream_ring)
-
-
 def tf32_with_epilogue(x, rbk, w2, bias, n_in, relu=True):
     """f32 K4 (the 3xTF32 tile f32 K1 and K3 run, without the epilogue)
     with their bias, ReLU and any-hit mask added in torch: f32 K1's and
@@ -862,8 +823,7 @@ def tf32_with_epilogue(x, rbk, w2, bias, n_in, relu=True):
 def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                        want_streamed, resident=None):
     """The backbone's all-sparse plan on (feats, rb) with every conv that
-    streams run through K3, its twin, K1 and the old scalar body on
-    identical inputs: K3 within the bound of the twin and of K1, and equal
+    streams run through K3, its twin and K1 on identical inputs: K3 within the bound of the twin and of K1, and equal
     to K1 bit for bit where K1 runs one CTA per tile (in bf16 both on the
     tensor-core tile, in f32 both through 3xTF32 at S = 1); in f32 also
     equal bit for bit to f32 K4 with K3's epilogue
@@ -871,15 +831,13 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
     medians of 10). The other convs run K1; where ``resident`` (a
     PerLaunch) is given, each is held within the bound of its twin and, on
     the 3xTF32 tile, equal bit for bit to K4 with the epilogue (on the
-    direct body to its scalar entry), and timed
-    with its twin and its scalar entry (``fused_sparse_conv_scalar``, the
-    body it replaced) into ``resident``. Returns {"worst": max abs error
-    vs twin, "vs_k1": max abs difference from K1, "ms", "k1_ms", "old_ms"
-    (``old_tile``), "plain_ms": sums, "bound": Bound, "tiles": TileSkips,
-    "streamed": the streamed convs, "body": K3's, "k1_worst": max abs
+    direct body the same bits on a second run), and timed with its twin
+    into ``resident``. Returns {"worst": max abs error vs twin, "vs_k1":
+    max abs difference from K1, "ms", "k1_ms", "plain_ms": sums, "bound":
+    Bound, "tiles": TileSkips, "streamed": the streamed convs, "body": K3's, "k1_worst": max abs
     error of the resident K1 vs twin}."""
     out = {"worst": 0.0, "vs_k1": 0.0, "ms": 0.0, "k1_ms": 0.0,
-           "old_ms": 0.0, "plain_ms": 0.0, "bound": Bound(),
+           "plain_ms": 0.0, "bound": Bound(),
            "tiles": TileSkips(), "k1_worst": 0.0}
     step = iter(range(len(CONV_NAMES)))
     streamed = []
@@ -903,23 +861,21 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
                     raise AssertionError(f"{CONV_NAMES[i]} {tag}: f32 K1 "
                                          "differs from K4 with the epilogue")
                 if body == "direct" and not torch.equal(
-                        y, sc.fused_sparse_conv_scalar(*args)):
+                        y, sc.fused_sparse_conv(*args)):
                     raise AssertionError(f"{CONV_NAMES[i]} {tag}: K1's direct "
-                                         "body differs from its scalar entry")
+                                         "body differs on a second run")
                 k_ms = median_ms(lambda: sc.fused_sparse_conv(*args), 10)
                 r_ms = median_ms(lambda: sc.fused_sparse_conv_ref(*args), 10)
-                o_ms = median_ms(lambda: sc.fused_sparse_conv_scalar(*args),
-                                 10)
-                resident.add(body, k_ms, r_ms, o_ms)
+                resident.add(body, k_ms, r_ms)
                 resident.bound.add((x, rbk, w2, bias, y), hits(rbk, n_in),
                                    cin, cout, dtype, body)
                 print(f"resident conv {i:2d} {CONV_NAMES[i]:6s} {cin:2d}->"
                       f"{cout:2d} rows {rbk.shape[0]:6d} {tag}: K1 "
                       f"[{body}] rel_err vs twin {rel:.2e}"
                       + {"tf32": ", equal to K4 with the epilogue",
-                         "direct": ", equal to its scalar entry"}.get(body, "")
-                      + f"; {k_ms:.4f} ms, scalar entry {o_ms:.4f} ms, twin "
-                      f"{r_ms:.4f} ms")
+                         "direct": ", the same bits on two runs"}.get(body,
+                                                                      "")
+                      + f"; {k_ms:.4f} ms, twin {r_ms:.4f} ms")
             return y
         streamed.append(CONV_NAMES[i])
         args = (x, rbk, w2, bias, n_in)
@@ -936,8 +892,8 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
         out["vs_k1"] = max(out["vs_k1"], vs_k1)
         times = [median_ms(lambda f=f: f(*args), 10) for f in (
             sc.fused_sparse_conv_stream, sc.fused_sparse_conv,
-            old_tile(dtype), sc.fused_sparse_conv_ref)]
-        for key, t in zip(("ms", "k1_ms", "old_ms", "plain_ms"), times):
+            sc.fused_sparse_conv_ref)]
+        for key, t in zip(("ms", "k1_ms", "plain_ms"), times):
             out[key] += t
         body = sc.conv_instance("fused_sparse_conv_stream", dtype,
                                 x.shape[1], w2.shape[2])
@@ -949,8 +905,8 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
               f"{w2.shape[2]:2d} K={w2.shape[0]:2d} rows {rbk.shape[0]:6d} "
               f"{tag}: K3 [{body}] rel_err vs twin {rel:.2e}, vs K1 "
               f"{rel_k1:.2e}, max|K3-K1| {vs_k1:.3e} (K1 S={split}); K3 "
-              f"{times[0]:.4f} ms, K1 {times[1]:.4f} ms, old tile "
-              f"{times[2]:.4f} ms, twin {times[3]:.4f} ms; taps skipped "
+              f"{times[0]:.4f} ms, K1 {times[1]:.4f} ms, twin "
+              f"{times[2]:.4f} ms; taps skipped "
               f"{skipped:.3f}")
         if not (rel <= BOUNDS[dtype] and rel_k1 <= BOUNDS[dtype]):
             raise AssertionError(f"{CONV_NAMES[i]} {tag}: K3 rel_err "
@@ -978,7 +934,7 @@ def check_stream_convs(backbone, feats, rb, batch, sparse_shape, dtype, tag,
     print(f"stream kernel {tag}: {len(streamed)} convs within bounds and "
           f"equal to {same}; max abs error vs twin {out['worst']:.3e}, "
           f"max|K3-K1| {out['vs_k1']:.3e}; sums K3 {out['ms']:.4f} ms, K1 "
-          f"{out['k1_ms']:.4f} ms, old tile {out['old_ms']:.4f} ms, twin "
+          f"{out['k1_ms']:.4f} ms, twin "
           f"{out['plain_ms']:.4f} ms, bound {out['bound'].ms():.4f} ms "
           f"({out['bound'].by()}); taps skipped {out['tiles'].share():.3f} of "
           f"{out['tiles'].pairs} (tile, tap) pairs")
@@ -1238,22 +1194,21 @@ def _partial_bytes(rb, cin: int, cout: int, chunk_rows: int) -> int:
 
 class PerLaunch:
     """A kernel's launches timed on the f32 chains: summed device ms of the
-    kernel, its twin and the scalar entry of the body it replaced, on the
-    same calls; their bound and count (dW also its bound with the f32
-    partials written and read back, ``bound_partials``)."""
+    kernel and its twin on the same calls; their bound and count (dW also
+    its bound with the f32 partials written and read back,
+    ``bound_partials``)."""
 
     def __init__(self):
         self.n = 0
-        self.ms = self.plain_ms = self.old_ms = 0.0
+        self.ms = self.plain_ms = 0.0
         self.bound = Bound()
         self.bound_partials = Bound()
         self.bodies = set()
 
-    def add(self, body, ms, plain_ms, old_ms):
+    def add(self, body, ms, plain_ms):
         self.n += 1
         self.ms += ms
         self.plain_ms += plain_ms
-        self.old_ms += old_ms
         self.bodies.add(body)
 
     def row(self) -> dict:
@@ -1261,7 +1216,6 @@ class PerLaunch:
         n = max(self.n, 1)
         row = {"tile": sorted(self.bodies), "launches_timed": self.n,
                "ms_per_launch": self.ms / n,
-               "old_tile_ms_per_launch": self.old_ms / n,
                "plain_ms_per_launch": self.plain_ms / n,
                "bound_ms_per_launch": self.bound.ms() / n,
                "bound_by": self.bound.by()}
@@ -1283,46 +1237,29 @@ def _train_body(dtype, i: int, name: str) -> str:
 def _direct_conv0(direct, x, rbk, w, mask, dout, inv, dtype, tag,
                   plan) -> str:
     """The first conv's K4 and, on the student's chain (the step's), its
-    dFeat (16 -> 4) and dW on the direct bodies against their scalar
-    entries on the same inputs: bit-equal (bf16 K4, which has no scalar
-    entry of its own, to K1's with zero bias, no ReLU and the row mask
-    applied), and timed with them and the twins (device-time medians of
-    10) into ``direct``."""
+    dFeat (16 -> 4) and dW on the direct bodies: the same bits on a second
+    run, and timed with the twins (device-time medians of 10) into
+    ``direct``. The main loop holds them to the twins."""
     n_in = x.shape[0]
-    if dtype == torch.float32:
-        def old_fwd():
-            return kt.sparse_conv_fwd_scalar(x, rbk, w, mask)
-        want_fwd = old_fwd()
-    else:
-        zero = torch.zeros(w.shape[2], device=x.device)
-
-        def old_fwd():
-            return sc.fused_sparse_conv_scalar(x, rbk, w, zero, n_in,
-                                               relu=False)
-        want_fwd = torch.where(mask[:, None], old_fwd(), 0.0)
     calls = [("sparse_conv_fwd", lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
-              old_fwd, lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask),
+              lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask),
               (x, rbk, w, mask), w.shape[1], w.shape[2])]
     if plan == "student":
         calls += [
             ("sparse_conv_dfeat", lambda: kt.sparse_conv_dfeat(dout, inv, w),
-             lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w),
              lambda: kt.sparse_conv_dfeat_ref(dout, inv, w), (dout, inv, w),
              w.shape[2], w.shape[1]),
             ("sparse_conv_dw", lambda: kt.sparse_conv_dw(x, rbk, dout),
-             lambda: kt.sparse_conv_dw_scalar(x, rbk, dout),
              lambda: kt.sparse_conv_dw_ref(x, rbk, dout), (x, rbk, dout),
              w.shape[1], w.shape[2])]
     parts = []
-    for name, kern, old, twin, ins, cin, cout in calls:
+    for name, kern, twin, ins, cin, cout in calls:
         got = kern()
-        direct.check(f"subm0a {name} {tag}", got,
-                     want_fwd if name == "sparse_conv_fwd" else old())
+        direct.check(f"subm0a {name} {tag}", got, kern())
         one = Bound()
         one.add(ins + (got,), hits(rbk, n_in), cin, cout, dtype)
         parts.append(f"{name[12:]} " + direct.add(
-            name, tag, median_ms(kern, 10), median_ms(old, 10),
-            median_ms(twin, 10), one))
+            name, tag, median_ms(kern, 10), median_ms(twin, 10), one))
     return "; first conv: " + "; ".join(parts)
 
 
@@ -1330,26 +1267,21 @@ def _direct_conv0(direct, x, rbk, w, mask, dout, inv, dtype, tag,
 def phase_train_kernels(trainer, db):
     """K4 / K5 against their twins on every sparse conv of both plans.
     Returns (max abs error per kernel, [summed kernel ms, summed twin ms]
-    per kernel, Bound per kernel, {"old_ms": the scalar tile's summed ms,
-    "tiles": TileSkips} of the forward and of dFeat, {"old_ms", "skips":
-    DwSkips, "sweep": {chunk rows: summed ms}} of dW) with the times and
-    bounds of the bf16 student chain, and {kernel: PerLaunch} of the f32
-    chains: K4 on the student's and the teacher's convs, dFeat and dW on
-    the student's (the step's), each with its scalar entry's time on the
-    same calls (K4's, ``sparse_conv_fwd_scalar``, held to K4's bound on
-    every conv); "scalar_worst" is K4's scalar entry's max abs error
-    against the twin; and a Direct of the first conv on both chains in
-    both types (``_direct_conv0``)."""
+    per kernel, Bound per kernel, {"tiles": TileSkips} of the forward and
+    of dFeat, {"skips": DwSkips, "sweep": {chunk rows: summed ms}} of dW)
+    with the times and bounds of the bf16 student chain, and {kernel:
+    PerLaunch} of the f32 chains: K4 on the student's and the teacher's
+    convs, dFeat and dW on the student's (the step's); and a Direct of the
+    first conv on both chains in both types (``_direct_conv0``)."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
     worst = {"fwd": 0.0, "dfeat": 0.0, "dw": 0.0}
     ms = {k: [0.0, 0.0] for k in worst}
     bounds = {k: Bound() for k in worst}
     f32 = {k: PerLaunch() for k in worst}
-    scalar_worst = 0.0
-    fwd_tile = {"old_ms": 0.0, "tiles": TileSkips()}
-    dfeat_tile = {"old_ms": 0.0, "tiles": TileSkips()}
-    dw_tile = {"old_ms": 0.0, "skips": DwSkips(),
+    fwd_tile = {"tiles": TileSkips()}
+    dfeat_tile = {"tiles": TileSkips()}
+    dw_tile = {"skips": DwSkips(),
                "sweep": dict.fromkeys(DW_CHUNK_SWEEP, 0.0)}
     direct = Direct()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1377,7 +1309,6 @@ def phase_train_kernels(trainer, db):
                 dout = torch.randn(rbk.shape[0], w.shape[2], device="cuda",
                                    generator=gen)
                 dout = torch.where(mask[:, None], dout, 0.0).to(dtype)
-                zero_bias = torch.zeros(w.shape[2], device="cuda")
                 runs = {"fwd": (lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
                                 lambda: kt.sparse_conv_fwd_ref(x, rbk, w,
                                                                mask)),
@@ -1434,16 +1365,6 @@ def phase_train_kernels(trainer, db):
                              "dfeat": (dout, inv, w)}[name] + (got,)
                     args = (moved, hits(rbk, x.shape[0]), w.shape[1],
                             w.shape[2], dtype, insts[name])
-                    if name == "fwd" and f32_timed:  # K4's scalar entry
-                        entry = kt.sparse_conv_fwd_scalar(x, rbk, w, mask)
-                        torch.cuda.synchronize()
-                        rel_old, diff_old = _rel(entry, want)
-                        scalar_worst = max(scalar_worst, diff_old)
-                        line += f" (scalar entry {rel_old:.1e})"
-                        if not rel_old <= bound:
-                            raise AssertionError(
-                                f"{CONV_NAMES[i]} fwd scalar entry {tag}: "
-                                f"rel_err {rel_old:.3e} > {bound}")
                     if (timed or f32_timed) and name == "dfeat" and i == 0:
                         # off the step's path: timed apart, not summed
                         if plan == "student":
@@ -1452,16 +1373,7 @@ def phase_train_kernels(trainer, db):
                                      f"{insts[name]})")
                     elif f32_timed and (name == "fwd" or plan == "student"):
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
-                        # the scalar bodies, the f32 ones the 3xTF32 bodies
-                        # replaced, on the same call
-                        old = {"fwd": lambda: kt.sparse_conv_fwd_scalar(
-                                   x, rbk, w, mask),
-                               "dfeat": lambda: kt.sparse_conv_dfeat_scalar(
-                                   dout, inv, w),
-                               "dw": lambda: kt.sparse_conv_dw_scalar(
-                                   x, rbk, dout)}[name]
-                        old_ms = median_ms(old, 10)
-                        f32[name].add(insts[name], k_ms, r_ms, old_ms)
+                        f32[name].add(insts[name], k_ms, r_ms)
                         f32[name].bound.add(*args)
                         if name == "dw":  # the partials, written and read
                             f32[name].bound_partials.add(
@@ -1469,8 +1381,7 @@ def phase_train_kernels(trainer, db):
                                     rbk, w.shape[1], w.shape[2],
                                     kt.DW_CHUNK_ROWS))
                         line += (f" ({insts[name]} {k_ms:.4f} vs twin "
-                                 f"{r_ms:.4f} ms, scalar tile {old_ms:.4f} "
-                                 f"ms: {old_ms / k_ms:.2f}x)")
+                                 f"{r_ms:.4f} ms)")
                     elif timed:
                         k_ms, r_ms = median_ms(kern, 10), median_ms(twin, 10)
                         ms[name][0] += k_ms
@@ -1478,25 +1389,15 @@ def phase_train_kernels(trainer, db):
                         bounds[name].add(*args)
                         line += f" ({k_ms:.4f} vs twin {r_ms:.4f} ms"
                         if name == "fwd":
-                            old_ms = median_ms(
-                                lambda: sc.fused_sparse_conv_scalar(
-                                    x, rbk, w, zero_bias, x.shape[0],
-                                    relu=False), 10)
-                            fwd_tile["old_ms"] += old_ms
                             skipped = fwd_tile["tiles"].add(rbk, x.shape[0])
-                            line += (f", old tile {old_ms:.4f} ms, taps "
-                                     f"skipped {skipped:.3f}")
+                            line += f", taps skipped {skipped:.3f}"
                         if name == "dfeat":
-                            old_ms = median_ms(
-                                lambda: kt.sparse_conv_dfeat_scalar(
-                                    dout, inv, w), 10)
-                            dfeat_tile["old_ms"] += old_ms
                             dfeat_tile["tiles"].add(inv, rbk.shape[0])
                             one = TileSkips()
                             one.add(inv, rbk.shape[0])
-                            line += (f", old tile {old_ms:.4f} ms, taps "
-                                     f"skipped {one.share():.3f}, rows "
-                                     f"zero-filled {one.fill_share():.3f}")
+                            line += (f", taps skipped {one.share():.3f}, "
+                                     f"rows zero-filled "
+                                     f"{one.fill_share():.3f}")
                         if name == "dw":
                             line += _dw_detail(x, rbk, dout, w, dw_tile)
                         line += ")"
@@ -1514,16 +1415,14 @@ def phase_train_kernels(trainer, db):
               f"{k} kernel {v[0]:.4f} ms twin {v[1]:.4f} ms bound "
               f"{bounds[k].ms():.4f} ms ({bounds[k].by()})"
               for k, v in ms.items())
-          + f"; fwd old tile {fwd_tile['old_ms']:.4f} ms, taps skipped "
+          + f"; fwd taps skipped "
           f"{fwd_tile['tiles'].share():.3f} of {fwd_tile['tiles'].pairs} "
           f"(tile, tap) pairs, gathered rows zero-filled "
-          f"{fwd_tile['tiles'].fill_share():.3f}; dfeat old tile "
-          f"{dfeat_tile['old_ms']:.4f} ms, taps skipped "
+          f"{fwd_tile['tiles'].fill_share():.3f}; dfeat taps skipped "
           f"{dfeat_tile['tiles'].share():.3f} of "
           f"{dfeat_tile['tiles'].pairs} (tile, tap) pairs of the inverse "
           f"rulebooks, gathered rows zero-filled "
-          f"{dfeat_tile['tiles'].fill_share():.3f}; dw old tile "
-          f"{dw_tile['old_ms']:.4f} ms, "
+          f"{dfeat_tile['tiles'].fill_share():.3f}; dw "
           f"(chunk, tap) pairs skipped {skips.chunks.share():.3f} of "
           f"{skips.chunks.pairs}, (step, tap) pairs skipped "
           f"{skips.steps.share():.3f} of {skips.steps.pairs}, partials "
@@ -1531,55 +1430,39 @@ def phase_train_kernels(trainer, db):
           + ", ".join(f"{c}: {t:.4f} ms" for c, t in dw_tile["sweep"].items()))
     for name, per in f32.items():
         r = per.row()
-        old = r["old_tile_ms_per_launch"]
         print(f"train kernels f32 {name}: {r['launches_timed']} launches "
               f"timed ({', '.join(r['tile'])}), per launch "
-              f"{r['ms_per_launch']:.4f} ms, scalar tile {old:.4f} ms "
-              f"({old / r['ms_per_launch']:.2f}x), twin "
+              f"{r['ms_per_launch']:.4f} ms, twin "
               f"{r['plain_ms_per_launch']:.4f} ms, bound "
               f"{r['bound_ms_per_launch']:.4f} ms ({r['bound_by']}) [{card}]")
-    f32["scalar_worst"] = scalar_worst
     return worst, ms, bounds, fwd_tile, dfeat_tile, dw_tile, f32, direct
 
 
 def _one_launch_per_call(x, rbk, w, mask, dout, inv):
-    """One ``sparse_conv_fwd`` or ``sparse_conv_dfeat`` call (and in f32
-    one call of K4's scalar entry) makes one launch and one device
-    allocation, its output: the weights are read as they lie (transposed
-    and, in f32, split into TF32 parts inside the kernel), with no copy or
-    packing launch (the dFeat scalar entry, which takes W^T, makes two
-    allocations)."""
+    """One ``sparse_conv_fwd`` or ``sparse_conv_dfeat`` call makes one
+    launch and one device allocation, its output: the weights are read as
+    they lie (transposed and, in f32, split into TF32 parts inside the
+    kernel), with no copy or packing launch."""
     def allocs():
         return torch.cuda.memory_stats()["allocation.all.allocated"]
 
     got, want = {}, {"fwd": [1, 1], "dfeat": [1, 1]}
     calls = [("fwd", kt.sparse_conv_fwd, (x, rbk, w, mask)),
              ("dfeat", kt.sparse_conv_dfeat, (dout, inv, w))]
-    if x.dtype == torch.float32:
-        calls.append(("fwd_scalar", kt.sparse_conv_fwd_scalar,
-                      (x, rbk, w, mask)))
-        want["fwd_scalar"] = [1, 1]
     for name, fn, call in calls:
         torch.cuda.synchronize()
         counts = [allocs(), fn.launches]
         fn(*call)
         got[name] = [allocs() - counts[0], fn.launches - counts[1]]
-    before = allocs()
-    kt.sparse_conv_dfeat_scalar(dout, inv, w)
-    scalar = allocs() - before
-    if got != want or scalar != 2:
-        raise AssertionError(f"one call: (allocations, launches) {got}, "
-                             f"the dfeat scalar entry's allocations {scalar}")
+    if got != want:
+        raise AssertionError(f"one call: (allocations, launches) {got}")
     print(f"{str(x.dtype)[6:]} {', '.join(want)}: one call, one launch, one "
-          "allocation (its output; the dfeat scalar entry's W^T copy makes "
-          "two)")
+          "allocation (its output)")
 
 
 def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
-    """The scalar dW's time, the skipped shares, the partials' bytes and the
-    time at each chunk size of one bf16 conv's dW; added to ``dw_tile``."""
-    old_ms = median_ms(lambda: kt.sparse_conv_dw_scalar(x, rbk, dout), 10)
-    dw_tile["old_ms"] += old_ms
+    """The skipped shares, the partials' bytes and the time at each chunk
+    size of one bf16 conv's dW; added to ``dw_tile``."""
     chunk, step, moved = dw_tile["skips"].add(
         rbk, x.shape[0], w.shape[1], w.shape[2], kt.DW_CHUNK_ROWS)
     sweep = []
@@ -1587,7 +1470,7 @@ def _dw_detail(x, rbk, dout, w, dw_tile) -> str:
         t = median_ms(lambda r=rows: kt.sparse_conv_dw(x, rbk, dout, r), 10)
         dw_tile["sweep"][rows] += t
         sweep.append(f"{rows}: {t:.4f}")
-    return (f", old tile {old_ms:.4f} ms, (chunk, tap) skipped {chunk:.3f}, "
+    return (f", (chunk, tap) skipped {chunk:.3f}, "
             f"(step, tap) skipped {step:.3f}, partials {moved / 1e6:.2f} MB; "
             f"by chunk rows {', '.join(sweep)} ms")
 
@@ -1596,10 +1479,9 @@ KERNEL_FNS = (sc.fused_sparse_conv, sc.fused_sparse_conv_stream,
               kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw,
               ablate.sparse_conv_ablate, ablate.sparse_conv_ablate_mma,
               ablate.empty_launch, nms_cuda.rotated_nms)
-# the entries kept for same-call comparisons: never on a main path
-COMPARISON_FNS = (sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-                  sc.fused_sparse_conv_stream_ring, kt.sparse_conv_fwd_scalar,
-                  kt.sparse_conv_dfeat_scalar, kt.sparse_conv_dw_scalar)
+# the entry kept for same-call comparisons (K1 at a forced cluster size):
+# never on a main path
+COMPARISON_FNS = (sc.fused_sparse_conv_at_split,)
 
 
 def _reset_counts():
@@ -1690,15 +1572,16 @@ def phase_train(trainer):
 
 
 def phase_step_parity(trainer):
-    """One f32 step through the kernels, K4 through its scalar entry (the
-    body that sums in the twins' order), and through the twins from the
-    same state on the same batch."""
+    """One f32 step through the kernels, K4 through its plain twin
+    (``kt.sparse_conv_fwd_ref``, so the forward and its ReLU masks are the
+    twin step's) and dFeat and dW through the card's 3xTF32 kernels, and
+    through the twins from the same state on the same batch."""
     db = first_batch(trainer)
     states, grads, metrics = [trainer.state], [], []
     twin_state = copy.deepcopy(trainer.state)
     twin_state.optimizer.params = list(twin_state.student.parameters())
     states.append(twin_state)
-    kernels = pins.swapped(sparse_conv_fwd=kt.sparse_conv_fwd_scalar)
+    kernels = pins.swapped(sparse_conv_fwd=kt.sparse_conv_fwd_ref)
     for state, ctx in zip(states, (kernels, pins.twins())):
         step = state.optimizer.step
         got = {}
@@ -1732,7 +1615,7 @@ def phase_step_parity(trainer):
         err = float((grads[0][name] - g).abs().max()) / peak
         if err > worst_g:
             worst_g, worst_name = err, name
-    print(f"step parity f32 (K4 scalar entry): loss "
+    print(f"step parity f32 (K4 on its twin): loss "
           f"{metrics[0]['loss']:.6g} vs twin "
           f"{metrics[1]['loss']:.6g}; worst loss term rel {worst_m:.2e}; "
           f"worst gradient {worst_g:.2e} of its max ({worst_name})")
@@ -2412,13 +2295,11 @@ def phase_ablation(device):
 
     feats, rb, w2, _ = bench_ablate.variant_args(inputs, "full")
     full = ablate.sparse_conv_ablate(feats, rb, w2, "full")
-    zero = torch.zeros(w2.shape[2], device=device)
-    scalar = sc.fused_sparse_conv_scalar(feats, rb, w2, zero, feats.shape[0],
-                                         relu=False)
+    in_order = ablate.scalar_tile_sum(feats, rb, w2)
     torch.cuda.synchronize()
-    if not torch.equal(full.view(torch.int16), scalar.view(torch.int16)):
-        raise AssertionError("S1 full differs from K1's scalar entry with "
-                             "zero bias and no ReLU")
+    if not torch.equal(full.view(torch.int16), in_order.view(torch.int16)):
+        raise AssertionError("S1 full differs from the scalar tile's "
+                             "in-order sum")
     worst, plain_ms = 0.0, None
     for name in bench_ablate.VARIANTS:
         args = bench_ablate.variant_args(inputs, name)
@@ -2521,7 +2402,7 @@ def phase_ablation(device):
                lambda: ablate.empty_launch_ref(out), 10),
            "s2_library_ms": queued_device_ms(lambda: out.zero_(), 10),
            "s2_bound": s2_bound}
-    print(f"ablation: S1 full equals K1's scalar entry (zero bias, no ReLU) "
+    print(f"ablation: S1 full equals the scalar tile's in-order sum "
           f"bit for bit, the tensor-core full bf16 K4 bit for bit on all "
           f"four shapes, every mode within {ABLATE_BOUND} of its plain "
           f"version (full plain {plain_ms:.4f} ms, tensor-core full plain "
@@ -3968,8 +3849,7 @@ def main():
           f"K3 {ev['ms']:.4f} ms K1 {ev['k1_ms']:.4f} ms, twin "
           f"{ev['plain_ms']:.4f} ms bound {ev['bound'].ms():.4f} ms")
     # times: K1 the 14 b1 bf16 convs, K3 the 7 streamed convs of a b8 bf16
-    # request, K4/K5 the bf16 student chain at b4; old_tile_ms: the scalar
-    # tile each ran before on the same convs in the same run
+    # request, K4/K5 the bf16 student chain at b4
     kernels = [
         _entry("fused_sparse_conv", "sessd_torch/csrc/sparse_conv.cu",
                f"{WCONV}:253", k1_launches, max_abs, k1_ms["ms"],
@@ -3981,9 +3861,8 @@ def main():
     kernels[0].update(
         tile="gather_mma.cuh: gather_mma_tile (wgmma) + cluster tap split; "
              "f32 3xTF32 at one CTA per tile; Cin = 4: gather_direct.cuh: "
-             "gather_direct",
-        old_tile_ms=k1_ms["old_ms"])
-    kernels[1].update(covers=f"{WCONV}:350", old_tile_ms=b8["old_ms"],
+             "gather_direct")
+    kernels[1].update(covers=f"{WCONV}:350",
                       skipped_tap_share=b8["tiles"].share(),
                       tile="gather_mma.cuh: gather_mma_tile (wgmma; f32 "
                            "3xTF32)")
@@ -3997,17 +3876,13 @@ def main():
     kernels[2].update(tile="gather_mma.cuh: gather_mma_tile (wgmma; f32 "
                            "3xTF32); Cin = 4: gather_direct.cuh: "
                            "gather_direct",
-                      old_tile_ms=fwd_tile["old_ms"],
                       skipped_tap_share=fwd_tile["tiles"].share())
     # f32: per-launch means on the f32 paths (K4 the 24 convs of both
     # training chains, dFeat the step's 9, dW the student's 10; K1 the 3
     # resident and K3 the 11 streamed convs of a batch-4 f32 eval batch)
     n_k3 = len(ev["streamed"])
-    # f32 K3's old tile: its two-slot ring on the same calls; K1's, K4's,
-    # dFeat's and dW's: their scalar entries on the same calls
     k3_f32 = {"tile": [ev["body"]], "launches_timed": n_k3,
               "ms_per_launch": ev["ms"] / n_k3,
-              "old_tile_ms_per_launch": ev["old_ms"] / n_k3,
               "plain_ms_per_launch": ev["plain_ms"] / n_k3,
               "bound_ms_per_launch": ev["bound"].ms() / n_k3,
               "bound_by": ev["bound"].by(),
@@ -4017,26 +3892,22 @@ def main():
     kernels[1]["f32"] = k3_f32
     for row, key in zip(kernels[2:5], ("fwd", "dfeat", "dw")):
         row["f32"] = train_f32[key].row()
-    kernels[2]["f32"]["scalar_entry_max_abs_err"] = train_f32["scalar_worst"]
     kernels[3].update(
         tile="gather_mma.cuh: gather_mma_tile (wgmma, K-major B); 16 -> 4: "
              "gather_direct.cuh: gather_direct (W_T)",
-        old_tile_ms=dfeat_tile["old_ms"],
         skipped_tap_share=dfeat_tile["tiles"].share(),
         zero_filled_row_share=dfeat_tile["tiles"].fill_share())
     skips = dw_tile["skips"]
     kernels[4].update(
         tile="sparse_conv_train.cu: dw_mma_partial (mma.sync m16n8k16; "
              "f32 3xTF32 on m16n8k8); Cin = 4: dw_direct_partial",
-        old_tile_ms=dw_tile["old_ms"],
         skipped_chunk_tap_share=skips.chunks.share(),
         skipped_step_tap_share=skips.steps.share(),
         partial_bytes=skips.partial_bytes,
         ms_by_chunk_rows=dw_tile["sweep"])
     # the first conv's 4-channel side on the direct bodies: per call (K1 at
     # batch 1 and 4 in both types, K4 on both training chains, dFeat and dW
-    # on the student's) its ms, its scalar entry's on the same call, the
-    # twin's and the call's bound
+    # on the student's) its ms, the twin's and the call's bound
     kernels[0]["cin4"] = k1_direct.rows["fused_sparse_conv"]
     for row, name in zip(kernels[2:5], ("sparse_conv_fwd", "sparse_conv_dfeat",
                                         "sparse_conv_dw")):

@@ -8,7 +8,7 @@
 // replaces the Pallas kernels the JAX package sends every conv through
 // (sessd_tpu/ops/pallas/wconv.py: _fused_kernel, _fwd_kernel, _bwd_kernel).
 //
-// Computes gather_gemm.cuh's function, for every output row n:
+// Computes, for every output row n:
 //   acc[n, :] = sum_k feats[rb[n, k], :] @ w2[k]          (f32 accumulator)
 // rb[n, k] outside [0, n_in) reads a zero row. With EPI
 //   out[n] = relu?(acc[n] + bias) if some rb[n, k] != n_in, else 0;
@@ -19,8 +19,8 @@
 // for 16 outputs; even with every tap hit its 2*27*4*16 flops on the CUDA
 // cores take about as long as those bytes over the memory. K = 4 is below
 // the k of any mma (8 in TF32, 16 in bf16), so tensor cores would multiply
-// padding. The scalar tile this body replaces staged 64 rows x 4 channels
-// and a 4 x 16 weight slab per tap behind two barriers: 54 barriers per 64
+// padding. A 64-row tile that staged 64 rows x 4 channels and a 4 x 16
+// weight slab per tap behind two barriers would pass 54 barriers per 64
 // rows, with 16 FMAs per thread between them.
 //
 // The design:
@@ -42,16 +42,15 @@
 // - f32 accumulators in registers; the epilogue (bias, ReLU, the any-hit
 //   mask) or the row mask fused into one 16-byte (f32) or 8-byte (bf16)
 //   store per row and 4 channels.
-// - The scalar tile's summation order: taps in index order, within a tap
-//   channels 0..Cin-1 by fmaf into one f32 accumulator, a miss adding
-//   fmaf(0, w, acc) as the tile's zero row did, the store acc + bias (0
-//   without EPI). So it equals the scalar entries (fused_sparse_conv_scalar,
-//   sparse_conv_fwd_scalar, sparse_conv_dfeat_scalar) bit for bit.
+// - The summation order: taps in index order, within a tap channels
+//   0..Cin-1 by fmaf into one f32 accumulator, a miss adding fmaf(0, w,
+//   acc) (a zero row), the store acc + bias (0 without EPI). A row's bits
+//   depend on its own taps alone, not on the rows launched with it.
 #pragma once
 
 #include <type_traits>
 
-#include "gather_gemm.cuh"
+#include "gather_common.cuh"
 
 namespace sessd {
 

@@ -7,8 +7,8 @@
 // serving convs with the bias + ReLU + any-hit store. Each keeps its own
 // __global__; this is the body all four call for bf16 and Cin, Cout in
 // {16, 32, 64} (kMmaTile), and for f32 at the same channels through 3xTF32
-// (kTf32Tile, below). The Cin = 4 first conv stays on gather_gemm.cuh's
-// scalar tile; f32 dW has a 3xTF32 body of its own (sparse_conv_train.cu:
+// (kTf32Tile, below). The Cin = 4 first conv runs gather_direct.cuh's
+// direct body; f32 dW has a 3xTF32 body of its own (sparse_conv_train.cu:
 // dw_mma_partial). The micro-benchmark sparse_conv_ablate_mma_kernel
 // (sparse_conv_ablate.cu) runs the bf16 tile with one cost removed at a
 // time (TileMode).
@@ -21,15 +21,15 @@
 //         identity added in f32 before the ReLU, bf16 with CIN == COUT)
 //   else: out[n] = acc[n] if row_mask is null or row_mask[n], else 0.
 // The sum runs over taps in order and, inside a tap, in the tensor cores'
-// order, so it does not equal the scalar tile bit for bit.
+// order.
 //
 // What bounds it on Hopper: the gather. Each output row reads K rows of Cin
 // bf16 values for 2*K*Cin*Cout flops, at most 2*Cout flops per loaded byte
-// pair, far below the card's ridge of ~295 flops per byte. The scalar tile
-// never got near that: it converts every value to f32 in shared memory and
-// runs a scalar FMA loop over all K taps of every tile (64% of the conv at
-// 16 -> 16 channels, PERF.md S1), and multiplies the zero rows of taps that
-// no row of the tile hits.
+// pair, far below the card's ridge of ~295 flops per byte. A scalar FMA
+// tile does not get near that: converting every value to f32 in shared
+// memory and a scalar FMA loop over all K taps of every tile take 64% of
+// its conv at 16 -> 16 channels (sparse_conv_ablate.cu, PERF.md S1), and
+// it multiplies the zero rows of taps that no row of the tile hits.
 //
 // What this design does about it:
 // - Tensor cores: one warpgroup (128 threads) owns the 64 rows and issues
@@ -141,7 +141,7 @@
 
 #include <type_traits>
 
-#include "gather_gemm.cuh"
+#include "gather_common.cuh"
 
 namespace sessd {
 

@@ -41,12 +41,8 @@
 // - the Cin = 4 first conv, in both types: gather_direct.cuh's direct body
 //   on the CUDA cores (all 27 taps' weights staged once per block, one
 //   thread per row walking its taps without a barrier), 128 threads, 128
-//   rows a block; it sums in the scalar tile's order.
-// The scalar tile (gather_gemm.cuh), the body every instance ran first,
-// stays reachable at every pair in both types under a name of its own,
-// fused_sparse_conv_scalar_kernel (sessd_fused_sparse_conv_scalar), for
-// the same-call comparisons of the smoke check, the ablation and the card
-// tests only; nothing on the serving path launches it.
+//   rows a block; a row's sum runs over its taps in index order, within a
+//   tap over channels 0..3 by fmaf into one f32 accumulator.
 
 #include "gather_direct.cuh"
 #include "gather_mma.cuh"
@@ -81,19 +77,6 @@ fused_sparse_conv_kernel(const T* __restrict__ feats,
         feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
   else
     static_assert(sessd::kDirect<T, CIN, COUT>, "no body for this pair");
-}
-
-// the scalar tile in either type, for comparisons only
-template <typename T, typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(sessd::kThreads)
-fused_sparse_conv_scalar_kernel(const T* __restrict__ feats,
-                                const IdxT* __restrict__ rb,
-                                const T* __restrict__ w2,
-                                const float* __restrict__ bias,
-                                T* __restrict__ out, int n_in, int n_out,
-                                int taps, int relu) {
-  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, true>(
-      feats, rb, w2, bias, nullptr, out, n_in, n_out, taps, relu);
 }
 
 // above 48 KB a block's shared memory must be asked for, once per kernel
@@ -207,18 +190,6 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
   }
 }
 
-template <typename T, typename IdxT, int CIN, int COUT>
-cudaError_t launch_scalar(const void* feats, const void* rb, const void* w2,
-                          const float* bias, void* out, int n_in, int n_out,
-                          int taps, int relu, cudaStream_t stream) {
-  fused_sparse_conv_scalar_kernel<T, IdxT, CIN, COUT>
-      <<<sessd::gather_gemm_grid(n_out), sessd::kThreads, 0, stream>>>(
-          static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
-          static_cast<const T*>(w2), bias, static_cast<T*>(out), n_in, n_out,
-          taps, relu);
-  return cudaGetLastError();
-}
-
 // the (Cin, Cout) pairs of the SpMiddleFHD plan
 #define SESSD_FUSED_PAIRS(CASE) \
   CASE(4, 16)                   \
@@ -252,20 +223,6 @@ cudaError_t dispatch_channels(int cin, int cout, const void* feats,
   if constexpr (kHasWide<T>) {
     SESSD_FUSED_WIDE_PAIRS(SESSD_CASE)
   }
-#undef SESSD_CASE
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, typename IdxT>
-cudaError_t dispatch_scalar(int cin, int cout, const void* feats,
-                            const void* rb, const void* w2, const float* bias,
-                            void* out, int n_in, int n_out, int taps,
-                            int relu, cudaStream_t stream) {
-#define SESSD_CASE(CI, CO)                                                   \
-  if (cin == CI && cout == CO)                                               \
-    return launch_scalar<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in,    \
-                                          n_out, taps, relu, stream);
-  SESSD_FUSED_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
 }
@@ -365,27 +322,6 @@ extern "C" int sessd_fused_sparse_conv_at_split(
     return cudaErrorInvalidValue;
   return fused(feats, rb, w2, bias, out, n_in, n_out, cin, cout, taps, dtype,
                idx_bytes, relu, split, stream);
-}
-
-// The scalar tile's body in either type under its own kernel name
-// (fused_sparse_conv_scalar_kernel), for comparisons:
-// sessd_fused_sparse_conv's arguments.
-extern "C" int sessd_fused_sparse_conv_scalar(
-    const void* feats, const void* rb, const void* w2, const float* bias,
-    void* out, int n_in, int n_out, int cin, int cout, int taps, int dtype,
-    int idx_bytes, int relu, void* stream) {
-  if (n_out <= 0 || taps <= 0 || taps > sessd::kMaxTaps)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SESSD_CALL(T, I)                                                     \
-  return dispatch_scalar<T, I>(cin, cout, feats, rb, w2, bias, out, n_in,   \
-                               n_out, taps, relu, s)
-  if (dtype == 0 && idx_bytes == 2) SESSD_CALL(float, int16_t);
-  if (dtype == 0 && idx_bytes == 4) SESSD_CALL(float, int32_t);
-  if (dtype == 1 && idx_bytes == 2) SESSD_CALL(__nv_bfloat16, int16_t);
-  if (dtype == 1 && idx_bytes == 4) SESSD_CALL(__nv_bfloat16, int32_t);
-#undef SESSD_CALL
-  return cudaErrorInvalidValue;
 }
 
 // Which body sessd_fused_sparse_conv launches for (cin, cout, dtype): 3 the

@@ -24,16 +24,17 @@
 //
 // sparse_conv_ablate_kernel<MODE> replaces the ablated copies of the Pallas
 // _fwd_kernel in scripts/bench_wconv_ablate.py (full_kernel, run through
-// run_kernel), on the tile the convs ran before the tensor-core one. It is
-// a copy of gather_gemm.cuh's scalar tile, instantiated
-// only for the ablation's shape: bf16 features and weights, an int32
-// rulebook, 16 -> 16 channels. Each mode removes one cost:
+// run_kernel), on the scalar tile the convs ran before the tensor-core one
+// (gather_mma.cuh); this file holds the library's only copy of it,
+// instantiated only for the ablation's shape: bf16 features and weights,
+// an int32 rulebook, 16 -> 16 channels. One block of kThreads threads
+// stages a tile's 64 gathered rows and a tap's weights in f32 shared
+// memory per tap, and each thread sums 4 output channels of its rows by
+// fmaf, taps in order and channels in order within a tap. Each mode
+// removes one cost:
 //   kFull      the real gather over the rulebook (K = 27, or 9 for the
-//              "K=9" variant: the same mode on a 9-tap rulebook); the same
-//              arithmetic in the same order as the scalar tile's bf16 entry
-//              (fused_sparse_conv_scalar_kernel) with zero bias and no
-//              ReLU, so the two agree bit for bit (bf16 K1 and the training
-//              forward now run the tensor-core tile, gather_mma.cuh);
+//              "K=9" variant: the same mode on a 9-tap rulebook), with no
+//              bias and no ReLU;
 //   kLinear    row n of every tap reads feature row n: no rulebook loads,
 //              no indirection, the same staging and FMAs (the TPU's
 //              "static lo" / "fully static window");
@@ -157,8 +158,8 @@ __global__ void __launch_bounds__(kThreads) sparse_conv_ablate_kernel(
     __syncthreads();
   }
 
-  // the store of gather_gemm_tile without epilogue or mask: acc + 0, so a
-  // -0 sum is written as +0 there and here alike
+  // the scalar tile's store without epilogue or mask: acc + 0, so a -0
+  // sum is written as +0
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
     const int n = row0 + ty + r * kTy;

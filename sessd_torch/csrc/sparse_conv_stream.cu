@@ -18,15 +18,13 @@
 // per loaded value, below the card's ridge. The kernel takes
 // gather_mma.cuh's tensor-core tile with its bias + ReLU + any-hit store,
 // fixed at compile time (no fallback at run time), in both types:
-// - bf16: wgmma on bf16. The scalar two-slot ring it replaced converted
-//   each staged bf16 value to f32 at every use and ran a scalar FMA loop
-//   over every tap of every tile (7% slower than K1 in bf16, PERF.md). The
-//   tile stays in bf16 from gather to wgmma, keeps three taps' gathers in
-//   flight in a 4-stage cp.async ring, and skips the taps no row of the
-//   tile hits. It sums in the tensor cores' order; bf16 K1 runs the same
-//   tile, so the two agree bit for bit wherever K1 runs one CTA per tile.
-//   bf16 alone has the 128-channel pairs (64, 128) and (128, 128) of
-//   CenterPoint's residual backbone (gather_mma.cuh: kWideTile).
+// - bf16: wgmma on bf16. The tile stays in bf16 from gather to wgmma,
+//   keeps three taps' gathers in flight in a 4-stage cp.async ring, and
+//   skips the taps no row of the tile hits. It sums in the tensor cores'
+//   order; bf16 K1 runs the same tile, so the two agree bit for bit
+//   wherever K1 runs one CTA per tile. bf16 alone has the 128-channel
+//   pairs (64, 128) and (128, 128) of CenterPoint's residual backbone
+//   (gather_mma.cuh: kWideTile).
 // - f32 (the eval path on host chains and f32 serving, held to 1e-4):
 //   the same tile through 3xTF32, each operand split into two TF32 parts
 //   and each tap's three products summed from zero and added on the CUDA
@@ -36,165 +34,13 @@
 //   ReLU and the any-hit mask. A row's sum runs over its tile's hit taps in
 //   order, and a tap that misses the row adds a zero partial, so a row's
 //   bits do not depend on the rows batched with it.
-// The two-slot ring below is what f32 K3 ran before (the scalar tile's
-// thread mapping and summation order, one tap's gather in flight): while
-// the block runs tap k out of slot k%2, every thread has already issued
-// tap k+1's gathered rows and weights into the other slot with cp.async
-// (16-byte chunks, L2 only); a miss row is a zero-fill copy (src-size 0).
-// It stays reachable as fused_sparse_conv_stream_ring_kernel
-// (sessd_fused_sparse_conv_stream_ring), f32 only, for same-call
-// comparisons.
 
 #include "gather_mma.cuh"
 
 namespace {
 
 using sessd::kMaxTaps;
-using sessd::kRows;
 using sessd::kThreads;
-
-template <typename T, int CIN, int COUT>
-struct StreamLayout {
-  static constexpr int kChunk = 16 / sizeof(T);  // elements per cp.async
-  static_assert(CIN % kChunk == 0, "rows are whole 16-byte chunks");
-  // one chunk of padding per staged row keeps rows 16-byte aligned and
-  // puts the rows one thread group reads in distinct banks
-  static constexpr int kGStride = CIN + kChunk;
-  static constexpr int kRowChunks = CIN / kChunk;
-  static constexpr int kWChunks = CIN * COUT / kChunk;
-  static constexpr int kGBytes = kRows * kGStride * sizeof(T);
-  static constexpr int kWBytes = CIN * COUT * sizeof(T);
-  static constexpr int kSlotBytes = kGBytes + kWBytes;
-  static constexpr int kSmemBytes =
-      2 * kSlotBytes + (kRows * kMaxTaps + kRows) * sizeof(int);
-};
-
-__device__ __forceinline__ void load4(const float* p, float (&b)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  b[0] = v.x;
-  b[1] = v.y;
-  b[2] = v.z;
-  b[3] = v.w;
-}
-
-// Issue tap k's 64 gathered rows and its [Cin, Cout] weights into `slot`,
-// as one cp.async group of this thread.
-template <typename T, int CIN, int COUT>
-__device__ __forceinline__ void issue_tap(unsigned char* slot,
-                                          const T* __restrict__ feats,
-                                          const T* __restrict__ w2,
-                                          const int* s_rb, int k, int taps,
-                                          int n_in) {
-  using L = StreamLayout<T, CIN, COUT>;
-  T* g = reinterpret_cast<T*>(slot);
-  T* w = reinterpret_cast<T*>(slot + L::kGBytes);
-  for (int i = threadIdx.x; i < kRows * L::kRowChunks; i += kThreads) {
-    const int r = i / L::kRowChunks;
-    const int c = (i % L::kRowChunks) * L::kChunk;
-    const int src = s_rb[r * taps + k];
-    const bool hit = static_cast<unsigned>(src) < static_cast<unsigned>(n_in);
-    // a miss reads nothing and fills the chunk with zeros
-    sessd::cp_async16(sessd::smem_u32(g + r * L::kGStride + c),
-                      feats + (size_t)(hit ? src : 0) * CIN + c,
-                      hit ? 16 : 0);
-  }
-  const T* wk = w2 + (size_t)k * CIN * COUT;
-  for (int i = threadIdx.x; i < L::kWChunks; i += kThreads)
-    sessd::cp_async16(sessd::smem_u32(w + i * L::kChunk), wk + i * L::kChunk,
-                      16);
-  sessd::cp_async_commit();
-}
-
-// The scalar two-slot body: K1's tile with each tap's gather issued one
-// tap ahead.
-template <typename T, typename IdxT, int CIN, int COUT>
-__device__ __forceinline__ void stream_fma_tile(const T* __restrict__ feats,
-                                                const IdxT* __restrict__ rb,
-                                                const T* __restrict__ w2,
-                                                const float* __restrict__ bias,
-                                                T* __restrict__ out, int n_in,
-                                                int n_out, int taps,
-                                                int relu) {
-  using L = StreamLayout<T, CIN, COUT>;
-  constexpr int kCols = 4;                   // output channels per thread
-  constexpr int kTx = COUT / kCols;          // threads across channels
-  constexpr int kTy = kThreads / kTx;        // threads across rows
-  constexpr int kRowsPerThread = kRows / kTy;
-  static_assert(COUT % 16 == 0 && kRowsPerThread * kTy == kRows, "tile");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* s_rb = reinterpret_cast<int*>(smem + 2 * L::kSlotBytes);
-  int* s_hit = s_rb + kRows * kMaxTaps;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kTx;
-  const int ty = tid / kTx;
-  const int row0 = blockIdx.x * kRows;
-
-  // the tile's rulebook, read once; rows past n_out read as all-miss
-  for (int i = tid; i < kRows * taps; i += kThreads) {
-    const int n = row0 + i / taps;
-    s_rb[i] = n < n_out ? static_cast<int>(rb[(size_t)row0 * taps + i]) : n_in;
-  }
-  __syncthreads();
-  if (tid < kRows) {
-    int keep = 0;
-    for (int k = 0; k < taps; ++k) keep |= s_rb[tid * taps + k] != n_in;
-    s_hit[tid] = keep;  // read after the tap loop's barriers
-  }
-  issue_tap<T, CIN, COUT>(smem, feats, w2, s_rb, 0, taps, n_in);
-
-  float acc[kRowsPerThread][kCols];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
-
-  for (int k = 0; k < taps; ++k) {
-    // tap k has landed for every thread, and every thread is done with
-    // tap k-1, whose slot tap k+1 now refills while tap k computes
-    sessd::cp_async_wait<0>();
-    __syncthreads();
-    if (k + 1 < taps)
-      issue_tap<T, CIN, COUT>(smem + ((k + 1) & 1) * L::kSlotBytes, feats,
-                              w2, s_rb, k + 1, taps, n_in);
-    const unsigned char* slot = smem + (k & 1) * L::kSlotBytes;
-    const T* g = reinterpret_cast<const T*>(slot);
-    const T* w = reinterpret_cast<const T*>(slot + L::kGBytes);
-
-#pragma unroll 4
-    for (int c = 0; c < CIN; ++c) {
-      float b[kCols];
-      load4(w + c * COUT + tx * kCols, b);
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float a = sessd::to_f32(g[(ty + r * kTy) * L::kGStride + c]);
-        acc[r][0] = fmaf(a, b[0], acc[r][0]);
-        acc[r][1] = fmaf(a, b[1], acc[r][1]);
-        acc[r][2] = fmaf(a, b[2], acc[r][2]);
-        acc[r][3] = fmaf(a, b[3], acc[r][3]);
-      }
-    }
-  }
-
-  float bv[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) bv[j] = bias[tx * kCols + j];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int lr = ty + r * kTy;
-    const int n = row0 + lr;
-    if (n >= n_out) continue;
-    const bool keep = s_hit[lr] != 0;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float v = acc[r][j] + bv[j];
-      if (relu) v = fmaxf(v, 0.f);
-      out[(size_t)n * COUT + tx * kCols + j] =
-          sessd::from_f32<T>(keep ? v : 0.f);
-    }
-  }
-}
 
 // RES: the store adds residual [n_out, COUT] before the ReLU (the second
 // conv of a residual block: bf16, CIN == COUT)
@@ -224,39 +70,18 @@ fused_sparse_conv_stream_kernel(const T* __restrict__ feats,
   }
 }
 
-// the two-slot ring under a name of its own, the body f32 K3 ran before
-// the 3xTF32 tile: for comparisons only
-template <typename T, typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
-fused_sparse_conv_stream_ring_kernel(const T* __restrict__ feats,
-                                     const IdxT* __restrict__ rb,
-                                     const T* __restrict__ w2,
-                                     const float* __restrict__ bias,
-                                     T* __restrict__ out, int n_in,
-                                     int n_out, int taps, int relu,
-                                     const T* __restrict__ /*residual*/) {
-  stream_fma_tile<T, IdxT, CIN, COUT>(feats, rb, w2, bias, out, n_in, n_out,
-                                      taps, relu);
-}
-
 template <typename T, typename IdxT, int CIN, int COUT>
 using StreamKernel = void (*)(const T*, const IdxT*, const T*, const float*,
                               T*, int, int, int, int, const T*);
 
-// the stream kernel (RING false; RES: with the residual store) or the
-// ring's comparison kernel for the instance, its threads and its dynamic
-// shared memory
-template <typename T, typename IdxT, int CIN, int COUT, bool RING,
-          bool RES = false>
+// the stream kernel of the instance (RES: with the residual store), its
+// threads and its dynamic shared memory
+template <typename T, typename IdxT, int CIN, int COUT, bool RES = false>
 struct Launch {
-  static constexpr int kBlock = RING ? kThreads : sessd::kMmaThreads;
-  static constexpr int kSmem = RING ? StreamLayout<T, CIN, COUT>::kSmemBytes
-                                    : sessd::kTileSmemBytes<T, CIN, COUT>;
+  static constexpr int kBlock = sessd::kMmaThreads;
+  static constexpr int kSmem = sessd::kTileSmemBytes<T, CIN, COUT>;
   static StreamKernel<T, IdxT, CIN, COUT> kernel() {
-    if constexpr (RING)
-      return fused_sparse_conv_stream_ring_kernel<T, IdxT, CIN, COUT>;
-    else
-      return fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT, RES>;
+    return fused_sparse_conv_stream_kernel<T, IdxT, CIN, COUT, RES>;
   }
   // above 48 KB a block's shared memory must be asked for, once per kernel
   static cudaError_t allow_smem() {
@@ -268,22 +93,21 @@ struct Launch {
 
 // residual: null, or the RES instance's [n_out, COUT] (bf16, CIN == COUT:
 // the residual blocks' second convs)
-template <typename T, typename IdxT, int CIN, int COUT, bool RING,
-          bool RES = false>
+template <typename T, typename IdxT, int CIN, int COUT, bool RES = false>
 cudaError_t launch(const void* feats, const void* rb, const void* w2,
                    const float* bias, void* out, int n_in, int n_out,
                    int taps, int relu, cudaStream_t stream,
                    const void* residual = nullptr) {
-  if constexpr (!RING && !RES && CIN == COUT &&
+  if constexpr (!RES && CIN == COUT &&
                 std::is_same<T, __nv_bfloat16>::value) {
     if (residual != nullptr)
-      return launch<T, IdxT, CIN, COUT, false, true>(
+      return launch<T, IdxT, CIN, COUT, true>(
           feats, rb, w2, bias, out, n_in, n_out, taps, relu, stream,
           residual);
   } else if constexpr (!RES) {
     if (residual != nullptr) return cudaErrorInvalidValue;
   }
-  using L = Launch<T, IdxT, CIN, COUT, RING, RES>;
+  using L = Launch<T, IdxT, CIN, COUT, RES>;
   const cudaError_t attr = L::allow_smem();
   if (attr != cudaSuccess) return attr;
   L::kernel()<<<sessd::gather_gemm_grid(n_out), L::kBlock, L::kSmem,
@@ -304,16 +128,15 @@ cudaError_t launch(const void* feats, const void* rb, const void* w2,
   CASE(32, 64)                   \
   CASE(64, 64)
 
-// the bf16-only pairs of SpMiddleResNetFHD's last stages (kWideTile), on
-// the tile alone: the ring's comparison entry takes f32 only
+// the bf16-only pairs of SpMiddleResNetFHD's last stages (kWideTile)
 #define SESSD_STREAM_WIDE_PAIRS(CASE) \
   CASE(64, 128)                       \
   CASE(128, 128)
 
-template <typename T, bool RING>
-constexpr bool kHasWide = !RING && std::is_same<T, __nv_bfloat16>::value;
+template <typename T>
+constexpr bool kHasWide = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, typename IdxT, bool RING>
+template <typename T, typename IdxT>
 cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* rb, const void* w2,
                               const float* bias, void* out, int n_in,
@@ -322,11 +145,10 @@ cudaError_t dispatch_channels(int cin, int cout, const void* feats,
                               const void* residual = nullptr) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                               \
-    return launch<T, IdxT, CI, CO, RING>(feats, rb, w2, bias, out, n_in,     \
-                                         n_out, taps, relu, stream,          \
-                                         residual);
+    return launch<T, IdxT, CI, CO>(feats, rb, w2, bias, out, n_in, n_out,    \
+                                   taps, relu, stream, residual);
   SESSD_STREAM_PAIRS(SESSD_CASE)
-  if constexpr (kHasWide<T, RING>) {
+  if constexpr (kHasWide<T>) {
     SESSD_STREAM_WIDE_PAIRS(SESSD_CASE)
   }
 #undef SESSD_CASE
@@ -340,7 +162,7 @@ int stream_instance(int cin, int cout) {
 #define SESSD_CASE(CI, CO) \
   if (cin == CI && cout == CO) return sessd::kTf32Tile<T, CI, CO> ? 3 : 2;
   SESSD_STREAM_PAIRS(SESSD_CASE)
-  if constexpr (kHasWide<T, false>) {
+  if constexpr (kHasWide<T>) {
     SESSD_STREAM_WIDE_PAIRS(SESSD_CASE)
   }
 #undef SESSD_CASE
@@ -354,7 +176,7 @@ template <typename T>
 int stream_blocks_per_sm(int cin, int cout) {
 #define SESSD_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO) {                                             \
-    using L = Launch<T, int32_t, CI, CO, false>;                             \
+    using L = Launch<T, int32_t, CI, CO>;                                    \
     int blocks = 0;                                                          \
     cudaError_t err = L::allow_smem();                                       \
     if (err == cudaSuccess)                                                  \
@@ -363,7 +185,7 @@ int stream_blocks_per_sm(int cin, int cout) {
     return err == cudaSuccess ? blocks : 0;                                  \
   }
   SESSD_STREAM_PAIRS(SESSD_CASE)
-  if constexpr (kHasWide<T, false>) {
+  if constexpr (kHasWide<T>) {
     SESSD_STREAM_WIDE_PAIRS(SESSD_CASE)
   }
 #undef SESSD_CASE
@@ -385,16 +207,16 @@ extern "C" int sessd_fused_sparse_conv_stream(const void* feats,
   if (n_out <= 0 || taps <= 0 || taps > kMaxTaps) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && idx_bytes == 2)
-    return dispatch_channels<float, int16_t, false>(
+    return dispatch_channels<float, int16_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   if (dtype == 0 && idx_bytes == 4)
-    return dispatch_channels<float, int32_t, false>(
+    return dispatch_channels<float, int32_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   if (dtype == 1 && idx_bytes == 2)
-    return dispatch_channels<__nv_bfloat16, int16_t, false>(
+    return dispatch_channels<__nv_bfloat16, int16_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   if (dtype == 1 && idx_bytes == 4)
-    return dispatch_channels<__nv_bfloat16, int32_t, false>(
+    return dispatch_channels<__nv_bfloat16, int32_t>(
         cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   return cudaErrorInvalidValue;
 }
@@ -410,32 +232,13 @@ extern "C" int sessd_fused_sparse_conv_stream_residual(
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SESSD_CALL(T, I)                                                     \
-  return dispatch_channels<T, I, false>(cin, cout, feats, rb, w2, bias, out, \
-                                        n_in, n_out, taps, relu, s, residual)
+  return dispatch_channels<T, I>(cin, cout, feats, rb, w2, bias, out, n_in, \
+                                 n_out, taps, relu, s, residual)
   if (dtype == 0 && idx_bytes == 2) SESSD_CALL(float, int16_t);
   if (dtype == 0 && idx_bytes == 4) SESSD_CALL(float, int32_t);
   if (dtype == 1 && idx_bytes == 2) SESSD_CALL(__nv_bfloat16, int16_t);
   if (dtype == 1 && idx_bytes == 4) SESSD_CALL(__nv_bfloat16, int32_t);
 #undef SESSD_CALL
-  return cudaErrorInvalidValue;
-}
-
-// The two-slot ring f32 K3 ran before the 3xTF32 tile, under its own kernel
-// name (fused_sparse_conv_stream_ring_kernel), for comparisons:
-// sessd_fused_sparse_conv_stream's arguments, dtype 0 only.
-extern "C" int sessd_fused_sparse_conv_stream_ring(
-    const void* feats, const void* rb, const void* w2, const float* bias,
-    void* out, int n_in, int n_out, int cin, int cout, int taps, int dtype,
-    int idx_bytes, int relu, void* stream) {
-  if (n_out <= 0 || taps <= 0 || taps > kMaxTaps || dtype != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx_bytes == 2)
-    return dispatch_channels<float, int16_t, true>(
-        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
-  if (idx_bytes == 4)
-    return dispatch_channels<float, int32_t, true>(
-        cin, cout, feats, rb, w2, bias, out, n_in, n_out, taps, relu, s);
   return cudaErrorInvalidValue;
 }
 

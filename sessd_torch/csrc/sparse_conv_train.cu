@@ -37,16 +37,14 @@
 // - the Cin = 4 first conv, in both types: gather_direct.cuh's direct body
 //   on the CUDA cores (every tap's weights staged once per block, one
 //   thread per row walking its taps without a barrier), 128 threads, 128
-//   rows a block; it sums in the scalar tile's order.
+//   rows a block; a row's sum runs over its taps in index order, within a
+//   tap over channels 0..3 by fmaf into one f32 accumulator.
 // One f32 step through the kernels is held to 1e-3 of each gradient's max
 // against the same step through the cuBLAS twins. Any change of the
 // forward's rounding, the exact conv's included, flips a few of the step's
 // ReLU masks, each of which moves a weight gradient by ~1/sqrt(rows) of its
 // max (PERF.md), so the gate that holds the 3xTF32 body replays the twin
-// step's masks (scripts/probe_step_parity.py). The scalar body's f32
-// instances, which sum in the twin's order, stay reachable as
-// sparse_conv_fwd_scalar_kernel (sessd_sparse_conv_fwd_scalar), for
-// same-call comparisons and the unpinned step gate only.
+// step's masks (scripts/probe_step_parity.py).
 //
 // The input gradient, sparse_conv_dfeat_kernel, takes the same two bodies
 // by the same rule, fixed at compile time:
@@ -62,9 +60,6 @@
 //   of that the inverse rulebook of a strided conv hits at most 8 of 27
 //   taps per input row (the row's coordinate parities pick them), so a
 //   64-row tile of inputs gathers many zero-filled rows and skips few taps.
-//   The scalar body it replaces is kept in both types as
-//   sparse_conv_dfeat_scalar_kernel (sessd_sparse_conv_dfeat_scalar, with
-//   W^T as its weights) for same-call comparisons only.
 // - f32 at those pairs (held to 1e-4, step parity): the same tile through
 //   3xTF32. Its B is the bf16 body's K-major W[k], split on the way into
 //   shared memory.
@@ -78,11 +73,11 @@
 // - bf16 with Cin, Cout in {16, 32, 64}: dw_mma_partial below, on tensor
 //   cores. What bounds dW on this card: the gather of feats[rb[n, k]] and
 //   the dout rows, 2*Cin*Cout flops per (row, tap) hit against 2*(Cin +
-//   Cout) bytes, below the ridge at 16-32 channels and near it at 64. The
-//   scalar body it replaces converted every gathered and dout value to f32
-//   in shared memory, synchronised, ran a scalar FMA loop and synchronised
-//   again per 64-row step, with nothing overlapping the next step's loads
-//   and every (chunk, tap) pair read and multiplied even where no row hits
+//   Cout) bytes, below the ridge at 16-32 channels and near it at 64. A
+//   scalar body that converts every gathered and dout value to f32 in
+//   shared memory, synchronises, runs a scalar FMA loop and synchronises
+//   again per 64-row step overlaps nothing with the next step's loads, and
+//   reads and multiplies every (chunk, tap) pair even where no row hits
 //   the tap. The design:
 //   * Tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulators),
 //     not wgmma. A step's product is G^T D with G the gathered rows
@@ -146,10 +141,10 @@
 //   the CUDA cores. What bounds it: the bytes, the rulebook's 27 entries
 //   and the 16 dout values of each row (a hit adds 4 gathered values and
 //   2*4*16 flops); on the card, the serial sums of the densest tap and
-//   each step's staging (PERF.md). The scalar body it replaces ran one
-//   (chunk, tap) block of 256 threads of which 16 multiplied (4 x 4 sums
-//   each), so the grid read dout 27 times, multiplied every miss, and
-//   every 64-row step sat behind two barriers. The design:
+//   each step's staging (PERF.md). One (chunk, tap) block of 256 threads
+//   of which 16 multiply (4 x 4 sums each) would read dout 27 times,
+//   multiply every miss, and put every 64-row step behind two barriers.
+//   The design:
 //   * One block of 4 warps per (chunk, tap group), a warp per tap, 7
 //     groups: 280 blocks at batch 4's 40 chunks of 2048 rows. A block
 //     reads the chunk's dout rows once and its taps' rulebook entries
@@ -171,15 +166,11 @@
 //     a tap that hits more than an eighth of the step's rows multiplies
 //     all of them (misses as zero rows, 2 shared loads and 2 FMAs a row at
 //     fixed offsets), the others only their listed rows, 8 a round.
-//   * The scalar body's order: each sum runs over the chunk's rows in
-//     order by fmaf; a skipped miss is the scalar body's fmaf(0, d, acc),
-//     which leaves the sum as it is (for finite d, and a sum that is not
-//     -0). So it equals sparse_conv_dw_scalar_kernel at the same chunk rows
-//     bit for bit.
-// The scalar body, dw_scalar_partial (one block of 256 threads per (chunk,
-// tap)), stays reachable at every pair in both types under its own name,
-// sparse_conv_dw_scalar_kernel (sessd_sparse_conv_dw_scalar), for same-call
-// comparisons only.
+//   * The order: each sum runs over the chunk's rows in order by fmaf, a
+//     miss a zero row; a listed step skips a miss's fmaf(0, d, acc), which
+//     leaves the sum as it is (for finite d, and a sum that is not -0). So
+//     a partial has the same bits whichever way its tap's steps are walked,
+//     and depends on the chunk rows alone.
 // Both write f32 partials [chunks, K, Cin, Cout]; sparse_conv_dw_reduce_kernel
 // sums the chunks in order.
 
@@ -191,7 +182,6 @@ namespace {
 using sessd::kRows;
 using sessd::kThreads;
 using sessd::from_f32;
-using sessd::to_f32;
 
 // out [n_out, COUT] = gather-GEMM of x [n_in, CIN] over rb [n_out, taps]
 // with w2 [taps, CIN, COUT], rows outside row_mask zero (no mask: all kept).
@@ -211,20 +201,6 @@ __global__ void __launch_bounds__(kThreads)
         x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
   else
     static_assert(sessd::kDirect<T, CIN, COUT>, "no body for this pair");
-}
-
-// the forward's scalar body in f32 (every pair of the plan), the body f32
-// K4 ran before the 3xTF32 tile: for comparisons only
-template <typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
-    sparse_conv_fwd_scalar_kernel(const float* __restrict__ x,
-                                  const IdxT* __restrict__ rb,
-                                  const float* __restrict__ w2,
-                                  const uint8_t* __restrict__ row_mask,
-                                  float* __restrict__ out, int n_in,
-                                  int n_out, int taps) {
-  sessd::gather_gemm_tile<float, IdxT, CIN, COUT, false>(
-      x, rb, w2, nullptr, row_mask, out, n_in, n_out, taps, 0);
 }
 
 // dfeat [n_out, COUT] = the same gather-GEMM of dout x [n_in, CIN] over the
@@ -251,36 +227,9 @@ __global__ void __launch_bounds__(kThreads)
     static_assert(sessd::kDirect<T, CIN, COUT>, "no body for this pair");
 }
 
-// the input gradient's scalar body in either type with W^T [taps, CIN,
-// COUT] as its weights, the kernel dFeat ran before the tensor-core tile:
-// for comparisons only
-template <typename T, typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
-    sparse_conv_dfeat_scalar_kernel(const T* __restrict__ x,
-                                    const IdxT* __restrict__ rb,
-                                    const T* __restrict__ wt,
-                                    const uint8_t* __restrict__ row_mask,
-                                    T* __restrict__ out, int n_in, int n_out,
-                                    int taps) {
-  sessd::gather_gemm_tile<T, IdxT, CIN, COUT, false>(
-      x, rb, wt, nullptr, row_mask, out, n_in, n_out, taps, 0);
-}
-
 template <typename T, typename IdxT>
 using GatherKernel = void (*)(const T*, const IdxT*, const T*,
                               const uint8_t*, T*, int, int, int);
-
-template <typename T, typename IdxT>
-cudaError_t launch_gather(GatherKernel<T, IdxT> kernel,
-                          const void* x, const void* rb, const void* w2,
-                          const uint8_t* row_mask, void* out, int n_in,
-                          int n_out, int taps, cudaStream_t stream) {
-  kernel<<<sessd::gather_gemm_grid(n_out), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const IdxT*>(rb),
-      static_cast<const T*>(w2), row_mask, static_cast<T*>(out), n_in, n_out,
-      taps);
-  return cudaGetLastError();
-}
 
 // whether the instance for (T, CIN, COUT) of the forward or of the input
 // gradient takes gather_mma.cuh's tile: bf16, and f32 through 3xTF32, at
@@ -290,15 +239,13 @@ constexpr bool kTensorTile = sessd::kMmaTile<T, CIN, COUT> ||
                              sessd::kTf32Tile<T, CIN, COUT>;
 
 // the __global__ of entry E for (T, IdxT, CIN, COUT): 0 the forward, 1 the
-// input gradient, 2 the forward's scalar body (f32 only)
+// input gradient
 template <int E, typename T, typename IdxT, int CIN, int COUT>
 GatherKernel<T, IdxT> kernel_of() {
   if constexpr (E == 0)
     return sparse_conv_fwd_kernel<T, IdxT, CIN, COUT>;
-  else if constexpr (E == 1)
-    return sparse_conv_dfeat_kernel<T, IdxT, CIN, COUT>;
   else
-    return sparse_conv_fwd_scalar_kernel<IdxT, CIN, COUT>;
+    return sparse_conv_dfeat_kernel<T, IdxT, CIN, COUT>;
 }
 
 // above 48 KB a block's shared memory must be asked for, once per kernel
@@ -401,22 +348,6 @@ int fwd_instance(int cin, int cout) {
   return 0;
 }
 
-// the forward's scalar body in f32 (comparison entry), every pair
-template <typename IdxT>
-cudaError_t dispatch_fwd_scalar(int cin, int cout, const void* x,
-                                const void* rb, const void* w2,
-                                const uint8_t* row_mask, void* out, int n_in,
-                                int n_out, int taps, cudaStream_t stream) {
-#define SESSD_CASE(CI, CO)                                                   \
-  if (cin == CI && cout == CO)                                               \
-    return launch_gather<float, IdxT>(kernel_of<2, float, IdxT, CI, CO>(),   \
-                                      x, rb, w2, row_mask, out, n_in, n_out, \
-                                      taps, stream);
-  SESSD_FWD_PAIRS(SESSD_CASE)
-#undef SESSD_CASE
-  return cudaErrorInvalidValue;
-}
-
 // the input gradient's (Cin, Cout) pairs as its gather sees them: the
 // swapped (Cout, Cin) of each conv, the first's (16, 4) included (the
 // gradient of the voxel features; the direct body in both types, since
@@ -442,21 +373,6 @@ cudaError_t dispatch_dfeat(int cin, int cout, const void* x, const void* rb,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename IdxT>
-cudaError_t dispatch_dfeat_scalar(int cin, int cout, const void* x,
-                                  const void* rb, const void* wt, void* out,
-                                  int n_in, int n_out, int taps,
-                                  cudaStream_t stream) {
-#define SESSD_CASE(CI, CO)                                                   \
-  if (cin == CI && cout == CO)                                               \
-    return launch_gather<T, IdxT>(                                           \
-        sparse_conv_dfeat_scalar_kernel<T, IdxT, CI, CO>, x, rb, wt,         \
-        nullptr, out, n_in, n_out, taps, stream);
-  SESSD_DFEAT_PAIRS(SESSD_CASE)
-#undef SESSD_CASE
-  return cudaErrorInvalidValue;
-}
-
 // tile_code of the input gradient's instance for (T, cin, cout) (its
 // gather's pair), 0 where there is none
 template <typename T>
@@ -476,34 +392,26 @@ int tile_blocks_per_sm() {
   const auto kern = kernel_of<E, T, int32_t, CIN, COUT>();
   int blocks = 0;
   cudaError_t err;
-  if constexpr (E != 2 && kTensorTile<T, CIN, COUT>) {
+  if constexpr (kTensorTile<T, CIN, COUT>) {
     err = allow_smem<E, T, int32_t, CIN, COUT>();
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kern, sessd::kMmaThreads,
           sessd::kTileSmemBytes<T, CIN, COUT>);
-  } else if constexpr (E != 2) {  // the direct body's block (launch_tile)
+  } else {  // the direct body's block (launch_tile)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kern, sessd::kDirectThreads, 0);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                        kThreads, 0);
   }
   return err == cudaSuccess ? blocks : 0;
 }
 
-// tile_blocks_per_sm of the forward (entry 0), the input gradient (1, its
-// gather's pair) or the forward's scalar body (2, f32 only); 0 where there
-// is no such instance
+// tile_blocks_per_sm of the forward (entry 0) or the input gradient (1,
+// its gather's pair); 0 where there is no such instance
 template <typename T>
 int blocks_per_sm(int entry, int cin, int cout) {
-#define SESSD_CASE(CI, CO)                                                 \
-  if (entry == 0 && cin == CI && cout == CO)                               \
-    return tile_blocks_per_sm<0, T, CI, CO>();                             \
-  if constexpr (std::is_same<T, float>::value) {                           \
-    if (entry == 2 && cin == CI && cout == CO)                             \
-      return tile_blocks_per_sm<2, T, CI, CO>();                           \
-  }
+#define SESSD_CASE(CI, CO)                   \
+  if (entry == 0 && cin == CI && cout == CO) \
+    return tile_blocks_per_sm<0, T, CI, CO>();
   SESSD_FWD_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
 #define SESSD_CASE(CI, CO) \
@@ -512,85 +420,6 @@ int blocks_per_sm(int entry, int cin, int cout) {
   SESSD_DFEAT_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return 0;
-}
-
-template <int CIN, int COUT>
-struct DwTile {
-  static constexpr int kTj = 4;  // output channels per thread
-  static constexpr int kTiRaw = CIN * COUT / (kThreads * kTj);
-  static constexpr int kTi = kTiRaw < 1 ? 1 : kTiRaw;  // input channels
-  static constexpr int kTx = COUT / kTj;
-  static constexpr int kActive = kTx * (CIN / kTi);
-  static_assert(COUT % kTj == 0 && CIN % kTi == 0 && kActive <= kThreads,
-                "dW tile");
-};
-
-// partial[chunk, k] = sum over the chunk's rows n of
-//   feats[rb[n, k]]^T dout[n]              ([CIN, COUT], f32)
-// the scalar body: one block of kThreads threads per (chunk, tap)
-template <typename T, typename IdxT, int CIN, int COUT>
-__device__ __forceinline__ void dw_scalar_partial(
-    const T* __restrict__ feats, const IdxT* __restrict__ rb,
-    const T* __restrict__ dout, float* __restrict__ partial, int n_in,
-    int n_out, int taps, int chunk_rows, int chunk, int k) {
-  using Tile = DwTile<CIN, COUT>;
-  constexpr int kTi = Tile::kTi;
-  constexpr int kTj = Tile::kTj;
-  __shared__ float s_g[kRows * CIN];
-  __shared__ __align__(16) float s_d[kRows * COUT];
-
-  const int tid = threadIdx.x;
-  const int begin = chunk * chunk_rows;
-  const int end = min(n_out, begin + chunk_rows);
-  const bool active = tid < Tile::kActive;
-  const int tj = tid % Tile::kTx;
-  const int ti = tid / Tile::kTx;
-
-  float acc[kTi][kTj];
-#pragma unroll
-  for (int i = 0; i < kTi; ++i)
-#pragma unroll
-    for (int j = 0; j < kTj; ++j) acc[i][j] = 0.f;
-
-  for (int row0 = begin; row0 < end; row0 += kRows) {
-    for (int i = tid; i < kRows * CIN; i += kThreads) {
-      const int n = row0 + i / CIN;
-      const int c = i % CIN;
-      const int src = n < end ? static_cast<int>(rb[(size_t)n * taps + k])
-                              : n_in;
-      s_g[i] = static_cast<unsigned>(src) < static_cast<unsigned>(n_in)
-                   ? to_f32(feats[(size_t)src * CIN + c])
-                   : 0.f;
-    }
-    for (int i = tid; i < kRows * COUT; i += kThreads) {
-      const int n = row0 + i / COUT;
-      s_d[i] = n < end ? to_f32(dout[(size_t)row0 * COUT + i]) : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int r = 0; r < kRows; ++r) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(&s_d[r * COUT + tj * kTj]);
-#pragma unroll
-        for (int i = 0; i < kTi; ++i) {
-          const float a = s_g[r * CIN + ti * kTi + i];
-          acc[i][0] = fmaf(a, b.x, acc[i][0]);
-          acc[i][1] = fmaf(a, b.y, acc[i][1]);
-          acc[i][2] = fmaf(a, b.z, acc[i][2]);
-          acc[i][3] = fmaf(a, b.w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-  float* dst = partial + ((size_t)chunk * taps + k) * CIN * COUT;
-#pragma unroll
-  for (int i = 0; i < kTi; ++i)
-#pragma unroll
-    for (int j = 0; j < kTj; ++j)
-      dst[(ti * kTi + i) * COUT + tj * kTj + j] = acc[i][j];
 }
 
 // the direct dW body's block: kDwDirectTaps warps, one per tap, over steps
@@ -625,8 +454,9 @@ __device__ __forceinline__ void load4(const T* __restrict__ p, bool on,
   }
 }
 
-// partial[chunk, k] as dw_scalar_partial for the kDwDirectTaps taps of
-// one group, k = 4 group + warp, of one chunk: block b is group b % groups
+// partial[chunk, k] = sum over the chunk's rows n of
+//   feats[rb[n, k]]^T dout[n]              ([CIN, COUT], f32)
+// for the kDwDirectTaps taps of one group, k = 4 group + warp, of one chunk: block b is group b % groups
 // of chunk b / groups (a grid of one dimension, so any chunk count
 // launches, group-fastest);
 // kDwDirectThreads threads; feats and dout 16-byte aligned. Lane l owns
@@ -636,11 +466,11 @@ __device__ __forceinline__ void load4(const T* __restrict__ p, bool on,
 // ahead, the rulebook entries two); each warp then sums over all the
 // step's rows where its tap hits more than an eighth of them, else over
 // its listed hit rows.
-// A dense step adds the scalar body's fmaf(0, d, acc) for a miss; a listed
-// step skips it, which leaves acc as it is for finite d and a sum that is
-// not -0 (a sum from +0 by fmaf is -0 only where a product underflows past
-// the smallest denormal). So the partials equal
-// sparse_conv_dw_scalar_kernel's at the same chunk rows bit for bit.
+// Each sum runs over the chunk's rows in order by fmaf. A dense step adds
+// fmaf(0, d, acc) for a miss; a listed step skips it, which leaves acc as
+// it is for finite d and a sum that is not -0 (a sum from +0 by fmaf is -0
+// only where a product underflows past the smallest denormal). So a
+// partial's bits do not depend on which steps were dense.
 template <typename T, typename IdxT, int CIN, int COUT>
 __device__ __forceinline__ void dw_direct_partial(
     const T* __restrict__ feats, const IdxT* __restrict__ rb,
@@ -774,7 +604,7 @@ __device__ __forceinline__ void dw_direct_partial(
       const float* d_col = s_d + j;
       if (n_hit > kStep / 8) {
         // a dense tap (the centre tap hits most rows): every row of the
-        // step, misses as zero rows, as the scalar body sums them
+        // step, misses as zero rows
 #pragma unroll 8
         for (int r = 0; r < kStep; ++r) {
           const float a = g_col[r * kG * CIN];
@@ -920,7 +750,9 @@ __device__ __forceinline__ void split_tf32_u32(float x, uint32_t& hi,
   lo = __float_as_uint(sessd::tf32_rna(x - h));
 }
 
-// partial[chunk, k] as dw_scalar_partial, on tensor cores: one block of
+// partial[chunk, k] = sum over the chunk's rows n of
+//   feats[rb[n, k]]^T dout[n]              ([CIN, COUT], f32)
+// on tensor cores: one block of
 // DwMma<T, CIN, COUT>::kBlock threads per (tap, chunk), ::smem_bytes
 // (chunk_rows) of dynamic shared memory; chunk_rows a multiple of kRows, at
 // most kDwMaxChunkRows; feats and dout 16-byte aligned. T is bf16
@@ -1254,21 +1086,6 @@ sparse_conv_dw_partial_kernel(const T* __restrict__ feats,
     static_assert(kDwDirect<T, CIN, COUT>, "no body for this pair");
 }
 
-// the scalar body in either type under a name of its own, for comparisons
-// only: the body bf16 dW ran before mma.sync, f32 dW before 3xTF32 and the
-// first conv's before the direct body
-template <typename T, typename IdxT, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
-sparse_conv_dw_scalar_kernel(const T* __restrict__ feats,
-                             const IdxT* __restrict__ rb,
-                             const T* __restrict__ dout,
-                             float* __restrict__ partial, int n_in,
-                             int n_out, int taps, int chunk_rows) {
-  dw_scalar_partial<T, IdxT, CIN, COUT>(feats, rb, dout, partial, n_in,
-                                        n_out, taps, chunk_rows, blockIdx.x,
-                                        blockIdx.y);
-}
-
 // dw[e] = sum over chunks, in order, of partial[chunk, e]; e over K*Cin*Cout
 template <typename T>
 __global__ void sparse_conv_dw_reduce_kernel(
@@ -1329,22 +1146,6 @@ cudaError_t launch_dw(const void* feats, const void* rb, const void* dout,
   return launch_dw_reduce<T>(partial, dw, chunks, taps * CIN * COUT, stream);
 }
 
-template <typename T, typename IdxT, int CIN, int COUT>
-cudaError_t launch_dw_scalar(const void* feats, const void* rb,
-                             const void* dout, float* partial, void* dw,
-                             int n_in, int n_out, int taps, int chunk_rows,
-                             cudaStream_t stream) {
-  const int chunks = (n_out + chunk_rows - 1) / chunk_rows;
-  sparse_conv_dw_scalar_kernel<T, IdxT, CIN, COUT>
-      <<<dim3(chunks, taps), kThreads, 0, stream>>>(
-          static_cast<const T*>(feats), static_cast<const IdxT*>(rb),
-          static_cast<const T*>(dout), partial, n_in, n_out, taps,
-          chunk_rows);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_dw_reduce<T>(partial, dw, chunks, taps * CIN * COUT, stream);
-}
-
 // the weight gradient's (Cin, Cout) pairs: the forward's
 #define SESSD_DW_PAIRS(CASE) \
   CASE(4, 16)                \
@@ -1363,22 +1164,6 @@ cudaError_t dispatch_dw(int cin, int cout, const void* feats, const void* rb,
   if (cin == CI && cout == CO)                                               \
     return launch_dw<T, IdxT, CI, CO>(feats, rb, dout, partial, dw, n_in,    \
                                       n_out, taps, chunk_rows, stream);
-  SESSD_DW_PAIRS(SESSD_CASE)
-#undef SESSD_CASE
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, typename IdxT>
-cudaError_t dispatch_dw_scalar(int cin, int cout, const void* feats,
-                               const void* rb, const void* dout,
-                               float* partial, void* dw, int n_in, int n_out,
-                               int taps, int chunk_rows,
-                               cudaStream_t stream) {
-#define SESSD_CASE(CI, CO)                                                   \
-  if (cin == CI && cout == CO)                                               \
-    return launch_dw_scalar<T, IdxT, CI, CO>(feats, rb, dout, partial, dw,   \
-                                             n_in, n_out, taps, chunk_rows,  \
-                                             stream);
   SESSD_DW_PAIRS(SESSD_CASE)
 #undef SESSD_CASE
   return cudaErrorInvalidValue;
@@ -1461,27 +1246,6 @@ extern "C" int sessd_sparse_conv_fwd(const void* feats, const void* rb,
 #undef SESSD_CALL
 }
 
-// The forward's scalar body in f32 under its own kernel name
-// (sparse_conv_fwd_scalar_kernel), for comparisons: sessd_sparse_conv_fwd's
-// arguments, dtype 0 only.
-extern "C" int sessd_sparse_conv_fwd_scalar(const void* feats, const void* rb,
-                                            const void* w2,
-                                            const uint8_t* row_mask,
-                                            void* out, int n_in, int n_out,
-                                            int cin, int cout, int taps,
-                                            int dtype, int idx_bytes,
-                                            void* stream) {
-  if (bad_args(n_in, n_out, taps) || dtype != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx_bytes == 2)
-    return dispatch_fwd_scalar<int16_t>(cin, cout, feats, rb, w2, row_mask,
-                                        out, n_in, n_out, taps, s);
-  if (idx_bytes == 4)
-    return dispatch_fwd_scalar<int32_t>(cin, cout, feats, rb, w2, row_mask,
-                                        out, n_in, n_out, taps, s);
-  return cudaErrorInvalidValue;
-}
-
 // Which body sessd_sparse_conv_fwd launches for (cin, cout, dtype), as
 // tile_code: 3 the tensor-core tile through 3xTF32, 2 the tensor-core tile
 // in bf16, 1 the direct body, 0 none (it answers cudaErrorInvalidValue).
@@ -1505,24 +1269,6 @@ extern "C" int sessd_sparse_conv_dfeat(const void* dout, const void* inv,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SESSD_CALL(T, I)                                                     \
   dispatch_dfeat<T, I>(cout, cin, dout, inv, w2, dfeat, n_out, n_in, taps, s)
-  SESSD_TYPES(SESSD_CALL)
-#undef SESSD_CALL
-}
-
-// The input gradient's scalar body in either type under its own kernel
-// name, for comparisons: sessd_sparse_conv_dfeat's arguments, but with the
-// transposed weights wt [taps, cout, cin].
-extern "C" int sessd_sparse_conv_dfeat_scalar(const void* dout,
-                                              const void* inv, const void* wt,
-                                              void* dfeat, int n_out,
-                                              int n_in, int cin, int cout,
-                                              int taps, int dtype,
-                                              int idx_bytes, void* stream) {
-  if (bad_args(n_out, n_in, taps)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SESSD_CALL(T, I)                                                     \
-  dispatch_dfeat_scalar<T, I>(cout, cin, dout, inv, wt, dfeat, n_out, n_in, \
-                              taps, s)
   SESSD_TYPES(SESSD_CALL)
 #undef SESSD_CALL
 }
@@ -1557,25 +1303,6 @@ extern "C" int sessd_sparse_conv_dw(const void* feats, const void* rb,
 #undef SESSD_CALL
 }
 
-// The scalar partial body in either type under its own kernel name
-// (sparse_conv_dw_scalar_kernel), for comparisons: sessd_sparse_conv_dw's
-// arguments.
-extern "C" int sessd_sparse_conv_dw_scalar(const void* feats, const void* rb,
-                                           const void* dout, float* partial,
-                                           void* dw, int n_in, int n_out,
-                                           int cin, int cout, int taps,
-                                           int chunk_rows, int dtype,
-                                           int idx_bytes, void* stream) {
-  if (bad_args(n_in, n_out, taps) || chunk_rows <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SESSD_CALL(T, I)                                                     \
-  dispatch_dw_scalar<T, I>(cin, cout, feats, rb, dout, partial, dw, n_in,   \
-                           n_out, taps, chunk_rows, s)
-  SESSD_TYPES(SESSD_CALL)
-#undef SESSD_CALL
-}
-
 // Which body sessd_sparse_conv_dw's partial kernel takes for (cin, cout,
 // dtype): 3 the tensor-core body through 3xTF32, 2 the tensor-core body in
 // bf16, 1 the direct body, 0 none.
@@ -1599,9 +1326,8 @@ extern "C" int sessd_sparse_conv_dw_blocks_per_sm(int cin, int cout,
 }
 
 // Blocks of the int32-rulebook instance for (cin, cout, dtype) of
-// sessd_sparse_conv_fwd (entry 0), sessd_sparse_conv_dfeat (1, the
-// gather's pair) or sessd_sparse_conv_fwd_scalar (2, f32) that fit one SM
-// at once; 0 for a pair it has no instance of, or where it cannot be read.
+// sessd_sparse_conv_fwd (entry 0) or sessd_sparse_conv_dfeat (1, the
+// gather's pair) that fit one SM at once; 0 for a pair it has no instance of, or where it cannot be read.
 extern "C" int sessd_sparse_conv_train_blocks_per_sm(int entry, int cin,
                                                      int cout, int dtype) {
   if (dtype == 0) return blocks_per_sm<float>(entry, cin, cout);

@@ -63,6 +63,25 @@ def sparse_conv_ablate_ref(feats: torch.Tensor, rb: torch.Tensor,
     return out.to(feats.dtype)
 
 
+def scalar_tile_sum(feats: torch.Tensor, rb: torch.Tensor,
+                    w2: torch.Tensor) -> torch.Tensor:
+    """The scalar tile's ``full`` sum in its own order, in plain torch: per
+    row, the taps in order, within a tap the input channels in order, each
+    product added into one f32 sum (a miss, any index outside [0, n_in), a
+    zero row); cast to the features' dtype. A product of two bf16 values
+    is exact in f32, so on bf16 inputs each step is the kernel's fmaf and
+    the result its bits."""
+    n_in, cin = feats.shape
+    padded = torch.cat([feats.float(), feats.new_zeros(1, cin).float()])
+    idx = torch.where((rb >= 0) & (rb < n_in), rb.long(), n_in)
+    acc = torch.zeros(rb.shape[0], w2.shape[2], device=feats.device)
+    for k in range(rb.shape[1]):
+        g = padded[idx[:, k]]
+        for c in range(cin):
+            acc = acc + g[:, c:c + 1] * w2[k, c].float()
+    return (acc + 0.0).to(feats.dtype)  # the kernel's store: -0 as +0
+
+
 def _check(feats, rb, w2, mode, modes=MODES, channels=(CHANNELS,)):
     if mode not in modes:
         raise ValueError(f"mode {mode!r}: want one of {sorted(modes)}")
@@ -88,12 +107,11 @@ def _check(feats, rb, w2, mode, modes=MODES, channels=(CHANNELS,)):
 
 def sparse_conv_ablate(feats: torch.Tensor, rb: torch.Tensor,
                        w2: torch.Tensor, mode: str = "full") -> torch.Tensor:
-    """The scalar gather-GEMM tile (``csrc/gather_gemm.cuh``) with one cost
-    removed (``mode``, see ``sparse_conv_ablate_ref``). feats [n_in, 16]
-    bf16; rb [n_out, K] int32 (n_in = miss); w2 [K, 16, 16] bf16. Returns
-    [n_out, 16] bf16. "full" equals ``fused_sparse_conv_scalar`` (the
-    scalar tile's bf16 entry) with zero bias and ``relu=False`` bit for
-    bit."""
+    """The scalar gather-GEMM tile (``csrc/sparse_conv_ablate.cu``) with
+    one cost removed (``mode``, see ``sparse_conv_ablate_ref``). feats
+    [n_in, 16] bf16; rb [n_out, K] int32 (n_in = miss); w2 [K, 16, 16]
+    bf16. Returns [n_out, 16] bf16. "full" is the gather-GEMM with no bias
+    and no ReLU, in the order of ``scalar_tile_sum``."""
     if feats.device.type == "cpu":
         return sparse_conv_ablate_ref(feats, rb, w2, mode)
     if feats.device.type != "cuda":

@@ -10,15 +10,11 @@ CPU tensor each runs the twin ``fused_sparse_conv_ref``; on a CUDA tensor
 it launches its kernel (``sessd_torch/csrc/sparse_conv.cu``,
 ``sparse_conv_stream.cu``; ``conv_instance`` names the body a call takes,
 ``cluster_split`` the cluster size of a bf16 ``fused_sparse_conv``) or
-raises. ``fused_sparse_conv_scalar`` (the scalar tile, the body every instance
-ran first, in either type),
-``fused_sparse_conv_at_split`` (K1 at a given cluster size) and
-``fused_sparse_conv_stream_ring`` (the two-slot ring f32 K3 ran before its
-3xTF32 tile) exist for same-call comparisons only; nothing on the serving
-path calls them. The
-kernels are compiled with nvcc into ``build/sessd_torch/`` at the first
-CUDA call (cached by a hash of the sources and flags) and loaded with
-ctypes; importing this module builds nothing.
+raises. ``fused_sparse_conv_at_split`` (K1's kernel at a given cluster
+size) exists for same-call comparisons only; nothing on the serving path
+calls it. The kernels are compiled with nvcc into ``build/sessd_torch/``
+at the first CUDA call (cached by a hash of the sources and flags) and
+loaded with ctypes; importing this module builds nothing.
 """
 from __future__ import annotations
 
@@ -90,7 +86,7 @@ _PAIRS = {"sparse_conv_fwd": FWD_PAIRS,
           "sparse_conv_dfeat": DFEAT_PAIRS,
           "sparse_conv_dw": DW_PAIRS}
 MAX_SPLIT = 4  # csrc/gather_mma.cuh: kMaxSplit
-TILE_ROWS = 64  # csrc/gather_gemm.cuh: kRows
+TILE_ROWS = 64  # csrc/gather_common.cuh: kRows
 
 
 def conv_instance(entry: str, dtype: torch.dtype, cin: int,
@@ -195,10 +191,6 @@ def build() -> ctypes.CDLL:
         lib.sessd_fused_sparse_conv.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.sessd_fused_sparse_conv_stream.argtypes = \
             lib.sessd_fused_sparse_conv.argtypes
-        lib.sessd_fused_sparse_conv_scalar.argtypes = \
-            lib.sessd_fused_sparse_conv.argtypes
-        lib.sessd_fused_sparse_conv_stream_ring.argtypes = \
-            lib.sessd_fused_sparse_conv.argtypes
         # feats, rb, w2, bias, residual, out; the rest as above
         lib.sessd_fused_sparse_conv_residual.argtypes = \
             [ptr] * 6 + [i32] * 8 + [ptr]
@@ -210,18 +202,12 @@ def build() -> ctypes.CDLL:
         # feats, rb, w2, row_mask, out; n_in, n_out, cin, cout, taps,
         # dtype, idx_bytes; stream
         lib.sessd_sparse_conv_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
-        lib.sessd_sparse_conv_fwd_scalar.argtypes = \
-            lib.sessd_sparse_conv_fwd.argtypes
-        # dout, inv, w2 (wt for the scalar entry), dfeat; n_out, n_in, cin,
-        # cout, taps, dtype, idx_bytes; stream
+        # dout, inv, w2, dfeat; n_out, n_in, cin, cout, taps, dtype,
+        # idx_bytes; stream
         lib.sessd_sparse_conv_dfeat.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-        lib.sessd_sparse_conv_dfeat_scalar.argtypes = \
-            lib.sessd_sparse_conv_dfeat.argtypes
         # feats, rb, dout, partial, dw; n_in, n_out, cin, cout, taps,
         # chunk_rows, dtype, idx_bytes; stream
         lib.sessd_sparse_conv_dw.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-        lib.sessd_sparse_conv_dw_scalar.argtypes = \
-            lib.sessd_sparse_conv_dw.argtypes
         # the micro-benchmark kernels (ops/cuda/ablate.py)
         # feats, rb, w2, out; n_in, n_out, taps, mode; stream
         lib.sessd_sparse_conv_ablate.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
@@ -252,8 +238,8 @@ def build() -> ctypes.CDLL:
         # n_out, cin, cout, dtype -> the cluster size K1 launches with
         lib.sessd_fused_sparse_conv_wave.argtypes = [i32] * 2
         lib.sessd_fused_sparse_conv_split.argtypes = [i32] * 4
-        # entry (0 fwd, 1 dfeat, 2 fwd_scalar), cin, cout, dtype -> blocks per
-        # SM of a training instance; dW's at (cin, cout, dtype, chunk_rows),
+        # entry (0 fwd, 1 dfeat), cin, cout, dtype -> blocks per SM of a
+        # training instance; dW's at (cin, cout, dtype, chunk_rows),
         # the stream kernel's at (cin, cout, dtype)
         lib.sessd_sparse_conv_train_blocks_per_sm.argtypes = [i32] * 4
         lib.sessd_sparse_conv_dw_blocks_per_sm.argtypes = [i32] * 4
@@ -262,14 +248,10 @@ def build() -> ctypes.CDLL:
                    lib.sessd_fused_sparse_conv_stream,
                    lib.sessd_fused_sparse_conv_residual,
                    lib.sessd_fused_sparse_conv_stream_residual,
-                   lib.sessd_fused_sparse_conv_scalar,
-                   lib.sessd_fused_sparse_conv_stream_ring,
                    lib.sessd_fused_sparse_conv_at_split,
                    lib.sessd_sparse_conv_fwd,
-                   lib.sessd_sparse_conv_fwd_scalar,
                    lib.sessd_sparse_conv_dfeat,
-                   lib.sessd_sparse_conv_dfeat_scalar,
-                   lib.sessd_sparse_conv_dw, lib.sessd_sparse_conv_dw_scalar,
+                   lib.sessd_sparse_conv_dw,
                    lib.sessd_sparse_conv_ablate,
                    lib.sessd_sparse_conv_ablate_mma, lib.sessd_empty_launch,
                    lib.sessd_empty_launch_repeat,
@@ -424,9 +406,9 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
     wave; f32 at those channels runs the
     same tile through 3xTF32 at one CTA per tile (the f32 stream kernel's
     instance: bit-equal to ``fused_sparse_conv_stream``); the Cin = 4 first
-    conv runs the direct body (``conv_instance``), bit-equal to
-    ``fused_sparse_conv_scalar``. Every body wants feats and w2 16-byte
-    aligned. ``residual`` [n_out, Cout] (a residual block's identity; bf16
+    conv runs the direct body (``conv_instance``), which sums each row's
+    taps in order by fmaf on the CUDA cores. Every body wants feats and w2
+    16-byte aligned. ``residual`` [n_out, Cout] (a residual block's identity; bf16
     tensor-core instances with Cin == Cout) is added before the ReLU, in
     f32. CPU tensors take the twin; CUDA tensors launch the kernel on the
     current stream, counted in ``fused_sparse_conv.launches``.
@@ -445,22 +427,6 @@ def fused_sparse_conv(feats: torch.Tensor, rb: torch.Tensor, w2: torch.Tensor,
 
 
 fused_sparse_conv.launches = 0
-
-
-def fused_sparse_conv_scalar(feats, rb, w2, bias, n_in, relu=True):
-    """``fused_sparse_conv`` through the scalar tile
-    (``fused_sparse_conv_scalar_kernel``), the tile K1 ran before the
-    tensor-core tile (bf16), before 3xTF32 (f32) and before the direct body
-    (Cin = 4), in either type: for same-call comparisons only. CPU tensors
-    take the twin. Counted in ``fused_sparse_conv_scalar.launches``."""
-    if not _on_device(feats, rb, w2, bias, n_in):
-        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    out = _launch("fused_sparse_conv_scalar", feats, rb, w2, bias, n_in, relu)
-    fused_sparse_conv_scalar.launches += 1
-    return out
-
-
-fused_sparse_conv_scalar.launches = 0
 
 
 def fused_sparse_conv_at_split(feats, rb, w2, bias, n_in, split: int,
@@ -527,7 +493,12 @@ def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
     if not _on_device(feats, rb, w2, bias, n_in):
         return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu,
                                      residual)
-    _check_stream(feats, w2)
+    if w2.shape[1] not in MMA_CHANNELS and not (
+            tuple(w2.shape[1:]) in WIDE_PAIRS and w2.dtype == torch.bfloat16):
+        raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
+                         "or 64 input channels, or bf16 (64, 128) and "
+                         "(128, 128)")
+    _check_aligned(feats, w2)
     if residual is not None:
         _check_residual(feats, rb, w2, residual)
     out = _launch("fused_sparse_conv_stream", feats, rb, w2, bias, n_in, relu,
@@ -537,35 +508,6 @@ def fused_sparse_conv_stream(feats: torch.Tensor, rb: torch.Tensor,
 
 
 fused_sparse_conv_stream.launches = 0
-
-
-def _check_stream(feats, w2):
-    if w2.shape[1] not in MMA_CHANNELS and not (
-            tuple(w2.shape[1:]) in WIDE_PAIRS and w2.dtype == torch.bfloat16):
-        raise ValueError(f"Cin={w2.shape[1]}: the stream kernel takes 16, 32 "
-                         "or 64 input channels, or bf16 (64, 128) and "
-                         "(128, 128)")
-    _check_aligned(feats, w2)
-
-
-def fused_sparse_conv_stream_ring(feats, rb, w2, bias, n_in, relu=True):
-    """``fused_sparse_conv_stream`` through the two-slot scalar ring
-    (``fused_sparse_conv_stream_ring_kernel``), the body f32 K3 ran before
-    the 3xTF32 tile, in K1's summation order: for same-call comparisons
-    only. f32 only; CPU tensors take the twin. Counted in
-    ``fused_sparse_conv_stream_ring.launches``."""
-    if not _on_device(feats, rb, w2, bias, n_in):
-        return fused_sparse_conv_ref(feats, rb, w2, bias, n_in, relu)
-    if feats.dtype != torch.float32:
-        raise ValueError("the ring entry takes f32 only")
-    _check_stream(feats, w2)
-    out = _launch("fused_sparse_conv_stream_ring", feats, rb, w2, bias, n_in,
-                  relu)
-    fused_sparse_conv_stream_ring.launches += 1
-    return out
-
-
-fused_sparse_conv_stream_ring.launches = 0
 
 
 def stream_blocks_per_sm(cin: int, cout: int, dtype) -> int:

@@ -5,7 +5,7 @@ weight gradient (K5) as CUDA kernels, with their plain PyTorch twins.
 ``sparse_conv_dfeat`` / ``sparse_conv_dw`` the Pallas ``_bwd_kernel`` of
 ``sessd_tpu/ops/pallas/wconv.py`` (the custom VJP of ``windowed_conv``).
 The sources are ``sessd_torch/csrc/sparse_conv_train.cu``,
-``gather_gemm.cuh`` (the scalar tile) and ``gather_mma.cuh`` (the
+``gather_common.cuh`` (what the bodies share), ``gather_mma.cuh`` (the
 tensor-core tile of the forward and input gradient, in bf16 and in f32
 through 3xTF32) and ``gather_direct.cuh`` (the first conv's 4-channel
 side), built with the serving kernel by ``ops.cuda.sparse_conv.build`` at
@@ -13,11 +13,6 @@ the first CUDA call; dW's bodies (mma.sync, bf16 and f32 through 3xTF32,
 and the first conv's direct one) are in the ``.cu`` itself. On
 a CPU tensor each wrapper runs its twin; on a CUDA tensor it launches its
 kernel, counted in ``<wrapper>.launches``, or raises.
-``sparse_conv_dfeat_scalar`` and ``sparse_conv_dw_scalar`` (the scalar
-bodies in f32 and bf16, which the tensor-core and direct ones replaced)
-and ``sparse_conv_fwd_scalar`` (the f32 forward's scalar body, which
-3xTF32 and the direct body replaced) exist for same-call comparisons
-only; the training step never calls them.
 
 Layouts are row-major: features [N, C], rulebooks [N_out, K] int16/int32
 with ``N_in`` as the miss, weights [K, Cin, Cout] in the features' dtype.
@@ -229,12 +224,12 @@ def sparse_conv_fwd(feats, rb, w2, out_mask=None):
     Cin in {16, 32, 64} runs the tensor-core tile (bf16, and f32 through
     3xTF32, whose arithmetic ``gather_gemm_tf32`` models), which copies
     16-byte chunks; the first conv's Cin = 4 runs the direct body
-    (``conv_instance``), bit-equal to the scalar tile. Both want feats and
-    w2 16-byte aligned."""
+    (``conv_instance``), which sums each row's taps in order by fmaf on the
+    CUDA cores. Both want feats and w2 16-byte aligned."""
     if not _device(feats):
         return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
     _check_fwd(feats, rb, w2, out_mask)
-    out = _launch_fwd("sparse_conv_fwd", feats, rb, w2, out_mask)
+    out = _launch_fwd(feats, rb, w2, out_mask)
     sparse_conv_fwd.launches += 1
     return out
 
@@ -252,38 +247,21 @@ def _check_fwd(feats, rb, w2, out_mask):
         raise ValueError("feats and w2 must be 16-byte aligned")
 
 
-def _launch_fwd(entry, feats, rb, w2, out_mask):
+def _launch_fwd(feats, rb, w2, out_mask):
     taps, cin, cout = w2.shape
     lib = build()
     out = torch.empty((rb.shape[0], cout), dtype=feats.dtype,
                       device=feats.device)
     mask = None if out_mask is None else out_mask.view(torch.uint8)
     with torch.cuda.device(feats.device):
-        rc = getattr(lib, "sessd_" + entry)(
+        rc = lib.sessd_sparse_conv_fwd(
             feats.data_ptr(), rb.data_ptr(), w2.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             feats.shape[0], rb.shape[0], cin, cout, taps,
             _DTYPE_CODES[feats.dtype], _INDEX_BYTES[rb.dtype],
             torch.cuda.current_stream().cuda_stream)
-    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
-    return out
-
-
-def sparse_conv_fwd_scalar(feats, rb, w2, out_mask=None):
-    """``sparse_conv_fwd`` in f32 through the scalar tile
-    (``sparse_conv_fwd_scalar_kernel``), the body f32 K4 ran before 3xTF32
-    and the direct body, which sums in the twin's order: for same-call
-    comparisons and the unpinned step-parity gate only. f32 only, every
-    pair; CPU tensors take the twin. Counted in
-    ``sparse_conv_fwd_scalar.launches``."""
-    if not _device(feats):
-        return sparse_conv_fwd_ref(feats, rb, w2, out_mask)
-    _check_fwd(feats, rb, w2, out_mask)
-    if feats.dtype != torch.float32:
-        raise ValueError(f"the scalar entry takes f32 only, got "
-                         f"{feats.dtype}")
-    out = _launch_fwd("sparse_conv_fwd_scalar", feats, rb, w2, out_mask)
-    sparse_conv_fwd_scalar.launches += 1
+    raise_on_error(lib, rc,
+                   f"sparse_conv_fwd (Cin={cin}, Cout={cout}, K={taps})")
     return out
 
 
@@ -299,17 +277,18 @@ def _check_dfeat(dout, inv, w2):
     return taps, cin, cout
 
 
-def _launch_dfeat(entry, dout, inv, w, cin, cout, taps):
+def _launch_dfeat(dout, inv, w2, cin, cout, taps):
     lib = build()
     dfeat = torch.empty((inv.shape[0], cin), dtype=dout.dtype,
                         device=dout.device)
     with torch.cuda.device(dout.device):
-        rc = getattr(lib, "sessd_" + entry)(
-            dout.data_ptr(), inv.data_ptr(), w.data_ptr(), dfeat.data_ptr(),
+        rc = lib.sessd_sparse_conv_dfeat(
+            dout.data_ptr(), inv.data_ptr(), w2.data_ptr(), dfeat.data_ptr(),
             dout.shape[0], inv.shape[0], cin, cout, taps,
             _DTYPE_CODES[dout.dtype], _INDEX_BYTES[inv.dtype],
             torch.cuda.current_stream().cuda_stream)
-    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
+    raise_on_error(lib, rc,
+                   f"sparse_conv_dfeat (Cin={cin}, Cout={cout}, K={taps})")
     return dfeat
 
 
@@ -322,32 +301,16 @@ def sparse_conv_dfeat(dout, inv, w2):
     (bf16, and f32 through 3xTF32), which reads 16-byte chunks; the first
     conv's Cin = 4 (the voxel features' gradient) runs the direct body in
     both types (``conv_instance("sparse_conv_dfeat", dtype, Cout, Cin)``),
-    bit-equal to the scalar tile. Both want dout and w2 16-byte aligned."""
+    which sums each row's taps in order by fmaf. Both want dout and w2
+    16-byte aligned."""
     if not _device(dout):
         return sparse_conv_dfeat_ref(dout, inv, w2)
     taps, cin, cout = _check_dfeat(dout, inv, w2)
     if (cout, cin) in DFEAT_PAIRS \
             and (dout.data_ptr() % 16 or w2.data_ptr() % 16):
         raise ValueError("dout and w2 must be 16-byte aligned")
-    dfeat = _launch_dfeat("sparse_conv_dfeat", dout, inv, w2, cin, cout,
-                          taps)
+    dfeat = _launch_dfeat(dout, inv, w2, cin, cout, taps)
     sparse_conv_dfeat.launches += 1
-    return dfeat
-
-
-def sparse_conv_dfeat_scalar(dout, inv, w2):
-    """``sparse_conv_dfeat`` through the scalar tile
-    (``sparse_conv_dfeat_scalar_kernel``), the body dFeat ran before the
-    tensor-core tile, in f32 or bf16, with the transposed weights it takes:
-    for same-call comparisons only. CPU tensors take the twin. Counted in
-    ``sparse_conv_dfeat_scalar.launches``."""
-    if not _device(dout):
-        return sparse_conv_dfeat_ref(dout, inv, w2)
-    taps, cin, cout = _check_dfeat(dout, inv, w2)
-    wt = w2.transpose(1, 2).contiguous()
-    dfeat = _launch_dfeat("sparse_conv_dfeat_scalar", dout, inv, wt, cin,
-                          cout, taps)
-    sparse_conv_dfeat_scalar.launches += 1
     return dfeat
 
 
@@ -378,7 +341,7 @@ def _check_dw(feats, rb, dout, chunk_rows):
         raise ValueError("feats and dout must be 16-byte aligned")
 
 
-def _launch_dw(entry, feats, rb, dout, chunk_rows):
+def _launch_dw(feats, rb, dout, chunk_rows):
     n_out, taps = rb.shape
     cin, cout = feats.shape[1], dout.shape[1]
     lib = build()
@@ -388,12 +351,13 @@ def _launch_dw(entry, feats, rb, dout, chunk_rows):
     dw = torch.empty((taps, cin, cout), dtype=feats.dtype,
                      device=feats.device)
     with torch.cuda.device(feats.device):
-        rc = getattr(lib, "sessd_" + entry)(
+        rc = lib.sessd_sparse_conv_dw(
             feats.data_ptr(), rb.data_ptr(), dout.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), feats.shape[0], n_out, cin,
             cout, taps, chunk_rows, _DTYPE_CODES[feats.dtype],
             _INDEX_BYTES[rb.dtype], torch.cuda.current_stream().cuda_stream)
-    raise_on_error(lib, rc, f"{entry} (Cin={cin}, Cout={cout}, K={taps})")
+    raise_on_error(lib, rc,
+                   f"sparse_conv_dw (Cin={cin}, Cout={cout}, K={taps})")
     return dw
 
 
@@ -406,33 +370,17 @@ def sparse_conv_dw(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
     m16n8k8, whose arithmetic ``dw_tf32`` models), which takes chunk_rows
     a multiple of 64 up to DW_MAX_CHUNK_ROWS; the first conv's Cin = 4
     runs the direct one (``conv_instance``), which takes any chunk_rows and
-    equals the scalar one at the same chunk_rows bit for bit. Both want
-    feats and dout 16-byte aligned."""
+    sums each chunk's rows in order by fmaf. Both want feats and dout
+    16-byte aligned."""
     if not _device(feats):
         return sparse_conv_dw_ref(feats, rb, dout)
     _check_dw(feats, rb, dout, chunk_rows)
-    dw = _launch_dw("sparse_conv_dw", feats, rb, dout, chunk_rows)
+    dw = _launch_dw(feats, rb, dout, chunk_rows)
     sparse_conv_dw.launches += 1
     return dw
 
 
-def sparse_conv_dw_scalar(feats, rb, dout, chunk_rows=DW_CHUNK_ROWS):
-    """``sparse_conv_dw`` through the scalar partial kernel
-    (``sparse_conv_dw_scalar_kernel``), the body dW ran before the
-    tensor-core kernel (bf16 before mma.sync, f32 before 3xTF32) and before
-    the direct one (Cin = 4), in either type: for same-call comparisons
-    only. CPU tensors take the twin.
-    Counted in ``sparse_conv_dw_scalar.launches``."""
-    if not _device(feats):
-        return sparse_conv_dw_ref(feats, rb, dout)
-    _check_dw(feats, rb, dout, chunk_rows)
-    dw = _launch_dw("sparse_conv_dw_scalar", feats, rb, dout, chunk_rows)
-    sparse_conv_dw_scalar.launches += 1
-    return dw
-
-
-BLOCKS_ENTRIES = ("sparse_conv_fwd", "sparse_conv_dfeat",
-                  "sparse_conv_fwd_scalar", "sparse_conv_dw")
+BLOCKS_ENTRIES = ("sparse_conv_fwd", "sparse_conv_dfeat", "sparse_conv_dw")
 
 
 def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int, cout: int,
@@ -451,8 +399,5 @@ def blocks_per_sm(entry: str, dtype: torch.dtype, cin: int, cout: int,
 
 
 sparse_conv_fwd.launches = 0
-sparse_conv_fwd_scalar.launches = 0
 sparse_conv_dfeat.launches = 0
-sparse_conv_dfeat_scalar.launches = 0
 sparse_conv_dw.launches = 0
-sparse_conv_dw_scalar.launches = 0

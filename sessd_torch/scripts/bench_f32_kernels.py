@@ -14,34 +14,23 @@ make_synthetic_root``), seeded random weights:
   the previous forward (``chip_smoke.py`` phase 4's chains). K4
   (``sparse_conv_fwd``) on all 24, the step's dFeat (``sparse_conv_dfeat``,
   the student's convs after the first: 9) and dW (``sparse_conv_dw``, the
-  student's 10), each with its plain twin and, where the tree has them,
-  the scalar entries of K4, dFeat and dW (``sparse_conv_fwd_scalar``,
-  ``sparse_conv_dfeat_scalar``, ``sparse_conv_dw_scalar`` in f32: the
-  bodies they ran before 3xTF32) or K4's 3xTF32 entry
-  (``sparse_conv_fwd_tf32``, on the convs with 16-64 channels, in trees
-  whose f32 K4 ran the scalar tile) on the same calls;
+  student's 10), each with its plain twin on the same calls;
 - its first val batch on host chains (batch 4): K1 (``fused_sparse_conv``)
   on the convs the stream rule keeps resident and K3
-  (``fused_sparse_conv_stream``) on the others, with their twin and, where
-  the tree has them, K3's two-slot ring (``fused_sparse_conv_stream_ring``,
-  the body f32 K3 ran before 3xTF32) and K1's scalar entry in f32
-  (``fused_sparse_conv_scalar``, the body f32 K1 ran before 3xTF32) on the
-  same calls.
-
-- the first conv (4 -> 16, the direct body where the tree has it) of that
-  training batch in f32 and in bf16: K4 on both chains, dFeat (16 -> 4,
-  the voxel features' gradient, off the step's path) and dW on the
-  student's, each with its twin, its scalar entry on the same calls
-  (bf16 K4, which has none, K1's with zero bias and no ReLU) and its
-  bound; dW also with the share of rows each tap hits and, at chunks of
-  1024 and 512 rows (DW_CHUNK_SWEEP) besides DW_CHUNK_ROWS, its time, its
-  scalar entry's and whether the two give the same bits.
+  (``fused_sparse_conv_stream``) on the others, with their twin on the
+  same calls;
+- the first conv (4 -> 16, the direct body) of that training batch in f32
+  and in bf16: K4 on both chains, dFeat (16 -> 4, the voxel features'
+  gradient, off the step's path) and dW on the student's, each with its
+  twin and its bound; dW also with the share of rows each tap hits and
+  its time at chunks of 1024 and 512 rows (DW_CHUNK_SWEEP) besides
+  DW_CHUNK_ROWS.
 
 Every time is a device time (``queued_device_ms``, the median of 20). Per
 kernel: the mean ms per launch over its convs (and over those with 16-64
 channels apart), the bound per launch (each
 input read and each output written once over 3.35 TB/s, against 2 x hits x
-Cin x Cout flops over 67 TFLOP/s on the scalar body, or three times those
+Cin x Cout flops over 67 TFLOP/s on the direct body, or three times those
 flops over TF32's 494.7 TFLOP/s on a 3xTF32 body, the larger; the body as
 ``conv_instance`` names it in the tree under test; dW's also with its f32
 partials written and read back), and its launches per
@@ -131,19 +120,9 @@ class Rows:
     def summary(self) -> dict:
         n = len(self.rows)
         out = {"convs": n}
-        for key in ("ms", "plain_ms", "old_tile_ms", "bound_ms",
-                    "bound_with_partials_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_with_partials_ms"):
             vals = [r[key] for r in self.rows if r.get(key) is not None]
             out[key] = sum(vals) / len(vals) if len(vals) == n else None
-        # K4's 3xTF32 entry: over the convs it takes (16-64 channels), with
-        # K4's own mean over the same convs
-        entry = [r for r in self.rows if r.get("tf32_entry_ms") is not None]
-        out["tf32_entry_convs"] = len(entry)
-        for key, src in (("tf32_entry_ms", "tf32_entry_ms"),
-                         ("tf32_entry_bound_ms", "tf32_entry_bound_ms"),
-                         ("ms_on_tf32_entry_convs", "ms")):
-            out[key] = sum(r[src] for r in entry) / len(entry) \
-                if entry else None
         out["bound_by"] = sorted({r["bound_by"] for r in self.rows})
         out["body"] = sorted({r["body"] for r in self.rows})
         # the convs with 16-64 channels on both sides, apart from the first
@@ -191,12 +170,9 @@ def conv_inputs(model, db, sfx):
     return rb, torch.where((rb["ids"][0] < sp.SENTINEL)[:, None], x, 0.0)
 
 
-def time_train(trainer, db, records, entries, dw_outputs):
-    """K4 on both chains, dFeat and dW on the student's; the old bodies'
-    entries on the same calls where the tree has them (``entries``:
-    {"fwd", "fwd_tf32", "dfeat", "dw": whether it has K4's scalar entry,
-    K4's 3xTF32 entry, the f32 scalar entries of dFeat and dW}). Each
-    student conv's dW, in f32 and on the same inputs in bf16, goes into
+def time_train(trainer, db, records, dw_outputs):
+    """K4 on both chains, dFeat and dW on the student's. Each student
+    conv's dW, in f32 and on the same inputs in bf16, goes into
     ``dw_outputs`` (for ``digest``)."""
     model = trainer.state.student
     blocks = model.backbone.blocks()
@@ -222,16 +198,8 @@ def time_train(trainer, db, records, entries, dw_outputs):
                                                                mask), REPS),
                 plain_ms=queued_device_ms(
                     lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask), REPS),
-                old_tile_ms=queued_device_ms(
-                    lambda: kt.sparse_conv_fwd_scalar(x, rbk, w, mask), REPS)
-                if entries["fwd"] else None,
                 **_bound(bound_ms((x, rbk, w, mask, y), n_hits, cin, cout,
                                   body)))
-            if entries["fwd_tf32"] and i > 0:  # same call
-                row["tf32_entry_ms"] = queued_device_ms(
-                    lambda: kt.sparse_conv_fwd_tf32(x, rbk, w, mask), REPS)
-                row["tf32_entry_bound_ms"] = bound_ms(
-                    (x, rbk, w, mask, y), n_hits, cin, cout, "tf32")["ms"]
             line = _line("fwd", row)
             if plan == "student":
                 dout = torch.randn(rbk.shape[0], cout, device="cuda",
@@ -250,9 +218,6 @@ def time_train(trainer, db, records, entries, dw_outputs):
                         plain_ms=queued_device_ms(
                             lambda: kt.sparse_conv_dfeat_ref(dout, inv, w),
                             REPS),
-                        old_tile_ms=queued_device_ms(
-                            lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w),
-                            REPS) if entries["dfeat"] else None,
                         **_bound(bound_ms((dout, inv, w, got), n_hits, cout,
                                           cin, body)))
                     line += _line("dfeat", row)
@@ -271,9 +236,6 @@ def time_train(trainer, db, records, entries, dw_outputs):
                                                                   dout), REPS),
                     plain_ms=queued_device_ms(
                         lambda: kt.sparse_conv_dw_ref(x, rbk, dout), REPS),
-                    old_tile_ms=queued_device_ms(
-                        lambda: kt.sparse_conv_dw_scalar(x, rbk, dout),
-                        REPS) if entries["dw"] else None,
                     bound_with_partials_ms=bound_ms(
                         (x, rbk, dout, got), n_hits, cin, cout, body,
                         partials)["ms"],
@@ -287,10 +249,8 @@ def time_train(trainer, db, records, entries, dw_outputs):
 
 def time_conv0(trainer, db, records):
     """The first conv of the training batch in f32 and bf16: K4 on both
-    chains, dFeat (16 -> 4) and dW on the student's, each with its twin,
-    its bound and its scalar entry on the same calls (bf16 K4: K1's scalar
-    entry with zero bias and no ReLU, the same tile without the mask); dW
-    with each tap's hit share and its chunk sweep."""
+    chains, dFeat (16 -> 4) and dW on the student's, each with its twin
+    and its bound; dW with each tap's hit share and its chunk sweep."""
     model = trainer.state.student
     conv = model.backbone.blocks()[0][0]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -299,7 +259,6 @@ def time_conv0(trainer, db, records):
         w = conv.weight.detach().reshape(
             -1, *conv.weight.shape[-2:]).to(dtype).contiguous()
         cin, cout = w.shape[1], w.shape[2]
-        zero = torch.zeros(cout, device="cuda")
         for plan, sfx in (("student", ""), ("teacher", "_raw")):
             rb, x = conv_inputs(model, db, sfx)
             x = x.to(dtype)
@@ -307,14 +266,9 @@ def time_conv0(trainer, db, records):
             rbk = rb[kind][idx]
             mask = rb["ids"][out_stage] < sp.SENTINEL
             n_hits = int((rbk != x.shape[0]).sum())
-            old_fwd = (lambda: kt.sparse_conv_fwd_scalar(x, rbk, w, mask)) \
-                if dtype == torch.float32 else (
-                lambda: sc.fused_sparse_conv_scalar(x, rbk, w, zero,
-                                                    x.shape[0], relu=False))
             calls = [("fwd", cin, cout, (x, rbk, w, mask),
                       lambda: kt.sparse_conv_fwd(x, rbk, w, mask),
-                      lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask),
-                      old_fwd)]
+                      lambda: kt.sparse_conv_fwd_ref(x, rbk, w, mask))]
             if plan == "student":
                 dout = torch.randn(rbk.shape[0], cout, device="cuda",
                                    generator=gen)
@@ -323,42 +277,30 @@ def time_conv0(trainer, db, records):
                 calls += [
                     ("dfeat", cout, cin, (dout, inv, w),
                      lambda: kt.sparse_conv_dfeat(dout, inv, w),
-                     lambda: kt.sparse_conv_dfeat_ref(dout, inv, w),
-                     lambda: kt.sparse_conv_dfeat_scalar(dout, inv, w)),
+                     lambda: kt.sparse_conv_dfeat_ref(dout, inv, w)),
                     ("dw", cin, cout, (x, rbk, dout),
                      lambda: kt.sparse_conv_dw(x, rbk, dout),
-                     lambda: kt.sparse_conv_dw_ref(x, rbk, dout),
-                     lambda: kt.sparse_conv_dw_scalar(x, rbk, dout))]
+                     lambda: kt.sparse_conv_dw_ref(x, rbk, dout))]
             line = ""
-            for kernel, a, b, ins, kern, twin, old in calls:
+            for kernel, a, b, ins, kern, twin in calls:
                 got = kern()
                 body = sc.conv_instance(f"sparse_conv_{kernel}", dtype, a, b)
                 row = records[f"{kernel} conv0 {name}"].add(
                     plan=plan, conv=0, cin=a, cout=b, rows=rbk.shape[0],
                     body=body, ms=queued_device_ms(kern, REPS),
                     plain_ms=queued_device_ms(twin, REPS),
-                    old_tile_ms=queued_device_ms(old, REPS),
                     **_bound(bound_ms(ins + (got,), n_hits, a, b, body,
                                       dtype=dtype)))
                 if kernel == "dw":
                     row["tap_hit_share"] = (
                         rbk != x.shape[0]).float().mean(0).tolist()
                     row["chunk_sweep"] = {
-                        c: dw_chunk(x, rbk, dout, c) for c in DW_CHUNK_SWEEP}
+                        c: queued_device_ms(
+                            lambda c=c: kt.sparse_conv_dw(x, rbk, dout, c),
+                            REPS)
+                        for c in DW_CHUNK_SWEEP}
                 line += _line(kernel, row)
             print(f"conv 0 {name} {plan} rows {rbk.shape[0]:6d}:{line}")
-
-
-def dw_chunk(x, rbk, dout, chunk: int) -> dict:
-    """dW and its scalar entry at chunks of ``chunk`` rows on the same
-    calls, and whether the two give the same bits."""
-    return {"ms": queued_device_ms(
-                lambda: kt.sparse_conv_dw(x, rbk, dout, chunk), REPS),
-            "old_tile_ms": queued_device_ms(
-                lambda: kt.sparse_conv_dw_scalar(x, rbk, dout, chunk), REPS),
-            "same_bits": torch.equal(
-                kt.sparse_conv_dw(x, rbk, dout, chunk),
-                kt.sparse_conv_dw_scalar(x, rbk, dout, chunk))}
 
 
 def digest(tensors: dict) -> str:
@@ -375,28 +317,22 @@ def _bound(b: dict) -> dict:
 
 
 def _line(name, row) -> str:
-    old = f", old tile {row['old_tile_ms']:.4f}" \
-        if row.get("old_tile_ms") is not None else ""
-    if row.get("tf32_entry_ms") is not None:
-        old += f", tf32 entry {row['tf32_entry_ms']:.4f}"
+    more = ""
     if "tap_hit_share" in row:
         share = row["tap_hit_share"]
-        old += (f", hit share per tap "
-                f"{[round(h, 3) for h in share]} (all taps "
-                f"{sum(share) / len(share):.4f})")
-    for c, t in row.get("chunk_sweep", {}).items():
-        old += (f", at {c}-row chunks {t['ms']:.4f} (old tile "
-                f"{t['old_tile_ms']:.4f}, "
-                f"{'the same bits' if t['same_bits'] else 'other bits'})")
-    return (f" {name} [{row['body']}] {row['ms']:.4f} ms{old}, twin "
+        more += (f", hit share per tap "
+                 f"{[round(h, 3) for h in share]} (all taps "
+                 f"{sum(share) / len(share):.4f})")
+    for c, ms in row.get("chunk_sweep", {}).items():
+        more += f", at {c}-row chunks {ms:.4f}"
+    return (f" {name} [{row['body']}] {row['ms']:.4f} ms{more}, twin "
             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
             f"({row['bound_by']});")
 
 
-def time_eval(trainer, records, has_ring, has_k1_entry):
+def time_eval(trainer, records):
     """K1 and K3 on the first val batch's host chains, as validate() runs
-    them (the stream rule at the trainer's caps); K3 with its ring and K1
-    with its f32 scalar entry on the same calls where the tree has them."""
+    them (the stream rule at the trainer's caps)."""
     batch = first(trainer.val_loader)
     host_rb = trainer._eval_inputs(batch)
     def put(a):
@@ -417,16 +353,11 @@ def time_eval(trainer, records, has_ring, has_k1_entry):
         y = fn(*args)
         cin, cout = x.shape[1], w2.shape[2]
         body = sc.conv_instance(fn.__name__, torch.float32, cin, cout)
-        old = {"k3": sc.fused_sparse_conv_stream_ring if has_ring else None,
-               "k1": sc.fused_sparse_conv_scalar if has_k1_entry
-               else None}[name]
         row = records[name].add(
             conv=i, cin=cin, cout=cout, rows=rbk.shape[0], body=body,
             ms=queued_device_ms(lambda: fn(*args), REPS),
             plain_ms=queued_device_ms(
                 lambda: sc.fused_sparse_conv_ref(*args), REPS),
-            old_tile_ms=queued_device_ms(lambda: old(*args), REPS)
-            if old else None,
             **_bound(bound_ms((x, rbk, w2, bias, y), int((rbk != n_in).sum()),
                               cin, cout, body)))
         print(f"eval conv {i:2d} {cin:2d}->{cout:2d} rows "
@@ -449,18 +380,6 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    # a tree whose f32 body of a kernel runs 3xTF32 keeps the old one as an
-    # entry (K1's and dW's scalar entries took bf16 only before); one whose
-    # f32 K4 ran the scalar tile had its 3xTF32 entry
-    def tf32(entry):
-        return sc.conv_instance(entry, torch.float32, 16, 16) == "tf32"
-
-    entries = {"fwd": hasattr(kt, "sparse_conv_fwd_scalar"),
-               "fwd_tf32": hasattr(kt, "sparse_conv_fwd_tf32"),
-               "dfeat": hasattr(kt, "sparse_conv_dfeat_scalar"),
-               "dw": tf32("sparse_conv_dw")}
-    has_ring = hasattr(sc, "fused_sparse_conv_stream_ring")
-    has_k1_entry = tf32("fused_sparse_conv")
     records = {k: Rows() for k in ("fwd", "dfeat", "dw", "k1", "k3")}
     records.update({f"{k} conv0 {t}": Rows() for k in ("fwd", "dfeat", "dw")
                     for t in ("float32", "bfloat16")})
@@ -475,29 +394,23 @@ def main(argv=None):
             raise SystemExit(f"{CONFIG} is not the f32 config")
         db = first_batch(trainer)
         with torch.no_grad():
-            time_train(trainer, db, records, entries, dw_outputs)
+            time_train(trainer, db, records, dw_outputs)
             time_conv0(trainer, db, records)
-        time_eval(trainer, records, has_ring, has_k1_entry)
+        time_eval(trainer, records)
     summary = {k: r.summary() for k, r in records.items()}
     launches = {"train_step": {"fwd": 24, "dfeat": 9, "dw": 10},
                 "eval_device_chains": {"fwd": 10},
                 "eval_host_chains": {"k1": summary["k1"]["convs"],
                                      "k3": summary["k3"]["convs"]}}
     for k, s in summary.items():
-        old = (f", old tile {s['old_tile_ms']:.4f}"
-               if s["old_tile_ms"] is not None else "")
-        if s["tf32_entry_ms"] is not None:
-            old += (f"; on its {s['tf32_entry_convs']} convs "
-                    f"{s['ms_on_tf32_entry_convs']:.4f} against the tf32 "
-                    f"entry's {s['tf32_entry_ms']:.4f} (bound "
-                    f"{s['tf32_entry_bound_ms']:.4f})")
+        more = ""
         if s["bound_with_partials_ms"] is not None:
-            old += f", bound with partials {s['bound_with_partials_ms']:.4f}"
+            more += f", bound with partials {s['bound_with_partials_ms']:.4f}"
         if s["wide_ms"] is not None and s["wide_convs"] < s["convs"]:
-            old += (f"; over its {s['wide_convs']} convs of 16-64 channels "
-                    f"{s['wide_ms']:.4f}")
+            more += (f"; over its {s['wide_convs']} convs of 16-64 channels "
+                     f"{s['wide_ms']:.4f}")
         print(f"f32 {k}: {s['convs']} convs, {s['body']}, per launch "
-              f"{s['ms']:.4f} ms{old}, twin {s['plain_ms']:.4f}, bound "
+              f"{s['ms']:.4f} ms{more}, twin {s['plain_ms']:.4f}, bound "
               f"{s['bound_ms']:.4f} ({', '.join(s['bound_by'])}) [{card}]")
     dw_sha256 = digest(dw_outputs)
     print(f"dW outputs: {len(dw_outputs)} (each student conv, f32 and "

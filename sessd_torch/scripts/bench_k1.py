@@ -10,9 +10,7 @@ The SE-SSD Car VoxelNet (bf16 config, seeded random weights) on
 backbone convs through ``fused_sparse_conv`` (K1) as serving launches it,
 its device time (``queued_device_ms``, the median of 30). S > 1 (a tile's
 taps dealt over a cluster) comes where a launch's tiles fill less than a
-wave: batch 1 and 2, some convs at batch 4. The first conv (Cin = 4) is
-also timed through K1's scalar entry (``fused_sparse_conv_scalar``, the
-scalar tile) on the same calls. The second form times another tree's
+wave: batch 1 and 2, some convs at batch 4. The second form times another tree's
 kernels with this script (imports are absolute), so two trees compare in
 turns on one card. The last line is one JSON object with every number and
 the card.
@@ -59,10 +57,7 @@ def main():
                 "S": sc.launch_split(rows, cin, cout, dtype)
                 if cin > 4 else 1,
                 "ms": queued_device_ms(lambda: sc.fused_sparse_conv(*args),
-                                       30),
-                "scalar_ms": queued_device_ms(
-                    lambda: sc.fused_sparse_conv_scalar(*args), 30)
-                if cin == 4 else None})
+                                       30)})
             return sc.fused_sparse_conv(*args)
 
         feats, rb = stage_inputs(**prep.batch(
@@ -73,21 +68,17 @@ def main():
         torch.cuda.synchronize()
         total = sum(c["ms"] for c in convs)
         for i, c in enumerate(convs):
-            old = (f", scalar entry {c['scalar_ms']:.4f} ms"
-                   if c["scalar_ms"] is not None else "")
             print(f"batch {batch} conv {i:2d} {c['cin']:2d}->{c['cout']:2d} "
                   f"rows {c['rows']:6d} [{c['body']}] S={c['S']}: "
-                  f"{c['ms']:.4f} ms{old}")
+                  f"{c['ms']:.4f} ms")
         first = convs[0]
         print(f"K1 bf16 batch {batch}, {len(convs)} convs: {total:.4f} ms "
-              f"(conv 0 [{first['body']}] {first['ms']:.4f} ms, its scalar "
-              f"entry {first['scalar_ms']:.4f} ms; the other "
+              f"(conv 0 [{first['body']}] {first['ms']:.4f} ms; the other "
               f"{len(convs) - 1} {total - first['ms']:.4f} ms) [{card}]")
         result[f"b{batch}"] = {"ms_sum": total,
                                "ms": [c["ms"] for c in convs],
                                "S": [c["S"] for c in convs],
-                               "body": [c["body"] for c in convs],
-                               "conv0_scalar_ms": first["scalar_ms"]}
+                               "body": [c["body"] for c in convs]}
     print(json.dumps(result))
 
 

@@ -11,10 +11,9 @@ transposed to the port's [n_out, taps] layout: every tap hits every 64-row
 tile, so no tap is skipped. Two tables on it.
 
 The scalar tile the convs ran before (``ops.cuda.ablate.sparse_conv_ablate``,
-a copy of ``csrc/gather_gemm.cuh``'s tile in ``csrc/sparse_conv_ablate.cu``):
+its one copy in ``csrc/sparse_conv_ablate.cu``):
 
-- ``full``: the real conv, K = 27 (the same arithmetic as
-  ``fused_sparse_conv_scalar`` with zero bias and no ReLU);
+- ``full``: the real conv, K = 27, with no bias and no ReLU;
 - ``k9``: ``full`` on the first 9 taps' rulebook (``rb[:, :9]``);
 - ``linear``: row n of every tap reads row n: no rulebook loads, no
   indirection;

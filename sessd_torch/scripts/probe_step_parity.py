@@ -40,8 +40,6 @@ deterministic algorithms):
   not the op's: a recorded amax position whose value moved under a
   flipped comparison gives that value, so the kinds are pinned together
   or not at all);
-- ``fwd scalar``: K4 through its scalar entry (``sparse_conv_fwd_scalar``,
-  the body that sums in the twin's order), free;
 - ``fwd f64`` / ``fwd f64 pinned``: K4 replaced by its twin computed in f64
   and rounded once (the exact conv), free and with PINNED replayed;
 - ``fwd twin 1e-7 noise`` / ``fwd twin 1e-7 noise pinned``: K4 replaced by
@@ -393,8 +391,6 @@ def variants(gen):
              ("relu", "sort", "argmax")),
             ("shipped pinned", {}, PINNED),
             ("shipped pinned all", {}, None),
-            ("fwd scalar", {"sparse_conv_fwd": kt.sparse_conv_fwd_scalar},
-             ()),
             ("fwd f64", {"sparse_conv_fwd": f64}, ()),
             ("fwd f64 pinned", {"sparse_conv_fwd": f64}, PINNED),
             ("fwd twin 1e-7 noise", {"sparse_conv_fwd": noisy}, ()),

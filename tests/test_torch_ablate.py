@@ -94,6 +94,18 @@ def test_mode_plain_matches_definition(variant):
     assert ablate.sparse_conv_ablate.launches == 0  # CPU: no kernel
 
 
+def test_scalar_tile_sum_matches_definition():
+    """The scalar tile's in-order sum (the card's oracle of S1's ``full``
+    bits) is the gather-GEMM, misses as zero rows."""
+    feats, rb, w2 = _inputs(2)
+    rb[::5, 7] = N
+    got = ablate.scalar_tile_sum(*_torch(feats, rb, w2))
+    assert got.dtype == torch.float32 and got.shape == (NPAD, C)
+    np.testing.assert_allclose(got.numpy(), _definition(feats, rb, w2,
+                                                        "full"),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_empty_plain_is_zeros():
     out = torch.ones((NPAD, C), dtype=torch.bfloat16)
     assert not ablate.empty_launch_ref(out).any() and out.all()

@@ -38,7 +38,7 @@ from sessd_torch.models.layers import (BatchNorm, Conv2d, ConvTranspose2d,
                                        Sequential, conv_bn_relu)
 from sessd_torch.models.pillars import RPN
 from sessd_torch.models.ssfa import SSFA
-from sessd_torch.reference import centerpoint as ref
+from portbench.reference import centerpoint as ref
 from sessd_torch.utils import profiling
 import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 

@@ -1,7 +1,7 @@
 """CenterPoint-Voxel (Waymo) on the port, on the CPU at a small grid
 ((41, 64, 64), 5 features, a few hundred voxels a scan, batch 2, the
-kernels' plain twins) against the plain reference
-``sessd_torch/reference/centerpoint.py`` on seeded weights: a residual
+kernels' plain twins) against the plain reference the benchmark runs,
+``portbench/reference/centerpoint.py``, on seeded weights: a residual
 block, the whole SpMiddleResNetFHD, RPN + CenterHead, the center decode
 and NMS, ``build_detector`` on both configs, the NMS twin at pre 4096
 against the reference's greedy loop, the box layout's IoU on a hand-made
@@ -27,7 +27,7 @@ from sessd_torch.models import backbone as bb
 from sessd_torch.models.predict import predict_batch
 from sessd_torch.ops.cuda import nms as nms_cuda
 from sessd_torch.ops.cuda.sparse_conv import fused_sparse_conv_ref
-from sessd_torch.reference import centerpoint as ref
+from portbench.reference import centerpoint as ref
 from sessd_torch.serve import make_infer_fn
 from sessd_torch.utils import profiling
 import test_torch_threads  # noqa: F401 (torch's threads under xdist)
@@ -339,12 +339,10 @@ def test_serving_spans_and_the_residual_counter():
     ("portbench/hostpath/configs/centerpoint_waymo.py",
      "sessd_torch/configs/centerpoint_waymo.py"),
     ("portbench/hostpath/configs/centerpoint_waymo_bf16.py",
-     "sessd_torch/configs/centerpoint_waymo_bf16.py"),
-    ("portbench/reference/centerpoint.py",
-     "sessd_torch/reference/centerpoint.py")])
+     "sessd_torch/configs/centerpoint_waymo_bf16.py")])
 def test_benchmark_copies_equal_their_origins(copy, origin):
-    """The benchmark runs byte copies of the configs and the reference:
-    change the origin and the copy together."""
+    """The benchmark runs byte copies of the configs: change the origin and
+    the copy together."""
     root = builder.CONFIG_DIR.parents[1]
     assert (root / copy).read_bytes() == (root / origin).read_bytes()
 
@@ -352,7 +350,8 @@ def test_benchmark_copies_equal_their_origins(copy, origin):
 def test_reference_imports_nothing_of_the_program():
     import ast
 
-    path = builder.CONFIG_DIR.parent / "reference" / "centerpoint.py"
+    path = builder.CONFIG_DIR.parents[1] / "portbench" / "reference" / \
+        "centerpoint.py"
     tops = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

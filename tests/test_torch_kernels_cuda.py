@@ -6,17 +6,15 @@ f32 forward with bias, ReLU and the any-hit mask), the training conv's
 forward (K4), input gradient and weight gradient (K5), the tensor-core
 tile of bf16 K1, K3, K4 and dFeat (K-major B, one launch per call) on
 tiles that skip taps, the same tile through 3xTF32 in f32 K1, K3, K4 and
-dFeat (against the twins, the scalar entries and the plain model of its
+dFeat (against the twins and the plain model of its
 arithmetic, ``kt.gather_gemm_tf32``, on every pair of those entries), K1's
 tap split over a cluster against one CTA per tile and against itself, dW's
 tensor-core partial kernel (bf16, and f32 through 3xTF32 against its model
 ``kt.dw_tf32``) on chunks and steps that skip, the direct bodies of the
 first conv's 4-channel side (K1, K4, dFeat 16 -> 4 and dW, both types,
-bit-equal to their scalar entries on ragged row counts), the scalar entries
-kept for
-comparisons (the f32 ring of K3 and the scalar dW among them), and the
-micro-benchmark kernels (S1: the ablated scalar tile, whose ``full`` mode
-equals the scalar entry of K1 with zero bias and no ReLU bit for bit, and
+against the twins and the same bits on two runs, on ragged row counts),
+and the micro-benchmark kernels (S1: the ablated scalar tile, whose
+``full`` mode equals its in-order f32 sum bit for bit, and
 the ablated tensor-core tile, whose ``full`` mode equals bf16 K4 bit for
 bit; S2: the empty launch). Imports no JAX, so it runs on a GPU machine
 without it:
@@ -158,52 +156,6 @@ def test_stream_kernel_matches_twin_and_k1(cuda, cin, cout, k, idx_dtype,
             assert torch.equal(y, sc.fused_sparse_conv(*args, relu=relu))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("idx_dtype", [torch.int16, torch.int32],
-                         ids=["int16", "int32"])
-@pytest.mark.parametrize("cin,cout,k", STREAM_PLAN,
-                         ids=[f"{a}x{b}x{c}" for a, b, c in STREAM_PLAN])
-def test_stream_ring_entry_is_the_old_f32_body(cuda, cin, cout, k,
-                                               idx_dtype):
-    """K3's two-slot ring, kept for comparisons, is the body f32 K3 ran
-    before the 3xTF32 tile: the scalar tile's summation order, so equal to
-    K1's scalar entry in f32 bit for bit, within 1e-4 of the twin, under
-    its own counter and not K3's; it takes f32 only."""
-    feats, rb, w2, bias = _inputs(cin, cout, k)
-    args = (torch.from_numpy(feats).to(cuda),
-            torch.from_numpy(rb).to(cuda, idx_dtype),
-            torch.from_numpy(w2).to(cuda), torch.from_numpy(bias).to(cuda),
-            N_IN)
-    counts = (sc.fused_sparse_conv_stream.launches,
-              sc.fused_sparse_conv_stream_ring.launches)
-    got = sc.fused_sparse_conv_stream_ring(*args)
-    torch.cuda.synchronize()
-    assert (sc.fused_sparse_conv_stream.launches,
-            sc.fused_sparse_conv_stream_ring.launches) == (counts[0],
-                                                           counts[1] + 1)
-    assert torch.equal(got, sc.fused_sparse_conv_scalar(*args))
-    assert _err(got, sc.fused_sparse_conv_ref(*args)) <= 1e-4
-    with pytest.raises(ValueError, match="f32 only"):
-        sc.fused_sparse_conv_stream_ring(args[0].bfloat16(), args[1],
-                                         args[2].bfloat16(), *args[3:])
-
-
-@pytest.mark.cuda
-def test_dw_scalar_entry_is_the_old_f32_body(cuda):
-    """dW's scalar entry in f32 runs the body the partial kernel ran for
-    the 4-channel first conv before the direct body, which sums in its
-    order, so it equals f32 dW there bit for bit, and is within the dW
-    bound of the twin on every tensor-core pair."""
-    for cin, cout, k in PLAN:
-        f, r, _, d, _ = _on(cuda, torch.float32, torch.int32,
-                            *_train_inputs(cin, cout, k))
-        got = kt.sparse_conv_dw_scalar(f, r, d)
-        torch.cuda.synchronize()
-        if cin == 4:
-            assert torch.equal(got, kt.sparse_conv_dw(f, r, d))
-        assert _err(got, kt.sparse_conv_dw_ref(f, r, d)) <= 1e-3
-
-
 def _tf32_with_epilogue(f, r, w, b, relu=True):
     """The f32 forward (the 3xTF32 tile) with K3's epilogue added in torch:
     bias, ReLU, and zero where no tap of the row hits."""
@@ -332,8 +284,8 @@ def test_conv_instance_equals_the_c_entries(cuda):
                          ids=["f32", "bf16"])
 def test_mma_forward_rejects_misaligned_inputs(cuda, dtype):
     """The tensor-core forward (bf16 K4, and f32 K4 through 3xTF32) copies
-    16-byte chunks: a misaligned call raises, it does not fall back to the
-    scalar tile."""
+    16-byte chunks: a misaligned call raises, it does not fall back to
+    another body."""
     f = torch.zeros(N_IN * 16 + 2, dtype=dtype,
                     device=cuda)[2:].view(N_IN, 16)  # 4 or 8 bytes off
     r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
@@ -572,61 +524,12 @@ def test_cluster_split_equals_the_c_entry(cuda):
 
 
 @pytest.mark.cuda
-def test_scalar_entries_match_twins_and_take_bf16_only(cuda):
-    """The scalar entries kept for comparisons: within 2e-2 of the twins,
-    launched under their own counters. K1's and dW's took bf16 only until
-    f32 K1 and dW moved to 3xTF32; they now take f32 too (within 1e-4 and
-    1e-3) and refuse other types."""
-    feats, rb, w2, bias = _inputs(32, 64, 27)
-    args = (torch.from_numpy(feats).to(cuda, torch.bfloat16),
-            torch.from_numpy(rb).to(cuda, torch.int32),
-            torch.from_numpy(w2).to(cuda, torch.bfloat16),
-            torch.from_numpy(bias).to(cuda), N_IN)
-    counts = (sc.fused_sparse_conv.launches,
-              sc.fused_sparse_conv_scalar.launches)
-    got = sc.fused_sparse_conv_scalar(*args)
-    torch.cuda.synchronize()
-    assert (sc.fused_sparse_conv.launches,
-            sc.fused_sparse_conv_scalar.launches) == (counts[0],
-                                                      counts[1] + 1)
-    assert _err(got, sc.fused_sparse_conv_ref(*args)) <= 2e-2
-    f, r, w, d, _ = _on(cuda, torch.bfloat16, torch.int32,
-                        *_train_inputs(32, 64, 27))
-    dw = kt.sparse_conv_dw_scalar(f, r, d)
-    torch.cuda.synchronize()
-    assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= 2e-2
-    f32_args = (args[0].float(), args[1], args[2].float(), args[3], N_IN)
-    before = sc.fused_sparse_conv_scalar.launches
-    got = sc.fused_sparse_conv_scalar(*f32_args)
-    torch.cuda.synchronize()
-    assert sc.fused_sparse_conv_scalar.launches == before + 1
-    assert got.dtype == torch.float32
-    assert _err(got, sc.fused_sparse_conv_ref(*f32_args)) <= 1e-4
-    with pytest.raises(ValueError, match="dtype"):
-        sc.fused_sparse_conv_scalar(args[0].half(), args[1],
-                                    args[2].half(), args[3], N_IN)
-    before = kt.sparse_conv_dw_scalar.launches
-    dw = kt.sparse_conv_dw_scalar(f.float(), r, d.float())
-    torch.cuda.synchronize()
-    assert kt.sparse_conv_dw_scalar.launches == before + 1
-    assert dw.dtype == torch.float32
-    assert _err(dw, kt.sparse_conv_dw_ref(f.float(), r, d.float())) <= 1e-3
-    with pytest.raises(ValueError, match="dtype"):
-        kt.sparse_conv_dw_scalar(f.half(), r, d.half())
-    with pytest.raises(ValueError, match="1, 2 or 4"):
-        sc.fused_sparse_conv_at_split(*args, split=3)
-    with pytest.raises(ValueError, match="1, 2 or 4"):
-        sc.fused_sparse_conv_at_split(args[0].float(), args[1],
-                                      args[2].float(), args[3], N_IN,
-                                      split=1)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_mma_k1_rejects_misaligned_inputs(cuda, dtype):
     """K1 on the tensor-core tile (bf16, and f32 through 3xTF32) copies
-    16-byte chunks: a misaligned call raises."""
+    16-byte chunks: a misaligned call raises. Its comparison entry at a
+    forced cluster size takes 1, 2 or 4 in bf16 and no f32 call."""
     f = torch.zeros(N_IN * 16 + 2, dtype=dtype,
                     device=cuda)[2:].view(N_IN, 16)  # 4 or 8 bytes off
     r = torch.full((N_OUT, 27), N_IN, dtype=torch.int32, device=cuda)
@@ -636,6 +539,11 @@ def test_mma_k1_rejects_misaligned_inputs(cuda, dtype):
     with pytest.raises(ValueError, match="aligned"):
         sc.fused_sparse_conv(f, r, w, b, N_IN)
     assert sc.fused_sparse_conv.launches == before
+    # the forced cluster size: 1, 2 or 4, on the bf16 tensor-core tile only
+    args = (torch.zeros(N_IN, 16, dtype=dtype, device=cuda), r, w, b, N_IN)
+    for split in ((3,) if dtype == torch.bfloat16 else (1,)):
+        with pytest.raises(ValueError, match="1, 2 or 4"):
+            sc.fused_sparse_conv_at_split(*args, split=split)
 
 
 @pytest.mark.cuda
@@ -780,9 +688,9 @@ def _dw_skip_inputs(cin, cout, k, n_out=6000, seed=0):
                          ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
 def test_dw_mma_kernel_skips_and_matches_twin(cuda, cin, cout, k, idx_dtype):
     """bf16 dW on tensor cores, at several chunk sizes, over chunks and
-    steps that no row hits: within 2e-2 of its twin and of the scalar
-    entry, the same bits on a second run, and a tap that one row hits
-    carries exactly that row's product."""
+    steps that no row hits: within 2e-2 of its twin, the same bits on a
+    second run, and a tap that one row hits carries exactly that row's
+    product."""
     assert sc.conv_instance("sparse_conv_dw", torch.bfloat16, cin,
                             cout) == "mma"
     feats, rb, dout = _dw_skip_inputs(cin, cout, k)
@@ -790,7 +698,6 @@ def test_dw_mma_kernel_skips_and_matches_twin(cuda, cin, cout, k, idx_dtype):
     r = torch.from_numpy(rb).to(cuda, idx_dtype)
     d = torch.from_numpy(dout).to(cuda, torch.bfloat16)
     want = kt.sparse_conv_dw_ref(f, r, d)
-    scalar = kt.sparse_conv_dw_scalar(f, r, d)
     lone = torch.outer(f[5].float(), d[LONE_ROW].float())
     for chunk in (64, 2048, kt.DW_MAX_CHUNK_ROWS):
         before = kt.sparse_conv_dw.launches
@@ -799,7 +706,7 @@ def test_dw_mma_kernel_skips_and_matches_twin(cuda, cin, cout, k, idx_dtype):
         torch.cuda.synchronize()
         assert kt.sparse_conv_dw.launches == before + 2
         assert got.dtype == torch.bfloat16 and got.shape == (k, cin, cout)
-        assert _err(got, want) <= 2e-2 and _err(got, scalar) <= 2e-2
+        assert _err(got, want) <= 2e-2
         assert _err(got[k - 1], lone) <= 2e-2
         assert torch.equal(got, again)
     with pytest.raises(ValueError, match="chunk_rows"):
@@ -832,8 +739,7 @@ def test_dw_tf32_kernel_skips_and_matches_twin_and_model(cuda, cin, cout, k,
                                                          idx_dtype):
     """f32 dW through 3xTF32 (mma.sync m16n8k8), at several chunk sizes,
     over chunks and steps that no row hits: within the f32 dW bound (1e-3)
-    of its twin and of the scalar entry on the same call, within 1e-5 of
-    the model of its arithmetic (``kt.dw_tf32``), the same bits on a second
+    of its twin, within 1e-5 of the model of its arithmetic (``kt.dw_tf32``), the same bits on a second
     run, and a tap that one row hits carries that row's product."""
     assert sc.conv_instance("sparse_conv_dw", torch.float32, cin,
                             cout) == "tf32"
@@ -842,11 +748,6 @@ def test_dw_tf32_kernel_skips_and_matches_twin_and_model(cuda, cin, cout, k,
     r = torch.from_numpy(rb).to(cuda, idx_dtype)
     d = torch.from_numpy(dout).to(cuda)
     want = kt.sparse_conv_dw_ref(f, r, d)
-    counts = (kt.sparse_conv_dw.launches, kt.sparse_conv_dw_scalar.launches)
-    scalar = kt.sparse_conv_dw_scalar(f, r, d)
-    torch.cuda.synchronize()
-    assert (kt.sparse_conv_dw.launches,
-            kt.sparse_conv_dw_scalar.launches) == (counts[0], counts[1] + 1)
     lone = torch.outer(f[5], d[LONE_ROW])
     for chunk in (64, 2048, kt.DW_MAX_CHUNK_ROWS):
         before = kt.sparse_conv_dw.launches
@@ -855,7 +756,7 @@ def test_dw_tf32_kernel_skips_and_matches_twin_and_model(cuda, cin, cout, k,
         torch.cuda.synchronize()
         assert kt.sparse_conv_dw.launches == before + 2
         assert got.dtype == torch.float32 and got.shape == (k, cin, cout)
-        assert _err(got, want) <= 1e-3 and _err(got, scalar) <= 1e-3
+        assert _err(got, want) <= 1e-3
         model = kt.dw_tf32(f, r, d, chunk_rows=chunk)
         assert _err(got, model) <= TF32_MODEL_BOUND
         assert _err(got[k - 1], lone) <= 1e-4
@@ -863,7 +764,7 @@ def test_dw_tf32_kernel_skips_and_matches_twin_and_model(cuda, cin, cout, k,
 
 
 # (conv Cin, conv Cout) of the input gradient's five tensor-core gather
-# pairs (the first conv's 16 -> 4 takes the scalar tile)
+# pairs (the first conv's 16 -> 4 takes the direct body)
 DFEAT_CONVS = [(b, a) for a, b in sc.DFEAT_PAIRS if b != 4]
 DFEAT_CASES = [(cin, cout, k) for cin, cout in DFEAT_CONVS for k in (3, 27)]
 DEAD = slice(64, 192)  # input rows no output reads: two all-miss tiles
@@ -896,8 +797,8 @@ def _dfeat_inputs(cin, cout, k, seed=0):
 @pytest.mark.parametrize("dtype,tol", TOLS, ids=["f32", "bf16"])
 def test_dfeat_mma_matches_twin(cuda, cin, cout, k, idx_dtype, dtype, tol):
     """dFeat on the tensor-core tile (W read K-major as it lies; bf16, and
-    f32 through 3xTF32) within the type's bound of its twin and of the
-    scalar entry, over the inverse rulebook of a conv whose inverse tiles
+    f32 through 3xTF32) within the type's bound of its twin, over the
+    inverse rulebook of a conv whose inverse tiles
     skip every tap (all-miss rows come out 0) or all but one; in f32 also
     within 1e-5 of the model of its arithmetic (``kt.gather_gemm_tf32``
     over the inverse rulebook with W^T)."""
@@ -915,37 +816,11 @@ def test_dfeat_mma_matches_twin(cuda, cin, cout, k, idx_dtype, dtype, tol):
     assert got.dtype == dtype and got.shape == (N_IN, cin)
     want = kt.sparse_conv_dfeat_ref(d, inv, w)
     assert _err(got, want) <= tol
-    assert _err(got, kt.sparse_conv_dfeat_scalar(d, inv, w)) <= tol
     assert not got[DEAD].any()
     assert _err(got[LONE_IN:LONE_IN + 1], want[LONE_IN:LONE_IN + 1]) <= tol
     if dtype == torch.float32:
         model = kt.gather_gemm_tf32(d, inv, w.transpose(1, 2))
         assert _err(got, model) <= TF32_MODEL_BOUND
-
-
-@pytest.mark.cuda
-def test_dfeat_scalar_entry_matches_twin_and_takes_bf16_only(cuda):
-    """The input gradient's scalar entry, kept for comparisons, under its
-    own counter. It took bf16 only until the f32 input gradient moved to
-    the 3xTF32 tile; it now takes f32 too (within 1e-4) and refuses other
-    types."""
-    rb, w2, dout = _dfeat_inputs(32, 64, 27)
-    r = torch.from_numpy(rb).to(cuda, torch.int32)
-    inv = sp.inverse_rulebook(r, N_IN)
-    for dtype, tol in TOLS:
-        w = torch.from_numpy(w2).to(cuda, dtype)
-        d = torch.from_numpy(dout).to(cuda, dtype)
-        counts = (kt.sparse_conv_dfeat.launches,
-                  kt.sparse_conv_dfeat_scalar.launches)
-        got = kt.sparse_conv_dfeat_scalar(d, inv, w)
-        torch.cuda.synchronize()
-        assert (kt.sparse_conv_dfeat.launches,
-                kt.sparse_conv_dfeat_scalar.launches) == (counts[0],
-                                                          counts[1] + 1)
-        assert got.dtype == dtype
-        assert _err(got, kt.sparse_conv_dfeat_ref(d, inv, w)) <= tol
-    with pytest.raises(ValueError, match="dtype"):
-        kt.sparse_conv_dfeat_scalar(d.half(), inv, w.half())
 
 
 def _allocs():
@@ -957,13 +832,11 @@ def _allocs():
                          ids=["int16", "int32"])
 @pytest.mark.parametrize("cin,cout,k", MMA_PLAN,
                          ids=[f"{a}x{b}x{c}" for a, b, c in MMA_PLAN])
-def test_tf32_forward_matches_model_and_scalar_entry(cuda, cin, cout, k,
-                                                     idx_dtype):
+def test_tf32_forward_matches_model_and_twin(cuda, cin, cout, k,
+                                             idx_dtype):
     """The f32 forward (K4 through 3xTF32) on every pair of
     SESSD_FWD_PAIRS it takes: within 1e-5 of the model
-    ``kt.gather_gemm_tf32`` (masked) and 1e-4 of its scalar entry
-    (``sparse_conv_fwd_scalar``, the body it replaced, under its own
-    counter) and its twin on the same call, over tiles that skip every
+    ``kt.gather_gemm_tf32`` (masked) and 1e-4 of its twin, over tiles that skip every
     tap, all but one, or none, and a ragged last tile; one call is one
     launch and one allocation (its output: the weights are transposed and
     split inside the kernel)."""
@@ -973,19 +846,14 @@ def test_tf32_forward_matches_model_and_scalar_entry(cuda, cin, cout, k,
     w = torch.from_numpy(w2).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     torch.cuda.synchronize()
-    counts = (_allocs(), kt.sparse_conv_fwd.launches,
-              kt.sparse_conv_fwd_scalar.launches)
+    counts = (_allocs(), kt.sparse_conv_fwd.launches)
     got = kt.sparse_conv_fwd(f, r, w, m)
-    assert (_allocs(), kt.sparse_conv_fwd.launches,
-            kt.sparse_conv_fwd_scalar.launches) == (counts[0] + 1,
-                                                    counts[1] + 1, counts[2])
+    assert (_allocs(), kt.sparse_conv_fwd.launches) == (counts[0] + 1,
+                                                        counts[1] + 1)
     model = torch.where(m[:, None], kt.gather_gemm_tf32(f, r, w), 0.0)
-    scalar = kt.sparse_conv_fwd_scalar(f, r, w, m)
-    assert kt.sparse_conv_fwd_scalar.launches == counts[2] + 1
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (N_OUT, cout)
     assert _err(got, model) <= TF32_MODEL_BOUND
-    assert _err(got, scalar) <= 1e-4
     assert _err(got, kt.sparse_conv_fwd_ref(f, r, w, m)) <= 1e-4
     assert not got[~m].any() and not got[64:128].any()
 
@@ -995,8 +863,8 @@ def test_training_tiles_fit_the_sm(cuda):
     """Every instance of the forward, input gradient and dW partial kernel
     (at DW_CHUNK_ROWS) fits at least one block per SM, and each 3xTF32 one
     (the forward's, dFeat's, dW's) two (their ring stages are chosen so),
-    to overlap one block's gathers with another's tensor-core work; the
-    forward's scalar entry has f32 instances alone. So do the stream
+    to overlap one block's gathers with another's tensor-core work. So do
+    the stream
     kernel's 3xTF32 instances. The direct bodies of the forward and the
     input gradient are counted at the 128-thread block they launch with
     (sessd::kDirectThreads), and fit at least four."""
@@ -1008,16 +876,10 @@ def test_training_tiles_fit_the_sm(cuda):
                 2 if body == "tf32" else 1), (cin, cout, dtype)
     for entry, pairs in (("sparse_conv_fwd", sc.FWD_PAIRS),
                          ("sparse_conv_dfeat", sc.DFEAT_PAIRS),
-                         ("sparse_conv_dw", sc.DW_PAIRS),
-                         ("sparse_conv_fwd_scalar", sc.FWD_PAIRS)):
+                         ("sparse_conv_dw", sc.DW_PAIRS)):
         for cin, cout in pairs:
             for dtype in (torch.float32, torch.bfloat16):
                 blocks = kt.blocks_per_sm(entry, dtype, cin, cout)
-                if entry == "sparse_conv_fwd_scalar":
-                    f32 = dtype == torch.float32
-                    assert blocks >= 1 if f32 else blocks == 0, (
-                        entry, dtype, cin, cout, blocks)
-                    continue
                 body = sc.conv_instance(entry, dtype, cin, cout)
                 least = {"tf32": 2, "direct": 4}.get(body, 1)
                 if entry == "sparse_conv_dw" and body == "direct":
@@ -1043,9 +905,6 @@ def test_dfeat_allocates_only_its_output(cuda, dtype):
     before = allocs()
     kt.sparse_conv_dfeat(d, inv, w)
     assert allocs() == before + 1
-    before = allocs()  # the scalar entry copies W^T: two
-    kt.sparse_conv_dfeat_scalar(d, inv, w)
-    assert allocs() == before + 2
 
 
 @pytest.mark.cuda
@@ -1143,15 +1002,15 @@ def _direct_inputs(n_in, n_out, seed=0):
                          ids=["int16", "int32"])
 @pytest.mark.parametrize("n_in,n_out", DIRECT_ROWS,
                          ids=[f"{a}to{b}" for a, b in DIRECT_ROWS])
-def test_direct_bodies_match_twins_and_scalar_entries(cuda, n_in, n_out,
-                                                      idx_dtype, dtype, tol):
+def test_direct_bodies_match_twins_and_repeat_their_bits(cuda, n_in, n_out,
+                                                         idx_dtype, dtype,
+                                                         tol):
     """The first conv's 4-channel side on the direct bodies: K1 (with and
-    without ReLU), K4 (row mask), dFeat 16 -> 4 and dW within the type's
-    bound of their twins (dW 1e-3 in f32), one launch each on the main
-    counters, and bit-equal to the scalar entries on the same inputs, which
-    sum in the same order (bf16 K4 to K1's scalar entry with zero bias, no
-    ReLU and the mask applied; dW at each chunk size of
-    DIRECT_DW_CHUNKS); rows with no hit and masked rows come out 0."""
+    without ReLU), K4 (row mask), dFeat 16 -> 4 and dW (at each chunk size
+    of DIRECT_DW_CHUNKS) within the type's bound of their twins (dW 1e-3
+    in f32), one launch each on the main counters, and the same bits on a
+    second run (each sums in a fixed order); rows with no hit and masked
+    rows come out 0."""
     for entry in ("fused_sparse_conv", "sparse_conv_fwd", "sparse_conv_dw"):
         assert sc.conv_instance(entry, dtype, 4, 16) == "direct"
     assert sc.conv_instance("sparse_conv_dfeat", dtype, 16, 4) == "direct"
@@ -1159,30 +1018,22 @@ def test_direct_bodies_match_twins_and_scalar_entries(cuda, n_in, n_out,
     f, r, w, d, m = _on(cuda, dtype, idx_dtype, feats, rb, w2, dout, mask)
     b = torch.from_numpy(bias).to(cuda)
     for relu in (True, False):
-        counts = (sc.fused_sparse_conv.launches,
-                  sc.fused_sparse_conv_scalar.launches)
+        before = sc.fused_sparse_conv.launches
         y = sc.fused_sparse_conv(f, r, w, b, n_in, relu=relu)
-        old = sc.fused_sparse_conv_scalar(f, r, w, b, n_in, relu=relu)
         torch.cuda.synchronize()
-        assert (sc.fused_sparse_conv.launches,
-                sc.fused_sparse_conv_scalar.launches) == (counts[0] + 1,
-                                                          counts[1] + 1)
+        assert sc.fused_sparse_conv.launches == before + 1
         assert y.dtype == dtype and y.shape == (n_out, 16)
         assert _err(y, sc.fused_sparse_conv_ref(f, r, w, b, n_in,
                                                 relu=relu)) <= tol
-        assert torch.equal(y, old)
+        assert torch.equal(y, sc.fused_sparse_conv(f, r, w, b, n_in,
+                                                   relu=relu))
         assert not y[torch.from_numpy(dead).to(cuda)].any()
     before = kt.sparse_conv_fwd.launches
     y4 = kt.sparse_conv_fwd(f, r, w, m)
     torch.cuda.synchronize()
     assert kt.sparse_conv_fwd.launches == before + 1
-    if dtype == torch.float32:
-        old = kt.sparse_conv_fwd_scalar(f, r, w, m)
-    else:  # no bf16 scalar entry of K4: K1's with its epilogue off
-        old = torch.where(m[:, None], sc.fused_sparse_conv_scalar(
-            f, r, w, torch.zeros_like(b), n_in, relu=False), 0.0)
     assert _err(y4, kt.sparse_conv_fwd_ref(f, r, w, m)) <= tol
-    assert torch.equal(y4, old)
+    assert torch.equal(y4, kt.sparse_conv_fwd(f, r, w, m))
     assert not y4[~m].any()
     inv = sp.inverse_rulebook(r, n_in)
     before = kt.sparse_conv_dfeat.launches
@@ -1191,7 +1042,7 @@ def test_direct_bodies_match_twins_and_scalar_entries(cuda, n_in, n_out,
     assert kt.sparse_conv_dfeat.launches == before + 1
     assert g.dtype == dtype and g.shape == (n_in, 4)
     assert _err(g, kt.sparse_conv_dfeat_ref(d, inv, w)) <= tol
-    assert torch.equal(g, kt.sparse_conv_dfeat_scalar(d, inv, w))
+    assert torch.equal(g, kt.sparse_conv_dfeat(d, inv, w))
     dw_tol = 1e-3 if dtype == torch.float32 else tol
     for chunk in DIRECT_DW_CHUNKS:
         before = kt.sparse_conv_dw.launches
@@ -1200,23 +1051,22 @@ def test_direct_bodies_match_twins_and_scalar_entries(cuda, n_in, n_out,
         assert kt.sparse_conv_dw.launches == before + 1
         assert dw.dtype == dtype and dw.shape == (27, 4, 16)
         assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= dw_tol, chunk
-        assert torch.equal(dw, kt.sparse_conv_dw_scalar(f, r, d, chunk)), \
-            chunk
+        assert torch.equal(dw, kt.sparse_conv_dw(f, r, d, chunk)), chunk
 
 
 @pytest.mark.cuda
 def test_direct_dw_takes_any_chunk_count(cuda):
     """The direct dW launches one block per (chunk, tap group) on a grid of
     one dimension, so any positive chunk_rows runs: at one row a chunk,
-    66000 chunks (above 65535, a grid's limit in y) equal the scalar entry
-    bit for bit and the twin within 1e-3."""
+    66000 chunks (above 65535, a grid's limit in y) give the same bits on
+    two runs and the twin within 1e-3."""
     n = 66000
     feats, rb, w2, _, dout, mask, _ = _direct_inputs(n, n)
     f, r, _, d, _ = _on(cuda, torch.float32, torch.int32, feats, rb, w2,
                         dout, mask)
     dw = kt.sparse_conv_dw(f, r, d, 1)
     torch.cuda.synchronize()
-    assert torch.equal(dw, kt.sparse_conv_dw_scalar(f, r, d, 1))
+    assert torch.equal(dw, kt.sparse_conv_dw(f, r, d, 1))
     assert _err(dw, kt.sparse_conv_dw_ref(f, r, d)) <= 1e-3
 
 
@@ -1257,7 +1107,7 @@ def test_dw_mma_takes_any_chunk_count(cuda, dtype, tol):
 def test_direct_bodies_reject_misaligned_inputs(cuda, dtype):
     """The direct bodies load each gathered row whole (16 bytes in f32, 8
     in bf16) and dW's its dout rows in 16-byte parts: a misaligned call
-    raises before any launch; there is no fallback to the scalar tile."""
+    raises before any launch; there is no fallback to another body."""
     feats, rb, w2, bias, dout, mask, _ = _direct_inputs(3000, 2500)
     f, r, w, d, m = _on(cuda, dtype, torch.int32, feats, rb, w2, dout, mask)
     b = torch.from_numpy(bias).to(cuda)
@@ -1280,9 +1130,8 @@ def test_direct_bodies_reject_misaligned_inputs(cuda, dtype):
 
 
 def _named_calls(cuda, dtype):
-    """(kernel name, call) of every wrapper at ``dtype`` and of the input
-    gradient's, dW's and K1's scalar entries; in f32 also the forward's
-    scalar entry and K3's ring, in bf16 K1 at S = 4."""
+    """(kernel name, call) of every wrapper at ``dtype``; in bf16 also K1
+    at S = 4."""
     feats, rb, w2, bias = (torch.from_numpy(a).to(cuda)
                            for a in _inputs(16, 32, 27))
     feats, w2, rb = feats.to(dtype), w2.to(dtype), rb.int()
@@ -1298,20 +1147,6 @@ def _named_calls(cuda, dtype):
                  d, inv, w)),
              ("sparse_conv_dw_partial_kernel", lambda: kt.sparse_conv_dw(
                  f, r, d))]
-    calls += [("sparse_conv_dfeat_scalar_kernel",
-               lambda: kt.sparse_conv_dfeat_scalar(d, inv, w)),
-              ("sparse_conv_dw_scalar_kernel",
-               lambda: kt.sparse_conv_dw_scalar(f, r, d)),
-              ("fused_sparse_conv_scalar_kernel",
-               lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias,
-                                                   N_IN))]
-    if dtype == torch.float32:
-        calls += [
-            ("sparse_conv_fwd_scalar_kernel",
-             lambda: kt.sparse_conv_fwd_scalar(f, r, w, m)),
-            ("fused_sparse_conv_stream_ring_kernel",
-             lambda: sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
-                                                      N_IN))]
     if dtype == torch.bfloat16:
         calls += [
             ("fused_sparse_conv_kernel",
@@ -1328,9 +1163,7 @@ def test_kernels_profile_under_their_own_names(cuda, dtype):
     of its own, the names the step and request profilers
     (``sessd_torch/scripts/profile_*.py``) sum by: in f32 the 3xTF32
     bodies of K1, K3, K4, dFeat and dW, in bf16 the tensor-core ones (K1
-    also at S = 4), and the entries kept for comparisons. A dFeat
-    call is one kernel and nothing
-    else: no transposed copy of the weights. The profiler on the card
+    also at S = 4). A dFeat call is one kernel and nothing else: no transposed copy of the weights. The profiler on the card
     now and then delivers no device event of a whole profile; such an
     empty capture says nothing of the kernels, so it is taken again (at
     most 3 times)."""
@@ -1358,9 +1191,7 @@ def test_train_wrappers_raise_off_cpu_and_cuda():
     feats, rb, w2, dout, mask = (torch.from_numpy(a).to("meta") for a in
                                  _train_inputs(16, 32, 27))
     for fn, args in ((kt.sparse_conv_fwd, (feats, rb, w2)),
-                     (kt.sparse_conv_fwd_scalar, (feats, rb, w2)),
                      (kt.sparse_conv_dfeat, (dout, rb, w2)),
-                     (kt.sparse_conv_dfeat_scalar, (dout, rb, w2)),
                      (kt.sparse_conv_dw, (feats, rb, dout))):
         before = fn.launches
         with pytest.raises(ValueError, match="no kernel for device"):
@@ -1375,21 +1206,21 @@ def _ablate_inputs(cuda):
 
 
 @pytest.mark.cuda
-def test_ablate_full_equals_scalar_entry_without_bias_or_relu(cuda):
-    """S1's ``full`` mode is a copy of the scalar tile: the same bits as the
-    scalar entry of K1 (``fused_sparse_conv_scalar``) with zero bias and no
-    ReLU on the same inputs (both store acc + 0, and a row with no hit sums
-    to 0)."""
+def test_ablate_full_is_the_in_order_scalar_sum(cuda):
+    """S1's ``full`` mode is the scalar tile with no bias and no ReLU: the
+    same bits as its in-order f32 sum in torch (``ablate.scalar_tile_sum``),
+    and within 2e-2 of ``ablate.sparse_conv_ablate_ref`` on the same
+    inputs."""
     from sessd_torch.ops.cuda import ablate
     _, x = _ablate_inputs(cuda)
     before = ablate.sparse_conv_ablate.launches
     got = ablate.sparse_conv_ablate(x["feats"], x["rb"], x["w2"], "full")
-    zero = torch.zeros(16, dtype=torch.float32, device=cuda)
-    want = sc.fused_sparse_conv_scalar(x["feats"], x["rb"], x["w2"], zero,
-                                       x["feats"].shape[0], relu=False)
+    want = ablate.scalar_tile_sum(x["feats"], x["rb"], x["w2"])
     torch.cuda.synchronize()
     assert ablate.sparse_conv_ablate.launches == before + 1
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert _err(got, ablate.sparse_conv_ablate_ref(
+        x["feats"], x["rb"], x["w2"], "full")) <= 2e-2
 
 
 @pytest.mark.cuda

@@ -43,7 +43,7 @@ from tests.test_torch_common import CAPS, host_inputs
 import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CSRC = pathlib.Path(sc.__file__).resolve().parents[2] / "csrc"
-ROWS = 64  # output rows per tile (csrc/gather_gemm.cuh: kRows)
+ROWS = 64  # output rows per tile (csrc/gather_common.cuh: kRows)
 
 
 def _loop_hits(rb, miss, rows=ROWS):

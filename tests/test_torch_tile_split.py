@@ -17,7 +17,9 @@ against the JAX package:
   through ``windowed_conv`` (the Pallas ``_bwd_kernel``, interpret mode);
 - the Python mirrors of the kernels' rules (``cluster_split``, the
   deal by tap index, ``conv_instance`` for K1 and dW) against the C
-  sources, by regex, and the comparison-only wrappers' CPU contracts.
+  sources, by regex, and the comparison-only wrappers' CPU contracts;
+- every C entry of the CUDA sources bound through ctypes, and no scalar
+  or ring body left beside the one each kernel runs.
 
 Inputs come from a numpy seed on the host chains of
 ``tests.test_torch_common.host_inputs`` at ``CAPS``. Tolerance atol 3e-4,
@@ -43,7 +45,7 @@ from tests.test_torch_common import CAPS, host_inputs
 import test_torch_threads  # noqa: F401 (torch's threads under xdist)
 
 CSRC = pathlib.Path(sc.__file__).resolve().parents[2] / "csrc"
-ROWS = 64  # rows of a tile and of a dW step (csrc/gather_gemm.cuh: kRows)
+ROWS = 64  # rows of a tile and of a dW step (csrc/gather_common.cuh: kRows)
 ATOL, RTOL = 3e-4, 1e-3
 
 # (name, Cin, Cout, rulebook kind, chain index) of the plan's convs that
@@ -266,7 +268,7 @@ def test_cluster_split_mirrors_the_header():
     assert re.search(r"constexpr int kMaxSplit = (\d+);", text).group(1) \
         == str(sc.MAX_SPLIT)
     assert re.search(r"constexpr int kRows = (\d+);",
-                     (CSRC / "gather_gemm.cuh").read_text()).group(1) \
+                     (CSRC / "gather_common.cuh").read_text()).group(1) \
         == str(sc.TILE_ROWS)
     # the deal: rank r takes the hit taps k with k % split == r, in order
     assert "hit = hit && k % split == rank;" in text
@@ -340,25 +342,16 @@ def _conv_args(cin=32, cout=64, k=27, n_in=300, n_out=200, seed=0,
 
 
 def test_comparison_wrappers_on_cpu_take_their_twins():
-    """The entries kept for comparisons return the twins' values on CPU
-    tensors without a launch, in the features' dtype."""
-    feats, rb, w2, bias, n_in, dout = _conv_args()
-    counts = [fn.launches for fn in (
-        sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-        sc.fused_sparse_conv_stream_ring, kt.sparse_conv_dw_scalar)]
+    """The entry kept for comparisons (K1 at a forced cluster size) returns
+    the twin's values on CPU tensors without a launch, in the features'
+    dtype."""
+    feats, rb, w2, bias, n_in, _ = _conv_args()
+    count = sc.fused_sparse_conv_at_split.launches
     want = sc.fused_sparse_conv_ref(feats, rb, w2, bias, n_in)
-    assert torch.equal(sc.fused_sparse_conv_scalar(feats, rb, w2, bias,
-                                                   n_in), want)
-    assert torch.equal(sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
-                                                        n_in), want)
     for split in (1, 2, 4):
         assert torch.equal(sc.fused_sparse_conv_at_split(
             feats, rb, w2, bias, n_in, split), want)
-    assert torch.equal(kt.sparse_conv_dw_scalar(feats, rb, dout),
-                       kt.sparse_conv_dw_ref(feats, rb, dout))
-    assert counts == [fn.launches for fn in (
-        sc.fused_sparse_conv_scalar, sc.fused_sparse_conv_at_split,
-        sc.fused_sparse_conv_stream_ring, kt.sparse_conv_dw_scalar)]
+    assert count == sc.fused_sparse_conv_at_split.launches
     assert want.dtype == torch.bfloat16 and not want[:5].any()
 
 
@@ -367,15 +360,37 @@ def test_comparison_wrappers_raise_off_cpu_and_cuda():
         a.to("meta") if isinstance(a, torch.Tensor) else a
         for a in _conv_args())
     for call in (
-            lambda: sc.fused_sparse_conv_scalar(feats, rb, w2, bias, n_in),
             lambda: sc.fused_sparse_conv_at_split(feats, rb, w2, bias, n_in,
                                                   2),
-            lambda: sc.fused_sparse_conv_stream_ring(feats, rb, w2, bias,
-                                                     n_in),
-            lambda: kt.sparse_conv_dw_scalar(feats, rb, dout),
             lambda: kt.sparse_conv_dw(feats, rb, dout)):
         with pytest.raises(ValueError, match="no kernel for device"):
             call()
+
+
+CU_SOURCES = ("rotated_nms.cu", "sparse_conv.cu", "sparse_conv_ablate.cu",
+              "sparse_conv_stream.cu", "sparse_conv_train.cu")
+
+
+def test_cu_sources_are_the_listed_five():
+    assert tuple(sorted(p.name for p in CSRC.glob("*.cu"))) == CU_SOURCES
+
+
+@pytest.mark.parametrize("source", CU_SOURCES)
+def test_every_c_entry_is_bound_and_none_is_a_retired_body(source):
+    """Every ``extern "C"`` function of the source is bound through ctypes
+    by a module of ``ops/cuda``; outside the ablation's source (S1, which
+    keeps its own copy of the scalar tile) no kernel, template or entry is
+    named for a scalar or ring body: one body per kernel."""
+    text = (CSRC / source).read_text()
+    entries = set(re.findall(r'extern "C" [^(;]*?\b(sessd_\w+)\s*\(', text))
+    assert entries
+    bindings = "".join(p.read_text()
+                       for p in pathlib.Path(sc.__file__).parent.glob("*.py"))
+    for name in entries:
+        assert re.search(rf"\blib\.{name}\b", bindings), name
+    if source != "sparse_conv_ablate.cu":
+        code = re.sub(r"//[^\n]*", "", text)
+        assert not re.findall(r"\b\w*_(?:scalar|ring)\w*\b", code)
 
 
 @pytest.mark.parametrize("chunk_rows", [64, 200, 2048])

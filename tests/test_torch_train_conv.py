@@ -173,19 +173,13 @@ def test_inverse_rulebook(kind, i):
 def test_wrappers_take_twins_on_cpu():
     feats, rb, w2, mask, cot = _inputs(TRAIN_CONVS[1])
     args = to_torch(feats), to_torch(rb), to_torch(w2)
-    fns = (kt.sparse_conv_fwd, kt.sparse_conv_dfeat,
-           kt.sparse_conv_dfeat_scalar, kt.sparse_conv_dw,
-           kt.sparse_conv_dw_scalar)
+    fns = (kt.sparse_conv_fwd, kt.sparse_conv_dfeat, kt.sparse_conv_dw)
     before = [fn.launches for fn in fns]
     out = kt.sparse_conv_fwd(*args, to_torch(mask))
     inv = tsp.inverse_rulebook(args[1], feats.shape[0])
     dfeat = kt.sparse_conv_dfeat(out, inv, args[2])
-    # the comparison entry's twin is the same function: W^T is the twin's
-    # business, not the caller's
-    assert torch.equal(kt.sparse_conv_dfeat_scalar(out, inv, args[2]), dfeat)
     assert torch.equal(dfeat, kt.sparse_conv_dfeat_ref(out, inv, args[2]))
     kt.sparse_conv_dw(args[0], args[1], out)
-    kt.sparse_conv_dw_scalar(args[0], args[1], out)
     assert [fn.launches for fn in fns] == before
     with pytest.raises(ValueError, match="no kernel for device"):
         kt.sparse_conv_fwd(*(a.to("meta") for a in args))
